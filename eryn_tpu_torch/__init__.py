@@ -1,0 +1,34 @@
+"""eryn_tpu_torch: the PyTorch and CUDA port of eryn_tpu.
+
+The port mirrors :mod:`eryn_tpu`'s modules and public names.  Its hot path,
+the parallel-tempered stretch sampler, runs on an NVIDIA Hopper GPU through
+three hand-written CUDA kernels (``csrc/``): the stretch proposal, the
+tempered accept, and the swap cascade.  Each kernel has a plain PyTorch
+version, which is what runs for tensors on the CPU.
+"""
+
+__version__ = "0.1.0"
+
+from .backends import Backend, DeviceBackend
+from .ensemble import EnsembleSampler
+from .model import Model
+from .moves import StretchMove, TemperatureControl, make_ladder
+from .prior import ProbDistContainer, UniformDistribution, uniform_dist
+from .state import Branch, BranchSupplemental, State
+
+__all__ = [
+    "Backend",
+    "Branch",
+    "BranchSupplemental",
+    "DeviceBackend",
+    "EnsembleSampler",
+    "Model",
+    "ProbDistContainer",
+    "State",
+    "StretchMove",
+    "TemperatureControl",
+    "UniformDistribution",
+    "make_ladder",
+    "uniform_dist",
+    "__version__",
+]

@@ -1,0 +1,238 @@
+"""In-memory chain storage on the host.
+
+Port of :mod:`eryn_tpu.backends.backend`: NumPy buffers with Eryn's layout
+``(nsteps, ntemps, nwalkers, nleaves_max, ndim)`` per branch, dead leaves
+NaN-masked on save, and the same getters.
+"""
+
+from __future__ import annotations
+
+import numpy as np
+
+__all__ = ["Backend"]
+
+
+class Backend:
+    """In-memory backend."""
+
+    device_resident = False
+
+    def __init__(self, store_missing_leaves=np.nan, dtype=None):
+        self.initialized = False
+        self.store_missing_leaves = store_missing_leaves
+        self.dtype = np.dtype(dtype) if dtype is not None else np.dtype(np.float64)
+
+    def reset(self, nwalkers, ndims, nleaves_max=1, ntemps=1, branch_names=None,
+              rj=False, moves=None, info=None):
+        """Allocate empty chain storage."""
+        if branch_names is None:
+            branch_names = ["model_0"]
+        if isinstance(branch_names, str):
+            branch_names = [branch_names]
+
+        def per_branch(val):
+            if isinstance(val, (int, np.integer)):
+                return {bn: int(val) for bn in branch_names}
+            return {k: int(v) for k, v in val.items()}
+
+        self.nwalkers = int(nwalkers)
+        self.ntemps = int(ntemps)
+        self.branch_names = list(branch_names)
+        self.nbranches = len(self.branch_names)
+        self.ndims = per_branch(ndims)
+        self.nleaves_max = per_branch(nleaves_max)
+        self.rj = rj
+        self.move_keys = list(moves) if moves else None
+        self.info = dict(info) if info else {}
+
+        self.iteration = 0
+        self.chain = {
+            n: np.empty((0,) + self.shape[n], dtype=self.dtype)
+            for n in self.branch_names
+        }
+        self.inds = {
+            n: np.empty((0,) + self.shape[n][:3], dtype=bool)
+            for n in self.branch_names
+        }
+        self.log_like = np.empty((0, ntemps, nwalkers), dtype=self.dtype)
+        self.log_prior = np.empty((0, ntemps, nwalkers), dtype=self.dtype)
+        self.betas = np.empty((0, ntemps), dtype=self.dtype)
+        self.accepted = np.zeros((ntemps, nwalkers), dtype=self.dtype)
+        self.swaps_accepted = (
+            np.zeros((ntemps - 1,), dtype=self.dtype) if ntemps > 1 else None
+        )
+        self.moves_accepted_fraction = (
+            {key: np.zeros((ntemps, nwalkers)) for key in self.move_keys}
+            if self.move_keys else None
+        )
+        self.random_state = None
+        self.initialized = True
+
+    @property
+    def shape(self):
+        """Per-branch ``(ntemps, nwalkers, nleaves_max, ndim)``."""
+        return {
+            n: (self.ntemps, self.nwalkers, self.nleaves_max[n], self.ndims[n])
+            for n in self.branch_names
+        }
+
+    def grow(self, ngrow):
+        """Preallocate ``ngrow`` more steps."""
+        if not self.initialized:
+            raise AttributeError("Backend must be reset before growing.")
+
+        def extend(arr, fill):
+            extra = np.full((int(ngrow),) + arr.shape[1:], fill, dtype=arr.dtype)
+            return np.concatenate([arr, extra], axis=0)
+
+        for n in self.branch_names:
+            self.chain[n] = extend(self.chain[n], np.nan)
+            self.inds[n] = extend(self.inds[n], False)
+        self.log_like = extend(self.log_like, np.nan)
+        self.log_prior = extend(self.log_prior, np.nan)
+        self.betas = extend(self.betas, np.nan)
+
+    def save_segment(self, coords, inds, log_like, log_prior, betas,
+                     accepted=None, swaps_accepted=None,
+                     moves_accepted_fraction=None, random_state=None):
+        """Append a segment of stored steps (every array leads with the
+        ``nstored`` axis; ``accepted`` and ``swaps_accepted`` are per-step
+        counts, summed into the cumulative counters)."""
+        log_like = np.asarray(log_like, dtype=self.dtype)
+        n = log_like.shape[0]
+        sl = slice(self.iteration, self.iteration + n)
+        for name in self.branch_names:
+            c = np.array(coords[name], dtype=self.dtype)
+            m = np.asarray(inds[name], dtype=bool)
+            c[~np.broadcast_to(m, c.shape[:-1])] = self.store_missing_leaves
+            self.chain[name][sl] = c
+            self.inds[name][sl] = m
+        self.log_like[sl] = log_like
+        self.log_prior[sl] = np.asarray(log_prior, dtype=self.dtype)
+        self.betas[sl] = np.asarray(betas, dtype=self.dtype)
+        if accepted is not None:
+            self.accepted += np.asarray(accepted, dtype=self.dtype).sum(axis=0)
+        if self.swaps_accepted is not None and swaps_accepted is not None:
+            self.swaps_accepted += np.asarray(
+                swaps_accepted, dtype=self.dtype
+            ).sum(axis=0)
+        if self.moves_accepted_fraction is not None and moves_accepted_fraction:
+            for key, val in moves_accepted_fraction.items():
+                self.moves_accepted_fraction[key] = np.asarray(val)
+        if random_state is not None:
+            self.random_state = random_state
+        self.iteration += n
+
+    # ------------------------------------------------------------------
+    # getters
+    # ------------------------------------------------------------------
+    def _check_stored(self):
+        if not self.initialized or self.iteration <= 0:
+            raise AttributeError(
+                "You must run the sampler with 'store == True' before "
+                "accessing the results."
+            )
+
+    def get_value(self, name, thin=1, discard=0, temp_index=None,
+                  branch_names=None, slice_vals=None):
+        self._check_stored()
+        if slice_vals is None:
+            slice_vals = slice(discard + thin - 1, self.iteration, thin)
+        keep = self._keep_branches(branch_names)
+        scalar_step = isinstance(slice_vals, (int, np.integer))
+
+        def read(arr):
+            # resolve against the STORED range: buffers are preallocated
+            out = arr[: self.iteration][slice_vals]
+            if temp_index is None:
+                return out
+            return out[temp_index] if scalar_step else out[:, temp_index]
+
+        if name == "chain":
+            return {n: read(self.chain[n]) for n in keep}
+        if name == "inds":
+            return {n: read(self.inds[n]) for n in keep}
+        if name in ("log_like", "log_prior", "betas"):
+            return read(getattr(self, name))
+        raise ValueError(f"Unknown value name: {name}")
+
+    def _keep_branches(self, branch_names):
+        if branch_names is None:
+            return self.branch_names
+        if isinstance(branch_names, str):
+            return [branch_names]
+        return list(branch_names)
+
+    def get_chain(self, **kwargs):
+        return self.get_value("chain", **kwargs)
+
+    def get_inds(self, **kwargs):
+        return self.get_value("inds", **kwargs)
+
+    def get_nleaves(self, **kwargs):
+        return {n: m.sum(axis=-1) for n, m in self.get_inds(**kwargs).items()}
+
+    def get_log_like(self, **kwargs):
+        return self.get_value("log_like", **kwargs)
+
+    def get_log_prior(self, **kwargs):
+        return self.get_value("log_prior", **kwargs)
+
+    def get_betas(self, **kwargs):
+        return self.get_value("betas", **kwargs)
+
+    def get_log_posterior(self, temper=False, **kwargs):
+        logl = self.get_log_like(**kwargs)
+        logp = self.get_log_prior(**kwargs)
+        if temper:
+            betas = self.get_betas(**kwargs)
+            betas = betas.reshape(betas.shape + (1,) * (logl.ndim - betas.ndim))
+            return betas * logl + logp
+        return logl + logp
+
+    def get_a_sample(self, it):
+        """The :class:`~eryn_tpu_torch.state.State` stored at iteration
+        ``it`` (host tensors)."""
+        from ..state import State
+
+        self._check_stored()
+        it = int(it)
+        if it < 0:
+            it += self.iteration
+        if not 0 <= it < self.iteration:
+            raise IndexError(
+                f"Sample index {it} out of range for {self.iteration} stored "
+                "iterations."
+            )
+        sl = slice(it, it + 1)
+        coords, inds = {}, {}
+        for name in self.branch_names:
+            c = self.get_chain(slice_vals=sl, branch_names=name)[name][0].copy()
+            m = self.get_inds(slice_vals=sl, branch_names=name)[name][0]
+            c[~m] = 0.0  # strip the NaN mask for live use
+            coords[name], inds[name] = c, m
+        return State(
+            coords, inds=inds,
+            log_like=self.get_log_like(slice_vals=sl)[0],
+            log_prior=self.get_log_prior(slice_vals=sl)[0],
+            betas=self.get_betas(slice_vals=sl)[0],
+            random_state=self.random_state,
+        )
+
+    def get_last_sample(self):
+        return self.get_a_sample(self.iteration - 1)
+
+    def get_autocorr_time(self, discard=0, thin=1, all_temps=False,
+                          multiply_thin=True, **kwargs):
+        """Per-parameter IACT per branch, ``{branch: (ntemps_kept,
+        nleaves_max, ndim)}``, from the cold chain unless ``all_temps``."""
+        from ..utils.utility import get_integrated_act
+
+        if all_temps:
+            x = self.get_chain(discard=discard, thin=thin)
+        else:
+            cold = self.get_chain(discard=discard, thin=thin, temp_index=0)
+            x = {name: arr[:, None] for name, arr in cold.items()}
+        out = get_integrated_act(x, **kwargs)
+        factor = thin if multiply_thin else 1
+        return {name: values * factor for name, values in out.items()}

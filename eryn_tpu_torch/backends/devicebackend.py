@@ -1,0 +1,254 @@
+"""Chain storage in device memory.
+
+Port of :mod:`eryn_tpu.backends.devicebackend`.  Stored segments stay on the
+device as the sampler's packed snapshot buffers and are unpacked on first
+read; getters move only the slice they return to the host, and
+:meth:`DeviceBackend.get_autocorr_time` computes the IACT on the device, so
+only the taus cross.  Cumulative counters are summed on the device and
+fetched on first read.  When the stored chain outgrows ``max_device_bytes``
+everything so far moves to host memory and sampling continues.
+"""
+
+from __future__ import annotations
+
+import numpy as np
+import torch
+
+from .backend import Backend
+
+__all__ = ["DeviceBackend"]
+
+
+class _LazySeg:
+    """One stored segment, kept packed until first read; the first read
+    runs the sampler's ``unpack`` closure once and drops the packed
+    buffers."""
+
+    __slots__ = ("n", "_packed", "_unpack", "_data")
+
+    def __init__(self, n, packed, unpack):
+        self.n = int(n)
+        self._packed = packed
+        self._unpack = unpack
+        self._data = None
+
+    def nbytes(self):
+        if self._data is None:
+            arrays = self._packed.values()
+        else:
+            arrays = [
+                *self._data["chain"].values(), *self._data["inds"].values(),
+                self._data["log_like"], self._data["log_prior"],
+                self._data["betas"],
+            ]
+        return sum(a.numel() * a.element_size() for a in arrays)
+
+    def __getitem__(self, key):
+        if self._data is None:
+            self._data = self._unpack(self._packed)
+            self._packed = None
+        return self._data[key]
+
+
+class DeviceBackend(Backend):
+    """In-memory backend whose chain stays on the device (see the module
+    docstring)."""
+
+    device_resident = True
+
+    def __init__(self, store_missing_leaves=np.nan, dtype=None,
+                 max_device_bytes=None):
+        self._counter_host = {}
+        self._counter_dev = {}
+        super().__init__(store_missing_leaves=store_missing_leaves, dtype=dtype)
+        self.max_device_bytes = max_device_bytes
+
+    # -- cumulative counters, summed on the device, fetched on first read --
+    def _counter_get(self, name):
+        dev = self._counter_dev.get(name)
+        if dev:
+            folded = torch.stack(dev).sum(dim=0).cpu().numpy()
+            host = self._counter_host.get(name)
+            self._counter_host[name] = (
+                folded.astype(self.dtype) if host is None else host + folded
+            )
+            self._counter_dev[name] = []
+        return self._counter_host.get(name)
+
+    def _counter_set(self, name, value):
+        self._counter_host[name] = value
+        self._counter_dev[name] = []
+
+    accepted = property(
+        lambda self: self._counter_get("accepted"),
+        lambda self, v: self._counter_set("accepted", v),
+    )
+    swaps_accepted = property(
+        lambda self: self._counter_get("swaps_accepted"),
+        lambda self, v: self._counter_set("swaps_accepted", v),
+    )
+
+    def reset(self, *args, **kwargs):
+        super().reset(*args, **kwargs)
+        self.chain = self.inds = None
+        self.log_like = self.log_prior = self.betas = None
+        self._segs = []
+        self._host = None  # offloaded prefix: dict of numpy arrays
+
+    def grow(self, ngrow):
+        """Nothing to preallocate: segments arrive as device buffers."""
+
+    def save_segment_packed(self, n, packed, unpack, accepted_sum=None,
+                            swaps_accepted_sum=None,
+                            moves_accepted_fraction=None, random_state=None):
+        """Append a segment as the sampler's packed snapshot buffers.  No
+        device work and no host transfer happen here: counter sums arrive
+        pre-reduced, and ``unpack`` runs on first read."""
+        self._segs.append(_LazySeg(n, dict(packed), unpack))
+        if accepted_sum is not None:
+            self._counter_dev.setdefault("accepted", []).append(accepted_sum)
+        if swaps_accepted_sum is not None and self.ntemps > 1:
+            self._counter_dev.setdefault("swaps_accepted", []).append(
+                swaps_accepted_sum
+            )
+        if self.moves_accepted_fraction is not None and moves_accepted_fraction:
+            self.moves_accepted_fraction.update(moves_accepted_fraction)
+        if random_state is not None:
+            self.random_state = random_state
+        self.iteration += int(n)
+        if (
+            self.max_device_bytes is not None
+            and self.device_bytes() > self.max_device_bytes
+        ):
+            self.offload()
+
+    # ------------------------------------------------------------------
+    # reads
+    # ------------------------------------------------------------------
+    def _seg_arrays(self, field, branch=None):
+        """Per-segment device tensors of one field (static masks broadcast
+        to the segment length)."""
+        parts = []
+        for seg in self._segs:
+            arr = seg[field][branch] if branch is not None else seg[field]
+            if field == "inds" and arr.ndim == 3:
+                arr = arr.expand((seg.n,) + tuple(arr.shape))
+            parts.append(arr)
+        return parts
+
+    def _read(self, field, branch, slice_vals, temp_index):
+        """Slice one field over the stored steps and move only the result
+        to the host."""
+        def temps(x):
+            return x if temp_index is None else x[:, temp_index]
+
+        idx = np.arange(self.iteration)[slice_vals]
+        host = None
+        if self._host is not None:
+            host = self._host[field][branch] if branch else self._host[field]
+        n_host = 0 if host is None else host.shape[0]
+        # gather in ascending step order, segment by segment (the chain is
+        # never concatenated on the device), then restore the requested order
+        order = np.argsort(idx, kind="stable")
+        sidx = idx[order]
+        parts = []
+        if host is not None:
+            parts.append(temps(host[sidx[sidx < n_host]]))
+        dev_idx = sidx[sidx >= n_host] - n_host
+        off = 0
+        for arr in self._seg_arrays(field, branch):
+            n = arr.shape[0]
+            sel = dev_idx[(dev_idx >= off) & (dev_idx < off + n)] - off
+            off += n
+            if sel.size or not parts:
+                rows = arr[torch.as_tensor(sel, device=arr.device)]
+                parts.append(temps(rows).cpu().numpy())
+        out = np.concatenate(parts, axis=0) if len(parts) > 1 else parts[0]
+        return out[np.argsort(order)]
+
+    def get_value(self, name, thin=1, discard=0, temp_index=None,
+                  branch_names=None, slice_vals=None):
+        self._check_stored()
+        if slice_vals is None:
+            slice_vals = slice(discard + thin - 1, self.iteration, thin)
+        drop = isinstance(slice_vals, (int, np.integer))
+        if drop:
+            iv = int(slice_vals) + (self.iteration if slice_vals < 0 else 0)
+            if not 0 <= iv < self.iteration:
+                raise IndexError(
+                    f"Step {int(slice_vals)} out of range for "
+                    f"{self.iteration} stored iterations."
+                )
+            slice_vals = slice(iv, iv + 1)
+
+        def read(field, branch=None):
+            out = self._read(field, branch, slice_vals, temp_index)
+            return out[0] if drop else out
+
+        if name in ("chain", "inds"):
+            return {n: read(name, n) for n in self._keep_branches(branch_names)}
+        if name in ("log_like", "log_prior", "betas"):
+            return read(name)
+        raise ValueError(f"Unknown value name: {name}")
+
+    def get_autocorr_time(self, discard=0, thin=1, all_temps=False,
+                          multiply_thin=True, window=50, average=True, tol=0,
+                          quiet=True):
+        """Per-parameter IACT computed on the device: the chain never
+        crosses to the host, only the taus do.  Takes the host path once
+        part of the chain has been offloaded."""
+        from ..utils.utility import _check_tol, get_integrated_act_torch
+
+        if self._host is not None:
+            return super().get_autocorr_time(
+                discard=discard, thin=thin, all_temps=all_temps,
+                multiply_thin=multiply_thin, window=window, average=average,
+                tol=tol, quiet=quiet,
+            )
+        self._check_stored()
+        sl = slice(discard + thin - 1, self.iteration, thin)
+        factor = thin if multiply_thin else 1
+        out = {}
+        for name in self.branch_names:
+            parts = self._seg_arrays("chain", name)
+            chain = parts[0] if len(parts) == 1 else torch.cat(parts, dim=0)
+            chain = chain[sl]
+            if not all_temps:
+                chain = chain[:, 0:1]
+            tau = get_integrated_act_torch(
+                chain.double(), window=window, average=average
+            )
+            out[name] = tau.cpu().numpy() * factor
+        nsteps = len(range(discard + thin - 1, self.iteration, thin))
+        _check_tol(
+            [np.nanmax(t) / factor for t in out.values()], nsteps, tol, quiet
+        )
+        return out
+
+    # ------------------------------------------------------------------
+    # memory
+    # ------------------------------------------------------------------
+    def device_bytes(self):
+        """Device-memory footprint of the stored segments."""
+        return sum(seg.nbytes() for seg in self._segs)
+
+    def offload(self):
+        """Move everything stored on the device to host memory; later
+        segments keep landing on the device."""
+        if not self._segs:
+            return
+
+        def pull(field, branch=None):
+            new = np.concatenate(
+                [a.cpu().numpy() for a in self._seg_arrays(field, branch)]
+            )
+            if self._host is None:
+                return new
+            old = self._host[field][branch] if branch else self._host[field]
+            return np.concatenate([old, new])
+
+        fields = {f: pull(f) for f in ("log_like", "log_prior", "betas")}
+        for f in ("chain", "inds"):
+            fields[f] = {n: pull(f, n) for n in self.branch_names}
+        self._host = fields
+        self._segs = []

@@ -1,0 +1,740 @@
+"""EnsembleSampler: the user-facing orchestrator.
+
+Port of :mod:`eryn_tpu.ensemble`.  A run is a sequence of segments; a
+segment is a Python loop over sampler steps (in-model proposal, swap
+cascade, ladder adaptation) whose stored snapshots are packed into buffers
+preallocated on the device.  Nothing inside a segment waits for the device:
+no ``.item()``, no ``bool(tensor)``, no copy to the host.  The host touches
+the chain only when a segment is handed to the backend.
+
+Likelihood contract: ``log_like_fn`` is written in torch for one walker and
+vectorized with :func:`torch.func.vmap` over the flattened
+``(ntemps * nwalkers)`` ensemble, or, with ``vectorize=True``, called once on
+the whole batch.
+"""
+
+from __future__ import annotations
+
+import os
+
+import numpy as np
+import torch
+
+from .backends import Backend, DeviceBackend
+from .model import Model
+from .moves import StretchMove
+from .moves.move import EvalContext
+from .moves.tempering import TemperatureControl
+from .prior import ProbDistContainer
+from .state import State
+
+__all__ = ["EnsembleSampler"]
+
+_NUMPY_DTYPE = {torch.float32: np.float32, torch.float64: np.float64}
+
+
+def _segment_plan(nsteps, seg, taper=False, min_seg=64):
+    """Segment sizes: full segments of ``seg`` plus the remainder decomposed
+    into powers of two.  ``taper=True`` replaces the last large power-of-two
+    segment with a halving cascade down to ``min_seg`` (same total), so the
+    final flush to a host backend is short."""
+    plan = [seg] * (nsteps // seg)
+    rem = nsteps % seg
+    while rem:
+        b = 1 << (rem.bit_length() - 1)
+        plan.append(b)
+        rem -= b
+    if taper and any(v > min_seg and (v & (v - 1)) == 0 for v in plan):
+        i = max(
+            i for i, v in enumerate(plan) if v > min_seg and (v & (v - 1)) == 0
+        )
+        cascade = []
+        b = plan[i] // 2
+        while b > min_seg:
+            cascade.append(b)
+            b //= 2
+        cascade += [b, b]
+        plan[i:i + 1] = cascade
+    return plan
+
+
+class PriorEvaluator:
+    """Summed log prior over active leaves."""
+
+    def __init__(self, containers: dict, dtype):
+        self.containers = containers
+        self.dtype = dtype
+
+    def __call__(self, coords: dict, inds: dict):
+        """coords ``{name: (..., nleaves_max, ndim)}``, inds ``{name: (...,
+        nleaves_max)}``; returns the log prior with the leading shape."""
+        total = None
+        for name, container in self.containers.items():
+            lp_leaf = container.logpdf(coords[name])
+            lp = torch.where(inds[name], lp_leaf, 0.0).sum(dim=-1)
+            total = lp if total is None else total + lp
+        return total.to(self.dtype)
+
+
+class LikelihoodEvaluator:
+    """Batched likelihood evaluation.
+
+    The function is written for one walker and vectorized with
+    ``torch.func.vmap``, or, with ``vectorize=True``, called once on the
+    flattened batch.  One walker's arguments are its coordinates ``(ndim,)`` for a
+    single branch with one leaf; ``(coords (nleaves_max, ndim), inds)`` for
+    one branch with several leaves; and the per-branch dicts otherwise.
+    """
+
+    def __init__(self, fn, *, branch_names, ndims, nleaves_max, args, kwargs,
+                 vectorize, fill_zero_leaves_val, dtype):
+        self.fn = fn
+        self.branch_names = list(branch_names)
+        self.ndims = ndims
+        self.nleaves_max = nleaves_max
+        self.args = tuple(args) if args is not None else ()
+        self.kwargs = dict(kwargs) if kwargs is not None else {}
+        self.vectorize = vectorize
+        self.dtype = dtype
+        self.fill_zero_leaves_val = max(
+            float(fill_zero_leaves_val), float(torch.finfo(dtype).min / 2)
+        )
+        self._simple = (
+            len(self.branch_names) == 1
+            and self.nleaves_max[self.branch_names[0]] == 1
+        )
+
+    def _call(self, cdict, idict, batched):
+        name = self.branch_names[0]
+        if self._simple:
+            x = cdict[name][:, 0] if batched else cdict[name][0]
+            return self.fn(x, *self.args, **self.kwargs)
+        if len(self.branch_names) == 1:
+            return self.fn(cdict[name], idict[name], *self.args, **self.kwargs)
+        return self.fn(cdict, idict, *self.args, **self.kwargs)
+
+    def _evaluate(self, cdict, idict):
+        if self.vectorize:
+            return self._call(cdict, idict, batched=True)
+        return torch.func.vmap(
+            lambda c, i: self._call(c, i, batched=False)
+        )(cdict, idict)
+
+    def check(self, device):
+        """Evaluate on a probe batch of two walkers; raise a ``TypeError``
+        that names the fix when the function cannot be batched."""
+        c = {
+            n: torch.zeros((2, self.nleaves_max[n], self.ndims[n]),
+                           dtype=self.dtype, device=device)
+            for n in self.branch_names
+        }
+        i = {
+            n: torch.ones((2, self.nleaves_max[n]), dtype=torch.bool,
+                          device=device)
+            for n in self.branch_names
+        }
+        try:
+            out = self._evaluate(c, i)
+        except Exception as err:
+            if self.vectorize:
+                raise TypeError(
+                    f"log_like_fn failed on a batch of walkers ({err})."
+                ) from err
+            raise TypeError(
+                "log_like_fn could not be vectorized over walkers with "
+                f"torch.func.vmap ({err}). Write it for a batch of walkers "
+                "and pass vectorize=True."
+            ) from err
+        if isinstance(out, (tuple, list)):
+            raise NotImplementedError(
+                "log_like_fn returned (log_like, blobs); blobs are not "
+                "supported by eryn_tpu_torch yet."
+            )
+        if tuple(torch.as_tensor(out).shape) != (2,):
+            raise TypeError(
+                f"log_like_fn returned shape {tuple(out.shape)} for 2 walkers."
+            )
+
+    def __call__(self, coords: dict, inds: dict, logp):
+        """coords ``{name: (ntemps, n, nleaves_max, ndim)}``, logp ``(ntemps,
+        n)``; returns ``(log_like (ntemps, n), None)``."""
+        batch_shape = logp.shape
+        N = logp.numel()
+        cf = {n: c.reshape((N,) + c.shape[2:]) for n, c in coords.items()}
+        inf = {n: m.reshape((N,) + m.shape[2:]) for n, m in inds.items()}
+        finite = torch.isfinite(logp.reshape(N))
+        # out-of-support walkers are evaluated at zeros and rejected below
+        cf_safe = {n: torch.where(finite[:, None, None], c, 0.0)
+                   for n, c in cf.items()}
+        ll = self._evaluate(cf_safe, inf).to(self.dtype)
+        ll = torch.where(finite, ll, -torch.inf)
+        nleaves = sum(m.sum(dim=-1) for m in inf.values())
+        ll = torch.where((nleaves == 0) & finite, self.fill_zero_leaves_val, ll)
+        return ll.reshape(batch_shape), None
+
+
+class EnsembleSampler:
+    """Ensemble sampler with parallel tempering on torch tensors.
+
+    Args mirror :class:`eryn_tpu.EnsembleSampler` for the ported subset;
+    ``device`` is where the ensemble lives (default: the device of the
+    initial coords when they are a tensor, else the CPU), ``dtype`` the state
+    dtype (default float32), and ``seed`` seeds the sampler's
+    ``torch.Generator``.  The default backend is a :class:`DeviceBackend` on
+    a CUDA device and a :class:`Backend` on the CPU.
+    """
+
+    def __init__(
+        self,
+        nwalkers,
+        ndims,
+        log_like_fn,
+        priors,
+        tempering_kwargs={},
+        branch_names=None,
+        nbranches=1,
+        nleaves_max=1,
+        moves=None,
+        args=None,
+        kwargs=None,
+        backend=None,
+        vectorize=False,
+        fill_zero_leaves_val=-1e300,
+        num_repeats_in_model=1,
+        track_moves=True,
+        info={},
+        seed=None,
+        dtype=None,
+        device=None,
+    ):
+        self.dtype = dtype if dtype is not None else torch.float32
+        if self.dtype not in _NUMPY_DTYPE:
+            raise TypeError("dtype must be torch.float32 or torch.float64.")
+        self.device = torch.device(device) if device is not None else None
+        self.num_repeats_in_model = int(num_repeats_in_model)
+        self.track_moves = track_moves
+        self.info = info
+
+        if branch_names is None:
+            branch_names = [f"model_{i}" for i in range(nbranches)]
+        elif isinstance(branch_names, str):
+            branch_names = [branch_names]
+        self.branch_names = list(branch_names)
+        self.nbranches = len(self.branch_names)
+        self.ndims = self._per_branch(ndims, "ndims")
+        self.nleaves_max = self._per_branch(nleaves_max, "nleaves_max")
+        self.nwalkers = int(nwalkers)
+
+        if tempering_kwargs == {}:
+            self.ntemps = 1
+            self.temperature_control = None
+        else:
+            total_ndim = sum(
+                self.nleaves_max[n] * self.ndims[n] for n in self.branch_names
+            )
+            self.temperature_control = TemperatureControl(
+                total_ndim, nwalkers, **tempering_kwargs
+            )
+            self.ntemps = self.temperature_control.ntemps
+
+        self.priors = self._normalize_priors(priors)
+
+        if moves is None:
+            self.moves, self.weights = [StretchMove()], [1.0]
+        else:
+            entries = moves if isinstance(moves, (list, tuple)) else [moves]
+            pairs = [e if isinstance(e, tuple) else (e, 1.0) for e in entries]
+            total = sum(float(w) for _, w in pairs)
+            self.moves = [m for m, _ in pairs]
+            self.weights = [float(w) / total for _, w in pairs]
+        for move in self.moves:
+            move.temperature_control = self.temperature_control
+        self.all_moves = {}
+        counts = {}
+        for move in self.moves:
+            base = type(move).__name__
+            self.all_moves[f"{base}_{counts.get(base, 0)}"] = move
+            counts[base] = counts.get(base, 0) + 1
+
+        self.log_like_fn = log_like_fn
+        self._prior_eval = PriorEvaluator(self.priors, self.dtype)
+        self._like_eval = LikelihoodEvaluator(
+            log_like_fn,
+            branch_names=self.branch_names,
+            ndims=self.ndims,
+            nleaves_max=self.nleaves_max,
+            args=args,
+            kwargs=kwargs,
+            vectorize=vectorize,
+            fill_zero_leaves_val=fill_zero_leaves_val,
+            dtype=self.dtype,
+        )
+        self._like_checked = False
+
+        # torch.Generators are device-bound; they are made once the device
+        # is known (here, or from the first initial state)
+        self._seed = (
+            int(seed) if seed is not None
+            else int.from_bytes(os.urandom(4), "little")
+        )
+        self._gen = None
+        self._host_gen = None
+
+        self._backend = backend
+        self._previous_state = None
+        self._kernel_states = None
+        self._m_acc = None
+        self._m_nprop = np.zeros(len(self.moves))
+        self._static_inds = self._static_inds_host = None
+        if self.device is not None:
+            self._make_generators()
+
+    # ------------------------------------------------------------------
+    def _per_branch(self, value, label):
+        if isinstance(value, (int, np.integer)):
+            return {bn: int(value) for bn in self.branch_names}
+        if isinstance(value, (list, tuple, np.ndarray)):
+            if len(value) != len(self.branch_names):
+                raise ValueError(
+                    f"{label} list has {len(value)} entries for "
+                    f"{len(self.branch_names)} branches."
+                )
+            return {bn: int(v) for bn, v in zip(self.branch_names, value)}
+        if isinstance(value, dict):
+            unknown = set(value) - set(self.branch_names)
+            if unknown:
+                raise ValueError(
+                    f"{sorted(unknown)} in {label} but not in branch_names."
+                )
+            return {k: int(v) for k, v in value.items()}
+        raise ValueError(f"{label} must be a scalar int, list or dict.")
+
+    def _normalize_priors(self, priors):
+        if isinstance(priors, ProbDistContainer):
+            return {self.branch_names[0]: priors}
+        if isinstance(priors, dict):
+            out = {
+                name: val if isinstance(val, ProbDistContainer)
+                else ProbDistContainer(val)
+                for name, val in priors.items()
+            }
+            if set(out) - set(self.branch_names):
+                raise ValueError(
+                    f"priors keys {list(out)} do not match branch_names "
+                    f"{self.branch_names}."
+                )
+            return out
+        raise ValueError("priors must be a ProbDistContainer or dict.")
+
+    def _make_generators(self):
+        self._gen = torch.Generator(device=self.device)
+        self._gen.manual_seed(self._seed)
+        # move-schedule draws stay on the host: picking a move by a device
+        # draw would make every step wait for the device
+        self._host_gen = torch.Generator()
+        self._host_gen.manual_seed(self._seed)
+
+    @property
+    def backend(self):
+        if self._backend is None:
+            np_dtype = _NUMPY_DTYPE[self.dtype]
+            device = self.device or torch.device("cpu")
+            if device.type == "cuda":
+                self._backend = DeviceBackend(
+                    dtype=np_dtype, max_device_bytes=4 << 30
+                )
+            else:
+                self._backend = Backend(dtype=np_dtype)
+        if not self._backend.initialized:
+            self._reset_backend(self._backend)
+        return self._backend
+
+    @backend.setter
+    def backend(self, value):
+        self._backend = value
+
+    def _reset_backend(self, backend):
+        backend.reset(
+            self.nwalkers,
+            self.ndims,
+            nleaves_max=self.nleaves_max,
+            ntemps=self.ntemps,
+            branch_names=self.branch_names,
+            moves=list(self.all_moves) if self.track_moves else None,
+            info=self.info,
+        )
+
+    def reset(self):
+        """Clear the stored chain."""
+        self._reset_backend(self.backend)
+
+    @property
+    def shape(self):
+        return {
+            n: (self.ntemps, self.nwalkers, self.nleaves_max[n], self.ndims[n])
+            for n in self.branch_names
+        }
+
+    @property
+    def iteration(self):
+        return self.backend.iteration
+
+    @property
+    def random_state(self):
+        """State of the sampler's ``torch.Generator``."""
+        return None if self._gen is None else self._gen.get_state()
+
+    @property
+    def _max_segment(self):
+        """Stored steps per segment: 2048 for a host backend; for a device
+        backend, enough to fill a ~256 MB snapshot buffer (a power of two in
+        [1024, 8192])."""
+        if not self.backend.device_resident:
+            return 2048
+        itemsize = np.dtype(_NUMPY_DTYPE[self.dtype]).itemsize
+        per_step = sum(
+            self.ntemps * self.nwalkers * self.nleaves_max[n] * self.ndims[n]
+            for n in self.branch_names
+        ) * itemsize + 3 * self.ntemps * self.nwalkers * itemsize
+        cap = max(1, (256 << 20) // per_step)
+        return min(8192, max(1024, 1 << (cap.bit_length() - 1)))
+
+    def get_eval_context(self):
+        return EvalContext(
+            compute_log_prior=self._prior_eval,
+            compute_log_like=self._like_eval,
+            tempering=self.temperature_control,
+            prior_containers=self.priors,
+        )
+
+    def get_model(self):
+        """Eryn-compatible model carrier."""
+        return Model(
+            self.log_like_fn, self._like_eval, self._prior_eval,
+            self.temperature_control, map, self._gen,
+            eval_context=self.get_eval_context(),
+        )
+
+    # ------------------------------------------------------------------
+    # state set-up
+    # ------------------------------------------------------------------
+    def _setup_state(self, initial_state, skip_initial_state_check=False):
+        if initial_state is None:
+            if self._previous_state is None:
+                raise ValueError(
+                    "Cannot have initial_state=None if run_mcmc has never "
+                    "been called."
+                )
+            initial_state = self._previous_state
+        state = (
+            initial_state if isinstance(initial_state, State)
+            else State(initial_state)
+        )
+        if self.device is None:
+            first = state.branches[self.branch_names[0]].coords
+            self.device = first.device
+            self._make_generators()
+        if not self._like_checked:
+            self._like_eval.check(self.device)
+            self._like_checked = True
+
+        def put(x, dtype=None):
+            return x.to(device=self.device, dtype=dtype or self.dtype)
+
+        coords, inds = {}, {}
+        for name in self.branch_names:
+            b = state.branches[name]
+            c = put(b.coords)
+            m = b.inds.to(device=self.device)
+            if c.shape[0] == 1 and self.ntemps > 1:
+                c = c.repeat(self.ntemps, 1, 1, 1)
+                m = m.repeat(self.ntemps, 1, 1)
+            if tuple(c.shape) != self.shape[name]:
+                raise ValueError(
+                    f"Branch {name} coords shape {tuple(c.shape)} does not "
+                    f"match expected {self.shape[name]}."
+                )
+            coords[name], inds[name] = c.contiguous(), m.contiguous()
+
+        tc = self.temperature_control
+        if tc is None:
+            betas = torch.ones(1, dtype=self.dtype, device=self.device)
+        elif state.betas is None:
+            betas = put(torch.as_tensor(tc.betas))
+        else:
+            betas = put(state.betas)
+            tc.betas = betas
+
+        nt_nw = (self.ntemps, self.nwalkers)
+        if state.log_prior is not None:
+            log_prior = put(state.log_prior).reshape(nt_nw)
+        else:
+            log_prior = self._prior_eval(coords, inds)
+        if state.log_like is not None:
+            log_like = put(state.log_like).reshape(nt_nw)
+        else:
+            log_like, _ = self._like_eval(coords, inds, log_prior)
+
+        if not skip_initial_state_check:
+            if torch.isnan(log_like).any():
+                raise ValueError("The initial log_like was NaN.")
+            if torch.isnan(log_prior).any() or torch.isinf(log_prior).all():
+                raise ValueError("The initial log_prior was NaN or all -inf.")
+        # masks are constant without reversible jump: they are stored once
+        # per segment (a host copy for the host backend)
+        self._static_inds = inds
+        self._static_inds_host = {n: m.cpu().numpy() for n, m in inds.items()}
+        return State(
+            coords, inds=inds, log_like=log_like.contiguous(),
+            log_prior=log_prior.contiguous(), betas=betas.contiguous(),
+        )
+
+    # ------------------------------------------------------------------
+    # the segment loop
+    # ------------------------------------------------------------------
+    def _draw_schedule(self, nsteps):
+        """Move index per (step, repeat), drawn on the host."""
+        shape = (nsteps, self.num_repeats_in_model)
+        if len(self.moves) == 1:
+            return np.zeros(shape, dtype=np.int64)
+        w = torch.as_tensor(self.weights, dtype=torch.float64)
+        draws = torch.multinomial(
+            w, shape[0] * shape[1], replacement=True, generator=self._host_gen
+        )
+        return draws.reshape(shape).numpy()
+
+    def _step(self, state, time, move_idx, ctx):
+        """One sampler step (the counterpart of eryn_tpu's
+        ``_make_one_step``): the in-model repeats, each with its tempering
+        epilogue.  Returns ``(state, time, accepted, swaps)``."""
+        accepted = None
+        for j in move_idx:
+            move = self.moves[j]
+            state, acc, swaps, time, self._kernel_states[j] = (
+                move.propose_kernel(
+                    self._gen, state, time, ctx, self._kernel_states[j]
+                )
+            )
+            self._m_acc[j] += acc
+            self._m_nprop[j] += 1
+            accepted = acc if accepted is None else accepted + acc
+        return state, time, accepted, swaps
+
+    def _snap_layout(self):
+        nt, nw = self.ntemps, self.nwalkers
+        return [
+            ("coords", n, (nt, nw, self.nleaves_max[n], self.ndims[n]))
+            for n in self.branch_names
+        ] + [
+            ("log_like", None, (nt, nw)),
+            ("log_prior", None, (nt, nw)),
+            ("betas", None, (nt,)),
+            ("swaps", None, (max(nt - 1, 0),)),
+        ]
+
+    def _run_bulk(self, state, nstored, thin_by=1, store=True):
+        """Run ``nstored * thin_by`` steps; with ``store``, snapshot every
+        ``thin_by``-th step into device buffers.
+
+        Returns ``(state, snaps)``: ``snaps`` holds the packed ``fp`` buffer
+        ``(nstored, F)`` (coords, log_like, log_prior, betas, swaps) and the
+        ``u8`` accept flags ``(nstored, ntemps * nwalkers)``, both on the
+        device, or is None without ``store``."""
+        if self._kernel_states is None:
+            self._kernel_states = [m.init_kernel_state(state) for m in self.moves]
+        if self._m_acc is None:
+            self._m_acc = torch.zeros(
+                (len(self.moves), self.ntemps, self.nwalkers),
+                dtype=self.dtype, device=self.device,
+            )
+        ctx = self.get_eval_context()
+        tc = self.temperature_control
+        time = int(tc.time) if tc is not None else 0
+        schedule = self._draw_schedule(nstored * thin_by)
+        snaps = None
+        if store:
+            width = sum(int(np.prod(s)) for _, _, s in self._snap_layout())
+            snaps = {
+                "fp": torch.empty((nstored, width), dtype=self.dtype,
+                                  device=self.device),
+                "u8": torch.empty((nstored, self.ntemps * self.nwalkers),
+                                  dtype=torch.uint8, device=self.device),
+            }
+        k = 0
+        for s in range(nstored):
+            for _ in range(thin_by):
+                state, time, accepted, swaps = self._step(
+                    state, time, schedule[k], ctx
+                )
+                k += 1
+            if store:
+                torch.cat(
+                    [state.branches[n].coords.reshape(-1)
+                     for n in self.branch_names]
+                    + [state.log_like.reshape(-1), state.log_prior.reshape(-1),
+                       state.betas.reshape(-1), swaps.reshape(-1)],
+                    out=snaps["fp"][s],
+                )
+                snaps["u8"][s].copy_(accepted.reshape(-1))
+        if tc is not None:
+            # device tensors: reading them on the host is the caller's sync
+            tc.time = time
+            tc.betas = state.betas
+            tc.swaps_accepted = swaps
+        self._previous_state = state
+        return state, snaps
+
+    def _split_fp(self, fp):
+        """Named views of a packed ``fp`` buffer (leading step axis kept)."""
+        out, off = {"coords": {}}, 0
+        for kind, name, shape in self._snap_layout():
+            size = int(np.prod(shape))
+            arr = fp[:, off:off + size].reshape((fp.shape[0],) + shape)
+            off += size
+            if name is None:
+                out[kind] = arr
+            else:
+                out[kind][name] = arr
+        return out
+
+    def _move_fractions(self):
+        if not self.track_moves:
+            return None
+        return {
+            key: self._m_acc[i] / max(self._m_nprop[i], 1.0)
+            for i, key in enumerate(self.all_moves)
+        }
+
+    def _save_snaps(self, snaps):
+        """Hand one stored segment to the backend."""
+        nt, nw = self.ntemps, self.nwalkers
+        n = snaps["fp"].shape[0]
+        fractions = self._move_fractions()
+        if self.backend.device_resident:
+            accepted_sum = snaps["u8"].to(self.dtype).sum(dim=0).reshape(nt, nw)
+            swaps_sum = snaps["fp"][:, snaps["fp"].shape[1] - (nt - 1):].sum(0)
+            self.backend.save_segment_packed(
+                n, snaps, self._make_seg_unpacker(),
+                accepted_sum=accepted_sum,
+                swaps_accepted_sum=swaps_sum if nt > 1 else None,
+                moves_accepted_fraction=fractions,
+                random_state=self.random_state,
+            )
+            return
+        fields = self._split_fp(snaps["fp"].cpu().numpy())
+        self.backend.save_segment(
+            coords=fields["coords"],
+            inds=self._static_inds_host,
+            log_like=fields["log_like"],
+            log_prior=fields["log_prior"],
+            betas=fields["betas"],
+            accepted=snaps["u8"].cpu().numpy().reshape(n, nt, nw),
+            swaps_accepted=fields["swaps"] if nt > 1 else None,
+            moves_accepted_fraction=None if fractions is None else {
+                k: v.cpu().numpy() for k, v in fractions.items()
+            },
+            random_state=self.random_state,
+        )
+
+    def _make_seg_unpacker(self):
+        """Closure expanding one packed segment into the device backend's
+        fields (chain NaN-masked on dead leaves, static masks without a step
+        axis)."""
+        static_inds = dict(self._static_inds)
+        missing = self.backend.store_missing_leaves
+
+        def unpack(packed):
+            fields = self._split_fp(packed["fp"])
+            chain = {
+                n: torch.where(static_inds[n][None, ..., None], c, missing)
+                for n, c in fields["coords"].items()
+            }
+            return {
+                "chain": chain,
+                "inds": static_inds,
+                "log_like": fields["log_like"],
+                "log_prior": fields["log_prior"],
+                "betas": fields["betas"],
+            }
+
+        return unpack
+
+    def _sync_move_counters(self):
+        """Copy the device accept counters into the move objects."""
+        if self._m_acc is None:
+            return
+        m_acc = self._m_acc.cpu().numpy()
+        for i, move in enumerate(self.moves):
+            move.accepted = m_acc[i]
+            move.num_proposals = int(self._m_nprop[i])
+
+    # ------------------------------------------------------------------
+    # public run API
+    # ------------------------------------------------------------------
+    def run_mcmc(self, initial_state, nsteps, burn=None, thin_by=1, store=True,
+                 skip_initial_state_check=False, segment_size=None):
+        """Run the chain: ``burn`` steps without storing, then ``nsteps``
+        stored iterations of ``thin_by`` steps each, in segments of at most
+        ``segment_size`` stored iterations.  Returns the final state."""
+        state = self._setup_state(initial_state, skip_initial_state_check)
+        thin_by = int(thin_by)
+        if thin_by <= 0:
+            raise ValueError("thin_by must be a positive integer.")
+        if burn:
+            for n in _segment_plan(int(burn), 4 * self._max_segment):
+                state, _ = self._run_bulk(state, 1, n, store=False)
+        if segment_size is not None:
+            seg = int(segment_size)
+        else:
+            seg = max(1, min(int(nsteps), self._max_segment))
+        if store:
+            self.backend.grow(nsteps)
+        taper = store and not self.backend.device_resident
+        for n in _segment_plan(int(nsteps), seg, taper=taper):
+            state, snaps = self._run_bulk(state, n, thin_by, store=store)
+            if store:
+                self._save_snaps(snaps)
+        self._sync_move_counters()
+        return state
+
+    @property
+    def acceptance_fraction(self):
+        return self.backend.accepted / float(self.backend.iteration)
+
+    @property
+    def swap_acceptance_fraction(self):
+        if self.ntemps == 1:
+            return None
+        return self.backend.swaps_accepted / float(
+            self.backend.iteration * self.nwalkers
+        )
+
+    def get_chain(self, **kwargs):
+        return self.backend.get_chain(**kwargs)
+
+    def get_log_like(self, **kwargs):
+        return self.backend.get_log_like(**kwargs)
+
+    def get_log_prior(self, **kwargs):
+        return self.backend.get_log_prior(**kwargs)
+
+    def get_log_posterior(self, **kwargs):
+        return self.backend.get_log_posterior(**kwargs)
+
+    def get_inds(self, **kwargs):
+        return self.backend.get_inds(**kwargs)
+
+    def get_nleaves(self, **kwargs):
+        return self.backend.get_nleaves(**kwargs)
+
+    def get_betas(self, **kwargs):
+        return self.backend.get_betas(**kwargs)
+
+    def get_value(self, name, **kwargs):
+        return self.backend.get_value(name, **kwargs)
+
+    def get_autocorr_time(self, **kwargs):
+        return self.backend.get_autocorr_time(**kwargs)
+
+    def get_last_sample(self):
+        return self.backend.get_last_sample()

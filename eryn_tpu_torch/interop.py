@@ -1,0 +1,84 @@
+"""Carry an ensemble and a ladder between packages as numpy arrays.
+
+A state travels as a dict ``{"coords": {branch: array}, "inds": {branch:
+array}, "log_like": array, "log_prior": array, "betas": array}`` (missing
+fields are None); a tempering control as ``{"betas", "time",
+"swaps_accepted", "swaps_proposed"}``.  Any package whose arrays convert
+with ``np.asarray`` can build these dicts, so two samplers can start from
+the same ensemble and ladder.
+"""
+
+from __future__ import annotations
+
+import numpy as np
+import torch
+
+from .state import State
+
+__all__ = [
+    "state_from_numpy",
+    "state_to_numpy",
+    "tempering_from_numpy",
+    "tempering_to_numpy",
+]
+
+_FIELDS = ("log_like", "log_prior", "betas")
+
+
+def _host(x):
+    if x is None:
+        return None
+    if isinstance(x, torch.Tensor):
+        return x.detach().cpu().numpy()
+    return np.asarray(x)
+
+
+def state_from_numpy(d, device=None, dtype=torch.float32):
+    """Build a :class:`State` on ``device`` from a numpy dict."""
+    def put(x, dt=dtype):
+        # a copy: arrays of other packages may be read-only
+        return None if x is None else torch.tensor(
+            np.array(x), dtype=dt, device=device
+        )
+
+    inds = d.get("inds")
+    return State(
+        {n: put(c) for n, c in d["coords"].items()},
+        inds=None if inds is None else {
+            n: put(m, torch.bool) for n, m in inds.items()
+        },
+        **{f: put(d.get(f)) for f in _FIELDS},
+    )
+
+
+def state_to_numpy(state):
+    """Numpy dict of a :class:`State` (from this package or any state with
+    the same attribute names)."""
+    return {
+        "coords": {n: _host(b.coords) for n, b in state.branches.items()},
+        "inds": {n: _host(b.inds) for n, b in state.branches.items()},
+        **{f: _host(getattr(state, f)) for f in _FIELDS},
+    }
+
+
+def tempering_from_numpy(tc, d):
+    """Set ``betas``, ``time`` and the swap counters of a
+    :class:`~eryn_tpu_torch.moves.tempering.TemperatureControl` from a numpy
+    dict; returns ``tc``."""
+    tc.betas = np.asarray(d["betas"], dtype=np.float64)
+    tc.ntemps = len(tc.betas)
+    tc.time = int(d.get("time", 0))
+    for key in ("swaps_accepted", "swaps_proposed"):
+        if d.get(key) is not None:
+            setattr(tc, key, np.asarray(d[key]))
+    return tc
+
+
+def tempering_to_numpy(tc):
+    """Numpy dict of a tempering control's ladder, clock and counters."""
+    return {
+        "betas": np.asarray(_host(tc.betas), dtype=np.float64),
+        "time": int(np.asarray(_host(tc.time))),
+        "swaps_accepted": _host(tc.swaps_accepted),
+        "swaps_proposed": _host(tc.swaps_proposed),
+    }

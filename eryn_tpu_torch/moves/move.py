@@ -1,0 +1,193 @@
+"""Move base class and the proposal evaluation context.
+
+Port of :mod:`eryn_tpu.moves.move`.  A move is a configuration shell whose
+:meth:`Move.propose_kernel` advances the ensemble by one proposal,
+
+    ``(generator, state, time, ctx) -> (state, accepted, swaps_accepted, time)``,
+
+drawing its randomness from the sampler's ``torch.Generator``.  The host
+protocol of Eryn's moves (``propose(model, state)`` and the
+``get_proposal`` hooks) is not ported yet.
+"""
+
+from __future__ import annotations
+
+from typing import Callable, NamedTuple, Optional
+
+import numpy as np
+import torch
+
+__all__ = ["Move", "EvalContext", "mh_accept", "active_ndim"]
+
+
+class EvalContext(NamedTuple):
+    """Capability bundle handed to every move.
+
+    Attributes:
+        compute_log_prior: ``(coords_dict, inds_dict) -> (ntemps, n)``.
+        compute_log_like: ``(coords_dict, inds_dict, logp) -> (logl, blobs)``;
+            ``logp`` guards evaluation outside the prior support.
+        tempering: :class:`~eryn_tpu_torch.moves.tempering.TemperatureControl`
+            or None.
+        prior_containers: ``{branch: ProbDistContainer}``.
+    """
+
+    compute_log_prior: Callable
+    compute_log_like: Callable
+    tempering: Optional[object]
+    prior_containers: Optional[dict] = None
+
+
+def mh_accept(generator, factors, logP_new, logP_old):
+    """Vectorized Metropolis-Hastings acceptance: accept where
+    ``factors + logP_new - logP_old > log U``.  A NaN difference (e.g.
+    ``-inf - -inf``) never accepts."""
+    u = torch.rand(
+        logP_new.shape, generator=generator, dtype=logP_new.dtype,
+        device=logP_new.device,
+    )
+    lnpdiff = factors + logP_new - logP_old
+    return lnpdiff > torch.log(u)
+
+
+def active_ndim(state, names=None):
+    """Per-walker active dimensionality ``sum_b nleaves_b * ndim_b`` from the
+    leaf masks: the dimension count of the detailed-balance factors."""
+    names = names or list(state.branches)
+    total = 0
+    for name in names:
+        b = state.branches[name]
+        total = total + b.inds.sum(dim=-1) * b.ndim
+    return total
+
+
+class Move:
+    """Base class for proposals.
+
+    Subclasses implement ``_propose_impl(generator, state, ctx,
+    kernel_state) -> (state, accepted, kernel_state)``; :meth:`propose_kernel`
+    appends the tempering epilogue (swap cascade and ladder adaptation).
+    """
+
+    #: reversible-jump moves skip ladder adaptation
+    adapt_temps = True
+    is_rj = False
+
+    def __init__(
+        self,
+        temperature_control=None,
+        gibbs_sampling_setup=None,
+        prevent_swaps=False,
+        proposal_branch_names=None,
+    ):
+        self.temperature_control = temperature_control
+        self.prevent_swaps = prevent_swaps
+        self.proposal_branch_names = proposal_branch_names
+        self._initialize_branch_setup(gibbs_sampling_setup, is_rj=self.is_rj)
+        # host counters, synced by the sampler after each run
+        self.accepted = None
+        self.num_proposals = 0
+
+    @property
+    def acceptance_fraction(self):
+        if self.accepted is None or self.num_proposals == 0:
+            return None
+        return np.asarray(self.accepted) / self.num_proposals
+
+    def run_branches(self, state):
+        """Branch names this move proposes on (all by default)."""
+        if self.proposal_branch_names is not None:
+            names = self.proposal_branch_names
+            if isinstance(names, str):
+                names = [names]
+            return [n for n in state.branches if n in names]
+        return list(state.branches)
+
+    def _initialize_branch_setup(self, gibbs_sampling_setup, is_rj=False):
+        """Parse ``gibbs_sampling_setup`` into a list of Gibbs iterations,
+        each ``[(branch_name, (nleaves_max, ndim) bool mask or None), ...]``.
+
+        Accepted forms: a branch-name string, a ``(branch_name, mask)``
+        tuple, a ``{branch_name: mask}`` dict (one iteration), or a list of
+        those (sequential iterations)."""
+        if gibbs_sampling_setup is None:
+            self.gibbs_iterations = [None]
+            return
+        if type(gibbs_sampling_setup) not in (str, tuple, list, dict):
+            raise ValueError(
+                "gibbs_sampling_setup must be string, dict, tuple, or list."
+            )
+        if not isinstance(gibbs_sampling_setup, list):
+            gibbs_sampling_setup = [gibbs_sampling_setup]
+
+        def check_mask(mask):
+            if mask is None:
+                return None
+            if is_rj:
+                raise ValueError(
+                    "inputting gibbs indexing at the leaf/parameter level is "
+                    "not allowed with an RJ proposal. Only branch names."
+                )
+            mask = np.asarray(mask)
+            if mask.ndim != 2:
+                raise ValueError(
+                    "When inputing gibbs indexing and using a 2-tuple, second "
+                    "item must be None or 2D np.ndarray of shape "
+                    "(nleaves_max, ndim)."
+                )
+            return torch.as_tensor(mask.astype(bool))
+
+        iterations = []
+        for item in gibbs_sampling_setup:
+            if isinstance(item, str):
+                iterations.append([(item, None)])
+            elif isinstance(item, tuple):
+                if len(item) != 2:
+                    raise ValueError("Gibbs tuple must be (branch_name, mask).")
+                iterations.append([(item[0], check_mask(item[1]))])
+            elif isinstance(item, dict):
+                iterations.append([(k, check_mask(v)) for k, v in item.items()])
+            else:
+                raise ValueError(
+                    "If providing a list for gibbs_sampling_setup, each item "
+                    "needs to be a string, tuple, or dict."
+                )
+        self.gibbs_iterations = iterations
+
+    def gibbs_iterations_for(self, state):
+        """Yield ``(branch_names, {name: mask_or_None})`` per Gibbs split."""
+        all_names = self.run_branches(state)
+        for split in self.gibbs_iterations:
+            if split is None:
+                yield all_names, {n: None for n in all_names}
+            else:
+                names = [n for n, _ in split if n in state.branches]
+                yield names, {n: m for n, m in split}
+
+    def init_kernel_state(self, state):
+        """Per-move carry (e.g. tuned scales); empty for the stretch move."""
+        return ()
+
+    def _propose_impl(self, generator, state, ctx, kernel_state):
+        raise NotImplementedError
+
+    def propose_kernel(self, generator, state, time, ctx, kernel_state=()):
+        """Proposal plus tempering epilogue.
+
+        Returns ``(state, accepted, swaps_accepted, time, kernel_state)``
+        with ``accepted`` the ``(ntemps, nwalkers)`` accept flags in the state
+        dtype and ``swaps_accepted`` shaped ``(ntemps - 1,)``.  ``time`` is
+        the ladder adaptation clock, a Python int.
+        """
+        state, accepted, kernel_state = self._propose_impl(
+            generator, state, ctx, kernel_state
+        )
+        logl = state.log_like
+        ntemps = logl.shape[0]
+        if ctx.tempering is not None and ntemps > 1 and not self.prevent_swaps:
+            state, swaps_accepted, time = ctx.tempering.temper_kernel(
+                generator, state, time, adapt=self.adapt_temps
+            )
+        else:
+            swaps_accepted = logl.new_zeros((max(ntemps - 1, 0),))
+        return state, accepted.to(logl.dtype), swaps_accepted, time, kernel_state

@@ -1,0 +1,144 @@
+"""Red/blue half-ensemble proposal machinery.
+
+Port of :mod:`eryn_tpu.moves.red_blue` (the general path).  One random
+permutation splits the walker axis into ``nsplits`` contiguous blocks; each
+block is proposed from its complement, evaluated and accepted in turn, and
+each later block sees the earlier blocks' updated positions.
+"""
+
+from __future__ import annotations
+
+import torch
+
+from .move import Move, mh_accept
+from .tempering import tempered_log_likelihood
+
+__all__ = ["RedBlueMove"]
+
+
+def _inverse_permutation(perm):
+    # a sort, not a scatter: it never waits for the device
+    return torch.argsort(perm, dim=-1)
+
+
+class RedBlueMove(Move):
+    """Base for ensemble proposals that move one subset using the complement.
+
+    Subclasses implement ``get_proposal_kernel(generator, s_coords, c_coords,
+    s_inds, param_masks) -> (q_dict, factors)`` with ``factors`` shaped
+    ``(ntemps, Ns)``.
+    """
+
+    def __init__(self, nsplits=2, randomize_split=True, live_dangerously=False,
+                 **kwargs):
+        super().__init__(**kwargs)
+        self.nsplits = int(nsplits)
+        self.randomize_split = randomize_split
+        self.live_dangerously = live_dangerously
+
+    def setup(self, branches):
+        """Per-proposal setup hook."""
+
+    def get_proposal_kernel(self, generator, s_coords, c_coords, s_inds,
+                            param_masks=None):
+        raise NotImplementedError
+
+    def _check_walkers(self, state, names):
+        ntemps, nwalkers = state.log_like.shape
+        total_ndim = sum(
+            state.branches[n].nleaves_max * state.branches[n].ndim
+            for n in names
+        )
+        if nwalkers < 2 * total_ndim and not self.live_dangerously:
+            raise RuntimeError(
+                "It is unadvisable to use a red-blue move with fewer walkers "
+                "than twice the number of dimensions. (set live_dangerously "
+                "to override)"
+            )
+
+    def _propose_impl(self, generator, state, ctx, kernel_state=()):
+        ntemps, nwalkers = state.log_like.shape
+        device = state.log_like.device
+        self._check_walkers(state, self.run_branches(state))
+        self.setup(state.branches)
+
+        coords = dict(state.branches_coords)
+        inds = dict(state.branches_inds)
+        logl = state.log_like
+        logp = state.log_prior
+        betas = state.betas
+        if betas is None:
+            betas = torch.ones(ntemps, dtype=logl.dtype, device=device)
+        accepted = torch.zeros((ntemps, nwalkers), dtype=torch.bool,
+                               device=device)
+
+        sizes = [
+            nwalkers // self.nsplits + (1 if i < nwalkers % self.nsplits else 0)
+            for i in range(self.nsplits)
+        ]
+        offsets = [sum(sizes[:i]) for i in range(self.nsplits)]
+
+        all_names = list(coords)
+        for names, param_masks in self.gibbs_iterations_for(state):
+            if self.randomize_split:
+                perm = torch.argsort(
+                    torch.rand(nwalkers, generator=generator, device=device)
+                )
+                inv_perm = _inverse_permutation(perm)
+            else:
+                perm = inv_perm = torch.arange(nwalkers, device=device)
+
+            coords_p = {n: coords[n][:, perm] for n in all_names}
+            inds_p = {n: inds[n][:, perm] for n in all_names}
+            logl_p = logl[:, perm]
+            logp_p = logp[:, perm]
+            acc_p = accepted[:, perm]
+
+            for off, ns in zip(offsets, sizes):
+                blk = slice(off, off + ns)
+
+                def comp(x):
+                    return torch.cat([x[:, :off], x[:, off + ns:]], dim=1)
+
+                s_coords = {n: coords_p[n][:, blk] for n in names}
+                c_coords = {n: comp(coords_p[n]) for n in names}
+                s_inds = {n: inds_p[n][:, blk] for n in names}
+                q, factors = self.get_proposal_kernel(
+                    generator, s_coords, c_coords, s_inds, param_masks
+                )
+                # Gibbs parameter masking: non-selected entries keep old values
+                for n in names:
+                    mask = param_masks.get(n)
+                    if mask is not None:
+                        q[n] = torch.where(mask.to(device), q[n], s_coords[n])
+
+                q_eval = {
+                    n: q[n] if n in q else coords_p[n][:, blk] for n in all_names
+                }
+                inds_eval = {n: inds_p[n][:, blk] for n in all_names}
+                logp_new = ctx.compute_log_prior(q_eval, inds_eval)
+                logl_new, _ = ctx.compute_log_like(q_eval, inds_eval, logp_new)
+
+                prev_logl = logl_p[:, blk]
+                prev_logp = logp_p[:, blk]
+                logP_new = tempered_log_likelihood(logl_new, betas) + logp_new
+                logP_old = tempered_log_likelihood(prev_logl, betas) + prev_logp
+                acc = mh_accept(generator, factors, logP_new, logP_old)
+
+                acc4 = acc[:, :, None, None]
+                for n in names:
+                    coords_p[n][:, blk] = torch.where(acc4, q[n], s_coords[n])
+                logl_p[:, blk] = torch.where(acc, logl_new, prev_logl)
+                logp_p[:, blk] = torch.where(acc, logp_new, prev_logp)
+                # a walker accepted in any Gibbs iteration counts as accepted
+                acc_p[:, blk] = acc | acc_p[:, blk]
+
+            coords = {n: coords_p[n][:, inv_perm] for n in all_names}
+            logl = logl_p[:, inv_perm]
+            logp = logp_p[:, inv_perm]
+            accepted = acc_p[:, inv_perm]
+
+        new_state = state.replace(
+            coords=coords, inds=inds, log_like=logl, log_prior=logp
+        )
+        return new_state, accepted, kernel_state

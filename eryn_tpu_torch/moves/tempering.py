@@ -1,0 +1,407 @@
+"""Parallel tempering: the temperature ladder, the swap cascade and ladder
+adaptation.
+
+Port of :mod:`eryn_tpu.moves.tempering` for the stochastic cascade and the
+Vousden ladder adaptation.  The cascade has two forms:
+
+* the general form (:meth:`TemperatureControl._swap_cascade_general`): per
+  rung, two uniform random walker permutations, carrying a provenance index
+  that one gather applies to the swap payload at the end; the path on the
+  CPU;
+* the kernel form (:meth:`TemperatureControl._swap_cascade_kernel`): one
+  uniform relabelling of the walker axis per cascade, a random rotation per
+  rung, and the whole cascade with its packed payload in one CUDA launch
+  (:func:`~eryn_tpu_torch.ops.pt_swap.pt_swap_cascade_multi`); taken on a
+  CUDA device whenever ``permute`` is on.
+
+Both are valid state-independent pairings, so they agree statistically, not
+decision for decision.
+"""
+
+from __future__ import annotations
+
+import math
+
+import numpy as np
+import torch
+
+from ..ops.pt_swap import (
+    _check_provenance_capacity,
+    pt_swap_cascade,
+    pt_swap_cascade_multi,
+)
+
+__all__ = ["TemperatureControl", "make_ladder", "tempered_log_likelihood"]
+
+
+# Geometric temperature-step table indexed by dimension, targeting a 25%
+# swap-acceptance ratio for a Gaussian posterior (ptemcee's published
+# constants, as in eryn_tpu.moves.tempering).
+_TSTEP_TABLE = np.array([
+    25.2741, 7.0, 4.47502, 3.5236, 3.0232, 2.71225, 2.49879, 2.34226, 2.22198,
+    2.12628, 2.04807, 1.98276, 1.92728, 1.87946, 1.83774, 1.80096, 1.76826,
+    1.73895, 1.7125, 1.68849, 1.66657, 1.64647, 1.62795, 1.61083, 1.59494,
+    1.58014, 1.56632, 1.55338, 1.54123, 1.5298, 1.51901, 1.50881, 1.49916,
+    1.49, 1.4813, 1.47302, 1.46512, 1.45759, 1.45039, 1.4435, 1.4369, 1.43056,
+    1.42448, 1.41864, 1.41302, 1.40761, 1.40239, 1.39736, 1.3925, 1.38781,
+    1.38327, 1.37888, 1.37463, 1.37051, 1.36652, 1.36265, 1.35889, 1.35524,
+    1.3517, 1.34825, 1.3449, 1.34164, 1.33847, 1.33538, 1.33236, 1.32943,
+    1.32656, 1.32377, 1.32104, 1.31838, 1.31578, 1.31325, 1.31076, 1.30834,
+    1.30596, 1.30364, 1.30137, 1.29915, 1.29697, 1.29484, 1.29275, 1.29071,
+    1.2887, 1.28673, 1.2848, 1.28291, 1.28106, 1.27923, 1.27745, 1.27569,
+    1.27397, 1.27227, 1.27061, 1.26898, 1.26737, 1.26579, 1.26424, 1.26271,
+    1.26121, 1.25973,
+])
+
+
+def make_ladder(ndim, ntemps=None, Tmax=None):
+    """Geometric inverse-temperature ladder (ptemcee's selection rule): 25%
+    swap-acceptance spacing by dimension, with ``Tmax=inf`` appending a
+    beta = 0 rung.  Returns a float64 numpy array."""
+    if not isinstance(ndim, (int, np.integer)) or ndim < 1:
+        raise ValueError("Invalid number of dimensions specified.")
+    if ntemps is None and Tmax is None:
+        raise ValueError("Must specify one of ``ntemps`` and ``Tmax``.")
+    if Tmax is not None and Tmax <= 1:
+        raise ValueError("``Tmax`` must be greater than 1.")
+    if ntemps is not None and (
+        not isinstance(ntemps, (int, np.integer)) or ntemps < 1
+    ):
+        raise ValueError("Invalid number of temperatures specified.")
+
+    if ndim > _TSTEP_TABLE.shape[0]:
+        tstep = 1.0 + 2.0 * np.sqrt(np.log(4.0)) / np.sqrt(ndim)
+    else:
+        tstep = _TSTEP_TABLE[ndim - 1]
+
+    append_inf = False
+    if Tmax == np.inf:
+        if ntemps is None:
+            raise ValueError(
+                "Must specify at least one of ntemps and finite Tmax."
+            )
+        append_inf = True
+        Tmax = None
+        ntemps = ntemps - 1
+
+    if ntemps is not None:
+        if Tmax is None:
+            Tmax = tstep ** (ntemps - 1)
+    else:
+        ntemps = int(np.log(Tmax) / np.log(tstep) + 2)
+
+    betas = np.logspace(0, -np.log10(Tmax), ntemps)
+    if append_inf:
+        betas = np.concatenate((betas, [0.0]))
+    return betas
+
+
+def tempered_log_likelihood(logl, betas):
+    """``beta * logl`` with the ptemcee beta == 0 guard: anywhere the product
+    is NaN (``0 * -inf``) return ``-inf``."""
+    if logl.ndim == 2 and betas.ndim == 1:
+        betas = betas[:, None]
+    out = logl * betas
+    return torch.where(torch.isnan(out), -math.inf, out)
+
+
+def _flatten(tree, prefix=()):
+    """Leaves of a nested dict as ``(path, tensor)`` in sorted key order."""
+    if isinstance(tree, dict):
+        out = []
+        for k in sorted(tree):
+            out += _flatten(tree[k], prefix + (k,))
+        return out
+    return [(prefix, tree)]
+
+
+def _unflatten(paths, leaves):
+    tree = {}
+    for path, leaf in zip(paths, leaves):
+        node = tree
+        for k in path[:-1]:
+            node = node.setdefault(k, {})
+        node[path[-1]] = leaf
+    return tree
+
+
+def _gather_walkers(tree, flat, ntemps, nwalkers):
+    """Apply a flat ``(ntemps * nwalkers)`` provenance index to every leaf."""
+    paths, leaves = zip(*_flatten(tree))
+    return _unflatten(paths, [
+        leaf.reshape((ntemps * nwalkers,) + leaf.shape[2:])[flat]
+        .reshape(leaf.shape)
+        for leaf in leaves
+    ])
+
+
+class TemperatureControl:
+    """Temperature ladder, swap cascade and ladder adaptation.
+
+    Host attributes (``betas``, ``time``, ``swaps_accepted``,
+    ``swaps_proposed``) mirror Eryn's object; the sampler syncs them after
+    each run.  :meth:`temper_kernel` is the per-step entry point.
+
+    ``use_kernels``: None (default) runs the kernel cascade when the state
+    lies on a CUDA device and ``permute`` is on; True runs it on any device
+    (on the CPU through its plain PyTorch version); False always runs the
+    general cascade.
+    """
+
+    def __init__(
+        self,
+        effective_ndim=None,
+        nwalkers=None,
+        ntemps=1,
+        betas=None,
+        Tmax=None,
+        adaptive=True,
+        adaptation_lag=10000,
+        adaptation_time=100,
+        stop_adaptation=-1,
+        permute=True,
+        use_kernels=None,
+    ):
+        if betas is None:
+            if ntemps == 1:
+                betas = np.array([1.0])
+            else:
+                betas = make_ladder(effective_ndim, ntemps=ntemps, Tmax=Tmax)
+        betas = np.asarray(betas, dtype=np.float64)
+
+        self.nwalkers = nwalkers
+        self.betas = betas
+        self.ntemps = ntemps = len(betas)
+        self.permute = permute
+        self.use_kernels = use_kernels
+        self.time = 0
+        self.adaptive = adaptive
+        self.adaptation_time = adaptation_time
+        self.adaptation_lag = adaptation_lag
+        self.stop_adaptation = stop_adaptation
+        self.swaps_proposed = np.full(ntemps - 1, nwalkers)
+        self.swaps_accepted = np.zeros(ntemps - 1)
+
+    # ------------------------------------------------------------------
+    # swap cascade
+    # ------------------------------------------------------------------
+    def _use_kernel_cascade(self, logl):
+        if not self.permute or self.use_kernels is False:
+            return False
+        return self.use_kernels is True or logl.device.type == "cuda"
+
+    def swap_kernel(self, generator, swap_tree, logl, betas):
+        """One swap phase, highest rung to lowest.
+
+        Args:
+            generator: the sampler's ``torch.Generator``.
+            swap_tree: nested dict of tensors with leading ``(ntemps,
+                nwalkers)`` dims, exchanged alongside ``logl``.
+            logl: ``(ntemps, nwalkers)`` log-likelihoods.
+
+        Returns:
+            ``(swap_tree, logl, swaps_accepted)``, the last ``(ntemps - 1,)``.
+        """
+        ntemps, nwalkers = logl.shape
+        if ntemps == 1:
+            return swap_tree, logl, logl.new_zeros((0,))
+        if self._use_kernel_cascade(logl):
+            pi, shifts, raccept = self.draw_kernel(
+                generator, ntemps, nwalkers, logl.dtype, logl.device
+            )
+            return self._swap_cascade_kernel(
+                swap_tree, logl, betas, pi, shifts, raccept
+            )
+        if self.permute:
+            perms = torch.argsort(
+                torch.rand((ntemps - 1, 2, nwalkers), generator=generator,
+                           device=logl.device),
+                dim=-1,
+            )
+        else:
+            perms = torch.arange(nwalkers, device=logl.device).expand(
+                ntemps - 1, 2, nwalkers
+            )
+        raccept = torch.log(
+            torch.rand((ntemps - 1, nwalkers), generator=generator,
+                       dtype=logl.dtype, device=logl.device)
+        )
+        return self._swap_cascade_general(swap_tree, logl, betas, perms, raccept)
+
+    @staticmethod
+    def draw_kernel(generator, ntemps, nwalkers, dtype, device):
+        """Randomness of one kernel cascade: the walker relabelling ``pi``,
+        the per-rung rotations ``shifts`` (int32) and the log-uniform
+        acceptance draws ``raccept``."""
+        pi = torch.argsort(
+            torch.rand(nwalkers, generator=generator, device=device)
+        )
+        shifts = torch.randint(
+            0, nwalkers, (ntemps - 1,), generator=generator, device=device,
+            dtype=torch.int32,
+        )
+        raccept = torch.log(
+            torch.rand((ntemps - 1, nwalkers), generator=generator,
+                       dtype=dtype, device=device)
+        )
+        return pi, shifts, raccept
+
+    def _swap_cascade_general(self, swap_tree, logl, betas, perms, raccept):
+        """General cascade from the given draws: ``perms`` is
+        ``(ntemps - 1, 2, nwalkers)`` (walker orders of rung i and rung i-1
+        per boundary)."""
+        ntemps, nwalkers = logl.shape
+        if logl.dtype == torch.float32:  # float64 carries exact ints to 2^53
+            _check_provenance_capacity(ntemps, nwalkers)
+        inv_perms = torch.argsort(perms, dim=-1)
+        origin0 = torch.arange(
+            ntemps * nwalkers, dtype=logl.dtype, device=logl.device
+        ).reshape(ntemps, nwalkers)
+        data = torch.stack([logl, origin0], dim=-1)  # (ntemps, nwalkers, 2)
+        accepted = []
+        for i in range(ntemps - 1, 0, -1):
+            dbeta = betas[i - 1] - betas[i]
+            di = data[i][perms[i - 1, 0]]
+            di1 = data[i - 1][perms[i - 1, 1]]
+            sel = (dbeta * (di[:, 0] - di1[:, 0]) > raccept[i - 1])[:, None]
+            accepted.append(sel.sum().to(logl.dtype))
+            # the gathers above copied both rows, so the writes below
+            # cannot clobber their own inputs
+            data[i] = torch.where(sel, di1, di)[inv_perms[i - 1, 0]]
+            data[i - 1] = torch.where(sel, di, di1)[inv_perms[i - 1, 1]]
+        flat = data[..., 1].long().reshape(-1)
+        swap_tree = _gather_walkers(swap_tree, flat, ntemps, nwalkers)
+        return swap_tree, data[..., 0], torch.stack(accepted[::-1])
+
+    def _try_pack_channels(self, swap_tree, logl):
+        """Pack the swap tree into ``(ntemps, D, nwalkers)`` channels of the
+        logl dtype, or return None when a leaf cannot ride such a channel
+        exactly.  Bool masks pack as 0/1; an integer leaf packs only when it
+        is a provenance index (``__prov__``, bounded by ``ntemps *
+        nwalkers``) that the channel dtype holds exactly; float leaves must
+        have the logl dtype."""
+        ntemps, nwalkers = logl.shape
+        leaves = _flatten(swap_tree)
+        exact_ints = 2**24 if logl.dtype == torch.float32 else 2**53
+        chans = []
+        for path, leaf in leaves:
+            if tuple(leaf.shape[:2]) != (ntemps, nwalkers):
+                return None
+            if leaf.dtype == torch.bool:
+                pass
+            elif not leaf.dtype.is_floating_point:
+                if path[-1] != "__prov__" or ntemps * nwalkers >= exact_ints:
+                    return None
+            elif leaf.dtype != logl.dtype:
+                return None
+            flat = leaf.reshape(ntemps, nwalkers, -1).to(logl.dtype)
+            chans.append(flat.transpose(1, 2))  # (nt, k, nw)
+        channels = torch.cat(chans, dim=1)
+
+        def unpack(channels_out):
+            out, off = [], 0
+            for _, leaf in leaves:
+                k = math.prod(leaf.shape[2:])
+                arr = channels_out[:, off:off + k].transpose(1, 2)
+                off += k
+                arr = arr.reshape(leaf.shape)
+                if leaf.dtype == torch.bool:
+                    arr = arr > 0.5
+                elif not leaf.dtype.is_floating_point:
+                    arr = arr.to(leaf.dtype)
+                out.append(arr)
+            return _unflatten([p for p, _ in leaves], out)
+
+        return channels, unpack
+
+    def _swap_cascade_kernel(self, swap_tree, logl, betas, pi, shifts, raccept):
+        """Kernel cascade from the given draws (see :meth:`draw_kernel`).
+
+        The packed payload rides the kernel with the log-likelihood; the
+        walker relabelling is an index gather on each side.  A tree that
+        does not pack takes the provenance cascade and one gather."""
+        ntemps, nwalkers = logl.shape
+        inv_pi = torch.argsort(pi)
+        dbetas = (betas[:-1] - betas[1:]).contiguous()
+        packed = self._try_pack_channels(swap_tree, logl)
+        if packed is not None:
+            channels, unpack = packed
+            logl_res, channels_res, sel = pt_swap_cascade_multi(
+                logl[:, pi], channels[:, :, pi], dbetas, shifts, raccept
+            )
+            logl_new = logl_res[:, inv_pi]
+            swap_tree = unpack(channels_res[:, :, inv_pi])
+        else:
+            # provenance initialised with the TRUE original flat indices
+            origin0 = (
+                torch.arange(ntemps, dtype=logl.dtype, device=logl.device)[:, None]
+                * nwalkers + pi[None, :].to(logl.dtype)
+            )
+            logl_res, origin_res, sel = pt_swap_cascade(
+                logl[:, pi], origin0, dbetas, shifts, raccept
+            )
+            logl_new = logl_res[:, inv_pi]
+            flat = origin_res[:, inv_pi].long().reshape(-1)
+            swap_tree = _gather_walkers(swap_tree, flat, ntemps, nwalkers)
+        return swap_tree, logl_new, sel.sum(dim=-1)
+
+    # ------------------------------------------------------------------
+    # ladder adaptation
+    # ------------------------------------------------------------------
+    def ladder_adjustment_kernel(self, time, betas, ratios):
+        """Ladder adjustment per arXiv:1501.05823: each interior rung drifts
+        by the local difference of neighbouring acceptance ratios."""
+        # the gain is a host scalar in the betas dtype: a tensor made from it
+        # would cost a host-to-device copy every step
+        np_dtype = np.float32 if betas.dtype == torch.float32 else np.float64
+        decay = np_dtype(self.adaptation_lag) / (
+            np_dtype(time) + np_dtype(self.adaptation_lag)
+        )
+        kappa = float(decay / np_dtype(self.adaptation_time))
+        dSs = kappa * (ratios[:-1] - ratios[1:])
+        deltaTs = torch.diff(1.0 / betas[:-1]) * torch.exp(dSs)
+        new_mid = 1.0 / (torch.cumsum(deltaTs, dim=0) + 1.0 / betas[0])
+        return torch.cat([betas[:1], new_mid, betas[-1:]])
+
+    def temper_kernel(self, generator, state, time, adapt=True):
+        """Swap cascade, then (optionally) ladder adaptation.
+
+        Args:
+            generator: the sampler's ``torch.Generator``.
+            state: :class:`~eryn_tpu_torch.state.State`.
+            time: adaptation clock, a Python int (it advances by one per
+                adapting phase, so it never needs the device).
+            adapt: in-model moves adapt the ladder; reversible-jump moves do
+                not.
+
+        Returns:
+            ``(state, swaps_accepted, time)``.
+        """
+        ntemps, nwalkers = state.log_like.shape
+        if ntemps == 1:
+            return state, state.log_like.new_zeros((0,)), time
+        swap_tree = {
+            "coords": state.branches_coords,
+            "inds": state.branches_inds,
+            "log_prior": state.log_prior,
+        }
+        swap_tree, logl, swaps_accepted = self.swap_kernel(
+            generator, swap_tree, state.log_like, state.betas
+        )
+        # every consumer normalizes by nwalkers proposals per rung, as the
+        # JAX package's accept counts (ratio times nwalkers) do
+        ratios = swaps_accepted / nwalkers
+        swaps_accepted = ratios * nwalkers
+        betas = state.betas
+        if adapt and self.adaptive:
+            if self.stop_adaptation < 0 or time < self.stop_adaptation:
+                betas = self.ladder_adjustment_kernel(time, betas, ratios)
+            time = time + 1
+        new_state = state.replace(
+            coords=swap_tree["coords"],
+            inds=swap_tree["inds"],
+            log_like=logl,
+            log_prior=swap_tree["log_prior"],
+            betas=betas,
+        )
+        return new_state, swaps_accepted, time
