@@ -1,10 +1,12 @@
 """eryn_tpu_torch: the PyTorch and CUDA port of eryn_tpu.
 
-The port mirrors :mod:`eryn_tpu`'s modules and public names.  Its hot path,
-the parallel-tempered stretch sampler, runs on an NVIDIA Hopper GPU through
-three hand-written CUDA kernels (``csrc/``): the stretch proposal, the
-tempered accept, and the swap cascade.  Each kernel has a plain PyTorch
-version, which is what runs for tensors on the CPU.
+The port mirrors :mod:`eryn_tpu`'s modules and public names.  Its samplers
+(the parallel-tempered stretch sampler, and reversible jump with the red/blue
+group stretch) run on an NVIDIA Hopper GPU through five hand-written CUDA
+kernels (``csrc/``): the stretch proposal, the tempered accept, the swap
+cascade and its large-ensemble form, and the masked-uniform complement
+selection.  Each kernel has a plain PyTorch version, which is what runs for
+tensors on the CPU.
 """
 
 __version__ = "0.1.0"

@@ -58,6 +58,9 @@ class Backend:
         self.log_prior = np.empty((0, ntemps, nwalkers), dtype=self.dtype)
         self.betas = np.empty((0, ntemps), dtype=self.dtype)
         self.accepted = np.zeros((ntemps, nwalkers), dtype=self.dtype)
+        self.rj_accepted = (
+            np.zeros((ntemps, nwalkers), dtype=self.dtype) if rj else None
+        )
         self.swaps_accepted = (
             np.zeros((ntemps - 1,), dtype=self.dtype) if ntemps > 1 else None
         )
@@ -93,11 +96,13 @@ class Backend:
         self.betas = extend(self.betas, np.nan)
 
     def save_segment(self, coords, inds, log_like, log_prior, betas,
-                     accepted=None, swaps_accepted=None,
+                     accepted=None, rj_accepted=None, swaps_accepted=None,
                      moves_accepted_fraction=None, random_state=None):
         """Append a segment of stored steps (every array leads with the
-        ``nstored`` axis; ``accepted`` and ``swaps_accepted`` are per-step
-        counts, summed into the cumulative counters)."""
+        ``nstored`` axis; ``inds`` may also be one step's masks, constant
+        over the segment; ``accepted``, ``rj_accepted`` and
+        ``swaps_accepted`` are per-step counts, summed into the cumulative
+        counters)."""
         log_like = np.asarray(log_like, dtype=self.dtype)
         n = log_like.shape[0]
         sl = slice(self.iteration, self.iteration + n)
@@ -112,6 +117,10 @@ class Backend:
         self.betas[sl] = np.asarray(betas, dtype=self.dtype)
         if accepted is not None:
             self.accepted += np.asarray(accepted, dtype=self.dtype).sum(axis=0)
+        if self.rj_accepted is not None and rj_accepted is not None:
+            self.rj_accepted += np.asarray(
+                rj_accepted, dtype=self.dtype
+            ).sum(axis=0)
         if self.swaps_accepted is not None and swaps_accepted is not None:
             self.swaps_accepted += np.asarray(
                 swaps_accepted, dtype=self.dtype

@@ -83,6 +83,10 @@ class DeviceBackend(Backend):
         lambda self: self._counter_get("accepted"),
         lambda self, v: self._counter_set("accepted", v),
     )
+    rj_accepted = property(
+        lambda self: self._counter_get("rj_accepted"),
+        lambda self, v: self._counter_set("rj_accepted", v),
+    )
     swaps_accepted = property(
         lambda self: self._counter_get("swaps_accepted"),
         lambda self, v: self._counter_set("swaps_accepted", v),
@@ -99,7 +103,7 @@ class DeviceBackend(Backend):
         """Nothing to preallocate: segments arrive as device buffers."""
 
     def save_segment_packed(self, n, packed, unpack, accepted_sum=None,
-                            swaps_accepted_sum=None,
+                            rj_accepted_sum=None, swaps_accepted_sum=None,
                             moves_accepted_fraction=None, random_state=None):
         """Append a segment as the sampler's packed snapshot buffers.  No
         device work and no host transfer happen here: counter sums arrive
@@ -107,6 +111,10 @@ class DeviceBackend(Backend):
         self._segs.append(_LazySeg(n, dict(packed), unpack))
         if accepted_sum is not None:
             self._counter_dev.setdefault("accepted", []).append(accepted_sum)
+        if rj_accepted_sum is not None and self.rj:
+            self._counter_dev.setdefault("rj_accepted", []).append(
+                rj_accepted_sum
+            )
         if swaps_accepted_sum is not None and self.ntemps > 1:
             self._counter_dev.setdefault("swaps_accepted", []).append(
                 swaps_accepted_sum

@@ -16,13 +16,14 @@ the whole batch.
 from __future__ import annotations
 
 import os
+import warnings
 
 import numpy as np
 import torch
 
 from .backends import Backend, DeviceBackend
 from .model import Model
-from .moves import StretchMove
+from .moves import DistributionGenerateRJ, StretchMove
 from .moves.move import EvalContext
 from .moves.tempering import TemperatureControl
 from .prior import ProbDistContainer
@@ -194,13 +195,16 @@ class EnsembleSampler:
         branch_names=None,
         nbranches=1,
         nleaves_max=1,
+        nleaves_min=0,
         moves=None,
+        rj_moves=None,
         args=None,
         kwargs=None,
         backend=None,
         vectorize=False,
         fill_zero_leaves_val=-1e300,
         num_repeats_in_model=1,
+        num_repeats_rj=1,
         track_moves=True,
         info={},
         seed=None,
@@ -212,6 +216,7 @@ class EnsembleSampler:
             raise TypeError("dtype must be torch.float32 or torch.float64.")
         self.device = torch.device(device) if device is not None else None
         self.num_repeats_in_model = int(num_repeats_in_model)
+        self.num_repeats_rj = int(num_repeats_rj)
         self.track_moves = track_moves
         self.info = info
 
@@ -223,6 +228,7 @@ class EnsembleSampler:
         self.nbranches = len(self.branch_names)
         self.ndims = self._per_branch(ndims, "ndims")
         self.nleaves_max = self._per_branch(nleaves_max, "nleaves_max")
+        self.nleaves_min = self._per_branch(nleaves_min, "nleaves_min")
         self.nwalkers = int(nwalkers)
 
         if tempering_kwargs == {}:
@@ -242,16 +248,31 @@ class EnsembleSampler:
         if moves is None:
             self.moves, self.weights = [StretchMove()], [1.0]
         else:
-            entries = moves if isinstance(moves, (list, tuple)) else [moves]
-            pairs = [e if isinstance(e, tuple) else (e, 1.0) for e in entries]
-            total = sum(float(w) for _, w in pairs)
-            self.moves = [m for m, _ in pairs]
-            self.weights = [float(w) / total for _, w in pairs]
-        for move in self.moves:
+            self.moves, self.weights = self._parse_moves(moves)
+        self.rj_moves, self.rj_weights = self._parse_rj_moves(rj_moves)
+        self.has_reversible_jump = len(self.rj_moves) > 0
+        if self.has_reversible_jump and any(
+            type(m) is StretchMove for m in self.moves
+        ):
+            warnings.warn(
+                "Using the plain StretchMove for in-model proposals under "
+                "reversible jump is not advised: the stretch ray targets the "
+                "complement walker's same leaf slot, which may be inactive. "
+                "Use RedBlueGroupStretchMove instead, which stretches each "
+                "active leaf toward an active complement leaf.",
+                stacklevel=2,
+            )
+        # in-model moves first, then the RJ moves: one index space for the
+        # kernel states and accept counters
+        self._all_move_list = self.moves + self.rj_moves
+        # leaf masks change only where an RJ move runs; otherwise they are
+        # stored once per segment instead of per step
+        self._inds_change = any(m.is_rj for m in self._all_move_list)
+        for move in self._all_move_list:
             move.temperature_control = self.temperature_control
         self.all_moves = {}
         counts = {}
-        for move in self.moves:
+        for move in self._all_move_list:
             base = type(move).__name__
             self.all_moves[f"{base}_{counts.get(base, 0)}"] = move
             counts[base] = counts.get(base, 0) + 1
@@ -284,7 +305,7 @@ class EnsembleSampler:
         self._previous_state = None
         self._kernel_states = None
         self._m_acc = None
-        self._m_nprop = np.zeros(len(self.moves))
+        self._m_nprop = np.zeros(len(self._all_move_list))
         self._static_inds = self._static_inds_host = None
         if self.device is not None:
             self._make_generators()
@@ -308,6 +329,43 @@ class EnsembleSampler:
                 )
             return {k: int(v) for k, v in value.items()}
         raise ValueError(f"{label} must be a scalar int, list or dict.")
+
+    @staticmethod
+    def _parse_moves(moves):
+        """``(moves, normalized weights)`` from a move, a list of moves, or
+        a list of ``(move, weight)`` pairs."""
+        entries = moves if isinstance(moves, (list, tuple)) else [moves]
+        pairs = [e if isinstance(e, tuple) else (e, 1.0) for e in entries]
+        total = sum(float(w) for _, w in pairs)
+        return [m for m, _ in pairs], [float(w) / total for _, w in pairs]
+
+    def _parse_rj_moves(self, rj_moves):
+        """RJ moves from ``rj_moves``: None or False (none), True or
+        ``"together"`` (one birth/death move over every branch from the
+        priors), ``"iterate_branches"`` or ``"separate_branches"`` (one
+        such move per branch, equally weighted), or moves as for
+        ``moves``."""
+        if rj_moves is None or rj_moves is False:
+            return [], []
+        if rj_moves is True or rj_moves == "together":
+            return [DistributionGenerateRJ(
+                self.priors, nleaves_max=self.nleaves_max,
+                nleaves_min=self.nleaves_min,
+            )], [1.0]
+        if rj_moves in ("iterate_branches", "separate_branches"):
+            out = [
+                DistributionGenerateRJ(
+                    {name: self.priors[name]},
+                    nleaves_max={name: self.nleaves_max[name]},
+                    nleaves_min={name: self.nleaves_min[name]},
+                    proposal_branch_names=[name],
+                )
+                for name in self.branch_names
+            ]
+            return out, [1.0 / len(out)] * len(out)
+        if isinstance(rj_moves, str):
+            raise ValueError(f"Unknown rj_moves mode: {rj_moves}")
+        return self._parse_moves(rj_moves)
 
     def _normalize_priors(self, priors):
         if isinstance(priors, ProbDistContainer):
@@ -360,6 +418,7 @@ class EnsembleSampler:
             nleaves_max=self.nleaves_max,
             ntemps=self.ntemps,
             branch_names=self.branch_names,
+            rj=self.has_reversible_jump,
             moves=list(self.all_moves) if self.track_moves else None,
             info=self.info,
         )
@@ -393,9 +452,8 @@ class EnsembleSampler:
             return 2048
         itemsize = np.dtype(_NUMPY_DTYPE[self.dtype]).itemsize
         per_step = sum(
-            self.ntemps * self.nwalkers * self.nleaves_max[n] * self.ndims[n]
-            for n in self.branch_names
-        ) * itemsize + 3 * self.ntemps * self.nwalkers * itemsize
+            int(np.prod(s)) for _, _, s in self._snap_layout()
+        ) * itemsize + sum(int(np.prod(s)) for _, _, s in self._u8_layout())
         cap = max(1, (256 << 20) // per_step)
         return min(8192, max(1024, 1 << (cap.bit_length() - 1)))
 
@@ -492,33 +550,66 @@ class EnsembleSampler:
     # ------------------------------------------------------------------
     # the segment loop
     # ------------------------------------------------------------------
-    def _draw_schedule(self, nsteps):
-        """Move index per (step, repeat), drawn on the host."""
-        shape = (nsteps, self.num_repeats_in_model)
-        if len(self.moves) == 1:
+    def _draw_indices(self, weights, nsteps, repeats):
+        shape = (nsteps, repeats)
+        if len(weights) == 1:
             return np.zeros(shape, dtype=np.int64)
-        w = torch.as_tensor(self.weights, dtype=torch.float64)
+        w = torch.as_tensor(weights, dtype=torch.float64)
         draws = torch.multinomial(
             w, shape[0] * shape[1], replacement=True, generator=self._host_gen
         )
         return draws.reshape(shape).numpy()
 
+    def _draw_schedule(self, nsteps):
+        """Move indices into ``_all_move_list`` per step, drawn on the host:
+        ``num_repeats_in_model`` in-model moves, then, under reversible
+        jump, ``num_repeats_rj`` RJ moves."""
+        parts = [self._draw_indices(
+            self.weights, nsteps, self.num_repeats_in_model
+        )]
+        if self.has_reversible_jump:
+            parts.append(len(self.moves) + self._draw_indices(
+                self.rj_weights, nsteps, self.num_repeats_rj
+            ))
+        return np.concatenate(parts, axis=1)
+
     def _step(self, state, time, move_idx, ctx):
         """One sampler step (the counterpart of eryn_tpu's
-        ``_make_one_step``): the in-model repeats, each with its tempering
-        epilogue.  Returns ``(state, time, accepted, swaps)``."""
-        accepted = None
+        ``_make_one_step``): the in-model repeats, then the RJ repeats, each
+        with its tempering epilogue.  Returns ``(state, time, accepted,
+        rj_accepted, swaps)``; ``rj_accepted`` is None without reversible
+        jump, and ``swaps`` are the in-model moves' swaps."""
+        accepted = rj_accepted = swaps = None
         for j in move_idx:
-            move = self.moves[j]
-            state, acc, swaps, time, self._kernel_states[j] = (
+            move = self._all_move_list[j]
+            state, acc, sw, time, self._kernel_states[j] = (
                 move.propose_kernel(
                     self._gen, state, time, ctx, self._kernel_states[j]
                 )
             )
             self._m_acc[j] += acc
             self._m_nprop[j] += 1
-            accepted = acc if accepted is None else accepted + acc
-        return state, time, accepted, swaps
+            if j < len(self.moves):
+                accepted = acc if accepted is None else accepted + acc
+                swaps = sw
+            else:
+                rj_accepted = acc if rj_accepted is None else rj_accepted + acc
+        if accepted is None:  # a schedule without in-model moves
+            accepted = state.log_like.new_zeros(state.log_like.shape)
+            swaps = state.log_like.new_zeros((max(self.ntemps - 1, 0),))
+        return state, time, accepted, rj_accepted, swaps
+
+    def _u8_layout(self):
+        """Per-step u8 snapshot: the accept counts and, when leaf masks can
+        change, the RJ accept counts and every branch's masks."""
+        nt, nw = self.ntemps, self.nwalkers
+        out = [("accepted", None, (nt, nw))]
+        if self.has_reversible_jump:
+            out.append(("rj_accepted", None, (nt, nw)))
+        if self._inds_change:
+            out += [("inds", n, (nt, nw, self.nleaves_max[n]))
+                    for n in self.branch_names]
+        return out
 
     def _snap_layout(self):
         nt, nw = self.ntemps, self.nwalkers
@@ -538,13 +629,16 @@ class EnsembleSampler:
 
         Returns ``(state, snaps)``: ``snaps`` holds the packed ``fp`` buffer
         ``(nstored, F)`` (coords, log_like, log_prior, betas, swaps) and the
-        ``u8`` accept flags ``(nstored, ntemps * nwalkers)``, both on the
+        packed ``u8`` buffer (:meth:`_u8_layout`: accept flags, and under
+        reversible jump the RJ accept flags and the leaf masks), both on the
         device, or is None without ``store``."""
         if self._kernel_states is None:
-            self._kernel_states = [m.init_kernel_state(state) for m in self.moves]
+            self._kernel_states = [
+                m.init_kernel_state(state) for m in self._all_move_list
+            ]
         if self._m_acc is None:
             self._m_acc = torch.zeros(
-                (len(self.moves), self.ntemps, self.nwalkers),
+                (len(self._all_move_list), self.ntemps, self.nwalkers),
                 dtype=self.dtype, device=self.device,
             )
         ctx = self.get_eval_context()
@@ -554,16 +648,17 @@ class EnsembleSampler:
         snaps = None
         if store:
             width = sum(int(np.prod(s)) for _, _, s in self._snap_layout())
+            width_u8 = sum(int(np.prod(s)) for _, _, s in self._u8_layout())
             snaps = {
                 "fp": torch.empty((nstored, width), dtype=self.dtype,
                                   device=self.device),
-                "u8": torch.empty((nstored, self.ntemps * self.nwalkers),
-                                  dtype=torch.uint8, device=self.device),
+                "u8": torch.empty((nstored, width_u8), dtype=torch.uint8,
+                                  device=self.device),
             }
         k = 0
         for s in range(nstored):
             for _ in range(thin_by):
-                state, time, accepted, swaps = self._step(
+                state, time, accepted, rj_accepted, swaps = self._step(
                     state, time, schedule[k], ctx
                 )
                 k += 1
@@ -575,7 +670,13 @@ class EnsembleSampler:
                        state.betas.reshape(-1), swaps.reshape(-1)],
                     out=snaps["fp"][s],
                 )
-                snaps["u8"][s].copy_(accepted.reshape(-1))
+                u8 = {"accepted": accepted, "rj_accepted": rj_accepted}
+                torch.cat(
+                    [(u8[kind] if name is None
+                      else state.branches[name].inds).reshape(-1).to(torch.uint8)
+                     for kind, name, _ in self._u8_layout()],
+                    out=snaps["u8"][s],
+                )
         if tc is not None:
             # device tensors: reading them on the host is the caller's sync
             tc.time = time
@@ -584,18 +685,25 @@ class EnsembleSampler:
         self._previous_state = state
         return state, snaps
 
-    def _split_fp(self, fp):
-        """Named views of a packed ``fp`` buffer (leading step axis kept)."""
-        out, off = {"coords": {}}, 0
-        for kind, name, shape in self._snap_layout():
+    @staticmethod
+    def _split(buf, layout):
+        """Named views of a packed buffer (leading step axis kept)."""
+        out, off = {}, 0
+        for kind, name, shape in layout:
             size = int(np.prod(shape))
-            arr = fp[:, off:off + size].reshape((fp.shape[0],) + shape)
+            arr = buf[:, off:off + size].reshape((buf.shape[0],) + shape)
             off += size
             if name is None:
                 out[kind] = arr
             else:
-                out[kind][name] = arr
+                out.setdefault(kind, {})[name] = arr
         return out
+
+    def _split_fp(self, fp):
+        return self._split(fp, self._snap_layout())
+
+    def _split_u8(self, u8):
+        return self._split(u8, self._u8_layout())
 
     def _move_fractions(self):
         if not self.track_moves:
@@ -607,28 +715,35 @@ class EnsembleSampler:
 
     def _save_snaps(self, snaps):
         """Hand one stored segment to the backend."""
-        nt, nw = self.ntemps, self.nwalkers
+        nt = self.ntemps
         n = snaps["fp"].shape[0]
         fractions = self._move_fractions()
         if self.backend.device_resident:
-            accepted_sum = snaps["u8"].to(self.dtype).sum(dim=0).reshape(nt, nw)
+            flags = self._split_u8(snaps["u8"])
             swaps_sum = snaps["fp"][:, snaps["fp"].shape[1] - (nt - 1):].sum(0)
+            rj_sum = flags.get("rj_accepted")
             self.backend.save_segment_packed(
                 n, snaps, self._make_seg_unpacker(),
-                accepted_sum=accepted_sum,
+                accepted_sum=flags["accepted"].to(self.dtype).sum(dim=0),
+                rj_accepted_sum=(None if rj_sum is None
+                                 else rj_sum.to(self.dtype).sum(dim=0)),
                 swaps_accepted_sum=swaps_sum if nt > 1 else None,
                 moves_accepted_fraction=fractions,
                 random_state=self.random_state,
             )
             return
         fields = self._split_fp(snaps["fp"].cpu().numpy())
+        flags = self._split_u8(snaps["u8"].cpu())
+        rj = flags.get("rj_accepted")
         self.backend.save_segment(
             coords=fields["coords"],
-            inds=self._static_inds_host,
+            inds=({n: m.numpy().astype(bool) for n, m in flags["inds"].items()}
+                  if "inds" in flags else self._static_inds_host),
             log_like=fields["log_like"],
             log_prior=fields["log_prior"],
             betas=fields["betas"],
-            accepted=snaps["u8"].cpu().numpy().reshape(n, nt, nw),
+            accepted=flags["accepted"].numpy(),
+            rj_accepted=None if rj is None else rj.numpy(),
             swaps_accepted=fields["swaps"] if nt > 1 else None,
             moves_accepted_fraction=None if fractions is None else {
                 k: v.cpu().numpy() for k, v in fractions.items()
@@ -638,20 +753,27 @@ class EnsembleSampler:
 
     def _make_seg_unpacker(self):
         """Closure expanding one packed segment into the device backend's
-        fields (chain NaN-masked on dead leaves, static masks without a step
-        axis)."""
-        static_inds = dict(self._static_inds)
+        fields: the chain NaN-masked on dead leaves, and the masks per step
+        when they can change, else the static masks without a step axis."""
+        static_inds = None if self._inds_change else dict(self._static_inds)
         missing = self.backend.store_missing_leaves
 
         def unpack(packed):
             fields = self._split_fp(packed["fp"])
+            if static_inds is None:
+                inds = {n: m.bool()
+                        for n, m in self._split_u8(packed["u8"])["inds"].items()}
+                live = inds
+            else:
+                inds = static_inds
+                live = {n: m[None] for n, m in inds.items()}
             chain = {
-                n: torch.where(static_inds[n][None, ..., None], c, missing)
+                n: torch.where(live[n][..., None], c, missing)
                 for n, c in fields["coords"].items()
             }
             return {
                 "chain": chain,
-                "inds": static_inds,
+                "inds": inds,
                 "log_like": fields["log_like"],
                 "log_prior": fields["log_prior"],
                 "betas": fields["betas"],
@@ -664,7 +786,7 @@ class EnsembleSampler:
         if self._m_acc is None:
             return
         m_acc = self._m_acc.cpu().numpy()
-        for i, move in enumerate(self.moves):
+        for i, move in enumerate(self._all_move_list):
             move.accepted = m_acc[i]
             move.num_proposals = int(self._m_nprop[i])
 
@@ -700,6 +822,12 @@ class EnsembleSampler:
     @property
     def acceptance_fraction(self):
         return self.backend.accepted / float(self.backend.iteration)
+
+    @property
+    def rj_acceptance_fraction(self):
+        if not self.has_reversible_jump:
+            return None
+        return self.backend.rj_accepted / float(self.backend.iteration)
 
     @property
     def swap_acceptance_fraction(self):

@@ -26,8 +26,11 @@ class RedBlueMove(Move):
 
     Subclasses implement ``get_proposal_kernel(generator, s_coords, c_coords,
     s_inds, param_masks) -> (q_dict, factors)`` with ``factors`` shaped
-    ``(ntemps, Ns)``.
+    ``(ntemps, Ns)``.  A subclass that sets ``_needs_c_inds`` also receives
+    the complement's leaf masks as ``c_inds``.
     """
+
+    _needs_c_inds = False
 
     def __init__(self, nsplits=2, randomize_split=True, live_dangerously=False,
                  **kwargs):
@@ -103,8 +106,12 @@ class RedBlueMove(Move):
                 s_coords = {n: coords_p[n][:, blk] for n in names}
                 c_coords = {n: comp(coords_p[n]) for n in names}
                 s_inds = {n: inds_p[n][:, blk] for n in names}
+                kwargs = {}
+                if self._needs_c_inds:
+                    kwargs["c_inds"] = {n: comp(inds_p[n]) for n in names}
                 q, factors = self.get_proposal_kernel(
-                    generator, s_coords, c_coords, s_inds, param_masks
+                    generator, s_coords, c_coords, s_inds, param_masks,
+                    **kwargs
                 )
                 # Gibbs parameter masking: non-selected entries keep old values
                 for n in names:

@@ -12,7 +12,9 @@ Vousden ladder adaptation.  The cascade has two forms:
   uniform relabelling of the walker axis per cascade, a random rotation per
   rung, and the whole cascade with its packed payload in one CUDA launch
   (:func:`~eryn_tpu_torch.ops.pt_swap.pt_swap_cascade_multi`); taken on a
-  CUDA device whenever ``permute`` is on.
+  CUDA device whenever ``permute`` is on.  Above 640 walkers its rotations
+  skip some pairings, and the accepted swaps are divided by the pairings
+  actually proposed.
 
 Both are valid state-independent pairings, so they agree statistically, not
 decision for decision.
@@ -27,6 +29,7 @@ import torch
 
 from ..ops.pt_swap import (
     _check_provenance_capacity,
+    proposals_per_rung,
     pt_swap_cascade,
     pt_swap_cascade_multi,
 )
@@ -200,11 +203,14 @@ class TemperatureControl:
             logl: ``(ntemps, nwalkers)`` log-likelihoods.
 
         Returns:
-            ``(swap_tree, logl, swaps_accepted)``, the last ``(ntemps - 1,)``.
+            ``(swap_tree, logl, swaps_accepted, swaps_proposed)``: accepted
+            pairings per rung, ``(ntemps - 1,)``, and proposed ones, the int
+            ``nwalkers`` where every walker is proposed (see
+            :func:`~eryn_tpu_torch.ops.pt_swap.proposals_per_rung`).
         """
         ntemps, nwalkers = logl.shape
         if ntemps == 1:
-            return swap_tree, logl, logl.new_zeros((0,))
+            return swap_tree, logl, logl.new_zeros((0,)), logl.new_zeros((0,))
         if self._use_kernel_cascade(logl):
             pi, shifts, raccept = self.draw_kernel(
                 generator, ntemps, nwalkers, logl.dtype, logl.device
@@ -226,7 +232,10 @@ class TemperatureControl:
             torch.rand((ntemps - 1, nwalkers), generator=generator,
                        dtype=logl.dtype, device=logl.device)
         )
-        return self._swap_cascade_general(swap_tree, logl, betas, perms, raccept)
+        swap_tree, logl, accepted = self._swap_cascade_general(
+            swap_tree, logl, betas, perms, raccept
+        )
+        return swap_tree, logl, accepted, nwalkers
 
     @staticmethod
     def draw_kernel(generator, ntemps, nwalkers, dtype, device):
@@ -319,7 +328,10 @@ class TemperatureControl:
 
         The packed payload rides the kernel with the log-likelihood; the
         walker relabelling is an index gather on each side.  A tree that
-        does not pack takes the provenance cascade and one gather."""
+        does not pack takes the provenance cascade and one gather.  Returns
+        ``(swap_tree, logl, swaps_accepted, swaps_proposed)``; above
+        :data:`~eryn_tpu_torch.ops.pt_swap.ROLLED_THRESHOLD` walkers a rung
+        proposes fewer than ``nwalkers`` pairings."""
         ntemps, nwalkers = logl.shape
         inv_pi = torch.argsort(pi)
         dbetas = (betas[:-1] - betas[1:]).contiguous()
@@ -343,7 +355,8 @@ class TemperatureControl:
             logl_new = logl_res[:, inv_pi]
             flat = origin_res[:, inv_pi].long().reshape(-1)
             swap_tree = _gather_walkers(swap_tree, flat, ntemps, nwalkers)
-        return swap_tree, logl_new, sel.sum(dim=-1)
+        proposed = proposals_per_rung(nwalkers, shifts, logl.dtype)
+        return swap_tree, logl_new, sel.sum(dim=-1), proposed
 
     # ------------------------------------------------------------------
     # ladder adaptation
@@ -385,12 +398,13 @@ class TemperatureControl:
             "inds": state.branches_inds,
             "log_prior": state.log_prior,
         }
-        swap_tree, logl, swaps_accepted = self.swap_kernel(
+        swap_tree, logl, swaps_accepted, swaps_proposed = self.swap_kernel(
             generator, swap_tree, state.log_like, state.betas
         )
-        # every consumer normalizes by nwalkers proposals per rung, as the
-        # JAX package's accept counts (ratio times nwalkers) do
-        ratios = swaps_accepted / nwalkers
+        # every consumer normalizes by nwalkers proposals per rung, so counts
+        # from a cascade that proposed fewer pairings are rescaled to that
+        # scale, as the JAX package does (a rung always proposes some)
+        ratios = swaps_accepted / swaps_proposed
         swaps_accepted = ratios * nwalkers
         betas = state.betas
         if adapt and self.adaptive:

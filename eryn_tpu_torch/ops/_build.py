@@ -1,10 +1,11 @@
 """Build and bind the port's CUDA kernels.
 
 The sources in ``eryn_tpu_torch/csrc/`` are compiled at first use by ``nvcc``
-for Hopper (``sm_90a``) into one shared library with a plain C interface, and
-loaded with :mod:`ctypes`.  The library lands in ``build/kernels/`` beside the
-package, named by a hash of the sources and flags, so an edited source builds
-anew and an unchanged one is reused.  Nothing here runs at import.
+for Hopper (``sm_90a``), one ``nvcc`` per source in parallel, and linked into
+one shared library with a plain C interface, loaded with :mod:`ctypes`.  The
+library lands in ``build/kernels/`` beside the package, named by a hash of
+the sources and flags, so an edited source builds anew and an unchanged one
+is reused.  Nothing here runs at import.
 """
 
 from __future__ import annotations
@@ -25,9 +26,10 @@ BUILD_DIR = Path(__file__).resolve().parents[2] / "build" / "kernels"
 # No --use_fast_math: the NaN guards of the kernels depend on isnan.
 NVCC_FLAGS = (
     "-gencode", "arch=compute_90a,code=sm_90a",
-    "-std=c++17", "-O3", "-shared", "-Xcompiler", "-fPIC",
+    "-std=c++17", "-O3", "-Xcompiler", "-fPIC",
     "-Xptxas", "-v",
 )
+LINK_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-shared")
 
 _lock = threading.Lock()
 _lib = None
@@ -55,7 +57,7 @@ def _sources():
 
 def library_path():
     """Path of the shared library for the current sources and flags."""
-    digest = hashlib.sha256(" ".join(NVCC_FLAGS).encode())
+    digest = hashlib.sha256(" ".join(NVCC_FLAGS + LINK_FLAGS).encode())
     for src in sorted(_CSRC.glob("*.cu*")):
         digest.update(src.name.encode())
         digest.update(src.read_bytes())
@@ -63,20 +65,33 @@ def library_path():
 
 
 def _compile(path):
+    """One ``nvcc -c`` per source, all started together, then one link."""
     path.parent.mkdir(parents=True, exist_ok=True)
-    tmp = path.with_suffix(f".{os.getpid()}.tmp")
-    cmd = [_nvcc(), *NVCC_FLAGS, "-I", str(_CSRC), "-o", str(tmp)]
-    cmd += [str(s) for s in _sources()]
-    proc = subprocess.run(cmd, capture_output=True, text=True)
+    nvcc, tag = _nvcc(), path.with_suffix(f".{os.getpid()}")
+    tmp = Path(f"{tag}.tmp")
+    objects = [Path(f"{tag}.{src.stem}.o") for src in _sources()]
+    cmds = [[nvcc, *NVCC_FLAGS, "-c", "-I", str(_CSRC), "-o", str(obj),
+             str(src)] for src, obj in zip(_sources(), objects)]
+    procs = [subprocess.Popen(cmd, stdout=subprocess.PIPE,
+                              stderr=subprocess.STDOUT, text=True)
+             for cmd in cmds]
+    runs = [(cmd, proc.communicate()[0], proc.returncode)
+            for cmd, proc in zip(cmds, procs)]
+    if all(rc == 0 for _, _, rc in runs):
+        cmd = [nvcc, *LINK_FLAGS, "-o", str(tmp), *map(str, objects)]
+        proc = subprocess.run(cmd, stdout=subprocess.PIPE,
+                              stderr=subprocess.STDOUT, text=True)
+        runs.append((cmd, proc.stdout, proc.returncode))
+    for obj in objects:
+        obj.unlink(missing_ok=True)
     # ptxas -v reports registers, shared memory and spills per kernel
     path.with_suffix(".log").write_text(
-        " ".join(cmd) + "\n" + proc.stdout + proc.stderr
+        "\n".join(" ".join(cmd) + "\n" + out for cmd, out, _ in runs)
     )
-    if proc.returncode != 0:
-        tmp.unlink(missing_ok=True)
-        raise RuntimeError(
-            f"nvcc failed with exit code {proc.returncode}:\n{proc.stderr}"
-        )
+    for cmd, out, rc in runs:
+        if rc != 0:
+            tmp.unlink(missing_ok=True)
+            raise RuntimeError(f"nvcc failed with exit code {rc}:\n{out}")
     os.replace(tmp, path)
 
 

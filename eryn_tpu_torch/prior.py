@@ -120,6 +120,18 @@ class ProbDistContainer:
             total = total + dist.logpdf(x[..., index])
         return total
 
+    def sample(self, generator, shape=(), dtype=torch.float32):
+        """Draw ``shape + (ndim,)`` samples on the device of ``generator``,
+        the counterpart of the JAX package's ``sample(key, shape)``.  For
+        uniform priors it is one draw and one affine map, with no copy
+        from the host."""
+        if not self._uniform:
+            return self.rvs(shape, generator=generator, dtype=dtype)
+        u = torch.rand(tuple(shape) + (self.ndim,), generator=generator,
+                       dtype=dtype, device=generator.device)
+        mins, maxs, _ = self._uniform_bounds(u)
+        return mins + u * (maxs - mins)
+
     def rvs(self, size=1, *, generator, dtype=torch.float64):
         """Draw ``size + (ndim,)`` samples from ``generator``."""
         if isinstance(size, int):
