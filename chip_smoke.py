@@ -11,11 +11,13 @@ Phases, each printing its own lines:
 1. device: the card's name and ``nvidia-smi`` name and power limit;
 2. build: the CUDA kernels from ``eryn_tpu_torch/csrc`` (one ``nvcc`` per
    source, in parallel);
-3. kernels: each of the five kernels against its plain PyTorch version on
-   the card, in float32 and float64, at the main path's shapes and at odd
-   shapes, then each kernel's time beside its plain version's, its bound
-   (bytes over the memory rate against operations over the peak rate) and
-   the time of one empty launch;
+3. kernels: each of the six kernels (three for the stretch step, two
+   cascades, the selection) against its plain PyTorch version on the card,
+   in float32 and float64, at the main path's shapes and at odd shapes,
+   then each kernel's time per wrapper call beside its plain version's,
+   its bound (bytes over the memory rate against operations over the peak
+   rate) and the time of one empty launch, and the host cost of a
+   wrapper's parts;
 4. main path, four legs through ``EnsembleSampler``, each with the launch
    counters set to 0 just before it and read just after:
 
@@ -33,7 +35,11 @@ Phases, each printing its own lines:
      its launches stay out of the report.
 
    The launch counters must show that every step went through the kernels,
-   and each chain must meet its target.
+   and each chain must meet its target;
+5. profiles (``torch.profiler``, after every timed run): each kernel's
+   device time per launch, and 50 steady steps of each of the first three
+   legs (kernel launches and memcpys per step, device-busy share, the top
+   five device ops).
 
 The second-to-last line of standard output is a JSON object describing the
 kernels, the last ``{"ok": true, "device": {...}}``.  Any failure raises and
@@ -54,16 +60,20 @@ from pathlib import Path
 ROOT = Path(__file__).resolve().parent
 
 NT, NW, NDIM = 10, 100, 5
-NOSTORE_STEPS = 2000
-STORED_STEPS = 1500
-WARM_STEPS = 300
+NOSTORE_STEPS = 1500
+STORED_STEPS = 1200
+WARM_STEPS = 200
 # config E (bench.py:278-308)
-E_NT, E_NW, E_STEPS, E_WARM = 20, 1000, 1500, 300
+E_NT, E_NW, E_STEPS, E_WARM = 20, 1000, 1000, 200
 # LISA-style RJ (benchmarks/lisa_style.py:36-96, heavy=True)
-L_NPTS, L_NLMAX, L_NT, L_NW, L_STEPS, L_WARM = 8192, 8, 10, 200, 2000, 100
+L_NPTS, L_NLMAX, L_NT, L_NW, L_STEPS, L_WARM = 8192, 8, 10, 200, 1200, 100
 # float32: a few ulp (exp/log of the two code paths may differ); float64
 # likewise scaled
 TOL = {"float32": 1e-6, "float64": 1e-12}
+# (nt, nw, D) of the stretch kernels' checks: north-star, config E, an odd
+# shape, and halves of more than 1024 walkers (the block loops)
+STRETCH_SHAPES = ((NT, NW, NDIM), (E_NT, E_NW, NDIM), (8, 99, 13),
+                  (3, 4001, 5))
 # H100 SXM: HBM3 rate, and the float32 rate outside the tensor cores
 HBM_BYTES_PER_S = 3.35e12
 F32_OPS_PER_S = 67e12
@@ -117,6 +127,61 @@ def _select_args(torch, rand, randn, nt, Q, M, nd, empty_last=True):
     return cs, kq, (randn(nt, M, nd) * m[..., None]).contiguous()
 
 
+def _stretch_state(torch, rand, randn, gen, dtype, nt, nw, D):
+    """Walker-order state and draws of one fused step, and each half's
+    likelihood and prior values (with NaN and -inf in them)."""
+    n0 = nw - nw // 2
+    st = dict(
+        X=randn(nt, nw, D), logl=randn(nt, nw) * 3, logp=randn(nt, nw),
+        ndim_act=torch.full((nt, nw), float(D), dtype=dtype, device="cuda"),
+        perm=torch.randperm(nw, generator=gen, device=gen.device).cuda(),
+        u_all=rand(2, 3, nt, nw),
+        betas=torch.linspace(1.0, 0.0, nt, dtype=dtype, device="cuda"),
+    )
+    new = []
+    for ns in (n0, nw - n0):
+        ll, lp = randn(nt, ns) * 3, randn(nt, ns)
+        ll[0, :3] = float("nan")
+        ll[-1, :3] = float("-inf")
+        lp[1, 0] = float("-inf")
+        new.append((ll, lp))
+    return st, new
+
+
+def _stretch_step_pair(torch, sk, rand, randn, gen, dtype, nt, nw, D,
+                       log_proposal):
+    """One fused step through the three stretch kernels and through their
+    plain versions, each stage fed the kernel path's inputs; yields
+    ``(kernel, kernel outputs, plain outputs, n)`` per stage, of which the
+    first ``n`` outputs are proposals (equal within the tolerance) and the
+    rest accept results (bitwise equal)."""
+    st, new = _stretch_state(torch, rand, randn, gen, dtype, nt, nw, D)
+    X, nd, perm, u = st["X"], st["ndim_act"], st["perm"], st["u_all"]
+    kw = dict(a=2.0, log_proposal=log_proposal)
+    nan = float("nan")
+    outs_k = (torch.full_like(X, nan),
+              *(torch.full_like(st["logl"], nan) for _ in range(3)))
+    outs_r = tuple(x.clone() for x in outs_k)
+    q0, f0 = sk.stretch_propose(X, X, nd, perm, u, 0, **kw)
+    yield ("stretch_propose", (q0, f0),
+           sk.stretch_propose_ref(X, X, nd, perm, u, 0, **kw), 2)
+    acc_args = (q0, X, *new[0], st["logl"], st["logp"], f0, st["betas"], nd,
+                perm, u)
+    q1, f1 = sk.stretch_accept_propose(*acc_args, *outs_k, **kw)
+    q1r, f1r = sk.stretch_accept_propose_ref(*acc_args, *outs_r, **kw)
+    yield ("stretch_accept_propose", (q1, f1, *outs_k), (q1r, f1r, *outs_r),
+           2)
+    args = (q1, X, *new[1], st["logl"], st["logp"], f1, st["betas"], perm, u,
+            1)
+    sk.stretch_accept(*args, *outs_k)
+    sk.stretch_accept_ref(*args, *outs_r)
+    # every walker written by one of the two halves
+    assert not outs_k[0].isnan().any() and not outs_k[3].isnan().any()
+    acc = float(outs_k[3].sum())
+    assert 0 < acc < outs_k[3].numel(), acc
+    yield "stretch_accept", outs_k, outs_r, 0
+
+
 def check_kernels(torch, dtype_name):
     """Every kernel against its plain version at the path's and odd shapes;
     returns ``{kernel: max_abs_err}``."""
@@ -141,36 +206,18 @@ def check_kernels(torch, dtype_name):
         errs[name] = max([errs.get(name, 0.0)]
                          + [_max_err(a, b) for a, b in zip(outs_k, outs_r)])
 
-    # (nt, ns, nc, D): the north-star and config E halves, and an odd shape
-    for nt, ns, nc, D in ((NT, NW // 2, NW // 2, NDIM),
-                          (E_NT, E_NW // 2, E_NW // 2, NDIM), (8, 50, 49, 13)):
-        s, c = randn(nt, ns, D), randn(nt, nc, D)
-        ndim_act = torch.full((nt, ns), float(D), dtype=dtype, device="cuda")
-        u = rand(2, nt, ns)
+    for nt, nw, D in STRETCH_SHAPES:
         for log_proposal in (False, True):
-            q_k, f_k = sk.stretch_propose(s, c, ndim_act, u, 2.0, log_proposal)
-            q_r, f_r = sk.stretch_propose_ref(s, c, ndim_act, u, 2.0, log_proposal)
-            # a different complement pick would move q by O(1), far
-            # outside the tolerance: q agreeing means the picks agree
-            torch.testing.assert_close(q_k, q_r, rtol=tol, atol=tol)
-            torch.testing.assert_close(f_k, f_r, rtol=tol, atol=tol)
-            record("stretch_propose", (q_k, f_k), (q_r, f_r))
-
-        ll_new, ll_old = randn(nt, ns) * 3, randn(nt, ns) * 3
-        ll_new[0, :3] = float("nan")
-        ll_new[1, :3] = float("-inf")
-        lp_new = torch.zeros((nt, ns), dtype=dtype, device="cuda")
-        lp_old = torch.zeros_like(lp_new)
-        lp_new[2, 0] = float("-inf")
-        betas = torch.linspace(1.0, 0.0, nt, dtype=dtype, device="cuda")
-        args = (randn(nt, ns, D), s, ll_new, lp_new, ll_old, lp_old,
-                randn(nt, ns) * 0.5, betas, rand(nt, ns))
-        out_k = sk.stretch_accept(*args)
-        out_r = sk.stretch_accept_ref(*args)
-        # accept decisions identical, and the selected values equal
-        for a, b in zip(out_k, out_r):
-            torch.testing.assert_close(a, b, rtol=0, atol=0, equal_nan=True)
-        record("stretch_accept", out_k, out_r)
+            for name, outs_k, outs_r, n in _stretch_step_pair(
+                    torch, sk, rand, randn, gen, dtype, nt, nw, D, log_proposal):
+                for i, (a, b) in enumerate(zip(outs_k, outs_r)):
+                    # a different complement pick would move q by O(1), far
+                    # outside the tolerance: q agreeing means the picks
+                    # agree; accept decisions and merged values are bitwise
+                    t = tol if i < n else 0.0
+                    torch.testing.assert_close(a, b, rtol=t, atol=t,
+                                               equal_nan=True)
+                record(name, outs_k, outs_r)
 
     # the cascades only move values: bitwise equal
     cascades = (
@@ -208,9 +255,13 @@ def _nbytes(*tensors):
 
 
 def time_kernels(torch):
-    """Each kernel and its plain version at the main path's shapes, float32,
-    with its bound: ``(ms, plain_ms, bound_ms, bound_by)``."""
-    from eryn_tpu_torch.ops import pt_swap, select_kernels, stretch_kernels as sk
+    """Each kernel and its plain version at the main path's shapes, float32:
+    ``({name: {"ms", "plain_ms", "bound_ms", "bound_by"}}, {name: call})``,
+    with ``"empty_launch"`` (an empty kernel: the launch floor) beside
+    them.  ``ms`` is per wrapper call, back to back between CUDA events; the
+    calls are for :func:`device_times`."""
+    from eryn_tpu_torch.ops import _build, pt_swap, select_kernels
+    from eryn_tpu_torch.ops import stretch_kernels as sk
 
     g = torch.Generator(device="cuda").manual_seed(7)
     f32 = dict(device="cuda", dtype=torch.float32)
@@ -221,33 +272,39 @@ def time_kernels(torch):
     def randn(*shape):
         return torch.randn(shape, generator=g, **f32)
 
-    def bound(nbytes, ops):
-        t_bytes = nbytes / HBM_BYTES_PER_S * 1e3
-        t_ops = ops / F32_OPS_PER_S * 1e3
-        return (t_bytes, "bytes") if t_bytes >= t_ops else (t_ops, "operations")
-
-    out = {}
-    # the north-star halves, and config E's under a name of their own
-    for tag, nt, ns in (("", NT, NW // 2), ("@E", E_NT, E_NW // 2)):
-        s, c, u = rand(nt, ns, NDIM), rand(nt, ns, NDIM), rand(2, nt, ns)
-        nd = torch.full((nt, ns), float(NDIM), **f32)
-        q, fac = sk.stretch_propose(s, c, nd, u)
-        acc_args = (rand(nt, ns, NDIM), s, rand(nt, ns), rand(nt, ns),
-                    rand(nt, ns), rand(nt, ns), rand(nt, ns), rand(nt),
-                    rand(nt, ns))
-        # propose: z (4 ops), pick (2), q (3 per coordinate), factor (3)
-        out["stretch_propose" + tag] = (
-            (s, c, nd, u), (q, fac), nt * ns * (3 * NDIM + 9),
-            (lambda a=(s, c, nd, u): sk.stretch_propose(*a)),
-            (lambda a=(s, c, nd, u): sk.stretch_propose_ref(*a)),
-        )
+    # name: (kernel call, plain call, bytes the function must move, ops)
+    calls = {}
+    # the north-star step, and config E's under names of their own
+    for tag, nt, nw in (("", NT, NW), ("@E", E_NT, E_NW)):
+        st, new = _stretch_state(torch, rand, randn, g, torch.float32, nt,
+                                 nw, NDIM)
+        X, nd, perm, u = st["X"], st["ndim_act"], st["perm"], st["u_all"]
+        outs = (torch.empty_like(X),
+                *(torch.empty_like(st["logl"]) for _ in range(3)))
+        q0, f0 = sk.stretch_propose(X, X, nd, perm, u, 0)
+        acc0 = (q0, X, *new[0], st["logl"], st["logp"], f0, st["betas"], nd,
+                perm, u, *outs)
+        q1, f1 = sk.stretch_accept_propose(*acc0)
+        acc1 = (q1, X, *new[1], st["logl"], st["logp"], f1, st["betas"], perm,
+                u, 1, *outs)
+        b = _stretch_bytes(torch, nt, nw, NDIM, 4, u)
+        # propose: z (4 ops), pick (2), q (3 per coordinate), factor (3);
         # accept: two tempered sums, the difference, log u, compare (10
         # ops), and a select per coordinate
-        out["stretch_accept" + tag] = (
-            acc_args, sk.stretch_accept(*acc_args), nt * ns * (NDIM + 10),
-            (lambda a=acc_args: sk.stretch_accept(*a)),
-            (lambda a=acc_args: sk.stretch_accept_ref(*a)),
-        )
+        n0, n1 = nw - nw // 2, nw // 2
+        ops_p, ops_a = 3 * NDIM + 9, NDIM + 10
+        calls["stretch_propose" + tag] = (
+            lambda a=(X, X, nd, perm, u, 0): sk.stretch_propose(*a),
+            lambda a=(X, X, nd, perm, u, 0): sk.stretch_propose_ref(*a),
+            b["propose"], nt * n0 * ops_p)
+        calls["stretch_accept_propose" + tag] = (
+            lambda a=acc0: sk.stretch_accept_propose(*a),
+            lambda a=acc0: sk.stretch_accept_propose_ref(*a),
+            b["accept_propose"], nt * (n0 * ops_a + n1 * ops_p))
+        calls["stretch_accept" + tag] = (
+            lambda a=acc1: sk.stretch_accept(*a),
+            lambda a=acc1: sk.stretch_accept_ref(*a),
+            b["accept"], nt * n1 * ops_a)
     for name, kernel, plain, (nt, nw, D) in (
         ("pt_swap_cascade_multi", pt_swap.pt_swap_cascade_multi,
          pt_swap.pt_swap_cascade_multi_ref, (NT, NW, NDIM + 2)),
@@ -258,37 +315,152 @@ def time_kernels(torch):
     ):
         args = _cascade_args(torch, rand, randn, None, nt, nw, D, torch.float32)
         # per rung and walker: a difference, a product and a compare
-        out[name] = (args, kernel(*args), 3 * (nt - 1) * nw,
-                     (lambda k=kernel, a=args: k(*a)),
-                     (lambda p=plain, a=args: p(*a)))
+        calls[name] = (lambda k=kernel, a=args: k(*a),
+                       lambda p=plain, a=args: p(*a),
+                       _nbytes(*args, *kernel(*args)), 3 * (nt - 1) * nw)
     half = L_NW // 2 * L_NLMAX
     sel_args = _select_args(torch, rand, randn, L_NT, half, half, 3,
                             empty_last=False)
     # per query: a binary search of ceil(log2 M) + 1 compares
-    out["onehot_select"] = (
-        sel_args, select_kernels.onehot_select(*sel_args),
-        L_NT * half * (math.ceil(math.log2(half)) + 1),
+    calls["onehot_select"] = (
         lambda: select_kernels.onehot_select(*sel_args),
         lambda: select_kernels.onehot_select_ref(*sel_args),
+        _nbytes(*sel_args, select_kernels.onehot_select(*sel_args)),
+        L_NT * half * (math.ceil(math.log2(half)) + 1),
     )
-    times = {}
-    for name, (ins, outs, ops, run_k, run_r) in out.items():
-        b_ms, b_by = bound(_nbytes(*ins, *outs), ops)
-        times[name] = (_time_ms(run_k), _time_ms(run_r), b_ms, b_by)
-    return times
+    empty = _build.function("eryn_empty_launch", "p")
+
+    def launch_empty():
+        _build.check(empty(torch.cuda.current_stream().cuda_stream), "empty")
+
+    times = {"empty_launch": {"ms": _time_ms(launch_empty, reps=1000)}}
+    for name, (run_k, run_r, nbytes, ops) in calls.items():
+        t_bytes = nbytes / HBM_BYTES_PER_S * 1e3
+        t_ops = ops / F32_OPS_PER_S * 1e3
+        times[name] = {
+            "ms": _time_ms(run_k), "plain_ms": _time_ms(run_r, reps=50),
+            "bound_ms": max(t_bytes, t_ops),
+            "bound_by": "bytes" if t_bytes >= t_ops else "operations",
+        }
+    return times, {**{k: c[0] for k, c in calls.items()},
+                   "empty_launch": launch_empty}
 
 
-def empty_launch_ms(torch):
-    """Device time of one launch of an empty kernel: the floor under every
-    kernel of this size."""
+def _stretch_bytes(torch, nt, nw, D, itemsize, u_all):
+    """Bytes each stretch kernel must move at ``(nt, nw, D)``: every input
+    it needs read once, every output written once.  A proposal reads its
+    moving rows and the distinct complement rows this run's draws pick; an
+    accept reads, per walker, the row its decision keeps; half 1's
+    complement rows are the merged half 0 the fused kernel has just
+    written, so it counts them once, as outputs."""
+    n0, n1 = nw - nw // 2, nw // 2
+
+    def picked_rows(half, ns, nc):
+        r = torch.floor(u_all[half, 1, :, :ns] * nc).long().clamp_(0, nc - 1)
+        t = torch.arange(nt, device=r.device)[:, None]
+        return int(torch.unique(r + t * nc).numel())
+
+    def propose(half, ns, nc, complement=True):
+        rows = nt * ns + (picked_rows(half, ns, nc) if complement else 0)
+        # rows, ndim_act, two uniforms, perm (int64); q and the factor
+        return (rows * D + 3 * nt * ns + nt * ns * (D + 1)) * itemsize + 8 * nw
+
+    def accept(ns):
+        # the kept row, ll/lp new and old, factor, uniform; betas; perm;
+        # the merged row, ll, lp and flag
+        return ((nt * ns * (D + 6) + nt + nt * ns * (D + 3)) * itemsize
+                + 8 * ns)
+
+    return {
+        "propose": propose(0, n0, n1),
+        "accept_propose": accept(n0) + propose(1, n1, n0, complement=False),
+        "accept": accept(n1),
+    }
+
+
+def device_times(torch, calls, reps=100):
+    """Device time per launch of each call's one kernel, in ms: the calls
+    run ``reps`` times each, in order, under ``torch.profiler``, and the
+    device kernels recorded (only these calls launch any) are assigned to
+    the calls in launch order."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    for fn in calls.values():
+        fn()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        for fn in calls.values():
+            for _ in range(reps):
+                fn()
+        torch.cuda.synchronize()
+    kernels = sorted(
+        (e for e in prof.events() if e.device_type == DeviceType.CUDA
+         and not e.name.startswith(("Memcpy", "Memset"))),
+        key=lambda e: e.time_range.start,
+    )
+    assert len(kernels) == reps * len(calls), (
+        f"the profiler recorded {len(kernels)} device kernels for "
+        f"{reps * len(calls)} launches")
+    out = {}
+    for i, name in enumerate(calls):
+        chunk = kernels[i * reps:(i + 1) * reps]
+        assert len({e.name for e in chunk}) == 1, (name, {e.name for e in chunk})
+        out[name] = sum(e.time_range.elapsed_us() for e in chunk) / reps / 1e3
+    return out
+
+
+def wrapper_host_costs(torch, card, reps=2000):
+    """Host time in microseconds per call of the parts of a stretch kernel
+    wrapper, at the north-star shape: the argument check of
+    ``stretch_accept``'s 14 tensors, two ``torch.empty``, 17 data pointers,
+    the stream handle as a ``torch.cuda.Stream`` and as the raw handle the
+    wrappers read, and the ctypes call of an empty launch."""
     from eryn_tpu_torch.ops import _build
+    from eryn_tpu_torch.ops._checks import check_cuda_args
 
-    fn = _build.function("eryn_empty_launch", "p")
-
-    def launch():
-        _build.check(fn(torch.cuda.current_stream().cuda_stream), "empty")
-
-    return _time_ms(launch, reps=1000)
+    f32 = dict(device="cuda", dtype=torch.float32)
+    nt, nw, D, ns = NT, NW, NDIM, NW // 2
+    X, state = torch.zeros((nt, nw, D), **f32), torch.zeros((nt, nw), **f32)
+    q, blk = torch.zeros((nt, ns, D), **f32), torch.zeros((nt, ns), **f32)
+    betas, u = torch.zeros(nt, **f32), torch.zeros((2, 3, nt, nw), **f32)
+    perm = torch.arange(nw, device="cuda")
+    spec = dict(
+        q=(q, (nt, ns, D)), X=(X, (nt, nw, D)), ll_new=(blk, (nt, ns)),
+        lp_new=(blk, (nt, ns)), logl=(state, (nt, nw)),
+        logp=(state, (nt, nw)), factors=(blk, (nt, ns)),
+        betas=(betas, (nt,)), perm=(perm, (nw,), torch.int64),
+        u_all=(u, (2, 3, nt, nw)), X_out=(X, (nt, nw, D)),
+        logl_out=(state, (nt, nw)), logp_out=(state, (nt, nw)),
+        acc_out=(state, (nt, nw)),
+    )
+    tensors = [t for t, *_ in spec.values()] + [q, blk, state]
+    empty = _build.function("eryn_empty_launch", "p")
+    parts = {
+        "check of 14 tensors": lambda: check_cuda_args(
+            "stretch_accept", X.dtype, X.device, **spec),
+        "two torch.empty": lambda: (torch.empty((nt, ns, D), **f32),
+                                    torch.empty((nt, ns), **f32)),
+        "17 data_ptr": lambda: [t.data_ptr() for t in tensors],
+        "torch.cuda.current_stream()": lambda: (
+            torch.cuda.current_stream().cuda_stream),
+        "raw stream handle": lambda: torch._C._cuda_getCurrentRawStream(0),
+        "ctypes empty launch": lambda: empty(
+            torch._C._cuda_getCurrentRawStream(0)),
+    }
+    out = {}
+    for name, fn in parts.items():
+        for _ in range(100):
+            fn()
+        t0 = time.perf_counter()
+        for _ in range(reps):
+            fn()
+        out[name] = (time.perf_counter() - t0) / reps * 1e6
+        torch.cuda.synchronize()
+    print("host: " + ", ".join(f"{k} {v:.2f} us" for k, v in out.items())
+          + f" per call ({card})")
+    return out
 
 
 def _counting(kernels):
@@ -301,8 +473,9 @@ def _counting(kernels):
 def _kernels():
     from eryn_tpu_torch.ops import pt_swap, select_kernels, stretch_kernels as sk
 
-    return (sk.stretch_propose, sk.stretch_accept, pt_swap.pt_swap_cascade_multi,
-            pt_swap._cascade_multi_rolled, select_kernels.onehot_select)
+    return (sk.stretch_propose, sk.stretch_accept_propose, sk.stretch_accept,
+            pt_swap.pt_swap_cascade_multi, pt_swap._cascade_multi_rolled,
+            select_kernels.onehot_select)
 
 
 def _gaussian_sampler(torch, nt, nw, seed, backend=None):
@@ -343,6 +516,67 @@ def _check_gaussian_chain(np, name, s, nt, allow_hot_one=False):
         assert np.all((swaps > 0) & (swaps < 1)), swaps
     assert not np.allclose(s.get_betas()[-1], make_ladder(NDIM, nt)), \
         "the ladder did not adapt"
+
+
+def _assert_stretch_launches(launches, steps):
+    """The fused stretch step: propose half 0, accept half 0 and propose
+    half 1, accept half 1; one launch of each per step."""
+    counts = [launches[k] for k in ("stretch_propose", "stretch_accept_propose",
+                                    "stretch_accept")]
+    assert counts == [steps] * 3, launches
+
+
+def profile_steps(torch, leg, sampler, state, card, steps=50):
+    """``torch.profiler`` (CPU and CUDA) over ``steps`` steady steps of a
+    leg's sampler, without storing; prints kernel launches, memcpys and
+    memsets per step, the device-busy share of the window (the union of
+    device activity over the host's wall time, which the profiler itself
+    slows) and the five device ops that take the most device time.  Returns
+    ``{leg: summary}``."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    state, _ = sampler._run_bulk(state, 1, 2, store=False)
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        sampler._run_bulk(state, 1, steps, store=False)
+        torch.cuda.synchronize()
+        wall_us = (time.perf_counter() - t0) * 1e6
+    device = sorted((e for e in prof.events()
+                     if e.device_type == DeviceType.CUDA),
+                    key=lambda e: e.time_range.start)
+    assert device, f"{leg}: the profiler recorded no device activity"
+    copies = sum(e.name.startswith("Memcpy") for e in device)
+    sets = sum(e.name.startswith("Memset") for e in device)
+    busy, end, by_name = 0.0, -math.inf, {}
+    for e in device:
+        start, stop = max(e.time_range.start, end), e.time_range.end
+        busy += max(stop - start, 0.0)
+        end = max(end, stop)
+        short = e.name.replace("void ", "").replace(
+            "(anonymous namespace)::", "")[:70]
+        by_name[short] = by_name.get(short, 0.0) + e.time_range.elapsed_us()
+    total = sum(by_name.values()) or 1.0
+    top = sorted(by_name.items(), key=lambda kv: -kv[1])[:5]
+    summary = {
+        "kernels_per_step": (len(device) - copies - sets) / steps,
+        "memcpys_per_step": copies / steps, "memsets_per_step": sets / steps,
+        "device_busy_share": busy / wall_us,
+        "wall_ms_per_step": wall_us / steps / 1e3,
+        "device_ms_per_step": busy / steps / 1e3,
+        "top5": [[name, t / total] for name, t in top],
+    }
+    print(f"profile[{leg}]: {summary['kernels_per_step']:.2f} kernel launches, "
+          f"{summary['memcpys_per_step']:.2f} memcpys, "
+          f"{summary['memsets_per_step']:.2f} memsets per step; device busy "
+          f"{100 * summary['device_busy_share']:.2f} % of "
+          f"{summary['wall_ms_per_step']:.4f} ms per step "
+          f"({summary['device_ms_per_step']:.4f} ms busy); top device ops "
+          + ", ".join(f"{n} {100 * f:.1f} %" for n, f in summary["top5"])
+          + f" ({card})")
+    return {leg: summary}
 
 
 def north_star_leg(torch, card):
@@ -400,8 +634,8 @@ def north_star_leg(torch, card):
     steps += WARM_STEPS + STORED_STEPS
 
     launches = read()
-    # two red/blue halves per step, one cascade per step
-    assert launches["stretch_propose"] == launches["stretch_accept"] == 2 * steps
+    # per step: each of the three stretch kernels once, one cascade
+    _assert_stretch_launches(launches, steps)
     assert launches["pt_swap_cascade_multi"] == steps, launches
     assert launches["_cascade_multi_rolled"] == launches["onehot_select"] == 0
 
@@ -420,7 +654,7 @@ def north_star_leg(torch, card):
         print(f"rate: {leg} = {rates[leg]:.1f} ({card})")
     print(f"rate: device_iact_s = {rates['device_iact_s']:.4f} ({card})")
     print(f"launches[north-star]: {launches} over {steps} steps")
-    return launches, rates
+    return launches, rates, ("north-star", s1, state)
 
 
 def config_e_leg(torch, card):
@@ -446,7 +680,7 @@ def config_e_leg(torch, card):
     launches = read()
     assert launches["_cascade_multi_rolled"] == steps, launches
     assert launches["pt_swap_cascade_multi"] == 0, launches
-    assert launches["stretch_propose"] == launches["stretch_accept"] == 2 * steps
+    _assert_stretch_launches(launches, steps)
     # at 20 temperatures the default 5-D ladder reaches beta ~ 1e-9, where
     # every proposed swap is accepted
     _check_gaussian_chain(np, "config E", s, E_NT, allow_hot_one=True)
@@ -455,7 +689,7 @@ def config_e_leg(torch, card):
     for k, v in rates.items():
         print(f"rate: {k} = {v:.1f} ({card})")
     print(f"launches[config E]: {launches} over {steps} steps")
-    return launches, rates
+    return launches, rates, ("config E", s, s._previous_state)
 
 
 def _pulse_problem(torch, np):
@@ -544,7 +778,7 @@ def lisa_rj_leg(torch, card):
     rates = {"lisa_rj_steps_per_s": L_STEPS / dt}
     print(f"rate: lisa_rj_steps_per_s = {rates['lisa_rj_steps_per_s']:.1f} ({card})")
     print(f"launches[LISA RJ]: {launches} over {steps} steps")
-    return launches, rates
+    return launches, rates, ("LISA RJ", s, s._previous_state)
 
 
 def flat_rj_leg(torch):
@@ -555,7 +789,7 @@ def flat_rj_leg(torch):
     from eryn_tpu_torch import EnsembleSampler, ProbDistContainer, State, uniform_dist
     from eryn_tpu_torch.moves import RedBlueGroupStretchMove
 
-    nw, nlmax, steps, burn = 64, 3, 1500, 300
+    nw, nlmax, steps, burn = 64, 3, 700, 150
     pr = ProbDistContainer({i: uniform_dist(-1.0, 1.0) for i in range(2)})
     s = EnsembleSampler(
         nw, 2, lambda c, i: torch.zeros((), device="cuda"), pr,
@@ -621,29 +855,57 @@ def main(argv=None):
         for k, e in check_kernels(torch, dtype_name).items():
             errs[k] = max(errs.get(k, 0.0), e)
         print(f"kernels[{dtype_name}]: agree with their plain versions")
-    times = time_kernels(torch)
-    floor = empty_launch_ms(torch)
-    print(f"time: empty launch {floor:.4f} ms ({smi})")
-    for k, (ms, plain, b_ms, b_by) in times.items():
-        print(f"time: {k} {ms:.4f} ms, plain {plain:.4f} ms, bound "
-              f"{b_ms:.6f} ms ({b_by}), launch floor {floor:.4f} ms ({smi})")
+    times, launchers = time_kernels(torch)
+    floor = times.pop("empty_launch")
+    print(f"time: empty launch {floor['ms']:.4f} ms per call ({smi})")
+    for k, t in times.items():
+        print(f"time: {k} {t['ms']:.4f} ms per call, plain "
+              f"{t['plain_ms']:.4f} ms, bound {t['bound_ms']:.6f} ms "
+              f"({t['bound_by']}), launch floor {floor['ms']:.4f} ms ({smi})")
+
+    host_us = wrapper_host_costs(torch, smi)
+    print(f"phase 3: {time.perf_counter() - t_start:.1f} s since the start")
 
     # phase 4: the main path, leg by leg
-    legs = [north_star_leg(torch, smi), config_e_leg(torch, smi),
-            lisa_rj_leg(torch, smi)]
+    legs = []
+    for leg in (north_star_leg, config_e_leg, lisa_rj_leg):
+        t0 = time.perf_counter()
+        legs.append(leg(torch, smi))
+        print(f"phase 4: {leg.__name__} {time.perf_counter() - t0:.1f} s")
     # a check of the RJ posterior, not a main-path leg: its launches are
     # asserted inside and left out of the report
+    t0 = time.perf_counter()
     flat_rj_leg(torch)
+    print(f"phase 4: flat_rj_leg {time.perf_counter() - t0:.1f} s")
     launches, rates = {}, {}
-    for leg_launches, leg_rates in legs:
+    for leg_launches, leg_rates, _ in legs:
         for k, v in leg_launches.items():
             launches[k] = launches.get(k, 0) + v
         rates.update(leg_rates)
     assert all(v > 0 for v in launches.values()), launches
 
+    # phase 5: the profiler, after every timed run (a profiled process may
+    # keep tracing costs on its launches): device-only kernel times, then
+    # 50 steady steps of each main-path leg
+    device = device_times(torch, launchers)
+    floor["device_ms"] = device.pop("empty_launch")
+    print(f"time: empty launch {floor['device_ms']:.4f} ms on the device "
+          f"({smi})")
+    for k, t in times.items():
+        t["device_ms"] = device[k]
+        print(f"time: {k} {t['device_ms']:.4f} ms on the device, "
+              f"{t['ms']:.4f} ms per call ({smi})")
+    profiles = {}
+    for _, _, (leg, sampler, state) in legs:
+        profiles.update(profile_steps(torch, leg, sampler, state, smi))
+
     sources = {
         "stretch_propose": ("eryn_tpu_torch/csrc/stretch_kernels.cu",
                             "eryn_tpu/ops/stretch_kernels.py:68"),
+        "stretch_accept_propose": (
+            "eryn_tpu_torch/csrc/stretch_kernels.cu",
+            "eryn_tpu/ops/stretch_kernels.py:154, "
+            "eryn_tpu/ops/stretch_kernels.py:68"),
         "stretch_accept": ("eryn_tpu_torch/csrc/stretch_kernels.cu",
                            "eryn_tpu/ops/stretch_kernels.py:154"),
         "pt_swap_cascade_multi": ("eryn_tpu_torch/csrc/pt_swap.cu",
@@ -658,9 +920,8 @@ def main(argv=None):
     report = {"kernels": [
         {"name": k, "route": "cuda", "source": src, "replaces": rep,
          "launches": launches[k], "max_abs_err": errs[k],
-         "ms": times[k][0], "plain_ms": times[k][1], "bound_ms": times[k][2],
-         "bound_by": times[k][3], "library_ms": None,
-         "launch_floor_ms": floor}
+         **times[k], "library_ms": None, "launch_floor_ms": floor["ms"],
+         "launch_floor_device_ms": floor["device_ms"]}
         for k, (src, rep) in sources.items()
     ]}
     print(f"total: {time.perf_counter() - t_start:.1f} s")
@@ -668,7 +929,9 @@ def main(argv=None):
         Path(args.out).parent.mkdir(parents=True, exist_ok=True)
         Path(args.out).write_text(json.dumps(
             {**report, "rates": rates, "card": smi,
-             "times": {k: list(v) for k, v in times.items()}}, indent=1
+             "times": times, "launch_floor": floor, "profiles": profiles,
+             "host_us": host_us},
+            indent=1
         ))
     print(json.dumps(report))
     print(json.dumps({"ok": True, "device": {

@@ -27,7 +27,7 @@ from .moves import DistributionGenerateRJ, StretchMove
 from .moves.move import EvalContext
 from .moves.tempering import TemperatureControl
 from .prior import ProbDistContainer
-from .state import State
+from .state import State, resolve_device
 
 __all__ = ["EnsembleSampler"]
 
@@ -178,8 +178,9 @@ class EnsembleSampler:
     """Ensemble sampler with parallel tempering on torch tensors.
 
     Args mirror :class:`eryn_tpu.EnsembleSampler` for the ported subset;
-    ``device`` is where the ensemble lives (default: the device of the
-    initial coords when they are a tensor, else the CPU), ``dtype`` the state
+    ``device`` is where the ensemble lives (default: the card; without CUDA
+    the default raises, and CPU runs pass ``device="cpu"``; an initial state
+    elsewhere is moved here), ``dtype`` the state
     dtype (default float32), and ``seed`` seeds the sampler's
     ``torch.Generator``.  The default backend is a :class:`DeviceBackend` on
     a CUDA device and a :class:`Backend` on the CPU.
@@ -214,7 +215,7 @@ class EnsembleSampler:
         self.dtype = dtype if dtype is not None else torch.float32
         if self.dtype not in _NUMPY_DTYPE:
             raise TypeError("dtype must be torch.float32 or torch.float64.")
-        self.device = torch.device(device) if device is not None else None
+        self.device = resolve_device(device)
         self.num_repeats_in_model = int(num_repeats_in_model)
         self.num_repeats_rj = int(num_repeats_rj)
         self.track_moves = track_moves
@@ -292,14 +293,16 @@ class EnsembleSampler:
         )
         self._like_checked = False
 
-        # torch.Generators are device-bound; they are made once the device
-        # is known (here, or from the first initial state)
         self._seed = (
             int(seed) if seed is not None
             else int.from_bytes(os.urandom(4), "little")
         )
-        self._gen = None
-        self._host_gen = None
+        self._gen = torch.Generator(device=self.device)
+        self._gen.manual_seed(self._seed)
+        # move-schedule draws stay on the host: picking a move by a device
+        # draw would make every step wait for the device
+        self._host_gen = torch.Generator()
+        self._host_gen.manual_seed(self._seed)
 
         self._backend = backend
         self._previous_state = None
@@ -307,8 +310,6 @@ class EnsembleSampler:
         self._m_acc = None
         self._m_nprop = np.zeros(len(self._all_move_list))
         self._static_inds = self._static_inds_host = None
-        if self.device is not None:
-            self._make_generators()
 
     # ------------------------------------------------------------------
     def _per_branch(self, value, label):
@@ -384,20 +385,11 @@ class EnsembleSampler:
             return out
         raise ValueError("priors must be a ProbDistContainer or dict.")
 
-    def _make_generators(self):
-        self._gen = torch.Generator(device=self.device)
-        self._gen.manual_seed(self._seed)
-        # move-schedule draws stay on the host: picking a move by a device
-        # draw would make every step wait for the device
-        self._host_gen = torch.Generator()
-        self._host_gen.manual_seed(self._seed)
-
     @property
     def backend(self):
         if self._backend is None:
             np_dtype = _NUMPY_DTYPE[self.dtype]
-            device = self.device or torch.device("cpu")
-            if device.type == "cuda":
+            if self.device.type == "cuda":
                 self._backend = DeviceBackend(
                     dtype=np_dtype, max_device_bytes=4 << 30
                 )
@@ -441,7 +433,7 @@ class EnsembleSampler:
     @property
     def random_state(self):
         """State of the sampler's ``torch.Generator``."""
-        return None if self._gen is None else self._gen.get_state()
+        return self._gen.get_state()
 
     @property
     def _max_segment(self):
@@ -488,10 +480,6 @@ class EnsembleSampler:
             initial_state if isinstance(initial_state, State)
             else State(initial_state)
         )
-        if self.device is None:
-            first = state.branches[self.branch_names[0]].coords
-            self.device = first.device
-            self._make_generators()
         if not self._like_checked:
             self._like_eval.check(self.device)
             self._like_checked = True

@@ -13,7 +13,7 @@ from __future__ import annotations
 import numpy as np
 import torch
 
-from .state import State
+from .state import State, resolve_device
 
 __all__ = [
     "state_from_numpy",
@@ -34,7 +34,10 @@ def _host(x):
 
 
 def state_from_numpy(d, device=None, dtype=torch.float32):
-    """Build a :class:`State` on ``device`` from a numpy dict."""
+    """Build a :class:`State` on ``device`` (default: the card, see
+    :func:`~eryn_tpu_torch.state.resolve_device`) from a numpy dict."""
+    device = resolve_device(device)
+
     def put(x, dt=dtype):
         # a copy: arrays of other packages may be read-only
         return None if x is None else torch.tensor(

@@ -5,9 +5,10 @@ Port of :mod:`eryn_tpu.moves.stretch`.  Two paths:
 * the general path (:meth:`StretchMove.get_proposal_kernel` under
   :class:`~eryn_tpu_torch.moves.red_blue.RedBlueMove`), which handles Gibbs
   masks and any branch subset, and is the path on the CPU;
-* the fused path (:meth:`StretchMove._propose_impl_fused`), two kernel
-  launches per red/blue half (propose, then accept and merge) around the
-  likelihood, taken on a CUDA device whenever the structure allows it.
+* the fused path (:meth:`StretchMove._propose_impl_fused`), three kernel
+  launches per step around the two halves' likelihood calls (propose half
+  0; accept half 0 and propose half 1; accept half 1), taken on a CUDA
+  device whenever the structure allows it.
 """
 
 from __future__ import annotations
@@ -16,9 +17,13 @@ import math
 
 import torch
 
-from ..ops.stretch_kernels import stretch_accept, stretch_propose
+from ..ops.stretch_kernels import (
+    stretch_accept,
+    stretch_accept_propose,
+    stretch_propose,
+)
 from .move import active_ndim
-from .red_blue import RedBlueMove, _inverse_permutation
+from .red_blue import RedBlueMove
 
 __all__ = ["StretchMove"]
 
@@ -95,14 +100,18 @@ class StretchMove(RedBlueMove):
     def _propose_impl_fused(self, state, ctx, perm, u_all):
         """One fused stretch step from the given draws (see
         :meth:`draw_fused`).  Branch blocks are concatenated along the last
-        axis, so one launch covers all branches.  Each half is kept in its
-        own contiguous block in the permuted walker order; one gather
-        restores the walker order at the end.
+        axis, so one launch covers all branches.  The kernels read the
+        walker-order state through ``perm`` and merge each half in place
+        into walker-order outputs, allocated once here: three launches
+        around the two likelihood calls, ``stretch_propose`` (half 0),
+        ``stretch_accept_propose`` (accept half 0, propose half 1) and
+        ``stretch_accept`` (half 1).
 
         Returns ``(state, accepted)`` with ``accepted`` in the state dtype.
         """
         names = list(state.branches)
-        logl = state.log_like
+        logl = state.log_like.contiguous()
+        logp = state.log_prior.contiguous()
         ntemps, nwalkers = logl.shape
         dtype = logl.dtype
         self._check_walkers(state, names)
@@ -113,7 +122,8 @@ class StretchMove(RedBlueMove):
         ]
         parts = [state.branches[n].coords.reshape(ntemps, nwalkers, -1)
                  for n in names]
-        X = parts[0] if len(parts) == 1 else torch.cat(parts, dim=-1)
+        X = (parts[0] if len(parts) == 1 else torch.cat(parts, dim=-1)
+             ).contiguous()
         inds = state.branches_inds
         ndim_act = active_ndim(state, names).to(dtype)
         betas = state.betas
@@ -129,38 +139,28 @@ class StretchMove(RedBlueMove):
 
         n0 = nwalkers - nwalkers // 2
         halves = (perm[:n0], perm[n0:])
-        X_h = [X[:, p] for p in halves]
-        # (logl, logp, ndim_act) of each half as one (3, nt, ns) block
-        L = torch.stack([logl, state.log_prior, ndim_act])
-        L_h = [L[:, :, p] for p in halves]
-        out = []
-        for half, p in enumerate(halves):
-            s_blk, c_blk = X_h[half], X_h[1 - half]
-            ns = s_blk.shape[1]
-            ll_old, lp_old, nd_blk = L_h[half]
-            q, factors = stretch_propose(
-                s_blk, c_blk, nd_blk, u_all[half, :2, :, :ns].contiguous(),
-                a=self.a, log_proposal=self.use_log_proposal,
-            )
-            q_branches = q_to_branches(q, ns)
-            inds_blk = {n: inds[n][:, p] for n in names}
+
+        def evaluate(q, half):
+            q_branches = q_to_branches(q, q.shape[1])
+            inds_blk = {n: inds[n][:, halves[half]] for n in names}
             logp_new = ctx.compute_log_prior(q_branches, inds_blk)
             logl_new, _ = ctx.compute_log_like(q_branches, inds_blk, logp_new)
-            coords_blk, logl_blk, logp_blk, acc = stretch_accept(
-                q, s_blk, logl_new.contiguous(), logp_new.contiguous(),
-                ll_old, lp_old, factors, betas,
-                u_all[half, 2, :, :ns].contiguous(),
-            )
-            # the second half's complement is the first half, as updated
-            X_h[half] = coords_blk
-            out.append(torch.stack([logl_blk, logp_blk, acc]))
+            return logl_new.contiguous(), logp_new.contiguous()
 
-        inv_perm = _inverse_permutation(perm)
-        X = torch.cat(X_h, dim=1)[:, inv_perm]
-        logl, logp, accepted = torch.cat(out, dim=2)[:, :, inv_perm]
+        outs = (torch.empty_like(X), torch.empty_like(logl),
+                torch.empty_like(logl), torch.empty_like(logl))
+        kw = dict(a=self.a, log_proposal=self.use_log_proposal)
+        q, factors = stretch_propose(X, X, ndim_act, perm, u_all, 0, **kw)
+        q, factors = stretch_accept_propose(
+            q, X, *evaluate(q, 0), logl, logp, factors, betas, ndim_act,
+            perm, u_all, *outs, **kw,
+        )
+        stretch_accept(q, X, *evaluate(q, 1), logl, logp, factors, betas,
+                       perm, u_all, 1, *outs)
+        X_out, logl_out, logp_out, accepted = outs
         new_state = state.replace(
-            coords=q_to_branches(X, nwalkers), inds=inds, log_like=logl,
-            log_prior=logp,
+            coords=q_to_branches(X_out, nwalkers), inds=inds,
+            log_like=logl_out, log_prior=logp_out,
         )
         return new_state, accepted
 

@@ -16,7 +16,21 @@ from __future__ import annotations
 
 import torch
 
-__all__ = ["Branch", "BranchSupplemental", "State"]
+__all__ = ["Branch", "BranchSupplemental", "State", "resolve_device"]
+
+
+def resolve_device(device):
+    """The device a sampler or a state is built on: ``device`` when given,
+    else the card.  Without CUDA a missing ``device`` raises rather than
+    falling back to the CPU."""
+    if device is not None:
+        return torch.device(device)
+    if not torch.cuda.is_available():
+        raise RuntimeError(
+            "eryn_tpu_torch runs on the GPU by default, and no CUDA device "
+            'is available; pass device="cpu" to run on the CPU.'
+        )
+    return torch.device("cuda")
 
 
 def _as_tensor(x):

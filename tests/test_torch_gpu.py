@@ -7,9 +7,9 @@ toolkit; without a card they skip.  On a GPU machine::
 (``--noconftest``: the suite's conftest imports jax, which this file does
 not need.)
 
-Tolerances: the swap cascades, the accept kernel and the selection kernel
-only select and move values, so their outputs must be bitwise equal to the
-plain versions'; the proposal's floats agree within 1e-6 (float32) or 1e-12
+Tolerances: the swap cascades, the accepts and the selection kernel only
+select and move values, so their outputs must be bitwise equal to the plain
+versions'; the proposals' floats agree within 1e-6 (float32) or 1e-12
 (float64), a few ulp of ``exp``/``log``.
 """
 
@@ -43,42 +43,106 @@ def _rand(g, dtype, *shape):
     return torch.rand(shape, generator=g, dtype=torch.float64).to("cuda", dtype)
 
 
+# (nt, nw, D): north-star, config E, an odd shape, and halves of more than
+# 1024 walkers (the block loops)
+STRETCH_SHAPES = [(10, 100, 5), (20, 1000, 5), (8, 99, 13), (3, 4001, 5)]
+
+
+def _stretch_state(dtype, nt, nw, D):
+    """Walker-order state and draws of one step on the card, and each half's
+    likelihood and prior values with NaN and -inf in them."""
+    g = _gen()
+    n0 = nw - nw // 2
+    st = dict(
+        X=_randn(g, dtype, nt, nw, D), logl=_randn(g, dtype, nt, nw) * 3,
+        logp=_randn(g, dtype, nt, nw),
+        ndim_act=torch.full((nt, nw), float(D), dtype=dtype, device="cuda"),
+        perm=torch.randperm(nw, generator=g).cuda(),
+        u_all=_rand(g, dtype, 2, 3, nt, nw),
+        betas=torch.linspace(1.0, 0.0, nt, dtype=dtype, device="cuda"),
+    )
+    new = []
+    for ns in (n0, nw - n0):
+        ll, lp = _randn(g, dtype, nt, ns) * 3, _randn(g, dtype, nt, ns)
+        ll[0, :3] = float("nan")
+        ll[-1, :3] = float("-inf")
+        lp[1, 0] = float("-inf")
+        new.append((ll, lp))
+    return st, new
+
+
+def _outs(st):
+    nan = float("nan")
+    return (torch.full_like(st["X"], nan),
+            *(torch.full_like(st["logl"], nan) for _ in range(3)))
+
+
+def _assert_bitwise(outs_k, outs_r):
+    for a, b in zip(outs_k, outs_r):
+        torch.testing.assert_close(a, b, rtol=0, atol=0, equal_nan=True)
+
+
 @pytest.mark.parametrize("dtype", [torch.float32, torch.float64])
-@pytest.mark.parametrize("shape", [(10, 50, 50, 5), (20, 500, 500, 5),
-                                   (8, 50, 49, 13)])
+@pytest.mark.parametrize("shape", STRETCH_SHAPES)
 @pytest.mark.parametrize("log_proposal", [False, True])
 def test_stretch_propose_kernel(cuda, dtype, shape, log_proposal):
-    nt, ns, nc, D = shape
-    g = _gen()
-    s, c = _randn(g, dtype, nt, ns, D), _randn(g, dtype, nt, nc, D)
-    nd = torch.full((nt, ns), float(D), dtype=dtype, device=cuda)
-    u = _rand(g, dtype, 2, nt, ns)
-    before = sk.stretch_propose.launches
-    out = sk.stretch_propose(s, c, nd, u, 2.0, log_proposal)
-    ref = sk.stretch_propose_ref(s, c, nd, u, 2.0, log_proposal)
-    torch.cuda.synchronize()
-    assert sk.stretch_propose.launches == before + 1
-    for a, b in zip(out, ref):
-        torch.testing.assert_close(a, b, rtol=TOL[dtype], atol=TOL[dtype])
+    st, _ = _stretch_state(dtype, *shape)
+    for half in (0, 1):
+        args = (st["X"], st["X"], st["ndim_act"], st["perm"], st["u_all"],
+                half, 2.0, log_proposal)
+        before = sk.stretch_propose.launches
+        out = sk.stretch_propose(*args)
+        ref = sk.stretch_propose_ref(*args)
+        torch.cuda.synchronize()
+        assert sk.stretch_propose.launches == before + 1
+        for a, b in zip(out, ref):
+            torch.testing.assert_close(a, b, rtol=TOL[dtype], atol=TOL[dtype])
 
 
 @pytest.mark.parametrize("dtype", [torch.float32, torch.float64])
-@pytest.mark.parametrize("shape", [(10, 50, 5), (20, 500, 5), (8, 49, 13)])
+@pytest.mark.parametrize("shape", STRETCH_SHAPES)
+@pytest.mark.parametrize("log_proposal", [False, True])
+def test_stretch_accept_propose_kernel(cuda, dtype, shape, log_proposal):
+    st, new = _stretch_state(dtype, *shape)
+    q0, f0 = sk.stretch_propose_ref(st["X"], st["X"], st["ndim_act"],
+                                    st["perm"], st["u_all"], 0)
+    args = (q0, st["X"], *new[0], st["logl"], st["logp"], f0, st["betas"],
+            st["ndim_act"], st["perm"], st["u_all"])
+    outs_k, outs_r = _outs(st), _outs(st)
+    before = sk.stretch_accept_propose.launches
+    q_k, f_k = sk.stretch_accept_propose(*args, *outs_k, 2.0, log_proposal)
+    q_r, f_r = sk.stretch_accept_propose_ref(*args, *outs_r, 2.0, log_proposal)
+    torch.cuda.synchronize()
+    assert sk.stretch_accept_propose.launches == before + 1
+    # half 0 merged bitwise, half 1 untouched
+    _assert_bitwise(outs_k, outs_r)
+    n0 = shape[1] - shape[1] // 2
+    assert outs_k[3][:, st["perm"][n0:]].isnan().all()
+    assert 0 < outs_k[3][:, st["perm"][:n0]].sum() < q0.shape[0] * n0
+    torch.testing.assert_close(q_k, q_r, rtol=TOL[dtype], atol=TOL[dtype])
+    torch.testing.assert_close(f_k, f_r, rtol=TOL[dtype], atol=TOL[dtype])
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.float64])
+@pytest.mark.parametrize("shape", STRETCH_SHAPES)
 def test_stretch_accept_kernel(cuda, dtype, shape):
-    nt, ns, D = shape
-    g = _gen()
-    ll_new, ll_old = _randn(g, dtype, nt, ns), _randn(g, dtype, nt, ns)
-    ll_new[0, :3] = float("nan")
-    ll_new[1, :3] = float("-inf")
-    lp = torch.zeros((nt, ns), dtype=dtype, device=cuda)
-    betas = torch.linspace(1.0, 0.0, nt, dtype=dtype, device=cuda)
-    args = (_randn(g, dtype, nt, ns, D), _randn(g, dtype, nt, ns, D), ll_new,
-            lp, ll_old, lp.clone(), _randn(g, dtype, nt, ns) * 0.5, betas,
-            _rand(g, dtype, nt, ns))
-    out = sk.stretch_accept(*args)
-    ref = sk.stretch_accept_ref(*args)
-    for a, b in zip(out, ref):
-        torch.testing.assert_close(a, b, rtol=0, atol=0, equal_nan=True)
+    st, new = _stretch_state(dtype, *shape)
+    outs_k, outs_r = _outs(st), _outs(st)
+    for half in (0, 1):
+        q, fac = sk.stretch_propose_ref(
+            st["X"], outs_r[0] if half else st["X"], st["ndim_act"],
+            st["perm"], st["u_all"], half,
+        )
+        args = (q, st["X"], *new[half], st["logl"], st["logp"], fac,
+                st["betas"], st["perm"], st["u_all"], half)
+        before = sk.stretch_accept.launches
+        sk.stretch_accept(*args, *outs_k)
+        sk.stretch_accept_ref(*args, *outs_r)
+        torch.cuda.synchronize()
+        assert sk.stretch_accept.launches == before + 1
+        _assert_bitwise(outs_k, outs_r)
+    # the two halves wrote every walker
+    assert all(not x.isnan().any() for x in (outs_k[0], outs_k[3]))
 
 
 @pytest.mark.parametrize("dtype", [torch.float32, torch.float64])
@@ -150,15 +214,24 @@ def test_onehot_select_kernel(cuda, dtype, shape):
 
 
 def test_wrapper_rejects_bad_input(cuda):
-    s = torch.zeros((2, 4, 3), device=cuda)
+    st, new = _stretch_state(torch.float32, 2, 8, 3)
+    X, nd, perm, u = st["X"], st["ndim_act"], st["perm"], st["u_all"]
+    Xt = X.transpose(0, 1).contiguous().transpose(0, 1)
     with pytest.raises(ValueError, match="contiguous"):
-        sk.stretch_propose(s.transpose(0, 1), s.transpose(0, 1),
-                           torch.ones((4, 2), device=cuda),
-                           torch.rand((2, 4, 2), device=cuda))
+        sk.stretch_propose(Xt, Xt, nd, perm, u, 0)
     with pytest.raises(TypeError, match="dtype"):
-        sk.stretch_propose(s, s, torch.ones((2, 4), device=cuda,
-                                            dtype=torch.float64),
-                           torch.rand((2, 2, 4), device=cuda))
+        sk.stretch_propose(X, X, nd.double(), perm, u, 0)
+    with pytest.raises(TypeError, match="perm has dtype"):
+        sk.stretch_propose(X, X, nd, perm.int(), u, 0)
+    q, fac = sk.stretch_propose(X, X, nd, perm, u, 0)
+    outs = _outs(st)
+    args = (q, X, *new[0], st["logl"], st["logp"], fac, st["betas"], perm, u,
+            0)
+    with pytest.raises(TypeError, match="X_out has dtype"):
+        sk.stretch_accept(*args, outs[0].double(), *outs[1:])
+    with pytest.raises(ValueError, match="logl has shape"):
+        sk.stretch_accept(*args[:4], st["logl"][:, :6].contiguous(),
+                          *args[5:], *outs)
 
 
 @pytest.mark.parametrize("dtype", [torch.float32, torch.float64])
@@ -173,13 +246,13 @@ def test_sampler_runs_through_the_kernels(cuda, dtype):
         tempering_kwargs=dict(ntemps=4), seed=0, device=cuda, dtype=dtype,
     )
     assert isinstance(sampler.backend, DeviceBackend)
-    counts = [k.launches for k in
-              (sk.stretch_propose, sk.stretch_accept, pt_swap.pt_swap_cascade_multi)]
+    kernels = (sk.stretch_propose, sk.stretch_accept_propose,
+               sk.stretch_accept, pt_swap.pt_swap_cascade_multi)
+    counts = [k.launches for k in kernels]
     coords = priors.rvs(size=(4, 33), generator=torch.Generator(cuda).manual_seed(1))
     sampler.run_mcmc(coords, 400, burn=100)
-    after = [k.launches for k in
-             (sk.stretch_propose, sk.stretch_accept, pt_swap.pt_swap_cascade_multi)]
-    assert [a - b for a, b in zip(after, counts)] == [1000, 1000, 500]
+    # one of each stretch kernel and one cascade per step
+    assert [k.launches - c for k, c in zip(kernels, counts)] == [500] * 4
     cold = sampler.get_chain(temp_index=0)["model_0"].reshape(-1, 3)
     assert cold.dtype == (np.float32 if dtype == torch.float32 else np.float64)
     assert np.all(np.abs(cold.mean(0)) < 0.2)

@@ -155,7 +155,7 @@ def test_interop_round_trip_from_a_jax_state():
         betas=np.array([1.0, 0.5], np.float32),
     )
     d = state_to_numpy(jstate)
-    tstate = state_from_numpy(d)
+    tstate = state_from_numpy(d, device="cpu")
     back = state_to_numpy(tstate)
     for key in ("log_like", "log_prior", "betas"):
         np.testing.assert_array_equal(back[key], d[key])
@@ -212,7 +212,7 @@ def _sampler(backend, nw=12, **kw):
     )
     return eryn_tpu_torch.EnsembleSampler(
         nw, 2, _ll, priors, tempering_kwargs=dict(ntemps=3), seed=4,
-        backend=backend, **kw
+        backend=backend, device="cpu", **kw
     ), priors
 
 
@@ -272,7 +272,7 @@ def test_float64_sampler_keeps_its_dtype(use_kernels):
         {i: eryn_tpu_torch.uniform_dist(-5.0, 5.0) for i in range(2)}
     )
     sampler = eryn_tpu_torch.EnsembleSampler(
-        10, 2, _ll, priors, dtype=torch.float64, seed=1,
+        10, 2, _ll, priors, dtype=torch.float64, seed=1, device="cpu",
         tempering_kwargs=dict(ntemps=3, use_kernels=use_kernels),
         moves=[eryn_tpu_torch.StretchMove(use_kernels=use_kernels)],
     )
@@ -299,7 +299,7 @@ def test_two_branches_sample_their_targets(use_kernels):
             {0: eryn_tpu_torch.uniform_dist(-4, 6)}),
     }
     sampler = eryn_tpu_torch.EnsembleSampler(
-        16, [2, 1], ll, priors, branch_names=["a", "b"], seed=2,
+        16, [2, 1], ll, priors, branch_names=["a", "b"], seed=2, device="cpu",
         tempering_kwargs=dict(ntemps=2, use_kernels=use_kernels),
         moves=[eryn_tpu_torch.StretchMove(use_kernels=use_kernels)],
     )

@@ -215,7 +215,7 @@ def test_sampler_swap_fractions_above_the_threshold():
             700, 2, lambda x: -0.5 * torch.sum(x * x), priors,
             tempering_kwargs=dict(ntemps=3, adaptive=False,
                                   use_kernels=use_kernels),
-            seed=2,
+            seed=2, device="cpu",
         )
         sampler.run_mcmc(coords, 200, burn=50)
         fractions.append(sampler.swap_acceptance_fraction)

@@ -182,7 +182,7 @@ def test_rj_flat_likelihood_preserves_prior():
         NWALKERS, ndim, lambda coords, inds: torch.zeros(()), pr,
         nleaves_max=nlmax, nleaves_min=0,
         moves=RedBlueGroupStretchMove(live_dangerously=True), rj_moves=True,
-        fill_zero_leaves_val=0.0, seed=7,
+        fill_zero_leaves_val=0.0, seed=7, device="cpu",
     )
     rng = np.random.default_rng(7)
     coords = rng.uniform(-1, 1, (1, NWALKERS, nlmax, ndim))
@@ -216,6 +216,7 @@ def test_rj_gaussian_leaf_marginals():
         nleaves_max=nlmax, nleaves_min=0,
         moves=RedBlueGroupStretchMove(live_dangerously=True), rj_moves=True,
         fill_zero_leaves_val=0.0, seed=8, backend=eryn_tpu_torch.DeviceBackend(),
+        device="cpu",
     )
     rng = np.random.default_rng(8)
     coords = 0.3 * rng.standard_normal((1, NWALKERS, nlmax, ndim))
@@ -287,21 +288,23 @@ def _port_pulse_sampler(t, data, seed=3):
         moves=RedBlueGroupStretchMove(), rj_moves=True,
         tempering_kwargs=dict(ntemps=NT),
         fill_zero_leaves_val=float(-0.5 * np.sum((data / 0.3) ** 2)),
-        seed=seed,
+        seed=seed, device="cpu",
     )
 
 
 def test_initial_log_like_matches_jax(pulse):
     t, data, start = pulse
     jax_state = eryn_tpu.State(start["coords"], inds=start["inds"])
-    back = state_to_numpy(state_from_numpy(state_to_numpy(jax_state)))
+    back = state_to_numpy(state_from_numpy(state_to_numpy(jax_state),
+                                           device="cpu"))
     for key in ("coords", "inds"):
         np.testing.assert_array_equal(back[key]["model_0"],
                                       start[key]["model_0"])
     js = _jax_pulse_sampler(t, data)
     ts = _port_pulse_sampler(t, data)
     j = js._setup_state(jax_state)
-    p = ts._setup_state(state_from_numpy(state_to_numpy(jax_state)))
+    p = ts._setup_state(state_from_numpy(state_to_numpy(jax_state),
+                                         device="cpu"))
     np.testing.assert_allclose(p.log_prior.numpy(), np.asarray(j.log_prior))
     np.testing.assert_allclose(p.log_like.numpy(), np.asarray(j.log_like),
                                rtol=1e-4)
@@ -336,7 +339,7 @@ def test_rj_modes_and_the_stretch_warning():
     with pytest.warns(UserWarning, match="RedBlueGroupStretchMove"):
         eryn_tpu_torch.EnsembleSampler(
             8, 1, ll, pr, nleaves_max=2, nleaves_min=0, rj_moves=True,
-            moves=StretchMove(live_dangerously=True),
+            moves=StretchMove(live_dangerously=True), device="cpu",
         )
     with warnings.catch_warnings():
         warnings.simplefilter("error")
@@ -344,7 +347,7 @@ def test_rj_modes_and_the_stretch_warning():
             8, 1, ll, {"a": pr, "b": pr}, branch_names=["a", "b"],
             nleaves_max=2, nleaves_min={"a": 0, "b": 1},
             rj_moves="iterate_branches",
-            moves=RedBlueGroupStretchMove(live_dangerously=True),
+            moves=RedBlueGroupStretchMove(live_dangerously=True), device="cpu",
         )
     assert [m.proposal_branch_names for m in ens.rj_moves] == [["a"], ["b"]]
     assert ens.rj_weights == [0.5, 0.5]
@@ -354,7 +357,7 @@ def test_rj_modes_and_the_stretch_warning():
                                    "DistributionGenerateRJ_1"]
     with pytest.raises(ValueError, match="rj_moves"):
         eryn_tpu_torch.EnsembleSampler(8, 1, ll, pr, nleaves_max=2,
-                                       rj_moves="sideways")
+                                       rj_moves="sideways", device="cpu")
     with pytest.raises(NotImplementedError, match="periodic"):
         RedBlueGroupStretchMove(periodic={"model_0": {0: 1.0}})
 
@@ -369,7 +372,7 @@ def test_rj_stores_masks_and_counters(backend):
         16, 2, lambda coords, inds: torch.zeros(()), pr, nleaves_max=3,
         moves=RedBlueGroupStretchMove(live_dangerously=True), rj_moves=True,
         tempering_kwargs=dict(ntemps=2), fill_zero_leaves_val=0.0, seed=1,
-        backend=getattr(eryn_tpu_torch, backend)(),
+        backend=getattr(eryn_tpu_torch, backend)(), device="cpu",
     )
     coords = np.random.default_rng(1).uniform(-1, 1, (2, 16, 3, 2))
     ens.run_mcmc(eryn_tpu_torch.State({"model_0": coords}), 40, thin_by=2)
@@ -397,7 +400,7 @@ def test_rj_only_schedule():
         16, 2, lambda coords, inds: torch.zeros(()), pr, nleaves_max=3,
         moves=RedBlueGroupStretchMove(live_dangerously=True), rj_moves=True,
         num_repeats_in_model=0, tempering_kwargs=dict(ntemps=2),
-        fill_zero_leaves_val=0.0, seed=2,
+        fill_zero_leaves_val=0.0, seed=2, device="cpu",
     )
     coords = np.random.default_rng(2).uniform(-1, 1, (2, 16, 3, 2))
     ens.run_mcmc(eryn_tpu_torch.State({"model_0": coords}), 20)

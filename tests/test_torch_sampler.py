@@ -93,10 +93,11 @@ def test_port_sampler_matches_eryn_tpu(reference, nw, backend, use_kernels):
         nw, NDIM, lambda x: -0.5 * torch.sum(x * x), priors,
         tempering_kwargs=dict(ntemps=NT, use_kernels=use_kernels),
         moves=[eryn_tpu_torch.StretchMove(use_kernels=use_kernels)],
-        backend=getattr(eryn_tpu_torch, backend)(), seed=5,
+        backend=getattr(eryn_tpu_torch, backend)(), seed=5, device="cpu",
     )
     tempering_from_numpy(sampler.temperature_control, ladder_np)
-    sampler.run_mcmc(state_from_numpy(start_np), NSTEPS, burn=BURN)
+    sampler.run_mcmc(state_from_numpy(start_np, device="cpu"), NSTEPS,
+                     burn=BURN)
     out = _summary(sampler)
 
     assert np.all(np.abs(out["mean"]) < 0.06), out["mean"]

@@ -150,7 +150,8 @@ def _port_step(nw, coords, logl, logp, betas, d):
     )
     state = state_from_numpy(
         dict(coords={"model_0": coords}, log_like=logl, log_prior=logp,
-             betas=betas)
+             betas=betas),
+        device="cpu",
     )
     state, accepted, swaps, time, _ = move.propose_kernel(
         None, state, TIME, sampler.get_eval_context()
