@@ -6,6 +6,9 @@ the CUDA toolkit::
 
     python3 chip_smoke.py [--out report.json]
 
+(``--cascade-scan`` instead builds the kernels, times the swap cascade on
+the device against rungs, walkers and chunk width, and stops.)
+
 Phases, each printing its own lines:
 
 1. device: the card's name and ``nvidia-smi`` name and power limit;
@@ -13,8 +16,10 @@ Phases, each printing its own lines:
    source, in parallel);
 3. kernels: each of the six kernels (three for the stretch step, two
    cascades, the selection) against its plain PyTorch version on the card,
-   in float32 and float64, at the main path's shapes and at odd shapes,
-   then each kernel's time per wrapper call beside its plain version's,
+   in float32 and float64, at the main path's shapes and at odd shapes (the
+   cascades in the sampler's tree form, as a grid of blocks, as one block
+   and with their rows in global memory, and in the channel form), then
+   each kernel's time per wrapper call beside its plain version's,
    its bound (bytes over the memory rate against operations over the peak
    rate) and the time of one empty launch, and the host cost of a
    wrapper's parts;
@@ -34,8 +39,9 @@ Phases, each printing its own lines:
      posterior.  It checks the RJ moves, is not part of the main path, and
      its launches stay out of the report.
 
-   The launch counters must show that every step went through the kernels,
-   and each chain must meet its target;
+   The launch counters must show that every step went through the kernels
+   (one cascade launch per tempering phase), no leg may call a plain
+   version of a kernel, and each chain must meet its target;
 5. profiles (``torch.profiler``, after every timed run): each kernel's
    device time per launch, and 50 steady steps of each of the first three
    legs (kernel launches and memcpys per step, device-busy share, the top
@@ -50,6 +56,7 @@ result.
 from __future__ import annotations
 
 import argparse
+import contextlib
 import json
 import math
 import subprocess
@@ -113,6 +120,34 @@ def _cascade_args(torch, rand, randn, gen, nt, nw, D, dtype):
                       dtype=torch.int32).cuda(),
         torch.log(rand(nt - 1, nw)),
     )
+
+
+def _tree_args(torch, rand, randn, gen, nt, nw, nleaves, ndim, dtype):
+    """The sampler's swap tree (coords ``(nt, nw, nleaves, ndim)``, a bool
+    leaf mask, the log-prior), its log-likelihood and ladder, and the draws
+    of one cascade; then outputs like them, the accepted counts and the
+    accept mask."""
+    logl = randn(nt, nw) * 10
+    leaves = [randn(nt, nw, nleaves, ndim), rand(nt, nw, nleaves) < 0.4,
+              randn(nt, nw)]
+    args = (
+        logl, leaves, torch.logspace(0, -2, nt, dtype=dtype, device="cuda"),
+        torch.randperm(nw, generator=gen, device=gen.device).cuda(),
+        torch.randint(0, nw, (nt - 1,), generator=gen, dtype=torch.int32,
+                      device=gen.device).cuda(),
+        torch.log(rand(nt - 1, nw)),
+    )
+
+    def outs():
+        return (torch.empty_like(logl), [torch.empty_like(x) for x in leaves],
+                torch.empty(nt - 1, dtype=dtype, device="cuda"),
+                torch.empty((nt - 1, nw), dtype=dtype, device="cuda"))
+
+    return args, outs
+
+
+def _flat(outs):
+    return (outs[0], *outs[1], outs[2], outs[3])
 
 
 def _select_args(torch, rand, randn, nt, Q, M, nd, empty_last=True):
@@ -237,6 +272,40 @@ def check_kernels(torch, dtype_name):
             assert 0 < out_k[2].sum() < out_k[2].numel()
             record(name, out_k, out_r)
 
+    # the tree form, the sampler's entry: the north-star tree at the
+    # north-star and config E sizes, the RJ tree, the block loops (more than
+    # 1024 walkers), the first rolled size; at two sizes also in one block
+    # and with the rows in global memory
+    for nt, nw, nl, nd, forms in (
+        (NT, NW, 1, NDIM, ("grid", "one block", "global")),
+        (E_NT, E_NW, 1, NDIM, ("grid", "one block", "global")),
+        (L_NT, L_NW, L_NLMAX, 3, ("grid",)),
+        (3, 1500, 1, NDIM, ("grid", "global")),
+        (3, 4001, 1, NDIM, ("grid",)),
+        (3, 641, 1, NDIM, ("grid",)),
+    ):
+        name = ("_cascade_multi_rolled" if nw > pt_swap.ROLLED_THRESHOLD
+                else "pt_swap_cascade_multi")
+        args, outs = _tree_args(torch, rand, randn, gen, nt, nw, nl, nd, dtype)
+        out_r = outs()
+        pt_swap.pt_swap_cascade_tree_ref(*args, *out_r)
+        assert 0 < out_r[2].sum() < (nt - 1) * nw
+        for form in forms:
+            out_k = outs()
+            limit = pt_swap.SHARED_LIMIT
+            if form == "global":
+                pt_swap.SHARED_LIMIT = 0
+            try:
+                pt_swap.pt_swap_cascade_tree(
+                    *args, *out_k, chunk=nw if form == "one block" else None)
+            finally:
+                pt_swap.SHARED_LIMIT = limit
+            for a, b in zip(_flat(out_k), _flat(out_r)):
+                assert a.dtype == b.dtype and torch.equal(a, b), (
+                    f"{name} (tree form, {form}) is not bitwise at "
+                    f"{(nt, nw)}")
+            record(name, _flat(out_k), _flat(out_r))
+
     # the selection only moves values: equal (a -0.0 may stand for +0.0)
     half = L_NW // 2 * L_NLMAX
     for nt, Q, M, nd in ((L_NT, half, half, 3), (2, 130, 257, 3)):
@@ -305,16 +374,39 @@ def time_kernels(torch):
             lambda a=acc1: sk.stretch_accept(*a),
             lambda a=acc1: sk.stretch_accept_ref(*a),
             b["accept"], nt * n1 * ops_a)
+    # the sampler's cascade (the tree form) at the three legs' shapes: every
+    # leaf and the log-likelihood read and written once, pi, shifts, raccept
+    # and the ladder read once, the accepted counts written; per rung and
+    # walker a difference, a product and a compare.  Beside each, the same
+    # launch with one block moving the whole payload
+    for name, (nt, nw, nl, nd) in (
+        ("pt_swap_cascade_multi", (NT, NW, 1, NDIM)),
+        ("pt_swap_cascade_multi@rj", (L_NT, L_NW, L_NLMAX, 3)),
+        ("_cascade_multi_rolled", (E_NT, E_NW, 1, NDIM)),
+    ):
+        args, outs = _tree_args(torch, rand, randn, g, nt, nw, nl, nd,
+                                torch.float32)
+        o = outs()[:3]
+        nbytes = (2 * _nbytes(args[0], *args[1]) + _nbytes(*args[2:], o[2]))
+        ops = 3 * (nt - 1) * nw
+        calls[name] = (
+            lambda a=args, o=o: pt_swap.pt_swap_cascade_tree(*a, *o),
+            lambda a=args, o=o: pt_swap.pt_swap_cascade_tree_ref(*a, *o),
+            nbytes, ops)
+        calls[name + "[one block]"] = (
+            lambda a=args, o=o, nw=nw: pt_swap.pt_swap_cascade_tree(
+                *a, *o, chunk=nw), None, nbytes, ops)
+    # the channel form (the JAX kernels' signatures), which the sampler no
+    # longer calls
     for name, kernel, plain, (nt, nw, D) in (
-        ("pt_swap_cascade_multi", pt_swap.pt_swap_cascade_multi,
+        ("pt_swap_cascade_multi[channels]", pt_swap.pt_swap_cascade_multi,
          pt_swap.pt_swap_cascade_multi_ref, (NT, NW, NDIM + 2)),
-        ("pt_swap_cascade_multi@rj", pt_swap.pt_swap_cascade_multi,
+        ("pt_swap_cascade_multi[channels]@rj", pt_swap.pt_swap_cascade_multi,
          pt_swap.pt_swap_cascade_multi_ref, (L_NT, L_NW, 4 * L_NLMAX + 1)),
-        ("_cascade_multi_rolled", pt_swap._cascade_multi_rolled,
+        ("_cascade_multi_rolled[channels]", pt_swap._cascade_multi_rolled,
          pt_swap._cascade_multi_rolled_ref, (E_NT, E_NW, NDIM + 2)),
     ):
         args = _cascade_args(torch, rand, randn, None, nt, nw, D, torch.float32)
-        # per rung and walker: a difference, a product and a compare
         calls[name] = (lambda k=kernel, a=args: k(*a),
                        lambda p=plain, a=args: p(*a),
                        _nbytes(*args, *kernel(*args)), 3 * (nt - 1) * nw)
@@ -338,12 +430,46 @@ def time_kernels(torch):
         t_bytes = nbytes / HBM_BYTES_PER_S * 1e3
         t_ops = ops / F32_OPS_PER_S * 1e3
         times[name] = {
-            "ms": _time_ms(run_k), "plain_ms": _time_ms(run_r, reps=50),
+            "ms": _time_ms(run_k),
+            "plain_ms": _time_ms(run_r, reps=50) if run_r else None,
             "bound_ms": max(t_bytes, t_ops),
             "bound_by": "bytes" if t_bytes >= t_ops else "operations",
         }
     return times, {**{k: c[0] for k, c in calls.items()},
                    "empty_launch": launch_empty}
+
+
+def cascade_scan(torch, card, reps=100):
+    """Device time per launch of the sampler's cascade against the number of
+    rungs, of walkers and of walkers in a block's chunk (``torch.profiler``),
+    float32, the north-star tree and the RJ tree: what a rung costs, what
+    the launch and the move cost, and what the grid is worth."""
+    from eryn_tpu_torch.ops import pt_swap
+
+    g = torch.Generator(device="cuda").manual_seed(7)
+    f32 = dict(device="cuda", dtype=torch.float32)
+
+    def rand(*shape):
+        return torch.rand(shape, generator=g, **f32)
+
+    def randn(*shape):
+        return torch.randn(shape, generator=g, **f32)
+
+    calls = {}
+    for nt, nw, nl, nd in ((2, 100, 1, 5), (10, 100, 1, 5), (20, 100, 1, 5),
+                           (10, 200, 8, 3), (2, 1000, 1, 5), (10, 1000, 1, 5),
+                           (20, 1000, 1, 5), (20, 2000, 1, 5)):
+        args, outs = _tree_args(torch, rand, randn, g, nt, nw, nl, nd,
+                                torch.float32)
+        o = outs()[:3]
+        for chunk in (None, 8, 32, 128, nw):
+            calls[f"{nt} x {nw} x {nl * nd}, chunk "
+                  f"{chunk or pt_swap._chunk_walkers(nw)}"
+                  f"{'' if chunk else ' (default)'}"] = (
+                lambda a=args, o=o, c=chunk: pt_swap.pt_swap_cascade_tree(
+                    *a, *o, chunk=c))
+    for name, ms in device_times(torch, calls, reps).items():
+        print(f"scan: {name}: {ms * 1e3:.2f} us on the device ({card})")
 
 
 def _stretch_bytes(torch, nt, nw, D, itemsize, u_all):
@@ -468,6 +594,30 @@ def _counting(kernels):
     for k in kernels:
         k.launches = 0
     return lambda: {k.__name__: k.launches for k in kernels}
+
+
+@contextlib.contextmanager
+def _plain_versions_forbidden():
+    """While the main path runs, every plain version of a kernel raises: a
+    leg that reached one would fail, whatever its launch counts say."""
+    from eryn_tpu_torch.ops import pt_swap, select_kernels, stretch_kernels
+
+    def forbidden(name):
+        def plain(*args, **kwargs):
+            raise AssertionError(
+                f"the main path called the plain version {name}")
+        return plain
+
+    saved = [(mod, name, getattr(mod, name))
+             for mod in (pt_swap, select_kernels, stretch_kernels)
+             for name in dir(mod) if name.endswith("_ref")]
+    for mod, name, _ in saved:
+        setattr(mod, name, forbidden(name))
+    try:
+        yield
+    finally:
+        for mod, name, fn in saved:
+            setattr(mod, name, fn)
 
 
 def _kernels():
@@ -814,6 +964,10 @@ def flat_rj_leg(torch):
 def main(argv=None):
     parser = argparse.ArgumentParser(description=__doc__.split("\n")[0])
     parser.add_argument("--out", help="also write the report as JSON here")
+    parser.add_argument(
+        "--cascade-scan", action="store_true",
+        help="after the build, only time the swap cascade on the device "
+             "against rungs, walkers and chunk width, and stop")
     args = parser.parse_args(argv)
 
     if not (ROOT / "eryn_tpu_torch" / "csrc").is_dir():
@@ -849,6 +1003,10 @@ def main(argv=None):
         if "registers" in line or "spill" in line:
             print(f"  ptxas: {line.strip()}")
 
+    if args.cascade_scan:
+        cascade_scan(torch, smi)
+        return 0
+
     # phase 3: kernels against their plain versions, and their times
     errs = {}
     for dtype_name in ("float32", "float64"):
@@ -859,8 +1017,10 @@ def main(argv=None):
     floor = times.pop("empty_launch")
     print(f"time: empty launch {floor['ms']:.4f} ms per call ({smi})")
     for k, t in times.items():
-        print(f"time: {k} {t['ms']:.4f} ms per call, plain "
-              f"{t['plain_ms']:.4f} ms, bound {t['bound_ms']:.6f} ms "
+        plain = ("as above" if t["plain_ms"] is None
+                 else f"{t['plain_ms']:.4f} ms")
+        print(f"time: {k} {t['ms']:.4f} ms per call, plain {plain}, "
+              f"bound {t['bound_ms']:.6f} ms "
               f"({t['bound_by']}), launch floor {floor['ms']:.4f} ms ({smi})")
 
     host_us = wrapper_host_costs(torch, smi)
@@ -868,15 +1028,18 @@ def main(argv=None):
 
     # phase 4: the main path, leg by leg
     legs = []
-    for leg in (north_star_leg, config_e_leg, lisa_rj_leg):
+    with _plain_versions_forbidden():
+        for leg in (north_star_leg, config_e_leg, lisa_rj_leg):
+            t0 = time.perf_counter()
+            legs.append(leg(torch, smi))
+            print(f"phase 4: {leg.__name__} {time.perf_counter() - t0:.1f} s")
+        # a check of the RJ posterior, not a main-path leg: its launches are
+        # asserted inside and left out of the report
         t0 = time.perf_counter()
-        legs.append(leg(torch, smi))
-        print(f"phase 4: {leg.__name__} {time.perf_counter() - t0:.1f} s")
-    # a check of the RJ posterior, not a main-path leg: its launches are
-    # asserted inside and left out of the report
-    t0 = time.perf_counter()
-    flat_rj_leg(torch)
-    print(f"phase 4: flat_rj_leg {time.perf_counter() - t0:.1f} s")
+        flat_rj_leg(torch)
+        print(f"phase 4: flat_rj_leg {time.perf_counter() - t0:.1f} s")
+    print("phase 4: one cascade launch per tempering phase on every leg, "
+          "and no plain version of a kernel was called")
     launches, rates = {}, {}
     for leg_launches, leg_rates, _ in legs:
         for k, v in leg_launches.items():

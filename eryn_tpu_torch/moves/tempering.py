@@ -10,9 +10,9 @@ Vousden ladder adaptation.  The cascade has two forms:
   CPU;
 * the kernel form (:meth:`TemperatureControl._swap_cascade_kernel`): one
   uniform relabelling of the walker axis per cascade, a random rotation per
-  rung, and the whole cascade with its packed payload in one CUDA launch
-  (:func:`~eryn_tpu_torch.ops.pt_swap.pt_swap_cascade_multi`); taken on a
-  CUDA device whenever ``permute`` is on.  Above 640 walkers its rotations
+  rung, and the whole swap phase in one CUDA launch on the state as it
+  lies (:func:`~eryn_tpu_torch.ops.pt_swap.pt_swap_cascade_tree`); taken on
+  a CUDA device whenever ``permute`` is on.  Above 640 walkers its rotations
   skip some pairings, and the accepted swaps are divided by the pairings
   actually proposed.
 
@@ -30,8 +30,7 @@ import torch
 from ..ops.pt_swap import (
     _check_provenance_capacity,
     proposals_per_rung,
-    pt_swap_cascade,
-    pt_swap_cascade_multi,
+    pt_swap_cascade_tree,
 )
 
 __all__ = ["TemperatureControl", "make_ladder", "tempered_log_likelihood"]
@@ -282,81 +281,25 @@ class TemperatureControl:
         swap_tree = _gather_walkers(swap_tree, flat, ntemps, nwalkers)
         return swap_tree, data[..., 0], torch.stack(accepted[::-1])
 
-    def _try_pack_channels(self, swap_tree, logl):
-        """Pack the swap tree into ``(ntemps, D, nwalkers)`` channels of the
-        logl dtype, or return None when a leaf cannot ride such a channel
-        exactly.  Bool masks pack as 0/1; an integer leaf packs only when it
-        is a provenance index (``__prov__``, bounded by ``ntemps *
-        nwalkers``) that the channel dtype holds exactly; float leaves must
-        have the logl dtype."""
-        ntemps, nwalkers = logl.shape
-        leaves = _flatten(swap_tree)
-        exact_ints = 2**24 if logl.dtype == torch.float32 else 2**53
-        chans = []
-        for path, leaf in leaves:
-            if tuple(leaf.shape[:2]) != (ntemps, nwalkers):
-                return None
-            if leaf.dtype == torch.bool:
-                pass
-            elif not leaf.dtype.is_floating_point:
-                if path[-1] != "__prov__" or ntemps * nwalkers >= exact_ints:
-                    return None
-            elif leaf.dtype != logl.dtype:
-                return None
-            flat = leaf.reshape(ntemps, nwalkers, -1).to(logl.dtype)
-            chans.append(flat.transpose(1, 2))  # (nt, k, nw)
-        channels = torch.cat(chans, dim=1)
-
-        def unpack(channels_out):
-            out, off = [], 0
-            for _, leaf in leaves:
-                k = math.prod(leaf.shape[2:])
-                arr = channels_out[:, off:off + k].transpose(1, 2)
-                off += k
-                arr = arr.reshape(leaf.shape)
-                if leaf.dtype == torch.bool:
-                    arr = arr > 0.5
-                elif not leaf.dtype.is_floating_point:
-                    arr = arr.to(leaf.dtype)
-                out.append(arr)
-            return _unflatten([p for p, _ in leaves], out)
-
-        return channels, unpack
-
     def _swap_cascade_kernel(self, swap_tree, logl, betas, pi, shifts, raccept):
-        """Kernel cascade from the given draws (see :meth:`draw_kernel`).
-
-        The packed payload rides the kernel with the log-likelihood; the
-        walker relabelling is an index gather on each side.  A tree that
-        does not pack takes the provenance cascade and one gather.  Returns
+        """Kernel cascade from the given draws (see :meth:`draw_kernel`), in
+        one launch: the relabelling by ``pi`` is an index inside the kernel,
+        every leaf of the tree moves once in its own layout and dtype, and
+        the accepted pairings are counted there
+        (:func:`~eryn_tpu_torch.ops.pt_swap.pt_swap_cascade_tree`).  Returns
         ``(swap_tree, logl, swaps_accepted, swaps_proposed)``; above
         :data:`~eryn_tpu_torch.ops.pt_swap.ROLLED_THRESHOLD` walkers a rung
         proposes fewer than ``nwalkers`` pairings."""
         ntemps, nwalkers = logl.shape
-        inv_pi = torch.argsort(pi)
-        dbetas = (betas[:-1] - betas[1:]).contiguous()
-        packed = self._try_pack_channels(swap_tree, logl)
-        if packed is not None:
-            channels, unpack = packed
-            logl_res, channels_res, sel = pt_swap_cascade_multi(
-                logl[:, pi], channels[:, :, pi], dbetas, shifts, raccept
-            )
-            logl_new = logl_res[:, inv_pi]
-            swap_tree = unpack(channels_res[:, :, inv_pi])
-        else:
-            # provenance initialised with the TRUE original flat indices
-            origin0 = (
-                torch.arange(ntemps, dtype=logl.dtype, device=logl.device)[:, None]
-                * nwalkers + pi[None, :].to(logl.dtype)
-            )
-            logl_res, origin_res, sel = pt_swap_cascade(
-                logl[:, pi], origin0, dbetas, shifts, raccept
-            )
-            logl_new = logl_res[:, inv_pi]
-            flat = origin_res[:, inv_pi].long().reshape(-1)
-            swap_tree = _gather_walkers(swap_tree, flat, ntemps, nwalkers)
+        paths, leaves = zip(*_flatten(swap_tree))
+        leaves = [x if x.is_contiguous() else x.contiguous() for x in leaves]
+        logl_new = torch.empty_like(logl)
+        leaves_new = [torch.empty_like(x) for x in leaves]
+        accepted = logl.new_empty((ntemps - 1,))
+        pt_swap_cascade_tree(logl, leaves, betas, pi, shifts, raccept,
+                             logl_new, leaves_new, accepted)
         proposed = proposals_per_rung(nwalkers, shifts, logl.dtype)
-        return swap_tree, logl_new, sel.sum(dim=-1), proposed
+        return _unflatten(paths, leaves_new), logl_new, accepted, proposed
 
     # ------------------------------------------------------------------
     # ladder adaptation

@@ -18,7 +18,7 @@ import subprocess
 import threading
 from pathlib import Path
 
-__all__ = ["load", "function", "check", "library_path", "BUILD_DIR"]
+__all__ = ["load", "function", "launch", "check", "library_path", "BUILD_DIR"]
 
 _CSRC = Path(__file__).resolve().parent.parent / "csrc"
 BUILD_DIR = Path(__file__).resolve().parents[2] / "build" / "kernels"
@@ -122,6 +122,23 @@ def function(name, signature):
         fn.restype = ctypes.c_int
         _functions[name] = fn
     return fn
+
+
+def launch(symbol, name, device_index, signature, *args):
+    """Call the C function ``symbol``, whose last argument is the stream, on
+    the current stream of device ``device_index``, and raise if the launch
+    failed.  The raw stream handle is the one PyTorch's own compiler reads
+    (``torch._C._cuda_getCurrentRawStream``): building a ``torch.cuda.Stream``
+    object per call costs host time on every launch."""
+    import torch
+
+    fn = function(symbol, signature)
+    if device_index == torch.cuda.current_device():
+        err = fn(*args, torch._C._cuda_getCurrentRawStream(device_index))
+    else:
+        with torch.cuda.device(device_index):
+            err = fn(*args, torch._C._cuda_getCurrentRawStream(device_index))
+    check(err, name)
 
 
 def check(err, name):

@@ -1,21 +1,46 @@
 """Parallel-tempering swap cascade as one kernel launch.
 
-Port of :mod:`eryn_tpu.ops.pt_swap`.  The cascade is sequential over the
-``ntemps - 1`` rungs; rung ``i`` walker ``w`` pairs with rung ``i - 1`` walker
-``(w + shift_i) mod nwalkers``.  Combined with a fresh uniform relabelling of
-the walker axis per cascade (applied by the caller), each rung's pairing is a
-uniformly relabelled random rotation: a state-independent bijection, so the
-Metropolis swap stays valid.
+Port of :mod:`eryn_tpu.ops.pt_swap` and of the relabelling, packing and
+epilogue its caller wraps around it
+(``eryn_tpu/moves/tempering.py:_swap_kernel_pallas``).  The cascade is
+sequential over the ``ntemps - 1`` rungs; rung ``i`` slot ``w`` pairs with
+rung ``i - 1`` slot ``(w + shift_i) mod nwalkers``.  Combined with a fresh
+uniform relabelling ``pi`` of the walker axis per cascade (slot ``w`` holds
+walker ``pi[w]``), each rung's pairing is a uniformly relabelled random
+rotation: a state-independent bijection, so the Metropolis swap stays valid.
 
 Above :data:`ROLLED_THRESHOLD` walkers the cascade is the JAX package's
 large-ensemble variant: the rotation runs modulo ``nwpad``, the walker count
-rounded up to a multiple of 128, and a walker whose partner index lands at or
+rounded up to a multiple of 128, and a slot whose partner index lands at or
 beyond ``nwalkers`` skips the rung.  :func:`proposals_per_rung` counts the
 pairings each rung actually proposes, which callers divide the accepted
-swaps by.  Two CUDA kernels (``csrc/pt_swap.cu``) carry the two variants.
+swaps by.
+
+Only the log-likelihood decides a swap, so the CUDA kernel
+(``csrc/pt_swap.cu``) decides on the log-likelihood and an int32 origin per
+slot in shared memory, and then moves the state once, by origin.  Two
+entries share it:
+
+* :func:`pt_swap_cascade_tree`, the sampler's: the log-likelihood and any
+  list of ``(ntemps, nwalkers, ...)`` leaves in their own layouts and
+  dtypes, relabelled by ``pi`` through an index, swapped, and written back
+  in walker order, with the accepted pairings of each rung counted;
+* :func:`pt_swap_cascade_multi` / :func:`_cascade_multi_rolled`, the JAX
+  kernels' signatures: ``(ntemps, D, nwalkers)`` payload channels of an
+  ensemble that is already relabelled.
+
+Each has a plain PyTorch version (``*_ref``), which CPU tensors take; on a
+CUDA tensor a wrapper launches the kernel or raises.  The launch counters
+belong to the two variants of the kernel: ``pt_swap_cascade_multi.launches``
+counts launches of the cascade modulo ``nwalkers``,
+``_cascade_multi_rolled.launches`` of the cascade modulo the padded width,
+from either entry.
 """
 
 from __future__ import annotations
+
+import ctypes
+import math
 
 import torch
 
@@ -23,21 +48,37 @@ from . import _build
 from ._checks import SUFFIX, check_cuda_args
 
 __all__ = [
+    "MAX_LEAVES",
     "ROLLED_THRESHOLD",
     "proposals_per_rung",
     "pt_swap_cascade",
     "pt_swap_cascade_multi",
     "pt_swap_cascade_multi_ref",
     "pt_swap_cascade_rolled",
+    "pt_swap_cascade_tree",
+    "pt_swap_cascade_tree_ref",
 ]
 
 #: above this walker count the cascade rotates modulo the 128-padded width
 #: (:func:`_cascade_multi_rolled`), as the JAX package does
 ROLLED_THRESHOLD = 640
 
+#: leaves one launch of :func:`pt_swap_cascade_tree` moves: the capacity of
+#: the table that rides the launch by value (``csrc/pt_swap.cu:kMaxLeaves``)
+MAX_LEAVES = 32
+
+#: shared memory a block may use on the H100; an ensemble whose rings of
+#: rows need more keeps them in global memory, in one block
+SHARED_LIMIT = 232448
+
 
 def _padded_width(nwalkers):
     return -(-nwalkers // 128) * 128
+
+
+def _modulus(nwalkers):
+    """What the rotations run modulo at this walker count."""
+    return _padded_width(nwalkers) if nwalkers > ROLLED_THRESHOLD else nwalkers
 
 
 def _check_provenance_capacity(ntemps, nwalkers):
@@ -64,36 +105,256 @@ def proposals_per_rung(nwalkers, shifts, dtype):
     return (partner < nwalkers).sum(dim=-1).to(dtype)
 
 
-def pt_swap_cascade_multi_ref(logl, channels, dbetas, shifts, raccept):
-    """Plain version of :func:`pt_swap_cascade_multi`."""
+# ----------------------------------------------------------------------
+# plain versions
+# ----------------------------------------------------------------------
+def _rung_loop(logl, origin, dbetas, shifts, raccept, modulus):
+    """The rungs of the cascade on the log-likelihood and an origin index,
+    both ``(ntemps, nwalkers)`` in slot order and updated in place.
+
+    Rung ``i`` slot ``w`` pairs with rung ``i - 1`` slot ``p = (w + s) mod
+    modulus`` only where ``p < nwalkers``; seen from rung ``i - 1``, slot
+    ``v`` is the partner of ``(v - s) mod modulus``, so both rows are
+    gathers and nothing is padded.  Returns the ``(ntemps - 1, nwalkers)``
+    bool accept mask."""
     ntemps, nwalkers = logl.shape
-    out_l = logl.clone()
-    out_c = channels.clone()
     w = torch.arange(nwalkers, device=logl.device)
     sels = []
     for i in range(ntemps - 1, 0, -1):
-        partner = (w + shifts[i - 1].long()) % nwalkers
-        # copies: row i is overwritten before row i-1 is written from it
-        a = out_l[i].clone()
-        b = out_l[i - 1, partner]
-        sel = dbetas[i - 1] * (a - b) > raccept[i - 1]
-        ci = out_c[i].clone()
-        cj = out_c[i - 1][:, partner]
-        out_l[i] = torch.where(sel, b, a)
-        out_l[i - 1, partner] = torch.where(sel, a, b)
-        out_c[i] = torch.where(sel, cj, ci)
-        out_c[i - 1][:, partner] = torch.where(sel, ci, cj)
+        s = shifts[i - 1].long()
+        partner = (w + s) % modulus
+        valid = partner < nwalkers
+        p = torch.where(valid, partner, 0)
+        source = (w - s) % modulus  # rung i slot paired with rung i-1 slot w
+        back = source < nwalkers
+        src = torch.where(back, source, 0)
+        a = logl[i].clone()
+        b = logl[i - 1].clone()
+        sel = valid & (dbetas[i - 1] * (a - b[p]) > raccept[i - 1])
+        take = back & sel[src]
+        oa = origin[i].clone()
+        ob = origin[i - 1].clone()
+        logl[i] = torch.where(sel, b[p], a)
+        logl[i - 1] = torch.where(take, a[src], b)
+        origin[i] = torch.where(sel, ob[p], oa)
+        origin[i - 1] = torch.where(take, oa[src], ob)
         sels.append(sel)
     if sels:
-        sel = torch.stack(sels[::-1]).to(logl.dtype)
+        return torch.stack(sels[::-1])
+    return torch.zeros((0, nwalkers), dtype=torch.bool, device=logl.device)
+
+
+def _channels_ref(logl, channels, dbetas, shifts, raccept, modulus):
+    ntemps, nwalkers = logl.shape
+    out_l = logl.clone()
+    origin = torch.arange(ntemps * nwalkers, device=logl.device).reshape(
+        ntemps, nwalkers)
+    sel = _rung_loop(out_l, origin, dbetas, shifts, raccept, modulus)
+    # out_c[t, :, w] = channels[ts, :, ws] with (ts, ws) the origin of (t, w)
+    ts = torch.div(origin, nwalkers, rounding_mode="floor")
+    out_c = channels[ts[:, None, :], torch.arange(
+        channels.shape[1], device=logl.device)[None, :, None],
+        (origin - ts * nwalkers)[:, None, :]]
+    return out_l, out_c, sel.to(logl.dtype)
+
+
+def pt_swap_cascade_multi_ref(logl, channels, dbetas, shifts, raccept):
+    """Plain version of :func:`pt_swap_cascade_multi` up to
+    :data:`ROLLED_THRESHOLD` walkers (rotations modulo ``nwalkers``)."""
+    return _channels_ref(logl, channels, dbetas, shifts, raccept,
+                         logl.shape[1])
+
+
+def _cascade_multi_rolled_ref(logl, channels, dbetas, shifts, raccept):
+    """Plain version of :func:`_cascade_multi_rolled` (rotations modulo the
+    128-padded width, pairs with a partner beyond ``nwalkers`` skipped)."""
+    return _channels_ref(logl, channels, dbetas, shifts, raccept,
+                         _padded_width(logl.shape[1]))
+
+
+def pt_swap_cascade_tree_ref(logl, leaves, betas, pi, shifts, raccept,
+                             out_logl, out_leaves, accepted, sel=None):
+    """Plain version of :func:`pt_swap_cascade_tree`: gather by ``pi``, the
+    rungs on the log-likelihood and an origin index, one gather per leaf."""
+    ntemps, nwalkers = logl.shape
+    dbetas = betas[:-1] - betas[1:]
+    slots = logl[:, pi]
+    rows = torch.arange(ntemps, device=logl.device)[:, None] * nwalkers
+    dest = (rows + pi[None, :]).reshape(-1)  # flat walker-order slot of (t, w)
+    origin = dest.reshape(ntemps, nwalkers).clone()
+    mask = _rung_loop(slots, origin, dbetas, shifts, raccept,
+                      _modulus(nwalkers))
+    out_logl[:, pi] = slots
+    origin = origin.reshape(-1)
+    n = ntemps * nwalkers
+    for leaf, out in zip(leaves, out_leaves):
+        if leaf.numel():
+            out.view(n, -1)[dest] = leaf.reshape(n, -1)[origin]
+    accepted.copy_(mask.sum(dim=-1))
+    if sel is not None:
+        sel.copy_(mask)
+
+
+# ----------------------------------------------------------------------
+# kernel wrappers
+# ----------------------------------------------------------------------
+def _shared_bytes(ntemps, nwalkers, chunk, itemsize):
+    """Shared memory of one block (``csrc/pt_swap.cu:launch_cascade``): rings
+    of four rows of log-likelihoods as they lie, of acceptance draws, of
+    relabelled log-likelihoods and of int32 origins, the relabelling, the
+    per-rung differences, rotations and counts, and the final origins of its
+    chunk."""
+    return ((12 * nwalkers + ntemps - 1) * itemsize
+            + (5 * nwalkers + 2 * (ntemps - 1)
+               + ntemps * min(chunk, nwalkers)) * 4)
+
+
+def _chunk_walkers(nwalkers):
+    """Walkers of every rung whose payload one block of the grid moves: 8,
+    or what keeps the grid within 128 blocks (one wave of the card's 132
+    SMs, as every block repeats the decision pass)."""
+    return max(8, -(-nwalkers // 128))
+
+
+def _launch(rolled, logl, betas, dbetas, pi, shifts, raccept, out_logl,
+            accepted, sel, table, chunk):
+    """Launch the cascade kernel and count the launch.  ``table`` lists, per
+    leaf, ``(tensor in, tensor out, row bytes, channels)``."""
+    ntemps, nwalkers = logl.shape
+    if ntemps * nwalkers >= 2**31:
+        raise ValueError(
+            "the swap cascade carries int32 origins and supports fewer than "
+            f"2**31 ensemble slots; got {ntemps * nwalkers}.")
+    scratch = None
+    if _shared_bytes(ntemps, nwalkers, chunk, logl.element_size()) > SHARED_LIMIT:
+        scratch = torch.empty((ntemps, nwalkers), dtype=torch.int32,
+                              device=logl.device)
+    n = len(table)
+    ptr = ctypes.c_void_p * n
+    ints = ctypes.c_int * n
+
+    def address(x):
+        return None if x is None else x.data_ptr()
+
+    name = "_cascade_multi_rolled" if rolled else "pt_swap_cascade_multi"
+    _build.launch(
+        f"eryn_pt_swap_cascade_{SUFFIX[logl.dtype]}", name, logl.get_device(),
+        "ppppppppppppppiiiiiip",
+        logl.data_ptr(), address(betas), address(dbetas), address(pi),
+        shifts.data_ptr(), raccept.data_ptr(), out_logl.data_ptr(),
+        address(accepted), address(sel), address(scratch),
+        ptr(*(t[0].data_ptr() for t in table)),
+        ptr(*(t[1].data_ptr() for t in table)),
+        ints(*(t[2] for t in table)), ints(*(t[3] for t in table)),
+        n, ntemps, nwalkers, chunk, int(rolled), SHARED_LIMIT,
+    )
+    if rolled:
+        _cascade_multi_rolled.launches += 1
     else:
-        sel = logl.new_zeros((0, nwalkers))
+        pt_swap_cascade_multi.launches += 1
+
+
+def pt_swap_cascade_tree(logl, leaves, betas, pi, shifts, raccept, out_logl,
+                         out_leaves, accepted, sel=None, chunk=None):
+    """The whole swap phase from given draws, in one launch: relabel the
+    walker axis by ``pi``, run the cascade, relabel back.
+
+    Args:
+        logl: ``(ntemps, nwalkers)`` log-likelihoods, float32 or float64.
+        leaves: sequence of at most :data:`MAX_LEAVES` contiguous tensors
+            with leading ``(ntemps, nwalkers)`` dims, of any dtype (bool
+            masks and integers move as bytes), swapped as ``logl`` is.
+        betas: ``(ntemps,)`` inverse temperatures; rung ``i`` decides with
+            ``betas[i-1] - betas[i]``.
+        pi: ``(nwalkers,)`` int64 relabelling: slot ``w`` holds walker
+            ``pi[w]``.
+        shifts: ``(ntemps - 1,)`` int32 rotation offsets.
+        raccept: ``(ntemps - 1, nwalkers)`` log-uniform acceptance draws, in
+            slot order.
+        out_logl: written with the swapped log-likelihoods, walker order.
+        out_leaves: one tensor like each leaf, written with the swapped
+            leaf; it must not overlap any input.
+        accepted: ``(ntemps - 1,)`` in the dtype of ``logl``, written with
+            the accepted pairings of each rung.
+        sel: optionally ``(ntemps - 1, nwalkers)`` in the dtype of ``logl``,
+            written with the accept mask (1.0 / 0.0) in slot order.
+        chunk: walkers per block of the grid (:func:`_chunk_walkers`).
+
+    Above :data:`ROLLED_THRESHOLD` walkers the rotations run modulo the
+    128-padded width and :func:`proposals_per_rung` gives the pairings
+    proposed.  Every value of the outputs is a value of the inputs, moved.
+    """
+    if len(leaves) != len(out_leaves):
+        raise ValueError(
+            f"pt_swap_cascade_tree: {len(leaves)} leaves but "
+            f"{len(out_leaves)} outputs.")
+    if logl.device.type == "cpu":
+        return pt_swap_cascade_tree_ref(logl, leaves, betas, pi, shifts,
+                                        raccept, out_logl, out_leaves,
+                                        accepted, sel)
+    ntemps, nwalkers = logl.shape
+    if len(leaves) > MAX_LEAVES:
+        raise ValueError(
+            f"pt_swap_cascade_tree moves at most {MAX_LEAVES} leaves in one "
+            f"launch; got {len(leaves)}.")
+    more = {} if sel is None else {"sel": (sel, (ntemps - 1, nwalkers))}
+    for k, (leaf, out) in enumerate(zip(leaves, out_leaves)):
+        more[f"leaves[{k}]"] = (leaf, leaf.shape, leaf.dtype)
+        more[f"out_leaves[{k}]"] = (out, leaf.shape, leaf.dtype)
+    check_cuda_args(
+        "pt_swap_cascade_tree", logl.dtype, logl.device,
+        logl=(logl, (ntemps, nwalkers)), betas=(betas, (ntemps,)),
+        pi=(pi, (nwalkers,), torch.int64), i_shifts=(shifts, (ntemps - 1,)),
+        raccept=(raccept, (ntemps - 1, nwalkers)),
+        out_logl=(out_logl, (ntemps, nwalkers)),
+        accepted=(accepted, (ntemps - 1,)), **more,
+    )
+    table = []
+    for k, (leaf, out) in enumerate(zip(leaves, out_leaves)):
+        if leaf.shape[:2] != (ntemps, nwalkers):
+            raise ValueError(
+                f"pt_swap_cascade_tree: leaves[{k}] has shape "
+                f"{tuple(leaf.shape)}, expected leading dims "
+                f"{(ntemps, nwalkers)}.")
+        if leaf.data_ptr() == out.data_ptr():
+            raise ValueError(
+                f"pt_swap_cascade_tree: out_leaves[{k}] overlaps its input.")
+        row_bytes = math.prod(leaf.shape[2:]) * leaf.element_size()
+        if ntemps * nwalkers * row_bytes >= 2**31:
+            raise ValueError(
+                f"pt_swap_cascade_tree: leaves[{k}] holds 2**31 bytes or "
+                "more; the kernel indexes a leaf with 32 bits.")
+        if row_bytes:
+            table.append((leaf, out, row_bytes, 0))
+    _launch(nwalkers > ROLLED_THRESHOLD, logl, betas, None, pi, shifts,
+            raccept, out_logl, accepted, sel, table,
+            _chunk_walkers(nwalkers) if chunk is None else chunk)
+
+
+def _launch_channels(name, rolled, logl, channels, dbetas, shifts, raccept):
+    """Check the arguments of a channel-form cascade, allocate its outputs
+    and launch."""
+    ntemps, nwalkers = logl.shape
+    D = channels.shape[1]
+    check_cuda_args(
+        name, logl.dtype, logl.device,
+        logl=(logl, (ntemps, nwalkers)),
+        channels=(channels, (ntemps, D, nwalkers)),
+        dbetas=(dbetas, (ntemps - 1,)), i_shifts=(shifts, (ntemps - 1,)),
+        raccept=(raccept, (ntemps - 1, nwalkers)),
+    )
+    out_l = torch.empty_like(logl)
+    out_c = torch.empty_like(channels)
+    sel = torch.empty_like(raccept)
+    table = [(channels, out_c, channels.element_size(), D)] if D else []
+    _launch(rolled, logl, None, dbetas, None, shifts, raccept, out_l, None,
+            sel, table, _chunk_walkers(nwalkers))
     return out_l, out_c, sel
 
 
 def pt_swap_cascade_multi(logl, channels, dbetas, shifts, raccept):
-    """Run the full swap cascade in one launch, carrying ``D`` payload
-    channels through every rung.
+    """Run the full swap cascade in one launch on an ensemble that is
+    already relabelled, moving ``D`` payload channels with it.
 
     Args:
         logl: ``(ntemps, nwalkers)`` log-likelihoods.
@@ -111,97 +372,27 @@ def pt_swap_cascade_multi(logl, channels, dbetas, shifts, raccept):
     Above :data:`ROLLED_THRESHOLD` walkers this is
     :func:`_cascade_multi_rolled`.
     """
-    ntemps, nwalkers = logl.shape
-    if nwalkers > ROLLED_THRESHOLD:
+    if logl.shape[1] > ROLLED_THRESHOLD:
         return _cascade_multi_rolled(logl, channels, dbetas, shifts, raccept)
     if logl.device.type == "cpu":
         return pt_swap_cascade_multi_ref(logl, channels, dbetas, shifts, raccept)
-    out = _launch("pt_swap_cascade_multi", "eryn_pt_swap_cascade", logl,
-                  channels, dbetas, shifts, raccept)
-    pt_swap_cascade_multi.launches += 1
-    return out
+    return _launch_channels("pt_swap_cascade_multi", False, logl, channels,
+                            dbetas, shifts, raccept)
 
 
 pt_swap_cascade_multi.launches = 0
-
-
-def _launch(name, symbol, logl, channels, dbetas, shifts, raccept):
-    """Check the arguments and launch one of the two cascade kernels."""
-    ntemps, nwalkers = logl.shape
-    D = channels.shape[1]
-    check_cuda_args(
-        name, logl.dtype, logl.device,
-        logl=(logl, (ntemps, nwalkers)),
-        channels=(channels, (ntemps, D, nwalkers)),
-        dbetas=(dbetas, (ntemps - 1,)), i_shifts=(shifts, (ntemps - 1,)),
-        raccept=(raccept, (ntemps - 1, nwalkers)),
-    )
-    out_l = torch.empty_like(logl)
-    out_c = torch.empty_like(channels)
-    sel = torch.empty_like(raccept)
-    fn = _build.function(f"{symbol}_{SUFFIX[logl.dtype]}", "ppppppppiiip")
-    with torch.cuda.device(logl.device):
-        err = fn(
-            logl.data_ptr(), channels.data_ptr(), dbetas.data_ptr(),
-            shifts.data_ptr(), raccept.data_ptr(), out_l.data_ptr(),
-            out_c.data_ptr(), sel.data_ptr(), ntemps, nwalkers, D,
-            torch.cuda.current_stream().cuda_stream,
-        )
-    _build.check(err, name)
-    return out_l, out_c, sel
-
-
-def _cascade_multi_rolled_ref(logl, channels, dbetas, shifts, raccept):
-    """Plain version of :func:`_cascade_multi_rolled`.
-
-    Rung ``i`` walker ``w`` pairs with rung ``i - 1`` walker ``p = (w + s)
-    mod nwpad`` only where ``p < nwalkers``; seen from rung ``i - 1``, walker
-    ``v`` is the partner of ``(v - s) mod nwpad``, so both rows are gathers
-    and nothing is padded."""
-    ntemps, nwalkers = logl.shape
-    nwpad = _padded_width(nwalkers)
-    out_l = logl.clone()
-    out_c = channels.clone()
-    w = torch.arange(nwalkers, device=logl.device)
-    sels = []
-    for i in range(ntemps - 1, 0, -1):
-        s = shifts[i - 1].long()
-        partner = (w + s) % nwpad
-        valid = partner < nwalkers
-        p = torch.where(valid, partner, 0)
-        source = (w - s) % nwpad  # rung i walker paired with rung i-1 lane w
-        back = source < nwalkers
-        src = torch.where(back, source, 0)
-        a = out_l[i].clone()
-        b = out_l[i - 1].clone()
-        sel = valid & (dbetas[i - 1] * (a - b[p]) > raccept[i - 1])
-        take = back & sel[src]
-        ci = out_c[i].clone()
-        cj = out_c[i - 1].clone()
-        out_l[i] = torch.where(sel, b[p], a)
-        out_l[i - 1] = torch.where(take, a[src], b)
-        out_c[i] = torch.where(sel, cj[:, p], ci)
-        out_c[i - 1] = torch.where(take, ci[:, src], cj)
-        sels.append(sel)
-    if sels:
-        sel = torch.stack(sels[::-1]).to(logl.dtype)
-    else:
-        sel = logl.new_zeros((0, nwalkers))
-    return out_l, out_c, sel
 
 
 def _cascade_multi_rolled(logl, channels, dbetas, shifts, raccept):
     """The swap cascade for more than :data:`ROLLED_THRESHOLD` walkers: the
     arguments and results of :func:`pt_swap_cascade_multi`, with rotations
     modulo the 128-padded width and pairs whose partner is not a real
-    walker skipped (``sel`` 0 there).  One launch of the second cascade
-    kernel on CUDA tensors; the plain version on CPU tensors."""
+    walker skipped (``sel`` 0 there).  One launch on CUDA tensors; the
+    plain version on CPU tensors."""
     if logl.device.type == "cpu":
         return _cascade_multi_rolled_ref(logl, channels, dbetas, shifts, raccept)
-    out = _launch("_cascade_multi_rolled", "eryn_pt_swap_cascade_rolled", logl,
-                  channels, dbetas, shifts, raccept)
-    _cascade_multi_rolled.launches += 1
-    return out
+    return _launch_channels("_cascade_multi_rolled", True, logl, channels,
+                            dbetas, shifts, raccept)
 
 
 _cascade_multi_rolled.launches = 0

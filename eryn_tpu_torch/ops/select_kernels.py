@@ -60,13 +60,12 @@ def onehot_select(cs, kq, c_clean):
         cs=(cs, (nt, M)), kq=(kq, (nt, Q)), c_clean=(c_clean, (nt, M, nd)),
     )
     out = torch.empty((nt, Q, nd), dtype=cs.dtype, device=cs.device)
-    fn = _build.function(f"eryn_onehot_select_{SUFFIX[cs.dtype]}", "ppppiiiip")
-    with torch.cuda.device(cs.device):
-        err = fn(
-            cs.data_ptr(), kq.data_ptr(), c_clean.data_ptr(), out.data_ptr(),
-            nt, M, Q, nd, torch.cuda.current_stream().cuda_stream,
-        )
-    _build.check(err, "onehot_select")
+    _build.launch(
+        f"eryn_onehot_select_{SUFFIX[cs.dtype]}", "onehot_select",
+        cs.get_device(), "ppppiiiip",
+        cs.data_ptr(), kq.data_ptr(), c_clean.data_ptr(), out.data_ptr(),
+        nt, M, Q, nd,
+    )
     onehot_select.launches += 1
     return out
 

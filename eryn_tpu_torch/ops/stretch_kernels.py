@@ -59,17 +59,9 @@ def _halves(perm, half):
 
 def _launch(name, x, signature, *args):
     """Launch ``eryn_<name>_<dtype>`` on the current stream of ``x``'s
-    device.  The raw stream handle is the one PyTorch's own compiler reads
-    (``torch._C._cuda_getCurrentRawStream``): building a ``torch.cuda.Stream``
-    object per call costs host time on every launch."""
-    fn = _build.function(f"eryn_{name}_{SUFFIX[x.dtype]}", signature)
-    index = x.get_device()
-    if index == torch.cuda.current_device():
-        err = fn(*args, torch._C._cuda_getCurrentRawStream(index))
-    else:
-        with torch.cuda.device(index):
-            err = fn(*args, torch._C._cuda_getCurrentRawStream(index))
-    _build.check(err, name)
+    device."""
+    _build.launch(f"eryn_{name}_{SUFFIX[x.dtype]}", name, x.get_device(),
+                  signature, *args)
 
 
 # ----------------------------------------------------------------------

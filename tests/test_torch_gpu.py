@@ -190,6 +190,93 @@ def test_rolled_cascade_kernel_bitwise(cuda, dtype, shape):
     assert 0 < out[2].sum() < out[2].numel()
 
 
+def _tree_case(dtype, nt, nw, nleaves, ndim):
+    """The sampler's swap tree, its log-likelihood and ladder and one
+    cascade's draws on the card; and a maker of outputs like them."""
+    g = _gen()
+    logl = _randn(g, dtype, nt, nw) * 10
+    leaves = [_randn(g, dtype, nt, nw, nleaves, ndim),
+              _rand(g, dtype, nt, nw, nleaves) < 0.4, _randn(g, dtype, nt, nw)]
+    args = (
+        logl, leaves, torch.logspace(0, -2, nt, dtype=dtype, device="cuda"),
+        torch.randperm(nw, generator=g).cuda(),
+        torch.randint(0, nw, (nt - 1,), generator=g, dtype=torch.int32).cuda(),
+        torch.log(_rand(g, dtype, nt - 1, nw)),
+    )
+
+    def outs():
+        return (torch.empty_like(logl), [torch.empty_like(x) for x in leaves],
+                torch.empty(nt - 1, dtype=dtype, device="cuda"),
+                torch.empty((nt - 1, nw), dtype=dtype, device="cuda"))
+
+    return args, outs
+
+
+# (nt, nw, leaves, ndim): the north-star tree at the north-star and config E
+# sizes, the RJ tree, the block loops, the first rolled size
+TREE_SHAPES = [(10, 100, 1, 5), (20, 1000, 1, 5), (10, 200, 8, 3),
+               (3, 1500, 1, 5), (3, 4001, 1, 5), (3, 641, 1, 5)]
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.float64])
+@pytest.mark.parametrize("shape", TREE_SHAPES)
+@pytest.mark.parametrize("form", ["grid", "one block", "global"])
+def test_tree_cascade_kernel_bitwise(cuda, dtype, shape, form, monkeypatch):
+    """The sampler's cascade against its plain version: a grid of blocks
+    that each move a chunk of walkers, one block moving everything, and the
+    form that keeps its rows in global memory."""
+    nt, nw = shape[:2]
+    args, outs = _tree_case(dtype, *shape)
+    out_k, out_r = outs(), outs()
+    if form == "global":
+        monkeypatch.setattr(pt_swap, "SHARED_LIMIT", 0)
+    rolled = nw > pt_swap.ROLLED_THRESHOLD
+    before = (pt_swap.pt_swap_cascade_multi.launches,
+              pt_swap._cascade_multi_rolled.launches)
+    pt_swap.pt_swap_cascade_tree(*args, *out_k,
+                                 chunk=nw if form == "one block" else None)
+    pt_swap.pt_swap_cascade_tree_ref(*args, *out_r)
+    torch.cuda.synchronize()
+    assert (pt_swap.pt_swap_cascade_multi.launches,
+            pt_swap._cascade_multi_rolled.launches) == (
+        before[0] + (not rolled), before[1] + rolled)
+    for a, b in zip((out_k[0], *out_k[1], *out_k[2:]),
+                    (out_r[0], *out_r[1], *out_r[2:])):
+        assert a.dtype == b.dtype and torch.equal(a, b)
+    assert 0 < out_k[2].sum() < (nt - 1) * nw
+    assert out_k[1][1].dtype == torch.bool
+
+
+def test_tree_cascade_rejects_what_the_kernel_does_not_take(cuda):
+    args, outs = _tree_case(torch.float32, 3, 16, 1, 2)
+    logl, leaves, betas, pi, shifts, raccept = args
+    out_logl, out_leaves, accepted, sel = outs()
+    many = [leaves[2]] * (pt_swap.MAX_LEAVES + 1)
+    with pytest.raises(ValueError, match="at most 32 leaves"):
+        pt_swap.pt_swap_cascade_tree(
+            logl, many, betas, pi, shifts, raccept, out_logl,
+            [torch.empty_like(x) for x in many], accepted)
+    with pytest.raises(TypeError, match="pi has dtype"):
+        pt_swap.pt_swap_cascade_tree(logl, leaves, betas, pi.int(), shifts,
+                                     raccept, out_logl, out_leaves, accepted)
+    with pytest.raises(ValueError, match=r"leaves\[0\] must be contiguous"):
+        strided = torch.zeros((3, 16, 1, 4), device=cuda)[..., ::2]
+        pt_swap.pt_swap_cascade_tree(
+            logl, [strided] + leaves[1:], betas, pi, shifts, raccept,
+            out_logl, out_leaves, accepted)
+    with pytest.raises(ValueError, match="overlaps its input"):
+        pt_swap.pt_swap_cascade_tree(logl, leaves, betas, pi, shifts, raccept,
+                                     out_logl, leaves, accepted)
+    # a table that is exactly full is taken
+    full = [leaves[2]] * pt_swap.MAX_LEAVES
+    full_out = [torch.empty_like(x) for x in full]
+    pt_swap.pt_swap_cascade_tree(logl, full, betas, pi, shifts, raccept,
+                                 out_logl, full_out, accepted)
+    ref = outs()
+    pt_swap.pt_swap_cascade_tree_ref(*args, *ref)
+    assert all(torch.equal(x, ref[1][2]) for x in full_out)
+
+
 @pytest.mark.parametrize("dtype", [torch.float32, torch.float64])
 @pytest.mark.parametrize("shape", [(10, 800, 800, 3), (2, 130, 257, 3),
                                    (1, 1, 1, 1)])
@@ -251,7 +338,8 @@ def test_sampler_runs_through_the_kernels(cuda, dtype):
     counts = [k.launches for k in kernels]
     coords = priors.rvs(size=(4, 33), generator=torch.Generator(cuda).manual_seed(1))
     sampler.run_mcmc(coords, 400, burn=100)
-    # one of each stretch kernel and one cascade per step
+    # one of each stretch kernel per step, and one cascade launch per
+    # tempering phase (one phase per step)
     assert [k.launches - c for k, c in zip(kernels, counts)] == [500] * 4
     cold = sampler.get_chain(temp_index=0)["model_0"].reshape(-1, 3)
     assert cold.dtype == (np.float32 if dtype == torch.float32 else np.float64)
@@ -261,8 +349,8 @@ def test_sampler_runs_through_the_kernels(cuda, dtype):
 
 def test_rj_sampler_runs_through_the_kernels(cuda):
     """Reversible jump with the group stretch on the card: two selection
-    launches (one per half) and two cascades (after the in-model and the RJ
-    move) per step."""
+    launches (one per half) and one cascade launch per tempering phase
+    (two per step: after the in-model and after the RJ move)."""
     from eryn_tpu_torch import EnsembleSampler, ProbDistContainer, uniform_dist
     from eryn_tpu_torch.moves import RedBlueGroupStretchMove
 

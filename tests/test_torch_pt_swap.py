@@ -221,3 +221,251 @@ def test_sampler_swap_fractions_above_the_threshold():
         fractions.append(sampler.swap_acceptance_fraction)
     assert (fractions[0] < 1).all() and (fractions[0] > 0.2).all()
     np.testing.assert_allclose(fractions[0], fractions[1], atol=0.02)
+
+
+# -- the tree form: the whole swap phase of the sampler, from given draws --
+
+def _tree(kind, ntemps, nwalkers, dtype, rng):
+    """A one-branch Gaussian tree, or a reversible-jump tree with two
+    branches, bool leaf masks and several leaves per walker."""
+    if kind == "gaussian":
+        shapes = {"model_0": (1, 5)}
+    else:
+        shapes = {"pulse": (8, 3), "noise": (1, 2)}
+    coords = {k: rng.standard_normal((ntemps, nwalkers) + s).astype(dtype)
+              for k, s in shapes.items()}
+    inds = {k: (np.ones((ntemps, nwalkers, s[0]), bool) if kind == "gaussian"
+                else rng.random((ntemps, nwalkers, s[0])) < 0.4)
+            for k, s in shapes.items()}
+    return {"coords": coords, "inds": inds,
+            "log_prior": rng.standard_normal((ntemps, nwalkers)).astype(dtype)}
+
+
+def _leaves(tree):
+    """Leaves in sorted key order, the order of both packages."""
+    if isinstance(tree, dict):
+        return [x for k in sorted(tree) for x in _leaves(tree[k])]
+    return [tree]
+
+
+def _tree_inputs(kind, ntemps, nwalkers, dtype, seed):
+    rng = np.random.default_rng(seed)
+    logl = (rng.standard_normal((ntemps, nwalkers)) * 10).astype(dtype)
+    betas = np.logspace(0, -2, ntemps).astype(dtype)
+    return _tree(kind, ntemps, nwalkers, dtype, rng), logl, betas
+
+
+def _port_tree_cascade(tree, logl, betas, pi, shifts, raccept, want_sel=False):
+    """The port's tree-form cascade (its plain version, on the CPU) on numpy
+    inputs; returns numpy ``(leaves, logl, accepted[, sel])``."""
+    t = torch.from_numpy
+    leaves = [t(x) for x in _leaves(tree)]
+    out_logl = torch.empty_like(t(logl))
+    out_leaves = [torch.empty_like(x) for x in leaves]
+    accepted = torch.empty(logl.shape[0] - 1, dtype=out_logl.dtype)
+    sel = torch.empty_like(t(raccept)) if want_sel else None
+    port.pt_swap_cascade_tree(
+        t(logl), leaves, t(betas), t(pi), t(shifts), t(raccept), out_logl,
+        out_leaves, accepted, sel)
+    out = ([x.numpy() for x in out_leaves], out_logl.numpy(), accepted.numpy())
+    return out + (sel.numpy(),) if want_sel else out
+
+
+@pytest.mark.parametrize("dtype", [np.float32, np.float64])
+@pytest.mark.parametrize("kind", ["gaussian", "rj"])
+@pytest.mark.parametrize(
+    "shape", [(4, 33), (10, 100), (3, 640), (3, 641), (4, 700), (20, 1000)])
+def test_tree_cascade_bitwise_matches_jax_swap_kernel(shape, kind, dtype):
+    """The tree-form cascade against eryn_tpu's ``_swap_kernel_pallas``
+    (interpret mode), with ``pi``, ``shifts`` and ``raccept`` reproduced from
+    the JAX key as that function draws them.  Bitwise: the swapped
+    log-likelihood, every leaf (bool masks too) and the accepted counts."""
+    import jax
+
+    import eryn_tpu
+
+    ntemps, nwalkers = shape
+    tree, logl, betas = _tree_inputs(kind, ntemps, nwalkers, dtype,
+                                     seed=ntemps * nwalkers)
+    with jax.enable_x64(dtype == np.float64):
+        jdtype = jnp.float64 if dtype == np.float64 else jnp.float32
+        key = jax.random.PRNGKey(nwalkers)
+        jtc = eryn_tpu.moves.TemperatureControl(5, nwalkers, ntemps=ntemps)
+        j_tree, j_logl, j_acc, j_prop = jtc._swap_kernel_pallas(
+            key, jax.tree_util.tree_map(jnp.asarray, tree), jnp.asarray(logl),
+            jnp.asarray(betas), interpret=True)
+        assert j_logl.dtype == jdtype
+        # eryn_tpu/moves/tempering.py:551-559
+        k_pi, k_shift, k_acc = jax.random.split(key, 3)
+        pi = np.asarray(jax.random.permutation(k_pi, nwalkers)).astype(np.int64)
+        shifts = np.asarray(
+            jax.random.randint(k_shift, (ntemps - 1,), 0, nwalkers)
+        ).astype(np.int32)
+        raccept = np.array(jnp.log(jax.random.uniform(
+            k_acc, (ntemps - 1, nwalkers), dtype=jdtype)))
+        j_leaves = [np.asarray(x) for x in jax.tree_util.tree_leaves(j_tree)]
+        j_logl, j_acc, j_prop = (np.asarray(x) for x in (j_logl, j_acc, j_prop))
+    assert raccept.dtype == dtype
+
+    leaves, out_logl, accepted = _port_tree_cascade(
+        tree, logl, betas, pi, shifts, raccept)
+    np.testing.assert_array_equal(out_logl, j_logl)
+    assert len(leaves) == len(j_leaves)
+    for got, want in zip(leaves, j_leaves):
+        assert got.dtype == want.dtype
+        np.testing.assert_array_equal(got, want)
+    np.testing.assert_array_equal(accepted, j_acc)
+    assert accepted.dtype == dtype and 0 < accepted.sum() < (ntemps - 1) * nwalkers
+    proposed = port.proposals_per_rung(nwalkers, torch.from_numpy(shifts),
+                                       torch.from_numpy(logl).dtype)
+    if nwalkers > port.ROLLED_THRESHOLD:
+        proposed = proposed.numpy()
+    np.testing.assert_array_equal(np.broadcast_to(proposed, j_prop.shape), j_prop)
+
+
+def _composed_channel_cascade(tree, logl, betas, pi, shifts, raccept):
+    """The swap phase composed from the channel-form cascade as the JAX
+    package composes it: pack every leaf into ``(ntemps, D, nwalkers)``
+    channels of the log-likelihood's dtype (bool masks as 0/1), relabel by
+    ``pi`` with gathers, cascade, relabel back, unpack."""
+    t = torch.from_numpy
+    logl, betas, pi = t(logl), t(betas), t(pi)
+    ntemps, nwalkers = logl.shape
+    leaves = [t(x) for x in _leaves(tree)]
+    channels = torch.cat(
+        [x.reshape(ntemps, nwalkers, -1).to(logl.dtype).transpose(1, 2)
+         for x in leaves], dim=1)
+    inv_pi = torch.argsort(pi)
+    dbetas = (betas[:-1] - betas[1:]).contiguous()
+    logl_res, ch_res, sel = port.pt_swap_cascade_multi(
+        logl[:, pi], channels[:, :, pi].contiguous(), dbetas, t(shifts),
+        t(raccept))
+    ch_res = ch_res[:, :, inv_pi]
+    out, off = [], 0
+    for x in leaves:
+        k = int(np.prod(x.shape[2:]))
+        arr = ch_res[:, off:off + k].transpose(1, 2).reshape(x.shape)
+        off += k
+        out.append((arr > 0.5 if x.dtype == torch.bool else arr).numpy())
+    return out, logl_res[:, inv_pi].numpy(), sel.sum(-1).numpy(), sel.numpy()
+
+
+@pytest.mark.parametrize("dtype", [np.float32, np.float64])
+@pytest.mark.parametrize("kind", ["gaussian", "rj"])
+@pytest.mark.parametrize("shape", [(4, 33), (10, 100), (3, 641), (20, 1000)])
+def test_tree_cascade_equals_composed_channel_cascade(shape, kind, dtype):
+    """One launch on the state as it lies gives what packing, two gathers,
+    the channel-form cascade, two inverse gathers and unpacking give."""
+    ntemps, nwalkers = shape
+    tree, logl, betas = _tree_inputs(kind, ntemps, nwalkers, dtype, seed=11)
+    rng = np.random.default_rng(12)
+    pi = rng.permutation(nwalkers)
+    shifts = rng.integers(0, nwalkers, ntemps - 1).astype(np.int32)
+    raccept = np.log(rng.random((ntemps - 1, nwalkers))).astype(dtype)
+    got = _port_tree_cascade(tree, logl, betas, pi, shifts, raccept,
+                             want_sel=True)
+    want = _composed_channel_cascade(tree, logl, betas, pi, shifts, raccept)
+    for a, b in zip(got[0], want[0]):
+        assert a.dtype == b.dtype
+        np.testing.assert_array_equal(a, b)
+    for a, b in zip(got[1:], want[1:]):
+        np.testing.assert_array_equal(a, b)
+    # the log-likelihood moved: its multiset per pair of rungs is kept
+    np.testing.assert_array_equal(np.sort(got[1].ravel()), np.sort(logl.ravel()))
+    assert not np.array_equal(got[1], logl)
+
+
+def test_tree_cascade_moves_integer_leaves_beyond_float_precision():
+    """Leaves move as bytes: an int64 leaf with values beyond 2**53 and a
+    uint8 leaf come back exact, with the row that held them."""
+    ntemps, nwalkers = 5, 40
+    rng = np.random.default_rng(3)
+    logl = (rng.standard_normal((ntemps, nwalkers)) * 10).astype(np.float32)
+    big = (2**60 + np.arange(ntemps * nwalkers * 3, dtype=np.int64)).reshape(
+        ntemps, nwalkers, 3)
+    tag = np.arange(ntemps * nwalkers, dtype=np.int64).reshape(ntemps, nwalkers)
+    small = rng.integers(0, 255, (ntemps, nwalkers, 1, 2)).astype(np.uint8)
+    tree = {"a": big, "b": tag, "c": small}
+    betas = np.logspace(0, -2, ntemps).astype(np.float32)
+    pi = rng.permutation(nwalkers)
+    shifts = rng.integers(0, nwalkers, ntemps - 1).astype(np.int32)
+    raccept = np.log(rng.random((ntemps - 1, nwalkers))).astype(np.float32)
+    (a, b, c), out_logl, accepted = _port_tree_cascade(
+        tree, logl, betas, pi, shifts, raccept)
+    assert accepted.sum() > 0
+    flat = b.ravel()  # the origin of every slot
+    assert sorted(flat) == list(range(ntemps * nwalkers))
+    np.testing.assert_array_equal(out_logl.ravel(), logl.ravel()[flat])
+    np.testing.assert_array_equal(a.reshape(-1, 3), big.reshape(-1, 3)[flat])
+    np.testing.assert_array_equal(c.reshape(-1, 2), small.reshape(-1, 2)[flat])
+
+
+def test_tree_wrapper_takes_ref_on_cpu_and_checks_its_outputs():
+    tree, logl, betas = _tree_inputs("rj", 4, 21, np.float32, seed=8)
+    rng = np.random.default_rng(8)
+    pi = rng.permutation(21)
+    shifts = rng.integers(0, 21, 3).astype(np.int32)
+    raccept = np.log(rng.random((3, 21))).astype(np.float32)
+    before = (port.pt_swap_cascade_multi.launches,
+              port._cascade_multi_rolled.launches)
+    _port_tree_cascade(tree, logl, betas, pi, shifts, raccept)
+    assert (port.pt_swap_cascade_multi.launches,
+            port._cascade_multi_rolled.launches) == before
+    t = torch.from_numpy
+    with pytest.raises(ValueError, match="5 leaves but 0 outputs"):
+        port.pt_swap_cascade_tree(
+            t(logl), [t(x) for x in _leaves(tree)], t(betas), t(pi),
+            t(shifts), t(raccept), torch.empty_like(t(logl)), [],
+            torch.empty(3))
+
+
+@pytest.mark.parametrize("nwalkers", [100, 700])
+def test_swap_kernel_is_one_tree_cascade(nwalkers, monkeypatch):
+    """``TemperatureControl.swap_kernel`` on the kernel path hands the state's
+    own leaves to one tree-form cascade and nothing else of the cascade
+    family: no packing, no channel form."""
+    from eryn_tpu_torch import TemperatureControl
+    from eryn_tpu_torch.moves import tempering
+
+    calls = []
+    real = tempering.pt_swap_cascade_tree
+
+    def spy(logl, leaves, *args, **kwargs):
+        calls.append([x.dtype for x in leaves])
+        return real(logl, leaves, *args, **kwargs)
+
+    monkeypatch.setattr(tempering, "pt_swap_cascade_tree", spy)
+    for name in ("pt_swap_cascade_multi", "_cascade_multi_rolled"):
+        monkeypatch.setattr(port, name, None)
+    ntemps = 4
+    tree, logl, betas = _tree_inputs("rj", ntemps, nwalkers, np.float32, seed=1)
+    tc = TemperatureControl(3, nwalkers, ntemps=ntemps, use_kernels=True)
+    t_tree = {k: ({n: torch.from_numpy(x) for n, x in v.items()}
+                  if isinstance(v, dict) else torch.from_numpy(v))
+              for k, v in tree.items()}
+    out_tree, out_logl, accepted, proposed = tc.swap_kernel(
+        torch.Generator().manual_seed(0), t_tree, torch.from_numpy(logl),
+        torch.from_numpy(betas))
+    assert calls == [[torch.float32, torch.float32, torch.bool, torch.bool,
+                      torch.float32]]
+    assert out_tree["inds"]["pulse"].dtype == torch.bool
+    assert accepted.shape == (ntemps - 1,) and accepted.sum() > 0
+    assert (type(proposed) is int) == (nwalkers <= port.ROLLED_THRESHOLD)
+    np.testing.assert_array_equal(
+        np.sort(out_logl.numpy().ravel()), np.sort(logl.ravel()))
+
+
+def test_grid_and_shared_memory_sizing():
+    """The grid stays within 128 blocks of at least 8 walkers, and the
+    shared-memory form covers this repo's ensembles in both dtypes; beyond
+    a block's shared memory the launch takes the global-memory form."""
+    assert [port._chunk_walkers(n) for n in (33, 100, 1000, 1024, 1025, 4001)
+            ] == [8, 8, 8, 8, 9, 32]
+    for itemsize in (4, 8):
+        assert port._shared_bytes(20, 1000, 8, itemsize) < port.SHARED_LIMIT
+        assert port._shared_bytes(10, 200, 200, itemsize) < port.SHARED_LIMIT
+    assert port._shared_bytes(3, 1500, 12, 8) < port.SHARED_LIMIT
+    assert port._shared_bytes(3, 4001, 32, 8) > port.SHARED_LIMIT
+    # a chunk wider than the ensemble is the ensemble
+    assert (port._shared_bytes(4, 50, 10**6, 4)
+            == port._shared_bytes(4, 50, 50, 4))
