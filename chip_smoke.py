@@ -7,23 +7,29 @@ the CUDA toolkit::
     python3 chip_smoke.py [--out report.json]
 
 (``--cascade-scan`` instead builds the kernels, times the swap cascade on
-the device against rungs, walkers and chunk width, and stops.)
+the device against rungs, walkers and chunk width, and stops; ``--null-leg``
+builds them, runs and profiles the null-likelihood RJ leg alone, and stops:
+copied into an earlier tree of the port it times that tree.)
 
 Phases, each printing its own lines:
 
 1. device: the card's name and ``nvidia-smi`` name and power limit;
 2. build: the CUDA kernels from ``eryn_tpu_torch/csrc`` (one ``nvcc`` per
    source, in parallel);
-3. kernels: each of the six kernels (three for the stretch step, two
-   cascades, the selection) against its plain PyTorch version on the card,
-   in float32 and float64, at the main path's shapes and at odd shapes (the
-   cascades in the sampler's tree form, as a grid of blocks, as one block
-   and with their rows in global memory, and in the channel form), then
+3. kernels: each of the seven kernels (three for the stretch step, two
+   cascades, the group-stretch proposal and the selection alone) against
+   its plain PyTorch version on the card, in float32 and float64, at the
+   main path's shapes and at odd shapes (the cascades in the sampler's tree
+   form, as a grid of blocks, as one block and with their rows in global
+   memory, and in the channel form; the group-stretch proposal on both
+   blocks of the RJ split and with two branches, a Gibbs table, an empty
+   complement, picks beyond the count, a periodic dimension and the log
+   proposal), then
    each kernel's time per wrapper call beside its plain version's,
    its bound (bytes over the memory rate against operations over the peak
    rate) and the time of one empty launch, and the host cost of a
    wrapper's parts;
-4. main path, four legs through ``EnsembleSampler``, each with the launch
+4. main path, six legs through ``EnsembleSampler``, each with the launch
    counters set to 0 just before it and read just after:
 
    * north-star (10 temperatures x 100 walkers, 5-D Gaussian): a run without
@@ -33,8 +39,17 @@ Phases, each printing its own lines:
      the large-ensemble cascade;
    * LISA-style reversible jump (10 x 200 walkers, up to 8 Gaussian-pulse
      leaves, 8192-point template, ``benchmarks/lisa_style.py``): the group
-     stretch through the selection kernel, births and deaths, and the pulse
-     found in the data;
+     stretch through its fused proposal kernel (two launches per step),
+     births and deaths, and the pulse found in the data;
+   * the same configuration with the null likelihood of
+     ``benchmarks/lisa_style.py`` (``heavy=False``), which isolates the
+     sampler's own cost: ``lisa_rj_null_steps_per_s``, and
+     ``lisa_rj_overhead_frac`` = heavy rate / null rate;
+   * the null configuration once more, shorter, with a user's group-stretch
+     move written on the public ``onehot_select`` op (a subclass overriding
+     ``get_proposal_kernel`` with separate tensor ops around one selection
+     launch per half): from the same seed its chain must equal the fused
+     kernel's, and its rate is printed beside it;
    * a flat-likelihood RJ run (64 walkers, 3 leaves): a uniform leaf-count
      posterior.  It checks the RJ moves, is not part of the main path, and
      its launches stay out of the report.
@@ -43,7 +58,7 @@ Phases, each printing its own lines:
    (one cascade launch per tempering phase), no leg may call a plain
    version of a kernel, and each chain must meet its target;
 5. profiles (``torch.profiler``, after every timed run): each kernel's
-   device time per launch, and 50 steady steps of each of the first three
+   device time per launch, and 50 steady steps of each of the first four
    legs (kernel launches and memcpys per step, device-busy share, the top
    five device ops).
 
@@ -315,8 +330,103 @@ def check_kernels(torch, dtype_name):
         assert torch.equal(out_k, out_r), "onehot_select disagrees"
         assert out_k[0].any() and not out_k[-1].any()
         record("onehot_select", (out_k,), (out_r,))
+    # the group-stretch proposal repeats its plain version operation for
+    # operation: equal, NaN (dormant slots) in the same places
+    for case in GROUP_CASES:
+        case = dict(case)
+        log_proposal = case.pop("log_proposal", False)
+        args, kw = _group_args(torch, rand, randn, dtype, **case)
+        kw["log_proposal"] = log_proposal
+        q_k, f_k = select_kernels.group_stretch_propose(*args, **kw)
+        q_r, f_r = select_kernels.group_stretch_propose_ref(*args, **kw)
+        outs_k = (f_k, *q_k.values())
+        outs_r = (f_r, *q_r.values())
+        record("group_stretch_propose", outs_k, outs_r)
+        assert errs["group_stretch_propose"] == 0.0, (
+            f"group_stretch_propose disagrees at {case}")
+        for a, b in zip(outs_k, outs_r):
+            assert torch.equal(a.isnan(), b.isnan())
+        s, si = args[0], args[1]
+        for n in s:
+            assert torch.equal(q_k[n][~si[n]].isnan(), s[n][~si[n]].isnan())
+            assert (q_k[n][0][si[n][0]] != s[n][0][si[n][0]]).any()
     torch.cuda.synchronize()
     return errs
+
+
+# group_stretch_propose's checks: the RJ shape (both blocks of the split),
+# then two branches with a Gibbs per-leaf table, an empty complement on one
+# temperature, one periodic dimension and the log proposal; every case has
+# pick draws of exactly 1, which force k + 1 > cnt
+GROUP_CASES = (
+    dict(nt=L_NT, nw=L_NW, shapes={"m": (L_NLMAX, 3)}, off=0, ns=L_NW // 2),
+    dict(nt=L_NT, nw=L_NW, shapes={"m": (L_NLMAX, 3)}, off=L_NW // 2,
+         ns=L_NW // 2),
+    dict(nt=3, nw=37, shapes={"m": (4, 2), "n": (3, 3)}, off=13, ns=12,
+         empty=1, periodic=True, gibbs=True, log_proposal=True),
+)
+
+
+def _group_args(torch, rand, randn, dtype, nt, nw, shapes, off, ns,
+                empty=None, periodic=False, gibbs=False, overflow=True):
+    """A permuted ensemble of the branches ``shapes`` ``{name: (nl, nd)}``
+    with NaN in dormant slots and the draws of block ``[off, off + ns)``, as
+    the arguments of ``group_stretch_propose``; with ``overflow`` every
+    seventh pick draw is exactly 1."""
+    coords, inds, uu, per_leaf, periods = {}, {}, {}, {}, {}
+    for name, (nl, nd) in shapes.items():
+        m = rand(nt, nw, nl) < 0.4
+        if empty is not None:
+            m[empty] = False
+        x = randn(nt, nw, nl, nd)
+        x[~m] = float("nan")
+        coords[name], inds[name] = x, m
+        uu[name] = rand(nt, ns, nl)
+        if overflow:
+            uu[name].view(-1)[::7] = 1.0
+        per_leaf[name] = (torch.floor(rand(nl) * (nd + 1)) if gibbs else None)
+        periods[name] = None
+        if periodic:
+            periods[name] = torch.full((nd,), float("inf"), dtype=dtype,
+                                       device="cuda")
+            periods[name][0] = 1.5
+    blk = slice(off, off + ns)
+    return ({n: x[:, blk] for n, x in coords.items()},
+            {n: x[:, blk] for n, x in inds.items()}, coords, inds,
+            rand(nt, ns), uu, (off, ns)), dict(per_leaf=per_leaf,
+                                               periods=periods)
+
+
+def _group_bytes_ops(torch, args):
+    """Bytes ``group_stretch_propose`` must move for these inputs and its
+    operations: the masks of both halves, the moving rows, the distinct
+    complement rows this run's draws pick, ``u``, ``uu``, ``q`` and the
+    factors; per moving leaf the stretch factor (4 operations), the pick (a
+    product, a floor and a search over the word prefixes) and 3 operations a
+    coordinate, per walker the factor (a logarithm, a product and an add a
+    leaf)."""
+    s, si, c, ci, u, uu, (off, ns) = args
+    nbytes = 2 * _nbytes(u)  # u read, the factors written
+    ops = 0
+    for n in s:
+        nt, rows, nl, nd = c[n].shape
+        comp = torch.cat([ci[n][:, :off], ci[n][:, off + ns:]], 1).reshape(nt, -1)
+        cs = torch.cumsum(comp, dim=-1)
+        cnt = cs[:, -1:]
+        k1 = torch.floor(uu[n].reshape(nt, -1)
+                         * cnt.clamp(min=1).to(u.dtype)).long() + 1
+        idx = torch.searchsorted(cs, k1).clamp_(max=cs.shape[1] - 1)
+        hit = (k1 <= cnt) & si[n].reshape(nt, -1)
+        picked = torch.unique(
+            (idx + torch.arange(nt, device=idx.device)[:, None] * cs.shape[1]
+             )[hit]).numel()
+        itemsize = u.element_size()
+        nbytes += (ci[n].numel() + uu[n].numel() * itemsize
+                   + (2 * s[n].numel() + picked * nd) * itemsize)
+        words = -(-comp.shape[1] // 32)
+        ops += nt * ns * nl * (4 + 2 + math.ceil(math.log2(max(words, 2)))
+                               + 3 * nd) + nt * ns * (2 + nl)
+    return nbytes, ops
 
 
 def _nbytes(*tensors):
@@ -413,12 +523,21 @@ def time_kernels(torch):
     half = L_NW // 2 * L_NLMAX
     sel_args = _select_args(torch, rand, randn, L_NT, half, half, 3,
                             empty_last=False)
-    # per query: a binary search of ceil(log2 M) + 1 compares
+    # per entry a compare for the mask, per query a search over the
+    # ceil(M / 32) word prefixes and the n-th set bit of one word
     calls["onehot_select"] = (
         lambda: select_kernels.onehot_select(*sel_args),
         lambda: select_kernels.onehot_select_ref(*sel_args),
         _nbytes(*sel_args, select_kernels.onehot_select(*sel_args)),
-        L_NT * half * (math.ceil(math.log2(half)) + 1),
+        L_NT * (half + half * (math.ceil(math.log2(half / 32)) + 2)),
+    )
+    # the sampler's proposal at the RJ shape: block 0 of the split
+    grp_args, grp_kw = _group_args(torch, rand, randn, torch.float32,
+                                   **GROUP_CASES[0], overflow=False)
+    calls["group_stretch_propose"] = (
+        lambda: select_kernels.group_stretch_propose(*grp_args, **grp_kw),
+        lambda: select_kernels.group_stretch_propose_ref(*grp_args, **grp_kw),
+        *_group_bytes_ops(torch, grp_args),
     )
     empty = _build.function("eryn_empty_launch", "p")
 
@@ -625,7 +744,7 @@ def _kernels():
 
     return (sk.stretch_propose, sk.stretch_accept_propose, sk.stretch_accept,
             pt_swap.pt_swap_cascade_multi, pt_swap._cascade_multi_rolled,
-            select_kernels.onehot_select)
+            select_kernels.group_stretch_propose, select_kernels.onehot_select)
 
 
 def _gaussian_sampler(torch, nt, nw, seed, backend=None):
@@ -788,6 +907,7 @@ def north_star_leg(torch, card):
     _assert_stretch_launches(launches, steps)
     assert launches["pt_swap_cascade_multi"] == steps, launches
     assert launches["_cascade_multi_rolled"] == launches["onehot_select"] == 0
+    assert launches["group_stretch_propose"] == 0
 
     for name, s in (("Backend", s2), ("DeviceBackend", s3)):
         _check_gaussian_chain(np, name, s, NT)
@@ -842,9 +962,11 @@ def config_e_leg(torch, card):
     return launches, rates, ("config E", s, s._previous_state)
 
 
-def _pulse_problem(torch, np):
+def _pulse_problem(torch, np, null=False):
     """benchmarks/lisa_style.py's data (one pulse at t = 4, amplitude 3,
-    width 0.6, noise 0.3) and likelihood, in torch on the card."""
+    width 0.6, noise 0.3) and likelihood, in torch on the card; with
+    ``null`` its trivial likelihood (``heavy=False``), which leaves the
+    sampler's own cost."""
     from eryn_tpu_torch import ProbDistContainer, uniform_dist
 
     rng = np.random.default_rng(10)
@@ -863,35 +985,75 @@ def _pulse_problem(torch, np):
         tmpl = torch.sum(torch.where(inds[:, None], p, 0.0), dim=0)
         return -0.5 * torch.sum(((tmpl - data) / sigma) ** 2)
 
+    def ll_null(coords, inds):
+        return -0.5 * torch.sum(torch.where(inds[:, None], coords, 0.0) ** 2)
+
     pr = ProbDistContainer({0: uniform_dist(0.5, 5.0),
                             1: uniform_dist(0.0, 10.0),
                             2: uniform_dist(0.1, 2.0)})
     fill = float(-0.5 * np.sum((data_np / sigma) ** 2))
-    return ll, pr, fill
+    return (ll_null if null else ll), pr, fill
 
 
-def lisa_rj_leg(torch, card):
-    """The LISA-style reversible-jump configuration: group stretch plus
-    birth/death, with tempering, into the default DeviceBackend."""
-    import numpy as np
-
+def _lisa_sampler(torch, np, null, move):
+    """The sampler and start state of ``benchmarks/lisa_style.py:build``."""
     from eryn_tpu_torch import EnsembleSampler, State
-    from eryn_tpu_torch.moves import RedBlueGroupStretchMove
 
-    ll, pr, fill = _pulse_problem(torch, np)
+    ll, pr, fill = _pulse_problem(torch, np, null)
     s = EnsembleSampler(
-        L_NW, 3, ll, pr, nleaves_max=L_NLMAX, nleaves_min=0,
-        moves=RedBlueGroupStretchMove(), rj_moves=True,
-        tempering_kwargs=dict(ntemps=L_NT), fill_zero_leaves_val=fill,
-        seed=3, device="cuda",
+        L_NW, 3, ll, pr, nleaves_max=L_NLMAX, nleaves_min=0, moves=move,
+        rj_moves=True, tempering_kwargs=dict(ntemps=L_NT),
+        fill_zero_leaves_val=fill, seed=3, device="cuda",
     )
     coords = pr.rvs(size=(L_NT, L_NW, L_NLMAX), generator=torch.Generator(
         device="cuda").manual_seed(3), dtype=torch.float32)
     inds = np.random.default_rng(4).random((L_NT, L_NW, L_NLMAX)) < 0.4
     state = s._setup_state(State({"model_0": coords}, inds={
         "model_0": torch.as_tensor(inds, device="cuda")}))
-    read = _counting(_kernels())
+    return s, state
+
+
+def _rj_chain_summary(np, s, steps):
+    """Cold leaf-count frequencies, the median pulse centre, acceptances
+    and swap fractions over the second half of the ``steps`` stored."""
+    half = slice(steps // 2, None)
+    nleaves = s.get_nleaves()["model_0"][half, 0]
+    counts = np.bincount(nleaves.ravel(), minlength=L_NLMAX + 1)
+    centers = s.get_chain(temp_index=0)["model_0"][half][..., 1]
+    active = s.get_inds(temp_index=0)["model_0"][half]
+    return dict(
+        counts=counts, median_b=float(np.median(centers[active])),
+        rj=float(s.rj_acceptance_fraction.mean()),
+        acc=float(s.acceptance_fraction[0].mean()),
+        swaps=np.asarray(s.swap_acceptance_fraction, dtype=np.float64),
+    )
+
+
+def _print_rj_chain(np, name, c):
+    print(f"chain[{name}]: cold leaf counts "
+          f"{(c['counts'] / c['counts'].sum()).round(4).tolist()} "
+          f"mode {int(np.argmax(c['counts']))} median b {c['median_b']:.4f} "
+          f"rj acceptance {c['rj']:.6f} in-model acceptance {c['acc']:.4f} "
+          f"swap acceptance {np.round(c['swaps'], 4).tolist()}")
+
+
+def lisa_rj_leg(torch, card, null=False, count=True):
+    """The LISA-style reversible-jump configuration: group stretch plus
+    birth/death, with tempering, into the default DeviceBackend; with
+    ``null`` under the trivial likelihood.  Without ``count`` the launch
+    counters are left alone (``--null-leg``: the leg through the public
+    names only, so that the script can time an earlier tree of the port)."""
+    import numpy as np
+
+    from eryn_tpu_torch.moves import RedBlueGroupStretchMove
+
+    leg = "LISA RJ null" if null else "LISA RJ"
+    metric = "lisa_rj_null_steps_per_s" if null else "lisa_rj_steps_per_s"
+    s, state = _lisa_sampler(torch, np, null, RedBlueGroupStretchMove())
+    read = _counting(_kernels()) if count else dict
     torch.cuda.synchronize()
+    # the warm-up must never wait for the device, the fused proposal's
+    # wrapper included
     torch.cuda.set_sync_debug_mode("error")
     s._run_bulk(state, 1, L_WARM, store=False)
     torch.cuda.set_sync_debug_mode("default")
@@ -902,33 +1064,99 @@ def lisa_rj_leg(torch, card):
     dt = time.perf_counter() - t0
     steps = L_WARM + L_STEPS
     launches = read()
-    # one selection per red/blue half; a cascade after the in-model move
-    # and after the RJ move
-    assert launches["onehot_select"] == 2 * steps, launches
-    assert launches["pt_swap_cascade_multi"] == 2 * steps, launches
-    assert launches["_cascade_multi_rolled"] == 0, launches
+    if count:
+        # one proposal launch per red/blue half; a cascade after the
+        # in-model move and after the RJ move
+        assert launches["group_stretch_propose"] == 2 * steps, launches
+        assert launches["pt_swap_cascade_multi"] == 2 * steps, launches
+        assert launches["_cascade_multi_rolled"] == 0, launches
+        assert launches["onehot_select"] == 0, launches
 
-    half = slice(L_STEPS // 2, None)
-    nleaves = s.get_nleaves()["model_0"][half, 0]
-    counts = np.bincount(nleaves.ravel(), minlength=L_NLMAX + 1)
-    mode = int(np.argmax(counts))
-    centers = s.get_chain(temp_index=0)["model_0"][half][..., 1]
-    active = s.get_inds(temp_index=0)["model_0"][half]
-    median_b = float(np.median(centers[active]))
-    rj = float(s.rj_acceptance_fraction.mean())
-    acc = float(s.acceptance_fraction[0].mean())
-    print(f"chain[LISA RJ]: cold leaf counts {(counts / counts.sum()).round(4).tolist()} "
-          f"mode {mode} median b {median_b:.4f} rj acceptance {rj:.6f} "
-          f"in-model acceptance {acc:.4f} "
-          "swap acceptance "
-          f"{np.round(np.asarray(s.swap_acceptance_fraction, float), 4).tolist()}")
-    assert mode >= 1, counts
-    assert abs(median_b - 4.0) < 0.3, median_b
-    assert 0 < rj < 1, rj
-    rates = {"lisa_rj_steps_per_s": L_STEPS / dt}
-    print(f"rate: lisa_rj_steps_per_s = {rates['lisa_rj_steps_per_s']:.1f} ({card})")
-    print(f"launches[LISA RJ]: {launches} over {steps} steps")
-    return launches, rates, ("LISA RJ", s, s._previous_state)
+    c = _rj_chain_summary(np, s, L_STEPS)
+    _print_rj_chain(np, leg, c)
+    assert 0 < c["rj"] < 1, c["rj"]
+    if null:
+        assert 0.2 < c["acc"] < 0.8, c["acc"]
+        assert np.all((c["swaps"] > 0) & (c["swaps"] < 1)), c["swaps"]
+    else:
+        assert int(np.argmax(c["counts"])) >= 1, c["counts"]
+        assert abs(c["median_b"] - 4.0) < 0.3, c["median_b"]
+    rates = {metric: L_STEPS / dt}
+    print(f"rate: {metric} = {rates[metric]:.1f} ({card})")
+    print(f"launches[{leg}]: {launches} over {steps} steps")
+    return launches, rates, (leg, s, s._previous_state)
+
+
+def lisa_rj_null_leg(torch, card):
+    return lisa_rj_leg(torch, card, null=True)
+
+
+def custom_move_leg(torch, card):
+    """The null configuration through a user's move on the public
+    ``onehot_select`` op: a subclass of the group stretch whose
+    ``get_proposal_kernel`` makes the proposal in separate tensor ops around
+    one selection launch per branch and half, from a gathered complement.
+    It draws what the fused proposal draws, so from the same seed its chain
+    must be the fused kernel's, which runs beside it at the same depth."""
+    import numpy as np
+
+    from eryn_tpu_torch.moves import RedBlueGroupStretchMove
+    from eryn_tpu_torch.ops.select_kernels import onehot_select
+
+    class SelectGroupStretch(RedBlueGroupStretchMove):
+        def get_proposal_kernel(self, generator, s_coords, c_coords, s_inds,
+                                param_masks=None, c_inds=None):
+            (name, s), = s_coords.items()
+            c, ci = c_coords[name], c_inds[name]
+            nt, ns, nl, nd = s.shape
+            u, uu = self.draw_group(generator, nt, ns, {name: nl}, s.dtype,
+                                    s.device)
+            b = (self.a - 1.0) * u + 1.0
+            zz = b * b / self.a
+            m = ci.reshape(nt, -1).to(s.dtype)
+            cnt = m.sum(dim=-1)
+            kq = torch.floor(uu[name] * torch.clamp(cnt, min=1.0)[:, None, None])
+            c_sel = onehot_select(
+                torch.cumsum(m, dim=-1), kq.reshape(nt, -1),
+                torch.where(ci[..., None], c, 0.0).reshape(nt, -1, nd),
+            ).reshape(s.shape)
+            temp = c_sel - (c_sel - s) * zz[:, :, None, None]
+            has_c = cnt > 0
+            q = torch.where(s_inds[name][..., None]
+                            & has_c[:, None, None, None], temp, s)
+            ndim = s_inds[name].sum(dim=-1) * nd * has_c[:, None].to(s.dtype)
+            return {name: q}, (ndim - 1.0) * torch.log(zz)
+
+    steps = L_STEPS // 4
+    out = {}
+    for name, move in (("select", SelectGroupStretch()),
+                       ("fused", RedBlueGroupStretchMove())):
+        s, state = _lisa_sampler(torch, np, True, move)
+        read = _counting(_kernels())
+        t0 = time.perf_counter()
+        s.run_mcmc(state, steps)
+        torch.cuda.synchronize()
+        dt = time.perf_counter() - t0
+        out[name] = (read(), _rj_chain_summary(np, s, steps), steps / dt,
+                     s.get_chain()["model_0"][-1], s)
+    launches, c, rate, last, s = out["select"]
+    _print_rj_chain(np, "LISA RJ null, selection alone", c)
+    assert launches["onehot_select"] == 2 * steps, launches
+    assert launches["group_stretch_propose"] == 0, launches
+    assert out["fused"][0]["group_stretch_propose"] == 2 * steps
+    # the same draws and the same arithmetic: the same chain
+    assert np.array_equal(last, out["fused"][3], equal_nan=True), (
+        "the fused proposal's chain left the chain of the separate ops")
+    for k, v in c.items():
+        assert np.array_equal(v, out["fused"][1][k]), k
+    rates = {"lisa_rj_null_select_steps_per_s": rate,
+             "lisa_rj_null_fused_short_steps_per_s": out["fused"][2]}
+    for k, v in rates.items():
+        print(f"rate: {k} = {v:.1f} over {steps} stored steps ({card})")
+    print(f"launches[LISA RJ null, selection alone]: {launches} over "
+          f"{steps} steps")
+    return launches, rates, ("LISA RJ null, selection alone", s,
+                             s._previous_state)
 
 
 def flat_rj_leg(torch):
@@ -953,7 +1181,8 @@ def flat_rj_leg(torch):
     read = _counting(_kernels())
     s.run_mcmc(state, steps, burn=burn)
     launches = read()
-    assert launches["onehot_select"] == 2 * (steps + burn), launches
+    assert launches["group_stretch_propose"] == 2 * (steps + burn), launches
+    assert launches["onehot_select"] == 0, launches
     k = s.get_nleaves()["model_0"][:, 0].ravel()
     freqs = np.bincount(k, minlength=nlmax + 1) / k.size
     print(f"chain[flat RJ]: leaf-count frequencies {freqs.round(4).tolist()}")
@@ -968,6 +1197,10 @@ def main(argv=None):
         "--cascade-scan", action="store_true",
         help="after the build, only time the swap cascade on the device "
              "against rungs, walkers and chunk width, and stop")
+    parser.add_argument(
+        "--null-leg", action="store_true",
+        help="after the build, only run and profile the null-likelihood RJ "
+             "leg, through the package's public names, and stop")
     args = parser.parse_args(argv)
 
     if not (ROOT / "eryn_tpu_torch" / "csrc").is_dir():
@@ -1006,6 +1239,11 @@ def main(argv=None):
     if args.cascade_scan:
         cascade_scan(torch, smi)
         return 0
+    if args.null_leg:
+        *_, (leg, sampler, state) = lisa_rj_leg(torch, smi, null=True,
+                                                count=False)
+        profile_steps(torch, leg, sampler, state, smi)
+        return 0
 
     # phase 3: kernels against their plain versions, and their times
     errs = {}
@@ -1029,7 +1267,8 @@ def main(argv=None):
     # phase 4: the main path, leg by leg
     legs = []
     with _plain_versions_forbidden():
-        for leg in (north_star_leg, config_e_leg, lisa_rj_leg):
+        for leg in (north_star_leg, config_e_leg, lisa_rj_leg,
+                    lisa_rj_null_leg, custom_move_leg):
             t0 = time.perf_counter()
             legs.append(leg(torch, smi))
             print(f"phase 4: {leg.__name__} {time.perf_counter() - t0:.1f} s")
@@ -1046,6 +1285,10 @@ def main(argv=None):
             launches[k] = launches.get(k, 0) + v
         rates.update(leg_rates)
     assert all(v > 0 for v in launches.values()), launches
+    rates["lisa_rj_overhead_frac"] = (rates["lisa_rj_steps_per_s"]
+                                      / rates["lisa_rj_null_steps_per_s"])
+    print(f"rate: lisa_rj_overhead_frac = {rates['lisa_rj_overhead_frac']:.4f} "
+          f"(heavy steps/s over null steps/s; {smi})")
 
     # phase 5: the profiler, after every timed run (a profiled process may
     # keep tracing costs on its launches): device-only kernel times, then
@@ -1059,7 +1302,7 @@ def main(argv=None):
         print(f"time: {k} {t['device_ms']:.4f} ms on the device, "
               f"{t['ms']:.4f} ms per call ({smi})")
     profiles = {}
-    for _, _, (leg, sampler, state) in legs:
+    for _, _, (leg, sampler, state) in legs[:4]:
         profiles.update(profile_steps(torch, leg, sampler, state, smi))
 
     sources = {
@@ -1075,6 +1318,8 @@ def main(argv=None):
                                   "eryn_tpu/ops/pt_swap.py:120"),
         "_cascade_multi_rolled": ("eryn_tpu_torch/csrc/pt_swap.cu",
                                   "eryn_tpu/ops/pt_swap.py:232"),
+        "group_stretch_propose": ("eryn_tpu_torch/csrc/select_kernels.cu",
+                                  "eryn_tpu/ops/select_kernels.py:145"),
         "onehot_select": ("eryn_tpu_torch/csrc/select_kernels.cu",
                           "eryn_tpu/ops/select_kernels.py:145"),
     }

@@ -2,11 +2,11 @@
 
 The port mirrors :mod:`eryn_tpu`'s modules and public names.  Its samplers
 (the parallel-tempered stretch sampler, and reversible jump with the red/blue
-group stretch) run on an NVIDIA Hopper GPU through five hand-written CUDA
+group stretch) run on an NVIDIA Hopper GPU through hand-written CUDA
 kernels (``csrc/``): the stretch proposal, the tempered accept, the swap
-cascade and its large-ensemble form, and the masked-uniform complement
-selection.  Each kernel has a plain PyTorch version, which is what runs for
-tensors on the CPU.
+cascade and its large-ensemble form, the group-stretch proposal and the
+masked-uniform complement selection inside it.  Each kernel has a plain
+PyTorch version, which is what runs for tensors on the CPU.
 """
 
 __version__ = "0.1.0"

@@ -28,6 +28,7 @@ from .moves.move import EvalContext
 from .moves.tempering import TemperatureControl
 from .prior import ProbDistContainer
 from .state import State, resolve_device
+from .utils.periodic import PeriodicContainer
 
 __all__ = ["EnsembleSampler"]
 
@@ -182,8 +183,12 @@ class EnsembleSampler:
     the default raises, and CPU runs pass ``device="cpu"``; an initial state
     elsewhere is moved here), ``dtype`` the state
     dtype (default float32), and ``seed`` seeds the sampler's
-    ``torch.Generator``.  The default backend is a :class:`DeviceBackend` on
-    a CUDA device and a :class:`Backend` on the CPU.
+    ``torch.Generator``.  ``periodic`` is a
+    :class:`~eryn_tpu_torch.utils.PeriodicContainer` or the ``{branch:
+    {parameter index or prior key: period}}`` dict of one; every move that
+    has none of its own receives it.  The default backend is a
+    :class:`DeviceBackend` on a CUDA device and a :class:`Backend` on the
+    CPU.
     """
 
     def __init__(
@@ -199,6 +204,7 @@ class EnsembleSampler:
         nleaves_min=0,
         moves=None,
         rj_moves=None,
+        periodic=None,
         args=None,
         kwargs=None,
         backend=None,
@@ -245,6 +251,12 @@ class EnsembleSampler:
             self.ntemps = self.temperature_control.ntemps
 
         self.priors = self._normalize_priors(priors)
+        # after the priors: string parameter keys resolve through their
+        # key_order
+        self.periodic = PeriodicContainer.coerce(
+            periodic, ndims=self.ndims,
+            key_orders={n: p.key_order for n, p in self.priors.items()},
+        )
 
         if moves is None:
             self.moves, self.weights = [StretchMove()], [1.0]
@@ -271,6 +283,8 @@ class EnsembleSampler:
         self._inds_change = any(m.is_rj for m in self._all_move_list)
         for move in self._all_move_list:
             move.temperature_control = self.temperature_control
+            if move.periodic is None:
+                move.periodic = self.periodic
         self.all_moves = {}
         counts = {}
         for move in self._all_move_list:

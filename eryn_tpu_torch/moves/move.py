@@ -17,6 +17,8 @@ from typing import Callable, NamedTuple, Optional
 import numpy as np
 import torch
 
+from ..utils.periodic import PeriodicContainer
+
 __all__ = ["Move", "EvalContext", "mh_accept", "active_ndim"]
 
 
@@ -67,6 +69,9 @@ class Move:
     Subclasses implement ``_propose_impl(generator, state, ctx,
     kernel_state) -> (state, accepted, kernel_state)``; :meth:`propose_kernel`
     appends the tempering epilogue (swap cascade and ladder adaptation).
+    ``periodic`` is a :class:`~eryn_tpu_torch.utils.PeriodicContainer` (or
+    the dict one is built from) for the moves that honour periodic
+    parameters; the sampler hands its own to a move that has none.
     """
 
     #: reversible-jump moves skip ladder adaptation
@@ -76,11 +81,13 @@ class Move:
     def __init__(
         self,
         temperature_control=None,
+        periodic=None,
         gibbs_sampling_setup=None,
         prevent_swaps=False,
         proposal_branch_names=None,
     ):
         self.temperature_control = temperature_control
+        self.periodic = PeriodicContainer.coerce(periodic)
         self.prevent_swaps = prevent_swaps
         self.proposal_branch_names = proposal_branch_names
         self._initialize_branch_setup(gibbs_sampling_setup, is_rj=self.is_rj)

@@ -46,6 +46,27 @@ class RedBlueMove(Move):
                             param_masks=None):
         raise NotImplementedError
 
+    def get_proposal_block(self, generator, coords_p, inds_p, off, ns, names,
+                           param_masks):
+        """The proposal of block ``[off, off + ns)`` of the permuted ensemble
+        (``coords_p``, ``inds_p``: every branch, ``(ntemps, nwalkers, ...)``)
+        for the branches ``names``: gathers the complement, the rows before
+        and after the block, and calls :meth:`get_proposal_kernel`.  A move
+        that can read the complement where it lies overrides this."""
+        blk = slice(off, off + ns)
+
+        def comp(x):
+            return torch.cat([x[:, :off], x[:, off + ns:]], dim=1)
+
+        kwargs = {}
+        if self._needs_c_inds:
+            kwargs["c_inds"] = {n: comp(inds_p[n]) for n in names}
+        return self.get_proposal_kernel(
+            generator, {n: coords_p[n][:, blk] for n in names},
+            {n: comp(coords_p[n]) for n in names},
+            {n: inds_p[n][:, blk] for n in names}, param_masks, **kwargs
+        )
+
     def _check_walkers(self, state, names):
         ntemps, nwalkers = state.log_like.shape
         total_ndim = sum(
@@ -99,19 +120,9 @@ class RedBlueMove(Move):
 
             for off, ns in zip(offsets, sizes):
                 blk = slice(off, off + ns)
-
-                def comp(x):
-                    return torch.cat([x[:, :off], x[:, off + ns:]], dim=1)
-
                 s_coords = {n: coords_p[n][:, blk] for n in names}
-                c_coords = {n: comp(coords_p[n]) for n in names}
-                s_inds = {n: inds_p[n][:, blk] for n in names}
-                kwargs = {}
-                if self._needs_c_inds:
-                    kwargs["c_inds"] = {n: comp(inds_p[n]) for n in names}
-                q, factors = self.get_proposal_kernel(
-                    generator, s_coords, c_coords, s_inds, param_masks,
-                    **kwargs
+                q, factors = self.get_proposal_block(
+                    generator, coords_p, inds_p, off, ns, names, param_masks
                 )
                 # Gibbs parameter masking: non-selected entries keep old values
                 for n in names:

@@ -39,7 +39,9 @@ class StretchMove(RedBlueMove):
     ``use_kernels``: None (default) takes the fused CUDA kernels when the
     state lies on a CUDA device and the structure allows it; True takes the
     fused path on any device (on the CPU its plain PyTorch versions); False
-    always takes the general path.
+    always takes the general path.  With ``periodic`` set the move takes the
+    general path, which stretches along the minimal signed distance and
+    wraps the proposal.
     """
 
     def __init__(self, a=2.0, use_kernels=None, use_log_proposal=False, **kwargs):
@@ -57,7 +59,8 @@ class StretchMove(RedBlueMove):
         if self.use_kernels is None and state.log_like.device.type != "cuda":
             return False
         return (
-            self.gibbs_iterations == [None]
+            self.periodic is None
+            and self.gibbs_iterations == [None]
             and state.blobs is None
             and all(s is None for s in state.branches_supplemental.values())
             and self.nsplits == 2
@@ -197,7 +200,14 @@ class StretchMove(RedBlueMove):
         for name in names:
             s = s_coords[name]
             c_temp = self.choose_c_vals(generator, c_coords[name], ns)
-            newpos[name] = c_temp - (c_temp - s) * zz[:, :, None, None]
+            if self.periodic is not None:
+                diff = self.periodic.distance({name: s}, {name: c_temp})[name]
+            else:
+                diff = c_temp - s
+            temp = c_temp - diff * zz[:, :, None, None]
+            if self.periodic is not None:
+                temp = self.periodic.wrap({name: temp})[name]
+            newpos[name] = temp
             # RJ/Gibbs-aware dimension count: active leaves x selected params
             mask = None if param_masks is None else param_masks.get(name)
             if mask is None:

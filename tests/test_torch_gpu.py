@@ -9,8 +9,14 @@ not need.)
 
 Tolerances: the swap cascades, the accepts and the selection kernel only
 select and move values, so their outputs must be bitwise equal to the plain
-versions'; the proposals' floats agree within 1e-6 (float32) or 1e-12
-(float64), a few ulp of ``exp``/``log``.
+versions'; the stretch proposals' floats agree within 1e-6 (float32) or
+1e-12 (float64), a few ulp of ``exp``/``log``.  The group-stretch proposal
+repeats its plain version operation for operation and must equal it (NaN
+in the same places) at the default stretch scale; at another scale PyTorch
+divides by a host scalar as a multiplication by its reciprocal, an ulp of
+``z`` from the kernel's division, so that case takes the proposals'
+tolerance, and 50 times it for the factors, which multiply ``ln z`` by up
+to 24 dimensions.
 """
 
 import numpy as np
@@ -300,6 +306,109 @@ def test_onehot_select_kernel(cuda, dtype, shape):
     assert torch.equal(out.cpu(), select_kernels.onehot_select_ref(cs, kq, c_clean))
 
 
+def _group_case(dtype, nt, nw, shapes, off, ns, seed=0, empty=None,
+                periodic=False, gibbs=False):
+    """A permuted ensemble of the branches ``shapes`` ``{name: (nl, nd)}``
+    on the card with NaN in dormant slots, the draws of block ``[off, off +
+    ns)`` (every seventh pick draw exactly 1, so that ``k + 1`` exceeds the
+    count), and the arguments of ``group_stretch_propose`` for it."""
+    g = torch.Generator().manual_seed(seed)
+    coords, inds, uu, per_leaf, periods = {}, {}, {}, {}, {}
+    for name, (nl, nd) in shapes.items():
+        m = torch.rand((nt, nw, nl), generator=g) < 0.4
+        if empty is not None:
+            m[empty] = False  # no active complement at this temperature
+        x = torch.randn((nt, nw, nl, nd), generator=g, dtype=torch.float64)
+        x[~m] = float("nan")
+        coords[name], inds[name] = x.to("cuda", dtype), m.cuda()
+        draws = torch.rand((nt, ns, nl), generator=g, dtype=torch.float64)
+        draws.view(-1)[::7] = 1.0
+        uu[name] = draws.to("cuda", dtype)
+        per_leaf[name] = (torch.randint(0, nd + 1, (nl,), generator=g)
+                          .to("cuda", dtype) if gibbs else None)
+        periods[name] = None
+        if periodic:
+            p = torch.full((nd,), float("inf"), dtype=dtype)
+            p[0] = 1.5
+            periods[name] = p.cuda()
+    u = _rand(g, dtype, nt, ns)
+    blk = slice(off, off + ns)
+    return ({n: x[:, blk] for n, x in coords.items()},
+            {n: x[:, blk] for n, x in inds.items()}, coords, inds, u, uu,
+            (off, ns)), dict(per_leaf=per_leaf, periods=periods)
+
+
+def _same(a, b):
+    return bool(((a == b) | (a.isnan() & b.isnan())).all())
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.float64])
+@pytest.mark.parametrize("case", [
+    # the RJ shape, both blocks of the split
+    dict(nt=10, nw=200, shapes={"m": (8, 3)}, off=0, ns=100),
+    dict(nt=10, nw=200, shapes={"m": (8, 3)}, off=100, ns=100),
+    # two branches, a Gibbs per-leaf table, an empty complement on one
+    # temperature, one periodic dimension, the log proposal
+    dict(nt=3, nw=37, shapes={"m": (4, 2), "n": (3, 3)}, off=13, ns=12,
+         empty=1, periodic=True, gibbs=True, log_proposal=True),
+    # more words than threads in a block, an odd block, no rows before it
+    dict(nt=2, nw=1400, shapes={"m": (7, 1)}, off=0, ns=9),
+    # the whole ensemble moves: no complement
+    dict(nt=2, nw=6, shapes={"m": (2, 2)}, off=0, ns=6),
+])
+def test_group_stretch_propose_kernel(cuda, dtype, case):
+    case = dict(case)
+    log_proposal = case.pop("log_proposal", False)
+    args, kw = _group_case(dtype, **case)
+    before = select_kernels.group_stretch_propose.launches
+    q, f = select_kernels.group_stretch_propose(
+        *args, log_proposal=log_proposal, **kw)
+    q_r, f_r = select_kernels.group_stretch_propose_ref(
+        *args, log_proposal=log_proposal, **kw)
+    torch.cuda.synchronize()
+    assert select_kernels.group_stretch_propose.launches == before + 1
+    assert torch.equal(f, f_r)
+    for n in q:
+        assert _same(q[n], q_r[n]), n
+    # the separate form (a gathered complement, no skip) on the same kernel
+    off, ns = args[6]
+    comp = lambda x: torch.cat([x[:, :off], x[:, off + ns:]], 1).contiguous()
+    q_s, f_s = select_kernels.group_stretch_propose(
+        {n: x.contiguous() for n, x in args[0].items()},
+        {n: x.contiguous() for n, x in args[1].items()},
+        {n: comp(x) for n, x in args[2].items()},
+        {n: comp(x) for n, x in args[3].items()}, args[4], args[5],
+        log_proposal=log_proposal, **kw)
+    assert torch.equal(f_s, f) and all(_same(q_s[n], q[n]) for n in q)
+    # another stretch scale: within the proposals' tolerance
+    q_a, f_a = select_kernels.group_stretch_propose(*args, a=1.7, **kw)
+    q_ar, f_ar = select_kernels.group_stretch_propose_ref(*args, a=1.7, **kw)
+    tol = TOL[dtype]
+    torch.testing.assert_close(f_a, f_ar, rtol=0, atol=50 * tol)
+    if not case.get("periodic"):  # an ulp at a wrap point is a whole period
+        for n in q_a:
+            torch.testing.assert_close(q_a[n], q_ar[n], rtol=tol, atol=tol,
+                                       equal_nan=True)
+
+
+def test_group_stretch_propose_rejects_bad_input(cuda):
+    args, kw = _group_case(torch.float32, 2, 12, {"m": (3, 2)}, 4, 4)
+    s, si, c, ci, u, uu, skip = args
+    with pytest.raises(ValueError, match="contiguous"):
+        select_kernels.group_stretch_propose(
+            {"m": s["m"].transpose(2, 3).contiguous().transpose(2, 3)}, si, c,
+            ci, u, uu, skip)
+    with pytest.raises(TypeError, match="dtype"):
+        select_kernels.group_stretch_propose(s, si, c, ci, u.double(), uu, skip)
+    with pytest.raises(ValueError, match="skip"):
+        select_kernels.group_stretch_propose(s, si, c, ci, u, uu, (10, 4))
+    many = {str(i): s["m"] for i in range(select_kernels.MAX_BRANCHES + 1)}
+    with pytest.raises(ValueError, match="branches"):
+        select_kernels.group_stretch_propose(many, si, c, ci, u, uu, skip)
+    with pytest.raises(ValueError, match="shared memory"):
+        select_kernels._check_entries("group_stretch_propose", 1 << 20)
+
+
 def test_wrapper_rejects_bad_input(cuda):
     st, new = _stretch_state(torch.float32, 2, 8, 3)
     X, nd, perm, u = st["X"], st["ndim_act"], st["perm"], st["u_all"]
@@ -348,7 +457,7 @@ def test_sampler_runs_through_the_kernels(cuda, dtype):
 
 
 def test_rj_sampler_runs_through_the_kernels(cuda):
-    """Reversible jump with the group stretch on the card: two selection
+    """Reversible jump with the group stretch on the card: two proposal
     launches (one per half) and one cascade launch per tempering phase
     (two per step: after the in-model and after the RJ move)."""
     from eryn_tpu_torch import EnsembleSampler, ProbDistContainer, uniform_dist
@@ -362,7 +471,8 @@ def test_rj_sampler_runs_through_the_kernels(cuda):
         device=cuda,
     )
     coords = pr.rvs(size=(3, 32, 3), generator=torch.Generator(cuda).manual_seed(1))
-    kernels = (select_kernels.onehot_select, pt_swap.pt_swap_cascade_multi)
+    kernels = (select_kernels.group_stretch_propose,
+               pt_swap.pt_swap_cascade_multi)
     counts = [k.launches for k in kernels]
     sampler.run_mcmc(coords, 200, burn=50)
     after = [k.launches for k in kernels]
