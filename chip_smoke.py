@@ -30,7 +30,9 @@ Phases, each printing its own lines:
    rate) and the time of one empty launch, and the host cost of a
    wrapper's parts;
 4. main path, six legs through ``EnsembleSampler``, each with the launch
-   counters set to 0 just before it and read just after:
+   counters set to 0 just before it and read just after; every leg runs
+   graphed (each move's step captured once as a CUDA graph and replayed),
+   and every segment under ``set_sync_debug_mode("error")``:
 
    * north-star (10 temperatures x 100 walkers, 5-D Gaussian): a run without
      storing, a stored run into ``Backend()``, and a stored run into the
@@ -55,12 +57,19 @@ Phases, each printing its own lines:
      its launches stay out of the report.
 
    The launch counters must show that every step went through the kernels
-   (one cascade launch per tempering phase), no leg may call a plain
-   version of a kernel, and each chain must meet its target;
+   (one cascade launch per tempering phase), every schedule entry must be
+   a replay of its move's graph (but the first of each, which runs
+   eagerly), no leg may call a plain version of a kernel, and each chain
+   must meet its target.  Then graph vs eager: the first four legs at a
+   quarter of their depth from one seed, with ``cuda_graph=False`` and
+   graphed; their chains, ladders, clocks and accept and swap counts must
+   be equal digit for digit, and their host time per step, replays per
+   step and steps/s are printed side by side;
 5. profiles (``torch.profiler``, after every timed run): each kernel's
    device time per launch, and 50 steady steps of each of the first four
-   legs (kernel launches and memcpys per step, device-busy share, the top
-   five device ops).
+   legs, graphed and eager (device kernels, memcpys and memsets per step,
+   what the host launched per step, device-busy share, the top five device
+   ops).
 
 The second-to-last line of standard output is a JSON object describing the
 kernels, the last ``{"ok": true, "device": {...}}``.  Any failure raises and
@@ -739,6 +748,43 @@ def _plain_versions_forbidden():
             setattr(mod, name, fn)
 
 
+@contextlib.contextmanager
+def _segments_never_wait():
+    """Every segment a sampler runs (``EnsembleSampler._run_bulk``: its
+    replays, its captures and the first eager run of each move, the stored
+    legs' snapshot writes) runs under ``set_sync_debug_mode("error")``: a
+    segment that waited for the device would raise.  Handing a segment to
+    a backend, outside it, may wait."""
+    import torch
+
+    from eryn_tpu_torch import EnsembleSampler
+
+    run_bulk = EnsembleSampler._run_bulk
+
+    def checked(self, *args, **kwargs):
+        torch.cuda.set_sync_debug_mode("error")
+        try:
+            return run_bulk(self, *args, **kwargs)
+        finally:
+            torch.cuda.set_sync_debug_mode("default")
+
+    EnsembleSampler._run_bulk = checked
+    try:
+        yield
+    finally:
+        EnsembleSampler._run_bulk = run_bulk
+
+
+def _assert_replays(name, sampler, steps, per_step):
+    """Every entry of the schedule (``per_step`` a step) is a replay of its
+    move's graph, but the first of each graph, which ran eagerly."""
+    warm = len(sampler._graphs.warm)
+    assert warm == per_step, (name, sampler._graphs.warm)
+    assert sampler.graph_replays == per_step * steps - warm, (
+        name, sampler.graph_replays, steps)
+    return sampler.graph_replays
+
+
 def _kernels():
     from eryn_tpu_torch.ops import pt_swap, select_kernels, stretch_kernels as sk
 
@@ -747,7 +793,7 @@ def _kernels():
             select_kernels.group_stretch_propose, select_kernels.onehot_select)
 
 
-def _gaussian_sampler(torch, nt, nw, seed, backend=None):
+def _gaussian_sampler(torch, nt, nw, seed, backend=None, cuda_graph=True):
     from eryn_tpu_torch import EnsembleSampler, ProbDistContainer, uniform_dist
 
     invcov = torch.eye(NDIM, device="cuda")
@@ -758,7 +804,7 @@ def _gaussian_sampler(torch, nt, nw, seed, backend=None):
     priors = ProbDistContainer({i: uniform_dist(-5.0, 5.0) for i in range(NDIM)})
     sampler = EnsembleSampler(
         nw, NDIM, log_like, priors, tempering_kwargs=dict(ntemps=nt),
-        seed=seed, device="cuda", backend=backend,
+        seed=seed, device="cuda", backend=backend, cuda_graph=cuda_graph,
     )
     return sampler, priors
 
@@ -797,11 +843,14 @@ def _assert_stretch_launches(launches, steps):
 
 def profile_steps(torch, leg, sampler, state, card, steps=50):
     """``torch.profiler`` (CPU and CUDA) over ``steps`` steady steps of a
-    leg's sampler, without storing; prints kernel launches, memcpys and
-    memsets per step, the device-busy share of the window (the union of
-    device activity over the host's wall time, which the profiler itself
-    slows) and the five device ops that take the most device time.  Returns
-    ``{leg: summary}``."""
+    leg's sampler, without storing; prints the device's kernels, memcpys
+    (by direction) and memsets per step, what the host launched per step
+    (CUDA graph launches, and kernel, memcpy and memset calls of the
+    runtime outside them), the device-busy share of the window (the union
+    of device activity over the host's wall time, which the profiler itself
+    slows) and the five device ops that take the most device time.  A
+    replayed graph's kernels are recorded one by one, as the eager ones
+    are.  Returns ``{leg: summary}``."""
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
 
@@ -819,6 +868,16 @@ def profile_steps(torch, leg, sampler, state, card, steps=50):
     assert device, f"{leg}: the profiler recorded no device activity"
     copies = sum(e.name.startswith("Memcpy") for e in device)
     sets = sum(e.name.startswith("Memset") for e in device)
+    kinds = {}
+    for e in device:
+        if e.name.startswith("Memcpy"):
+            kind = e.name.split()[1]  # HtoD, DtoD, DtoH
+            kinds[kind] = kinds.get(kind, 0) + 1 / steps
+    api = [e.name for e in prof.events() if e.device_type != DeviceType.CUDA]
+    graph_launches = sum(n == "cudaGraphLaunch" for n in api)
+    host_launches = sum(
+        n.startswith(("cudaLaunch", "cuLaunch", "cudaMemcpy", "cudaMemset"))
+        for n in api)
     busy, end, by_name = 0.0, -math.inf, {}
     for e in device:
         start, stop = max(e.time_range.start, end), e.time_range.end
@@ -832,14 +891,21 @@ def profile_steps(torch, leg, sampler, state, card, steps=50):
     summary = {
         "kernels_per_step": (len(device) - copies - sets) / steps,
         "memcpys_per_step": copies / steps, "memsets_per_step": sets / steps,
+        "memcpys_by_kind": kinds,
+        "graph_launches_per_step": graph_launches / steps,
+        "host_launches_per_step": host_launches / steps,
         "device_busy_share": busy / wall_us,
         "wall_ms_per_step": wall_us / steps / 1e3,
         "device_ms_per_step": busy / steps / 1e3,
         "top5": [[name, t / total] for name, t in top],
     }
-    print(f"profile[{leg}]: {summary['kernels_per_step']:.2f} kernel launches, "
-          f"{summary['memcpys_per_step']:.2f} memcpys, "
-          f"{summary['memsets_per_step']:.2f} memsets per step; device busy "
+    print(f"profile[{leg}]: {summary['kernels_per_step']:.2f} kernels, "
+          f"{summary['memcpys_per_step']:.2f} memcpys "
+          f"{ {k: round(v, 2) for k, v in kinds.items()} }, "
+          f"{summary['memsets_per_step']:.2f} memsets per step on the device; "
+          f"the host launched {summary['graph_launches_per_step']:.2f} graphs "
+          f"and {summary['host_launches_per_step']:.2f} kernels, memcpys and "
+          f"memsets outside them per step; device busy "
           f"{100 * summary['device_busy_share']:.2f} % of "
           f"{summary['wall_ms_per_step']:.4f} ms per step "
           f"({summary['device_ms_per_step']:.4f} ms busy); top device ops "
@@ -863,15 +929,13 @@ def north_star_leg(torch, card):
     steps = 0
     rates = {}
 
-    # leg 1: sampling only; the segment must never wait for the device
+    # leg 1: sampling only
     s1, _ = _gaussian_sampler(torch, NT, NW, 0)
     state = s1._setup_state(coords)
     state, _ = s1._run_bulk(state, 1, WARM_STEPS, store=False)
     torch.cuda.synchronize()
-    torch.cuda.set_sync_debug_mode("error")
     t0 = time.perf_counter()
     state, _ = s1._run_bulk(state, 1, NOSTORE_STEPS, store=False)
-    torch.cuda.set_sync_debug_mode("default")
     torch.cuda.synchronize()
     rates["nostore_steps_per_s"] = NOSTORE_STEPS / (time.perf_counter() - t0)
     steps += WARM_STEPS + NOSTORE_STEPS
@@ -903,6 +967,11 @@ def north_star_leg(torch, card):
     steps += WARM_STEPS + STORED_STEPS
 
     launches = read()
+    replays = sum(
+        _assert_replays("north-star", s, n, 1)
+        for s, n in ((s1, WARM_STEPS + NOSTORE_STEPS),
+                     (s2, WARM_STEPS + STORED_STEPS),
+                     (s3, WARM_STEPS + STORED_STEPS)))
     # per step: each of the three stretch kernels once, one cascade
     _assert_stretch_launches(launches, steps)
     assert launches["pt_swap_cascade_multi"] == steps, launches
@@ -923,7 +992,8 @@ def north_star_leg(torch, card):
                 "stored_device_steps_per_s", "device_ess_per_s"):
         print(f"rate: {leg} = {rates[leg]:.1f} ({card})")
     print(f"rate: device_iact_s = {rates['device_iact_s']:.4f} ({card})")
-    print(f"launches[north-star]: {launches} over {steps} steps")
+    print(f"launches[north-star]: {launches} over {steps} steps, "
+          f"{replays} graph replays")
     return launches, rates, ("north-star", s1, state)
 
 
@@ -937,10 +1007,7 @@ def config_e_leg(torch, card):
         device="cuda").manual_seed(5))
     read = _counting(_kernels())
     state = s._setup_state(coords)
-    torch.cuda.synchronize()
-    torch.cuda.set_sync_debug_mode("error")
     s._run_bulk(state, 1, E_WARM, store=False)
-    torch.cuda.set_sync_debug_mode("default")
     torch.cuda.synchronize()
     t0 = time.perf_counter()
     s.run_mcmc(None, E_STEPS)
@@ -948,6 +1015,7 @@ def config_e_leg(torch, card):
     dt = time.perf_counter() - t0
     steps = E_WARM + E_STEPS
     launches = read()
+    replays = _assert_replays("config E", s, steps, 1)
     assert launches["_cascade_multi_rolled"] == steps, launches
     assert launches["pt_swap_cascade_multi"] == 0, launches
     _assert_stretch_launches(launches, steps)
@@ -958,7 +1026,8 @@ def config_e_leg(torch, card):
              "config_e_walker_steps_per_s": E_STEPS * E_NT * E_NW / dt}
     for k, v in rates.items():
         print(f"rate: {k} = {v:.1f} ({card})")
-    print(f"launches[config E]: {launches} over {steps} steps")
+    print(f"launches[config E]: {launches} over {steps} steps, "
+          f"{replays} graph replays")
     return launches, rates, ("config E", s, s._previous_state)
 
 
@@ -995,7 +1064,7 @@ def _pulse_problem(torch, np, null=False):
     return (ll_null if null else ll), pr, fill
 
 
-def _lisa_sampler(torch, np, null, move):
+def _lisa_sampler(torch, np, null, move, cuda_graph=True):
     """The sampler and start state of ``benchmarks/lisa_style.py:build``."""
     from eryn_tpu_torch import EnsembleSampler, State
 
@@ -1004,6 +1073,8 @@ def _lisa_sampler(torch, np, null, move):
         L_NW, 3, ll, pr, nleaves_max=L_NLMAX, nleaves_min=0, moves=move,
         rj_moves=True, tempering_kwargs=dict(ntemps=L_NT),
         fill_zero_leaves_val=fill, seed=3, device="cuda",
+        # named only when off: --null-leg runs in trees without the option
+        **({} if cuda_graph else {"cuda_graph": False}),
     )
     coords = pr.rvs(size=(L_NT, L_NW, L_NLMAX), generator=torch.Generator(
         device="cuda").manual_seed(3), dtype=torch.float32)
@@ -1051,12 +1122,7 @@ def lisa_rj_leg(torch, card, null=False, count=True):
     metric = "lisa_rj_null_steps_per_s" if null else "lisa_rj_steps_per_s"
     s, state = _lisa_sampler(torch, np, null, RedBlueGroupStretchMove())
     read = _counting(_kernels()) if count else dict
-    torch.cuda.synchronize()
-    # the warm-up must never wait for the device, the fused proposal's
-    # wrapper included
-    torch.cuda.set_sync_debug_mode("error")
     s._run_bulk(state, 1, L_WARM, store=False)
-    torch.cuda.set_sync_debug_mode("default")
     torch.cuda.synchronize()
     t0 = time.perf_counter()
     s.run_mcmc(None, L_STEPS)
@@ -1065,6 +1131,8 @@ def lisa_rj_leg(torch, card, null=False, count=True):
     steps = L_WARM + L_STEPS
     launches = read()
     if count:
+        replays = _assert_replays(leg, s, steps, 2)
+        print(f"replays[{leg}]: {replays} over {steps} steps")
         # one proposal launch per red/blue half; a cascade after the
         # in-model move and after the RJ move
         assert launches["group_stretch_propose"] == 2 * steps, launches
@@ -1140,6 +1208,8 @@ def custom_move_leg(torch, card):
         out[name] = (read(), _rj_chain_summary(np, s, steps), steps / dt,
                      s.get_chain()["model_0"][-1], s)
     launches, c, rate, last, s = out["select"]
+    for name in out:
+        _assert_replays(name, out[name][4], steps, 2)
     _print_rj_chain(np, "LISA RJ null, selection alone", c)
     assert launches["onehot_select"] == 2 * steps, launches
     assert launches["group_stretch_propose"] == 0, launches
@@ -1157,6 +1227,105 @@ def custom_move_leg(torch, card):
           f"{steps} steps")
     return launches, rates, ("LISA RJ null, selection alone", s,
                              s._previous_state)
+
+
+def _run_state(np, s):
+    """What a run left, as numpy: the stored chain, masks, log-likelihoods,
+    log-priors, ladders, accept and swap counts, the clock and the move
+    accept counters."""
+    b = s.backend
+    out = dict(
+        chain=s.get_chain()["model_0"], inds=s.get_inds()["model_0"],
+        log_like=s.get_log_like(), log_prior=s.get_log_prior(),
+        betas=s.get_betas(), accepted=b.accepted, swaps=b.swaps_accepted,
+        time=int(s.temperature_control.time),
+        moves=np.stack([m.accepted for m in s._all_move_list]),
+    )
+    if s.has_reversible_jump:
+        out["rj_accepted"] = b.rj_accepted
+    return {k: np.asarray(v) for k, v in out.items()}
+
+
+def graph_vs_eager(torch, card):
+    """North-star, config E, LISA RJ and LISA RJ null at a quarter of their
+    depth from one seed, with ``cuda_graph=False`` and graphed, in turn:
+    20 warm steps (the graphed form captures there), a timed segment of
+    ``n`` steps without storing (host time until the loop returns, and wall
+    time until the device is done), then ``n`` stored steps into the default
+    ``DeviceBackend``.  The two forms' chains, masks, log-likelihoods,
+    ladders, clocks and accept and swap counts must be equal digit for
+    digit.  Returns ``({leg: numbers}, {leg: (sampler, state) of the eager
+    form})``."""
+    import numpy as np
+
+    from eryn_tpu_torch.moves import RedBlueGroupStretchMove
+
+    def gaussian(nt, nw, seed):
+        def build(graphed):
+            s, priors = _gaussian_sampler(torch, nt, nw, seed,
+                                          cuda_graph=graphed)
+            coords = priors.rvs(size=(nt, nw), generator=torch.Generator(
+                device="cuda").manual_seed(seed))
+            return s, s._setup_state(coords)
+        return build
+
+    def lisa(null):
+        return lambda graphed: _lisa_sampler(
+            torch, np, null, RedBlueGroupStretchMove(), cuda_graph=graphed)
+
+    legs = (("north-star", gaussian(NT, NW, 0), STORED_STEPS // 4, 1),
+            ("config E", gaussian(E_NT, E_NW, 5), E_STEPS // 4, 1),
+            ("LISA RJ", lisa(False), L_STEPS // 4, 2),
+            ("LISA RJ null", lisa(True), L_STEPS // 4, 2))
+    out, eager_samplers = {}, {}
+    for leg, build, n, per_step in legs:
+        runs = {}
+        for form in ("eager", "graphed"):
+            s, state = build(form == "graphed")
+            state, _ = s._run_bulk(state, 1, 20, store=False)
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            state, _ = s._run_bulk(state, 1, n, store=False)
+            t_host = time.perf_counter() - t0
+            torch.cuda.synchronize()
+            t_wall = time.perf_counter() - t0
+            t0 = time.perf_counter()
+            s.run_mcmc(None, n)
+            torch.cuda.synchronize()
+            t_stored = time.perf_counter() - t0
+            runs[form] = dict(
+                host_ms_per_step=t_host / n * 1e3,
+                wall_ms_per_step=t_wall / n * 1e3,
+                steps_per_s=n / t_wall, stored_steps_per_s=n / t_stored,
+                replays_per_step=s.graph_replays / (20 + 2 * n),
+                state=_run_state(np, s),
+            )
+            if form == "eager":
+                assert s.graph_replays == 0
+                eager_samplers[leg] = (s, s._previous_state)
+            else:
+                _assert_replays(leg, s, 20 + 2 * n, per_step)
+        a, b = runs["eager"].pop("state"), runs["graphed"].pop("state")
+        for key in a:
+            assert a[key].shape == b[key].shape and np.array_equal(
+                a[key], b[key], equal_nan=True), (
+                f"graph vs eager, {leg}: {key} differs")
+        assert a["time"] == (20 + 2 * n) and not np.array_equal(
+            a["betas"][0], a["betas"][-1]), leg
+        out[leg] = runs
+        e, g = runs["eager"], runs["graphed"]
+        print(f"graph-vs-eager[{leg}]: {n} steps a form, chains, masks, "
+              f"log-likelihoods, ladders, clock ({a['time']}) and accept and "
+              f"swap counts equal digit for digit; host "
+              f"{e['host_ms_per_step']:.4f} / {g['host_ms_per_step']:.4f} ms "
+              f"per step, wall {e['wall_ms_per_step']:.4f} / "
+              f"{g['wall_ms_per_step']:.4f}, "
+              f"{e['steps_per_s']:.1f} / {g['steps_per_s']:.1f} steps/s "
+              f"without storing, {e['stored_steps_per_s']:.1f} / "
+              f"{g['stored_steps_per_s']:.1f} stored, replays per step "
+              f"{e['replays_per_step']:.4f} / {g['replays_per_step']:.4f} "
+              f"(eager / graphed; {card})")
+    return out, eager_samplers
 
 
 def flat_rj_leg(torch):
@@ -1240,8 +1409,9 @@ def main(argv=None):
         cascade_scan(torch, smi)
         return 0
     if args.null_leg:
-        *_, (leg, sampler, state) = lisa_rj_leg(torch, smi, null=True,
-                                                count=False)
+        with _segments_never_wait():
+            *_, (leg, sampler, state) = lisa_rj_leg(torch, smi, null=True,
+                                                    count=False)
         profile_steps(torch, leg, sampler, state, smi)
         return 0
 
@@ -1264,9 +1434,10 @@ def main(argv=None):
     host_us = wrapper_host_costs(torch, smi)
     print(f"phase 3: {time.perf_counter() - t_start:.1f} s since the start")
 
-    # phase 4: the main path, leg by leg
+    # phase 4: the main path, leg by leg, graphed; then the graphs against
+    # the eager loop
     legs = []
-    with _plain_versions_forbidden():
+    with _plain_versions_forbidden(), _segments_never_wait():
         for leg in (north_star_leg, config_e_leg, lisa_rj_leg,
                     lisa_rj_null_leg, custom_move_leg):
             t0 = time.perf_counter()
@@ -1277,8 +1448,12 @@ def main(argv=None):
         t0 = time.perf_counter()
         flat_rj_leg(torch)
         print(f"phase 4: flat_rj_leg {time.perf_counter() - t0:.1f} s")
+        t0 = time.perf_counter()
+        compared, eager = graph_vs_eager(torch, smi)
+        print(f"phase 4: graph_vs_eager {time.perf_counter() - t0:.1f} s")
     print("phase 4: one cascade launch per tempering phase on every leg, "
-          "and no plain version of a kernel was called")
+          "every step a replay of its moves' graphs, no segment waited for "
+          "the device, and no plain version of a kernel was called")
     launches, rates = {}, {}
     for leg_launches, leg_rates, _ in legs:
         for k, v in leg_launches.items():
@@ -1304,6 +1479,9 @@ def main(argv=None):
     profiles = {}
     for _, _, (leg, sampler, state) in legs[:4]:
         profiles.update(profile_steps(torch, leg, sampler, state, smi))
+    for leg, (sampler, state) in eager.items():
+        profiles.update(profile_steps(torch, f"{leg}, eager", sampler, state,
+                                      smi))
 
     sources = {
         "stretch_propose": ("eryn_tpu_torch/csrc/stretch_kernels.cu",
@@ -1338,7 +1516,7 @@ def main(argv=None):
         Path(args.out).write_text(json.dumps(
             {**report, "rates": rates, "card": smi,
              "times": times, "launch_floor": floor, "profiles": profiles,
-             "host_us": host_us},
+             "host_us": host_us, "graph_vs_eager": compared},
             indent=1
         ))
     print(json.dumps(report))

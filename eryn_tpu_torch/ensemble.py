@@ -1,11 +1,15 @@
 """EnsembleSampler: the user-facing orchestrator.
 
 Port of :mod:`eryn_tpu.ensemble`.  A run is a sequence of segments; a
-segment is a Python loop over sampler steps (in-model proposal, swap
-cascade, ladder adaptation) whose stored snapshots are packed into buffers
-preallocated on the device.  Nothing inside a segment waits for the device:
-no ``.item()``, no ``bool(tensor)``, no copy to the host.  The host touches
-the chain only when a segment is handed to the backend.
+segment is a loop over sampler steps (in-model proposal, swap cascade,
+ladder adaptation) whose stored snapshots are packed into buffers
+preallocated on the device.  On a CUDA device each move's step is captured
+once as a CUDA graph and replayed (:mod:`eryn_tpu_torch.graphs`, the
+counterpart of ``eryn_tpu``'s compiled ``lax.scan``); ``cuda_graph=False``,
+and any CPU run, launch every op of every step from Python.  Nothing inside
+a segment waits for the device: no ``.item()``, no ``bool(tensor)``, no
+copy to the host; the adaptation clock is a device tensor.  The host
+touches the chain only when a segment is handed to the backend.
 
 Likelihood contract: ``log_like_fn`` is written in torch for one walker and
 vectorized with :func:`torch.func.vmap` over the flattened
@@ -22,6 +26,7 @@ import numpy as np
 import torch
 
 from .backends import Backend, DeviceBackend
+from .graphs import StepGraphs
 from .model import Model
 from .moves import DistributionGenerateRJ, StretchMove
 from .moves.move import EvalContext
@@ -84,12 +89,13 @@ class LikelihoodEvaluator:
     The function is written for one walker and vectorized with
     ``torch.func.vmap``, or, with ``vectorize=True``, called once on the
     flattened batch.  One walker's arguments are its coordinates ``(ndim,)`` for a
-    single branch with one leaf; ``(coords (nleaves_max, ndim), inds)`` for
-    one branch with several leaves; and the per-branch dicts otherwise.
+    single branch with one leaf and no reversible jump (``rj``);
+    ``(coords (nleaves_max, ndim), inds (nleaves_max,))`` for one branch
+    otherwise; and the per-branch dicts for several branches.
     """
 
     def __init__(self, fn, *, branch_names, ndims, nleaves_max, args, kwargs,
-                 vectorize, fill_zero_leaves_val, dtype):
+                 vectorize, fill_zero_leaves_val, dtype, rj=False):
         self.fn = fn
         self.branch_names = list(branch_names)
         self.ndims = ndims
@@ -101,9 +107,12 @@ class LikelihoodEvaluator:
         self.fill_zero_leaves_val = max(
             float(fill_zero_leaves_val), float(torch.finfo(dtype).min / 2)
         )
+        # under reversible jump the one leaf can be off: the function
+        # takes the mask as well
         self._simple = (
             len(self.branch_names) == 1
             and self.nleaves_max[self.branch_names[0]] == 1
+            and not rj
         )
 
     def _call(self, cdict, idict, batched):
@@ -189,6 +198,14 @@ class EnsembleSampler:
     has none of its own receives it.  The default backend is a
     :class:`DeviceBackend` on a CUDA device and a :class:`Backend` on the
     CPU.
+
+    ``cuda_graph`` (default True): on a CUDA device, each move's step is
+    captured as a CUDA graph the second time it is due and replayed from
+    then on (``graph_replays`` counts the replays).  Everything a step runs,
+    the likelihood included, must then stay on the device; a capture that
+    fails raises a ``RuntimeError``.  ``cuda_graph=False`` runs the eager
+    loop, which launches every op of every step from Python, as the CPU
+    always does.
     """
 
     def __init__(
@@ -217,6 +234,7 @@ class EnsembleSampler:
         seed=None,
         dtype=None,
         device=None,
+        cuda_graph=True,
     ):
         self.dtype = dtype if dtype is not None else torch.float32
         if self.dtype not in _NUMPY_DTYPE:
@@ -304,6 +322,7 @@ class EnsembleSampler:
             vectorize=vectorize,
             fill_zero_leaves_val=fill_zero_leaves_val,
             dtype=self.dtype,
+            rj=self.has_reversible_jump,
         )
         self._like_checked = False
 
@@ -317,6 +336,10 @@ class EnsembleSampler:
         # draw would make every step wait for the device
         self._host_gen = torch.Generator()
         self._host_gen.manual_seed(self._seed)
+
+        self.cuda_graph = bool(cuda_graph)
+        self._graphs = None
+        self.graph_replays = 0
 
         self._backend = backend
         self._previous_state = None
@@ -576,11 +599,11 @@ class EnsembleSampler:
         return np.concatenate(parts, axis=1)
 
     def _step(self, state, time, move_idx, ctx):
-        """One sampler step (the counterpart of eryn_tpu's
-        ``_make_one_step``): the in-model repeats, then the RJ repeats, each
-        with its tempering epilogue.  Returns ``(state, time, accepted,
-        rj_accepted, swaps)``; ``rj_accepted`` is None without reversible
-        jump, and ``swaps`` are the in-model moves' swaps."""
+        """One sampler step of the eager loop (the counterpart of
+        eryn_tpu's ``_make_one_step``): the in-model repeats, then the RJ
+        repeats, each with its tempering epilogue.  Returns ``(state, time,
+        accepted, rj_accepted, swaps)``; ``rj_accepted`` is None without
+        reversible jump, and ``swaps`` are the in-model moves' swaps."""
         accepted = rj_accepted = swaps = None
         for j in move_idx:
             move = self._all_move_list[j]
@@ -625,9 +648,26 @@ class EnsembleSampler:
             ("swaps", None, (max(nt - 1, 0),)),
         ]
 
+    @property
+    def _graphed(self):
+        """Whether segments replay the moves' CUDA graphs."""
+        return self.cuda_graph and self.device.type == "cuda"
+
+    def _start_clock(self, tc):
+        """The adaptation clock at the start of a segment, a 0-d int64
+        tensor on the device: ``tc.time`` as a run left it, or filled from
+        the host int a new or loaded control holds."""
+        time = 0 if tc is None else tc.time
+        if isinstance(time, torch.Tensor):
+            return time.to(device=self.device, dtype=torch.int64)
+        return torch.full((), int(time), dtype=torch.int64, device=self.device)
+
     def _run_bulk(self, state, nstored, thin_by=1, store=True):
         """Run ``nstored * thin_by`` steps; with ``store``, snapshot every
-        ``thin_by``-th step into device buffers.
+        ``thin_by``-th step into device buffers.  On a CUDA device with
+        ``cuda_graph`` every step is replays of the moves' graphs on the
+        static buffers (:class:`~eryn_tpu_torch.graphs.StepGraphs`); else
+        :meth:`_step` runs it eagerly.
 
         Returns ``(state, snaps)``: ``snaps`` holds the packed ``fp`` buffer
         ``(nstored, F)`` (coords, log_like, log_prior, betas, swaps) and the
@@ -645,7 +685,13 @@ class EnsembleSampler:
             )
         ctx = self.get_eval_context()
         tc = self.temperature_control
-        time = int(tc.time) if tc is not None else 0
+        time = self._start_clock(tc)
+        graphs = None
+        if self._graphed:
+            if self._graphs is None:
+                self._graphs = StepGraphs(self)
+            graphs = self._graphs
+            state = graphs.load(state, time)
         schedule = self._draw_schedule(nstored * thin_by)
         snaps = None
         if store:
@@ -660,10 +706,16 @@ class EnsembleSampler:
         k = 0
         for s in range(nstored):
             for _ in range(thin_by):
-                state, time, accepted, rj_accepted, swaps = self._step(
-                    state, time, schedule[k], ctx
-                )
+                if graphs is None:
+                    state, time, accepted, rj_accepted, swaps = self._step(
+                        state, time, schedule[k], ctx
+                    )
+                else:
+                    graphs.step(schedule[k], ctx)
                 k += 1
+            if graphs is not None:
+                accepted, rj_accepted, swaps = (
+                    graphs.accepted, graphs.rj_accepted, graphs.swaps)
             if store:
                 torch.cat(
                     [state.branches[n].coords.reshape(-1)
@@ -679,6 +731,9 @@ class EnsembleSampler:
                      for kind, name, _ in self._u8_layout()],
                     out=snaps["u8"][s],
                 )
+        if graphs is not None:
+            # copies: the buffers change with the next replay
+            state, time, swaps = graphs.export()
         if tc is not None:
             # device tensors: reading them on the host is the caller's sync
             tc.time = time

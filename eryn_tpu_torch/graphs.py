@@ -1,0 +1,238 @@
+"""The compiled segment: each move's step captured once as a CUDA graph and
+replayed.
+
+Counterpart of :mod:`eryn_tpu.ensemble`'s ``_make_one_step`` (one
+``lax.switch`` branch per move) and ``_get_bulk_fn`` (the cache of the
+compiled ``lax.scan``).  The sampler's state lives in static device buffers
+that :class:`StepGraphs` owns; for each move, and for whether it is the
+first move of its kind (in-model or reversible jump) in a step, one
+``torch.cuda.CUDAGraph`` records the move's proposal with its tempering
+epilogue, the accept counters and the copy of the new state back into the
+buffers.  The move schedule stays on the host, so a step is one replay per
+entry of its schedule row: the graphs grow with the moves, not with the
+rows (moves to the power of the repeats).
+
+A move is captured the second time it is due: its first run is the same
+body, eager, which builds the kernels, lets ``torch.func.vmap`` trace the
+likelihood and warms the allocator.  Every graph shares one memory pool
+and registers the sampler's generator, so each replay draws the numbers the
+eager ops would have drawn and advances the generator's offset as they
+would.  A capture reads nothing back and replays nothing, so it moves
+neither the chain nor the generator.  A capture that fails raises.
+"""
+
+from __future__ import annotations
+
+import gc
+
+import torch
+
+from .state import State
+
+__all__ = ["StepGraphs", "counted_kernels"]
+
+
+def counted_kernels():
+    """The kernel wrappers whose ``launches`` count their launches."""
+    from .ops import pt_swap, select_kernels, stretch_kernels as sk
+
+    return (sk.stretch_propose, sk.stretch_accept_propose, sk.stretch_accept,
+            pt_swap.pt_swap_cascade_multi, pt_swap._cascade_multi_rolled,
+            select_kernels.group_stretch_propose,
+            select_kernels.onehot_select)
+
+
+def _assign(dst, src):
+    """``dst[...] = src`` unless ``src`` is ``dst`` (a move that leaves a
+    field as it is returns it as it was)."""
+    if not (src.data_ptr() == dst.data_ptr() and src.shape == dst.shape
+            and src.stride() == dst.stride()):
+        dst.copy_(src)
+
+
+def _tensor_leaves(tree):
+    if isinstance(tree, torch.Tensor):
+        return [tree]
+    if isinstance(tree, dict):
+        tree = [tree[k] for k in sorted(tree)]
+    if isinstance(tree, (list, tuple)):
+        return [x for item in tree for x in _tensor_leaves(item)]
+    return []
+
+
+def _contiguous_copy(x):
+    return x.clone(memory_format=torch.contiguous_format)
+
+
+_FIELDS = ("log_like", "log_prior", "betas")
+
+
+def _assign_state(dst, src):
+    """Copy every tensor of the state ``src`` into the state ``dst``."""
+    for name, b in dst.branches.items():
+        _assign(b.coords, src.branches[name].coords)
+        _assign(b.inds, src.branches[name].inds)
+    for name in _FIELDS:
+        _assign(getattr(dst, name), getattr(src, name))
+
+
+class StepGraphs:
+    """Static buffers and one CUDA graph per move of a sampler.
+
+    ``state`` (coordinates and leaf masks per branch, log-likelihood,
+    log-prior, ladder), ``clock``, ``accepted``, ``rj_accepted`` (None
+    without reversible jump) and ``swaps`` are the buffers a step reads and
+    writes; the sampler's ``_m_acc`` and kernel states are written in place.
+    """
+
+    def __init__(self, sampler):
+        self.sampler = sampler
+        self.graphs = {}  # (move index, first of its kind): (graph, counts)
+        self.warm = set()  # keys whose body has run eagerly once
+        self.pool = self.stream = None
+        self.state = self.clock = None
+        self.accepted = self.rj_accepted = self.swaps = None
+
+    def load(self, state, time):
+        """Copy ``state`` and the clock ``time`` into the buffers (made at
+        the first call); returns the buffers' state."""
+        if self.state is None:
+            self.state = state.replace(
+                coords={n: _contiguous_copy(b.coords)
+                        for n, b in state.branches.items()},
+                inds={n: _contiguous_copy(b.inds)
+                      for n, b in state.branches.items()},
+                **{name: _contiguous_copy(getattr(state, name))
+                   for name in _FIELDS},
+            )
+            self.clock = time.clone()
+            logl = self.state.log_like
+            ntemps = logl.shape[0]
+            self.accepted = torch.zeros_like(logl)
+            if self.sampler.has_reversible_jump:
+                self.rj_accepted = torch.zeros_like(logl)
+            self.swaps = logl.new_zeros((max(ntemps - 1, 0),))
+            return self.state
+        _assign_state(self.state, state)
+        _assign(self.clock, time)
+        return self.state
+
+    def export(self):
+        """``(state, clock, swaps)``: copies of the buffers, which later
+        replays do not touch."""
+        return State(self.state, copy=True), self.clock.clone(), self.swaps.clone()
+
+    def step(self, row, ctx):
+        """One sampler step: for each move index of the schedule ``row``,
+        the replay of its graph, or its capture and replay, or (the first
+        time it is due) its body run eagerly."""
+        smp = self.sampler
+        nin = len(smp.moves)
+        kinds = set()
+        for j in row:
+            j = int(j)
+            kind = j < nin
+            key = (j, kind not in kinds)
+            kinds.add(kind)
+            smp._m_nprop[j] += 1
+            entry = self.graphs.get(key)
+            if entry is None:
+                if key not in self.warm:
+                    self._body(key, ctx)
+                    self.warm.add(key)
+                    continue
+                entry = self.graphs[key] = self._capture(key, ctx)
+            graph, counts = entry
+            graph.replay()
+            for kernel, n in counts:
+                kernel.launches += n
+            smp.graph_replays += 1
+
+    def _body(self, key, ctx):
+        """What a graph records: the move on the buffers, then the results
+        copied back into them."""
+        j, first = key
+        smp = self.sampler
+        move = smp._all_move_list[j]
+        kernel_state = smp._kernel_states[j]
+        state, acc, swaps, time, new_kernel_state = move.propose_kernel(
+            smp._gen, self.state, self.clock, ctx, kernel_state
+        )
+        for dst, src in zip(_tensor_leaves(kernel_state),
+                            _tensor_leaves(new_kernel_state)):
+            _assign(dst, src)
+        smp._m_acc[j] += acc
+        in_model = j < len(smp.moves)
+        out = self.accepted if in_model else self.rj_accepted
+        if first:
+            out.copy_(acc)
+        else:
+            out.add_(acc)
+        if in_model:
+            self.swaps.copy_(swaps)
+        _assign(self.clock, time)
+        _assign_state(self.state, state)
+
+    def _capture(self, key, ctx):
+        """Capture the body of ``key`` into a graph on a side stream, with
+        the generator registered and its state kept; returns ``(graph,
+        ((kernel, launches per replay), ...))``."""
+        smp = self.sampler
+        if self.pool is None:
+            self.pool = torch.cuda.graph_pool_handle()
+            self.stream = torch.cuda.Stream(smp.device)
+        graph = torch.cuda.CUDAGraph()
+        graph.register_generator_state(smp._gen)
+        kernels = counted_kernels()
+        before = [k.launches for k in kernels]
+        rng = smp._gen.get_state()
+        self.stream.wait_stream(torch.cuda.current_stream(smp.device))
+        error = None
+        # a graph that the garbage collector destroys while this one is
+        # captured (another sampler's, left in a reference cycle) frees
+        # device memory and so invalidates the capture: collect before,
+        # and not during it
+        gc.collect()
+        collecting = gc.isenabled()
+        gc.disable()
+        try:
+            with torch.cuda.stream(self.stream):
+                graph.capture_begin(pool=self.pool)
+                try:
+                    self._body(key, ctx)
+                except Exception as err:  # re-raised below, once ended
+                    error = err
+                try:
+                    graph.capture_end()
+                except RuntimeError as err:
+                    error = error or err
+        finally:
+            if collecting:
+                gc.enable()
+        smp._gen.set_state(rng)
+        # the wrappers counted calls made while capturing: no launch yet
+        counts = tuple((k, k.launches - b) for k, b in zip(kernels, before)
+                       if k.launches != b)
+        for k, b in zip(kernels, before):
+            k.launches = b
+        if error is not None:
+            # PyTorch leaves the failed capture's state in each generator
+            # it registered, the device's default one too, and every later
+            # draw from them raises: each gets a fresh state at its seed
+            # and offset
+            index = smp._gen.device.index
+            for gen in (smp._gen, torch.cuda.default_generators[
+                    torch.cuda.current_device() if index is None else index]):
+                gen.graphsafe_set_state(gen.clone_state())
+            move = smp._all_move_list[key[0]]
+            fn = smp.log_like_fn
+            raise RuntimeError(
+                f"capturing the step of {type(move).__name__} (move "
+                f"{key[0]}) with log_like_fn "
+                f"{getattr(fn, '__qualname__', repr(fn))} in a CUDA graph "
+                f"failed: {error}. Everything a step runs must stay on the "
+                "device (no .item(), no copy from or to the host); "
+                "EnsembleSampler(..., cuda_graph=False) runs the eager loop."
+            ) from error
+        torch.cuda.current_stream(smp.device).wait_stream(self.stream)
+        return graph, counts

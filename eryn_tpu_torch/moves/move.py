@@ -117,6 +117,7 @@ class Move:
         Accepted forms: a branch-name string, a ``(branch_name, mask)``
         tuple, a ``{branch_name: mask}`` dict (one iteration), or a list of
         those (sequential iterations)."""
+        self._gibbs_masks = {}  # device: gibbs_iterations with masks there
         if gibbs_sampling_setup is None:
             self.gibbs_iterations = [None]
             return
@@ -162,9 +163,20 @@ class Move:
         self.gibbs_iterations = iterations
 
     def gibbs_iterations_for(self, state):
-        """Yield ``(branch_names, {name: mask_or_None})`` per Gibbs split."""
+        """Yield ``(branch_names, {name: mask_or_None})`` per Gibbs split,
+        the masks on the state's device.  They are copied there once: a
+        copy from the host in every step would make a captured step replay
+        the mask it was captured with, or fail to capture."""
         all_names = self.run_branches(state)
-        for split in self.gibbs_iterations:
+        device = next(iter(state.branches.values())).coords.device
+        on_device = self._gibbs_masks.get(device)
+        if on_device is None:
+            on_device = self._gibbs_masks[device] = [
+                None if split is None else
+                [(n, None if m is None else m.to(device)) for n, m in split]
+                for split in self.gibbs_iterations
+            ]
+        for split in on_device:
             if split is None:
                 yield all_names, {n: None for n in all_names}
             else:
@@ -184,7 +196,7 @@ class Move:
         Returns ``(state, accepted, swaps_accepted, time, kernel_state)``
         with ``accepted`` the ``(ntemps, nwalkers)`` accept flags in the state
         dtype and ``swaps_accepted`` shaped ``(ntemps - 1,)``.  ``time`` is
-        the ladder adaptation clock, a Python int.
+        the ladder adaptation clock, a 0-d int tensor on the state's device.
         """
         state, accepted, kernel_state = self._propose_impl(
             generator, state, ctx, kernel_state

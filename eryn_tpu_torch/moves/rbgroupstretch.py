@@ -68,7 +68,7 @@ class RedBlueGroupStretchMove(StretchMove):
             # a Gibbs mask counts only its selected parameters
             per_leaf = {
                 n: None if param_masks.get(n) is None else
-                param_masks[n].sum(dim=-1).to(device=device, dtype=dtype)
+                param_masks[n].sum(dim=-1).to(dtype)
                 for n in names
             }
         if self.periodic is not None:

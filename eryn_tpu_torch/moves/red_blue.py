@@ -128,7 +128,7 @@ class RedBlueMove(Move):
                 for n in names:
                     mask = param_masks.get(n)
                     if mask is not None:
-                        q[n] = torch.where(mask.to(device), q[n], s_coords[n])
+                        q[n] = torch.where(mask, q[n], s_coords[n])
 
                 q_eval = {
                     n: q[n] if n in q else coords_p[n][:, blk] for n in all_names

@@ -213,7 +213,7 @@ class StretchMove(RedBlueMove):
             if mask is None:
                 ndim_active = ndim_active + s_inds[name].sum(dim=-1) * s.shape[-1]
             else:
-                per_leaf = mask.sum(dim=-1).to(device=device, dtype=dtype)
+                per_leaf = mask.sum(dim=-1).to(dtype)
                 ndim_active = ndim_active + (s_inds[name] * per_leaf).sum(dim=-1)
 
         if self.use_log_proposal:

@@ -140,9 +140,12 @@ def _gather_walkers(tree, flat, ntemps, nwalkers):
 class TemperatureControl:
     """Temperature ladder, swap cascade and ladder adaptation.
 
-    Host attributes (``betas``, ``time``, ``swaps_accepted``,
-    ``swaps_proposed``) mirror Eryn's object; the sampler syncs them after
-    each run.  :meth:`temper_kernel` is the per-step entry point.
+    Attributes (``betas``, ``time``, ``swaps_accepted``, ``swaps_proposed``)
+    mirror Eryn's object; the sampler sets them after each run.  ``time``,
+    the adaptation clock, is a Python int until a run and the run's clock
+    after it, a 0-d int tensor on the sampler's device: reading it on the
+    host (``int(tc.time)``) waits for the run.  :meth:`temper_kernel` is
+    the per-step entry point.
 
     ``use_kernels``: None (default) runs the kernel cascade when the state
     lies on a CUDA device and ``permute`` is on; True runs it on any device
@@ -304,17 +307,23 @@ class TemperatureControl:
     # ------------------------------------------------------------------
     # ladder adaptation
     # ------------------------------------------------------------------
+    def adaptation_gain(self, time, betas):
+        """The gain of the ladder's update at clock ``time`` (a 0-d int
+        tensor, or a Python int): ``lag / (time + lag) / adaptation_time``,
+        a 0-d tensor in the dtype and on the device of ``betas``."""
+        # on the device, so that a captured step reads the clock as it
+        # stands.  Both operands of each division are tensors: PyTorch
+        # divides a CUDA tensor by a host scalar as a product with its
+        # reciprocal, an ulp from IEEE division
+        t = torch.as_tensor(time, device=betas.device).to(betas.dtype)
+        lag = torch.full_like(t, self.adaptation_lag)
+        return lag / (t + lag) / torch.full_like(t, self.adaptation_time)
+
     def ladder_adjustment_kernel(self, time, betas, ratios):
         """Ladder adjustment per arXiv:1501.05823: each interior rung drifts
-        by the local difference of neighbouring acceptance ratios."""
-        # the gain is a host scalar in the betas dtype: a tensor made from it
-        # would cost a host-to-device copy every step
-        np_dtype = np.float32 if betas.dtype == torch.float32 else np.float64
-        decay = np_dtype(self.adaptation_lag) / (
-            np_dtype(time) + np_dtype(self.adaptation_lag)
-        )
-        kappa = float(decay / np_dtype(self.adaptation_time))
-        dSs = kappa * (ratios[:-1] - ratios[1:])
+        by the local difference of neighbouring acceptance ratios, with the
+        gain :meth:`adaptation_gain` at clock ``time``."""
+        dSs = self.adaptation_gain(time, betas) * (ratios[:-1] - ratios[1:])
         deltaTs = torch.diff(1.0 / betas[:-1]) * torch.exp(dSs)
         new_mid = 1.0 / (torch.cumsum(deltaTs, dim=0) + 1.0 / betas[0])
         return torch.cat([betas[:1], new_mid, betas[-1:]])
@@ -325,8 +334,12 @@ class TemperatureControl:
         Args:
             generator: the sampler's ``torch.Generator``.
             state: :class:`~eryn_tpu_torch.state.State`.
-            time: adaptation clock, a Python int (it advances by one per
-                adapting phase, so it never needs the device).
+            time: adaptation clock, a 0-d int tensor on the state's device
+                (a Python int is taken too); it advances by one per adapting
+                phase, and the ladder stops adapting once it reaches
+                ``stop_adaptation`` (when that is not negative).  Nothing
+                here reads it on the host, so a captured step reads it as
+                it stands at each replay.
             adapt: in-model moves adapt the ladder; reversible-jump moves do
                 not.
 
@@ -351,8 +364,12 @@ class TemperatureControl:
         swaps_accepted = ratios * nwalkers
         betas = state.betas
         if adapt and self.adaptive:
-            if self.stop_adaptation < 0 or time < self.stop_adaptation:
-                betas = self.ladder_adjustment_kernel(time, betas, ratios)
+            time = torch.as_tensor(time, device=betas.device)
+            new_betas = self.ladder_adjustment_kernel(time, betas, ratios)
+            if self.stop_adaptation >= 0:
+                new_betas = torch.where(time < self.stop_adaptation,
+                                        new_betas, betas)
+            betas = new_betas
             time = time + 1
         new_state = state.replace(
             coords=swap_tree["coords"],

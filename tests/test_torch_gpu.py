@@ -1,6 +1,7 @@
-"""The CUDA kernels against their plain PyTorch versions on the card, and a
-short sampler run through them.  These need a CUDA device and the CUDA
-toolkit; without a card they skip.  On a GPU machine::
+"""The CUDA kernels against their plain PyTorch versions on the card, a
+short sampler run through them, and the sampler's CUDA graphs against its
+eager loop.  These need a CUDA device and the CUDA toolkit; without a card
+they skip.  On a GPU machine::
 
     python -m pytest --noconftest -m gpu tests/test_torch_gpu.py
 
@@ -16,7 +17,8 @@ in the same places) at the default stretch scale; at another scale PyTorch
 divides by a host scalar as a multiplication by its reciprocal, an ulp of
 ``z`` from the kernel's division, so that case takes the proposals'
 tolerance, and 50 times it for the factors, which multiply ``ln z`` by up
-to 24 dimensions.
+to 24 dimensions.  A graphed run replays the eager run's operations on the
+same numbers, so its chain equals the eager chain digit for digit.
 """
 
 import numpy as np
@@ -480,3 +482,128 @@ def test_rj_sampler_runs_through_the_kernels(cuda):
     k = sampler.get_nleaves()["model_0"][:, 0]
     assert set(np.unique(k)) == {0, 1, 2, 3}
     assert 0 < sampler.rj_acceptance_fraction.mean() < 1
+
+
+# ----------------------------------------------------------------------
+# the compiled segment: graphs against the eager loop
+# ----------------------------------------------------------------------
+def _graph_sampler(cuda, kind, cuda_graph, moves=None, **kw):
+    """A 4 x 32 x 3 tempered Gaussian, or a small RJ configuration (3 x 32
+    walkers, up to 3 leaves, group stretch and birth/death), on the card,
+    with its start."""
+    from eryn_tpu_torch import EnsembleSampler, ProbDistContainer, State, uniform_dist
+    from eryn_tpu_torch.moves import RedBlueGroupStretchMove
+
+    g = torch.Generator(cuda).manual_seed(1)
+    if kind == "rj":
+        pr = ProbDistContainer({i: uniform_dist(-1.0, 1.0) for i in range(2)})
+        sampler = EnsembleSampler(
+            32, 2,
+            lambda c, i: -0.5 * torch.sum(torch.where(i[:, None], c, 0.0) ** 2),
+            pr, nleaves_max=3, rj_moves=True,
+            moves=moves or RedBlueGroupStretchMove(live_dangerously=True),
+            tempering_kwargs=dict(ntemps=3), fill_zero_leaves_val=0.0, seed=0,
+            device=cuda, cuda_graph=cuda_graph, **kw)
+        coords = pr.rvs(size=(3, 32, 3), generator=g)
+        inds = torch.rand((3, 32, 3), generator=g, device=cuda) < 0.5
+        return sampler, State(coords, inds=inds)
+    pr = ProbDistContainer({i: uniform_dist(-5.0, 5.0) for i in range(3)})
+    sampler = EnsembleSampler(
+        32, 3, lambda x: -0.5 * torch.sum(x * x), pr, moves=moves,
+        tempering_kwargs=dict(ntemps=4), seed=0, device=cuda,
+        cuda_graph=cuda_graph, **kw)
+    return sampler, pr.rvs(size=(4, 32), generator=g)
+
+
+def _run_record(sampler, start, steps, burn):
+    sampler.run_mcmc(start, steps, burn=burn)
+    b = sampler.backend
+    out = {k: np.asarray(v) for k, v in dict(
+        chain=sampler.get_chain()["model_0"], inds=sampler.get_inds()["model_0"],
+        log_like=sampler.get_log_like(), log_prior=sampler.get_log_prior(),
+        betas=sampler.get_betas(), accepted=b.accepted,
+        swaps=b.swaps_accepted).items()}
+    if sampler.has_reversible_jump:
+        out["rj_accepted"] = np.asarray(b.rj_accepted)
+    out["time"] = int(sampler.temperature_control.time)
+    return out
+
+
+@pytest.mark.parametrize("kind", ["gaussian", "rj", "two moves"])
+def test_graphed_chain_equals_the_eager_chain(cuda, kind):
+    """From one seed, the graphed run and the eager run give the same chain,
+    log-likelihoods, ladder, clock, accept and swap counts, digit for
+    digit; the ladder adapts under replay, the clock counts the adapting
+    phases; the launch counters and ``graph_replays`` agree with the
+    schedule (one replay per schedule entry but the first of each graph,
+    which runs eagerly)."""
+    from eryn_tpu_torch import StretchMove
+
+    kernels = (sk.stretch_propose, sk.stretch_accept_propose,
+               sk.stretch_accept, pt_swap.pt_swap_cascade_multi,
+               select_kernels.group_stretch_propose)
+    moves = None
+    extra = {}
+    if kind == "two moves":
+        extra = dict(num_repeats_in_model=2)
+    steps, burn = 60, 20
+    runs = {}
+    for graphed in (False, True):
+        if kind == "two moves":
+            moves = [(StretchMove(), 0.5), (StretchMove(a=1.7), 0.5)]
+        sampler, start = _graph_sampler(
+            cuda, "rj" if kind == "rj" else "gaussian", graphed, moves=moves,
+            **extra)
+        before = [k.launches for k in kernels]
+        runs[graphed] = _run_record(sampler, start, steps, burn)
+        launches = [k.launches - b for k, b in zip(kernels, before)]
+        runs[graphed]["launches"] = launches
+        if graphed:
+            keys = sampler._graphs.warm
+            per_step = {"gaussian": 1, "rj": 2, "two moves": 2}[kind]
+            assert sampler.graph_replays == per_step * (steps + burn) - len(keys)
+        else:
+            assert sampler.graph_replays == 0
+    for key in runs[False]:
+        np.testing.assert_array_equal(runs[True][key], runs[False][key],
+                                      err_msg=key)
+    n = steps + burn
+    stretch, cascade, group = {
+        "gaussian": (n, n, 0), "rj": (0, 2 * n, 2 * n),
+        "two moves": (2 * n, 2 * n, 0)}[kind]
+    assert runs[True]["launches"] == [stretch] * 3 + [cascade, group]
+    # one adapting phase per in-model entry
+    assert runs[True]["time"] == n * (2 if kind == "two moves" else 1)
+    assert not np.array_equal(runs[True]["betas"][-1], runs[True]["betas"][0])
+
+
+def test_capture_of_a_likelihood_that_reads_the_host_raises(cuda):
+    """A likelihood that calls ``.item()`` runs its first (eager) step, then
+    fails to capture: the error names the move, the likelihood and
+    ``cuda_graph=False``, with which the same sampler runs; and the process
+    goes on capturing and drawing afterwards."""
+    from eryn_tpu_torch import EnsembleSampler, ProbDistContainer, uniform_dist
+
+    scale = torch.ones((), device=cuda)
+
+    def reads_the_host(x):
+        return -0.5 * (x * x).sum(-1) * scale.item()
+
+    pr = ProbDistContainer({i: uniform_dist(-5.0, 5.0) for i in range(3)})
+    coords = pr.rvs(size=(2, 16), generator=torch.Generator(cuda).manual_seed(1))
+    s = EnsembleSampler(16, 3, reads_the_host, pr, vectorize=True,
+                        tempering_kwargs=dict(ntemps=2), seed=0, device=cuda)
+    with pytest.raises(RuntimeError, match="cuda_graph=False") as err:
+        s.run_mcmc(coords, 5)
+    assert "StretchMove" in str(err.value)
+    assert "reads_the_host" in str(err.value)
+    s = EnsembleSampler(16, 3, reads_the_host, pr, vectorize=True,
+                        tempering_kwargs=dict(ntemps=2), seed=0, device=cuda,
+                        cuda_graph=False)
+    s.run_mcmc(coords, 5)
+    assert s.get_chain()["model_0"].shape == (5, 2, 16, 1, 3)
+    assert torch.isfinite(torch.rand(3, device=cuda)).all()
+    s = EnsembleSampler(16, 3, lambda x: -0.5 * torch.sum(x * x), pr,
+                        tempering_kwargs=dict(ntemps=2), seed=0, device=cuda)
+    s.run_mcmc(coords, 5)
+    assert s.graph_replays == 4

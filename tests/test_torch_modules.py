@@ -314,3 +314,141 @@ def test_two_branches_sample_their_targets(use_kernels):
     expect = -0.5 * ((x["a"][..., 0, :] ** 2).sum(-1) + (x["b"][..., 0, 0] - 1) ** 2)
     np.testing.assert_allclose(sampler.get_last_sample().log_like, expect,
                                rtol=1e-5, atol=1e-5)
+
+
+# ----------------------------------------------------------------------
+# the adaptation clock on the device
+# ----------------------------------------------------------------------
+def _within_one_ulp(got, want):
+    got, want = np.asarray(got), np.asarray(want)
+    assert got.dtype == want.dtype
+    assert np.all(np.abs(got - want) <= np.spacing(np.abs(want))), (got, want)
+
+
+@pytest.mark.parametrize("dtype", [np.float32, np.float64])
+def test_ladder_adjustment_with_a_device_clock_matches_jax(dtype):
+    """The port's ladder update with a 0-d int tensor clock against
+    eryn_tpu's with its traced clock (cast to the betas dtype, as its
+    ``temper_kernel`` casts it), at four clock values.  The gain, which is
+    all the clock sets, is bitwise the reference's ``lag / (time + lag) /
+    adaptation_time`` (``eryn_tpu/moves/tempering.py:613-614``); the updated
+    ladder is within 1 ulp in float32, and within 4 in float64, where XLA's
+    ``exp`` rounds 1 ulp from torch's (and numpy's) and the cumulative sum
+    carries that to up to 3 ulp of a rung."""
+    import jax
+
+    rng = np.random.default_rng(5)
+    betas = make_ladder(3, 6).astype(dtype)
+    ratios = rng.random(5).astype(dtype)
+    jtc = eryn_tpu.moves.TemperatureControl(3, 8, ntemps=6)
+    ttc = eryn_tpu_torch.TemperatureControl(3, 8, ntemps=6)
+    ulps = 1 if dtype == np.float32 else 4
+    for time in (0, 1, 7, 1000):
+        with jax.enable_x64(dtype == np.float64):
+            t = jnp.asarray(time, jnp.int32).astype(dtype)
+            want_gain = np.asarray(
+                jtc.adaptation_lag / (t + jtc.adaptation_lag)
+                / jtc.adaptation_time)
+            want = np.asarray(jtc.ladder_adjustment_kernel(
+                t, jnp.asarray(betas), jnp.asarray(ratios)))
+        clock = torch.tensor(time)
+        gain = ttc.adaptation_gain(clock, torch.from_numpy(betas))
+        assert gain.dtype == torch.from_numpy(betas).dtype
+        np.testing.assert_array_equal(gain.numpy(), want_gain)
+        got = ttc.ladder_adjustment_kernel(
+            clock, torch.from_numpy(betas), torch.from_numpy(ratios)).numpy()
+        assert got.dtype == want.dtype
+        assert np.all(np.abs(got - want)
+                      <= ulps * np.spacing(np.abs(want))), (got, want)
+        assert not np.array_equal(got, betas)
+
+
+def test_temper_kernel_stops_adapting_as_jax_does():
+    """Both packages' ``temper_kernel`` with ``stop_adaptation=5`` and one
+    swap phase result given to both: at clock 4 the ladder moves, at 5 and
+    6 it stays; the clock advances by one each time."""
+    rng = np.random.default_rng(6)
+    nt, nw, stop = 4, 8, 5
+    coords = rng.standard_normal((nt, nw, 1, 3)).astype(np.float32)
+    logl = rng.standard_normal((nt, nw)).astype(np.float32)
+    logp = np.zeros((nt, nw), np.float32)
+    betas = make_ladder(3, nt).astype(np.float32)
+    acc = np.array([3.0, 5.0, 1.0], np.float32)
+    jtc = eryn_tpu.moves.TemperatureControl(3, nw, ntemps=nt,
+                                            stop_adaptation=stop)
+    jtc.swap_kernel = lambda key, tree, logl, betas, **kw: (
+        tree, logl, jnp.asarray(acc), jnp.full(nt - 1, float(nw)))
+    ttc = eryn_tpu_torch.TemperatureControl(3, nw, ntemps=nt,
+                                            stop_adaptation=stop)
+    ttc.swap_kernel = lambda gen, tree, logl, betas: (
+        tree, logl, torch.from_numpy(acc), nw)
+    jstate = eryn_tpu.State({"m": coords}, log_like=logl, log_prior=logp,
+                            betas=betas)
+    tstate = state_from_numpy(state_to_numpy(jstate), device="cpu")
+    for time in (stop - 1, stop, stop + 1):
+        j_new, _, j_time = jtc.temper_kernel(None, jstate, jnp.int32(time))
+        t_new, _, t_time = ttc.temper_kernel(None, tstate, torch.tensor(time))
+        assert int(j_time) == int(t_time) == time + 1
+        _within_one_ulp(t_new.betas.numpy(), np.asarray(j_new.betas))
+        moved = not np.array_equal(t_new.betas.numpy(), betas)
+        assert moved == (time < stop)
+
+
+def _gaussian_sampler(rj=False, **kw):
+    if rj:
+        priors = eryn_tpu_torch.ProbDistContainer(
+            {i: eryn_tpu_torch.uniform_dist(-1.0, 1.0) for i in range(2)})
+        sampler = eryn_tpu_torch.EnsembleSampler(
+            16, 2,
+            lambda c, i: -0.5 * torch.sum(torch.where(i[:, None], c, 0.0) ** 2),
+            priors, nleaves_max=3,
+            moves=eryn_tpu_torch.moves.RedBlueGroupStretchMove(
+                live_dangerously=True),
+            rj_moves=True, tempering_kwargs=dict(ntemps=3),
+            fill_zero_leaves_val=0.0, device="cpu", **kw)
+        shape = (3, 16, 3)
+    else:
+        priors = eryn_tpu_torch.ProbDistContainer(
+            {i: eryn_tpu_torch.uniform_dist(-5.0, 5.0) for i in range(3)})
+        sampler = eryn_tpu_torch.EnsembleSampler(
+            16, 3, _ll, priors, tempering_kwargs=dict(ntemps=3),
+            device="cpu", **kw)
+        shape = (3, 16)
+    coords = priors.rvs(size=shape, generator=torch.Generator().manual_seed(1))
+    return sampler, coords
+
+
+@pytest.mark.parametrize("rj", [False, True])
+def test_clock_after_run_counts_the_adapting_phases(rj):
+    """One adapting phase per step (the in-model move's; an RJ move's phase
+    does not adapt); the clock is a 0-d tensor on the sampler's device."""
+    sampler, coords = _gaussian_sampler(rj=rj, seed=3)
+    sampler.run_mcmc(coords, 12, burn=5)
+    sampler.run_mcmc(None, 4, thin_by=2)
+    time = sampler.temperature_control.time
+    assert isinstance(time, torch.Tensor) and time.shape == ()
+    assert time.device.type == "cpu" and int(time) == 12 + 5 + 8
+    assert not np.allclose(sampler.get_betas()[-1], make_ladder(
+        sum(sampler.nleaves_max[n] * sampler.ndims[n]
+            for n in sampler.branch_names), 3))
+
+
+def test_interop_round_trip_carries_the_clock():
+    """A run continued in a second sampler from the numpy state, ladder and
+    clock of the first (and its generator state) is the first run's
+    continuation, digit for digit: a clock restarted at 0 would adapt the
+    ladder with another gain."""
+    first, coords = _gaussian_sampler(seed=4)
+    last = first.run_mcmc(coords, 16)
+    d = tempering_to_numpy(first.temperature_control)
+    assert d["time"] == 16
+    second, _ = _gaussian_sampler(seed=99)
+    tempering_from_numpy(second.temperature_control, d)
+    second._gen.set_state(first.random_state)
+    carried = state_from_numpy(state_to_numpy(last), device="cpu")
+    first.run_mcmc(None, 8)
+    second.run_mcmc(carried, 8)
+    np.testing.assert_array_equal(second.get_chain()["model_0"],
+                                  first.get_chain()["model_0"][16:])
+    np.testing.assert_array_equal(second.get_betas(), first.get_betas()[16:])
+    assert int(second.temperature_control.time) == 24

@@ -1,4 +1,5 @@
-"""The port's sampler on the CPU against eryn_tpu's, statistically.
+"""The port's sampler on the CPU against eryn_tpu's, statistically; and its
+segments and the graph path's buffers against one eager run, digit for digit.
 
 Both samplers start from the same numpy ensemble and ladder (carried through
 :mod:`eryn_tpu_torch.interop`) on a 3-D unit Gaussian with 4 temperatures,
@@ -109,3 +110,122 @@ def test_port_sampler_matches_eryn_tpu(reference, nw, backend, use_kernels):
     assert not np.allclose(out["betas"], ladder_np["betas"])  # it adapted
     assert np.all(np.isfinite(out["tau"]))
     np.testing.assert_allclose(out["tau"], ref["tau"], rtol=0.25)
+
+
+# ----------------------------------------------------------------------
+# segments and the graph path, digit for digit
+# ----------------------------------------------------------------------
+def _small_sampler(kind, moves=None, **kw):
+    """A 4 x 32 x 3 tempered Gaussian, or a small RJ configuration (3 x 16
+    walkers, up to 3 leaves of 2 parameters, group stretch and
+    birth/death), and its start."""
+    g = torch.Generator().manual_seed(1)
+    if kind == "gaussian":
+        priors = eryn_tpu_torch.ProbDistContainer(
+            {i: eryn_tpu_torch.uniform_dist(-5.0, 5.0) for i in range(NDIM)})
+        sampler = eryn_tpu_torch.EnsembleSampler(
+            32, NDIM, lambda x: -0.5 * torch.sum(x * x), priors,
+            tempering_kwargs=dict(ntemps=NT), moves=moves, seed=7,
+            device="cpu", **kw)
+        return sampler, priors.rvs(size=(NT, 32), generator=g)
+    priors = eryn_tpu_torch.ProbDistContainer(
+        {i: eryn_tpu_torch.uniform_dist(-1.0, 1.0) for i in range(2)})
+    sampler = eryn_tpu_torch.EnsembleSampler(
+        16, 2,
+        lambda c, i: -0.5 * torch.sum(torch.where(i[:, None], c, 0.0) ** 2),
+        priors, nleaves_max=3, rj_moves=True,
+        moves=moves or eryn_tpu_torch.moves.RedBlueGroupStretchMove(
+            live_dangerously=True),
+        tempering_kwargs=dict(ntemps=3), fill_zero_leaves_val=0.0, seed=7,
+        device="cpu", **kw)
+    coords = priors.rvs(size=(3, 16, 3), generator=g)
+    inds = torch.rand((3, 16, 3), generator=g) < 0.5
+    return sampler, eryn_tpu_torch.State(coords, inds=inds)
+
+
+def _record(sampler):
+    """Everything a run leaves: the stored chain and its counters, the
+    ladder, the clock, the last state and the move counters."""
+    b = sampler.backend
+    last = sampler._previous_state
+    out = dict(
+        chain=sampler.get_chain()["model_0"], inds=sampler.get_inds()["model_0"],
+        log_like=sampler.get_log_like(), log_prior=sampler.get_log_prior(),
+        betas=sampler.get_betas(), accepted=b.accepted,
+        swaps=b.swaps_accepted,
+        time=np.asarray(int(sampler.temperature_control.time)),
+        last=last.branches["model_0"].coords.numpy(),
+        last_ll=last.log_like.numpy(),
+        m_acc=np.stack([m.accepted for m in sampler._all_move_list]),
+    )
+    if sampler.has_reversible_jump:
+        out["rj_accepted"] = b.rj_accepted
+    return out
+
+
+def _assert_same_run(a, b):
+    assert a.keys() == b.keys()
+    for key in a:
+        np.testing.assert_array_equal(a[key], b[key], err_msg=key)
+
+
+@pytest.mark.parametrize("kind", ["gaussian", "rj"])
+def test_segments_leave_the_chain_unchanged(kind):
+    """One ``run_mcmc`` of 64 stored steps against eight of 8: the state,
+    the clock and the ladder cross each segment boundary unchanged."""
+    one, start = _small_sampler(kind)
+    one.run_mcmc(start, 64)
+    eight, start = _small_sampler(kind)
+    eight.run_mcmc(start, 8)
+    for _ in range(7):
+        eight.run_mcmc(None, 8)
+    a, b = _record(one), _record(eight)
+    assert int(a["time"]) == 64
+    _assert_same_run(a, b)
+
+
+class _EagerReplay:
+    """Stands in for a captured graph on the CPU: a replay runs the body."""
+
+    def __init__(self, graphs, key, ctx):
+        self.replay = lambda: graphs._body(key, ctx)
+
+
+@pytest.mark.parametrize("kind", ["gaussian", "rj"])
+def test_graph_path_buffers_match_the_eager_loop(kind, monkeypatch):
+    """The graph path's static buffers, copies and accept accumulation with
+    each replay run as the captured body would run: the same run as the
+    eager loop, across segments, ``thin_by``, burn-in, two weighted moves
+    and two in-model repeats (graphs for a move's first and later entries
+    in a step)."""
+    from eryn_tpu_torch.ensemble import EnsembleSampler
+    from eryn_tpu_torch.graphs import StepGraphs
+
+    def moves():
+        if kind == "gaussian":
+            return [(eryn_tpu_torch.StretchMove(), 0.5),
+                    (eryn_tpu_torch.StretchMove(a=1.7), 0.5)]
+        return [(eryn_tpu_torch.moves.RedBlueGroupStretchMove(
+            live_dangerously=True), 0.5), (eryn_tpu_torch.moves.
+            RedBlueGroupStretchMove(a=1.5, live_dangerously=True), 0.5)]
+
+    def run(graphed):
+        sampler, start = _small_sampler(kind, moves=moves(),
+                                        num_repeats_in_model=2)
+        if graphed:
+            monkeypatch.setattr(EnsembleSampler, "_graphed", True)
+            monkeypatch.setattr(
+                StepGraphs, "_capture",
+                lambda self, key, ctx: (_EagerReplay(self, key, ctx), ()))
+        sampler.run_mcmc(start, 12, burn=5)
+        sampler.run_mcmc(None, 6, thin_by=2)
+        monkeypatch.undo()
+        return sampler
+
+    eager, graphed = run(False), run(True)
+    _assert_same_run(_record(eager), _record(graphed))
+    entries = (2 + (kind == "rj")) * (5 + 12 + 12)
+    keys = graphed._graphs.warm
+    assert len(keys) == 4 + (kind == "rj")  # the RJ move is one entry a step
+    assert graphed.graph_replays == entries - len(keys)
+    assert eager.graph_replays == 0 and eager._graphs is None
