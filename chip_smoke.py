@@ -9,7 +9,8 @@ the CUDA toolkit::
 (``--cascade-scan`` instead builds the kernels, times the swap cascade on
 the device against rungs, walkers and chunk width, and stops; ``--null-leg``
 builds them, runs and profiles the null-likelihood RJ leg alone, and stops:
-copied into an earlier tree of the port it times that tree.)
+copied into an earlier tree of the port it times that tree.
+``--resume-child CONFIG FILE`` is the child process of the resume legs.)
 
 Phases, each printing its own lines:
 
@@ -29,7 +30,7 @@ Phases, each printing its own lines:
    its bound (bytes over the memory rate against operations over the peak
    rate) and the time of one empty launch, and the host cost of a
    wrapper's parts;
-4. main path, six legs through ``EnsembleSampler``, each with the launch
+4. main path, ten legs through ``EnsembleSampler``, each with the launch
    counters set to 0 just before it and read just after; every leg runs
    graphed (each move's step captured once as a CUDA graph and replayed),
    and every segment under ``set_sync_debug_mode("error")``:
@@ -52,6 +53,19 @@ Phases, each printing its own lines:
      ``get_proposal_kernel`` with separate tensor ops around one selection
      launch per half): from the same seed its chain must equal the fused
      kernel's, and its rate is printed beside it;
+   * the long-run legs: ``hdf[north-star]``, 1,200 stored steps in segments
+     of 200 (a checkpoint each) into ``HDFBackend`` and ``Backend()``, equal
+     digit for digit, with both rates and where the host's time went;
+     ``resume[north-star]`` (600 steps) and ``resume[LISA RJ null]`` (400),
+     each stopped at the first segment boundary at or past half its steps
+     and continued by a fresh sampler, equal to the uninterrupted run digit
+     for digit: with h5py a child process (``--resume-child``) writes an
+     HDF5 file and is SIGKILLed from its ``update_fn``; without, the first
+     sampler's ``Backend()`` is continued in this process (a line says
+     which); ``hooks[north-star]``, ``AdjustStretchProposalScale`` and
+     ``AutoCorrelationStop`` every 100 steps, graphed equal to
+     ``cuda_graph=False`` digit for digit, one capture per change of the
+     stretch scale;
    * a flat-likelihood RJ run (64 walkers, 3 leaves): a uniform leaf-count
      posterior.  It checks the RJ moves, is not part of the main path, and
      its launches stay out of the report.
@@ -793,7 +807,8 @@ def _kernels():
             select_kernels.group_stretch_propose, select_kernels.onehot_select)
 
 
-def _gaussian_sampler(torch, nt, nw, seed, backend=None, cuda_graph=True):
+def _gaussian_sampler(torch, nt, nw, seed, backend=None, cuda_graph=True,
+                      **kw):
     from eryn_tpu_torch import EnsembleSampler, ProbDistContainer, uniform_dist
 
     invcov = torch.eye(NDIM, device="cuda")
@@ -804,7 +819,7 @@ def _gaussian_sampler(torch, nt, nw, seed, backend=None, cuda_graph=True):
     priors = ProbDistContainer({i: uniform_dist(-5.0, 5.0) for i in range(NDIM)})
     sampler = EnsembleSampler(
         nw, NDIM, log_like, priors, tempering_kwargs=dict(ntemps=nt),
-        seed=seed, device="cuda", backend=backend, cuda_graph=cuda_graph,
+        seed=seed, device="cuda", backend=backend, cuda_graph=cuda_graph, **kw,
     )
     return sampler, priors
 
@@ -914,6 +929,61 @@ def profile_steps(torch, leg, sampler, state, card, steps=50):
     return {leg: summary}
 
 
+@contextlib.contextmanager
+def _host_side(sampler):
+    """Where a stored run's host time goes: the backend's ``grow``, and for
+    each segment handed to it the queueing of its copy to the host, the
+    wait for that copy (the device still running the segment, or later
+    ones) and the write."""
+    took = {"grow": 0.0, "stage": [], "wait": [], "write": []}
+    grow, stage, flush = sampler.backend.grow, sampler._stage, sampler._flush
+
+    def timed_grow(n):
+        t0 = time.perf_counter()
+        grow(n)
+        took["grow"] += time.perf_counter() - t0
+
+    def timed_stage(snaps):
+        t0 = time.perf_counter()
+        staged = stage(snaps)
+        took["stage"].append(time.perf_counter() - t0)
+        return staged
+
+    def timed_flush(staged):
+        t0 = time.perf_counter()
+        staged["copied"].synchronize()
+        t1 = time.perf_counter()
+        flush(staged)
+        took["wait"].append(t1 - t0)
+        took["write"].append(time.perf_counter() - t1)
+
+    sampler.backend.grow = timed_grow
+    sampler._stage, sampler._flush = timed_stage, timed_flush
+    try:
+        yield took
+    finally:
+        del sampler.backend.grow, sampler._stage, sampler._flush
+
+
+def _stored_run(torch, sampler, leg, card, segment_size=None):
+    """``run_mcmc(None, STORED_STEPS)`` into a host or file backend: its
+    steps/s, and a ``host[leg]`` line of where the host's time went."""
+    with _host_side(sampler) as took:
+        t0 = time.perf_counter()
+        sampler.run_mcmc(None, STORED_STEPS, segment_size=segment_size)
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+
+    def ms(values):
+        return [round(1e3 * x, 2) for x in values]
+
+    print(f"host[{leg}]: wall {1e3 * wall:.2f} ms for {STORED_STEPS} steps; "
+          f"grow {1e3 * took['grow']:.2f} ms; per segment, queueing its copy "
+          f"{ms(took['stage'])} ms, waiting for it {ms(took['wait'])} ms, "
+          f"writing {ms(took['write'])} ms ({card})")
+    return STORED_STEPS / wall
+
+
 def north_star_leg(torch, card):
     """The north-star configuration's three legs; returns the launch counts
     and rates."""
@@ -943,10 +1013,8 @@ def north_star_leg(torch, card):
     # leg 2: stored into the host Backend
     s2, _ = _gaussian_sampler(torch, NT, NW, 1, backend=Backend())
     s2.run_mcmc(coords, WARM_STEPS, store=False)
-    t0 = time.perf_counter()
-    s2.run_mcmc(None, STORED_STEPS)
-    torch.cuda.synchronize()
-    rates["stored_host_steps_per_s"] = STORED_STEPS / (time.perf_counter() - t0)
+    rates["stored_host_steps_per_s"] = _stored_run(
+        torch, s2, "north-star, Backend", card)
     steps += WARM_STEPS + STORED_STEPS
 
     # leg 3: the default backend, which on a GPU keeps the chain on the device
@@ -1064,8 +1132,9 @@ def _pulse_problem(torch, np, null=False):
     return (ll_null if null else ll), pr, fill
 
 
-def _lisa_sampler(torch, np, null, move, cuda_graph=True):
-    """The sampler and start state of ``benchmarks/lisa_style.py:build``."""
+def _lisa_sampler(torch, np, null, move, cuda_graph=True, **kw):
+    """The sampler and start state of ``benchmarks/lisa_style.py:build``
+    (``kw``: a backend and hooks)."""
     from eryn_tpu_torch import EnsembleSampler, State
 
     ll, pr, fill = _pulse_problem(torch, np, null)
@@ -1074,7 +1143,7 @@ def _lisa_sampler(torch, np, null, move, cuda_graph=True):
         rj_moves=True, tempering_kwargs=dict(ntemps=L_NT),
         fill_zero_leaves_val=fill, seed=3, device="cuda",
         # named only when off: --null-leg runs in trees without the option
-        **({} if cuda_graph else {"cuda_graph": False}),
+        **({} if cuda_graph else {"cuda_graph": False}), **kw,
     )
     coords = pr.rvs(size=(L_NT, L_NW, L_NLMAX), generator=torch.Generator(
         device="cuda").manual_seed(3), dtype=torch.float32)
@@ -1359,6 +1428,308 @@ def flat_rj_leg(torch):
     print(f"launches[flat RJ]: {launches} over {steps + burn} steps")
 
 
+# the long-run legs: checkpointed storage, a resume, the hooks of run_mcmc
+HDF_SEG = 200        # a checkpoint every 200 stored steps
+RESUME_SEG = 100
+RESUME_STEPS = {"north-star": 600, "LISA RJ null": 400}
+HOOK_EVERY, HOOK_STEPS = 100, 600
+
+
+def _have_h5py():
+    """Whether this machine has h5py: without it the resume legs continue a
+    run in the same process (a fresh sampler given the first one's
+    in-memory ``Backend``) instead of a killed child's HDF5 file."""
+    import importlib.util
+
+    return importlib.util.find_spec("h5py") is not None
+
+
+def _chain_record(np, s):
+    """What a stored run leaves, as float64 where it is a float: the chain,
+    masks, log-likelihoods and -priors, ladders, the cumulative accept,
+    reversible-jump accept and swap counts, the clock, and the states of
+    both generators."""
+    b = s.backend
+    out = dict(
+        chain=s.get_chain()["model_0"], inds=s.get_inds()["model_0"],
+        log_like=s.get_log_like(), log_prior=s.get_log_prior(),
+        betas=s.get_betas(), accepted=b.accepted,
+        swaps_accepted=b.swaps_accepted,
+        clock=int(s.temperature_control.time),
+        generator=s._gen.get_state().numpy(),
+        host_generator=s._host_gen.get_state().numpy(),
+    )
+    if s.has_reversible_jump:
+        out["rj_accepted"] = b.rj_accepted
+    return {k: (np.asarray(v, dtype=np.float64)
+                if np.asarray(v).dtype.kind == "f" else np.asarray(v))
+            for k, v in out.items()}
+
+
+def _assert_same_record(np, leg, a, b):
+    assert a.keys() == b.keys(), (leg, a.keys(), b.keys())
+    for key in a:
+        assert a[key].shape == b[key].shape and np.array_equal(
+            a[key], b[key], equal_nan=True), f"{leg}: {key} differs"
+
+
+def hdf_leg(torch, card):
+    """The north-star configuration, 200 warm steps then 1,200 stored with
+    a checkpoint every 200 (``segment_size=200``), into ``HDFBackend`` on a
+    file and into ``Backend()`` from one seed: equal chains and counters,
+    read back as float64, and both rates.  Without h5py only the
+    ``Backend()`` run is made."""
+    import tempfile
+
+    import numpy as np
+
+    from eryn_tpu_torch import Backend
+
+    read = _counting(_kernels())
+    rates, records, samplers = {}, {}, []
+    with tempfile.TemporaryDirectory(dir=ROOT / "build") as tmp:
+        forms = [("Backend", Backend(), "stored_host_seg200_steps_per_s")]
+        if _have_h5py():
+            from eryn_tpu_torch import HDFBackend
+
+            forms.insert(0, ("HDFBackend", HDFBackend(f"{tmp}/chain.h5"),
+                             "stored_hdf_steps_per_s"))
+        for form, backend, metric in forms:
+            s, priors = _gaussian_sampler(torch, NT, NW, 2, backend=backend)
+            coords = priors.rvs(size=(NT, NW), generator=torch.Generator(
+                device="cuda").manual_seed(2))
+            s.run_mcmc(coords, WARM_STEPS, store=False)
+            rates[metric] = _stored_run(torch, s, f"hdf[north-star], {form}",
+                                        card, segment_size=HDF_SEG)
+            records[form] = _chain_record(np, s)
+            samplers.append(s)
+    steps = len(samplers) * (WARM_STEPS + STORED_STEPS)
+    launches = read()
+    for s in samplers:
+        _assert_replays("hdf[north-star]", s, WARM_STEPS + STORED_STEPS, 1)
+    _assert_stretch_launches(launches, steps)
+    assert launches["pt_swap_cascade_multi"] == steps, launches
+    _check_gaussian_chain(np, "hdf[north-star], Backend", samplers[-1], NT)
+    if "HDFBackend" in records:
+        _assert_same_record(np, "hdf[north-star]", records["HDFBackend"],
+                            records["Backend"])
+        print(f"hdf[north-star]: HDFBackend and Backend() chains, "
+              f"log-likelihoods, -priors, ladders, accept and swap counts "
+              f"equal digit for digit over {STORED_STEPS} stored steps")
+        print(f"rate: stored_hdf_steps_per_s = "
+              f"{rates['stored_hdf_steps_per_s']:.1f} beside Backend() "
+              f"{rates['stored_host_seg200_steps_per_s']:.1f}, "
+              f"segment_size={HDF_SEG} ({card})")
+    else:
+        print(f"rate: stored_hdf_steps_per_s = not measured (no h5py); "
+              f"Backend() {rates['stored_host_seg200_steps_per_s']:.1f}, "
+              f"segment_size={HDF_SEG} ({card})")
+    print(f"launches[hdf[north-star]]: {launches} over {steps} steps")
+    return launches, rates, ("hdf[north-star]", samplers[-1],
+                             samplers[-1]._previous_state)
+
+
+class _Interrupted(Exception):
+    """Ends the first half of an in-process resume leg."""
+
+
+def _resume_build(torch, np, config, backend, **kw):
+    """A resume leg's sampler on ``backend`` and its start state."""
+    if config == "north-star":
+        s, priors = _gaussian_sampler(torch, NT, NW, 4, backend=backend, **kw)
+        return s, priors.rvs(size=(NT, NW), generator=torch.Generator(
+            device="cuda").manual_seed(4))
+    from eryn_tpu_torch.moves import RedBlueGroupStretchMove
+
+    return _lisa_sampler(torch, np, True, RedBlueGroupStretchMove(),
+                         backend=backend, **kw)
+
+
+def _interrupt_at(half, kill):
+    """``update_fn`` that ends the run at the first boundary at or past
+    ``half``: by ``SIGKILL`` of its own process, or by an exception."""
+    import os
+    import signal
+
+    def update(i, state, sampler):
+        if i >= half:
+            if kill:
+                os.kill(os.getpid(), signal.SIGKILL)
+            raise _Interrupted(i)
+
+    return update
+
+
+def resume_child(config, path):
+    """``--resume-child``: run a resume leg into the HDF5 file ``path``
+    until its ``update_fn`` kills this process."""
+    import numpy as np
+    import torch
+
+    total = RESUME_STEPS[config]
+    s, start = _resume_build(torch, np, config, path,
+                             update_fn=_interrupt_at(total // 2, kill=True),
+                             update_iterations=RESUME_SEG)
+    s.run_mcmc(start, total, segment_size=RESUME_SEG)
+    return 0  # not reached: the parent takes an exit 0 as a failure
+
+
+def resume_leg(torch, card, config):
+    """A run of ``RESUME_STEPS[config]`` stored steps, a checkpoint every
+    100, ended at the first boundary at or past half of it and continued
+    by a fresh sampler, against the uninterrupted run from the same seed:
+    equal digit for digit.  With h5py the first part runs in a child
+    process into an HDF5 file and is SIGKILLed from its ``update_fn``;
+    without, in this process into a ``Backend()``, which a fresh sampler
+    takes after the first is deleted and collected."""
+    import gc
+    import tempfile
+
+    import numpy as np
+
+    from eryn_tpu_torch import Backend
+
+    total = RESUME_STEPS[config]
+    half = -(-(total // 2) // RESUME_SEG) * RESUME_SEG
+    per_step = 1 if config == "north-star" else 2
+    leg = f"resume[{config}]"
+    read = _counting(_kernels())
+    full, start = _resume_build(torch, np, config, Backend())
+    full.run_mcmc(start, total, segment_size=RESUME_SEG)
+    steps = total
+    with tempfile.TemporaryDirectory(dir=ROOT / "build") as tmp:
+        if _have_h5py():
+            backend = f"{tmp}/resume.h5"
+            child = subprocess.run(
+                [sys.executable, str(ROOT / "chip_smoke.py"), "--resume-child",
+                 config, backend], capture_output=True, text=True, timeout=600)
+            assert child.returncode == -9, (leg, child.returncode,
+                                            child.stderr[-2000:])
+            how = "a child process SIGKILLed, its HDF5 file resumed"
+        else:
+            backend = Backend()
+            first, start = _resume_build(
+                torch, np, config, backend,
+                update_fn=_interrupt_at(total // 2, kill=False),
+                update_iterations=RESUME_SEG)
+            try:
+                first.run_mcmc(start, total, segment_size=RESUME_SEG)
+            except _Interrupted:
+                pass
+            _assert_replays(leg, first, half, per_step)
+            steps += half
+            del first
+            gc.collect()
+            how = "in one process, a fresh sampler on the first's Backend()"
+        resumed, _ = _resume_build(torch, np, config, backend)
+        assert resumed.backend.iteration == half, (
+            leg, resumed.backend.iteration)
+        resumed.run_mcmc(None, total - half, segment_size=RESUME_SEG)
+        steps += total - half
+        a, b = _chain_record(np, full), _chain_record(np, resumed)
+    launches = read()
+    _assert_same_record(np, leg, a, b)
+    _assert_replays(leg, full, total, per_step)
+    _assert_replays(leg, resumed, total - half, per_step)
+    if config == "north-star":
+        _assert_stretch_launches(launches, steps)
+        assert launches["pt_swap_cascade_multi"] == steps, launches
+    else:
+        assert launches["group_stretch_propose"] == 2 * steps, launches
+        assert launches["pt_swap_cascade_multi"] == 2 * steps, launches
+    print(f"{leg}: stopped at {half} of {total} steps ({how}) and continued "
+          f"to {total}: chain, masks, log-likelihoods, -priors, ladders, "
+          f"accept, RJ accept and swap counts, clock ({a['clock']}) and both "
+          f"generators' states equal the uninterrupted run digit for digit")
+    print(f"launches[{leg}]: {launches} over {steps} steps")
+    return launches, {}, (leg, resumed, resumed._previous_state)
+
+
+def resume_north_star_leg(torch, card):
+    return resume_leg(torch, card, "north-star")
+
+
+def resume_lisa_null_leg(torch, card):
+    return resume_leg(torch, card, "LISA RJ null")
+
+
+class _Recorded:
+    """A hook that records the iterations it was called at, what it
+    returned and the stretch scale after each call."""
+
+    def __init__(self, fn):
+        self.fn, self.calls, self.outs, self.scales = fn, [], [], []
+
+    def __call__(self, i, state, sampler):
+        self.calls.append(i)
+        self.outs.append(self.fn(i, state, sampler))
+        self.scales.append(sampler.moves[0].a)
+        return self.outs[-1]
+
+
+def hooks_leg(torch, card):
+    """North-star with ``AdjustStretchProposalScale`` as ``update_fn`` and
+    ``AutoCorrelationStop`` as ``stopping_fn``, both every 100 steps, over
+    600 stored steps into the default ``DeviceBackend``, graphed and with
+    ``cuda_graph=False`` from one seed.  The hooks fire at 100, 200, ...
+    (the segments are the intervals' greatest common divisor), up to a
+    stop; each change of the scale drops the graphs and the next steps
+    capture anew, so the graphed chain equals the eager one digit for
+    digit, and every step but one eager run per capture is a replay."""
+    import numpy as np
+
+    from eryn_tpu_torch.utils import AdjustStretchProposalScale, AutoCorrelationStop
+
+    read = _counting(_kernels())
+    runs = {}
+    for graphed in (True, False):
+        update = _Recorded(AdjustStretchProposalScale())
+        stop = _Recorded(AutoCorrelationStop())
+        s, priors = _gaussian_sampler(
+            torch, NT, NW, 6, cuda_graph=graphed, update_fn=update,
+            update_iterations=HOOK_EVERY, stopping_fn=stop,
+            stopping_iterations=HOOK_EVERY)
+        coords = priors.rvs(size=(NT, NW), generator=torch.Generator(
+            device="cuda").manual_seed(6))
+        s.run_mcmc(coords, HOOK_STEPS)
+        steps = s.backend.iteration
+        # each boundary: the stopping check, then (unless it stopped) the
+        # update
+        expected = list(range(HOOK_EVERY, steps + 1, HOOK_EVERY))
+        assert stop.calls == expected, stop.calls
+        assert update.calls == expected[:len(expected) - stop.outs[-1]], (
+            update.calls, stop.outs)
+        runs[graphed] = (s, steps, update, _chain_record(np, s))
+    launches = read()
+    (s, steps, update, rec), (e, steps_e, update_e, rec_e) = (runs[True],
+                                                              runs[False])
+    assert steps == steps_e and update.scales == update_e.scales, (
+        update.scales, update_e.scales)
+    _assert_same_record(np, "hooks[north-star]", rec, rec_e)
+    # a graph set at the start, and one after each change of the scale
+    # that steps follow; each set runs its first step eagerly
+    changes, sets, a = 0, 1, 2.0
+    for i, new in zip(update.calls, update.scales):
+        changes += new != a
+        sets += new != a and i < steps
+        a = new
+    assert changes > 0, update.scales
+    assert s.graph_captures == sets, (s.graph_captures, sets)
+    assert s.graph_replays == steps - sets, (s.graph_replays, steps)
+    assert e.graph_replays == 0
+    _assert_stretch_launches(launches, 2 * steps)
+    assert launches["pt_swap_cascade_multi"] == 2 * steps, launches
+    print(f"hooks[north-star]: stopping_fn at "
+          f"{list(range(HOOK_EVERY, steps + 1, HOOK_EVERY))}, "
+          f"update_fn at {update.calls}, stretch scale "
+          f"{[round(float(x), 6) for x in update.scales]} ({changes} changes, "
+          f"{sets} captures); the graphed chain equals the cuda_graph=False "
+          f"chain digit for digit over {steps} steps")
+    print(f"launches[hooks[north-star]]: {launches} over {2 * steps} steps, "
+          f"{s.graph_replays} graph replays")
+    return launches, {}, ("hooks[north-star]", s, s._previous_state)
+
+
 def main(argv=None):
     parser = argparse.ArgumentParser(description=__doc__.split("\n")[0])
     parser.add_argument("--out", help="also write the report as JSON here")
@@ -1370,6 +1741,10 @@ def main(argv=None):
         "--null-leg", action="store_true",
         help="after the build, only run and profile the null-likelihood RJ "
              "leg, through the package's public names, and stop")
+    parser.add_argument(
+        "--resume-child", nargs=2, metavar=("CONFIG", "FILE"),
+        help="run the first part of a resume leg into an HDF5 file until "
+             "its update_fn kills this process (the resume legs start it)")
     args = parser.parse_args(argv)
 
     if not (ROOT / "eryn_tpu_torch" / "csrc").is_dir():
@@ -1382,6 +1757,8 @@ def main(argv=None):
         print("chip_smoke: no CUDA device", file=sys.stderr)
         return 2
     sys.path.insert(0, str(ROOT))
+    if args.resume_child:
+        return resume_child(*args.resume_child)
     t_start = time.perf_counter()
 
     # phase 1: device
@@ -1437,9 +1814,15 @@ def main(argv=None):
     # phase 4: the main path, leg by leg, graphed; then the graphs against
     # the eager loop
     legs = []
+    if not _have_h5py():
+        print("phase 4: h5py is not installed here: hdf[north-star] runs "
+              "into Backend() alone, and the resume legs continue in this "
+              "process from an in-memory Backend(), not from a SIGKILLed "
+              "child's HDF5 file")
     with _plain_versions_forbidden(), _segments_never_wait():
         for leg in (north_star_leg, config_e_leg, lisa_rj_leg,
-                    lisa_rj_null_leg, custom_move_leg):
+                    lisa_rj_null_leg, custom_move_leg, hdf_leg,
+                    resume_north_star_leg, resume_lisa_null_leg, hooks_leg):
             t0 = time.perf_counter()
             legs.append(leg(torch, smi))
             print(f"phase 4: {leg.__name__} {time.perf_counter() - t0:.1f} s")

@@ -11,7 +11,7 @@ PyTorch version, which is what runs for tensors on the CPU.
 
 __version__ = "0.1.0"
 
-from .backends import Backend, DeviceBackend
+from .backends import Backend, DeviceBackend, HDFBackend, TempHDFBackend
 from .ensemble import EnsembleSampler
 from .model import Model
 from .moves import StretchMove, TemperatureControl, make_ladder
@@ -24,11 +24,13 @@ __all__ = [
     "BranchSupplemental",
     "DeviceBackend",
     "EnsembleSampler",
+    "HDFBackend",
     "Model",
     "ProbDistContainer",
     "State",
     "StretchMove",
     "TemperatureControl",
+    "TempHDFBackend",
     "UniformDistribution",
     "make_ladder",
     "uniform_dist",

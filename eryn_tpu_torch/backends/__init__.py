@@ -2,5 +2,6 @@
 
 from .backend import Backend
 from .devicebackend import DeviceBackend
+from .hdfbackend import HDFBackend, TempHDFBackend
 
-__all__ = ["Backend", "DeviceBackend"]
+__all__ = ["Backend", "DeviceBackend", "HDFBackend", "TempHDFBackend"]

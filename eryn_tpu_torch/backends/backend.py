@@ -2,14 +2,30 @@
 
 Port of :mod:`eryn_tpu.backends.backend`: NumPy buffers with Eryn's layout
 ``(nsteps, ntemps, nwalkers, nleaves_max, ndim)`` per branch, dead leaves
-NaN-masked on save, and the same getters.
+NaN-masked on save, and the same getters; and the checkpoint a run needs to
+continue: the states of the sampler's two generators, the adaptation clock
+and the moves' kernel states.
 """
 
 from __future__ import annotations
 
 import numpy as np
 
-__all__ = ["Backend"]
+from ..utils.pytree import tree_flatten
+
+__all__ = ["Backend", "host_leaves"]
+
+
+def host_leaves(leaves):
+    """The leaves as NumPy arrays; a leaf that is no array (an object a
+    custom move keeps on the host) becomes None, keeping its position."""
+    out = []
+    for leaf in leaves:
+        if hasattr(leaf, "detach"):  # a tensor, wherever it lies
+            leaf = leaf.detach().cpu().numpy()
+        arr = np.asarray(leaf)
+        out.append(None if arr.dtype == object else arr)
+    return out
 
 
 class Backend:
@@ -23,8 +39,9 @@ class Backend:
         self.dtype = np.dtype(dtype) if dtype is not None else np.dtype(np.float64)
 
     def reset(self, nwalkers, ndims, nleaves_max=1, ntemps=1, branch_names=None,
-              rj=False, moves=None, info=None):
-        """Allocate empty chain storage."""
+              rj=False, moves=None, info=None, key_order=None):
+        """Allocate empty chain storage.  ``key_order`` is the priors'
+        parameter order per branch, which a resume must match."""
         if branch_names is None:
             branch_names = ["model_0"]
         if isinstance(branch_names, str):
@@ -44,6 +61,7 @@ class Backend:
         self.rj = rj
         self.move_keys = list(moves) if moves else None
         self.info = dict(info) if info else {}
+        self.key_order = dict(key_order) if key_order else None
 
         self.iteration = 0
         self.chain = {
@@ -57,18 +75,19 @@ class Backend:
         self.log_like = np.empty((0, ntemps, nwalkers), dtype=self.dtype)
         self.log_prior = np.empty((0, ntemps, nwalkers), dtype=self.dtype)
         self.betas = np.empty((0, ntemps), dtype=self.dtype)
-        self.accepted = np.zeros((ntemps, nwalkers), dtype=self.dtype)
-        self.rj_accepted = (
-            np.zeros((ntemps, nwalkers), dtype=self.dtype) if rj else None
-        )
-        self.swaps_accepted = (
-            np.zeros((ntemps - 1,), dtype=self.dtype) if ntemps > 1 else None
-        )
+        # cumulative counters in float64, as a file holds them: the swap
+        # counts per step are ratios times nwalkers, not integers
+        self.accepted = np.zeros((ntemps, nwalkers))
+        self.rj_accepted = np.zeros((ntemps, nwalkers)) if rj else None
+        self.swaps_accepted = np.zeros((ntemps - 1,)) if ntemps > 1 else None
         self.moves_accepted_fraction = (
             {key: np.zeros((ntemps, nwalkers)) for key in self.move_keys}
             if self.move_keys else None
         )
         self.random_state = None
+        self.host_random_state = None
+        self._kernel_state_leaves = None
+        self._sampler_clock = None
         self.initialized = True
 
     @property
@@ -97,12 +116,16 @@ class Backend:
 
     def save_segment(self, coords, inds, log_like, log_prior, betas,
                      accepted=None, rj_accepted=None, swaps_accepted=None,
-                     moves_accepted_fraction=None, random_state=None):
+                     moves_accepted_fraction=None, random_state=None,
+                     host_random_state=None, sampler_clock=None,
+                     kernel_states=None):
         """Append a segment of stored steps (every array leads with the
         ``nstored`` axis; ``inds`` may also be one step's masks, constant
         over the segment; ``accepted``, ``rj_accepted`` and
         ``swaps_accepted`` are per-step counts, summed into the cumulative
-        counters)."""
+        counters), with the checkpoint as of the segment's last step: the
+        generators' states, the adaptation clock and the kernel states in
+        the form :meth:`get_kernel_states` returns."""
         log_like = np.asarray(log_like, dtype=self.dtype)
         n = log_like.shape[0]
         sl = slice(self.iteration, self.iteration + n)
@@ -115,22 +138,65 @@ class Backend:
         self.log_like[sl] = log_like
         self.log_prior[sl] = np.asarray(log_prior, dtype=self.dtype)
         self.betas[sl] = np.asarray(betas, dtype=self.dtype)
-        if accepted is not None:
-            self.accepted += np.asarray(accepted, dtype=self.dtype).sum(axis=0)
-        if self.rj_accepted is not None and rj_accepted is not None:
-            self.rj_accepted += np.asarray(
-                rj_accepted, dtype=self.dtype
-            ).sum(axis=0)
-        if self.swaps_accepted is not None and swaps_accepted is not None:
-            self.swaps_accepted += np.asarray(
-                swaps_accepted, dtype=self.dtype
-            ).sum(axis=0)
+        for field, value in (("accepted", accepted),
+                             ("rj_accepted", rj_accepted),
+                             ("swaps_accepted", swaps_accepted)):
+            if value is not None and getattr(self, field) is not None:
+                setattr(self, field, getattr(self, field) + np.asarray(
+                    value, dtype=np.float64).sum(axis=0))
         if self.moves_accepted_fraction is not None and moves_accepted_fraction:
             for key, val in moves_accepted_fraction.items():
                 self.moves_accepted_fraction[key] = np.asarray(val)
         if random_state is not None:
             self.random_state = random_state
+        if host_random_state is not None:
+            self.host_random_state = host_random_state
+        if sampler_clock is not None:
+            self.save_sampler_clock(sampler_clock)
+        if kernel_states is not None:
+            self._kernel_state_leaves = kernel_states
         self.iteration += n
+
+    # ------------------------------------------------------------------
+    # checkpoint: what a resumed run needs beyond the chain
+    # ------------------------------------------------------------------
+    def save_kernel_states(self, kernel_states, move_keys=None):
+        """Store the moves' kernel states (one tree of tensors per move) as
+        flat lists of host arrays, with the move keys they belong to."""
+        self._kernel_state_leaves = (
+            None if move_keys is None else list(move_keys),
+            [host_leaves(tree_flatten(ks)[0]) for ks in kernel_states],
+        )
+
+    def get_kernel_states(self):
+        """``(move_keys, per-move leaf lists)``, or None before any save.
+        A None leaf could not be stored; the sampler keeps a fresh one
+        there."""
+        return self._kernel_state_leaves
+
+    def save_sampler_clock(self, time):
+        """Store ``TemperatureControl.time``, the ladder adaptation clock:
+        a resume without it would restart the adaptation at its largest
+        gain and leave the uninterrupted chain."""
+        self._sampler_clock = int(time)
+
+    def get_sampler_clock(self):
+        """The stored clock, or None."""
+        return self._sampler_clock
+
+    @property
+    def move_info(self):
+        """``{move key: {"acceptance_fraction": array}}``, or None without
+        tracked moves."""
+        if self.moves_accepted_fraction is None:
+            return None
+        return {
+            key: {"acceptance_fraction": np.asarray(val)}
+            for key, val in self.moves_accepted_fraction.items()
+        }
+
+    def get_move_info(self):
+        return self.move_info
 
     # ------------------------------------------------------------------
     # getters

@@ -104,10 +104,12 @@ class DeviceBackend(Backend):
 
     def save_segment_packed(self, n, packed, unpack, accepted_sum=None,
                             rj_accepted_sum=None, swaps_accepted_sum=None,
-                            moves_accepted_fraction=None, random_state=None):
+                            moves_accepted_fraction=None, random_state=None,
+                            host_random_state=None):
         """Append a segment as the sampler's packed snapshot buffers.  No
         device work and no host transfer happen here: counter sums arrive
-        pre-reduced, and ``unpack`` runs on first read."""
+        pre-reduced, and ``unpack`` runs on first read.  The clock and the
+        kernel states, device values, are saved at the end of a run."""
         self._segs.append(_LazySeg(n, dict(packed), unpack))
         if accepted_sum is not None:
             self._counter_dev.setdefault("accepted", []).append(accepted_sum)
@@ -123,6 +125,8 @@ class DeviceBackend(Backend):
             self.moves_accepted_fraction.update(moves_accepted_fraction)
         if random_state is not None:
             self.random_state = random_state
+        if host_random_state is not None:
+            self.host_random_state = host_random_state
         self.iteration += int(n)
         if (
             self.max_device_bytes is not None

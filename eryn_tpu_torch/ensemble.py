@@ -9,7 +9,11 @@ counterpart of ``eryn_tpu``'s compiled ``lax.scan``); ``cuda_graph=False``,
 and any CPU run, launch every op of every step from Python.  Nothing inside
 a segment waits for the device: no ``.item()``, no ``bool(tensor)``, no
 copy to the host; the adaptation clock is a device tensor.  The host
-touches the chain only when a segment is handed to the backend.
+touches the chain only when a segment is handed to the backend: a host or
+file backend gets segment k's copy while the device runs segment k+1, with
+the checkpoint a resumed run needs (both generators' states, the clock and
+the moves' kernel states as of the segment's last step).  A sampler given a
+backend that holds a chain continues it.
 
 Likelihood contract: ``log_like_fn`` is written in torch for one walker and
 vectorized with :func:`torch.func.vmap` over the flattened
@@ -19,25 +23,59 @@ the whole batch.
 
 from __future__ import annotations
 
+import itertools
+import math
 import os
 import warnings
 
 import numpy as np
 import torch
 
-from .backends import Backend, DeviceBackend
+from .backends import Backend, DeviceBackend, HDFBackend
+from .backends.backend import host_leaves
 from .graphs import StepGraphs
 from .model import Model
 from .moves import DistributionGenerateRJ, StretchMove
-from .moves.move import EvalContext
+from .moves.move import EvalContext, Move
 from .moves.tempering import TemperatureControl
+from .pbar import get_progress_bar
 from .prior import ProbDistContainer
 from .state import State, resolve_device
 from .utils.periodic import PeriodicContainer
+from .utils.pytree import tree_flatten, tree_unflatten
 
 __all__ = ["EnsembleSampler"]
 
 _NUMPY_DTYPE = {torch.float32: np.float32, torch.float64: np.float64}
+
+
+def _crossed(prev, now, interval):
+    """Whether a count moved past a multiple of ``interval`` between
+    ``prev`` (excluded) and ``now`` (included): a hook whose interval the
+    segments do not divide fires at the first boundary at or past each
+    multiple."""
+    return now // interval > prev // interval
+
+
+def _normalize_key_order(key_order):
+    """Per-branch key orders as lists of str and int, so that the priors'
+    lists compare equal to the arrays a file's attributes give back."""
+
+    def norm(v):
+        out = []
+        for x in np.atleast_1d(np.asarray(v)).tolist():
+            out.append(x.decode() if isinstance(x, bytes) else x)
+        return out
+
+    return {name: norm(v) for name, v in dict(key_order).items()}
+
+
+def _to_host(x):
+    """A host copy of ``x``: from a CUDA device queued without waiting (into
+    pinned memory; read it after the stream has passed this point)."""
+    if x.device.type == "cuda":
+        return x.to("cpu", non_blocking=True)
+    return x.clone()
 
 
 def _segment_plan(nsteps, seg, taper=False, min_seg=64):
@@ -197,7 +235,16 @@ class EnsembleSampler:
     {parameter index or prior key: period}}`` dict of one; every move that
     has none of its own receives it.  The default backend is a
     :class:`DeviceBackend` on a CUDA device and a :class:`Backend` on the
-    CPU.
+    CPU; a string names an HDF5 file (:class:`HDFBackend`).  A backend that
+    already holds a chain is continued: the sampler checks that its moves,
+    prior key order and shape match, and restores the last state, both
+    generators, the adaptation clock and the moves' kernel states from it.
+
+    ``update_fn(iteration, last_sample, sampler)`` runs every
+    ``update_iterations`` sampler steps, and ``stopping_fn(iteration,
+    last_sample, sampler)`` every ``stopping_iterations`` stored
+    iterations, ending the run when it returns True (``utils.updates``,
+    ``utils.stopping``).
 
     ``cuda_graph`` (default True): on a CUDA device, each move's step is
     captured as a CUDA graph the second time it is due and replayed from
@@ -235,6 +282,10 @@ class EnsembleSampler:
         dtype=None,
         device=None,
         cuda_graph=True,
+        update_fn=None,
+        update_iterations=-1,
+        stopping_fn=None,
+        stopping_iterations=-1,
     ):
         self.dtype = dtype if dtype is not None else torch.float32
         if self.dtype not in _NUMPY_DTYPE:
@@ -340,13 +391,34 @@ class EnsembleSampler:
         self.cuda_graph = bool(cuda_graph)
         self._graphs = None
         self.graph_replays = 0
+        self.graph_captures = 0
 
-        self._backend = backend
+        self.update_fn = update_fn
+        self.update_iterations = update_iterations
+        self.stopping_fn = stopping_fn
+        self.stopping_iterations = stopping_iterations
+
         self._previous_state = None
         self._kernel_states = None
         self._m_acc = None
         self._m_nprop = np.zeros(len(self._all_move_list))
         self._static_inds = self._static_inds_host = None
+
+        if backend is None:
+            np_dtype = _NUMPY_DTYPE[self.dtype]
+            backend = (
+                DeviceBackend(dtype=np_dtype, max_device_bytes=4 << 30)
+                if self.device.type == "cuda" else Backend(dtype=np_dtype)
+            )
+        elif isinstance(backend, str):
+            backend = HDFBackend(backend)
+        self._backend = backend
+        if not backend.initialized:
+            self._reset_backend(backend)
+        else:
+            self._check_backend(backend)
+            if backend.iteration > 0:
+                self._resume(backend)
 
     # ------------------------------------------------------------------
     def _per_branch(self, value, label):
@@ -424,21 +496,17 @@ class EnsembleSampler:
 
     @property
     def backend(self):
-        if self._backend is None:
-            np_dtype = _NUMPY_DTYPE[self.dtype]
-            if self.device.type == "cuda":
-                self._backend = DeviceBackend(
-                    dtype=np_dtype, max_device_bytes=4 << 30
-                )
-            else:
-                self._backend = Backend(dtype=np_dtype)
-        if not self._backend.initialized:
-            self._reset_backend(self._backend)
         return self._backend
 
     @backend.setter
     def backend(self, value):
         self._backend = value
+        if not value.initialized:
+            self._reset_backend(value)
+
+    @property
+    def key_order(self):
+        return {n: p.key_order for n, p in self.priors.items()}
 
     def _reset_backend(self, backend):
         backend.reset(
@@ -450,7 +518,61 @@ class EnsembleSampler:
             rj=self.has_reversible_jump,
             moves=list(self.all_moves) if self.track_moves else None,
             info=self.info,
+            key_order=self.key_order,
         )
+
+    def _check_backend(self, backend):
+        """A backend that holds a chain must match the moves (when they are
+        tracked), the priors' key order and the shape."""
+        if self.track_moves and backend.move_keys is not None:
+            ours, theirs = list(self.all_moves), list(backend.move_keys)
+            if len(ours) != len(theirs) or any(k not in theirs for k in ours):
+                raise ValueError(
+                    "Configuration of moves has changed. Cannot use the same "
+                    "backend. Declare a new backend and start from the "
+                    "previous state. If you would prefer not to track move "
+                    "acceptance fraction, set track_moves to False in the "
+                    "EnsembleSampler."
+                )
+        theirs = backend.key_order
+        if theirs:
+            ours = {n: v for n, v in self.key_order.items() if n in theirs}
+            if _normalize_key_order(ours) != _normalize_key_order(theirs):
+                raise ValueError(
+                    "Input key order from priors does not match backend."
+                )
+        if backend.shape != self.shape:
+            raise ValueError(
+                f"Backend shape {backend.shape} incompatible with sampler "
+                f"shape {self.shape}."
+            )
+
+    def _resume(self, backend):
+        """Continue the backend's chain: its last state (log-likelihoods,
+        log-priors and ladder as stored, not recomputed), the generators'
+        states and the adaptation clock.  The kernel states follow at the
+        first run (:meth:`_init_kernel_states`); the moves' accept counters
+        restart."""
+        self._previous_state = backend.get_last_sample()
+        for gen, stored in ((self._gen, backend.random_state),
+                            (self._host_gen, backend.host_random_state)):
+            if stored is None:  # e.g. a file eryn_tpu wrote: seed= holds
+                continue
+            stored = torch.as_tensor(np.asarray(stored, dtype=np.uint8))
+            if stored.numel() != gen.get_state().numel():
+                warnings.warn(
+                    f"The stored state of the {gen.device.type} generator "
+                    "is of another kind (written by a run on another "
+                    "device); this run draws from seed= instead.",
+                    stacklevel=3,
+                )
+                continue
+            gen.set_state(stored)
+        clock = backend.get_sampler_clock()
+        if clock is not None and self.temperature_control is not None:
+            self.temperature_control.time = torch.full(
+                (), clock, dtype=torch.int64, device=self.device
+            )
 
     def reset(self):
         """Clear the stored chain."""
@@ -471,6 +593,18 @@ class EnsembleSampler:
     def random_state(self):
         """State of the sampler's ``torch.Generator``."""
         return self._gen.get_state()
+
+    def drop_step_graphs(self):
+        """Release the captured step graphs; the next step of each move
+        runs eagerly once and is captured anew.  Call it after changing a
+        move's configuration (a graph keeps the values it was captured
+        with), as ``AdjustStretchProposalScale`` does."""
+        if self._graphs is None:
+            return
+        # the queued replays finish before their graphs and memory pool go
+        torch.cuda.synchronize(self.device)
+        self._graphs.graphs.clear()
+        self._graphs = None
 
     @property
     def _max_segment(self):
@@ -517,9 +651,6 @@ class EnsembleSampler:
             initial_state if isinstance(initial_state, State)
             else State(initial_state)
         )
-        if not self._like_checked:
-            self._like_eval.check(self.device)
-            self._like_checked = True
 
         def put(x, dtype=None):
             return x.to(device=self.device, dtype=dtype or self.dtype)
@@ -538,6 +669,13 @@ class EnsembleSampler:
                     f"match expected {self.shape[name]}."
                 )
             coords[name], inds[name] = c.contiguous(), m.contiguous()
+        if not self._like_checked:
+            self._like_eval.check(self.device)
+            # the priors' first evaluation builds their device constants (a
+            # copy from the host): here, not in the first segment, also when
+            # the state brings its log-prior (a resumed chain)
+            self._prior_eval(coords, inds)
+            self._like_checked = True
 
         tc = self.temperature_control
         if tc is None:
@@ -674,10 +812,7 @@ class EnsembleSampler:
         packed ``u8`` buffer (:meth:`_u8_layout`: accept flags, and under
         reversible jump the RJ accept flags and the leaf masks), both on the
         device, or is None without ``store``."""
-        if self._kernel_states is None:
-            self._kernel_states = [
-                m.init_kernel_state(state) for m in self._all_move_list
-            ]
+        self._ensure_kernel_states(state)
         if self._m_acc is None:
             self._m_acc = torch.zeros(
                 (len(self._all_move_list), self.ntemps, self.nwalkers),
@@ -771,27 +906,66 @@ class EnsembleSampler:
         }
 
     def _save_snaps(self, snaps):
-        """Hand one stored segment to the backend."""
+        """Hand one stored segment to the backend: a device backend keeps
+        the packed buffers; a host or file backend gets the segment and its
+        checkpoint, waiting for the copy."""
+        if not self.backend.device_resident:
+            self._flush(self._stage(snaps))
+            return
         nt = self.ntemps
         n = snaps["fp"].shape[0]
+        flags = self._split_u8(snaps["u8"])
+        swaps_sum = snaps["fp"][:, snaps["fp"].shape[1] - (nt - 1):].sum(0)
+        rj_sum = flags.get("rj_accepted")
+        self.backend.save_segment_packed(
+            n, snaps, self._make_seg_unpacker(),
+            accepted_sum=flags["accepted"].to(self.dtype).sum(dim=0),
+            rj_accepted_sum=(None if rj_sum is None
+                             else rj_sum.to(self.dtype).sum(dim=0)),
+            swaps_accepted_sum=swaps_sum if nt > 1 else None,
+            moves_accepted_fraction=self._move_fractions(),
+            random_state=self.random_state,
+            host_random_state=self._host_gen.get_state(),
+        )
+
+    def _stage(self, snaps):
+        """Queue the host copy of a stored segment just run, with the
+        checkpoint as of its last step: the move accept fractions, the
+        clock and the kernel states are copied behind the segment's work,
+        the generators' states read on the host (they advance as work is
+        queued).  Nothing waits; :meth:`_flush` does."""
+        tc = self.temperature_control
         fractions = self._move_fractions()
-        if self.backend.device_resident:
-            flags = self._split_u8(snaps["u8"])
-            swaps_sum = snaps["fp"][:, snaps["fp"].shape[1] - (nt - 1):].sum(0)
-            rj_sum = flags.get("rj_accepted")
-            self.backend.save_segment_packed(
-                n, snaps, self._make_seg_unpacker(),
-                accepted_sum=flags["accepted"].to(self.dtype).sum(dim=0),
-                rj_accepted_sum=(None if rj_sum is None
-                                 else rj_sum.to(self.dtype).sum(dim=0)),
-                swaps_accepted_sum=swaps_sum if nt > 1 else None,
-                moves_accepted_fraction=fractions,
-                random_state=self.random_state,
-            )
-            return
-        fields = self._split_fp(snaps["fp"].cpu().numpy())
-        flags = self._split_u8(snaps["u8"].cpu())
+        staged = dict(
+            fp=_to_host(snaps["fp"]), u8=_to_host(snaps["u8"]),
+            fractions=None if fractions is None else {
+                k: _to_host(v) for k, v in fractions.items()},
+            clock=(None if tc is None or not isinstance(tc.time, torch.Tensor)
+                   else _to_host(tc.time)),
+            kernel_leaves=[
+                [_to_host(x) if isinstance(x, torch.Tensor) else x
+                 for x in tree_flatten(ks)[0]]
+                for ks in self._kernel_states
+            ],
+            random_state=self.random_state,
+            host_random_state=self._host_gen.get_state(),
+            copied=None,
+        )
+        if self.device.type == "cuda":
+            staged["copied"] = torch.cuda.Event()
+            staged["copied"].record()
+        return staged
+
+    def _flush(self, staged):
+        """Write a staged segment and its checkpoint to the host or file
+        backend, once its copies are done."""
+        if staged["copied"] is not None:
+            staged["copied"].synchronize()
+        nt = self.ntemps
+        fields = self._split_fp(staged["fp"].numpy())
+        flags = self._split_u8(staged["u8"])
         rj = flags.get("rj_accepted")
+        clock = staged["clock"]
         self.backend.save_segment(
             coords=fields["coords"],
             inds=({n: m.numpy().astype(bool) for n, m in flags["inds"].items()}
@@ -802,10 +976,14 @@ class EnsembleSampler:
             accepted=flags["accepted"].numpy(),
             rj_accepted=None if rj is None else rj.numpy(),
             swaps_accepted=fields["swaps"] if nt > 1 else None,
-            moves_accepted_fraction=None if fractions is None else {
-                k: v.cpu().numpy() for k, v in fractions.items()
+            moves_accepted_fraction=None if staged["fractions"] is None else {
+                k: v.numpy() for k, v in staged["fractions"].items()
             },
-            random_state=self.random_state,
+            random_state=staged["random_state"],
+            host_random_state=staged["host_random_state"],
+            sampler_clock=None if clock is None else int(clock),
+            kernel_states=(list(self.all_moves),
+                           [host_leaves(x) for x in staged["kernel_leaves"]]),
         )
 
     def _make_seg_unpacker(self):
@@ -848,33 +1026,244 @@ class EnsembleSampler:
             move.num_proposals = int(self._m_nprop[i])
 
     # ------------------------------------------------------------------
+    # kernel states across a checkpoint
+    # ------------------------------------------------------------------
+    def _ensure_kernel_states(self, state):
+        if self._kernel_states is None:
+            self._kernel_states = self._init_kernel_states(state)
+
+    def _init_kernel_states(self, state):
+        """The moves' fresh kernel states, or on a resumed backend the
+        stored ones, validated leaf by leaf against the fresh structure:
+        a mismatch (the moves changed) warns and starts fresh."""
+        fresh = [m.init_kernel_state(state) for m in self._all_move_list]
+        stored = self.backend.get_kernel_states()
+        if stored is None or self.backend.iteration == 0:
+            return fresh
+        keys, stored_leaves = stored
+        try:
+            if keys is not None and keys != list(self.all_moves):
+                raise ValueError("move keys changed")
+            if len(stored_leaves) != len(fresh):
+                raise ValueError("move count changed")
+            out = []
+            for f, leaves in zip(fresh, stored_leaves):
+                f_leaves, spec = tree_flatten(f)
+                if len(leaves) != len(f_leaves):
+                    raise ValueError("kernel-state structure changed")
+                restored = []
+                for a, b in zip(f_leaves, leaves):
+                    if b is None or not isinstance(a, torch.Tensor):
+                        restored.append(a)  # not stored: keep the fresh one
+                        continue
+                    if tuple(np.shape(b)) != tuple(a.shape):
+                        raise ValueError("kernel-state shape changed")
+                    restored.append(torch.as_tensor(
+                        np.asarray(b), device=a.device).to(a.dtype))
+                out.append(tree_unflatten(spec, restored))
+            return out
+        except ValueError as err:
+            warnings.warn(
+                "Stored move kernel states are incompatible with the current "
+                f"move configuration ({err}); proposal tuning state restarts "
+                "fresh on this resume.",
+                stacklevel=3,
+            )
+            return fresh
+
+    def _finalize_kernel_states(self, store):
+        """At the end of a stored run, save the clock and the kernel states
+        to every backend (a host or file backend has them with each
+        segment already; a device backend only here)."""
+        if not store:
+            return
+        tc = self.temperature_control
+        if tc is not None:
+            self.backend.save_sampler_clock(int(tc.time))
+        if self._kernel_states is not None:
+            self.backend.save_kernel_states(self._kernel_states,
+                                            move_keys=list(self.all_moves))
+
+    def _tuned_moves(self, tune):
+        return [m for m in self._all_move_list
+                if type(m).tune is not Move.tune] if tune else []
+
+    # ------------------------------------------------------------------
     # public run API
     # ------------------------------------------------------------------
-    def run_mcmc(self, initial_state, nsteps, burn=None, thin_by=1, store=True,
-                 skip_initial_state_check=False, segment_size=None):
+    def sample(self, initial_state, iterations=1, tune=False,
+               skip_initial_state_check=True, thin_by=1, store=True,
+               progress=False):
+        """Generator yielding the state after every ``thin_by`` steps,
+        ``iterations`` times (without end for ``iterations=None`` and
+        ``store=False``); each yield's step is stored.  ``tune`` calls
+        ``tune(state, accepted)`` of the moves that override it at each
+        yield, and ``update_fn`` fires when the steps cross a multiple of
+        ``update_iterations``.  However the generator ends (exhausted,
+        broken out of or dropped), the clock and kernel states are saved."""
+        if iterations is None and store:
+            raise ValueError("Cannot have iterations be None if store == True.")
+        thin_by = int(thin_by)
+        if thin_by <= 0:
+            raise ValueError("thin_by must be a positive integer.")
+        state = self._setup_state(initial_state, skip_initial_state_check)
+        self._ensure_kernel_states(state)
+        if store:
+            self.backend.grow(iterations)
+        tuned = self._tuned_moves(tune)
+        total = None if iterations is None else iterations * thin_by
+        try:
+            with get_progress_bar(progress, total) as pbar:
+                steps = (itertools.count(1) if iterations is None
+                         else range(1, iterations + 1))
+                for i in steps:
+                    state, snaps = self._run_bulk(state, 1, thin_by,
+                                                  store=store)
+                    if store:
+                        self._save_snaps(snaps)
+                    # code between yields may read the counters
+                    self._sync_move_counters()
+                    for m in tuned:
+                        m.tune(state, m.accepted)
+                    if (self.update_fn is not None
+                            and self.update_iterations > 0
+                            and _crossed((i - 1) * thin_by, i * thin_by,
+                                         self.update_iterations)):
+                        self.update_fn(i, state, self)
+                    pbar.update(thin_by)
+                    yield state
+        finally:
+            self._finalize_kernel_states(store)
+
+    def run_mcmc(self, initial_state, nsteps, burn=None,
+                 post_burn_update=False, tune=False,
+                 skip_initial_state_check=False, thin_by=1, store=True,
+                 progress=False, segment_size=None):
         """Run the chain: ``burn`` steps without storing, then ``nsteps``
         stored iterations of ``thin_by`` steps each, in segments of at most
-        ``segment_size`` stored iterations.  Returns the final state."""
+        ``segment_size`` stored iterations (by default the greatest common
+        divisor of the hook intervals, else as many as a segment holds).
+        Returns the final state.
+
+        ``post_burn_update`` calls ``update_fn`` once after the burn;
+        ``tune`` calls ``tune(state, accepted)`` of the moves that override
+        it after each segment; ``progress`` shows a ``tqdm`` bar.  The hooks
+        fire at the first segment boundary at or past each multiple of
+        their interval (``update_iterations`` counts steps, so it fires as
+        often under ``thin_by``); there the backend holds every segment
+        run.  Between hooks a host or file backend writes each segment
+        while the device runs the next."""
         state = self._setup_state(initial_state, skip_initial_state_check)
         thin_by = int(thin_by)
         if thin_by <= 0:
             raise ValueError("thin_by must be a positive integer.")
+        self._ensure_kernel_states(state)
+        tuned = self._tuned_moves(tune)
         if burn:
             for n in _segment_plan(int(burn), 4 * self._max_segment):
                 state, _ = self._run_bulk(state, 1, n, store=False)
+                if tuned:
+                    self._sync_move_counters()
+                for m in tuned:
+                    m.tune(state, m.accepted)
+            if post_burn_update and self.update_fn is not None:
+                self.update_fn(0, state, self)
+
+        def stop_fires(i0, i):
+            return (self.stopping_fn is not None
+                    and self.stopping_iterations > 0
+                    and _crossed(i0, i, self.stopping_iterations))
+
+        def update_fires(i0, i):
+            return (self.update_fn is not None
+                    and self.update_iterations > 0
+                    and _crossed(i0 * thin_by, i * thin_by,
+                                 self.update_iterations))
+
+        intervals = [n for fn, n in ((self.stopping_fn, self.stopping_iterations),
+                                     (self.update_fn, self.update_iterations))
+                     if fn is not None and n > 0]
         if segment_size is not None:
             seg = int(segment_size)
+        elif intervals:
+            seg = math.gcd(*intervals)
         else:
             seg = max(1, min(int(nsteps), self._max_segment))
-        if store:
-            self.backend.grow(nsteps)
-        taper = store and not self.backend.device_resident
-        for n in _segment_plan(int(nsteps), seg, taper=taper):
-            state, snaps = self._run_bulk(state, n, thin_by, store=store)
-            if store:
-                self._save_snaps(snaps)
+        pipelined = store and not self.backend.device_resident
+        pending = None  # a staged segment not yet written
+        i = 0
+        with get_progress_bar(progress, nsteps * thin_by) as pbar:
+            for n in _segment_plan(int(nsteps), seg, taper=pipelined):
+                state, snaps = self._run_bulk(state, n, thin_by, store=store)
+                if store and i == 0:
+                    # a host backend allocates while the device runs the
+                    # first segment
+                    self.backend.grow(nsteps)
+                i0, i = i, i + n
+                hook_now = bool(tuned) or stop_fires(i0, i) or update_fires(i0, i)
+                if pipelined:
+                    staged = self._stage(snaps)
+                    # the previous segment is written while this one runs
+                    if pending is not None:
+                        self._flush(pending)
+                    pending = staged
+                    if hook_now:  # hooks read the backend
+                        self._flush(pending)
+                        pending = None
+                elif store:
+                    self._save_snaps(snaps)
+                pbar.update(n * thin_by)
+                if hook_now:
+                    self._sync_move_counters()
+                for m in tuned:
+                    m.tune(state, m.accepted)
+                if stop_fires(i0, i) and self.stopping_fn(i, state, self):
+                    break
+                if update_fires(i0, i):
+                    self.update_fn(i, state, self)
+        if pending is not None:
+            self._flush(pending)
         self._sync_move_counters()
+        self._finalize_kernel_states(store)
         return state
+
+    def _coerce_eval_inputs(self, coords, inds):
+        if not isinstance(coords, dict):
+            coords = {self.branch_names[0]: coords}
+        out = {}
+        for n, c in coords.items():
+            c = torch.as_tensor(c, dtype=self.dtype, device=self.device)
+            if c.ndim == 2:
+                c = c[None, :, None, :]
+            elif c.ndim == 3:
+                c = c[:, :, None, :]
+            out[n] = c
+        if inds is None:
+            inds = {n: torch.ones(c.shape[:-1], dtype=torch.bool,
+                                  device=self.device) for n, c in out.items()}
+        else:
+            if not isinstance(inds, dict):
+                inds = {self.branch_names[0]: inds}
+            inds = {n: torch.as_tensor(v, device=self.device).bool()
+                    for n, v in inds.items()}
+        return out, inds
+
+    def compute_log_prior(self, coords, inds=None):
+        """Log prior of ``coords`` (``(nwalkers, ndim)``, ``(ntemps,
+        nwalkers, ndim)`` or the 4-D layout, or a dict of them per branch)
+        over the active leaves, a tensor on the sampler's device."""
+        return self._prior_eval(*self._coerce_eval_inputs(coords, inds))
+
+    def compute_log_like(self, coords, inds=None, logp=None):
+        """``(log_like, None)`` of ``coords`` (as for
+        :meth:`compute_log_prior`); walkers where ``logp`` is not finite
+        get ``-inf`` without an evaluation."""
+        coords, inds = self._coerce_eval_inputs(coords, inds)
+        if logp is None:
+            logp = self._prior_eval(coords, inds)
+        else:
+            logp = torch.as_tensor(logp, dtype=self.dtype, device=self.device)
+        return self._like_eval(coords, inds, logp)
 
     @property
     def acceptance_fraction(self):

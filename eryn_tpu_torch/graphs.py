@@ -28,6 +28,7 @@ import gc
 import torch
 
 from .state import State
+from .utils.pytree import tree_flatten
 
 __all__ = ["StepGraphs", "counted_kernels"]
 
@@ -51,13 +52,7 @@ def _assign(dst, src):
 
 
 def _tensor_leaves(tree):
-    if isinstance(tree, torch.Tensor):
-        return [tree]
-    if isinstance(tree, dict):
-        tree = [tree[k] for k in sorted(tree)]
-    if isinstance(tree, (list, tuple)):
-        return [x for item in tree for x in _tensor_leaves(item)]
-    return []
+    return [x for x in tree_flatten(tree)[0] if isinstance(x, torch.Tensor)]
 
 
 def _contiguous_copy(x):
@@ -235,4 +230,5 @@ class StepGraphs:
                 "EnsembleSampler(..., cuda_graph=False) runs the eager loop."
             ) from error
         torch.cuda.current_stream(smp.device).wait_stream(self.stream)
+        smp.graph_captures += 1
         return graph, counts

@@ -187,6 +187,12 @@ class Move:
         """Per-move carry (e.g. tuned scales); empty for the stretch move."""
         return ()
 
+    def tune(self, state, accepted):
+        """Adjust the move from its cumulative ``accepted`` counts; the
+        sampler calls it under ``tune=True`` on the moves that override
+        it.  On a CUDA device a change of the move's configuration also
+        needs ``sampler.drop_step_graphs()``."""
+
     def _propose_impl(self, generator, state, ctx, kernel_state):
         raise NotImplementedError
 

@@ -607,3 +607,96 @@ def test_capture_of_a_likelihood_that_reads_the_host_raises(cuda):
                         tempering_kwargs=dict(ntemps=2), seed=0, device=cuda)
     s.run_mcmc(coords, 5)
     assert s.graph_replays == 4
+
+
+# ----------------------------------------------------------------------
+# the long-run path: file and host backends, resume, hooks, on the card
+# ----------------------------------------------------------------------
+def _long_run_backend(kind, tmp_path, name):
+    from eryn_tpu_torch import Backend, HDFBackend
+
+    if kind == "hdf":
+        pytest.importorskip("h5py")
+        return HDFBackend(str(tmp_path / f"{name}.h5"))
+    return Backend()
+
+
+@pytest.mark.parametrize("kind", ["gaussian", "rj"])
+@pytest.mark.parametrize("backend", ["hdf", "host"])
+def test_checkpointed_run_graphed_equals_eager(cuda, tmp_path, kind, backend):
+    """A run into a file or host backend in segments of 10 (each segment
+    copied behind the next one's work, with its checkpoint): graphed and
+    eager give the same chain and the same checkpoint, digit for digit."""
+    runs = {}
+    for graphed in (False, True):
+        sampler, start = _graph_sampler(
+            cuda, kind, graphed,
+            backend=_long_run_backend(backend, tmp_path, f"g{graphed}"))
+        runs[graphed] = _run_record(sampler, start, 40, 10)
+        b = sampler.backend
+        runs[graphed]["clock"] = b.get_sampler_clock()
+        runs[graphed]["generator"] = np.asarray(b.random_state)
+    for key in runs[False]:
+        np.testing.assert_array_equal(runs[True][key], runs[False][key],
+                                      err_msg=key)
+    assert runs[True]["clock"] == runs[True]["time"] == 50
+
+
+@pytest.mark.parametrize("kind", ["gaussian", "rj"])
+@pytest.mark.parametrize("backend", ["hdf", "host"])
+def test_resume_on_the_card_equals_the_uninterrupted_run(cuda, tmp_path, kind,
+                                                          backend):
+    """20 + 20 stored steps, the second 20 by a fresh graphed sampler that
+    resumes the first's backend, against 40 in one run: the same chain,
+    counters, clock and generator state."""
+    full, start = _graph_sampler(cuda, kind, True)
+    full.run_mcmc(start, 40, segment_size=10)
+    store = _long_run_backend(backend, tmp_path, "resume")
+    first, start = _graph_sampler(cuda, kind, True, backend=store)
+    first.run_mcmc(start, 20, segment_size=10)
+    del first
+    resumed, _ = _graph_sampler(cuda, kind, True, backend=store)
+    assert resumed.backend.iteration == 20
+    resumed.run_mcmc(None, 20, segment_size=10)
+    for name in ("chain", "inds"):
+        np.testing.assert_array_equal(
+            resumed.backend.get_value(name)["model_0"],
+            full.backend.get_value(name)["model_0"], err_msg=name)
+    for name in ("log_like", "log_prior", "betas"):
+        np.testing.assert_array_equal(
+            resumed.backend.get_value(name),
+            full.backend.get_value(name).astype(np.float64), err_msg=name)
+    for name in ("accepted", "swaps_accepted"):
+        np.testing.assert_array_equal(getattr(resumed.backend, name),
+                                      getattr(full.backend, name))
+    assert int(resumed.temperature_control.time) == int(
+        full.temperature_control.time)
+    assert torch.equal(resumed._gen.get_state(), full._gen.get_state())
+
+
+def test_stretch_scale_update_under_graphs_equals_eager(cuda):
+    """``AdjustStretchProposalScale`` every 10 steps changes ``a``; the
+    graphed sampler drops its graphs at each change and captures anew, so
+    its chain equals the eager one digit for digit, and every step but one
+    eager run per capture is a replay."""
+    from eryn_tpu_torch.utils import AdjustStretchProposalScale
+
+    runs, scales = {}, {}
+    for graphed in (False, True):
+        update = AdjustStretchProposalScale()
+        sampler, start = _graph_sampler(cuda, "gaussian", graphed,
+                                        update_fn=update, update_iterations=10)
+        seen = []
+        sampler.update_fn = lambda i, s, smp: (update(i, s, smp),
+                                               seen.append(smp.moves[0].a))
+        runs[graphed] = _run_record(sampler, start, 60, None)
+        scales[graphed] = seen
+        if graphed:
+            changes = sum(a != b for a, b in zip([2.0] + seen[:-2], seen[:-1]))
+            assert changes > 0
+            assert sampler.graph_captures == 1 + changes
+            assert sampler.graph_replays == 60 - sampler.graph_captures
+    assert scales[True] == scales[False]
+    for key in runs[False]:
+        np.testing.assert_array_equal(runs[True][key], runs[False][key],
+                                      err_msg=key)
