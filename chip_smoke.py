@@ -30,7 +30,7 @@ Phases, each printing its own lines:
    its bound (bytes over the memory rate against operations over the peak
    rate) and the time of one empty launch, and the host cost of a
    wrapper's parts;
-4. main path, ten legs through ``EnsembleSampler``, each with the launch
+4. main path, thirteen legs through ``EnsembleSampler``, each with the launch
    counters set to 0 just before it and read just after; every leg runs
    graphed (each move's step captured once as a CUDA graph and replayed),
    and every segment under ``set_sync_debug_mode("error")``:
@@ -66,24 +66,38 @@ Phases, each printing its own lines:
      ``AutoCorrelationStop`` every 100 steps, graphed equal to
      ``cuda_graph=False`` digit for digit, one capture per change of the
      stretch scale;
+   * the tempered-analysis legs at the north-star width: ``deo[north-star]``
+     (deterministic even-odd swaps and the Syed schedule, 200 warm and
+     1,200 stored steps: every boundary swaps over the replays, no cascade
+     launch; ``deo_steps_per_s``, ``deo_device_ess_per_s``,
+     ``deo_barrier_total``) and ``evidence[north-star]`` (a fixed ladder
+     ending at beta = 0 into ``DeviceBackend`` and ``Backend()``, equal
+     digit for digit; stepping-stone and thermodynamic-integration evidence
+     against the analytic value, the device getters equal to the host
+     ones, their wall times side by side);
+   * ``rj_pulse128``, config C of ``bench.py`` (10 x 100 walkers, up to 4
+     pulse leaves, the 128-point template): 2,000 warm and 2,000 timed
+     steps without storing;
    * a flat-likelihood RJ run (64 walkers, 3 leaves): a uniform leaf-count
      posterior.  It checks the RJ moves, is not part of the main path, and
      its launches stay out of the report.
 
    The launch counters must show that every step went through the kernels
-   (one cascade launch per tempering phase), every schedule entry must be
-   a replay of its move's graph (but the first of each, which runs
-   eagerly), no leg may call a plain version of a kernel, and each chain
-   must meet its target.  Then graph vs eager: the first four legs at a
-   quarter of their depth from one seed, with ``cuda_graph=False`` and
+   (one cascade launch per tempering phase, none under DEO), every
+   schedule entry must be a replay of its move's graph (but the first of
+   each, which runs eagerly), no leg may call a plain version of a kernel,
+   and each chain must meet its target.  Then graph vs eager: the first
+   four legs and the DEO leg at a quarter of their depth from one seed,
+   with ``cuda_graph=False`` and
    graphed; their chains, ladders, clocks and accept and swap counts must
    be equal digit for digit, and their host time per step, replays per
    step and steps/s are printed side by side;
 5. profiles (``torch.profiler``, after every timed run): each kernel's
-   device time per launch, and 50 steady steps of each of the first four
-   legs, graphed and eager (device kernels, memcpys and memsets per step,
-   what the host launched per step, device-busy share, the top five device
-   ops).
+   device time per launch, 50 steady steps of the first four legs, the DEO
+   leg and ``rj_pulse128`` graphed, and of the graph-vs-eager legs eager
+   (device kernels, memcpys and memsets per step, what the host launched
+   per step, device-busy share, the top five device ops), and the device
+   time of one tempering phase, cascade beside DEO (``phase[...]``).
 
 The second-to-last line of standard output is a JSON object describing the
 kernels, the last ``{"ok": true, "device": {...}}``.  Any failure raises and
@@ -112,6 +126,14 @@ WARM_STEPS = 200
 E_NT, E_NW, E_STEPS, E_WARM = 20, 1000, 1000, 200
 # LISA-style RJ (benchmarks/lisa_style.py:36-96, heavy=True)
 L_NPTS, L_NLMAX, L_NT, L_NW, L_STEPS, L_WARM = 8192, 8, 10, 200, 1200, 100
+# config C (bench.py:225-275): the 128-point pulse search, RJ_NSTEPS steps
+P_NPTS, P_NLMAX, P_STEPS = 128, 4, 2000
+# the tempered-analysis legs: DEO swaps with the Syed schedule, and a fixed
+# ladder that ends at beta = 0 for the evidence of the 5-D unit Gaussian in
+# U(-5, 5)^5, 2.5 ln(2 pi) - 5 ln(10)
+DEO = dict(swap_scheme="deo", adaptation_scheme="syed")
+EVIDENCE = dict(Tmax=math.inf, adaptive=False)
+LOG_Z = 2.5 * math.log(2.0 * math.pi) - 5.0 * math.log(10.0)
 # float32: a few ulp (exp/log of the two code paths may differ); float64
 # likewise scaled
 TOL = {"float32": 1e-6, "float64": 1e-12}
@@ -808,7 +830,8 @@ def _kernels():
 
 
 def _gaussian_sampler(torch, nt, nw, seed, backend=None, cuda_graph=True,
-                      **kw):
+                      tempering=None, **kw):
+    """The north-star target (``tempering``: more of ``tempering_kwargs``)."""
     from eryn_tpu_torch import EnsembleSampler, ProbDistContainer, uniform_dist
 
     invcov = torch.eye(NDIM, device="cuda")
@@ -818,7 +841,8 @@ def _gaussian_sampler(torch, nt, nw, seed, backend=None, cuda_graph=True,
 
     priors = ProbDistContainer({i: uniform_dist(-5.0, 5.0) for i in range(NDIM)})
     sampler = EnsembleSampler(
-        nw, NDIM, log_like, priors, tempering_kwargs=dict(ntemps=nt),
+        nw, NDIM, log_like, priors,
+        tempering_kwargs=dict(ntemps=nt, **(tempering or {})),
         seed=seed, device="cuda", backend=backend, cuda_graph=cuda_graph, **kw,
     )
     return sampler, priors
@@ -1099,18 +1123,26 @@ def config_e_leg(torch, card):
     return launches, rates, ("config E", s, s._previous_state)
 
 
-def _pulse_problem(torch, np, null=False):
-    """benchmarks/lisa_style.py's data (one pulse at t = 4, amplitude 3,
-    width 0.6, noise 0.3) and likelihood, in torch on the card; with
-    ``null`` its trivial likelihood (``heavy=False``), which leaves the
-    sampler's own cost."""
-    from eryn_tpu_torch import ProbDistContainer, uniform_dist
+def _pulse_data(npts=128):
+    """bench.py's pulse data: one pulse at t = 4, amplitude 3, width 0.6,
+    noise 0.3, from one seed."""
+    import numpy as np
 
     rng = np.random.default_rng(10)
-    t_np = np.linspace(0.0, 10.0, L_NPTS)
+    t = np.linspace(0.0, 10.0, npts)
     sigma = 0.3
-    data_np = 3.0 * np.exp(-((t_np - 4.0) ** 2) / (2 * 0.6**2))
-    data_np = data_np + sigma * rng.standard_normal(L_NPTS)
+    data = 3.0 * np.exp(-((t - 4.0) ** 2) / (2 * 0.6**2))
+    data = data + sigma * rng.standard_normal(npts)
+    return t, data, sigma
+
+
+def _pulse_problem(torch, np, null=False, npts=L_NPTS):
+    """benchmarks/lisa_style.py's data and likelihood (bench.py's at
+    ``npts=128``), in torch on the card; with ``null`` its trivial
+    likelihood (``heavy=False``), which leaves the sampler's own cost."""
+    from eryn_tpu_torch import ProbDistContainer, uniform_dist
+
+    t_np, data_np, sigma = _pulse_data(npts)
     t = torch.tensor(t_np, dtype=torch.float32, device="cuda")
     data = torch.tensor(data_np, dtype=torch.float32, device="cuda")
 
@@ -1316,8 +1348,8 @@ def _run_state(np, s):
 
 
 def graph_vs_eager(torch, card):
-    """North-star, config E, LISA RJ and LISA RJ null at a quarter of their
-    depth from one seed, with ``cuda_graph=False`` and graphed, in turn:
+    """North-star, its DEO form, config E, LISA RJ and LISA RJ null at a
+    quarter of their depth from one seed, with ``cuda_graph=False`` and graphed, in turn:
     20 warm steps (the graphed form captures there), a timed segment of
     ``n`` steps without storing (host time until the loop returns, and wall
     time until the device is done), then ``n`` stored steps into the default
@@ -1329,10 +1361,11 @@ def graph_vs_eager(torch, card):
 
     from eryn_tpu_torch.moves import RedBlueGroupStretchMove
 
-    def gaussian(nt, nw, seed):
+    def gaussian(nt, nw, seed, tempering=None):
         def build(graphed):
             s, priors = _gaussian_sampler(torch, nt, nw, seed,
-                                          cuda_graph=graphed)
+                                          cuda_graph=graphed,
+                                          tempering=tempering)
             coords = priors.rvs(size=(nt, nw), generator=torch.Generator(
                 device="cuda").manual_seed(seed))
             return s, s._setup_state(coords)
@@ -1343,6 +1376,8 @@ def graph_vs_eager(torch, card):
             torch, np, null, RedBlueGroupStretchMove(), cuda_graph=graphed)
 
     legs = (("north-star", gaussian(NT, NW, 0), STORED_STEPS // 4, 1),
+            ("deo[north-star]", gaussian(NT, NW, 7, DEO), STORED_STEPS // 4,
+             1),
             ("config E", gaussian(E_NT, E_NW, 5), E_STEPS // 4, 1),
             ("LISA RJ", lisa(False), L_STEPS // 4, 2),
             ("LISA RJ null", lisa(True), L_STEPS // 4, 2))
@@ -1426,6 +1461,228 @@ def flat_rj_leg(torch):
     print(f"chain[flat RJ]: leaf-count frequencies {freqs.round(4).tolist()}")
     assert np.abs(freqs - 1.0 / (nlmax + 1)).max() < 0.08, freqs
     print(f"launches[flat RJ]: {launches} over {steps + burn} steps")
+
+
+def deo_leg(torch, card):
+    """North-star under deterministic even-odd swaps and the Syed schedule:
+    200 warm steps, then 1,200 stored into the default ``DeviceBackend``.
+    The swap phase is tensor ops inside each step's graph, its parity read
+    from the clock there: every boundary must swap over the replays (both
+    parity classes), and no cascade kernel may run."""
+    import numpy as np
+
+    leg = "deo[north-star]"
+    s, priors = _gaussian_sampler(torch, NT, NW, 7, tempering=DEO)
+    coords = priors.rvs(size=(NT, NW), generator=torch.Generator(
+        device="cuda").manual_seed(7))
+    read = _counting(_kernels())
+    s.run_mcmc(coords, WARM_STEPS, store=False)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    s.run_mcmc(None, STORED_STEPS)
+    torch.cuda.synchronize()
+    dt = time.perf_counter() - t0
+    steps = WARM_STEPS + STORED_STEPS
+    launches = read()
+    replays = _assert_replays(leg, s, steps, 1)
+    _assert_stretch_launches(launches, steps)
+    assert launches["pt_swap_cascade_multi"] == 0, launches
+    assert launches["_cascade_multi_rolled"] == launches["onehot_select"] == 0
+    assert launches["group_stretch_propose"] == 0
+    # moments, acceptance, every boundary's swap fraction in (0, 1) (the
+    # even ones swap only at even clocks, the odd ones at odd), the ladder
+    # moved from its start
+    _check_gaussian_chain(np, leg, s, NT)
+    betas = s.get_betas()[-1]
+    assert np.all(np.diff(betas) < 0), betas
+    assert int(s.temperature_control.time) == steps
+    swaps = np.asarray(s.swap_acceptance_fraction, dtype=np.float64)
+    _, total = s.temperature_control.communication_barrier(ratios=swaps)
+    tau_max = float(np.nanmax(s.get_autocorr_time()["model_0"]))
+    rates = {"deo_steps_per_s": STORED_STEPS / dt,
+             "deo_device_ess_per_s": STORED_STEPS * NW / max(tau_max, 1.0) / dt,
+             "deo_barrier_total": total}
+    print(f"{leg}: ladder {np.round(betas, 6).tolist()}, swap fraction "
+          f"even boundaries {np.round(swaps[0::2], 4).tolist()}, odd "
+          f"{np.round(swaps[1::2], 4).tolist()}, clock {steps}")
+    for k, v in rates.items():
+        print(f"rate: {k} = {v:.4f} ({card})")
+    print(f"launches[{leg}]: {launches} over {steps} steps, {replays} graph "
+          f"replays")
+    return launches, rates, ("deo", s, s._previous_state)
+
+
+def _timed(fn):
+    t0 = time.perf_counter()
+    out = fn()
+    return out, time.perf_counter() - t0
+
+
+def evidence_leg(torch, card):
+    """North-star on a fixed ladder that ends at beta = 0: 200 warm steps,
+    then 1,200 stored into the default ``DeviceBackend`` and, from the same
+    seed, into ``Backend()``.  The chains must be equal digit for digit (the
+    cumulative counters to float32 rounding);
+    stepping stone within 0.3 of the analytic log evidence, thermodynamic
+    integration within the larger of twice its error and 2.0
+    (``tests/test_backends.py:272-280``); the device getters equal to the
+    host getters on the same chain (evidence 1e-6 relative: float32
+    log-likelihoods reduced in float64 on the card, in float32 by NumPy;
+    Gelman-Rubin, R-hat and ESS 1e-10); R-hat below 1.05.  The wall time of
+    each getter's second call, device beside host."""
+    import numpy as np
+
+    from eryn_tpu_torch import Backend, DeviceBackend
+
+    leg = "evidence[north-star]"
+    read = _counting(_kernels())
+    runs = {}
+    for form, backend in (("device", None), ("host", Backend())):
+        s, priors = _gaussian_sampler(torch, NT, NW, 9, backend=backend,
+                                      tempering=EVIDENCE)
+        coords = priors.rvs(size=(NT, NW), generator=torch.Generator(
+            device="cuda").manual_seed(9))
+        s.run_mcmc(coords, WARM_STEPS, store=False)
+        s.run_mcmc(None, STORED_STEPS)
+        runs[form] = s
+    torch.cuda.synchronize()
+    steps = 2 * (WARM_STEPS + STORED_STEPS)
+    launches = read()
+    dev, host = runs["device"], runs["host"]
+    assert isinstance(dev.backend, DeviceBackend), type(dev.backend)
+    for s in runs.values():
+        _assert_replays(leg, s, WARM_STEPS + STORED_STEPS, 1)
+    _assert_stretch_launches(launches, steps)
+    assert launches["pt_swap_cascade_multi"] == steps, launches
+    # the cumulative counters are summed in float32 on the device and in
+    # float64 on the host: equal to rounding
+    a, b = _chain_record(np, dev), _chain_record(np, host)
+    for key in ("accepted", "swaps_accepted"):
+        np.testing.assert_allclose(a.pop(key), b.pop(key), rtol=1e-6)
+    _assert_same_record(np, leg, a, b)
+    betas = dev.get_betas()
+    assert betas[-1, -1] == 0.0 and np.all(betas == betas[0]), betas[-1]
+
+    getters = {
+        "evidence": lambda b: b.get_evidence_estimate(),
+        "gelman_rubin": lambda b: b.get_gelman_rubin_convergence_diagnostic(
+            doprint=False)["model_0"],
+        "rhat": lambda b: b.get_rank_normalized_rhat(
+            return_parts=True)["model_0"],
+        "ess": lambda b: b.get_effective_sample_size(
+            return_parts=True)["model_0"],
+    }
+    rates, values = {}, {}
+    for name, get in getters.items():
+        for form, s in runs.items():
+            get(s.backend)  # the device backend unpacks its segment once
+            values[form, name], took = _timed(lambda: get(s.backend))
+            rates[f"{form}_{name}_s"] = took
+        rtol = 1e-6 if name == "evidence" else 1e-10
+        np.testing.assert_allclose(
+            np.asarray(values["device", name], dtype=np.float64),
+            np.asarray(values["host", name], dtype=np.float64), rtol=rtol,
+            err_msg=f"{leg}: the device {name} left the host's")
+    logz, dlogz = values["device", "evidence"]
+    ss, dss = host.backend.get_evidence_estimate(method="stepping_stone")
+    rhat = values["device", "rhat"][0]
+    print(f"{leg}: log evidence, analytic {LOG_Z:.4f}; stepping stone "
+          f"{ss:.4f} +- {dss:.4f}; thermodynamic integration {logz:.4f} +- "
+          f"{dlogz:.4f}; R-hat {np.round(rhat, 5).tolist()}; ESS "
+          f"{np.round(values['device', 'ess'][0], 1).tolist()}; Gelman-Rubin "
+          f"{np.round(values['device', 'gelman_rubin'], 5).tolist()}")
+    assert abs(ss - LOG_Z) < 0.3, (ss, LOG_Z)
+    assert abs(logz - LOG_Z) < max(2.0 * dlogz, 2.0), (logz, dlogz, LOG_Z)
+    assert np.all(rhat < 1.05), rhat
+    for name in getters:
+        print(f"rate: device_{name}_s = {rates['device_' + name + '_s']:.6f} "
+              f"beside host_{name}_s = {rates['host_' + name + '_s']:.6f} "
+              f"(second call; {card})")
+    print(f"launches[{leg}]: {launches} over {steps} steps")
+    return launches, rates, (leg, dev, dev._previous_state)
+
+
+def rj_pulse128_leg(torch, card):
+    """Config C (``bench.py:225-275``): 10 x 100 walkers, up to 4 pulse
+    leaves, the 128-point template, birth/death and the group stretch (the
+    port's move under reversible jump; ``bench.py`` keeps the plain stretch
+    there), ``seed=3``; a warm ``_run_bulk`` of ``P_STEPS`` steps, then a
+    timed one without storing."""
+    import numpy as np
+
+    from eryn_tpu_torch import EnsembleSampler, State
+    from eryn_tpu_torch.moves import RedBlueGroupStretchMove
+
+    leg = "rj_pulse128"
+    ll, pr, fill = _pulse_problem(torch, np, npts=P_NPTS)
+    s = EnsembleSampler(
+        NW, 3, ll, pr, nleaves_max=P_NLMAX, nleaves_min=0,
+        moves=RedBlueGroupStretchMove(), rj_moves=True,
+        tempering_kwargs=dict(ntemps=NT), fill_zero_leaves_val=fill, seed=3,
+        device="cuda")
+    coords = pr.rvs(size=(NT, NW, P_NLMAX), generator=torch.Generator(
+        device="cuda").manual_seed(3), dtype=torch.float32)
+    inds = np.random.default_rng(4).random((NT, NW, P_NLMAX)) < 0.3
+    state = s._setup_state(State({"model_0": coords}, inds={
+        "model_0": torch.as_tensor(inds, device="cuda")}))
+    read = _counting(_kernels())
+    state, _ = s._run_bulk(state, 1, P_STEPS, store=False)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    state, _ = s._run_bulk(state, 1, P_STEPS, store=False)
+    torch.cuda.synchronize()
+    dt = time.perf_counter() - t0
+    steps = 2 * P_STEPS
+    launches = read()
+    replays = _assert_replays(leg, s, steps, 2)
+    assert launches["group_stretch_propose"] == 2 * steps, launches
+    assert launches["pt_swap_cascade_multi"] == 2 * steps, launches
+    assert sum(launches.values()) == 4 * steps, launches
+    b = state.branches["model_0"]
+    nleaves = b.inds.sum(dim=-1)
+    assert bool(((nleaves >= 0) & (nleaves <= P_NLMAX)).all())
+    assert bool(torch.isfinite(b.coords[b.inds]).all())
+    assert bool(torch.isfinite(state.log_like).all())
+    counts = torch.bincount(nleaves[0].reshape(-1), minlength=P_NLMAX + 1)
+    rates = {"rj_pulse128_steps_per_s": P_STEPS / dt}
+    print(f"chain[{leg}]: cold leaf counts at the last step "
+          f"{counts.tolist()}, finite coordinates and log-likelihoods")
+    print(f"rate: rj_pulse128_steps_per_s = {rates['rj_pulse128_steps_per_s']:.1f} "
+          f"({card})")
+    print(f"launches[{leg}]: {launches} over {steps} steps, {replays} graph "
+          f"replays")
+    return launches, rates, (leg, s, state)
+
+
+def tempering_phase_device_ms(torch, samplers, card, reps=50):
+    """Device time of one tempering phase (the swap phase and the ladder
+    update, eager) of each sampler in ``samplers`` (``{name: sampler}``) on
+    its last state: the device kernels ``torch.profiler`` records over
+    ``reps`` phases, per phase."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    out = {}
+    for name, s in samplers.items():
+        tc, state = s.temperature_control, s._previous_state
+        clock = s._start_clock(tc)
+        tc.temper_kernel(s._gen, state, clock)
+        torch.cuda.synchronize()
+        with profile(activities=[ProfilerActivity.CPU,
+                                 ProfilerActivity.CUDA]) as prof:
+            for _ in range(reps):
+                tc.temper_kernel(s._gen, state, clock)
+            torch.cuda.synchronize()
+        device = [e for e in prof.events() if e.device_type == DeviceType.CUDA]
+        assert device, f"{name}: the profiler recorded no device activity"
+        out[name] = dict(
+            kernels=len(device) / reps,
+            device_ms=sum(e.time_range.elapsed_us() for e in device)
+            / reps / 1e3)
+        print(f"phase[{name}]: one tempering phase {out[name]['kernels']:.2f} "
+              f"device ops, {out[name]['device_ms']:.4f} ms on the device "
+              f"({card})")
+    return out
 
 
 # the long-run legs: checkpointed storage, a resume, the hooks of run_mcmc
@@ -1822,7 +2079,8 @@ def main(argv=None):
     with _plain_versions_forbidden(), _segments_never_wait():
         for leg in (north_star_leg, config_e_leg, lisa_rj_leg,
                     lisa_rj_null_leg, custom_move_leg, hdf_leg,
-                    resume_north_star_leg, resume_lisa_null_leg, hooks_leg):
+                    resume_north_star_leg, resume_lisa_null_leg, hooks_leg,
+                    deo_leg, evidence_leg, rj_pulse128_leg):
             t0 = time.perf_counter()
             legs.append(leg(torch, smi))
             print(f"phase 4: {leg.__name__} {time.perf_counter() - t0:.1f} s")
@@ -1834,9 +2092,10 @@ def main(argv=None):
         t0 = time.perf_counter()
         compared, eager = graph_vs_eager(torch, smi)
         print(f"phase 4: graph_vs_eager {time.perf_counter() - t0:.1f} s")
-    print("phase 4: one cascade launch per tempering phase on every leg, "
-          "every step a replay of its moves' graphs, no segment waited for "
-          "the device, and no plain version of a kernel was called")
+    print("phase 4: one cascade launch per tempering phase on every leg but "
+          "the DEO one (none there), every step a replay of its moves' "
+          "graphs, no segment waited for the device, and no plain version of "
+          "a kernel was called")
     launches, rates = {}, {}
     for leg_launches, leg_rates, _ in legs:
         for k, v in leg_launches.items():
@@ -1860,8 +2119,13 @@ def main(argv=None):
         print(f"time: {k} {t['device_ms']:.4f} ms on the device, "
               f"{t['ms']:.4f} ms per call ({smi})")
     profiles = {}
-    for _, _, (leg, sampler, state) in legs[:4]:
-        profiles.update(profile_steps(torch, leg, sampler, state, smi))
+    by_name = {leg: (sampler, state) for _, _, (leg, sampler, state) in legs}
+    for leg in ("north-star", "config E", "LISA RJ", "LISA RJ null", "deo",
+                "rj_pulse128"):
+        profiles.update(profile_steps(torch, leg, *by_name[leg], smi))
+    phases = tempering_phase_device_ms(
+        torch, {"cascade": by_name["north-star"][0],
+                "deo": by_name["deo"][0]}, smi)
     for leg, (sampler, state) in eager.items():
         profiles.update(profile_steps(torch, f"{leg}, eager", sampler, state,
                                       smi))
@@ -1899,7 +2163,8 @@ def main(argv=None):
         Path(args.out).write_text(json.dumps(
             {**report, "rates": rates, "card": smi,
              "times": times, "launch_floor": floor, "profiles": profiles,
-             "host_us": host_us, "graph_vs_eager": compared},
+             "host_us": host_us, "graph_vs_eager": compared,
+             "tempering_phases": phases},
             indent=1
         ))
     print(json.dumps(report))

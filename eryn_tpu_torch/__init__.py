@@ -15,8 +15,20 @@ from .backends import Backend, DeviceBackend, HDFBackend, TempHDFBackend
 from .ensemble import EnsembleSampler
 from .model import Model
 from .moves import StretchMove, TemperatureControl, make_ladder
-from .prior import ProbDistContainer, UniformDistribution, uniform_dist
+from .prior import (
+    LogUniformDistribution,
+    MappedUniformDistribution,
+    MultivariateNormalDistribution,
+    NormalDistribution,
+    ProbDistContainer,
+    UniformDistribution,
+    log_uniform,
+    mvn_dist,
+    normal_dist,
+    uniform_dist,
+)
 from .state import Branch, BranchSupplemental, State
+from .utils.transform import TransformContainer
 
 __all__ = [
     "Backend",
@@ -25,14 +37,22 @@ __all__ = [
     "DeviceBackend",
     "EnsembleSampler",
     "HDFBackend",
+    "LogUniformDistribution",
+    "MappedUniformDistribution",
     "Model",
+    "MultivariateNormalDistribution",
+    "NormalDistribution",
     "ProbDistContainer",
     "State",
     "StretchMove",
     "TemperatureControl",
     "TempHDFBackend",
+    "TransformContainer",
     "UniformDistribution",
+    "log_uniform",
     "make_ladder",
+    "mvn_dist",
+    "normal_dist",
     "uniform_dist",
     "__version__",
 ]

@@ -2,9 +2,11 @@
 
 Port of :mod:`eryn_tpu.backends.backend`: NumPy buffers with Eryn's layout
 ``(nsteps, ntemps, nwalkers, nleaves_max, ndim)`` per branch, dead leaves
-NaN-masked on save, and the same getters; and the checkpoint a run needs to
-continue: the states of the sampler's two generators, the adaptation clock
-and the moves' kernel states.
+NaN-masked on save, and the same getters, the diagnostics among them
+(autocorrelation, evidence, Gelman-Rubin, rank-normalised R-hat, effective
+sample size; :mod:`eryn_tpu_torch.utils.utility`); and the checkpoint a run
+needs to continue: the states of the sampler's two generators, the
+adaptation clock and the moves' kernel states.
 """
 
 from __future__ import annotations
@@ -311,3 +313,156 @@ class Backend:
         out = get_integrated_act(x, **kwargs)
         factor = thin if multiply_thin else 1
         return {name: values * factor for name, values in out.items()}
+
+    # ------------------------------------------------------------------
+    # diagnostics
+    # ------------------------------------------------------------------
+    def get_autocorr_thin_burn(self, tau=None):
+        """Suggested ``(discard, thin)`` from the per-parameter integrated
+        autocorrelation times (``tau``, or :meth:`get_autocorr_time`'s):
+        twice the largest tau, and half the smallest (at least 1)."""
+        if tau is None:
+            tau = self.get_autocorr_time()
+        tau_max = max(np.nanmax(np.atleast_1d(v)) for v in tau.values())
+        tau_min = min(np.nanmin(np.atleast_1d(v)) for v in tau.values())
+        return int(2 * tau_max), max(int(0.5 * tau_min), 1)
+
+    @staticmethod
+    def _fixed_ladder(betas_all, discard, thin, iteration):
+        """The one ladder of the stored steps ``betas_all``; the two
+        errors of an evidence estimate otherwise."""
+        if betas_all.shape[0] == 0:
+            raise ValueError(
+                f"discard={discard} / thin={thin} leave no stored samples "
+                f"({iteration} iterations stored); cannot compute evidence."
+            )
+        if not (betas_all == betas_all[0]).all():
+            raise ValueError(
+                "Cannot compute evidence while betas are adapting. Use "
+                "stop_adaptation or discard the adaptation phase."
+            )
+        return betas_all[0]
+
+    def get_evidence_estimate(self, discard=0, thin=1, return_error=True,
+                              method="therodynamic", **ss_kwargs):
+        """Log evidence by thermodynamic integration (``method`` starting
+        with ``"thermo"``, or ``"thero"``, Eryn's spelling and the default)
+        or else stepping stone (``ss_kwargs``: ``block_len``, ``repeats``,
+        ``seed``).  Raises a ``ValueError`` when no step is left or the
+        ladder changed over the steps kept.  Returns ``(logZ, error)``, or
+        ``logZ`` without ``return_error``."""
+        from ..utils.utility import (
+            stepping_stone_log_evidence,
+            thermodynamic_integration_log_evidence,
+        )
+
+        logls_all = self.get_log_like(discard=discard, thin=thin)
+        betas = self._fixed_ladder(self.get_betas(discard=discard, thin=thin),
+                                   discard, thin, self.iteration)
+        if method.startswith(("thero", "thermo")):
+            logls = np.mean(logls_all, axis=(0, -1))
+            logZ, dlogZ = thermodynamic_integration_log_evidence(betas, logls)
+        else:
+            logZ, dlogZ = stepping_stone_log_evidence(betas, logls_all,
+                                                      **ss_kwargs)
+        return (logZ, dlogZ) if return_error else logZ
+
+    def _cold_columns(self, discard, thin):
+        """Per branch, the cold chain's active values as ``(nsteps,
+        nwalkers, ncols)`` (NaN where a leaf is dead), with only the
+        columns that hold a value somewhere."""
+        chain = self.get_chain(discard=discard, thin=thin, temp_index=0)
+        inds = self.get_inds(discard=discard, thin=thin, temp_index=0)
+        out = {}
+        for name, arr in chain.items():
+            nsteps, nwalkers, nleaves_max, ndim = arr.shape
+            vals = np.where(inds[name][..., None], arr, np.nan).reshape(
+                nsteps, nwalkers, nleaves_max * ndim)
+            keep = ~np.all(np.isnan(vals), axis=(0, 1))
+            out[name] = vals[:, :, keep]
+        return out
+
+    def get_gelman_rubin_convergence_diagnostic(self, discard=0, thin=1,
+                                                doprint=True, **kwargs):
+        """Gelman-Rubin R-hat per branch over the cold chain's active
+        parameters (``kwargs`` to :func:`~eryn_tpu_torch.utils.utility.psrf`,
+        e.g. ``per_walker``)."""
+        from ..utils.utility import psrf
+
+        out = {}
+        for name, vals in self._cold_columns(discard, thin).items():
+            out[name] = psrf(vals, vals.shape[-1], **kwargs)
+            if doprint:
+                print(f"Gelman-Rubin R-hat for {name}: {out[name]}")
+        return out
+
+    def _modern(self, fn, device_fn, label, discard, thin, doprint,
+                return_parts):
+        """``fn`` (the host estimator; ``device_fn`` is its device form, for
+        a device-resident backend) per branch over the cold chain."""
+        out = {}
+        for name, vals in self._cold_columns(discard, thin).items():
+            out[name] = fn(vals, vals.shape[-1], return_parts=return_parts)
+            if doprint:
+                value = out[name][0] if return_parts else out[name]
+                print(f"{label} for {name}: {value}")
+        return out
+
+    def get_rank_normalized_rhat(self, discard=0, thin=1, doprint=False,
+                                 return_parts=False):
+        """Rank-normalised split R-hat per branch over the cold chain's
+        active parameters (with ``return_parts``, ``(rhat, bulk, tail)``);
+        converged below about 1.01."""
+        from ..utils.utility import (
+            rank_normalized_rhat,
+            rank_normalized_rhat_torch,
+        )
+
+        return self._modern(rank_normalized_rhat, rank_normalized_rhat_torch,
+                            "rank-normalized R-hat", discard, thin, doprint,
+                            return_parts)
+
+    def get_effective_sample_size(self, discard=0, thin=1, doprint=False,
+                                  return_parts=False):
+        """Bulk and tail effective sample size per branch over the cold
+        chain's active parameters (with ``return_parts``, ``(ess, bulk,
+        tail)``)."""
+        from ..utils.utility import (
+            effective_sample_size,
+            effective_sample_size_torch,
+        )
+
+        return self._modern(effective_sample_size, effective_sample_size_torch,
+                            "effective sample size", discard, thin, doprint,
+                            return_parts)
+
+    def get_info(self, discard=0, thin=1):
+        """Everything stored, with the autocorrelation times and the
+        ``(ac_burn, ac_thin)`` they suggest (``tau`` None and both 1 when
+        they cannot be computed)."""
+        out = {"samples": self.get_chain(discard=discard, thin=thin),
+               **self.info}
+        out["thin"] = thin
+        out["burn"] = discard
+        out["log_like"] = self.get_log_like(discard=discard, thin=thin)
+        out["log_prior"] = self.get_log_prior(discard=discard, thin=thin)
+        out["inds"] = self.get_inds(discard=discard, thin=thin)
+        out["betas"] = self.get_betas(discard=discard, thin=thin)
+        out["shapes"] = self.shape
+        out["ntemps"] = self.ntemps
+        out["nwalkers"] = self.nwalkers
+        out["nbranches"] = self.nbranches
+        out["branch names"] = self.branch_names
+        out["ndims"] = self.ndims
+        try:
+            tau = self.get_autocorr_time()
+            out["tau"] = tau
+            out["ac_burn"], out["ac_thin"] = self.get_autocorr_thin_burn(tau)
+        except Exception as e:  # noqa: BLE001 -- the info is still returned
+            print("Failed to calculate the autocorrelation length. Will not "
+                  f"output this piece of information. \n\n Actual error: "
+                  f"[{e}]")
+            out["tau"] = None
+            out["ac_thin"] = out["ac_burn"] = 1
+        out["ac_thin"] = max(out["ac_thin"], 1)
+        return out

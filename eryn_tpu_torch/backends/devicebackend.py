@@ -2,14 +2,17 @@
 
 Port of :mod:`eryn_tpu.backends.devicebackend`.  Stored segments stay on the
 device as the sampler's packed snapshot buffers and are unpacked on first
-read; getters move only the slice they return to the host, and
-:meth:`DeviceBackend.get_autocorr_time` computes the IACT on the device, so
-only the taus cross.  Cumulative counters are summed on the device and
+read; getters move only the slice they return to the host, and the
+diagnostics (the IACT, thermodynamic-integration evidence, Gelman-Rubin,
+rank-normalised R-hat and effective sample size) reduce the chain on the
+device, so only per-rung or per-parameter results cross.  Cumulative counters are summed on the device and
 fetched on first read.  When the stored chain outgrows ``max_device_bytes``
 everything so far moves to host memory and sampling continues.
 """
 
 from __future__ import annotations
+
+import warnings
 
 import numpy as np
 import torch
@@ -235,6 +238,99 @@ class DeviceBackend(Backend):
         _check_tol(
             [np.nanmax(t) / factor for t in out.values()], nsteps, tol, quiet
         )
+        return out
+
+    def _device_field(self, field, branch, discard, thin):
+        """One field over the kept steps, on the device."""
+        parts = self._seg_arrays(field, branch)
+        arr = parts[0] if len(parts) == 1 else torch.cat(parts, dim=0)
+        return arr[slice(discard + thin - 1, self.iteration, thin)]
+
+    def get_evidence_estimate(self, discard=0, thin=1, return_error=True,
+                              method="therodynamic", **ss_kwargs):
+        """Thermodynamic integration with the mean log-likelihood per rung
+        reduced on the device (float64): only ``(ntemps,)`` means and the
+        ladders cross.  Stepping stone, whose bootstrap resamples the
+        steps, and an offloaded chain take the host path."""
+        if self._host is not None or not method.startswith(("thero",
+                                                              "thermo")):
+            return super().get_evidence_estimate(
+                discard=discard, thin=thin, return_error=return_error,
+                method=method, **ss_kwargs)
+        from ..utils.utility import thermodynamic_integration_log_evidence
+
+        self._check_stored()
+        betas = self._fixed_ladder(
+            self._device_field("betas", None, discard, thin).cpu().numpy(),
+            discard, thin, self.iteration)
+        ll = self._device_field("log_like", None, discard, thin)
+        logls = ll.to(torch.float64).mean(dim=(0, 2)).cpu().numpy()
+        logZ, dlogZ = thermodynamic_integration_log_evidence(betas, logls)
+        return (logZ, dlogZ) if return_error else logZ
+
+    def _cold_columns_device(self, name, discard, thin):
+        """The cold chain's values of one branch as ``(nsteps, nwalkers,
+        nleaves_max * ndim)`` on the device, NaN where a leaf is dead (the
+        host getters' layout before their column selection)."""
+        x = self._device_field("chain", name, discard, thin)[:, 0]
+        m = self._device_field("inds", name, discard, thin)[:, 0]
+        nsteps, nwalkers, nleaves_max, ndim = x.shape
+        return torch.where(m[..., None], x.to(torch.float64),
+                           torch.nan).reshape(nsteps, nwalkers, -1)
+
+    def get_gelman_rubin_convergence_diagnostic(self, discard=0, thin=1,
+                                                doprint=True, **kwargs):
+        """Gelman-Rubin R-hat per branch, every walker a chain, with each
+        walker's NaN-aware mean and variance reduced on the device: only
+        ``(nwalkers, ncols)`` summaries cross.  The pooled form
+        (``per_walker=False``) and an offloaded chain take the host
+        path."""
+        if self._host is not None or not kwargs.get("per_walker", True):
+            return super().get_gelman_rubin_convergence_diagnostic(
+                discard=discard, thin=thin, doprint=doprint, **kwargs)
+        self._check_stored()
+        out = {}
+        for name in self.branch_names:
+            vals = self._cold_columns_device(name, discard, thin)
+            nsteps = vals.shape[0]
+            finite = torch.isfinite(vals)
+            cnt = finite.sum(dim=0)
+            mean = torch.where(finite, vals, 0.0).sum(dim=0) / cnt.clamp(min=1)
+            var = torch.where(finite, (vals - mean) ** 2, 0.0).sum(
+                dim=0) / (cnt - 1).clamp(min=1)
+            mean = torch.where(cnt > 0, mean, torch.nan).cpu().numpy()
+            var = torch.where(cnt > 1, var, torch.nan).cpu().numpy()
+            keep = cnt.sum(dim=0).cpu().numpy() > 0
+            with np.errstate(invalid="ignore"), warnings.catch_warnings():
+                # the aggregation of utils.utility.psrf(per_walker=True)
+                warnings.simplefilter("ignore", RuntimeWarning)
+                W = np.nanmean(var[:, keep], axis=0)
+                B = nsteps * np.nanvar(mean[:, keep], axis=0, ddof=1)
+                var_est = (1.0 - 1.0 / nsteps) * W + B / nsteps
+                out[name] = np.sqrt(var_est / W)
+            if doprint:
+                print(f"Gelman-Rubin R-hat for {name}: {out[name]}")
+        return out
+
+    def _modern(self, fn, device_fn, label, discard, thin, doprint,
+                return_parts):
+        """The rank-normalised R-hat or the effective sample size by
+        ``device_fn`` on the device: only the per-parameter results
+        cross."""
+        if self._host is not None:
+            return super()._modern(fn, device_fn, label, discard, thin,
+                                   doprint, return_parts)
+        self._check_stored()
+        out = {}
+        for name in self.branch_names:
+            vals = self._cold_columns_device(name, discard, thin)
+            # the host getters' columns: those with a value somewhere
+            keep = (~torch.isnan(vals).all(dim=1).all(dim=0)).cpu().numpy()
+            res = device_fn(vals, return_parts=True)
+            res = tuple(r.cpu().numpy()[keep] for r in res)
+            out[name] = res if return_parts else res[0]
+            if doprint:
+                print(f"{label} for {name}: {res[0]}")
         return out
 
     # ------------------------------------------------------------------

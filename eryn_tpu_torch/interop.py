@@ -3,9 +3,10 @@
 A state travels as a dict ``{"coords": {branch: array}, "inds": {branch:
 array}, "log_like": array, "log_prior": array, "betas": array}`` (missing
 fields are None); a tempering control as ``{"betas", "time",
-"swaps_accepted", "swaps_proposed"}``.  Any package whose arrays convert
-with ``np.asarray`` can build these dicts, so two samplers can start from
-the same ensemble and ladder.
+"swaps_accepted", "swaps_proposed"}``; priors as ``{key: (constructor
+name, params)}``.  Any package whose arrays convert with ``np.asarray`` can
+build these dicts, so two samplers can start from the same ensemble,
+ladder and priors.
 """
 
 from __future__ import annotations
@@ -13,9 +14,11 @@ from __future__ import annotations
 import numpy as np
 import torch
 
+from . import prior as _prior
 from .state import State, resolve_device
 
 __all__ = [
+    "priors_from_spec",
     "state_from_numpy",
     "state_to_numpy",
     "tempering_from_numpy",
@@ -24,6 +27,10 @@ __all__ = [
 
 _FIELDS = ("log_like", "log_prior", "betas")
 
+#: the constructors a prior spec may name (the names of eryn_tpu.prior's)
+PRIOR_KINDS = ("uniform_dist", "log_uniform", "normal_dist", "mvn_dist",
+               "MappedUniformDistribution")
+
 
 def _host(x):
     if x is None:
@@ -31,6 +38,23 @@ def _host(x):
     if isinstance(x, torch.Tensor):
         return x.detach().cpu().numpy()
     return np.asarray(x)
+
+
+def priors_from_spec(spec, device=None):
+    """A :class:`~eryn_tpu_torch.prior.ProbDistContainer` from ``{key:
+    (kind, params)}``: ``kind`` one of :data:`PRIOR_KINDS`, ``params`` its
+    positional arguments (numbers or numpy arrays).  A multivariate
+    normal's mean and covariance are placed on ``device`` (default: the
+    card, see :func:`~eryn_tpu_torch.state.resolve_device`)."""
+    device = resolve_device(device)
+    dists = {}
+    for key, (kind, params) in spec.items():
+        if kind not in PRIOR_KINDS:
+            raise ValueError(f"Unknown prior kind {kind!r}; one of "
+                             f"{PRIOR_KINDS}.")
+        extra = {"device": device} if kind == "mvn_dist" else {}
+        dists[key] = getattr(_prior, kind)(*params, **extra)
+    return _prior.ProbDistContainer(dists)
 
 
 def state_from_numpy(d, device=None, dtype=torch.float32):

@@ -1,23 +1,33 @@
-"""Parallel tempering: the temperature ladder, the swap cascade and ladder
+"""Parallel tempering: the temperature ladder, the swap phase and ladder
 adaptation.
 
-Port of :mod:`eryn_tpu.moves.tempering` for the stochastic cascade and the
-Vousden ladder adaptation.  The cascade has two forms:
+Port of :mod:`eryn_tpu.moves.tempering`.  Two swap schemes:
 
-* the general form (:meth:`TemperatureControl._swap_cascade_general`): per
-  rung, two uniform random walker permutations, carrying a provenance index
-  that one gather applies to the swap payload at the end; the path on the
-  CPU;
-* the kernel form (:meth:`TemperatureControl._swap_cascade_kernel`): one
-  uniform relabelling of the walker axis per cascade, a random rotation per
-  rung, and the whole swap phase in one CUDA launch on the state as it
-  lies (:func:`~eryn_tpu_torch.ops.pt_swap.pt_swap_cascade_tree`); taken on
-  a CUDA device whenever ``permute`` is on.  Above 640 walkers its rotations
+* ``"cascade"`` (default), the stochastic sweep from the highest rung to the
+  lowest.  It has two forms: the general form
+  (:meth:`TemperatureControl._swap_cascade_general`: per rung, two uniform
+  random walker permutations, carrying a provenance index that one gather
+  applies to the swap payload at the end; the path on the CPU), and the
+  kernel form (:meth:`TemperatureControl._swap_cascade_kernel`: one uniform
+  relabelling of the walker axis per cascade, a random rotation per rung,
+  and the whole swap phase in one CUDA launch on the state as it lies,
+  :func:`~eryn_tpu_torch.ops.pt_swap.pt_swap_cascade_tree`), taken on a
+  CUDA device whenever ``permute`` is on.  Above 640 walkers its rotations
   skip some pairings, and the accepted swaps are divided by the pairings
-  actually proposed.
+  actually proposed.  Both are valid state-independent pairings, so they
+  agree statistically, not decision for decision.
+* ``"deo"``, deterministic even-odd swaps (non-reversible parallel
+  tempering, Okabe et al. 2001; Syed et al. 2021): phase ``t`` attempts the
+  boundaries of parity ``t % 2``, each walker paired with itself on the
+  neighbouring rung; the pairs are disjoint, so the phase is three shifted
+  selects (:meth:`TemperatureControl._swap_kernel_deo`).  The parity comes
+  from the clock tensor, so a captured step alternates at every replay.
 
-Both are valid state-independent pairings, so they agree statistically, not
-decision for decision.
+Two ladder adaptations: ``"vousden"`` (arXiv:1501.05823, each interior rung
+drifts by the difference of its neighbours' acceptance) and ``"syed"``
+(the communication-barrier schedule of Syed et al. 2021, §5: the rungs are
+damped toward the inverse of the estimated cumulative barrier at equal
+spacing).
 """
 
 from __future__ import annotations
@@ -137,6 +147,24 @@ def _gather_walkers(tree, flat, ntemps, nwalkers):
     ])
 
 
+def _interp(x, xp, fp):
+    """``jnp.interp(x, xp, fp)`` for ascending ``xp``: linear between the
+    knots, ``fp[0]`` below ``xp[0]`` and ``fp[-1]`` above ``xp[-1]``."""
+    i = torch.clamp(torch.searchsorted(xp, x, right=True), 1, len(xp) - 1)
+    df = fp[i] - fp[i - 1]
+    dx = xp[i] - xp[i - 1]
+    delta = x - xp[i - 1]
+    f = fp[i - 1] + (delta / dx) * df
+    f = torch.where(x < xp[0], fp[0], f)
+    return torch.where(x > xp[-1], fp[-1], f)
+
+
+def _host(x):
+    if isinstance(x, torch.Tensor):
+        return x.detach().cpu().numpy()
+    return np.asarray(x)
+
+
 class TemperatureControl:
     """Temperature ladder, swap cascade and ladder adaptation.
 
@@ -150,7 +178,8 @@ class TemperatureControl:
     ``use_kernels``: None (default) runs the kernel cascade when the state
     lies on a CUDA device and ``permute`` is on; True runs it on any device
     (on the CPU through its plain PyTorch version); False always runs the
-    general cascade.
+    general cascade.  ``swap_scheme`` is ``"cascade"`` or ``"deo"``,
+    ``adaptation_scheme`` ``"vousden"`` or ``"syed"`` (see the module).
     """
 
     def __init__(
@@ -166,7 +195,18 @@ class TemperatureControl:
         stop_adaptation=-1,
         permute=True,
         use_kernels=None,
+        swap_scheme="cascade",
+        adaptation_scheme="vousden",
     ):
+        if swap_scheme not in ("cascade", "deo"):
+            raise ValueError(
+                f"swap_scheme must be 'cascade' or 'deo', got {swap_scheme!r}."
+            )
+        if adaptation_scheme not in ("vousden", "syed"):
+            raise ValueError(
+                "adaptation_scheme must be 'vousden' or 'syed', got "
+                f"{adaptation_scheme!r}."
+            )
         if betas is None:
             if ntemps == 1:
                 betas = np.array([1.0])
@@ -179,6 +219,8 @@ class TemperatureControl:
         self.ntemps = ntemps = len(betas)
         self.permute = permute
         self.use_kernels = use_kernels
+        self.swap_scheme = swap_scheme
+        self.adaptation_scheme = adaptation_scheme
         self.time = 0
         self.adaptive = adaptive
         self.adaptation_time = adaptation_time
@@ -195,24 +237,34 @@ class TemperatureControl:
             return False
         return self.use_kernels is True or logl.device.type == "cuda"
 
-    def swap_kernel(self, generator, swap_tree, logl, betas):
-        """One swap phase, highest rung to lowest.
+    def swap_kernel(self, generator, swap_tree, logl, betas, time=None):
+        """One swap phase: the cascade, highest rung to lowest, or under
+        ``swap_scheme="deo"`` one even-odd sweep of the parity of ``time``.
 
         Args:
             generator: the sampler's ``torch.Generator``.
             swap_tree: nested dict of tensors with leading ``(ntemps,
                 nwalkers)`` dims, exchanged alongside ``logl``.
             logl: ``(ntemps, nwalkers)`` log-likelihoods.
+            time: the clock (a 0-d int tensor; None: ``self.time``), whose
+                parity picks the DEO boundaries.
 
         Returns:
             ``(swap_tree, logl, swaps_accepted, swaps_proposed)``: accepted
-            pairings per rung, ``(ntemps - 1,)``, and proposed ones, the int
-            ``nwalkers`` where every walker is proposed (see
-            :func:`~eryn_tpu_torch.ops.pt_swap.proposals_per_rung`).
+            pairings per boundary, ``(ntemps - 1,)``, and proposed ones: the
+            int ``nwalkers`` where every walker is proposed (see
+            :func:`~eryn_tpu_torch.ops.pt_swap.proposals_per_rung`), under
+            DEO a tensor, 0 on the boundaries not attempted.
         """
         ntemps, nwalkers = logl.shape
         if ntemps == 1:
             return swap_tree, logl, logl.new_zeros((0,)), logl.new_zeros((0,))
+        if self.swap_scheme == "deo":
+            raccept = self.draw_deo(generator, ntemps, nwalkers, logl.dtype,
+                                    logl.device)
+            return self._swap_kernel_deo(
+                swap_tree, logl, betas, self.time if time is None else time,
+                raccept)
         if self._use_kernel_cascade(logl):
             pi, shifts, raccept = self.draw_kernel(
                 generator, ntemps, nwalkers, logl.dtype, logl.device
@@ -256,6 +308,52 @@ class TemperatureControl:
                        dtype=dtype, device=device)
         )
         return pi, shifts, raccept
+
+    @staticmethod
+    def draw_deo(generator, ntemps, nwalkers, dtype, device):
+        """Randomness of one DEO phase: the log-uniform acceptance draws
+        ``raccept``, ``(ntemps - 1, nwalkers)``."""
+        return torch.log(
+            torch.rand((ntemps - 1, nwalkers), generator=generator,
+                       dtype=dtype, device=device)
+        )
+
+    @staticmethod
+    def _swap_kernel_deo(swap_tree, logl, betas, time, raccept):
+        """DEO phase from the given draws: boundary ``b`` (rungs ``b`` and
+        ``b + 1``) is attempted iff ``b % 2 == time % 2``, walker by walker,
+        and accepted iff ``dbeta_b (L[b+1] - L[b]) > raccept[b]``.  The
+        parity is read from the clock on its device, never on the host, so
+        a captured step attempts the other class at the next replay.
+        Returns ``(swap_tree, logl, swaps_accepted, swaps_proposed)`` with
+        ``nwalkers`` proposed on the attempted boundaries and 0 on the
+        others."""
+        ntemps, nwalkers = logl.shape
+        dtype = logl.dtype
+        parity = torch.as_tensor(time, device=logl.device) % 2
+        active = torch.arange(ntemps - 1, device=logl.device) % 2 == parity
+        dbetas = (betas[:-1] - betas[1:]).to(dtype)
+        paccept = dbetas[:, None] * (logl[1:] - logl[:-1])
+        sel = (paccept > raccept) & active[:, None]
+        pad = torch.zeros((1, nwalkers), dtype=torch.bool, device=logl.device)
+        move_down = torch.cat([sel, pad])  # rung i takes rung i + 1's row
+        move_up = torch.cat([pad, sel])  # rung i takes rung i - 1's row
+
+        def exchange(x):
+            # the pairs of one parity are disjoint: three shifted selects
+            down = torch.cat([x[1:], x[-1:]])
+            up = torch.cat([x[:1], x[:-1]])
+            extra = (1,) * (x.ndim - 2)
+            return torch.where(move_down.reshape(move_down.shape + extra),
+                               down,
+                               torch.where(move_up.reshape(move_up.shape
+                                                           + extra), up, x))
+
+        paths, leaves = zip(*_flatten(swap_tree))
+        swap_tree = _unflatten(paths, [exchange(x) for x in leaves])
+        accepted = sel.sum(dim=-1).to(dtype)
+        proposed = active.to(dtype) * nwalkers
+        return swap_tree, exchange(logl), accepted, proposed
 
     def _swap_cascade_general(self, swap_tree, logl, betas, perms, raccept):
         """General cascade from the given draws: ``perms`` is
@@ -328,6 +426,80 @@ class TemperatureControl:
         new_mid = 1.0 / (torch.cumsum(deltaTs, dim=0) + 1.0 / betas[0])
         return torch.cat([betas[:1], new_mid, betas[-1:]])
 
+    def syed_schedule_kernel(self, time, betas, ratios, proposed=None):
+        """Communication-barrier schedule update (Syed, Bouchard-Cote,
+        Deligiannidis & Doucet 2021, JRSS-B, §5.1).  The cumulative barrier
+        is piecewise linear over the current ladder through the rejection
+        rates (``lam[k] = sum_{i<k} (1 - ratios[i])``); the rungs move, with
+        the gain :meth:`adaptation_gain`, toward its inverse at equally
+        spaced targets, where every boundary rejects alike.
+
+        Args:
+            time: the clock.
+            betas: ``(ntemps,)`` descending ladder; its ends stay.
+            ratios: ``(ntemps - 1,)`` acceptance per attempt (under DEO the
+                raw ratios, not the doubled ones).
+            proposed: the proposals per boundary of this phase (a tensor),
+                or None.  A boundary that proposed nothing (the other DEO
+                parity) takes the mean rejection of those that did, which
+                keeps the equal-rejection fixed point.
+        """
+        dtype = betas.dtype
+        r = 1.0 - torch.clamp(ratios.to(dtype), 0.0, 1.0)
+        if isinstance(proposed, torch.Tensor):
+            attempted = proposed > 0
+            n_att = torch.clamp(attempted.to(dtype).sum(), min=1.0)
+            mean_r = torch.where(attempted, r, 0.0).sum() / n_att
+            r = torch.where(attempted, r, mean_r)
+        # a floor keeps the barrier strictly increasing, so its inverse is
+        # defined on flat stretches
+        r = torch.clamp(r, min=1e-4)
+        lam = torch.cat([r.new_zeros((1,)), torch.cumsum(r, dim=0)])
+        n = betas.shape[0]
+        steps = torch.arange(n, dtype=dtype, device=betas.device)
+        targets = lam[-1] * steps / torch.full_like(lam[-1], n - 1)
+        beta_star = _interp(targets, lam, betas)
+        kappa = self.adaptation_gain(time, betas)
+        new_mid = (1.0 - kappa) * betas[1:-1] + kappa * beta_star[1:-1]
+        return torch.cat([betas[:1], new_mid, betas[-1:]])
+
+    def communication_barrier(self, ratios=None):
+        """Estimated cumulative communication barrier (Syed et al. 2021,
+        §3.2): the running sum of the rejection rates per boundary from the
+        cold rung down, on the host.  ``ratios`` default to
+        ``swaps_accepted / swaps_proposed``.  Returns ``(lambdas, total)``,
+        ``lambdas`` shaped ``(ntemps,)``; about ``1 + total`` rungs
+        suffice."""
+        if ratios is None:
+            ratios = _host(self.swaps_accepted) / np.maximum(
+                _host(self.swaps_proposed).astype(float), 1.0)
+        r = 1.0 - np.clip(_host(ratios).astype(float), 0.0, 1.0)
+        lam = np.concatenate([[0.0], np.cumsum(r)])
+        return lam, float(lam[-1])
+
+    # ------------------------------------------------------------------
+    # evidence over this control's ladder
+    # ------------------------------------------------------------------
+    def thermodynamic_integration_log_evidence(self, logls, betas=None):
+        """Thermodynamic-integration log evidence from the mean
+        log-likelihood per rung ``logls`` over ``betas`` (default: the
+        current ladder); returns ``(log_evidence, error)``."""
+        from ..utils.utility import thermodynamic_integration_log_evidence
+
+        betas = self.betas if betas is None else betas
+        return thermodynamic_integration_log_evidence(betas, logls)
+
+    def stepping_stone_log_evidence(self, logls, betas=None, block_len=50,
+                                    repeats=100, seed=None):
+        """Stepping-stone log evidence from ``logls`` ``(nsteps, ntemps,
+        nwalkers)`` over ``betas`` (default: the current ladder); returns
+        ``(log_evidence, bootstrap_error)``."""
+        from ..utils.utility import stepping_stone_log_evidence
+
+        betas = self.betas if betas is None else betas
+        return stepping_stone_log_evidence(
+            betas, logls, block_len=block_len, repeats=repeats, seed=seed)
+
     def temper_kernel(self, generator, state, time, adapt=True):
         """Swap cascade, then (optionally) ladder adaptation.
 
@@ -336,7 +508,8 @@ class TemperatureControl:
             state: :class:`~eryn_tpu_torch.state.State`.
             time: adaptation clock, a 0-d int tensor on the state's device
                 (a Python int is taken too); it advances by one per adapting
-                phase, and the ladder stops adapting once it reaches
+                phase, and under DEO, where its parity picks the boundaries,
+                by one per phase; the ladder stops adapting once it reaches
                 ``stop_adaptation`` (when that is not negative).  Nothing
                 here reads it on the host, so a captured step reads it as
                 it stands at each replay.
@@ -354,22 +527,42 @@ class TemperatureControl:
             "inds": state.branches_inds,
             "log_prior": state.log_prior,
         }
+        deo = self.swap_scheme == "deo"
+        # the cascade needs no clock (and an override may take none)
         swap_tree, logl, swaps_accepted, swaps_proposed = self.swap_kernel(
-            generator, swap_tree, state.log_like, state.betas
+            generator, swap_tree, state.log_like, state.betas,
+            **({"time": time} if deo else {})
         )
         # every consumer normalizes by nwalkers proposals per rung, so counts
         # from a cascade that proposed fewer pairings are rescaled to that
-        # scale, as the JAX package does (a rung always proposes some)
-        ratios = swaps_accepted / swaps_proposed
+        # scale, as the JAX package does (a cascade rung always proposes
+        # some).  DEO attempts a boundary every other phase: its ratios are
+        # doubled, so that their mean over phases is the acceptance per
+        # attempt, as the cascade's is
+        if deo:
+            raw_ratios = swaps_accepted / torch.clamp(swaps_proposed, min=1.0)
+            ratios = 2.0 * raw_ratios
+        else:
+            raw_ratios = ratios = swaps_accepted / swaps_proposed
         swaps_accepted = ratios * nwalkers
         betas = state.betas
         if adapt and self.adaptive:
             time = torch.as_tensor(time, device=betas.device)
-            new_betas = self.ladder_adjustment_kernel(time, betas, ratios)
+            if self.adaptation_scheme == "syed":
+                # the barrier wants the rates per attempt and which
+                # boundaries were attempted
+                new_betas = self.syed_schedule_kernel(
+                    time, betas, raw_ratios, proposed=swaps_proposed)
+            else:
+                new_betas = self.ladder_adjustment_kernel(time, betas, ratios)
             if self.stop_adaptation >= 0:
                 new_betas = torch.where(time < self.stop_adaptation,
                                         new_betas, betas)
             betas = new_betas
+            time = time + 1
+        elif deo:
+            # the clock is DEO's parity: it ticks on every phase, the
+            # reversible-jump moves' too
             time = time + 1
         new_state = state.replace(
             coords=swap_tree["coords"],

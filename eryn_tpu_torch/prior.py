@@ -1,21 +1,85 @@
 """Prior distributions and the :class:`ProbDistContainer`.
 
-Port of :mod:`eryn_tpu.prior`, as far as the uniform distribution: its
-``logpdf`` is batch-shaped torch, so the prior of the whole
-``(ntemps, nwalkers, nleaves_max)`` ensemble is a few fused tensor ops, and
-``rvs`` draws from the ``torch.Generator`` it is given.
+Port of :mod:`eryn_tpu.prior`.  Every distribution's ``logpdf`` is
+batch-shaped torch, so the prior of the whole ``(ntemps, nwalkers,
+nleaves_max)`` ensemble is a few tensor ops; ``sample(generator, shape,
+dtype)`` draws from the ``torch.Generator`` it is given, on that
+generator's device (the counterpart of the JAX package's keyed
+``sample(key, shape)``), and ``rvs`` is the same draw under Eryn's name.
+``ppf`` takes host arrays (NumPy, float64) and tensors alike.
+
+A distribution needs a torch ``logpdf`` and ``sample``: a SciPy object,
+which :mod:`eryn_tpu` evaluates through a host callback, is refused.
 """
 
 from __future__ import annotations
 
+import copy as _copy
 import math
 
+import numpy as np
 import torch
 
-__all__ = ["UniformDistribution", "uniform_dist", "ProbDistContainer"]
+__all__ = [
+    "UniformDistribution",
+    "MappedUniformDistribution",
+    "LogUniformDistribution",
+    "NormalDistribution",
+    "MultivariateNormalDistribution",
+    "uniform_dist",
+    "log_uniform",
+    "normal_dist",
+    "mvn_dist",
+    "ProbDistContainer",
+]
+
+_LOG_2PI = math.log(2.0 * math.pi)
 
 
-class UniformDistribution:
+def _rand(generator, shape, dtype):
+    return torch.rand(tuple(shape), generator=generator, dtype=dtype,
+                      device=generator.device)
+
+
+def _shape(size):
+    if isinstance(size, (int, np.integer)):
+        return (int(size),)
+    if not isinstance(size, tuple):
+        raise ValueError("size must be an integer or tuple of ints.")
+    return size
+
+
+def _columns(x, inds):
+    """``x[..., inds]`` (one index: the column without its axis) through
+    views or a stack: an index tensor would be a copy from the host, which
+    a captured step cannot hold."""
+    if len(inds) == 1:
+        return x[..., int(inds[0])]
+    first = int(inds[0])
+    if np.array_equal(inds, np.arange(first, first + len(inds))):
+        return x[..., first:first + len(inds)]
+    return torch.stack([x[..., int(i)] for i in inds], dim=-1)
+
+
+class Distribution:
+    """Base of the port's distributions: ``pdf``, ``rvs`` and ``copy`` from
+    a subclass's ``logpdf`` and ``sample``."""
+
+    #: number of parameters the distribution covers
+    ndim = 1
+
+    def pdf(self, x):
+        return torch.exp(self.logpdf(x))
+
+    def rvs(self, size=1, *, generator, dtype=torch.float64):
+        """Draw ``size`` samples from ``generator`` (on its device)."""
+        return self.sample(generator, _shape(size), dtype)
+
+    def copy(self):
+        return _copy.deepcopy(self)
+
+
+class UniformDistribution(Distribution):
     """Uniform distribution on ``[min_val, max_val]``."""
 
     def __init__(self, min_val, max_val):
@@ -29,18 +93,142 @@ class UniformDistribution:
         self.pdf_val = 1.0 / self.diff
         self.logpdf_val = math.log(self.pdf_val)
 
+    def _in_range(self, x):
+        return (x >= self.min_val) & (x <= self.max_val)
+
+    # the values as tensors of x's dtype: a Python float in torch.where
+    # would round them to float32
+    def logpdf(self, x):
+        return torch.where(self._in_range(x),
+                           torch.full_like(x, self.logpdf_val), -math.inf)
+
+    def pdf(self, x):
+        return torch.where(self._in_range(x), torch.full_like(x, self.pdf_val),
+                           0.0)
+
+    def ppf(self, q):
+        return self.min_val + q * self.diff
+
+    def sample(self, generator, shape=(), dtype=torch.float32):
+        return self.min_val + _rand(generator, shape, dtype) * self.diff
+
+
+class MappedUniformDistribution(Distribution):
+    """Uniform distribution whose log density is 0 inside ``[min, max]``."""
+
+    def __init__(self, min, max):
+        if min > max:
+            raise ValueError("min must be less than max.")
+        self.min, self.max = float(min), float(max)
+        self.diff = self.max - self.min
+
+    def logpdf(self, x):
+        temp = 1.0 - (self.max - x) / self.diff
+        in_range = (temp >= 0.0) & (temp <= 1.0)
+        return torch.where(in_range, 0.0, -math.inf).to(x.dtype)
+
+    def sample(self, generator, shape=(), dtype=torch.float32):
+        return self.max + (_rand(generator, shape, dtype) - 1.0) * self.diff
+
+
+class LogUniformDistribution(Distribution):
+    """Reciprocal (log-uniform) distribution on ``[min_val, max_val]``:
+    ``pdf(x) = 1 / (x log(max / min))``.  The stated support, as
+    :mod:`eryn_tpu` has it (Eryn's SciPy form shrinks it)."""
+
+    def __init__(self, min_val, max_val):
+        if min_val > max_val:
+            min_val, max_val = max_val, min_val
+        if min_val <= 0:
+            raise ValueError("log-uniform requires positive support.")
+        self.min_val = float(min_val)
+        self.max_val = float(max_val)
+        self._log_ratio = math.log(self.max_val / self.min_val)
+        # the normalisation in float64 on the host, a constant of the op
+        self._log_norm = math.log(self._log_ratio)
+
     def logpdf(self, x):
         in_range = (x >= self.min_val) & (x <= self.max_val)
-        return torch.where(in_range, self.logpdf_val, -math.inf).to(x.dtype)
+        return torch.where(in_range, -torch.log(x) - self._log_norm,
+                           -math.inf).to(x.dtype)
 
-    def rvs(self, size=1, *, generator, dtype=torch.float64):
-        """Draw ``size`` samples from ``generator`` (on its device)."""
-        if isinstance(size, int):
-            size = (size,)
-        u = torch.rand(
-            size, generator=generator, dtype=dtype, device=generator.device
-        )
-        return self.min_val + u * self.diff
+    def ppf(self, q):
+        if isinstance(q, torch.Tensor):
+            return self.min_val * torch.exp(q * self._log_ratio)
+        return self.min_val * np.exp(np.asarray(q) * self._log_ratio)
+
+    def sample(self, generator, shape=(), dtype=torch.float32):
+        return self.ppf(_rand(generator, shape, dtype))
+
+
+class NormalDistribution(Distribution):
+    """Scalar normal distribution."""
+
+    def __init__(self, loc=0.0, scale=1.0):
+        self.loc = float(loc)
+        self.scale = float(scale)
+        self._log_scale = math.log(self.scale)
+
+    def logpdf(self, x):
+        z = (x - self.loc) / self.scale
+        return -0.5 * z * z - self._log_scale - 0.5 * _LOG_2PI
+
+    def ppf(self, q):
+        if isinstance(q, torch.Tensor):
+            return self.loc + self.scale * torch.special.ndtri(q)
+        from scipy.special import ndtri
+
+        return self.loc + self.scale * ndtri(q)
+
+    def sample(self, generator, shape=(), dtype=torch.float32):
+        z = torch.randn(tuple(shape), generator=generator, dtype=dtype,
+                        device=generator.device)
+        return self.loc + self.scale * z
+
+
+class MultivariateNormalDistribution(Distribution):
+    """Multivariate normal over a tuple prior key.  ``cov`` may be a
+    matrix, a vector (its diagonal) or a scalar (times the identity).  The
+    log density solves with the Cholesky factor and takes the log
+    determinant from its diagonal."""
+
+    def __init__(self, mean, cov, device="cpu"):
+        mean = torch.as_tensor(np.asarray(mean, dtype=np.float64),
+                               device=device)
+        cov = torch.as_tensor(np.asarray(cov, dtype=np.float64), device=device)
+        if cov.ndim == 0:
+            cov = torch.eye(mean.shape[0], dtype=mean.dtype,
+                            device=device) * cov
+        elif cov.ndim == 1:
+            cov = torch.diag(cov)
+        self.mean, self.cov = mean, cov
+        self.ndim = int(mean.shape[0])
+        self._chol = torch.linalg.cholesky(cov)
+        self._logdet = 2.0 * torch.log(torch.diagonal(self._chol)).sum()
+        # (mean, factor, log determinant) per (device, dtype) of the input:
+        # a copy from another device inside a captured step would fail
+        self._consts = {}
+
+    def _on(self, like):
+        key = (like.device, like.dtype)
+        if key not in self._consts:
+            self._consts[key] = tuple(
+                t.to(device=like.device, dtype=like.dtype)
+                for t in (self.mean, self._chol, self._logdet))
+        return self._consts[key]
+
+    def logpdf(self, x):
+        mean, chol, logdet = self._on(x)
+        diff = (x - mean).unsqueeze(-1)
+        y = torch.linalg.solve_triangular(chol, diff, upper=False)
+        maha = (y.squeeze(-1) ** 2).sum(dim=-1)
+        return -0.5 * (maha + self.ndim * _LOG_2PI + logdet)
+
+    def sample(self, generator, shape=(), dtype=torch.float32):
+        z = torch.randn(tuple(shape) + (self.ndim,), generator=generator,
+                        dtype=dtype, device=generator.device)
+        mean, chol, _ = self._on(z)
+        return mean + z @ chol.T
 
 
 def uniform_dist(min, max):
@@ -48,49 +236,91 @@ def uniform_dist(min, max):
     return UniformDistribution(min, max)
 
 
+def log_uniform(min, max):
+    """Build a :class:`LogUniformDistribution`."""
+    return LogUniformDistribution(min, max)
+
+
+def normal_dist(loc=0.0, scale=1.0):
+    return NormalDistribution(loc, scale)
+
+
+def mvn_dist(mean, cov, device="cpu"):
+    return MultivariateNormalDistribution(mean, cov, device=device)
+
+
 class ProbDistContainer:
-    """Maps parameter indices (int or named string keys) to scalar
-    distributions.
+    """Maps parameter indices to distributions: int keys, string keys
+    (parameter names, in ``key_order``) or tuples of either (a joint
+    distribution over several parameters).  Every parameter must be
+    covered by exactly one key.
 
     ``logpdf`` takes any leading batch shape ``(..., ndim)``.  When every
-    parameter has a uniform prior (the common case, and the main path) the
-    bounds are applied as one vector comparison.
+    parameter has its own uniform prior (the common case, and the
+    sampler's path) the bounds are applied as one vector comparison.
     """
 
     def __init__(self, priors_in: dict):
         self.priors_in = dict(priors_in)
         self.priors = []
-        key_order = []
         has_strings = has_ints = False
-        for i, (key, dist) in enumerate(priors_in.items()):
-            if isinstance(key, bool) or not isinstance(key, (int, str)):
-                raise ValueError(
-                    "Keys for the prior dictionary must be integers or "
-                    "strings (tuple keys are not ported yet)."
-                )
+        current_ind = 0
+        key_order = []
+
+        def index_of(key):
+            nonlocal has_strings, has_ints, current_ind
             if isinstance(key, str):
                 if has_ints:
-                    raise ValueError("Prior keys must all be ints or all strings.")
+                    raise ValueError(
+                        "Prior keys must all be ints or all strings.")
                 has_strings = True
                 key_order.append(key)
-                index = i
-            else:
+                index = current_ind
+            elif isinstance(key, (int, np.integer)) and not isinstance(
+                    key, (bool, np.bool_)):
                 if has_strings:
-                    raise ValueError("Prior keys must all be ints or all strings.")
+                    raise ValueError(
+                        "Prior keys must all be ints or all strings.")
                 has_ints = True
-                index = key
-            self.priors.append((index, dist))
-        indices = sorted(index for index, _ in self.priors)
-        if indices != list(range(len(indices))):
+                index = int(key)
+            else:
+                return None
+            current_ind += 1
+            return index
+
+        for key, dist in priors_in.items():
+            subkeys = key if isinstance(key, tuple) else (key,)
+            inds = [index_of(k) for k in subkeys]
+            if not subkeys or None in inds:
+                raise ValueError(
+                    "Keys for the prior dictionary must be an integer, a "
+                    "string, or a tuple of either, all of one type.")
+            if not (hasattr(dist, "logpdf") and hasattr(dist, "sample")):
+                raise TypeError(
+                    f"The distribution for {key!r} ({type(dist).__name__}) "
+                    "has no torch logpdf and sample. eryn_tpu evaluates such "
+                    "a (SciPy) distribution through a host callback; the "
+                    "port has no callback mode yet (ROADMAP queue 1, item 9)."
+                    " Use the distributions of eryn_tpu_torch.prior.")
+            self.priors.append((np.asarray(inds), dist))
+
+        all_inds = np.concatenate([inds for inds, _ in self.priors])
+        uni_inds = np.unique(all_inds)
+        if len(uni_inds) != uni_inds.max() + 1 or uni_inds.min() < 0:
             raise ValueError(
-                "Please ensure all sampled parameters are included in priors, "
-                "each exactly once."
+                "Please ensure all sampled parameters are included in priors."
             )
-        self.ndim = len(indices)
+        if len(all_inds) != len(uni_inds):
+            # an overlap would count the shared parameter twice
+            raise ValueError(
+                "Parameter indices overlap between priors; each sampled "
+                "dimension must appear in exactly one prior."
+            )
+        self.ndim = int(uni_inds.max() + 1)
+        self.has_strings, self.has_ints = has_strings, has_ints
         self.key_order = key_order if has_strings else list(range(self.ndim))
-        self._uniform = all(
-            isinstance(d, UniformDistribution) for _, d in self.priors
-        )
+        self._uniform = len(self.priors) == self.ndim and all(
+            isinstance(d, UniformDistribution) for _, d in self.priors)
         # bounds tensors per (device, dtype): building them from Python lists
         # in the hot path would be a host-to-device copy per evaluation
         self._bounds = {}
@@ -98,27 +328,115 @@ class ProbDistContainer:
     def _uniform_bounds(self, like):
         key = (like.device, like.dtype)
         if key not in self._bounds:
-            order = sorted(self.priors, key=lambda p: p[0])
-            vals = [
-                [d.min_val for _, d in order],
-                [d.max_val for _, d in order],
-                [d.logpdf_val for _, d in order],
-            ]
+            vals = np.zeros((3, self.ndim))
+            for inds, d in self.priors:
+                vals[:, inds[0]] = d.min_val, d.max_val, d.logpdf_val
             self._bounds[key] = torch.tensor(
                 vals, dtype=like.dtype, device=like.device
             )
         return self._bounds[key]
 
-    def logpdf(self, x):
-        """Summed log prior over the last axis of ``x`` (``(..., ndim)``)."""
-        if self._uniform:
+    @staticmethod
+    def _selected(inds, keys):
+        if keys is None:
+            return True
+        if len(inds) > 1:
+            return tuple(int(i) for i in inds) in keys
+        return int(inds[0]) in keys
+
+    def logpdf(self, x, keys=None):
+        """Summed log prior over the last axis of ``x`` (``(..., ndim)``);
+        ``keys`` (parameter indices, tuples for joint blocks) restricts the
+        sum to those priors."""
+        x = torch.as_tensor(x)
+        if self._uniform and keys is None:
             mins, maxs, logvals = self._uniform_bounds(x)
             in_range = (x >= mins) & (x <= maxs)
             return torch.where(in_range, logvals, -math.inf).sum(dim=-1)
         total = torch.zeros(x.shape[:-1], dtype=x.dtype, device=x.device)
-        for index, dist in self.priors:
-            total = total + dist.logpdf(x[..., index])
+        for inds, dist in self.priors:
+            if not self._selected(inds, keys):
+                continue
+            total = total + dist.logpdf(_columns(x, inds))
         return total
+
+    def ppf(self, x, keys=None):
+        """Per-parameter quantile function on host arrays: ``x`` of shape
+        ``(..., ndim)`` (or ``(...)`` with one key selected) in [0, 1],
+        each selected column mapped through its distribution's ``ppf``;
+        float64 NumPy out.  A joint (tuple-key) block has no coordinate-wise
+        quantile function and raises."""
+        x = np.asarray(x)
+        if keys is not None:
+            keys = list(keys)
+        single = x.ndim == 0 or (
+            keys is not None and len(keys) == 1
+            and x.shape[-1:] != (self.ndim,)
+        )
+        vals = np.array(x, dtype=np.float64, ndmin=1)
+        out = np.array(vals, copy=True)
+        for inds, dist in self.priors:
+            if not self._selected(inds, keys):
+                continue
+            if len(inds) > 1:
+                raise ValueError(
+                    "ppf is per-parameter; the multivariate distribution "
+                    f"over indices {tuple(inds)} has no coordinate-wise "
+                    "quantile function."
+                )
+            if not hasattr(dist, "ppf"):
+                raise TypeError(f"Distribution for index {inds[0]} has no ppf.")
+            res = np.asarray(dist.ppf(vals if single else vals[..., inds[0]]))
+            if single:
+                out = res
+            else:
+                out[..., inds[0]] = res
+        return out
+
+    def rvs_stratified(self, size=1, seed=None):
+        """Latin-hypercube prior draw: each parameter's N samples fill its
+        N equal-probability quantile strata once each (one uniform jitter
+        per stratum, strata permuted independently per parameter), drawn
+        from ``numpy.random.default_rng(seed)`` as :mod:`eryn_tpu` draws
+        them, so one seed gives both packages the same strata.  A joint
+        block, or a distribution without ``ppf``, takes iid draws from a
+        CPU generator seeded from the same stream.  Returns a float64 NumPy
+        array ``size + (ndim,)``."""
+        size = _shape(size)
+        n = int(np.prod(size))
+        rng = np.random.default_rng(
+            seed if seed is not None else np.random.randint(0, 2**31 - 1)
+        )
+        out = np.empty((n, self.ndim), dtype=np.float64)
+        for inds, dist in self.priors:
+            if len(inds) > 1 or not hasattr(dist, "ppf"):
+                gen = torch.Generator().manual_seed(
+                    int(rng.integers(0, 2**31 - 1)))
+                draws = dist.sample(gen, (n,), torch.float64)
+                out[:, list(inds)] = draws.cpu().numpy().reshape(n, len(inds))
+                continue
+            strata = (rng.permutation(n) + rng.uniform(size=n)) / n
+            out[:, inds[0]] = np.asarray(dist.ppf(strata))
+        return out.reshape(size + (self.ndim,))
+
+    def rvs(self, size=1, keys=None, *, generator, dtype=torch.float64):
+        """Draw ``size + (ndim,)`` samples from ``generator`` (on its
+        device); with ``keys``, only those priors' columns (the rest are
+        zero)."""
+        size = _shape(size)
+        out = torch.zeros(
+            size + (self.ndim,), dtype=dtype, device=generator.device
+        )
+        for inds, dist in self.priors:
+            if not self._selected(inds, keys):
+                continue
+            vals = dist.sample(generator, size, dtype)
+            if len(inds) == 1:
+                out[..., int(inds[0])] = vals
+            else:
+                for j, i in enumerate(inds):
+                    out[..., int(i)] = vals[..., j]
+        return out
 
     def sample(self, generator, shape=(), dtype=torch.float32):
         """Draw ``shape + (ndim,)`` samples on the device of ``generator``,
@@ -126,19 +444,7 @@ class ProbDistContainer:
         uniform priors it is one draw and one affine map, with no copy
         from the host."""
         if not self._uniform:
-            return self.rvs(shape, generator=generator, dtype=dtype)
-        u = torch.rand(tuple(shape) + (self.ndim,), generator=generator,
-                       dtype=dtype, device=generator.device)
+            return self.rvs(tuple(shape), generator=generator, dtype=dtype)
+        u = _rand(generator, tuple(shape) + (self.ndim,), dtype)
         mins, maxs, _ = self._uniform_bounds(u)
         return mins + u * (maxs - mins)
-
-    def rvs(self, size=1, *, generator, dtype=torch.float64):
-        """Draw ``size + (ndim,)`` samples from ``generator``."""
-        if isinstance(size, int):
-            size = (size,)
-        out = torch.empty(
-            tuple(size) + (self.ndim,), dtype=dtype, device=generator.device
-        )
-        for index, dist in self.priors:
-            out[..., index] = dist.rvs(size, generator=generator, dtype=dtype)
-        return out

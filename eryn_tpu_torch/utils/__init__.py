@@ -8,9 +8,30 @@ from .updates import (
     Update,
     UpdateStep,
 )
-from .utility import get_acf, get_integrated_act, get_integrated_act_torch
+from .transform import TransformContainer
+from .utility import (
+    effective_sample_size,
+    effective_sample_size_torch,
+    get_acf,
+    get_integrated_act,
+    get_integrated_act_torch,
+    groups_from_inds,
+    groups_from_inds_torch,
+    psrf,
+    rank_normalized_rhat,
+    rank_normalized_rhat_torch,
+    replica_round_trips,
+    stepping_stone_log_evidence,
+    thermodynamic_integration_log_evidence,
+)
 
 __all__ = ["AdjustStretchProposalScale", "AutoCorrelationStop",
            "CompositeUpdate", "PeriodicContainer", "SearchConvergeStopping",
-           "Stopping", "Update", "UpdateStep", "get_acf",
-           "get_integrated_act", "get_integrated_act_torch"]
+           "Stopping", "TransformContainer", "Update", "UpdateStep",
+           "effective_sample_size", "effective_sample_size_torch", "get_acf",
+           "get_integrated_act", "get_integrated_act_torch",
+           "groups_from_inds", "groups_from_inds_torch", "psrf",
+           "rank_normalized_rhat", "rank_normalized_rhat_torch",
+           "replica_round_trips",
+           "stepping_stone_log_evidence",
+           "thermodynamic_integration_log_evidence"]

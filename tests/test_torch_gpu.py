@@ -487,10 +487,10 @@ def test_rj_sampler_runs_through_the_kernels(cuda):
 # ----------------------------------------------------------------------
 # the compiled segment: graphs against the eager loop
 # ----------------------------------------------------------------------
-def _graph_sampler(cuda, kind, cuda_graph, moves=None, **kw):
+def _graph_sampler(cuda, kind, cuda_graph, moves=None, tempering=None, **kw):
     """A 4 x 32 x 3 tempered Gaussian, or a small RJ configuration (3 x 32
     walkers, up to 3 leaves, group stretch and birth/death), on the card,
-    with its start."""
+    with its start (``tempering``: more of ``tempering_kwargs``)."""
     from eryn_tpu_torch import EnsembleSampler, ProbDistContainer, State, uniform_dist
     from eryn_tpu_torch.moves import RedBlueGroupStretchMove
 
@@ -502,16 +502,17 @@ def _graph_sampler(cuda, kind, cuda_graph, moves=None, **kw):
             lambda c, i: -0.5 * torch.sum(torch.where(i[:, None], c, 0.0) ** 2),
             pr, nleaves_max=3, rj_moves=True,
             moves=moves or RedBlueGroupStretchMove(live_dangerously=True),
-            tempering_kwargs=dict(ntemps=3), fill_zero_leaves_val=0.0, seed=0,
-            device=cuda, cuda_graph=cuda_graph, **kw)
+            tempering_kwargs=dict(ntemps=3, **(tempering or {})),
+            fill_zero_leaves_val=0.0, seed=0, device=cuda,
+            cuda_graph=cuda_graph, **kw)
         coords = pr.rvs(size=(3, 32, 3), generator=g)
         inds = torch.rand((3, 32, 3), generator=g, device=cuda) < 0.5
         return sampler, State(coords, inds=inds)
     pr = ProbDistContainer({i: uniform_dist(-5.0, 5.0) for i in range(3)})
     sampler = EnsembleSampler(
         32, 3, lambda x: -0.5 * torch.sum(x * x), pr, moves=moves,
-        tempering_kwargs=dict(ntemps=4), seed=0, device=cuda,
-        cuda_graph=cuda_graph, **kw)
+        tempering_kwargs=dict(ntemps=4, **(tempering or {})), seed=0,
+        device=cuda, cuda_graph=cuda_graph, **kw)
     return sampler, pr.rvs(size=(4, 32), generator=g)
 
 
@@ -697,6 +698,115 @@ def test_stretch_scale_update_under_graphs_equals_eager(cuda):
             assert sampler.graph_captures == 1 + changes
             assert sampler.graph_replays == 60 - sampler.graph_captures
     assert scales[True] == scales[False]
+    for key in runs[False]:
+        np.testing.assert_array_equal(runs[True][key], runs[False][key],
+                                      err_msg=key)
+
+
+# ----------------------------------------------------------------------
+# the tempered-analysis path
+# ----------------------------------------------------------------------
+@pytest.mark.parametrize("kind", ["gaussian", "rj"])
+def test_deo_graphed_equals_eager(cuda, kind):
+    """Deterministic even-odd swaps with the Syed schedule, graphed and
+    eager from one seed: the same chain, ladders, clock, accept and swap
+    counts, digit for digit.  The parity comes from the clock inside each
+    replay, so every boundary swaps; no cascade kernel runs; the clock
+    ticks on every tempering phase (the RJ move's too).  Under reversible
+    jump the in-model phase always falls on an even clock and the RJ phase
+    on an odd one, and only the in-model swaps are stored, as in
+    eryn_tpu: the stored fractions are the even boundaries'."""
+    steps, burn = 60, 20
+    runs = {}
+    for graphed in (False, True):
+        sampler, start = _graph_sampler(
+            cuda, kind, graphed,
+            tempering=dict(swap_scheme="deo", adaptation_scheme="syed"))
+        before = pt_swap.pt_swap_cascade_multi.launches
+        runs[graphed] = _run_record(sampler, start, steps, burn)
+        assert pt_swap.pt_swap_cascade_multi.launches == before
+        swaps = np.asarray(sampler.swap_acceptance_fraction)
+        if kind == "rj":
+            assert np.all(swaps[0::2] > 0) and not swaps[1::2].any(), swaps
+        else:
+            assert np.all(swaps > 0), swaps
+    for key in runs[False]:
+        np.testing.assert_array_equal(runs[True][key], runs[False][key],
+                                      err_msg=key)
+    n = steps + burn
+    assert runs[True]["time"] == n * (2 if kind == "rj" else 1)
+    assert not np.array_equal(runs[True]["betas"][-1], runs[True]["betas"][0])
+
+
+@pytest.mark.parametrize("kind", ["gaussian", "rj"])
+def test_device_getters_equal_the_host_getters(cuda, kind):
+    """A chain on the card (``DeviceBackend``) and the same chain from the
+    same seed in ``Backend()``, on a fixed ladder: evidence within 1e-6
+    relative (float32 log-likelihoods reduced in float64 on the card, in
+    float32 by NumPy), Gelman-Rubin, R-hat and ESS within 1e-10."""
+    from eryn_tpu_torch import Backend, DeviceBackend
+
+    tempering = dict(adaptive=False, **({} if kind == "rj" else
+                                         dict(Tmax=np.inf)))
+    out = {}
+    for name, backend in (("device", None), ("host", Backend())):
+        sampler, start = _graph_sampler(cuda, kind, True, tempering=tempering,
+                                        backend=backend)
+        sampler.run_mcmc(start, 80, burn=20)
+        b = sampler.backend
+        assert isinstance(b, DeviceBackend) == (name == "device")
+        out[name] = dict(
+            ti=b.get_evidence_estimate(discard=10),
+            gr=b.get_gelman_rubin_convergence_diagnostic(doprint=False),
+            rhat=b.get_rank_normalized_rhat(return_parts=True),
+            ess=b.get_effective_sample_size(return_parts=True),
+            chain=sampler.get_chain()["model_0"])
+    np.testing.assert_array_equal(out["device"]["chain"], out["host"]["chain"])
+    np.testing.assert_allclose(out["device"]["ti"], out["host"]["ti"],
+                               rtol=1e-6)
+    for key in ("gr", "rhat", "ess"):
+        np.testing.assert_allclose(
+            np.asarray(out["device"][key]["model_0"], dtype=np.float64),
+            np.asarray(out["host"][key]["model_0"], dtype=np.float64),
+            rtol=1e-10, err_msg=key)
+
+
+@pytest.mark.parametrize("rj", [False, True])
+def test_non_uniform_priors_graphed_equal_eager(cuda, rj):
+    """A multivariate normal on a tuple key, a normal and a log-uniform:
+    their log densities (and, under reversible jump, the births drawn from
+    them) run inside the captured steps; graphed equals eager digit for
+    digit."""
+    from eryn_tpu_torch import EnsembleSampler, State
+    from eryn_tpu_torch.interop import priors_from_spec
+    from eryn_tpu_torch.moves import RedBlueGroupStretchMove
+
+    priors = priors_from_spec(
+        {(0, 1): ("mvn_dist", (np.zeros(2), np.array([[1.0, 0.3],
+                                                      [0.3, 0.5]]))),
+         2: ("normal_dist", (0.0, 2.0)), 3: ("log_uniform", (0.1, 10.0))},
+        device=cuda)
+    runs = {}
+    for graphed in (False, True):
+        if rj:
+            sampler = EnsembleSampler(
+                32, 4, lambda c, i: -0.5 * torch.sum(
+                    torch.where(i[:, None], c, 0.0) ** 2),
+                priors, nleaves_max=3, rj_moves=True,
+                moves=RedBlueGroupStretchMove(live_dangerously=True),
+                tempering_kwargs=dict(ntemps=3), fill_zero_leaves_val=0.0,
+                seed=2, device=cuda, cuda_graph=graphed)
+            coords = priors.rvs_stratified((3, 32, 3), seed=1)
+            inds = np.random.default_rng(1).random((3, 32, 3)) < 0.5
+            start = State(coords, inds=inds)
+        else:
+            sampler = EnsembleSampler(
+                32, 4, lambda x: -0.5 * torch.sum(x * x), priors,
+                tempering_kwargs=dict(ntemps=3), seed=2, device=cuda,
+                cuda_graph=graphed)
+            start = priors.rvs_stratified((3, 32), seed=1)
+        runs[graphed] = _run_record(sampler, start, 40, 10)
+        assert np.isfinite(runs[graphed]["log_prior"]).all()
     for key in runs[False]:
         np.testing.assert_array_equal(runs[True][key], runs[False][key],
                                       err_msg=key)
