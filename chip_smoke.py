@@ -30,7 +30,7 @@ Phases, each printing its own lines:
    its bound (bytes over the memory rate against operations over the peak
    rate) and the time of one empty launch, and the host cost of a
    wrapper's parts;
-4. main path, thirteen legs through ``EnsembleSampler``, each with the launch
+4. main path, the legs below through ``EnsembleSampler``, each with the launch
    counters set to 0 just before it and read just after; every leg runs
    graphed (each move's step captured once as a CUDA graph and replayed),
    and every segment under ``set_sync_debug_mode("error")``:
@@ -78,6 +78,23 @@ Phases, each printing its own lines:
    * ``rj_pulse128``, config C of ``bench.py`` (10 x 100 walkers, up to 4
      pulse leaves, the 128-point template): 2,000 warm and 2,000 timed
      steps without storing;
+   * the move zoo without gradients (``benchmarks/move_zoo_timing.py``'s
+     configuration: 10 x 100, the 5-D unit Gaussian, seed 10): one leg per
+     move, ``zoo[GaussianMove(diag)]``, ``zoo[GaussianMove(full)]``,
+     ``zoo[DistributionGenerate]``, ``zoo[GroupStretchMove]``,
+     ``zoo[MTDistGenMove(8 tries)]``,
+     ``zoo[DelayedRejection(GaussianMove(diag))]`` and ``zoo[CombineMove]``
+     (group stretch, then delayed rejection: two swap phases a step), each
+     200 warm and 1,000 timed steps without storing, then 1,000 stored, the
+     cold chain's moments and the acceptance as gates;
+     ``zoo[MT-RJ x8]`` (multiple-try birth and death with 8 tries, up to 4
+     leaves, the red/blue group stretch: kernel 5 twice a step);
+     ``config_d`` (``tests/test_config_d.py``: two branches, a sine and a
+     pulse, group stretch and delayed rejection combined, 400 + 400 steps,
+     the pulse centre, frequency and wrapped phase as gates) and
+     ``modelswap`` (``tests/test_modelswap.py``: 64 x 3 walkers, the
+     product-space model swap, 200 + 800 steps, the quadrature model
+     probability as gate);
    * a flat-likelihood RJ run (64 walkers, 3 leaves): a uniform leaf-count
      posterior.  It checks the RJ moves, is not part of the main path, and
      its launches stay out of the report.
@@ -87,14 +104,15 @@ Phases, each printing its own lines:
    schedule entry must be a replay of its move's graph (but the first of
    each, which runs eagerly), no leg may call a plain version of a kernel,
    and each chain must meet its target.  Then graph vs eager: the first
-   four legs and the DEO leg at a quarter of their depth from one seed,
-   with ``cuda_graph=False`` and
-   graphed; their chains, ladders, clocks and accept and swap counts must
-   be equal digit for digit, and their host time per step, replays per
+   four legs, the DEO leg and the zoo's ``CombineMove`` and MT-RJ legs at
+   a quarter of their depth from one seed, with ``cuda_graph=False`` and
+   graphed; their chains, ladders, clocks, accept and swap counts and
+   kernel states must be equal digit for digit, and their host time per step, replays per
    step and steps/s are printed side by side;
 5. profiles (``torch.profiler``, after every timed run): each kernel's
    device time per launch, 50 steady steps of the first four legs, the DEO
-   leg and ``rj_pulse128`` graphed, and of the graph-vs-eager legs eager
+   leg, ``rj_pulse128``, the zoo's ``CombineMove`` and MT-RJ legs,
+   ``config_d`` and ``modelswap`` graphed, and of the graph-vs-eager legs eager
    (device kernels, memcpys and memsets per step, what the host launched
    per step, device-busy share, the top five device ops), and the device
    time of one tempering phase, cascade beside DEO (``phase[...]``).
@@ -132,6 +150,15 @@ P_NPTS, P_NLMAX, P_STEPS = 128, 4, 2000
 # ladder that ends at beta = 0 for the evidence of the 5-D unit Gaussian in
 # U(-5, 5)^5, 2.5 ln(2 pi) - 5 ln(10)
 DEO = dict(swap_scheme="deo", adaptation_scheme="syed")
+# the move zoo (benchmarks/move_zoo_timing.py:27-28,31-114): 10 x 100, the
+# 5-D unit Gaussian in U(-5, 5)^5, seed 10; its MT-RJ leg (:117-166): up to
+# 4 leaves, seed 11
+Z_SEED, Z_RJ_SEED, Z_NLMAX = 10, 11, 4
+Z_WARM, Z_STEPS, Z_STORED = 200, 1000, 1000
+# config D (tests/test_config_d.py:22-96) and the model swap
+# (tests/test_modelswap.py:153-181) at their own shapes and depths
+D_NT, D_NW, D_BURN, D_STEPS = 3, 36, 400, 400
+S_NT, S_NW, S_BURN, S_STEPS = 3, 64, 200, 800
 EVIDENCE = dict(Tmax=math.inf, adaptive=False)
 LOG_Z = 2.5 * math.log(2.0 * math.pi) - 5.0 * math.log(10.0)
 # float32: a few ulp (exp/log of the two code paths may differ); float64
@@ -1332,8 +1359,10 @@ def custom_move_leg(torch, card):
 
 def _run_state(np, s):
     """What a run left, as numpy: the stored chain, masks, log-likelihoods,
-    log-priors, ladders, accept and swap counts, the clock and the move
-    accept counters."""
+    log-priors, ladders, accept and swap counts, the clock, the move
+    accept counters and the moves' kernel states."""
+    from eryn_tpu_torch.interop import kernel_state_to_numpy
+
     b = s.backend
     out = dict(
         chain=s.get_chain()["model_0"], inds=s.get_inds()["model_0"],
@@ -1344,18 +1373,21 @@ def _run_state(np, s):
     )
     if s.has_reversible_jump:
         out["rj_accepted"] = b.rj_accepted
+    for i, leaf in enumerate(kernel_state_to_numpy(s._kernel_states)):
+        out[f"kernel state leaf {i}"] = leaf
     return {k: np.asarray(v) for k, v in out.items()}
 
 
 def graph_vs_eager(torch, card):
-    """North-star, its DEO form, config E, LISA RJ and LISA RJ null at a
-    quarter of their depth from one seed, with ``cuda_graph=False`` and graphed, in turn:
+    """North-star, its DEO form, config E, LISA RJ, LISA RJ null, the zoo's
+    ``CombineMove`` and MT-RJ legs at a quarter of their depth from one
+    seed, with ``cuda_graph=False`` and graphed, in turn:
     20 warm steps (the graphed form captures there), a timed segment of
     ``n`` steps without storing (host time until the loop returns, and wall
     time until the device is done), then ``n`` stored steps into the default
     ``DeviceBackend``.  The two forms' chains, masks, log-likelihoods,
-    ladders, clocks and accept and swap counts must be equal digit for
-    digit.  Returns ``({leg: numbers}, {leg: (sampler, state) of the eager
+    ladders, clocks, accept and swap counts and kernel states must be equal
+    digit for digit.  Returns ``({leg: numbers}, {leg: (sampler, state) of the eager
     form})``."""
     import numpy as np
 
@@ -1375,14 +1407,20 @@ def graph_vs_eager(torch, card):
         return lambda graphed: _lisa_sampler(
             torch, np, null, RedBlueGroupStretchMove(), cuda_graph=graphed)
 
-    legs = (("north-star", gaussian(NT, NW, 0), STORED_STEPS // 4, 1),
+    # (leg, build, steps, schedule entries a step, clock ticks a step)
+    legs = (("north-star", gaussian(NT, NW, 0), STORED_STEPS // 4, 1, 1),
             ("deo[north-star]", gaussian(NT, NW, 7, DEO), STORED_STEPS // 4,
-             1),
-            ("config E", gaussian(E_NT, E_NW, 5), E_STEPS // 4, 1),
-            ("LISA RJ", lisa(False), L_STEPS // 4, 2),
-            ("LISA RJ null", lisa(True), L_STEPS // 4, 2))
+             1, 1),
+            ("config E", gaussian(E_NT, E_NW, 5), E_STEPS // 4, 1, 1),
+            ("LISA RJ", lisa(False), L_STEPS // 4, 2, 1),
+            ("LISA RJ null", lisa(True), L_STEPS // 4, 2, 1),
+            ("zoo[CombineMove]", lambda graphed: _zoo_sampler(
+                torch, "CombineMove", cuda_graph=graphed), Z_STORED // 4, 1,
+             2),
+            ("zoo[MT-RJ x8]", lambda graphed: _mt_rj_sampler(
+                torch, cuda_graph=graphed), Z_STORED // 4, 2, 1))
     out, eager_samplers = {}, {}
-    for leg, build, n, per_step in legs:
+    for leg, build, n, per_step, ticks in legs:
         runs = {}
         for form in ("eager", "graphed"):
             s, state = build(form == "graphed")
@@ -1414,7 +1452,7 @@ def graph_vs_eager(torch, card):
             assert a[key].shape == b[key].shape and np.array_equal(
                 a[key], b[key], equal_nan=True), (
                 f"graph vs eager, {leg}: {key} differs")
-        assert a["time"] == (20 + 2 * n) and not np.array_equal(
+        assert a["time"] == ticks * (20 + 2 * n) and not np.array_equal(
             a["betas"][0], a["betas"][-1]), leg
         out[leg] = runs
         e, g = runs["eager"], runs["graphed"]
@@ -1652,6 +1690,357 @@ def rj_pulse128_leg(torch, card):
     print(f"launches[{leg}]: {launches} over {steps} steps, {replays} graph "
           f"replays")
     return launches, rates, (leg, s, state)
+
+
+# ----------------------------------------------------------------------
+# the move zoo without gradients, config D and the model swap
+# ----------------------------------------------------------------------
+def _zoo_moves():
+    """The in-model moves of ``move_zoo_timing.py:build_moves`` that need
+    no gradient: ``{name: (move factory, swap phases per step)}``."""
+    import numpy as np
+
+    from eryn_tpu_torch import ProbDistContainer, uniform_dist
+    from eryn_tpu_torch import moves as tm
+
+    dist = ProbDistContainer({i: uniform_dist(-5.0, 5.0) for i in range(NDIM)})
+    diag = {"model_0": np.diag(np.full(NDIM, 0.5 ** 2))}
+    full = {"model_0": 0.25 * np.eye(NDIM) + 0.05}
+    return {
+        "GaussianMove(diag)": (lambda: tm.GaussianMove(diag), 1),
+        "GaussianMove(full)": (lambda: tm.GaussianMove(full), 1),
+        "DistributionGenerate": (
+            lambda: tm.DistributionGenerate({"model_0": dist}), 1),
+        "GroupStretchMove": (lambda: tm.GroupStretchMove(), 1),
+        "MTDistGenMove(8 tries)": (lambda: tm.MTDistGenMove(
+            {"model_0": dist}, num_try=8, independent=True), 1),
+        "DelayedRejection(GaussianMove(diag))": (
+            lambda: tm.DelayedRejection(tm.GaussianMove(diag), max_iter=2), 1),
+        "CombineMove": (lambda: tm.CombineMove([
+            tm.GroupStretchMove(),
+            tm.DelayedRejection(tm.GaussianMove(diag), max_iter=2)]), 2),
+    }
+
+
+def _zoo_sampler(torch, name, seed=Z_SEED, cuda_graph=True):
+    """A zoo leg's sampler and its set-up state (the kernel states made
+    too, outside any segment: a move copies its constants to the card
+    there)."""
+    factory, _ = _zoo_moves()[name]
+    s, priors = _gaussian_sampler(torch, NT, NW, seed, moves=factory(),
+                                  cuda_graph=cuda_graph)
+    coords = priors.rvs(size=(NT, NW), generator=torch.Generator(
+        device="cuda").manual_seed(seed))
+    state = s._setup_state(coords)
+    s._ensure_kernel_states(state)
+    return s, state
+
+
+def _per_step(launches, steps):
+    return {k: round(v / steps, 4) for k, v in launches.items()}
+
+
+def _zoo_acceptance(np, s):
+    """The cold chain's acceptance of the stored run per move (per child
+    under ``CombineMove``, whose summed flags reach 2)."""
+    move = s._all_move_list[0]
+    sep = getattr(move, "acceptance_fraction_separate", None)
+    if sep is not None:
+        return [float(np.mean(a[0])) for a in sep]
+    return [float(s.acceptance_fraction[0].mean())]
+
+
+def zoo_leg(torch, card):
+    """Each gradient-free in-model move of the zoo at 10 x 100 on the 5-D
+    unit Gaussian: ``Z_WARM`` warm and ``Z_STEPS`` timed steps without
+    storing, then ``Z_STORED`` stored into the default ``DeviceBackend``.
+    Gates: acceptance strictly inside (0, 1), the cold chain's mean within
+    0.1 and variance within 0.2 of the unit Gaussian's (a CPU run of
+    eryn_tpu at this shape and depth meets them for every move, the
+    independence draw too); launches: one cascade per swap phase (two a
+    step under ``CombineMove``), no stretch kernel (the group stretch runs
+    ``GroupMove``'s proposal), no group-stretch proposal."""
+    import numpy as np
+
+    launches_all, rates, keep = {}, {}, None
+    for name, (_, phases) in _zoo_moves().items():
+        leg = f"zoo[{name}]"
+        s, state = _zoo_sampler(torch, name)
+        read = _counting(_kernels())
+        state, _ = s._run_bulk(state, 1, Z_WARM, store=False)
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        state, _ = s._run_bulk(state, 1, Z_STEPS, store=False)
+        torch.cuda.synchronize()
+        dt = time.perf_counter() - t0
+        s.run_mcmc(None, Z_STORED)
+        steps = Z_WARM + Z_STEPS + Z_STORED
+        launches = read()
+        replays = _assert_replays(leg, s, steps, 1)
+        assert launches["pt_swap_cascade_multi"] == phases * steps, launches
+        assert sum(launches.values()) == phases * steps, launches
+        assert int(s.temperature_control.time) == phases * steps
+        cold = s.get_chain(temp_index=0)["model_0"].reshape(-1, NDIM)
+        mean = cold.mean(axis=0, dtype=np.float64)
+        var = cold.var(axis=0, dtype=np.float64)
+        acc = _zoo_acceptance(np, s)
+        swaps = np.asarray(s.swap_acceptance_fraction, dtype=np.float64)
+        metric = f"zoo[{name}]_steps_per_s"
+        rates[metric] = Z_STEPS / dt
+        print(f"chain[{leg}]: cold mean {np.round(mean, 4).tolist()} var "
+              f"{np.round(var, 4).tolist()} acceptance "
+              f"{np.round(acc, 4).tolist()} swap acceptance "
+              f"{np.round(swaps, 4).tolist()}")
+        print(f"rate: {metric} = {rates[metric]:.1f} ({card})")
+        print(f"launches[{leg}]: per step {_per_step(launches, steps)} over "
+              f"{steps} steps, {replays} graph replays")
+        assert all(0 < a < 1 for a in acc), acc
+        assert np.all(np.abs(mean) < 0.1), mean
+        assert np.all(np.abs(var - 1.0) < 0.2), var
+        assert np.all((swaps > 0) & (swaps < 1)), swaps
+        for k, v in launches.items():
+            launches_all[k] = launches_all.get(k, 0) + v
+        if name == "CombineMove":
+            keep = ("zoo[CombineMove]", s, state)
+    return launches_all, rates, keep
+
+
+def _mt_rj_sampler(torch, cuda_graph=True):
+    """``move_zoo_timing.py:time_rj(mt=True)``: 10 x 100, the 5-D branch
+    with up to 4 leaves, ``MTDistGenMoveRJ(num_try=8)`` and the red/blue
+    group stretch, seed 11; its set-up state."""
+    import numpy as np
+
+    from eryn_tpu_torch import EnsembleSampler, ProbDistContainer, State, uniform_dist
+    from eryn_tpu_torch.moves import MTDistGenMoveRJ, RedBlueGroupStretchMove
+
+    def ll(coords, inds):
+        return -0.5 * torch.sum(torch.where(inds[:, None], coords, 0.0) ** 2)
+
+    pr = ProbDistContainer({i: uniform_dist(-5.0, 5.0) for i in range(NDIM)})
+    s = EnsembleSampler(
+        NW, NDIM, ll, pr, nleaves_max=Z_NLMAX, nleaves_min=0,
+        moves=RedBlueGroupStretchMove(),
+        rj_moves=[MTDistGenMoveRJ({"model_0": pr},
+                                  nleaves_max={"model_0": Z_NLMAX},
+                                  nleaves_min={"model_0": 0}, num_try=8)],
+        tempering_kwargs=dict(ntemps=NT), seed=Z_RJ_SEED, device="cuda",
+        cuda_graph=cuda_graph)
+    coords = pr.rvs(size=(NT, NW, Z_NLMAX), generator=torch.Generator(
+        device="cuda").manual_seed(Z_RJ_SEED))
+    inds = np.random.default_rng(4).random((NT, NW, Z_NLMAX)) < 0.5
+    state = s._setup_state(State({"model_0": coords}, inds={
+        "model_0": torch.as_tensor(inds, device="cuda")}))
+    s._ensure_kernel_states(state)
+    return s, state
+
+
+def zoo_mt_rj_leg(torch, card):
+    """The zoo's multiple-try reversible-jump leg: ``Z_WARM`` warm and
+    ``Z_STEPS`` timed steps without storing, ``Z_STORED`` stored.  Gates:
+    the leaf-count chain finite and within [0, 4]; kernel 5 twice a step
+    (the group stretch's halves), the cascade once per swap phase (two a
+    step)."""
+    import numpy as np
+
+    leg = "zoo[MT-RJ x8]"
+    s, state = _mt_rj_sampler(torch)
+    read = _counting(_kernels())
+    state, _ = s._run_bulk(state, 1, Z_WARM, store=False)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    state, _ = s._run_bulk(state, 1, Z_STEPS, store=False)
+    torch.cuda.synchronize()
+    dt = time.perf_counter() - t0
+    s.run_mcmc(None, Z_STORED)
+    steps = Z_WARM + Z_STEPS + Z_STORED
+    launches = read()
+    replays = _assert_replays(leg, s, steps, 2)
+    assert launches["group_stretch_propose"] == 2 * steps, launches
+    assert launches["pt_swap_cascade_multi"] == 2 * steps, launches
+    assert sum(launches.values()) == 4 * steps, launches
+    nleaves = s.get_nleaves()["model_0"]
+    assert np.all((nleaves >= 0) & (nleaves <= Z_NLMAX)), nleaves
+    assert np.all(np.isfinite(s.get_log_like()))
+    counts = np.bincount(nleaves[:, 0].ravel(), minlength=Z_NLMAX + 1)
+    rj = float(s.rj_acceptance_fraction[0].mean())
+    acc = float(s.acceptance_fraction[0].mean())
+    assert 0 < rj < 1 and 0 < acc < 1, (rj, acc)
+    rates = {"zoo[MT-RJ x8]_steps_per_s": Z_STEPS / dt}
+    print(f"chain[{leg}]: cold leaf counts "
+          f"{(counts / counts.sum()).round(4).tolist()}, finite, within "
+          f"[0, {Z_NLMAX}]; rj acceptance {rj:.4f}, in-model acceptance "
+          f"{acc:.4f}")
+    print(f"rate: zoo[MT-RJ x8]_steps_per_s = "
+          f"{rates['zoo[MT-RJ x8]_steps_per_s']:.1f} ({card})")
+    print(f"launches[{leg}]: per step {_per_step(launches, steps)} over "
+          f"{steps} steps, {replays} graph replays")
+    return launches, rates, (leg, s, state)
+
+
+def config_d_leg(torch, card):
+    """Config D (``tests/test_config_d.py:22-96``): 36 walkers x 3
+    temperatures, 96 points, a Gaussian pulse and a sine as two branches,
+    ``CombineMove([GroupStretchMove(n_iter_update=20),
+    DelayedRejection(GaussianMove, max_iter=2)])``, the sine's phase
+    periodic, seed 50; 400 burn-in and 400 stored steps.  Gates as in the
+    test: the pulse centre within 0.4 of 4.0, the frequency within 0.05 of
+    0.3, the phase inside [0, 2 pi]; two cascade launches a step."""
+    import numpy as np
+
+    from eryn_tpu_torch import EnsembleSampler, ProbDistContainer, State, uniform_dist
+    from eryn_tpu_torch import moves as tm
+
+    leg = "config_d"
+    rng = np.random.default_rng(9)
+    t_np = np.linspace(0, 10, 96)
+    sigma = 0.4
+    signal = 2.5 * np.exp(-((t_np - 4.0) ** 2) / (2 * 0.7**2)) + 1.5 * np.sin(
+        2 * np.pi * 0.3 * t_np + 0.5)
+    data_np = signal + sigma * rng.standard_normal(len(t_np))
+    t = torch.tensor(t_np, dtype=torch.float32, device="cuda")
+    data = torch.tensor(data_np, dtype=torch.float32, device="cuda")
+
+    def log_like(coords, inds):
+        g, sn = coords["gauss"], coords["sine"]
+        gm, sm = inds["gauss"], inds["sine"]
+        pulses = g[:, 0][:, None] * torch.exp(
+            -((t[None] - g[:, 1][:, None]) ** 2) / (2 * g[:, 2][:, None] ** 2))
+        tmpl = torch.sum(torch.where(gm[:, None], pulses, 0.0), dim=0)
+        sines = sn[:, 0][:, None] * torch.sin(
+            2 * math.pi * sn[:, 1][:, None] * t[None] + sn[:, 2][:, None])
+        tmpl = tmpl + torch.sum(torch.where(sm[:, None], sines, 0.0), dim=0)
+        return -0.5 * torch.sum(((tmpl - data) / sigma) ** 2)
+
+    priors = {
+        "gauss": ProbDistContainer({0: uniform_dist(0.5, 5.0),
+                                    1: uniform_dist(0.0, 10.0),
+                                    2: uniform_dist(0.2, 2.0)}),
+        "sine": ProbDistContainer({0: uniform_dist(0.3, 4.0),
+                                   1: uniform_dist(0.05, 1.0),
+                                   2: uniform_dist(0.0, 2 * np.pi)}),
+    }
+    move = tm.CombineMove([
+        tm.GroupStretchMove(n_iter_update=20),
+        tm.DelayedRejection(tm.GaussianMove(
+            {"gauss": 0.01 * np.ones(3), "sine": 0.01 * np.ones(3)}),
+            max_iter=2),
+    ])
+    s = EnsembleSampler(
+        D_NW, {"gauss": 3, "sine": 3}, log_like, priors,
+        branch_names=["gauss", "sine"], nleaves_max={"gauss": 1, "sine": 1},
+        moves=[move], periodic={"sine": {2: 2 * np.pi}},
+        tempering_kwargs=dict(ntemps=D_NT), seed=50, device="cuda")
+    g = torch.Generator(device="cuda").manual_seed(50)
+    coords = {n: priors[n].rvs(size=(D_NT, D_NW, 1), generator=g)
+              for n in priors}
+    read = _counting(_kernels())
+    t0 = time.perf_counter()
+    s.run_mcmc(State(coords), D_STEPS, burn=D_BURN)
+    torch.cuda.synchronize()
+    dt = time.perf_counter() - t0
+    steps = D_BURN + D_STEPS
+    launches = read()
+    replays = _assert_replays(leg, s, steps, 1)
+    assert launches["pt_swap_cascade_multi"] == 2 * steps, launches
+    assert sum(launches.values()) == 2 * steps, launches
+    chain_g = s.get_chain()["gauss"][:, 0].reshape(-1, 3)
+    chain_s = s.get_chain()["sine"][:, 0].reshape(-1, 3)
+    centre = float(np.median(chain_g[:, 1]))
+    freq = float(np.median(chain_s[:, 1]))
+    acc = [float(np.mean(a[0])) for a in move.acceptance_fraction_separate]
+    rates = {"config_d_steps_per_s": steps / dt}
+    print(f"chain[{leg}]: pulse centre {centre:.4f} (4.0), frequency "
+          f"{freq:.4f} (0.3), phase in [{chain_s[:, 2].min():.4f}, "
+          f"{chain_s[:, 2].max():.4f}], acceptance per child "
+          f"{np.round(acc, 4).tolist()}")
+    print(f"rate: config_d_steps_per_s = {rates['config_d_steps_per_s']:.1f} "
+          f"(burn-in and stored; {card})")
+    print(f"launches[{leg}]: per step {_per_step(launches, steps)} over "
+          f"{steps} steps, {replays} graph replays")
+    assert abs(centre - 4.0) < 0.4, centre
+    assert abs(freq - 0.3) < 0.05, freq
+    assert chain_s[:, 2].min() >= 0.0 and chain_s[:, 2].max() <= 2 * np.pi
+    assert all(0 < a < 1 for a in acc), acc
+    return launches, rates, (leg, s, s._previous_state)
+
+
+def modelswap_leg(torch, card):
+    """``tests/test_modelswap.py:153-181``: a pulse against a constant, 64
+    walkers x 3 temperatures, ``GaussianMove`` and ``ModelSwapRJMove``,
+    seed 23; 200 burn-in and 800 stored steps.  Gates: exactly one model
+    active in every sample, the cold chain's pulse probability within 0.1
+    of the quadrature value; two cascade launches a step."""
+    import numpy as np
+
+    from eryn_tpu_torch import EnsembleSampler, ProbDistContainer, State, uniform_dist
+    from eryn_tpu_torch.moves import GaussianMove, ModelSwapRJMove
+
+    leg = "modelswap"
+    rng = np.random.default_rng(4)
+    npts = 64
+    t = np.linspace(0, 1, npts)
+    g = np.exp(-((t - 0.5) ** 2) / (2 * 0.1**2))
+    data = 1.1 * g + rng.standard_normal(npts)
+
+    def ll_np(template):
+        return -0.5 * np.sum((data[None] - template) ** 2, axis=-1)
+
+    a = np.linspace(0.0, 3.0, 800)
+    z_pulse = np.exp(ll_np(a[:, None] * g[None])).mean()
+    c = np.linspace(-1.0, 1.0, 800)
+    z_const = np.exp(ll_np(np.broadcast_to(c[:, None], (800, npts)))).mean()
+    p_true = z_pulse / (z_pulse + z_const)
+    gt = torch.tensor(g, dtype=torch.float32, device="cuda")
+    dt_ = torch.tensor(data, dtype=torch.float32, device="cuda")
+
+    def log_like(coords, inds):
+        amp = torch.sum(torch.where(inds["pulse"][:, None], coords["pulse"], 0.0))
+        off = torch.sum(torch.where(inds["const"][:, None], coords["const"], 0.0))
+        return -0.5 * torch.sum((dt_ - (amp * gt + off)) ** 2)
+
+    priors = {"pulse": ProbDistContainer({0: uniform_dist(0.0, 3.0)}),
+              "const": ProbDistContainer({0: uniform_dist(-1.0, 1.0)})}
+    s = EnsembleSampler(
+        S_NW, {"pulse": 1, "const": 1}, log_like, priors,
+        branch_names=["pulse", "const"], nleaves_max={"pulse": 1, "const": 1},
+        nleaves_min={"pulse": 0, "const": 0},
+        moves=[GaussianMove({"pulse": 0.05, "const": 0.05})],
+        rj_moves=[ModelSwapRJMove({n: priors[n] for n in ("pulse", "const")})],
+        tempering_kwargs=dict(ntemps=S_NT), fill_zero_leaves_val=-1e8,
+        seed=23, device="cuda")
+    gen = torch.Generator(device="cuda").manual_seed(7)
+    coords = {n: priors[n].rvs(size=(S_NT, S_NW, 1), generator=gen)
+              for n in priors}
+    pick = np.random.default_rng(7).random((S_NT, S_NW)) < 0.5
+    start = State(coords, inds={"pulse": pick[..., None],
+                                "const": ~pick[..., None]})
+    read = _counting(_kernels())
+    t0 = time.perf_counter()
+    s.run_mcmc(start, S_STEPS, burn=S_BURN)
+    torch.cuda.synchronize()
+    dt = time.perf_counter() - t0
+    steps = S_BURN + S_STEPS
+    launches = read()
+    replays = _assert_replays(leg, s, steps, 2)
+    assert launches["pt_swap_cascade_multi"] == 2 * steps, launches
+    assert sum(launches.values()) == 2 * steps, launches
+    nl = s.get_nleaves()
+    p_pulse = float(nl["pulse"][:, 0].mean())
+    rj = float(s.rj_acceptance_fraction[0].mean())
+    acc = float(s.acceptance_fraction[0].mean())
+    rates = {"modelswap_steps_per_s": steps / dt}
+    print(f"chain[{leg}]: P(pulse) {p_pulse:.4f}, quadrature {p_true:.4f}; "
+          f"one model active in every sample; swap (model) acceptance "
+          f"{rj:.4f}, in-model acceptance {acc:.4f}")
+    print(f"rate: modelswap_steps_per_s = {rates['modelswap_steps_per_s']:.1f} "
+          f"(burn-in and stored; {card})")
+    print(f"launches[{leg}]: per step {_per_step(launches, steps)} over "
+          f"{steps} steps, {replays} graph replays")
+    assert np.all(nl["pulse"] + nl["const"] == 1)
+    assert abs(p_pulse - p_true) < 0.1, (p_pulse, p_true)
+    assert 0 < rj < 1 and 0 < acc < 1, (rj, acc)
+    return launches, rates, (leg, s, s._previous_state)
 
 
 def tempering_phase_device_ms(torch, samplers, card, reps=50):
@@ -2080,7 +2469,8 @@ def main(argv=None):
         for leg in (north_star_leg, config_e_leg, lisa_rj_leg,
                     lisa_rj_null_leg, custom_move_leg, hdf_leg,
                     resume_north_star_leg, resume_lisa_null_leg, hooks_leg,
-                    deo_leg, evidence_leg, rj_pulse128_leg):
+                    deo_leg, evidence_leg, rj_pulse128_leg, zoo_leg,
+                    zoo_mt_rj_leg, config_d_leg, modelswap_leg):
             t0 = time.perf_counter()
             legs.append(leg(torch, smi))
             print(f"phase 4: {leg.__name__} {time.perf_counter() - t0:.1f} s")
@@ -2121,7 +2511,8 @@ def main(argv=None):
     profiles = {}
     by_name = {leg: (sampler, state) for _, _, (leg, sampler, state) in legs}
     for leg in ("north-star", "config E", "LISA RJ", "LISA RJ null", "deo",
-                "rj_pulse128"):
+                "rj_pulse128", "zoo[CombineMove]", "zoo[MT-RJ x8]",
+                "config_d", "modelswap"):
         profiles.update(profile_steps(torch, leg, *by_name[leg], smi))
     phases = tempering_phase_device_ms(
         torch, {"cascade": by_name["north-star"][0],

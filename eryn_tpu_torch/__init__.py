@@ -1,8 +1,10 @@
 """eryn_tpu_torch: the PyTorch and CUDA port of eryn_tpu.
 
 The port mirrors :mod:`eryn_tpu`'s modules and public names.  Its samplers
-(the parallel-tempered stretch sampler, and reversible jump with the red/blue
-group stretch) run on an NVIDIA Hopper GPU through hand-written CUDA
+(the parallel-tempered stretch sampler, reversible jump with the red/blue
+group stretch, and the gradient-free moves: Metropolis-Hastings, Gaussian,
+distribution draws, the group stretch, combinations, delayed rejection,
+multiple try and model swaps) run on an NVIDIA Hopper GPU through hand-written CUDA
 kernels (``csrc/``): the stretch proposal, the tempered accept, the swap
 cascade and its large-ensemble form, the group-stretch proposal and the
 masked-uniform complement selection inside it.  Each kernel has a plain
@@ -14,7 +16,25 @@ __version__ = "0.1.0"
 from .backends import Backend, DeviceBackend, HDFBackend, TempHDFBackend
 from .ensemble import EnsembleSampler
 from .model import Model
-from .moves import StretchMove, TemperatureControl, make_ladder
+from .moves import (
+    BasicSymmetricModelSwapRJMove,
+    CombineMove,
+    DelayedRejection,
+    DistributionGenerate,
+    GaussianMove,
+    GroupMove,
+    GroupStretchMove,
+    MHMove,
+    ModelSwapRJMove,
+    MTDistGenMove,
+    MTDistGenMoveRJ,
+    MultipleTryMove,
+    MultipleTryMoveRJ,
+    StretchMove,
+    TemperatureControl,
+    get_mt_computations,
+    make_ladder,
+)
 from .prior import (
     LogUniformDistribution,
     MappedUniformDistribution,
@@ -32,14 +52,27 @@ from .utils.transform import TransformContainer
 
 __all__ = [
     "Backend",
+    "BasicSymmetricModelSwapRJMove",
     "Branch",
     "BranchSupplemental",
+    "CombineMove",
+    "DelayedRejection",
     "DeviceBackend",
+    "DistributionGenerate",
     "EnsembleSampler",
+    "GaussianMove",
+    "GroupMove",
+    "GroupStretchMove",
     "HDFBackend",
     "LogUniformDistribution",
+    "MHMove",
+    "MTDistGenMove",
+    "MTDistGenMoveRJ",
     "MappedUniformDistribution",
     "Model",
+    "ModelSwapRJMove",
+    "MultipleTryMove",
+    "MultipleTryMoveRJ",
     "MultivariateNormalDistribution",
     "NormalDistribution",
     "ProbDistContainer",
@@ -49,6 +82,7 @@ __all__ = [
     "TempHDFBackend",
     "TransformContainer",
     "UniformDistribution",
+    "get_mt_computations",
     "log_uniform",
     "make_ladder",
     "mvn_dist",

@@ -34,6 +34,7 @@ import torch
 from .backends import Backend, DeviceBackend, HDFBackend
 from .backends.backend import host_leaves
 from .graphs import StepGraphs
+from .interop import restore_kernel_state
 from .model import Model
 from .moves import DistributionGenerateRJ, StretchMove
 from .moves.move import EvalContext, Move
@@ -42,7 +43,7 @@ from .pbar import get_progress_bar
 from .prior import ProbDistContainer
 from .state import State, resolve_device
 from .utils.periodic import PeriodicContainer
-from .utils.pytree import tree_flatten, tree_unflatten
+from .utils.pytree import tree_flatten
 
 __all__ = ["EnsembleSampler"]
 
@@ -286,6 +287,7 @@ class EnsembleSampler:
         update_iterations=-1,
         stopping_fn=None,
         stopping_iterations=-1,
+        dr_moves=None,
     ):
         self.dtype = dtype if dtype is not None else torch.float32
         if self.dtype not in _NUMPY_DTYPE:
@@ -333,6 +335,8 @@ class EnsembleSampler:
             self.moves, self.weights = self._parse_moves(moves)
         self.rj_moves, self.rj_weights = self._parse_rj_moves(rj_moves)
         self.has_reversible_jump = len(self.rj_moves) > 0
+        if self.has_reversible_jump:
+            self._check_fixed_dimension()
         if self.has_reversible_jump and any(
             type(m) is StretchMove for m in self.moves
         ):
@@ -344,6 +348,15 @@ class EnsembleSampler:
                 "active leaf toward an active complement leaf.",
                 stacklevel=2,
             )
+        if dr_moves:
+            raise NotImplementedError(
+                "dr_moves (delayed rejection nested inside reversible jump) "
+                "is not implemented: retrying only rejected births biases "
+                "the leaf-count posterior, and eryn_tpu raises here too. Use "
+                "MTDistGenMoveRJ (multiple-try reversible jump) for unbiased "
+                "birth retries, or the standalone DelayedRejection move for "
+                "in-model proposals."
+            )
         # in-model moves first, then the RJ moves: one index space for the
         # kernel states and accept counters
         self._all_move_list = self.moves + self.rj_moves
@@ -354,6 +367,12 @@ class EnsembleSampler:
             move.temperature_control = self.temperature_control
             if move.periodic is None:
                 move.periodic = self.periodic
+            # a move whose candidate set defaults to the sampler's branches
+            # (ModelSwapRJMove), and composites handing the wiring on
+            if hasattr(move, "wire_sampler_priors"):
+                move.wire_sampler_priors(self.priors)
+            if hasattr(move, "propagate_wiring"):
+                move.propagate_wiring()
         self.all_moves = {}
         counts = {}
         for move in self._all_move_list:
@@ -476,6 +495,38 @@ class EnsembleSampler:
         if isinstance(rj_moves, str):
             raise ValueError(f"Unknown rj_moves mode: {rj_moves}")
         return self._parse_moves(rj_moves)
+
+    def _check_fixed_dimension(self):
+        """Refuse a move that sets ``requires_fixed_dimension`` on a branch
+        whose leaf count reversible jump varies (a ``CombineMove``'s
+        children included): the leaf masks would change the meaning of its
+        flattened parameter vector."""
+        variable = {n for n in self.branch_names
+                    if self.nleaves_min.get(n, self.nleaves_max[n])
+                    != self.nleaves_max[n]}
+
+        def walk(moves):
+            for m in moves:
+                yield m
+                yield from walk(getattr(m, "moves", None) or [])
+
+        for m in walk(self.moves + self.rj_moves):
+            if not getattr(m, "requires_fixed_dimension", False):
+                continue
+            run = m.proposal_branch_names
+            if run is None:
+                run = list(self.branch_names)
+            elif isinstance(run, str):
+                run = [run]
+            clash = sorted(variable.intersection(run))
+            if clash:
+                raise ValueError(
+                    f"{type(m).__name__} requires fixed-dimension models and "
+                    "cannot propose on reversible-jump branches "
+                    f"{clash} (leaf masks change the meaning of the "
+                    "flattened parameter vector). Restrict the move with "
+                    "proposal_branch_names."
+                )
 
     def _normalize_priors(self, priors):
         if isinstance(priors, ProbDistContainer):
@@ -1024,6 +1075,7 @@ class EnsembleSampler:
         for i, move in enumerate(self._all_move_list):
             move.accepted = m_acc[i]
             move.num_proposals = int(self._m_nprop[i])
+            move.kernel_state = self._kernel_states[i]
 
     # ------------------------------------------------------------------
     # kernel states across a checkpoint
@@ -1046,22 +1098,8 @@ class EnsembleSampler:
                 raise ValueError("move keys changed")
             if len(stored_leaves) != len(fresh):
                 raise ValueError("move count changed")
-            out = []
-            for f, leaves in zip(fresh, stored_leaves):
-                f_leaves, spec = tree_flatten(f)
-                if len(leaves) != len(f_leaves):
-                    raise ValueError("kernel-state structure changed")
-                restored = []
-                for a, b in zip(f_leaves, leaves):
-                    if b is None or not isinstance(a, torch.Tensor):
-                        restored.append(a)  # not stored: keep the fresh one
-                        continue
-                    if tuple(np.shape(b)) != tuple(a.shape):
-                        raise ValueError("kernel-state shape changed")
-                    restored.append(torch.as_tensor(
-                        np.asarray(b), device=a.device).to(a.dtype))
-                out.append(tree_unflatten(spec, restored))
-            return out
+            return [restore_kernel_state(f, leaves)
+                    for f, leaves in zip(fresh, stored_leaves)]
         except ValueError as err:
             warnings.warn(
                 "Stored move kernel states are incompatible with the current "

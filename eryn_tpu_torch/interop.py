@@ -4,9 +4,10 @@ A state travels as a dict ``{"coords": {branch: array}, "inds": {branch:
 array}, "log_like": array, "log_prior": array, "betas": array}`` (missing
 fields are None); a tempering control as ``{"betas", "time",
 "swaps_accepted", "swaps_proposed"}``; priors as ``{key: (constructor
-name, params)}``.  Any package whose arrays convert with ``np.asarray`` can
-build these dicts, so two samplers can start from the same ensemble,
-ladder and priors.
+name, params)}``; a move's kernel state as its tree of arrays (dicts walked
+in sorted key order, as both packages store them).  Any package whose
+arrays convert with ``np.asarray`` can build these, so two samplers can
+start from the same ensemble, ladder, priors and kernel states.
 """
 
 from __future__ import annotations
@@ -16,8 +17,11 @@ import torch
 
 from . import prior as _prior
 from .state import State, resolve_device
+from .utils.pytree import tree_flatten, tree_unflatten
 
 __all__ = [
+    "kernel_state_from_numpy",
+    "kernel_state_to_numpy",
     "priors_from_spec",
     "state_from_numpy",
     "state_to_numpy",
@@ -109,3 +113,38 @@ def tempering_to_numpy(tc):
         "swaps_accepted": _host(tc.swaps_accepted),
         "swaps_proposed": _host(tc.swaps_proposed),
     }
+
+
+def kernel_state_to_numpy(tree):
+    """The leaves of a kernel state (this package's or any nested dicts and
+    tuples of arrays), as a list of numpy arrays in sorted-key order."""
+    return [_host(x) for x in tree_flatten(tree)[0]]
+
+
+def restore_kernel_state(fresh, leaves):
+    """The kernel state ``fresh`` with its tensor leaves replaced by
+    ``leaves`` (numpy arrays in sorted-key order; a None keeps the fresh
+    leaf), each copied into the fresh leaf's dtype and device.  Raises a
+    ``ValueError`` when the structure or a shape differs."""
+    f_leaves, spec = tree_flatten(fresh)
+    if len(leaves) != len(f_leaves):
+        raise ValueError("kernel-state structure changed")
+    out = []
+    for a, b in zip(f_leaves, leaves):
+        if b is None or not isinstance(a, torch.Tensor):
+            out.append(a)
+            continue
+        if tuple(np.shape(b)) != tuple(a.shape):
+            raise ValueError("kernel-state shape changed")
+        out.append(torch.tensor(np.array(b), device=a.device).to(a.dtype))
+    return tree_unflatten(spec, out)
+
+
+def kernel_state_from_numpy(move, tree, state):
+    """The kernel state of ``move`` for ``state`` (a :class:`State` of this
+    package) holding the arrays of ``tree``: a kernel state of the same
+    move in either package, as arrays or as the list
+    :func:`kernel_state_to_numpy` gives.  Dtypes and the device are those
+    of ``move.init_kernel_state(state)``."""
+    leaves = tree if isinstance(tree, list) else kernel_state_to_numpy(tree)
+    return restore_kernel_state(move.init_kernel_state(state), leaves)

@@ -1,0 +1,81 @@
+"""Whole-ensemble Metropolis-Hastings skeleton.
+
+Port of :mod:`eryn_tpu.moves.mh`: the proposal, prior, likelihood and
+accept/merge act on the full ``(ntemps, nwalkers)`` block at once, one
+Gibbs split after another.
+"""
+
+from __future__ import annotations
+
+import torch
+
+from .move import Move, mh_decide, refuse_host_hooks
+from .tempering import tempered_log_likelihood
+
+__all__ = ["MHMove"]
+
+
+class MHMove(Move):
+    """Base for moves proposing updates for all walkers at once.
+
+    Subclasses implement ``get_proposal_kernel(generator, branch_coords,
+    branch_inds, kernel_state, param_masks=None) -> (q_dict, factors,
+    kernel_state)`` with ``factors`` shaped ``(ntemps, nwalkers)``;
+    ``param_masks`` (``{name: (nleaves_max, ndim) bool or None}``) is the
+    Gibbs parameter selection, which an asymmetric proposal must apply
+    before it computes its factors.  The base class applies the mask once
+    more afterwards (exact only for symmetric proposals).  A subclass that
+    defines ``eryn_tpu``'s host hook ``get_proposal`` raises.
+    """
+
+    def __init__(self, **kwargs):
+        super().__init__(**kwargs)
+        refuse_host_hooks(self, ("get_proposal",), "get_proposal_kernel")
+
+    def get_proposal_kernel(self, generator, branch_coords, branch_inds,
+                            kernel_state, param_masks=None):
+        raise NotImplementedError
+
+    def _propose_impl(self, generator, state, ctx, kernel_state=()):
+        coords = dict(state.branches_coords)
+        inds = dict(state.branches_inds)
+        logl = state.log_like
+        logp = state.log_prior
+        ntemps, nwalkers = logl.shape
+        betas = state.betas
+        if betas is None:
+            betas = torch.ones(ntemps, dtype=logl.dtype, device=logl.device)
+        accepted = torch.zeros((ntemps, nwalkers), dtype=torch.bool,
+                               device=logl.device)
+
+        for names, param_masks in self.gibbs_iterations_for(state):
+            q, factors, kernel_state = self.get_proposal_kernel(
+                generator, {n: coords[n] for n in names},
+                {n: inds[n] for n in names}, kernel_state,
+                param_masks=param_masks,
+            )
+            for n in names:
+                mask = param_masks.get(n)
+                if mask is not None:
+                    q[n] = torch.where(mask, q[n], coords[n])
+
+            q_full = {**coords, **q}
+            logp_new = ctx.compute_log_prior(q_full, inds)
+            logl_new, _ = ctx.compute_log_like(q_full, inds, logp_new)
+
+            logP_new = tempered_log_likelihood(logl_new, betas) + logp_new
+            logP_old = tempered_log_likelihood(logl, betas) + logp
+            acc = mh_decide(self.draw_accept(generator, logP_new), factors,
+                            logP_new, logP_old)
+
+            acc4 = acc[:, :, None, None]
+            for n in names:
+                coords[n] = torch.where(acc4, q_full[n], coords[n])
+            logl = torch.where(acc, logl_new, logl)
+            logp = torch.where(acc, logp_new, logp)
+            accepted = accepted | acc
+
+        new_state = state.replace(
+            coords=coords, inds=inds, log_like=logl, log_prior=logp
+        )
+        return new_state, accepted, kernel_state

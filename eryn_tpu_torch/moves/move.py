@@ -7,7 +7,8 @@ Port of :mod:`eryn_tpu.moves.move`.  A move is a configuration shell whose
 
 drawing its randomness from the sampler's ``torch.Generator``.  The host
 protocol of Eryn's moves (``propose(model, state)`` and the
-``get_proposal`` hooks) is not ported yet.
+``get_proposal`` hooks) is not ported yet: a subclass that defines one of
+those hooks raises at construction (:func:`refuse_host_hooks`).
 """
 
 from __future__ import annotations
@@ -19,7 +20,14 @@ import torch
 
 from ..utils.periodic import PeriodicContainer
 
-__all__ = ["Move", "EvalContext", "mh_accept", "active_ndim"]
+__all__ = [
+    "Move",
+    "EvalContext",
+    "mh_accept",
+    "mh_decide",
+    "active_ndim",
+    "refuse_host_hooks",
+]
 
 
 class EvalContext(NamedTuple):
@@ -40,16 +48,39 @@ class EvalContext(NamedTuple):
     prior_containers: Optional[dict] = None
 
 
-def mh_accept(generator, factors, logP_new, logP_old):
-    """Vectorized Metropolis-Hastings acceptance: accept where
-    ``factors + logP_new - logP_old > log U``.  A NaN difference (e.g.
+def mh_decide(u, factors, logP_new, logP_old):
+    """Metropolis-Hastings decisions from the uniforms ``u``: accept where
+    ``factors + logP_new - logP_old > log u``.  A NaN difference (e.g.
     ``-inf - -inf``) never accepts."""
+    lnpdiff = factors + logP_new - logP_old
+    return lnpdiff > torch.log(u)
+
+
+def mh_accept(generator, factors, logP_new, logP_old):
+    """:func:`mh_decide` on uniforms drawn from ``generator``."""
     u = torch.rand(
         logP_new.shape, generator=generator, dtype=logP_new.dtype,
         device=logP_new.device,
     )
-    lnpdiff = factors + logP_new - logP_old
-    return lnpdiff > torch.log(u)
+    return mh_decide(u, factors, logP_new, logP_old)
+
+
+def refuse_host_hooks(move, hooks, instead):
+    """Raise a ``NotImplementedError`` when the class of ``move`` defines one
+    of ``hooks``, the host-protocol hooks that ``eryn_tpu`` runs through its
+    host bridge (``moves/legacy.py``).  The port has no host bridge yet
+    (ROADMAP.md, queue 1, item 9), so such a move would otherwise run its
+    traced path and quietly skip the override; ``instead`` names the kernel
+    hooks to implement."""
+    cls = type(move)
+    found = [h for h in hooks if hasattr(cls, h)]
+    if found:
+        raise NotImplementedError(
+            f"{cls.__name__} defines the host-protocol hook(s) {found}, which "
+            "eryn_tpu runs through its host bridge; eryn_tpu_torch has no "
+            "host bridge yet (ROADMAP.md, queue 1, item 9). Implement "
+            f"{instead} instead."
+        )
 
 
 def active_ndim(state, names=None):
@@ -91,9 +122,11 @@ class Move:
         self.prevent_swaps = prevent_swaps
         self.proposal_branch_names = proposal_branch_names
         self._initialize_branch_setup(gibbs_sampling_setup, is_rj=self.is_rj)
-        # host counters, synced by the sampler after each run
+        # host counters and the kernel state, synced by the sampler after
+        # each run
         self.accepted = None
         self.num_proposals = 0
+        self.kernel_state = None
 
     @property
     def acceptance_fraction(self):
@@ -186,6 +219,23 @@ class Move:
     def init_kernel_state(self, state):
         """Per-move carry (e.g. tuned scales); empty for the stretch move."""
         return ()
+
+    def prepare_constants(self, state):
+        """Build on the state's device the constants a step reads (the Gibbs
+        masks, the periodic vectors), so that no step copies them from the
+        host: such a copy waits for the device, and a captured step cannot
+        hold it.  Moves call it from :meth:`init_kernel_state`."""
+        for _ in self.gibbs_iterations_for(state):
+            pass
+        if self.periodic is not None:
+            self.periodic.wrap(state.branches_coords)
+
+    @staticmethod
+    def draw_accept(generator, like):
+        """The uniforms of one Metropolis-Hastings decision, shaped like
+        ``like``."""
+        return torch.rand(like.shape, generator=generator, dtype=like.dtype,
+                          device=like.device)
 
     def tune(self, state, accepted):
         """Adjust the move from its cumulative ``accepted`` counts; the

@@ -4,7 +4,8 @@ Port of :mod:`eryn_tpu.moves.rj`, the traced protocol only: births and
 deaths flip the static-shape leaf masks, the affected slot is a masked
 argmax over random keys, and the detailed-balance corrections at the edges
 of the leaf-count range are ``where`` masks.  The host protocol
-(``get_proposal`` / ``get_model_change_proposal``) is not ported yet.
+(``get_proposal`` / ``get_model_change_proposal``) is not ported yet: a
+subclass that defines it raises.
 """
 
 from __future__ import annotations
@@ -13,7 +14,7 @@ import math
 
 import torch
 
-from .move import Move, mh_accept
+from .move import Move, mh_accept, refuse_host_hooks
 from .tempering import tempered_log_likelihood
 
 __all__ = ["ReversibleJumpMove", "rj_change_kernel"]
@@ -79,6 +80,8 @@ class ReversibleJumpMove(Move):
     def __init__(self, nleaves_max=None, nleaves_min=None, fix_change=None,
                  **kwargs):
         super().__init__(**kwargs)
+        refuse_host_hooks(self, ("get_proposal", "get_model_change_proposal"),
+                          "get_proposal_kernel")
         self.nleaves_max = dict(nleaves_max) if nleaves_max else {}
         self.nleaves_min = dict(nleaves_min) if nleaves_min else {}
         if fix_change not in (None, 1, -1):

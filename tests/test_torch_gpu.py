@@ -18,7 +18,8 @@ divides by a host scalar as a multiplication by its reciprocal, an ulp of
 ``z`` from the kernel's division, so that case takes the proposals'
 tolerance, and 50 times it for the factors, which multiply ``ln z`` by up
 to 24 dimensions.  A graphed run replays the eager run's operations on the
-same numbers, so its chain equals the eager chain digit for digit.
+same numbers, so its chain equals the eager chain digit for digit; so do
+the moves without gradients (``-k zoo``), kernel states included.
 """
 
 import numpy as np
@@ -810,3 +811,136 @@ def test_non_uniform_priors_graphed_equal_eager(cuda, rj):
     for key in runs[False]:
         np.testing.assert_array_equal(runs[True][key], runs[False][key],
                                       err_msg=key)
+
+
+# ----------------------------------------------------------------------
+# the move zoo without gradients
+# ----------------------------------------------------------------------
+ZOO = ["gaussian diag", "gaussian full", "gaussian sequential", "gaussian random",
+       "distgen", "group stretch", "mt independent", "mt regenerated", "dr",
+       "combine", "mt rj", "model swap"]
+
+
+def _zoo_sampler(cuda, kind, cuda_graph):
+    """A small configuration of ``kind`` on the card and its start: the
+    4 x 32 x 3 tempered Gaussian for the in-model moves, 3 x 32 walkers
+    with up to 3 leaves for multiple-try reversible jump, two one-leaf
+    models for the model swap."""
+    from eryn_tpu_torch import EnsembleSampler, ProbDistContainer, State, uniform_dist
+    from eryn_tpu_torch import moves as tm
+
+    g = torch.Generator(cuda).manual_seed(1)
+    if kind == "mt rj":
+        pr = ProbDistContainer({i: uniform_dist(-1.0, 1.0) for i in range(2)})
+        sampler = EnsembleSampler(
+            32, 2,
+            lambda c, i: -0.5 * torch.sum(torch.where(i[:, None], c, 0.0) ** 2),
+            pr, nleaves_max=3,
+            moves=tm.RedBlueGroupStretchMove(live_dangerously=True),
+            rj_moves=[tm.MTDistGenMoveRJ(pr, nleaves_max={"model_0": 3},
+                                         nleaves_min={"model_0": 0},
+                                         num_try=4)],
+            tempering_kwargs=dict(ntemps=3), fill_zero_leaves_val=0.0,
+            seed=0, device=cuda, cuda_graph=cuda_graph)
+        coords = pr.rvs(size=(3, 32, 3), generator=g)
+        inds = torch.rand((3, 32, 3), generator=g, device=cuda) < 0.5
+        return sampler, State(coords, inds=inds)
+    if kind == "model swap":
+        names = ["a", "b"]
+        priors = {"a": ProbDistContainer({0: uniform_dist(0.0, 2.0)}),
+                  "b": ProbDistContainer({0: uniform_dist(-1.0, 1.0)})}
+
+        def ll(coords, inds):
+            x = sum(torch.sum(torch.where(inds[n][:, None], coords[n], 0.0))
+                    for n in names)
+            return -0.5 * (x - 0.5) ** 2 / 0.3
+
+        sampler = EnsembleSampler(
+            32, {"a": 1, "b": 1}, ll, priors, branch_names=names,
+            nleaves_max={"a": 1, "b": 1}, nleaves_min={"a": 0, "b": 0},
+            moves=[tm.GaussianMove({"a": 0.05, "b": 0.05})],
+            rj_moves=[tm.ModelSwapRJMove(priors)],
+            tempering_kwargs=dict(ntemps=3), fill_zero_leaves_val=-1e8,
+            seed=0, device=cuda, cuda_graph=cuda_graph)
+        pick = torch.rand((3, 32, 1), generator=g, device=cuda) < 0.5
+        coords = {n: priors[n].rvs(size=(3, 32, 1), generator=g) for n in names}
+        return sampler, State(coords, inds={"a": pick, "b": ~pick})
+    pr = ProbDistContainer({i: uniform_dist(-5.0, 5.0) for i in range(3)})
+    diag = {"model_0": np.full(3, 0.5 ** 2)}
+    move = {
+        "gaussian diag": lambda: tm.GaussianMove(diag),
+        "gaussian full": lambda: tm.GaussianMove(
+            {"model_0": 0.25 * np.eye(3) + 0.05}),
+        "gaussian sequential": lambda: tm.GaussianMove(
+            {"model_0": 1.0}, mode="sequential", factor=2.0),
+        "gaussian random": lambda: tm.GaussianMove({"model_0": 1.0},
+                                                   mode="random"),
+        "distgen": lambda: tm.DistributionGenerate({"model_0": pr}),
+        "group stretch": lambda: tm.GroupStretchMove(n_iter_update=7),
+        "mt independent": lambda: tm.MTDistGenMove(
+            {"model_0": pr}, num_try=4, independent=True),
+        "mt regenerated": lambda: tm.MTDistGenMove(
+            {"model_0": pr}, num_try=4, independent=False),
+        "dr": lambda: tm.DelayedRejection(tm.GaussianMove(diag), max_iter=2),
+        "combine": lambda: tm.CombineMove([
+            tm.GroupStretchMove(n_iter_update=7),
+            tm.DelayedRejection(tm.GaussianMove(diag, mode="sequential"),
+                                max_iter=2)]),
+    }[kind]()
+    sampler = EnsembleSampler(
+        32, 3, lambda x: -0.5 * torch.sum(x * x), pr, moves=move,
+        tempering_kwargs=dict(ntemps=4), seed=0, device=cuda,
+        cuda_graph=cuda_graph)
+    return sampler, pr.rvs(size=(4, 32), generator=g)
+
+
+def _zoo_record(sampler, start, steps, burn):
+    from eryn_tpu_torch.interop import kernel_state_to_numpy
+
+    sampler.run_mcmc(start, steps, burn=burn)
+    b = sampler.backend
+    out = {f"chain {n}": c for n, c in sampler.get_chain().items()}
+    out.update({f"inds {n}": m for n, m in sampler.get_inds().items()})
+    out.update(log_like=sampler.get_log_like(), betas=sampler.get_betas(),
+               accepted=b.accepted, swaps=b.swaps_accepted,
+               time=int(sampler.temperature_control.time))
+    if sampler.has_reversible_jump:
+        out["rj_accepted"] = b.rj_accepted
+    for i, leaf in enumerate(kernel_state_to_numpy(sampler._kernel_states)):
+        out[f"kernel state {i}"] = leaf
+    return {k: np.asarray(v) for k, v in out.items()}
+
+
+@pytest.mark.parametrize("kind", ZOO)
+def test_zoo_graphed_equals_eager(cuda, kind):
+    """Each gradient-free move from one seed, graphed and eager: chains,
+    masks, ladders, clock, accept and swap counts and the moves' kernel
+    states equal digit for digit.  One cascade launch per swap phase (two
+    a step under ``CombineMove``, one per move under reversible jump); no
+    stretch kernel outside the red/blue group stretch; kernel 5 twice a
+    step beside multiple-try reversible jump."""
+    steps, burn = 40, 10
+    n = steps + burn
+    kernels = (sk.stretch_propose, sk.stretch_accept_propose, sk.stretch_accept,
+               pt_swap.pt_swap_cascade_multi,
+               select_kernels.group_stretch_propose)
+    runs = {}
+    for graphed in (False, True):
+        sampler, start = _zoo_sampler(cuda, kind, graphed)
+        before = [k.launches for k in kernels]
+        runs[graphed] = _zoo_record(sampler, start, steps, burn)
+        launches = [k.launches - b for k, b in zip(kernels, before)]
+        phases = 2 * n if kind in ("combine", "mt rj", "model swap") else n
+        assert launches == [0, 0, 0, phases,
+                            2 * n if kind == "mt rj" else 0], launches
+        if graphed:
+            per_step = 2 if sampler.has_reversible_jump else 1
+            assert sampler.graph_replays == per_step * n - per_step
+        else:
+            assert sampler.graph_replays == 0
+    for key in runs[False]:
+        np.testing.assert_array_equal(runs[True][key], runs[False][key],
+                                      err_msg=key)
+    assert runs[True]["time"] == (2 * n if kind == "combine" else n)
+    acc = runs[True]["accepted"][0] / n
+    assert 0 < acc.mean(), acc

@@ -26,7 +26,15 @@ import torch
 
 import eryn_tpu_torch as et
 from eryn_tpu_torch import Backend, HDFBackend, State, TempHDFBackend
-from eryn_tpu_torch.moves import RedBlueGroupStretchMove, StretchMove
+from eryn_tpu_torch.interop import kernel_state_to_numpy
+from eryn_tpu_torch.moves import (
+    CombineMove,
+    DelayedRejection,
+    GaussianMove,
+    GroupStretchMove,
+    RedBlueGroupStretchMove,
+    StretchMove,
+)
 
 torch.set_num_threads(1)
 
@@ -61,6 +69,14 @@ def _moves(kind):
         return [(StretchMove(), 0.6), (StretchMove(a=1.6), 0.4)]
     if kind == "counting":
         return [CountingStretch()]
+    if kind == "group":
+        return [GroupStretchMove(n_iter_update=20)]
+    if kind == "combine":
+        return [CombineMove([
+            GroupStretchMove(n_iter_update=20),
+            DelayedRejection(GaussianMove({"model_0": 0.5},
+                                          mode="sequential"), max_iter=2),
+        ])]
     return None
 
 
@@ -333,6 +349,91 @@ def test_sigkill_inside_one_run_resumes_from_the_last_segment(tmp_path):
     resumed.run_mcmc(None, 20, segment_size=10)
     assert int(resumed._kernel_states[0]["n"]) == 40
     assert_same(record(resumed), record(full))
+
+
+def test_combine_resumes_mid_window_digit_for_digit(tmp_path):
+    """``CombineMove([GroupStretchMove(n_iter_update=20),
+    DelayedRejection(GaussianMove(mode="sequential"))])``: 30 stored steps,
+    in the middle of the second friends window, then 20 more by a fresh
+    sampler on the file, against 50 in one run.  The friends table, the
+    window's snapshot, both counters and the per-child accept counts are
+    restored, so the chain continues digit for digit."""
+    fn = str(tmp_path / "combine.h5")
+    full, start = build(Backend(), "combine")
+    full.run_mcmc(start, 50, segment_size=10)
+    first, start = build(HDFBackend(fn), "combine")
+    first.run_mcmc(start, 30, segment_size=10)
+    (group_ks, dr_ks), _ = first._kernel_states[0]
+    # the sequential counter: three candidates a step, NDIM dimensions
+    assert int(group_ks["iter"]) == 30
+    assert int(dr_ks["model_0"]) == (30 * 3) % NDIM
+    del first
+    resumed, _ = build(HDFBackend(fn), "combine", seed=99)
+    resumed.run_mcmc(None, 20, segment_size=10)
+    assert_same(record(resumed), record(full))
+    for a, b in zip(kernel_state_to_numpy(resumed._kernel_states),
+                    kernel_state_to_numpy(full._kernel_states)):
+        np.testing.assert_array_equal(a, b)
+    assert int(resumed._kernel_states[0][0][0]["iter"]) == 50
+
+
+def _jax_sampler(fn, kind):
+    import eryn_tpu
+    import eryn_tpu.moves as jm
+    import jax.numpy as jnp
+    from eryn_tpu.backends import HDFBackend as JaxHDFBackend
+
+    group = jm.GroupStretchMove(n_iter_update=20)
+    move = group if kind == "group" else jm.CombineMove([
+        group, jm.DelayedRejection(
+            jm.GaussianMove({"model_0": 0.5}, mode="sequential"), max_iter=2)])
+    priors = eryn_tpu.ProbDistContainer(
+        {i: eryn_tpu.uniform_dist(-5.0, 5.0) for i in range(NDIM)})
+    return eryn_tpu.EnsembleSampler(
+        NW, NDIM, lambda x: -0.5 * jnp.sum(x * x), priors, moves=[move],
+        backend=JaxHDFBackend(fn), tempering_kwargs=dict(ntemps=NT), seed=4)
+
+
+def _group_iter(kernel_state, kind):
+    ks = kernel_state if kind == "group" else kernel_state[0][0]
+    return int(np.asarray(ks["iter"]))
+
+
+@pytest.mark.parametrize("kind", ["group", "combine"])
+def test_group_kernel_state_crosses_from_eryn_tpu(tmp_path, kind):
+    """A file eryn_tpu wrote with a group-stretch move: the port restores
+    its kernel state leaf for leaf and continues the window's counter."""
+    from eryn_tpu.backends import HDFBackend as JaxHDFBackend
+
+    fn = str(tmp_path / "jax.h5")
+    js = _jax_sampler(fn, kind)
+    js.run_mcmc(np.random.default_rng(0).uniform(-3, 3, (NT, NW, NDIM)), 12)
+    _, stored = JaxHDFBackend(fn).get_kernel_states()
+    s, _ = build(fn, kind, seed=7)
+    s._ensure_kernel_states(s._setup_state(None))
+    ours = kernel_state_to_numpy(s._kernel_states)
+    assert len(ours) == len(stored[0])
+    for a, b in zip(ours, stored[0]):
+        np.testing.assert_array_equal(a, np.asarray(b).astype(a.dtype))
+    assert _group_iter(s._kernel_states[0], kind) == 12
+    s.run_mcmc(None, 5)
+    assert _group_iter(s._kernel_states[0], kind) == 17
+    assert np.isfinite(s.get_log_like()).all()
+
+
+@pytest.mark.parametrize("kind", ["group", "combine"])
+def test_eryn_tpu_resumes_a_group_kernel_state(tmp_path, kind):
+    """The reverse: eryn_tpu resumes a port file and its group-stretch
+    kernel state (its window counter continues from the port's)."""
+    fn = str(tmp_path / "port.h5")
+    s, start = build(fn, kind)
+    s.run_mcmc(start, 12)
+    port_chain = s.get_chain()["model_0"]
+    js = _jax_sampler(fn, kind)
+    js.run_mcmc(None, 6)
+    assert _group_iter(js._kernel_states[0], kind) == 18
+    assert HDFBackend(fn).iteration == 18
+    np.testing.assert_array_equal(js.get_chain()["model_0"][:12], port_chain)
 
 
 def test_mismatched_resume_raises(tmp_path):
