@@ -87,6 +87,13 @@ Phases, each printing its own lines:
      (group stretch, then delayed rejection: two swap phases a step), each
      200 warm and 1,000 timed steps without storing, then 1,000 stored, the
      cold chain's moments and the acceptance as gates;
+     the gradient moves and the rest of the zoo the same way (PR 10:
+     ``zoo[DEMove]``, ``zoo[DESnookerMove]``, ``zoo[WalkMove]``,
+     ``zoo[KDEMove]``, ``zoo[SliceMove]``, ``zoo[MALAMove]``,
+     ``zoo[HMCMove]``, ``zoo[ChEESHMCMove]``, ``zoo[AIMHMove]``, the
+     moves' defaults, one cascade a step; slice may accept every proposal),
+     with ``loops[...]`` lines for ChEES's mean trajectory length and
+     slice's loop iterations over the timed window beside their caps;
      ``zoo[MT-RJ x8]`` (multiple-try birth and death with 8 tries, up to 4
      leaves, the red/blue group stretch: kernel 5 twice a step);
      ``config_d`` (``tests/test_config_d.py``: two branches, a sine and a
@@ -95,6 +102,12 @@ Phases, each printing its own lines:
      ``modelswap`` (``tests/test_modelswap.py``: 64 x 3 walkers, the
      product-space model swap, 200 + 800 steps, the quadrature model
      probability as gate);
+   * ``best_stack[north-star]``: the north-star target under
+     ``ChEESHMCMove()`` with DEO swaps and the Syed schedule, 600 steps of
+     burn-in (the 500 tuning proposals inside) and 1,200 stored into
+     ``DeviceBackend``: ``best_stack_steps_per_s``,
+     ``best_stack_ess_per_s``, the cold ``max(tau)`` beside the stretch
+     north-star's, the north-star's gates, and no kernel launch;
    * a flat-likelihood RJ run (64 walkers, 3 leaves): a uniform leaf-count
      posterior.  It checks the RJ moves, is not part of the main path, and
      its launches stay out of the report.
@@ -104,7 +117,8 @@ Phases, each printing its own lines:
    schedule entry must be a replay of its move's graph (but the first of
    each, which runs eagerly), no leg may call a plain version of a kernel,
    and each chain must meet its target.  Then graph vs eager: the first
-   four legs, the DEO leg and the zoo's ``CombineMove`` and MT-RJ legs at
+   four legs, the DEO leg, the zoo's ``CombineMove`` and MT-RJ legs, and
+   its MALA, jittered HMC (3 to 7 steps), ChEES, slice and AIMH legs at
    a quarter of their depth from one seed, with ``cuda_graph=False`` and
    graphed; their chains, ladders, clocks, accept and swap counts and
    kernel states must be equal digit for digit, and their host time per step, replays per
@@ -112,7 +126,9 @@ Phases, each printing its own lines:
 5. profiles (``torch.profiler``, after every timed run): each kernel's
    device time per launch, 50 steady steps of the first four legs, the DEO
    leg, ``rj_pulse128``, the zoo's ``CombineMove`` and MT-RJ legs,
-   ``config_d`` and ``modelswap`` graphed, and of the graph-vs-eager legs eager
+   ``config_d`` and ``modelswap`` graphed (10 steps of the best stack and
+   the zoo's slice leg, about 3,000 device ops a step each), and of the
+   graph-vs-eager legs eager (10 steps of jittered HMC, ChEES and slice)
    (device kernels, memcpys and memsets per step, what the host launched
    per step, device-busy share, the top five device ops), and the device
    time of one tempering phase, cascade beside DEO (``phase[...]``).
@@ -155,6 +171,9 @@ DEO = dict(swap_scheme="deo", adaptation_scheme="syed")
 # 4 leaves, seed 11
 Z_SEED, Z_RJ_SEED, Z_NLMAX = 10, 11, 4
 Z_WARM, Z_STEPS, Z_STORED = 200, 1000, 1000
+# the best stack (VERDICT.md:290-296): ChEES-HMC under DEO and the Syed
+# schedule on the north-star target, 600 steps of burn-in, then stored
+BS_SEED, BS_BURN = 12, 600
 # config D (tests/test_config_d.py:22-96) and the model swap
 # (tests/test_modelswap.py:153-181) at their own shapes and depths
 D_NT, D_NW, D_BURN, D_STEPS = 3, 36, 400, 400
@@ -907,6 +926,16 @@ def _assert_stretch_launches(launches, steps):
     assert counts == [steps] * 3, launches
 
 
+# legs whose steps run the capped loops (about 3,000 device ops a step):
+# fewer profiled steps keep the profiler's event lists short
+HEAVY_LEGS = ("best_stack", "zoo[SliceMove]", "zoo[ChEESHMCMove]",
+              "zoo[HMCMove(jittered (3, 7))]")
+
+
+def _profile_steps(leg):
+    return 10 if leg in HEAVY_LEGS else 50
+
+
 def profile_steps(torch, leg, sampler, state, card, steps=50):
     """``torch.profiler`` (CPU and CUDA) over ``steps`` steady steps of a
     leg's sampler, without storing; prints the device's kernels, memcpys
@@ -1380,8 +1409,9 @@ def _run_state(np, s):
 
 def graph_vs_eager(torch, card):
     """North-star, its DEO form, config E, LISA RJ, LISA RJ null, the zoo's
-    ``CombineMove`` and MT-RJ legs at a quarter of their depth from one
-    seed, with ``cuda_graph=False`` and graphed, in turn:
+    ``CombineMove``, MT-RJ, MALA, jittered HMC, ChEES, slice and AIMH legs
+    at a quarter of their depth from one seed, with ``cuda_graph=False``
+    and graphed, in turn:
     20 warm steps (the graphed form captures there), a timed segment of
     ``n`` steps without storing (host time until the loop returns, and wall
     time until the device is done), then ``n`` stored steps into the default
@@ -1418,7 +1448,12 @@ def graph_vs_eager(torch, card):
                 torch, "CombineMove", cuda_graph=graphed), Z_STORED // 4, 1,
              2),
             ("zoo[MT-RJ x8]", lambda graphed: _mt_rj_sampler(
-                torch, cuda_graph=graphed), Z_STORED // 4, 2, 1))
+                torch, cuda_graph=graphed), Z_STORED // 4, 2, 1)) + tuple(
+        # the captured gradient, the masked loops and the replaced cond
+        (f"zoo[{name}]", lambda graphed, name=name: _zoo_sampler(
+            torch, name, cuda_graph=graphed), Z_STORED // 4, 1, 1)
+        for name in ("MALAMove", "HMCMove(jittered (3, 7))", "ChEESHMCMove",
+                     "SliceMove", "AIMHMove"))
     out, eager_samplers = {}, {}
     for leg, build, n, per_step, ticks in legs:
         runs = {}
@@ -1696,8 +1731,9 @@ def rj_pulse128_leg(torch, card):
 # the move zoo without gradients, config D and the model swap
 # ----------------------------------------------------------------------
 def _zoo_moves():
-    """The in-model moves of ``move_zoo_timing.py:build_moves`` that need
-    no gradient: ``{name: (move factory, swap phases per step)}``."""
+    """The in-model moves of ``move_zoo_timing.py:build_moves`` but the
+    stretch moves: ``{name: (move factory, swap phases per step)}``, each
+    with its defaults."""
     import numpy as np
 
     from eryn_tpu_torch import ProbDistContainer, uniform_dist
@@ -1719,15 +1755,32 @@ def _zoo_moves():
         "CombineMove": (lambda: tm.CombineMove([
             tm.GroupStretchMove(),
             tm.DelayedRejection(tm.GaussianMove(diag), max_iter=2)]), 2),
+        "DEMove": (tm.DEMove, 1),
+        "DESnookerMove": (tm.DESnookerMove, 1),
+        "WalkMove": (tm.WalkMove, 1),
+        "KDEMove": (tm.KDEMove, 1),
+        "SliceMove": (tm.SliceMove, 1),
+        "MALAMove": (tm.MALAMove, 1),
+        "HMCMove": (tm.HMCMove, 1),
+        "ChEESHMCMove": (tm.ChEESHMCMove, 1),
+        "AIMHMove": (tm.AIMHMove, 1),
     }
+
+
+def _zoo_move(name):
+    """A zoo move by name, or the graph-vs-eager leg's jittered HMC."""
+    from eryn_tpu_torch import moves as tm
+
+    if name == "HMCMove(jittered (3, 7))":
+        return tm.HMCMove(num_leapfrog=(3, 7))
+    return _zoo_moves()[name][0]()
 
 
 def _zoo_sampler(torch, name, seed=Z_SEED, cuda_graph=True):
     """A zoo leg's sampler and its set-up state (the kernel states made
     too, outside any segment: a move copies its constants to the card
     there)."""
-    factory, _ = _zoo_moves()[name]
-    s, priors = _gaussian_sampler(torch, NT, NW, seed, moves=factory(),
+    s, priors = _gaussian_sampler(torch, NT, NW, seed, moves=_zoo_move(name),
                                   cuda_graph=cuda_graph)
     coords = priors.rvs(size=(NT, NW), generator=torch.Generator(
         device="cuda").manual_seed(seed))
@@ -1750,29 +1803,74 @@ def _zoo_acceptance(np, s):
     return [float(s.acceptance_fraction[0].mean())]
 
 
+def _loop_counters(torch, move):
+    """The device counters of a move's data-dependent loops, on the host:
+    ChEES's summed trajectory length, slice's iterations needed (stepping
+    out, shrinkage, loops run); None for other moves."""
+    for name in ("leapfrog_total", "loop_iterations"):
+        counter = getattr(move, name, None)
+        if counter is not None:
+            return torch.atleast_1d(counter).tolist()
+    return None
+
+
+def _print_loop_cost(torch, leg, move, before, after, steps, device_ms, card):
+    """ChEES's mean ``L`` and slice's iterations per loop over a timed
+    window, beside their caps (every step runs the caps in its graph), and
+    the window's device time a step (CUDA events)."""
+    if before is None:
+        return {}
+    if len(before) == 1:
+        mean_L = (after[0] - before[0]) / steps
+        print(f"loops[{leg}]: mean L {mean_L:.4f} of the cap max_leapfrog = "
+              f"{move.max_leapfrog} over the {steps} timed steps; device "
+              f"{device_ms:.4f} ms a step ({card})")
+        return {"chees_mean_L": mean_L}
+    expand, shrink, loops = (a - b for a, b in zip(after, before))
+    out = {"slice_expand_iterations": expand / loops,
+           "slice_shrink_iterations": shrink / loops}
+    print(f"loops[{leg}]: per loop, stepping out needed "
+          f"{out['slice_expand_iterations']:.4f} iterations of the cap "
+          f"{move.max_expand - 1}, shrinkage "
+          f"{out['slice_shrink_iterations']:.4f} of the cap "
+          f"{move.max_shrink}, over the {steps} timed steps ({loops} loops); "
+          f"device {device_ms:.4f} ms a step ({card})")
+    return out
+
+
 def zoo_leg(torch, card):
-    """Each gradient-free in-model move of the zoo at 10 x 100 on the 5-D
-    unit Gaussian: ``Z_WARM`` warm and ``Z_STEPS`` timed steps without
-    storing, then ``Z_STORED`` stored into the default ``DeviceBackend``.
-    Gates: acceptance strictly inside (0, 1), the cold chain's mean within
-    0.1 and variance within 0.2 of the unit Gaussian's (a CPU run of
-    eryn_tpu at this shape and depth meets them for every move, the
-    independence draw too); launches: one cascade per swap phase (two a
-    step under ``CombineMove``), no stretch kernel (the group stretch runs
-    ``GroupMove``'s proposal), no group-stretch proposal."""
+    """Each in-model move of the zoo at 10 x 100 on the 5-D unit Gaussian,
+    the moves' defaults: ``Z_WARM`` warm and ``Z_STEPS`` timed steps
+    without storing, then ``Z_STORED`` stored into the default
+    ``DeviceBackend``.  Gates: acceptance strictly inside (0, 1) (in (0, 1]
+    for ``SliceMove``, which accepts by construction), the cold chain's
+    mean within 0.1 and variance within 0.2 of the unit Gaussian's (a CPU
+    run of eryn_tpu at this shape and depth, three seeds, meets them for
+    every move); launches: one cascade per swap phase (two a step under
+    ``CombineMove``), no stretch kernel (the group stretch runs
+    ``GroupMove``'s proposal), no group-stretch proposal.  ChEES and slice
+    print their loops' cost (``loops[...]``)."""
     import numpy as np
 
-    launches_all, rates, keep = {}, {}, None
+    launches_all, rates, keep = {}, {}, []
     for name, (_, phases) in _zoo_moves().items():
         leg = f"zoo[{name}]"
         s, state = _zoo_sampler(torch, name)
+        move = s._all_move_list[0]
         read = _counting(_kernels())
         state, _ = s._run_bulk(state, 1, Z_WARM, store=False)
         torch.cuda.synchronize()
+        before = _loop_counters(torch, move)
+        start, end = (torch.cuda.Event(enable_timing=True) for _ in range(2))
         t0 = time.perf_counter()
+        start.record()
         state, _ = s._run_bulk(state, 1, Z_STEPS, store=False)
+        end.record()
         torch.cuda.synchronize()
         dt = time.perf_counter() - t0
+        rates.update(_print_loop_cost(
+            torch, leg, move, before, _loop_counters(torch, move), Z_STEPS,
+            start.elapsed_time(end) / Z_STEPS, card))
         s.run_mcmc(None, Z_STORED)
         steps = Z_WARM + Z_STEPS + Z_STORED
         launches = read()
@@ -1794,15 +1892,76 @@ def zoo_leg(torch, card):
         print(f"rate: {metric} = {rates[metric]:.1f} ({card})")
         print(f"launches[{leg}]: per step {_per_step(launches, steps)} over "
               f"{steps} steps, {replays} graph replays")
-        assert all(0 < a < 1 for a in acc), acc
+        assert all(0 < a < 1 or (name == "SliceMove" and a == 1)
+                   for a in acc), acc
         assert np.all(np.abs(mean) < 0.1), mean
         assert np.all(np.abs(var - 1.0) < 0.2), var
         assert np.all((swaps > 0) & (swaps < 1)), swaps
         for k, v in launches.items():
             launches_all[k] = launches_all.get(k, 0) + v
-        if name == "CombineMove":
-            keep = ("zoo[CombineMove]", s, state)
+        if name in ("CombineMove", "SliceMove"):
+            keep.append((leg, s, state))
     return launches_all, rates, keep
+
+
+def best_stack_leg(torch, card):
+    """The north-star target under ``ChEESHMCMove()`` with DEO swaps and
+    the Syed schedule (``tempering_kwargs=dict(ntemps=10,
+    swap_scheme="deo", adaptation_scheme="syed")``): ``BS_BURN`` steps of
+    burn-in (the 500 tuning proposals fall inside), then ``STORED_STEPS``
+    stored into the default ``DeviceBackend``.  Gates as north-star's: the
+    cold mean within 0.05, variance within 0.1, acceptance in (0.2, 0.8),
+    every DEO boundary swapping, an adapted ladder; no kernel launch (DEO
+    swaps with tensor ops, ChEES needs no stretch kernel), every step a
+    replay."""
+    import numpy as np
+
+    from eryn_tpu_torch.moves import ChEESHMCMove
+
+    leg = "best_stack[north-star]"
+    s, priors = _gaussian_sampler(torch, NT, NW, BS_SEED, tempering=DEO,
+                                  moves=ChEESHMCMove())
+    coords = priors.rvs(size=(NT, NW), generator=torch.Generator(
+        device="cuda").manual_seed(BS_SEED))
+    move = s._all_move_list[0]
+    read = _counting(_kernels())
+    t0 = time.perf_counter()
+    s.run_mcmc(coords, BS_BURN, store=False)
+    torch.cuda.synchronize()
+    t_burn = time.perf_counter() - t0
+    before = _loop_counters(torch, move)
+    start, end = (torch.cuda.Event(enable_timing=True) for _ in range(2))
+    t0 = time.perf_counter()
+    start.record()
+    s.run_mcmc(None, STORED_STEPS)
+    end.record()
+    torch.cuda.synchronize()
+    dt = time.perf_counter() - t0
+    steps = BS_BURN + STORED_STEPS
+    launches = read()
+    replays = _assert_replays(leg, s, steps, 1)
+    assert sum(launches.values()) == 0, launches
+    _check_gaussian_chain(np, leg, s, NT)
+    assert int(move.kernel_state["t"]) == steps
+    tau = s.get_autocorr_time()["model_0"]
+    tau_max = float(np.nanmax(tau))
+    rates = {"best_stack_steps_per_s": STORED_STEPS / dt,
+             "best_stack_ess_per_s": STORED_STEPS * NW / max(tau_max, 1.0) / dt,
+             "best_stack_tau_max": tau_max,
+             "best_stack_burn_steps_per_s": BS_BURN / t_burn}
+    rates.update({f"best_stack_{k}": v for k, v in _print_loop_cost(
+        torch, leg, move, before, _loop_counters(torch, move), STORED_STEPS,
+        start.elapsed_time(end) / STORED_STEPS, card).items()})
+    print(f"{leg}: ladder {np.round(s.get_betas()[-1], 6).tolist()}, cold "
+          f"tau {np.round(tau.ravel(), 3).tolist()}, step size "
+          f"{math.exp(float(move.kernel_state['log_scale_avg'])):.4f} x the "
+          f"heuristic, trajectory {math.exp(float(move.kernel_state['log_T'])):.4f}")
+    for k in ("best_stack_steps_per_s", "best_stack_ess_per_s",
+              "best_stack_tau_max", "best_stack_burn_steps_per_s"):
+        print(f"rate: {k} = {rates[k]:.4f} ({card})")
+    print(f"launches[{leg}]: {launches} over {steps} steps, {replays} graph "
+          f"replays")
+    return launches, rates, ("best_stack", s, s._previous_state)
 
 
 def _mt_rj_sampler(torch, cuda_graph=True):
@@ -2470,7 +2629,8 @@ def main(argv=None):
                     lisa_rj_null_leg, custom_move_leg, hdf_leg,
                     resume_north_star_leg, resume_lisa_null_leg, hooks_leg,
                     deo_leg, evidence_leg, rj_pulse128_leg, zoo_leg,
-                    zoo_mt_rj_leg, config_d_leg, modelswap_leg):
+                    zoo_mt_rj_leg, config_d_leg, modelswap_leg,
+                    best_stack_leg):
             t0 = time.perf_counter()
             legs.append(leg(torch, smi))
             print(f"phase 4: {leg.__name__} {time.perf_counter() - t0:.1f} s")
@@ -2492,6 +2652,11 @@ def main(argv=None):
             launches[k] = launches.get(k, 0) + v
         rates.update(leg_rates)
     assert all(v > 0 for v in launches.values()), launches
+    print(f"rate: best_stack_tau_max = {rates['best_stack_tau_max']:.4f} "
+          f"(ChEES-HMC, DEO) beside north-star's stretch tau_max = "
+          f"{rates['tau_max']:.4f}; best_stack_ess_per_s = "
+          f"{rates['best_stack_ess_per_s']:.1f} beside device_ess_per_s = "
+          f"{rates['device_ess_per_s']:.1f} ({smi})")
     rates["lisa_rj_overhead_frac"] = (rates["lisa_rj_steps_per_s"]
                                       / rates["lisa_rj_null_steps_per_s"])
     print(f"rate: lisa_rj_overhead_frac = {rates['lisa_rj_overhead_frac']:.4f} "
@@ -2509,17 +2674,21 @@ def main(argv=None):
         print(f"time: {k} {t['device_ms']:.4f} ms on the device, "
               f"{t['ms']:.4f} ms per call ({smi})")
     profiles = {}
-    by_name = {leg: (sampler, state) for _, _, (leg, sampler, state) in legs}
+    by_name = {}
+    for _, _, kept in legs:
+        for leg, sampler, state in (kept if isinstance(kept, list) else [kept]):
+            by_name[leg] = (sampler, state)
     for leg in ("north-star", "config E", "LISA RJ", "LISA RJ null", "deo",
                 "rj_pulse128", "zoo[CombineMove]", "zoo[MT-RJ x8]",
-                "config_d", "modelswap"):
-        profiles.update(profile_steps(torch, leg, *by_name[leg], smi))
+                "config_d", "modelswap", "best_stack", "zoo[SliceMove]"):
+        profiles.update(profile_steps(torch, leg, *by_name[leg], smi,
+                                      steps=_profile_steps(leg)))
     phases = tempering_phase_device_ms(
         torch, {"cascade": by_name["north-star"][0],
                 "deo": by_name["deo"][0]}, smi)
     for leg, (sampler, state) in eager.items():
         profiles.update(profile_steps(torch, f"{leg}, eager", sampler, state,
-                                      smi))
+                                      smi, steps=_profile_steps(leg)))
 
     sources = {
         "stretch_propose": ("eryn_tpu_torch/csrc/stretch_kernels.cu",

@@ -2,9 +2,11 @@
 
 The port mirrors :mod:`eryn_tpu`'s modules and public names.  Its samplers
 (the parallel-tempered stretch sampler, reversible jump with the red/blue
-group stretch, and the gradient-free moves: Metropolis-Hastings, Gaussian,
+group stretch, the gradient-free moves: Metropolis-Hastings, Gaussian,
 distribution draws, the group stretch, combinations, delayed rejection,
-multiple try and model swaps) run on an NVIDIA Hopper GPU through hand-written CUDA
+multiple try and model swaps, and in ``eryn_tpu_torch.moves`` the gradient
+moves MALA, HMC and ChEES-HMC, differential evolution, walk, KDE, slice and
+adaptive independence moves) run on an NVIDIA Hopper GPU through hand-written CUDA
 kernels (``csrc/``): the stretch proposal, the tempered accept, the swap
 cascade and its large-ensemble form, the group-stretch proposal and the
 masked-uniform complement selection inside it.  Each kernel has a plain

@@ -58,6 +58,13 @@ def _crossed(prev, now, interval):
     return now // interval > prev // interval
 
 
+def _walk_moves(moves):
+    """The moves and, depth first, the children of each composite."""
+    for m in moves:
+        yield m
+        yield from _walk_moves(getattr(m, "moves", None) or [])
+
+
 def _normalize_key_order(key_order):
     """Per-branch key orders as lists of str and int, so that the priors'
     lists compare equal to the arrays a file's attributes give back."""
@@ -173,16 +180,7 @@ class LikelihoodEvaluator:
     def check(self, device):
         """Evaluate on a probe batch of two walkers; raise a ``TypeError``
         that names the fix when the function cannot be batched."""
-        c = {
-            n: torch.zeros((2, self.nleaves_max[n], self.ndims[n]),
-                           dtype=self.dtype, device=device)
-            for n in self.branch_names
-        }
-        i = {
-            n: torch.ones((2, self.nleaves_max[n]), dtype=torch.bool,
-                          device=device)
-            for n in self.branch_names
-        }
+        c, i = self._probe(device)
         try:
             out = self._evaluate(c, i)
         except Exception as err:
@@ -204,6 +202,48 @@ class LikelihoodEvaluator:
             raise TypeError(
                 f"log_like_fn returned shape {tuple(out.shape)} for 2 walkers."
             )
+
+    def check_grad(self, device):
+        """Differentiate the sum over a probe batch of two walkers with
+        ``torch.func.grad``, as the gradient moves do; raise a
+        ``TypeError`` that names the fix when that fails, and warn when the
+        value does not depend on the coordinates through differentiable
+        torch operations (its gradient would be zero)."""
+        c, i = self._probe(device)
+        try:
+            torch.func.grad(lambda c: self._evaluate(c, i).sum())(c)
+        except Exception as err:
+            raise TypeError(
+                "log_like_fn could not be differentiated with torch.func.grad "
+                f"({err}). The gradient moves (MALAMove, HMCMove, "
+                "ChEESHMCMove) need a likelihood written in differentiable "
+                "torch operations: no .item(), numpy or host copies, no "
+                "in-place writes to its inputs; or choose a move without "
+                "gradients."
+            ) from err
+        with torch.enable_grad():
+            c = {n: x.clone().requires_grad_(True) for n, x in c.items()}
+            out = self._evaluate(c, i)
+        if not out.requires_grad:
+            warnings.warn(
+                "log_like_fn does not depend on the coordinates through "
+                "differentiable torch operations (detached, or computed "
+                "outside torch): the gradient moves see a zero gradient.",
+                stacklevel=4,
+            )
+
+    def _probe(self, device):
+        c = {
+            n: torch.zeros((2, self.nleaves_max[n], self.ndims[n]),
+                           dtype=self.dtype, device=device)
+            for n in self.branch_names
+        }
+        i = {
+            n: torch.ones((2, self.nleaves_max[n]), dtype=torch.bool,
+                          device=device)
+            for n in self.branch_names
+        }
+        return c, i
 
     def __call__(self, coords: dict, inds: dict, logp):
         """coords ``{name: (ntemps, n, nleaves_max, ndim)}``, logp ``(ntemps,
@@ -505,12 +545,7 @@ class EnsembleSampler:
                     if self.nleaves_min.get(n, self.nleaves_max[n])
                     != self.nleaves_max[n]}
 
-        def walk(moves):
-            for m in moves:
-                yield m
-                yield from walk(getattr(m, "moves", None) or [])
-
-        for m in walk(self.moves + self.rj_moves):
+        for m in _walk_moves(self.moves + self.rj_moves):
             if not getattr(m, "requires_fixed_dimension", False):
                 continue
             run = m.proposal_branch_names
@@ -527,6 +562,12 @@ class EnsembleSampler:
                     "flattened parameter vector). Restrict the move with "
                     "proposal_branch_names."
                 )
+
+    def _needs_gradient(self):
+        """Whether a move (a ``CombineMove``'s children included)
+        differentiates the likelihood."""
+        return any(getattr(m, "needs_gradient", False)
+                   for m in _walk_moves(self._all_move_list))
 
     def _normalize_priors(self, priors):
         if isinstance(priors, ProbDistContainer):
@@ -722,6 +763,8 @@ class EnsembleSampler:
             coords[name], inds[name] = c.contiguous(), m.contiguous()
         if not self._like_checked:
             self._like_eval.check(self.device)
+            if self._needs_gradient():
+                self._like_eval.check_grad(self.device)
             # the priors' first evaluation builds their device constants (a
             # copy from the host): here, not in the first segment, also when
             # the state brings its log-prior (a resumed chain)

@@ -1,0 +1,220 @@
+"""Adaptive independence Metropolis-Hastings, the adaptive half of DIME.
+
+Port of :mod:`eryn_tpu.moves.aimh` (Boehl 2022): a multivariate Student-t
+independence proposal per temperature, fitted to an exponentially
+discounted history of the ensemble, adapting for ``tune_steps`` of this
+move's proposals and then fixed.  DIME is ``moves=[(DEMove(), 1 - p),
+(AIMHMove(), p)]``.  The moments' update is computed every step and kept
+by a ``torch.where`` on the tuning flag (``eryn_tpu``'s ``lax.cond``); the
+Cholesky factor is ``torch.linalg.cholesky_ex``, NaN where it fails, as
+``jnp.linalg.cholesky`` gives; the chi-square of an integer ``df`` is
+``-2 sum log U (+ Z^2)`` on the sampler's generator.
+"""
+
+from __future__ import annotations
+
+import numpy as np
+import torch
+
+from .kde import cholesky_or_nan, periodic_refused
+from .move import Move, mh_decide
+from .tempering import tempered_log_likelihood
+
+__all__ = ["AIMHMove"]
+
+
+class AIMHMove(Move):
+    """Adaptive Student-t independence proposal, per temperature.
+
+    Args:
+        df: Student-t degrees of freedom, an integer above 2 and at most
+            512 (the chi-square is drawn from uniforms and a normal).
+        rho: per-proposal discount of the accumulated moments.
+        tune_steps: adapting proposals of this move (0: the initial fit
+            for ever).
+        jitter: diagonal floor of the fitted covariance, relative to the
+            mean per-rung variance.
+
+    Needs fixed-dimension models (``requires_fixed_dimension``; the sampler
+    refuses it on a reversible-jump branch, and the kernel state on inactive
+    leaves); periodic parameters and Gibbs splits are refused.
+    """
+
+    requires_fixed_dimension = True
+
+    def __init__(self, df=10.0, rho=0.999, tune_steps=500, jitter=1e-6,
+                 **kwargs):
+        super().__init__(**kwargs)
+        if df <= 2.0:
+            raise ValueError("df must exceed 2 (finite proposal covariance).")
+        if not float(df).is_integer() or df > 512:
+            raise NotImplementedError(
+                f"AIMHMove(df={df}): eryn_tpu_torch draws the chi-square of "
+                "an integer df up to 512 only (a gamma sampler on the "
+                "sampler's generator is ROADMAP.md, queue 1, item 8's "
+                "left-out part); pass an integer df.")
+        if self.gibbs_iterations != [None]:
+            raise ValueError(
+                "gibbs_sampling_setup is not supported by AIMHMove (the "
+                "fitted proposal is joint over the flattened parameters); "
+                "use proposal_branch_names to restrict branches.")
+        self.df = float(df)
+        self.rho = float(rho)
+        self.tune_steps = int(tune_steps)
+        self.jitter = float(jitter)
+
+    def _flatten(self, state, names):
+        nt, nw = state.log_like.shape
+        return torch.cat([state.branches_coords[n].reshape(nt, nw, -1)
+                          for n in names], dim=-1)
+
+    def _unflatten(self, state, names, flat):
+        out, off = {}, 0
+        for n in names:
+            shape = state.branches_coords[n].shape
+            k = int(np.prod(shape[2:]))
+            out[n] = flat[..., off:off + k].reshape(shape)
+            off += k
+        return out
+
+    @staticmethod
+    def _batch_moments(x):
+        """Per-rung mean and centred covariance of ``x`` ``(nt, nw, D)``."""
+        nw = x.shape[1]
+        mean = x.mean(dim=1)
+        d = x - mean[:, None, :]
+        return mean, torch.einsum("twi,twj->tij", d, d) / nw
+
+    def _refuse(self, state, names):
+        periodic_refused(self, names, {n: state.branches[n].ndim
+                                       for n in names}, "AIMHMove")
+
+    def init_kernel_state(self, state):
+        names = self.run_branches(state)
+        self._refuse(state, names)
+        for n in names:
+            if not bool(state.branches_inds[n].all()):
+                raise ValueError(
+                    "AIMHMove requires fixed-dimension models (all leaves "
+                    "active): reversible-jump masks change the meaning of "
+                    "the flattened parameter vector. Use KDEMove/DEMove for "
+                    "trans-dimensional targets.")
+        x = self._flatten(state, names)
+        nt, nw, _ = x.shape
+        mean, cov = self._batch_moments(x)
+        return {"w": x.new_full((nt,), float(nw)), "mean": mean, "cov": cov,
+                "t": torch.zeros((), dtype=torch.int32, device=x.device)}
+
+    def _proposal_params(self, ks, D):
+        """``(mean, lower Cholesky factor)`` per rung, with the relative
+        diagonal floor."""
+        mean, cov = ks["mean"], ks["cov"]
+        var_scale = torch.diagonal(cov, dim1=-2, dim2=-1).sum(dim=-1) / D
+        eye = torch.eye(D, dtype=cov.dtype, device=cov.device)
+        cov = cov + (self.jitter * torch.clamp(var_scale, min=1e-30)
+                     )[:, None, None] * eye
+        return mean, cholesky_or_nan(cov)
+
+    def _t_logpdf(self, x, mean, chol):
+        """The Student-t log kernel per (rung, walker); the normalization
+        cancels in the Hastings ratio."""
+        D = x.shape[-1]
+        d = x - mean[:, None, :]
+        y = torch.linalg.solve_triangular(chol, d.transpose(1, 2),
+                                          upper=False).transpose(1, 2)
+        q = torch.sum(y ** 2, dim=-1)
+        return -0.5 * (self.df + D) * torch.log1p(q / self.df)
+
+    def draw_aimh(self, generator, nt, nw, D, like):
+        """Randomness of one proposal: the normals ``(nt, nw, D)``, the
+        chi-square's uniforms ``(nt, nw, df // 2)`` in ``[tiny, 1)`` (None
+        for df < 2) and, for an odd df, its normal ``(nt, nw)`` (else
+        None)."""
+        kw = dict(generator=generator, dtype=like.dtype, device=like.device)
+        z = torch.randn((nt, nw, D), **kw)
+        k = int(self.df)
+        uu = zz = None
+        if k // 2:
+            tiny = torch.finfo(like.dtype).tiny
+            uu = torch.clamp(torch.rand((nt, nw, k // 2), **kw) * (1.0 - tiny)
+                             + tiny, min=tiny)
+        if k % 2:
+            zz = torch.randn((nt, nw), **kw)
+        return z, uu, zz
+
+    def _chisquare(self, uu, zz, like):
+        u = like.new_zeros(like.shape)
+        if uu is not None:
+            u = -2.0 * torch.sum(torch.log(uu), dim=-1)
+        if zz is not None:
+            u = u + zz * zz
+        return u
+
+    def _propose_impl(self, generator, state, ctx, kernel_state=()):
+        names = self.run_branches(state)
+        self._refuse(state, names)
+        logl0 = state.log_like
+        nt, nw = logl0.shape
+        x = self._flatten(state, names)
+        D = x.shape[-1]
+        ks = kernel_state if isinstance(kernel_state, dict) else None
+        if ks is None:
+            # bare call: the fit to the current ensemble
+            mean0, cov0 = self._batch_moments(x)
+            ks = {"w": x.new_full((nt,), float(nw)), "mean": mean0,
+                  "cov": cov0,
+                  "t": torch.zeros((), dtype=torch.int32, device=x.device)}
+
+        mean, chol = self._proposal_params(ks, D)
+        z, uu, zz = self.draw_aimh(generator, nt, nw, D, logl0)
+        u = self._chisquare(uu, zz, logl0)
+        step = torch.einsum("tij,twj->twi", chol, z)
+        q_flat = mean[:, None, :] + step * torch.sqrt(
+            self.df / torch.clamp(u, min=1e-12))[..., None]
+        q_branches = self._unflatten(state, names, q_flat)
+
+        # independence factor: log q(x_old) - log q(x_new)
+        factors = self._t_logpdf(x, mean, chol) - self._t_logpdf(q_flat, mean,
+                                                                 chol)
+        betas = state.betas
+        if betas is None:
+            betas = logl0.new_ones((nt,))
+        inds = dict(state.branches_inds)
+        full = {**state.branches_coords, **q_branches}
+        lp1 = ctx.compute_log_prior(full, inds)
+        ll1, _ = ctx.compute_log_like(full, inds, lp1)
+        logP_new = tempered_log_likelihood(ll1, betas) + lp1
+        logP_old = tempered_log_likelihood(logl0, betas) + state.log_prior
+        acc = mh_decide(self.draw_accept(generator, logP_new), factors,
+                        logP_new, logP_old)
+
+        new_coords = dict(state.branches_coords)
+        for n in names:
+            new_coords[n] = torch.where(acc[:, :, None, None], q_branches[n],
+                                        state.branches_coords[n])
+        logl = torch.where(acc, ll1, logl0)
+        logp = torch.where(acc, lp1, state.log_prior)
+
+        if self.tune_steps > 0:
+            # the discounted weighted merge of the post-accept ensemble into
+            # the running centred moments, kept while tuning
+            x_new = torch.where(acc[..., None], q_flat, x)
+            w, m, C = ks["w"], ks["mean"], ks["cov"]
+            mb, Cb = self._batch_moments(x_new)
+            w_old = self.rho * w
+            w_new = w_old + nw
+            delta = mb - m
+            m_new = m + (nw / w_new)[:, None] * delta
+            cross = torch.einsum("ti,tj->tij", delta, delta)
+            C_new = (w_old[:, None, None] * C + nw * Cb
+                     + (w_old * nw / w_new)[:, None, None] * cross
+                     ) / w_new[:, None, None]
+            tuning = ks["t"] < self.tune_steps
+            ks = {"w": torch.where(tuning, w_new, w),
+                  "mean": torch.where(tuning, m_new, m),
+                  "cov": torch.where(tuning, C_new, C),
+                  "t": ks["t"] + 1}
+
+        new_state = state.replace(coords=new_coords, inds=inds, log_like=logl,
+                                  log_prior=logp)
+        return new_state, acc, ks

@@ -1,0 +1,143 @@
+"""Hamiltonian Monte Carlo move.
+
+Port of :mod:`eryn_tpu.moves.hmc`.  The leapfrog trajectory differentiates
+the tempered log posterior through the user's likelihood
+(:func:`~eryn_tpu_torch.moves.mala.grad_context`); its ``num_leapfrog``
+steps are a loop of that static length inside the step's CUDA graph.
+Momenta live on active leaves only, so the move runs under reversible
+jump.  The Metropolis correction on the Hamiltonian error maps onto the
+sampler's ``factors + logP_new - logP_old`` with ``factors = K(p0) -
+K(p1)``, ``K(p) = |p|^2 / 2``.
+"""
+
+from __future__ import annotations
+
+import torch
+
+from .mala import MALAMove
+
+__all__ = ["HMCMove"]
+
+
+class HMCMove(MALAMove):
+    """Leapfrog HMC proposal.
+
+    Args:
+        eps: leapfrog step size, as :class:`MALAMove`'s.
+        num_leapfrog: leapfrog steps per proposal; a tuple ``(lo, hi)``
+            draws each walker's length uniformly from ``[lo, hi]`` every
+            proposal (the batch runs ``hi`` steps and a walker past its
+            length stays where it is).
+        target_acceptance / tune_steps: dual averaging, as
+            :class:`MALAMove`'s (0.65 is the HMC-optimal acceptance).
+        ensemble_precondition: the red/blue preconditioned form of
+            :class:`MALAMove`, each half integrating its own trajectory.
+    """
+
+    _EPS_DIM_EXP = 0.25
+    _EPS_DIM_CONST = 1.2
+
+    def __init__(self, eps=None, num_leapfrog=5, target_acceptance=0.65,
+                 tune_steps=500, **kwargs):
+        super().__init__(eps=eps, target_acceptance=target_acceptance,
+                         tune_steps=tune_steps, **kwargs)
+        if isinstance(num_leapfrog, (tuple, list)):
+            lo, hi = int(num_leapfrog[0]), int(num_leapfrog[1])
+            if not 1 <= lo <= hi:
+                raise ValueError(
+                    f"num_leapfrog range must satisfy 1 <= lo <= hi, got "
+                    f"({lo}, {hi}).")
+            self.num_leapfrog = hi
+            self.num_leapfrog_min = lo
+        else:
+            self.num_leapfrog = int(num_leapfrog)
+            self.num_leapfrog_min = None
+
+    # -- draws --------------------------------------------------------------
+    @staticmethod
+    def draw_momenta(generator, coords):
+        """Standard normal momenta shaped like each branch of ``coords``
+        (masked to the active leaves by the move)."""
+        return {n: torch.randn(c.shape, generator=generator, dtype=c.dtype,
+                               device=c.device)
+                for n, c in coords.items()}
+
+    def draw_lengths(self, generator, shape, device):
+        """Each walker's trajectory length in ``[lo, hi]``, ``shape`` int64;
+        None for a fixed length."""
+        if self.num_leapfrog_min is None:
+            return None
+        return torch.randint(self.num_leapfrog_min, self.num_leapfrog + 1,
+                             shape, generator=generator, device=device)
+
+    # -- the leapfrog plumbing (ChEESHMCMove's too) ---------------------------
+    def _leapfrog_fns(self, names, masks, eps):
+        """``(kinetic, half_kick, drift)`` over the step sizes and masks."""
+
+        def kinetic(p):
+            total = 0.0
+            for n in names:
+                total = total + 0.5 * torch.where(masks[n], p[n] ** 2, 0.0).sum(
+                    dim=(-2, -1))
+            return total
+
+        def half_kick(p, g):
+            return {n: p[n] + 0.5 * eps[n] * torch.where(masks[n], g[n], 0.0)
+                    for n in names}
+
+        def drift(x, p):
+            # the wrap keeps the trajectory on the torus, where the gradient
+            # field is periodic: leapfrog stays reversible
+            return {n: self._wrap_periodic(
+                n, x[n] + eps[n] * torch.where(masks[n], p[n], 0.0))
+                for n in names}
+
+        return kinetic, half_kick, drift
+
+    def _momenta(self, generator, names, coords, masks):
+        draws = self.draw_momenta(generator, coords)
+        return {n: torch.where(masks[n], draws[n], 0.0) for n in names}
+
+    def _run_leapfrog(self, generator, names, coords, masks, eps, grad_fn):
+        """Momenta and the (optionally length-jittered) trajectory from
+        ``coords``: ``(x1, ll1, lp1, factors)`` with ``factors = K(p0) -
+        K(p1)``."""
+        p0 = self._momenta(generator, names, coords, masks)
+        kinetic, half_kick, drift = self._leapfrog_fns(names, masks, eps)
+        (ll, lp), g = grad_fn(coords)
+        first = masks[names[0]]
+        lengths = self.draw_lengths(generator, first.shape[:2], first.device)
+
+        x, p = coords, p0
+        for i in range(self.num_leapfrog):
+            p_new = half_kick(p, g)
+            x_new = drift(x, p_new)
+            (ll_new, lp_new), g_new = grad_fn(x_new)
+            p_new = half_kick(p_new, g_new)
+            if lengths is None:
+                x, p, g, ll, lp = x_new, p_new, g_new, ll_new, lp_new
+                continue
+            act = i < lengths
+            a4 = act[:, :, None, None]
+            x = {n: torch.where(a4, x_new[n], x[n]) for n in names}
+            p = {n: torch.where(a4, p_new[n], p[n]) for n in names}
+            g = {n: torch.where(a4, g_new[n], g[n]) for n in names}
+            ll = torch.where(act, ll_new, ll)
+            lp = torch.where(act, lp_new, lp)
+        return x, ll, lp, kinetic(p0) - kinetic(p)
+
+    def _propose_impl(self, generator, state, ctx, kernel_state=()):
+        if self.ensemble_precondition:
+            return self._propose_impl_precond(
+                generator, state, ctx, kernel_state,
+                propose_block=self._run_leapfrog)
+        names, coords, inds, betas, grad_fn = self._grad_setup(state, ctx)
+        scale = self._current_scale(kernel_state, state.log_like)
+        eps = {n: scale * self._eps_for(n, coords[n].shape[-1],
+                                        state.log_like, kernel_state)
+               for n in names}
+        masks = {n: inds[n][..., None] for n in names}
+        x1, ll1, lp1, factors = self._run_leapfrog(generator, names, coords,
+                                                   masks, eps, grad_fn)
+        return self._accept_and_merge(generator, state, names, coords, x1,
+                                      factors, ll1, lp1, betas, kernel_state)

@@ -1,0 +1,396 @@
+"""Metropolis-adjusted Langevin (MALA) move, and the gradient of the tempered
+posterior that the gradient moves share.
+
+Port of :mod:`eryn_tpu.moves.mala`.  The gradient of ``beta * logl + logp``
+is :func:`torch.func.grad_and_value` through the sampler's prior and
+likelihood evaluators (the likelihood vectorized with ``torch.func.vmap``,
+or called on the batch under ``vectorize=True``), so the drift, the
+proposal and the decision stay inside the step's CUDA graph.  The proposal
+(per walker, per active leaf)
+
+    q = x + (eps^2 / 2) * grad logP(x) + eps * xi,  xi ~ N(0, I)
+
+takes the exact Hastings factor from the reverse drift at ``q``.  The step
+size adapts by dual averaging on a clock of the kernel state, frozen after
+``tune_steps`` proposals.  The likelihood must be written in
+differentiable torch operations: the sampler checks that at wiring.
+"""
+
+from __future__ import annotations
+
+import numpy as np
+import torch
+
+from .move import Move, mh_decide
+from .tempering import tempered_log_likelihood
+
+__all__ = ["MALAMove", "grad_context"]
+
+
+def grad_context(ctx, fixed, inds, betas):
+    """The gradient of the tempered log posterior of a block of walkers.
+
+    ``fixed`` holds the coordinates of the branches that do not move,
+    ``inds`` every branch's leaf masks and ``betas`` the ``(ntemps,)``
+    ladder.  Returns ``grad_fn(active) -> ((log_like, log_prior), grad)``
+    with ``active`` and ``grad`` dicts over the moving branches.  The sum
+    runs over finite ``logP`` only and a non-finite gradient is set to
+    zero, so a walker at ``-inf`` (outside the prior, where the likelihood
+    is evaluated at zeros) takes a pure noise step instead of freezing.
+    Separable over walkers: the gradient of the sum is each walker's."""
+
+    def logP_sum(active):
+        full = {**fixed, **active}
+        lp = ctx.compute_log_prior(full, inds)
+        ll, _ = ctx.compute_log_like(full, inds, lp)
+        logP = tempered_log_likelihood(ll, betas) + lp
+        return torch.where(torch.isfinite(logP), logP, 0.0).sum(), (ll, lp)
+
+    raw = torch.func.grad_and_value(logP_sum, has_aux=True)
+
+    def grad_fn(active):
+        g, (_, aux) = raw(active)
+        return aux, {n: torch.where(torch.isfinite(v), v, 0.0)
+                     for n, v in g.items()}
+
+    return grad_fn
+
+
+class MALAMove(Move):
+    """Langevin proposal with exact MH correction.
+
+    Args:
+        eps: step size, a scalar (all branches) or ``{branch: scalar or
+            (ndim,) array}``; None takes ``1.65 d^(-1/6)`` times the spread
+            of the initial cold ensemble per parameter.
+        target_acceptance: the cold chain's mean acceptance probability
+            that dual averaging steers a global log step multiplier to, for
+            the first ``tune_steps`` proposals (0 disables it).
+        ensemble_precondition: walkers move in two permuted halves, each
+            with the other half's per-parameter spread as its diagonal mass
+            matrix (exact detailed balance, as the stretch move's).
+
+    Gibbs splits are refused (``proposal_branch_names`` restricts the
+    branches); periodic parameters wrap, and the Hastings factor takes the
+    nearest-image displacement.
+    """
+
+    #: the sampler checks that the likelihood can be differentiated
+    needs_gradient = True
+
+    #: dual-averaging constants (Hoffman & Gelman 2014, NUTS sec. 3.2)
+    _DA_GAMMA = 0.05
+    _DA_T0 = 10.0
+    _DA_KAPPA = 0.75
+    #: the eps=None heuristic, CONST * sigma * d^(-EXP)
+    _EPS_DIM_EXP = 1.0 / 6.0
+    _EPS_DIM_CONST = 1.65
+
+    def __init__(self, eps=None, target_acceptance=0.574, tune_steps=500,
+                 ensemble_precondition=False, **kwargs):
+        super().__init__(**kwargs)
+        if self.gibbs_iterations != [None]:
+            raise ValueError(
+                "gibbs_sampling_setup is not supported by gradient moves "
+                "(MALA/HMC update all selected branches jointly); use "
+                "proposal_branch_names to restrict branches."
+            )
+        self.eps = eps
+        self.ensemble_precondition = bool(ensemble_precondition)
+        self.target_acceptance = float(target_acceptance)
+        self.tune_steps = int(tune_steps)
+        self._eps_on = {}  # (device, dtype): {branch: (ndim,) tensor}
+
+    # -- step sizes ---------------------------------------------------------
+    def _eps_base(self, state):
+        """The eps=None step sizes: per-parameter spread of the initial cold
+        ensemble over active leaves, times the dimension factor."""
+        names = self.run_branches(state)
+        d_total = max(sum(state.branches[n].nleaves_max * state.branches[n].ndim
+                          for n in names), 1)
+        dim_factor = float(d_total) ** (-self._EPS_DIM_EXP)
+        out = {}
+        for n in names:
+            c = state.branches_coords[n][0]
+            m = state.branches_inds[n][0][..., None].to(c.dtype)
+            cnt = m.sum(dim=(0, 1))
+            mean = (c * m).sum(dim=(0, 1)) / torch.clamp(cnt, min=1.0)
+            var = (((c - mean) ** 2) * m).sum(dim=(0, 1)) / torch.clamp(
+                cnt - 1.0, min=1.0)
+            sig = torch.sqrt(var)
+            sig = torch.where((cnt > 1.0) & (sig > 0.0), sig, 1.0)
+            out[n] = self._EPS_DIM_CONST * dim_factor * sig
+        return out
+
+    def _eps_for(self, name, ndim, like, kernel_state=None):
+        """The ``(ndim,)`` step sizes of branch ``name`` in the dtype and on
+        the device of ``like``; a given eps is copied there once (in
+        :meth:`init_kernel_state`), so a step never copies from the host."""
+        if self.eps is None:
+            if isinstance(kernel_state, dict) and "eps_base" in kernel_state:
+                return kernel_state["eps_base"][name]
+            return like.new_full((ndim,), 0.1)  # bare call, no kernel state
+        key = (like.device, like.dtype)
+        on = self._eps_on.setdefault(key, {})
+        if name not in on:
+            eps = self.eps[name] if isinstance(self.eps, dict) else self.eps
+            on[name] = torch.as_tensor(
+                np.broadcast_to(np.asarray(eps, dtype=np.float64), (ndim,)).copy(),
+            ).to(device=like.device, dtype=like.dtype)
+        return on[name]
+
+    def init_kernel_state(self, state):
+        self.prepare_constants(state)
+        logl = state.log_like
+        for n in self.run_branches(state):
+            self._eps_for(n, state.branches[n].ndim, logl)
+        ks = {
+            "log_scale": logl.new_zeros(()),
+            "log_scale_avg": logl.new_zeros(()),
+            "h_avg": logl.new_zeros(()),
+            "t": torch.zeros((), dtype=torch.int32, device=logl.device),
+        }
+        if self.eps is None:
+            ks["eps_base"] = {n: v.to(logl.dtype).clone()
+                              for n, v in self._eps_base(state).items()}
+        return ks
+
+    # -- dual averaging -------------------------------------------------------
+    def _adapt_scale(self, kernel_state, acc):
+        """One dual-averaging update from the cold chain's mean of ``acc``;
+        the identity once ``t >= tune_steps``."""
+        ks = kernel_state
+        tuning = ks["t"] < self.tune_steps
+        t = ks["t"] + 1
+        tf = t.to(acc.dtype)
+        err = self.target_acceptance - acc[0].mean()
+        h_avg = torch.where(
+            tuning,
+            (1.0 - 1.0 / (tf + self._DA_T0)) * ks["h_avg"]
+            + err / (tf + self._DA_T0),
+            ks["h_avg"],
+        )
+        log_scale = torch.where(
+            tuning, -torch.sqrt(tf) / self._DA_GAMMA * h_avg, ks["log_scale"])
+        w = tf ** (-self._DA_KAPPA)
+        log_scale_avg = torch.where(
+            tuning, w * log_scale + (1.0 - w) * ks["log_scale_avg"],
+            ks["log_scale_avg"])
+        return {**ks, "log_scale": log_scale, "log_scale_avg": log_scale_avg,
+                "h_avg": h_avg, "t": t}
+
+    def _current_scale(self, kernel_state, like):
+        if self.tune_steps <= 0 or not kernel_state:
+            return like.new_ones(())
+        tuning = kernel_state["t"] < self.tune_steps
+        return torch.exp(torch.where(tuning, kernel_state["log_scale"],
+                                     kernel_state["log_scale_avg"]))
+
+    # -- draws ----------------------------------------------------------------
+    @staticmethod
+    def draw_noise(generator, coords):
+        """The standard normals of one Langevin proposal, shaped like each
+        branch of ``coords``."""
+        return {n: torch.randn(c.shape, generator=generator, dtype=c.dtype,
+                               device=c.device)
+                for n, c in coords.items()}
+
+    # -- shared pieces of the gradient moves ------------------------------------
+    def _grad_setup(self, state, ctx):
+        names = self.run_branches(state)
+        coords = {n: state.branches_coords[n] for n in names}
+        inds = dict(state.branches_inds)
+        fixed = {n: c for n, c in state.branches_coords.items()
+                 if n not in names}
+        betas = state.betas
+        if betas is None:
+            betas = state.log_like.new_ones((state.log_like.shape[0],))
+        return names, coords, inds, betas, grad_context(ctx, fixed, inds, betas)
+
+    def _wrap_periodic(self, name, q):
+        if self.periodic is not None:
+            return self.periodic.wrap({name: q})[name]
+        return q
+
+    def _displacement(self, name, a, b):
+        """``b - a``, the nearest periodic image where periodic."""
+        if self.periodic is not None:
+            return self.periodic.distance({name: a}, {name: b})[name]
+        return b - a
+
+    @staticmethod
+    def _acceptance_probability(state, betas, factors, ll1, lp1):
+        """Per-walker ``min(1, exp(lnpdiff))``, NaN as 0: what dual
+        averaging and the ChEES gradient weight by."""
+        logP_new = tempered_log_likelihood(ll1, betas) + lp1
+        logP_old = (tempered_log_likelihood(state.log_like, betas)
+                    + state.log_prior)
+        lnpdiff = factors + logP_new - logP_old
+        return torch.nan_to_num(torch.exp(torch.clamp(lnpdiff, max=0.0)))
+
+    def _accept_and_merge(self, generator, state, names, coords, q, factors,
+                          ll1, lp1, betas, kernel_state):
+        logP_new = tempered_log_likelihood(ll1, betas) + lp1
+        logP_old = (tempered_log_likelihood(state.log_like, betas)
+                    + state.log_prior)
+        acc = mh_decide(self.draw_accept(generator, logP_new), factors,
+                        logP_new, logP_old)
+        new_coords = dict(state.branches_coords)
+        for n in names:
+            new_coords[n] = torch.where(acc[:, :, None, None], q[n], coords[n])
+        logl = torch.where(acc, ll1, state.log_like)
+        logp = torch.where(acc, lp1, state.log_prior)
+        if self.tune_steps > 0 and kernel_state:
+            alpha = self._acceptance_probability(state, betas, factors, ll1,
+                                                 lp1)
+            kernel_state = self._adapt_scale(kernel_state, alpha)
+        new_state = state.replace(coords=new_coords,
+                                  inds=dict(state.branches_inds),
+                                  log_like=logl, log_prior=logp)
+        return new_state, acc, kernel_state
+
+    # -- the red/blue preconditioned form -------------------------------------
+    @staticmethod
+    def _complement_sigma(coords_c, inds_c):
+        """Per-parameter spread of the complement over active leaves,
+        ``(ntemps, 1, nleaves_max, ndim)`` (1 where fewer than two)."""
+        mm = inds_c[..., None].to(coords_c.dtype)
+        cnt = mm.sum(dim=1, keepdim=True)
+        mean = (coords_c * mm).sum(dim=1, keepdim=True) / torch.clamp(
+            cnt, min=1.0)
+        var = ((coords_c - mean) ** 2 * mm).sum(
+            dim=1, keepdim=True) / torch.clamp(cnt - 1.0, min=1.0)
+        sig = torch.sqrt(var)
+        return torch.where((cnt > 1.0) & (sig > 0.0), sig, 1.0)
+
+    def _eps_for_precond(self, name, ndim, like, kernel_state):
+        """With eps=None the heuristic base collapsed to its geometric mean
+        (the complement's spread supplies the anisotropy); a given eps as
+        it is."""
+        vec = self._eps_for(name, ndim, like, kernel_state)
+        if self.eps is None:
+            return torch.exp(torch.log(torch.clamp(torch.abs(vec),
+                                                   min=1e-12)).mean())
+        return vec
+
+    def _propose_impl_precond(self, generator, state, ctx, kernel_state=(),
+                              propose_block=None):
+        """Two permuted halves in turn, each with the other half's spread
+        as its mass matrix.  ``propose_block(generator, names, x, masks,
+        eps, grad_fn) -> (q, ll1, lp1, factors)`` is the proposal of one
+        half (None: the Langevin one)."""
+        if propose_block is None:
+            propose_block = self._langevin
+        names = self.run_branches(state)
+        all_names = list(state.branches_coords)
+        logl0 = state.log_like
+        ntemps, nwalkers = logl0.shape
+        betas = state.betas
+        if betas is None:
+            betas = logl0.new_ones((ntemps,))
+        scale = self._current_scale(kernel_state, logl0)
+
+        perm = self.draw_perm(generator, nwalkers, logl0.device)
+        inv_perm = torch.argsort(perm)
+        coords_p = {n: state.branches_coords[n][:, perm] for n in all_names}
+        inds_p = {n: state.branches_inds[n][:, perm] for n in all_names}
+        logl_p = logl0[:, perm]
+        logp_p = state.log_prior[:, perm]
+        acc_p = torch.zeros((ntemps, nwalkers), dtype=torch.bool,
+                            device=logl0.device)
+
+        n0 = nwalkers - nwalkers // 2
+        alpha_sum = logl0.new_zeros(())
+        for off, ns in ((0, n0), (n0, nwalkers - n0)):
+            blk = slice(off, off + ns)
+
+            def comp(x, off=off, ns=ns):
+                return torch.cat([x[:, :off], x[:, off + ns:]], dim=1)
+
+            eps_tree = {}
+            for n in names:
+                sigma = self._complement_sigma(comp(coords_p[n]),
+                                               comp(inds_p[n]))
+                base = self._eps_for_precond(n, coords_p[n].shape[-1], logl0,
+                                             kernel_state)
+                eps_tree[n] = scale * base * sigma
+
+            inds_blk = {n: inds_p[n][:, blk] for n in all_names}
+            fixed = {n: coords_p[n][:, blk] for n in all_names
+                     if n not in names}
+            grad_fn = grad_context(ctx, fixed, inds_blk, betas)
+            x = {n: coords_p[n][:, blk] for n in names}
+            masks_blk = {n: inds_blk[n][..., None] for n in names}
+
+            q, ll1, lp1, factors = propose_block(generator, names, x,
+                                                 masks_blk, eps_tree, grad_fn)
+
+            prev_logl = logl_p[:, blk]
+            prev_logp = logp_p[:, blk]
+            logP_new = tempered_log_likelihood(ll1, betas) + lp1
+            logP_old = tempered_log_likelihood(prev_logl, betas) + prev_logp
+            acc = mh_decide(self.draw_accept(generator, logP_new), factors,
+                            logP_new, logP_old)
+            lnpdiff = factors + logP_new - logP_old
+            alpha_sum = alpha_sum + torch.nan_to_num(
+                torch.exp(torch.clamp(lnpdiff[0], max=0.0))).mean()
+
+            for n in names:
+                coords_p[n][:, blk] = torch.where(acc[:, :, None, None], q[n],
+                                                  x[n])
+            logl_p[:, blk] = torch.where(acc, ll1, prev_logl)
+            logp_p[:, blk] = torch.where(acc, lp1, prev_logp)
+            acc_p[:, blk] = acc
+
+        if self.tune_steps > 0 and kernel_state:
+            kernel_state = self._adapt_scale(kernel_state,
+                                             (0.5 * alpha_sum)[None, None])
+
+        new_state = state.replace(
+            coords={n: coords_p[n][:, inv_perm] for n in all_names},
+            inds=dict(state.branches_inds),
+            log_like=logl_p[:, inv_perm], log_prior=logp_p[:, inv_perm],
+        )
+        return new_state, acc_p[:, inv_perm], kernel_state
+
+    def _mala_factors(self, names, x, q, grad_x, grad_q, masks, eps, like):
+        """``log q(q -> x) - log q(x -> q)`` over active coordinates, with
+        ``log q(a -> b) = -|d(a, b) - (eps^2/2) grad(a)|^2 / (2 eps^2)``."""
+        factors = like.new_zeros(like.shape)
+        for n in names:
+            e2 = eps[n] ** 2
+            fwd = self._displacement(n, x[n], q[n]) - 0.5 * e2 * grad_x[n]
+            rev = self._displacement(n, q[n], x[n]) - 0.5 * e2 * grad_q[n]
+            contrib = (rev ** 2 - fwd ** 2) / (2.0 * e2)
+            factors = factors - torch.where(masks[n], contrib, 0.0).sum(
+                dim=(-2, -1))
+        return factors
+
+    def _langevin(self, generator, names, x, masks, eps, grad_fn):
+        """The Langevin proposal from ``x``: ``(q, ll1, lp1, factors)``."""
+        xi = self.draw_noise(generator, x)
+        _, grad_x = grad_fn(x)
+        q = {}
+        for n in names:
+            step = 0.5 * eps[n] ** 2 * grad_x[n] + eps[n] * xi[n]
+            q[n] = self._wrap_periodic(
+                n, x[n] + torch.where(masks[n], step, 0.0))
+        (ll1, lp1), grad_q = grad_fn(q)
+        factors = self._mala_factors(names, x, q, grad_x, grad_q, masks, eps,
+                                     ll1)
+        return q, ll1, lp1, factors
+
+    def _propose_impl(self, generator, state, ctx, kernel_state=()):
+        if self.ensemble_precondition:
+            return self._propose_impl_precond(generator, state, ctx,
+                                              kernel_state)
+        names, coords, inds, betas, grad_fn = self._grad_setup(state, ctx)
+        scale = self._current_scale(kernel_state, state.log_like)
+        eps = {n: scale * self._eps_for(n, coords[n].shape[-1],
+                                        state.log_like, kernel_state)
+               for n in names}
+        masks = {n: inds[n][..., None] for n in names}
+        q, ll1, lp1, factors = self._langevin(generator, names, coords, masks,
+                                              eps, grad_fn)
+        return self._accept_and_merge(generator, state, names, coords, q,
+                                      factors, ll1, lp1, betas, kernel_state)

@@ -231,6 +231,13 @@ class Move:
             self.periodic.wrap(state.branches_coords)
 
     @staticmethod
+    def draw_perm(generator, nwalkers, device):
+        """A uniformly random permutation of the walker axis (the red/blue
+        split), an int64 ``(nwalkers,)`` tensor."""
+        return torch.argsort(
+            torch.rand(nwalkers, generator=generator, device=device))
+
+    @staticmethod
     def draw_accept(generator, like):
         """The uniforms of one Metropolis-Hastings decision, shaped like
         ``like``."""

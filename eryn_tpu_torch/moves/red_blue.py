@@ -10,7 +10,7 @@ from __future__ import annotations
 
 import torch
 
-from .move import Move, mh_accept
+from .move import Move, mh_decide
 from .tempering import tempered_log_likelihood
 
 __all__ = ["RedBlueMove"]
@@ -105,9 +105,7 @@ class RedBlueMove(Move):
         all_names = list(coords)
         for names, param_masks in self.gibbs_iterations_for(state):
             if self.randomize_split:
-                perm = torch.argsort(
-                    torch.rand(nwalkers, generator=generator, device=device)
-                )
+                perm = self.draw_perm(generator, nwalkers, device)
                 inv_perm = _inverse_permutation(perm)
             else:
                 perm = inv_perm = torch.arange(nwalkers, device=device)
@@ -141,7 +139,8 @@ class RedBlueMove(Move):
                 prev_logp = logp_p[:, blk]
                 logP_new = tempered_log_likelihood(logl_new, betas) + logp_new
                 logP_old = tempered_log_likelihood(prev_logl, betas) + prev_logp
-                acc = mh_accept(generator, factors, logP_new, logP_old)
+                acc = mh_decide(self.draw_accept(generator, logP_new), factors,
+                                logP_new, logP_old)
 
                 acc4 = acc[:, :, None, None]
                 for n in names:

@@ -818,7 +818,10 @@ def test_non_uniform_priors_graphed_equal_eager(cuda, rj):
 # ----------------------------------------------------------------------
 ZOO = ["gaussian diag", "gaussian full", "gaussian sequential", "gaussian random",
        "distgen", "group stretch", "mt independent", "mt regenerated", "dr",
-       "combine", "mt rj", "model swap"]
+       "combine", "mt rj", "model swap",
+       # the gradient moves and the rest of the in-model zoo
+       "mala", "mala precond", "hmc", "hmc jittered", "hmc precond", "chees",
+       "de", "snooker", "walk", "kde", "slice", "aimh"]
 
 
 def _zoo_sampler(cuda, kind, cuda_graph):
@@ -886,6 +889,22 @@ def _zoo_sampler(cuda, kind, cuda_graph):
             tm.GroupStretchMove(n_iter_update=7),
             tm.DelayedRejection(tm.GaussianMove(diag, mode="sequential"),
                                 max_iter=2)]),
+        # tune_steps inside the run, so that the graphs replay the
+        # adaptation and its freeze
+        "mala": lambda: tm.MALAMove(tune_steps=30),
+        "mala precond": lambda: tm.MALAMove(tune_steps=30,
+                                            ensemble_precondition=True),
+        "hmc": lambda: tm.HMCMove(tune_steps=30),
+        "hmc jittered": lambda: tm.HMCMove(num_leapfrog=(3, 7), tune_steps=30),
+        "hmc precond": lambda: tm.HMCMove(tune_steps=30,
+                                          ensemble_precondition=True),
+        "chees": lambda: tm.ChEESHMCMove(tune_steps=30),
+        "de": lambda: tm.DEMove(),
+        "snooker": lambda: tm.DESnookerMove(),
+        "walk": lambda: tm.WalkMove(),
+        "kde": lambda: tm.KDEMove(),
+        "slice": lambda: tm.SliceMove(tune_steps=30),
+        "aimh": lambda: tm.AIMHMove(tune_steps=30),
     }[kind]()
     sampler = EnsembleSampler(
         32, 3, lambda x: -0.5 * torch.sum(x * x), pr, moves=move,
@@ -913,7 +932,7 @@ def _zoo_record(sampler, start, steps, burn):
 
 @pytest.mark.parametrize("kind", ZOO)
 def test_zoo_graphed_equals_eager(cuda, kind):
-    """Each gradient-free move from one seed, graphed and eager: chains,
+    """Each in-model move from one seed, graphed and eager: chains,
     masks, ladders, clock, accept and swap counts and the moves' kernel
     states equal digit for digit.  One cascade launch per swap phase (two
     a step under ``CombineMove``, one per move under reversible jump); no
