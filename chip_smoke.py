@@ -22,7 +22,9 @@ Phases, each printing its own lines:
    its plain PyTorch version on the card, in float32 and float64, at the
    main path's shapes and at odd shapes (the cascades in the sampler's tree
    form, as a grid of blocks, as one block and with their rows in global
-   memory, and in the channel form; the group-stretch proposal on both
+   memory, and in the channel form; the tree form with the leaves blobs
+   and supplementals add, 7 of mixed dtypes and 40 in two launches, plain
+   and rolled; the group-stretch proposal on both
    blocks of the RJ split and with two branches, a Gibbs table, an empty
    complement, picks beyond the count, a periodic dimension and the log
    proposal), then
@@ -108,6 +110,19 @@ Phases, each printing its own lines:
      ``DeviceBackend``: ``best_stack_steps_per_s``,
      ``best_stack_ess_per_s``, the cold ``max(tau)`` beside the stretch
      north-star's, the north-star's gates, and no kernel launch;
+   * blobs and supplementals through the graphed step:
+     ``blobs[north-star]`` (the north-star target through a likelihood that
+     returns ``(ll, [-2 ll, x0])`` and divides by a branch supplemental
+     ``sigma`` of ones under ``provide_supplemental=True``, an int64 state
+     tag ``rid``; 200 warm and 1,200 stored steps: the blob identities on
+     every stored sample, ``rid`` a permutation, the north-star's gates,
+     one cascade a step and no stretch kernel, ``blobs_steps_per_s`` beside
+     ``stored_device_steps_per_s``), ``blobs[lisa-rj-null]`` (the null RJ
+     configuration with the leaf count as its blob, equal to
+     ``get_nleaves()`` at every sample) and ``replica_flow[cascade]``,
+     ``replica_flow[deo]`` (``benchmarks/replica_flow.py``'s 8 x 16
+     configuration through ``sample()``, the replica tag in the state
+     supplemental: round trips, and per replica per 1k steps);
    * a flat-likelihood RJ run (64 walkers, 3 leaves): a uniform leaf-count
      posterior.  It checks the RJ moves, is not part of the main path, and
      its launches stay out of the report.
@@ -117,7 +132,8 @@ Phases, each printing its own lines:
    schedule entry must be a replay of its move's graph (but the first of
    each, which runs eagerly), no leg may call a plain version of a kernel,
    and each chain must meet its target.  Then graph vs eager: the first
-   four legs, the DEO leg, the zoo's ``CombineMove`` and MT-RJ legs, and
+   four legs, the blob leg (blobs, ``rid``, ``sigma`` and a host object
+   compared too), the DEO leg, the zoo's ``CombineMove`` and MT-RJ legs, and
    its MALA, jittered HMC (3 to 7 steps), ChEES, slice and AIMH legs at
    a quarter of their depth from one seed, with ``cuda_graph=False`` and
    graphed; their chains, ladders, clocks, accept and swap counts and
@@ -178,6 +194,9 @@ BS_SEED, BS_BURN = 12, 600
 # (tests/test_modelswap.py:153-181) at their own shapes and depths
 D_NT, D_NW, D_BURN, D_STEPS = 3, 36, 400, 400
 S_NT, S_NW, S_BURN, S_STEPS = 3, 64, 200, 800
+# benchmarks/replica_flow.py:45-83: 8 x 16, 3-D, U(-7, 7)^3, a fixed
+# ladder, 1,200 steps, seed 17, the start drawn from default_rng(99)
+R_NT, R_NW, R_NDIM, R_STEPS, R_SEED = 8, 16, 3, 1200, 17
 EVIDENCE = dict(Tmax=math.inf, adaptive=False)
 LOG_Z = 2.5 * math.log(2.0 * math.pi) - 5.0 * math.log(10.0)
 # float32: a few ulp (exp/log of the two code paths may differ); float64
@@ -254,6 +273,33 @@ def _tree_args(torch, rand, randn, gen, nt, nw, nleaves, ndim, dtype):
 
 def _flat(outs):
     return (outs[0], *outs[1], outs[2], outs[3])
+
+
+def _mixed_tree_args(torch, rand, randn, gen, nt, nw, nleaves, dtype):
+    """The north-star tree with the leaves blobs and supplementals add to
+    it (float blobs of width 2, an int64 tag, a float64 entry, a bool flag;
+    these kinds repeated up to ``nleaves`` leaves in all); as
+    :func:`_tree_args`."""
+    args, _ = _tree_args(torch, rand, randn, gen, nt, nw, 1, NDIM, dtype)
+    logl, leaves = args[0], list(args[1])
+    kinds = (
+        lambda: randn(nt, nw, 2),
+        lambda: torch.randint(-2**40, 2**40, (nt, nw), generator=gen,
+                              dtype=torch.int64, device=gen.device).cuda(),
+        lambda: torch.randn((nt, nw, 3), generator=gen, dtype=torch.float64,
+                            device=gen.device).cuda(),
+        lambda: rand(nt, nw) < 0.5,
+    )
+    while len(leaves) < nleaves:
+        leaves.append(kinds[(len(leaves) - 3) % len(kinds)]())
+    args = (logl, leaves) + args[2:]
+
+    def outs():
+        return (torch.empty_like(logl), [torch.empty_like(x) for x in leaves],
+                torch.empty(nt - 1, dtype=dtype, device="cuda"),
+                torch.empty((nt - 1, nw), dtype=dtype, device="cuda"))
+
+    return args, outs
 
 
 def _select_args(torch, rand, randn, nt, Q, M, nd, empty_last=True):
@@ -410,6 +456,29 @@ def check_kernels(torch, dtype_name):
                 assert a.dtype == b.dtype and torch.equal(a, b), (
                     f"{name} (tree form, {form}) is not bitwise at "
                     f"{(nt, nw)}")
+            record(name, _flat(out_k), _flat(out_r))
+
+    # the tree with blobs and supplementals in it: 7 leaves of mixed dtypes,
+    # and 40 (two launches of at most 32 leaves, on the same draws), at the
+    # north-star size and, rolled, at config E's
+    for nt, nw in ((NT, NW), (E_NT, E_NW)):
+        name = ("_cascade_multi_rolled" if nw > pt_swap.ROLLED_THRESHOLD
+                else "pt_swap_cascade_multi")
+        counter = getattr(pt_swap, name)
+        for nleaves in (7, 40):
+            args, outs = _mixed_tree_args(torch, rand, randn, gen, nt, nw,
+                                          nleaves, dtype)
+            out_k, out_r = outs(), outs()
+            before = counter.launches
+            pt_swap.pt_swap_cascade_tree(*args, *out_k)
+            groups = counter.launches - before
+            assert groups == -(-nleaves // pt_swap.MAX_LEAVES), groups
+            pt_swap.pt_swap_cascade_tree_ref(*args, *out_r)
+            for a, b in zip(_flat(out_k), _flat(out_r)):
+                assert a.dtype == b.dtype and torch.equal(a, b), (
+                    f"{name} with {nleaves} mixed leaves is not bitwise at "
+                    f"{(nt, nw)}")
+            assert 0 < out_r[2].sum() < (nt - 1) * nw
             record(name, _flat(out_k), _flat(out_r))
 
     # the selection only moves values: equal (a -0.0 may stand for +0.0)
@@ -597,6 +666,18 @@ def time_kernels(torch):
         calls[name + "[one block]"] = (
             lambda a=args, o=o, nw=nw: pt_swap.pt_swap_cascade_tree(
                 *a, *o, chunk=nw), None, nbytes, ops)
+    # the tree with blobs and supplementals in it at the north-star size:
+    # 7 leaves of mixed dtypes, and 40 in two launches (each repeats the
+    # decisions; the bound counts them once)
+    for nleaves in (7, 40):
+        args, outs = _mixed_tree_args(torch, rand, randn, g, NT, NW, nleaves,
+                                      torch.float32)
+        o = outs()[:3]
+        nbytes = (2 * _nbytes(args[0], *args[1]) + _nbytes(*args[2:], o[2]))
+        calls[f"pt_swap_cascade_multi[{nleaves} mixed leaves]"] = (
+            lambda a=args, o=o: pt_swap.pt_swap_cascade_tree(*a, *o),
+            lambda a=args, o=o: pt_swap.pt_swap_cascade_tree_ref(*a, *o),
+            nbytes, 3 * (NT - 1) * NW)
     # the channel form (the JAX kernels' signatures), which the sampler no
     # longer calls
     for name, kernel, plain, (nt, nw, D) in (
@@ -715,15 +796,21 @@ def _stretch_bytes(torch, nt, nw, D, itemsize, u_all):
 
 
 def device_times(torch, calls, reps=100):
-    """Device time per launch of each call's one kernel, in ms: the calls
+    """Device time of each call's kernel launches, in ms per call: the calls
     run ``reps`` times each, in order, under ``torch.profiler``, and the
     device kernels recorded (only these calls launch any) are assigned to
     the calls in launch order."""
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
 
-    for fn in calls.values():
+    # launches a call makes (the counted kernels' counters; the empty
+    # launch counts none and makes one): a cascade of more than 32 leaves
+    # makes one per group, and its device time is theirs summed
+    per_call = {}
+    for name, fn in calls.items():
+        before = sum(k.launches for k in _kernels())
         fn()
+        per_call[name] = max(1, sum(k.launches for k in _kernels()) - before)
     torch.cuda.synchronize()
     with profile(activities=[ProfilerActivity.CPU,
                              ProfilerActivity.CUDA]) as prof:
@@ -736,12 +823,14 @@ def device_times(torch, calls, reps=100):
          and not e.name.startswith(("Memcpy", "Memset"))),
         key=lambda e: e.time_range.start,
     )
-    assert len(kernels) == reps * len(calls), (
-        f"the profiler recorded {len(kernels)} device kernels for "
-        f"{reps * len(calls)} launches")
-    out = {}
-    for i, name in enumerate(calls):
-        chunk = kernels[i * reps:(i + 1) * reps]
+    total = reps * sum(per_call.values())
+    assert len(kernels) == total, (
+        f"the profiler recorded {len(kernels)} device kernels for {total} "
+        "launches")
+    out, off = {}, 0
+    for name in calls:
+        chunk = kernels[off:off + reps * per_call[name]]
+        off += len(chunk)
         assert len({e.name for e in chunk}) == 1, (name, {e.name for e in chunk})
         out[name] = sum(e.time_range.elapsed_us() for e in chunk) / reps / 1e3
     return out
@@ -836,25 +925,34 @@ def _segments_never_wait():
     replays, its captures and the first eager run of each move, the stored
     legs' snapshot writes) runs under ``set_sync_debug_mode("error")``: a
     segment that waited for the device would raise.  Handing a segment to
-    a backend, outside it, may wait."""
+    a backend, outside it, may wait; so may the reordering of host
+    (object) supplemental entries at a segment's end
+    (``EnsembleSampler._apply_prov``, which reads the walkers' provenance),
+    the one host read a segment makes, and only where a state holds such
+    entries."""
     import torch
 
     from eryn_tpu_torch import EnsembleSampler
 
-    run_bulk = EnsembleSampler._run_bulk
+    run_bulk, apply_prov = EnsembleSampler._run_bulk, EnsembleSampler._apply_prov
 
-    def checked(self, *args, **kwargs):
-        torch.cuda.set_sync_debug_mode("error")
-        try:
-            return run_bulk(self, *args, **kwargs)
-        finally:
-            torch.cuda.set_sync_debug_mode("default")
+    def mode(fn, name):
+        def checked(self, *args, **kwargs):
+            torch.cuda.set_sync_debug_mode(name)
+            try:
+                return fn(self, *args, **kwargs)
+            finally:
+                torch.cuda.set_sync_debug_mode(
+                    "error" if name == "default" else "default")
+        return checked
 
-    EnsembleSampler._run_bulk = checked
+    EnsembleSampler._run_bulk = mode(run_bulk, "error")
+    EnsembleSampler._apply_prov = mode(apply_prov, "default")
     try:
         yield
     finally:
         EnsembleSampler._run_bulk = run_bulk
+        EnsembleSampler._apply_prov = apply_prov
 
 
 def _assert_replays(name, sampler, steps, per_step):
@@ -1018,9 +1116,9 @@ def _host_side(sampler):
     took = {"grow": 0.0, "stage": [], "wait": [], "write": []}
     grow, stage, flush = sampler.backend.grow, sampler._stage, sampler._flush
 
-    def timed_grow(n):
+    def timed_grow(n, blobs=None):
         t0 = time.perf_counter()
-        grow(n)
+        grow(n, blobs)
         took["grow"] += time.perf_counter() - t0
 
     def timed_stage(snaps):
@@ -1220,12 +1318,15 @@ def _pulse_problem(torch, np, null=False, npts=L_NPTS):
     return (ll_null if null else ll), pr, fill
 
 
-def _lisa_sampler(torch, np, null, move, cuda_graph=True, **kw):
+def _lisa_sampler(torch, np, null, move, cuda_graph=True, wrap=None, **kw):
     """The sampler and start state of ``benchmarks/lisa_style.py:build``
-    (``kw``: a backend and hooks)."""
+    (``wrap``: a maker of another likelihood from its likelihood; ``kw``: a
+    backend and hooks)."""
     from eryn_tpu_torch import EnsembleSampler, State
 
     ll, pr, fill = _pulse_problem(torch, np, null)
+    if wrap is not None:
+        ll = wrap(ll)
     s = EnsembleSampler(
         L_NW, 3, ll, pr, nleaves_max=L_NLMAX, nleaves_min=0, moves=move,
         rj_moves=True, tempering_kwargs=dict(ntemps=L_NT),
@@ -1389,7 +1490,9 @@ def custom_move_leg(torch, card):
 def _run_state(np, s):
     """What a run left, as numpy: the stored chain, masks, log-likelihoods,
     log-priors, ladders, accept and swap counts, the clock, the move
-    accept counters and the moves' kernel states."""
+    accept counters and the moves' kernel states; and where the run has
+    them, the stored blobs and the last state's supplemental entries, the
+    host (object) entries by the hash of each object's ``repr``."""
     from eryn_tpu_torch.interop import kernel_state_to_numpy
 
     b = s.backend
@@ -1404,11 +1507,25 @@ def _run_state(np, s):
         out["rj_accepted"] = b.rj_accepted
     for i, leaf in enumerate(kernel_state_to_numpy(s._kernel_states)):
         out[f"kernel state leaf {i}"] = leaf
+    if s.get_blobs() is not None:
+        out["blobs"] = s.get_blobs()
+    last = s._previous_state
+    owners = [("state", last.supplemental)] + [
+        (n, b.branch_supplemental) for n, b in last.branches.items()]
+    for owner, supp in owners:
+        if supp is None:
+            continue
+        for key, value in supp.holder.items():
+            out[f"supplemental {owner} {key}"] = value.cpu().numpy()
+        for key, value in supp.host_holder.items():
+            out[f"host {owner} {key}"] = np.array(
+                [hash(repr(o)) for o in value.ravel()], dtype=np.int64)
     return {k: np.asarray(v) for k, v in out.items()}
 
 
 def graph_vs_eager(torch, card):
-    """North-star, its DEO form, config E, LISA RJ, LISA RJ null, the zoo's
+    """North-star, its blob form, its DEO form, config E, LISA RJ, LISA RJ
+    null, the zoo's
     ``CombineMove``, MT-RJ, MALA, jittered HMC, ChEES, slice and AIMH legs
     at a quarter of their depth from one seed, with ``cuda_graph=False``
     and graphed, in turn:
@@ -1437,8 +1554,15 @@ def graph_vs_eager(torch, card):
         return lambda graphed: _lisa_sampler(
             torch, np, null, RedBlueGroupStretchMove(), cuda_graph=graphed)
 
+    def blobs(graphed):
+        s, start = _blob_sampler(torch, seed=2, cuda_graph=graphed,
+                                 host_object=True)
+        return s, s._setup_state(start)
+
     # (leg, build, steps, schedule entries a step, clock ticks a step)
     legs = (("north-star", gaussian(NT, NW, 0), STORED_STEPS // 4, 1, 1),
+            # blobs, rid, sigma and a host object compared as well
+            ("blobs[north-star]", blobs, STORED_STEPS // 4, 1, 1),
             ("deo[north-star]", gaussian(NT, NW, 7, DEO), STORED_STEPS // 4,
              1, 1),
             ("config E", gaussian(E_NT, E_NW, 5), E_STEPS // 4, 1, 1),
@@ -1902,6 +2026,218 @@ def zoo_leg(torch, card):
         if name in ("CombineMove", "SliceMove"):
             keep.append((leg, s, state))
     return launches_all, rates, keep
+
+
+# ----------------------------------------------------------------------
+# blobs and supplementals through the graphed step
+# ----------------------------------------------------------------------
+def _blob_sampler(torch, seed=0, cuda_graph=True, host_object=False):
+    """The north-star target through a likelihood that returns ``(ll, [-2
+    ll, x0])`` and divides ``x`` by a branch supplemental ``sigma`` of ones
+    (``provide_supplemental=True``: the target stays the north-star's),
+    with an int64 state tag ``rid`` of ``arange(1000)`` and, with
+    ``host_object``, a host object per walker; the sampler and its start,
+    a :class:`State`."""
+    import numpy as np
+
+    from eryn_tpu_torch import (BranchSupplemental, EnsembleSampler,
+                                ProbDistContainer, State, uniform_dist)
+
+    invcov = torch.eye(NDIM, device="cuda")
+
+    def log_like(x, supps):
+        y = x / supps["sigma"]
+        ll = -0.5 * torch.sum(y * (invcov @ y))
+        return ll, torch.stack([-2.0 * ll, x[0]])
+
+    priors = ProbDistContainer({i: uniform_dist(-5.0, 5.0) for i in range(NDIM)})
+    s = EnsembleSampler(
+        NW, NDIM, log_like, priors, tempering_kwargs=dict(ntemps=NT),
+        seed=seed, device="cuda", provide_supplemental=True,
+        cuda_graph=cuda_graph)
+    coords = priors.rvs(size=(NT, NW), generator=torch.Generator(
+        device="cuda").manual_seed(seed))
+    supp = {"rid": torch.arange(NT * NW, device="cuda").reshape(NT, NW)}
+    if host_object:
+        objs = np.empty((NT, NW), dtype=object)
+        objs[...] = [[("walker", t * NW + w) for w in range(NW)]
+                     for t in range(NT)]
+        supp["obj"] = objs
+    return s, State(
+        {"model_0": coords}, supplemental=BranchSupplemental(supp),
+        branch_supplemental={"model_0": BranchSupplemental(
+            {"sigma": torch.ones((NT, NW), device="cuda")})})
+
+
+def blobs_north_star_leg(torch, card):
+    """``blobs[north-star]``: the north-star configuration through
+    :func:`_blob_sampler`, 200 warm steps, then 1,200 stored into the
+    default ``DeviceBackend``.  Every stored ``blob[0]`` is ``-2 log_like``
+    (a doubling, exact in float32; float32 rounding allowed), ``blob[1]``
+    the first parameter of the stored chain, the final ``rid`` a permutation
+    of ``arange(1000)`` other than the identity, and the cold chain meets
+    the north-star's gates; the blobs take the general stretch path (the
+    fused kernels decline them), so one cascade launch a step and no
+    stretch kernel."""
+    import numpy as np
+
+    leg = "blobs[north-star]"
+    read = _counting(_kernels())
+    s, start = _blob_sampler(torch)
+    s.run_mcmc(start, WARM_STEPS, store=False)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    s.run_mcmc(None, STORED_STEPS)
+    torch.cuda.synchronize()
+    dt = time.perf_counter() - t0
+    steps = WARM_STEPS + STORED_STEPS
+    launches = read()
+    replays = _assert_replays(leg, s, steps, 1)
+    assert launches["pt_swap_cascade_multi"] == steps, launches
+    assert all(v == 0 for k, v in launches.items()
+               if k != "pt_swap_cascade_multi"), launches
+    blobs, ll = s.get_blobs(), s.get_log_like()
+    chain = s.get_chain()["model_0"]
+    assert blobs.shape == (STORED_STEPS, NT, NW, 2), blobs.shape
+    assert blobs.dtype == np.float32, blobs.dtype
+    np.testing.assert_allclose(blobs[..., 0], -2.0 * ll,
+                               rtol=float(np.finfo(np.float32).eps), atol=0)
+    assert np.array_equal(blobs[..., 1], chain[:, :, :, 0, 0])
+    rid = s._previous_state.supplemental["rid"].cpu().numpy().ravel()
+    ident = np.arange(NT * NW)
+    assert np.array_equal(np.sort(rid), ident), "rid is not a permutation"
+    assert not np.array_equal(rid, ident), "no walker changed rungs"
+    _check_gaussian_chain(np, leg, s, NT)
+    exact = int(np.sum(blobs[..., 0] == -2.0 * ll))
+    print(f"{leg}: blobs {blobs.shape} {blobs.dtype}; blob[0] == -2 "
+          f"log_like exactly at {exact} of {ll.size} samples (the rest "
+          f"within float32 rounding), blob[1] == the chain's x0 at all; rid "
+          f"a permutation of arange({NT * NW}) with "
+          f"{int(np.sum(rid != ident))} walkers off their start slot")
+    rates = {"blobs_steps_per_s": STORED_STEPS / dt}
+    print(f"rate: blobs_steps_per_s = {rates['blobs_steps_per_s']:.1f} "
+          f"({card})")
+    print(f"launches[{leg}]: {launches} over {steps} steps, {replays} graph "
+          "replays")
+    return launches, rates, (leg, s, s._previous_state)
+
+
+def blobs_lisa_rj_null_leg(torch, card):
+    """``blobs[lisa-rj-null]``: the LISA-style RJ configuration under the
+    null likelihood (``benchmarks/lisa_style.py:36-96``, ``heavy=False``),
+    its blob the number of active leaves; 100 warm and 1,200 stored steps.
+    The stored blob equals ``get_nleaves()`` at every sample, the RJ gates
+    of the null leg hold, and the group-stretch proposal and the cascade
+    launch twice a step each."""
+    import numpy as np
+
+    from eryn_tpu_torch.moves import RedBlueGroupStretchMove
+
+    leg = "blobs[lisa-rj-null]"
+
+    def with_count(ll):
+        def ll_count(coords, inds):
+            return ll(coords, inds), inds.sum().to(coords.dtype)
+        return ll_count
+
+    s, state = _lisa_sampler(torch, np, True, RedBlueGroupStretchMove(),
+                             wrap=with_count)
+    read = _counting(_kernels())
+    s._run_bulk(state, 1, L_WARM, store=False)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    s.run_mcmc(None, L_STEPS)
+    torch.cuda.synchronize()
+    dt = time.perf_counter() - t0
+    steps = L_WARM + L_STEPS
+    launches = read()
+    replays = _assert_replays(leg, s, steps, 2)
+    assert launches["group_stretch_propose"] == 2 * steps, launches
+    assert launches["pt_swap_cascade_multi"] == 2 * steps, launches
+    assert all(v == 0 for k, v in launches.items() if k not in (
+        "group_stretch_propose", "pt_swap_cascade_multi")), launches
+    blobs, nleaves = s.get_blobs(), s.get_nleaves()["model_0"]
+    assert blobs.shape == nleaves.shape, (blobs.shape, nleaves.shape)
+    assert np.array_equal(blobs, nleaves), "the blob is not the leaf count"
+    c = _rj_chain_summary(np, s, L_STEPS)
+    _print_rj_chain(np, leg, c)
+    assert 0 < c["rj"] < 1, c["rj"]
+    assert 0.2 < c["acc"] < 0.8, c["acc"]
+    assert np.all((c["swaps"] > 0) & (c["swaps"] < 1)), c["swaps"]
+    print(f"{leg}: the stored blob equals get_nleaves() at all "
+          f"{nleaves.size} (step, temperature, walker) samples")
+    rates = {"blobs_lisa_rj_null_steps_per_s": L_STEPS / dt}
+    print(f"rate: blobs_lisa_rj_null_steps_per_s = "
+          f"{rates['blobs_lisa_rj_null_steps_per_s']:.1f} ({card})")
+    print(f"launches[{leg}]: {launches} over {steps} steps, {replays} graph "
+          "replays")
+    return launches, rates, (leg, s, s._previous_state)
+
+
+def replica_flow_leg(torch, card):
+    """``replica_flow[cascade]`` and ``replica_flow[deo]``:
+    ``benchmarks/replica_flow.py``'s configuration (8 x 16, 3-D, a fixed
+    ladder, 1,200 steps through ``sample()``, seed 17, the start from
+    ``default_rng(99)``), a replica tag ``rid`` riding the state
+    supplemental.  Each step's tag stays on the device until the end; the
+    round trips (cold rung to the hottest and back) are counted by
+    ``utils.replica_round_trips``.  Trips > 0 for both schemes; one cascade
+    launch a step under the cascade, none under DEO, the fused stretch
+    kernels (a state tag alone does not make them decline)."""
+    import numpy as np
+
+    from eryn_tpu_torch import (BranchSupplemental, EnsembleSampler,
+                                ProbDistContainer, State, uniform_dist)
+    from eryn_tpu_torch.utils import replica_round_trips
+
+    read = _counting(_kernels())
+    rates, kept = {}, []
+    for scheme in ("cascade", "deo"):
+        leg = f"replica_flow[{scheme}]"
+        before = read()
+        pr = ProbDistContainer({i: uniform_dist(-7.0, 7.0)
+                                for i in range(R_NDIM)})
+        coords = np.random.default_rng(99).uniform(
+            -3, 3, size=(R_NT, R_NW, 1, R_NDIM))
+        s = EnsembleSampler(
+            R_NW, R_NDIM, lambda x: -0.5 * torch.sum(x ** 2), pr,
+            tempering_kwargs=dict(ntemps=R_NT, adaptive=False,
+                                  swap_scheme=scheme),
+            seed=R_SEED, device="cuda")
+        start = State(
+            {"model_0": torch.tensor(coords, dtype=torch.float32,
+                                     device="cuda")},
+            supplemental=BranchSupplemental({"rid": torch.arange(
+                R_NT * R_NW, device="cuda").reshape(R_NT, R_NW)}))
+        tags = []
+        t0 = time.perf_counter()
+        for state in s.sample(start, iterations=R_STEPS, store=False):
+            tags.append(state.supplemental["rid"])
+        torch.cuda.synchronize()
+        dt = time.perf_counter() - t0
+        tag = torch.stack(tags).reshape(R_STEPS, -1).cpu().numpy()
+        rungs = np.empty(tag.shape, dtype=np.int8)
+        np.put_along_axis(rungs, tag, np.broadcast_to(
+            np.repeat(np.arange(R_NT, dtype=np.int8), R_NW), tag.shape),
+            axis=1)
+        trips = replica_round_trips(rungs, R_NT)
+        assert trips > 0, f"{leg}: no round trip"
+        per_k = 1000.0 * trips / (R_NT * R_NW * R_STEPS)
+        attempts = R_NT - 1 if scheme == "cascade" else (R_NT - 1) / 2.0
+        now = read()
+        launches = {k: now[k] - before[k] for k in now}
+        _assert_replays(leg, s, R_STEPS, 1)
+        _assert_stretch_launches(launches, R_STEPS)
+        assert launches["pt_swap_cascade_multi"] == (
+            R_STEPS if scheme == "cascade" else 0), launches
+        rates[f"replica_flow_{scheme}_trips"] = trips
+        rates[f"replica_flow_{scheme}_trips_per_replica_per_1k_steps"] = per_k
+        rates[f"replica_flow_{scheme}_steps_per_s"] = R_STEPS / dt
+        print(f"{leg}: {trips} round trips, {per_k:.4f} per replica per 1k "
+              f"steps, {trips / attempts:.2f} per boundary attempt, "
+              f"{R_STEPS / dt:.1f} steps/s through sample() ({card})")
+        kept.append((leg, s, s._previous_state))
+    return read(), rates, kept
 
 
 def best_stack_leg(torch, card):
@@ -2630,7 +2966,8 @@ def main(argv=None):
                     resume_north_star_leg, resume_lisa_null_leg, hooks_leg,
                     deo_leg, evidence_leg, rj_pulse128_leg, zoo_leg,
                     zoo_mt_rj_leg, config_d_leg, modelswap_leg,
-                    best_stack_leg):
+                    best_stack_leg, blobs_north_star_leg,
+                    blobs_lisa_rj_null_leg, replica_flow_leg):
             t0 = time.perf_counter()
             legs.append(leg(torch, smi))
             print(f"phase 4: {leg.__name__} {time.perf_counter() - t0:.1f} s")
@@ -2643,7 +2980,7 @@ def main(argv=None):
         compared, eager = graph_vs_eager(torch, smi)
         print(f"phase 4: graph_vs_eager {time.perf_counter() - t0:.1f} s")
     print("phase 4: one cascade launch per tempering phase on every leg but "
-          "the DEO one (none there), every step a replay of its moves' "
+          "the DEO ones (none there), every step a replay of its moves' "
           "graphs, no segment waited for the device, and no plain version of "
           "a kernel was called")
     launches, rates = {}, {}
@@ -2657,6 +2994,14 @@ def main(argv=None):
           f"{rates['tau_max']:.4f}; best_stack_ess_per_s = "
           f"{rates['best_stack_ess_per_s']:.1f} beside device_ess_per_s = "
           f"{rates['device_ess_per_s']:.1f} ({smi})")
+    print(f"rate: blobs_steps_per_s = {rates['blobs_steps_per_s']:.1f} "
+          f"(blobs and supplementals, the general stretch path) beside "
+          f"stored_device_steps_per_s = "
+          f"{rates['stored_device_steps_per_s']:.1f} (the fused kernels); "
+          f"blobs_lisa_rj_null_steps_per_s = "
+          f"{rates['blobs_lisa_rj_null_steps_per_s']:.1f} beside "
+          f"lisa_rj_null_steps_per_s = "
+          f"{rates['lisa_rj_null_steps_per_s']:.1f} ({smi})")
     rates["lisa_rj_overhead_frac"] = (rates["lisa_rj_steps_per_s"]
                                       / rates["lisa_rj_null_steps_per_s"])
     print(f"rate: lisa_rj_overhead_frac = {rates['lisa_rj_overhead_frac']:.4f} "
@@ -2680,7 +3025,8 @@ def main(argv=None):
             by_name[leg] = (sampler, state)
     for leg in ("north-star", "config E", "LISA RJ", "LISA RJ null", "deo",
                 "rj_pulse128", "zoo[CombineMove]", "zoo[MT-RJ x8]",
-                "config_d", "modelswap", "best_stack", "zoo[SliceMove]"):
+                "config_d", "modelswap", "best_stack", "zoo[SliceMove]",
+                "blobs[north-star]", "blobs[lisa-rj-null]"):
         profiles.update(profile_steps(torch, leg, *by_name[leg], smi,
                                       steps=_profile_steps(leg)))
     phases = tempering_phase_device_ms(

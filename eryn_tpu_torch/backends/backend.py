@@ -77,6 +77,7 @@ class Backend:
         self.log_like = np.empty((0, ntemps, nwalkers), dtype=self.dtype)
         self.log_prior = np.empty((0, ntemps, nwalkers), dtype=self.dtype)
         self.betas = np.empty((0, ntemps), dtype=self.dtype)
+        self.blobs = None
         # cumulative counters in float64, as a file holds them: the swap
         # counts per step are ratios times nwalkers, not integers
         self.accepted = np.zeros((ntemps, nwalkers))
@@ -100,8 +101,13 @@ class Backend:
             for n in self.branch_names
         }
 
-    def grow(self, ngrow):
-        """Preallocate ``ngrow`` more steps."""
+    def has_blobs(self):
+        return self.blobs is not None
+
+    def grow(self, ngrow, blobs=None):
+        """Preallocate ``ngrow`` more steps; ``blobs``, one step's blobs
+        (any values, their shape and dtype count), allocates the blob
+        storage at the first call that gives it (NaN before)."""
         if not self.initialized:
             raise AttributeError("Backend must be reset before growing.")
 
@@ -115,15 +121,23 @@ class Backend:
         self.log_like = extend(self.log_like, np.nan)
         self.log_prior = extend(self.log_prior, np.nan)
         self.betas = extend(self.betas, np.nan)
+        if blobs is not None:
+            blobs = np.asarray(blobs)
+            if self.blobs is None:
+                self.blobs = np.full(
+                    (self.log_like.shape[0] - int(ngrow),) + blobs.shape,
+                    np.nan, dtype=blobs.dtype)
+            self.blobs = extend(self.blobs, np.nan)
 
     def save_segment(self, coords, inds, log_like, log_prior, betas,
-                     accepted=None, rj_accepted=None, swaps_accepted=None,
+                     blobs=None, accepted=None, rj_accepted=None, swaps_accepted=None,
                      moves_accepted_fraction=None, random_state=None,
                      host_random_state=None, sampler_clock=None,
                      kernel_states=None):
         """Append a segment of stored steps (every array leads with the
         ``nstored`` axis; ``inds`` may also be one step's masks, constant
-        over the segment; ``accepted``, ``rj_accepted`` and
+        over the segment; ``blobs`` are stored where the storage was grown
+        with them; ``accepted``, ``rj_accepted`` and
         ``swaps_accepted`` are per-step counts, summed into the cumulative
         counters), with the checkpoint as of the segment's last step: the
         generators' states, the adaptation clock and the kernel states in
@@ -140,6 +154,8 @@ class Backend:
         self.log_like[sl] = log_like
         self.log_prior[sl] = np.asarray(log_prior, dtype=self.dtype)
         self.betas[sl] = np.asarray(betas, dtype=self.dtype)
+        if blobs is not None and self.blobs is not None:
+            self.blobs[sl] = np.asarray(blobs)
         for field, value in (("accepted", accepted),
                              ("rj_accepted", rj_accepted),
                              ("swaps_accepted", swaps_accepted)):
@@ -231,6 +247,10 @@ class Backend:
             return {n: read(self.inds[n]) for n in keep}
         if name in ("log_like", "log_prior", "betas"):
             return read(getattr(self, name))
+        if name == "blobs":
+            if self.blobs is None:
+                raise AttributeError("No blobs stored.")
+            return read(self.blobs)
         raise ValueError(f"Unknown value name: {name}")
 
     def _keep_branches(self, branch_names):
@@ -254,6 +274,13 @@ class Backend:
 
     def get_log_prior(self, **kwargs):
         return self.get_value("log_prior", **kwargs)
+
+    def get_blobs(self, **kwargs):
+        """The stored blobs ``(nsteps, ntemps, nwalkers, ...)`` with the
+        getter keywords of :meth:`get_value`, or None without blobs."""
+        if not self.has_blobs():
+            return None
+        return self.get_value("blobs", **kwargs)
 
     def get_betas(self, **kwargs):
         return self.get_value("betas", **kwargs)
@@ -288,11 +315,13 @@ class Backend:
             m = self.get_inds(slice_vals=sl, branch_names=name)[name][0]
             c[~m] = 0.0  # strip the NaN mask for live use
             coords[name], inds[name] = c, m
+        blobs = self.get_blobs(slice_vals=sl)
         return State(
             coords, inds=inds,
             log_like=self.get_log_like(slice_vals=sl)[0],
             log_prior=self.get_log_prior(slice_vals=sl)[0],
             betas=self.get_betas(slice_vals=sl)[0],
+            blobs=None if blobs is None else blobs[0],
             random_state=self.random_state,
         )
 

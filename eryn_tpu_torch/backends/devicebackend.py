@@ -42,9 +42,10 @@ class _LazySeg:
             arrays = [
                 *self._data["chain"].values(), *self._data["inds"].values(),
                 self._data["log_like"], self._data["log_prior"],
-                self._data["betas"],
+                self._data["betas"], self._data.get("blobs"),
             ]
-        return sum(a.numel() * a.element_size() for a in arrays)
+        return sum(a.numel() * a.element_size() for a in arrays
+                   if a is not None)
 
     def __getitem__(self, key):
         if self._data is None:
@@ -101,9 +102,14 @@ class DeviceBackend(Backend):
         self.log_like = self.log_prior = self.betas = None
         self._segs = []
         self._host = None  # offloaded prefix: dict of numpy arrays
+        self._has_blobs = False
 
-    def grow(self, ngrow):
-        """Nothing to preallocate: segments arrive as device buffers."""
+    def grow(self, ngrow, blobs=None):
+        """Nothing to preallocate: segments arrive as device buffers (with
+        their blobs, where the sampler stores some)."""
+
+    def has_blobs(self):
+        return self._has_blobs
 
     def save_segment_packed(self, n, packed, unpack, accepted_sum=None,
                             rj_accepted_sum=None, swaps_accepted_sum=None,
@@ -113,6 +119,16 @@ class DeviceBackend(Backend):
         device work and no host transfer happen here: counter sums arrive
         pre-reduced, and ``unpack`` runs on first read.  The clock and the
         kernel states, device values, are saved at the end of a run."""
+        if "blobs" in packed:
+            if not self._has_blobs and self.iteration > 0:
+                raise ValueError(
+                    "DeviceBackend: blobs arrived after steps stored "
+                    "without them; store the chain in a new backend.")
+            self._has_blobs = True
+        elif self._has_blobs:
+            raise ValueError(
+                "DeviceBackend: a segment without blobs after steps stored "
+                "with them; store the chain in a new backend.")
         self._segs.append(_LazySeg(n, dict(packed), unpack))
         if accepted_sum is not None:
             self._counter_dev.setdefault("accepted", []).append(accepted_sum)
@@ -203,6 +219,10 @@ class DeviceBackend(Backend):
         if name in ("chain", "inds"):
             return {n: read(name, n) for n in self._keep_branches(branch_names)}
         if name in ("log_like", "log_prior", "betas"):
+            return read(name)
+        if name == "blobs":
+            if not self._has_blobs:
+                raise AttributeError("No blobs stored.")
             return read(name)
         raise ValueError(f"Unknown value name: {name}")
 
@@ -355,7 +375,9 @@ class DeviceBackend(Backend):
             old = self._host[field][branch] if branch else self._host[field]
             return np.concatenate([old, new])
 
-        fields = {f: pull(f) for f in ("log_like", "log_prior", "betas")}
+        scalars = ("log_like", "log_prior", "betas") + (
+            ("blobs",) if self._has_blobs else ())
+        fields = {f: pull(f) for f in scalars}
         for f in ("chain", "inds"):
             fields[f] = {n: pull(f, n) for n in self.branch_names}
         self._host = fields

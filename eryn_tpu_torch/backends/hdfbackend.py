@@ -5,7 +5,8 @@ Port of :mod:`eryn_tpu.backends.hdfbackend`, writing the same schema (group
 ``ntemps``, ``nwalkers``, ``has_blobs``, ``rj`` and ``iteration``; groups
 ``info``, ``ndims``, ``nleaves_max`` and ``key_order``; datasets
 ``accepted``, ``swaps_accepted``, ``rj_accepted``, ``log_like``,
-``log_prior`` and ``betas``; ``chain/<branch>`` and ``inds/<branch>``;
+``log_prior``, ``betas`` and, once ``has_blobs``, ``blobs`` ``(nsteps,
+ntemps, nwalkers, ...)`` in the blobs' dtype; ``chain/<branch>`` and ``inds/<branch>``;
 ``moves/<key>/acceptance_fraction``; ``kernel_states/<move>/<leaf>`` and the
 attribute ``tempering_time``), so a file written by either package opens and
 resumes in the other.
@@ -245,8 +246,13 @@ class HDFBackend(Backend):
     # ------------------------------------------------------------------
     # writes
     # ------------------------------------------------------------------
-    def grow(self, ngrow):
-        """Resize the datasets by ``ngrow`` steps."""
+    def has_blobs(self):
+        return bool(self._attr("has_blobs"))
+
+    def grow(self, ngrow, blobs=None):
+        """Resize the datasets by ``ngrow`` steps; ``blobs``, one step's
+        blobs, creates the resizable ``blobs`` dataset (its shape and dtype)
+        at the first call that gives it and sets ``has_blobs``."""
         with self.open("a") as f:
             g = f[self.name]
             ntot = int(g.attrs["iteration"]) + int(ngrow)
@@ -255,9 +261,21 @@ class HDFBackend(Backend):
             for name in g.attrs["branch_names"]:
                 g["chain"][name].resize(ntot, axis=0)
                 g["inds"][name].resize(ntot, axis=0)
+            if blobs is None:
+                return
+            blobs = np.asarray(blobs)
+            if g.attrs["has_blobs"]:
+                g["blobs"].resize(ntot, axis=0)
+            else:
+                g.create_dataset(
+                    "blobs", (ntot,) + blobs.shape,
+                    maxshape=(None,) + blobs.shape, dtype=blobs.dtype,
+                    compression=self.compression,
+                    compression_opts=self.compression_opts)
+                g.attrs["has_blobs"] = True
 
     def save_segment(self, coords, inds, log_like, log_prior, betas,
-                     accepted=None, rj_accepted=None, swaps_accepted=None,
+                     blobs=None, accepted=None, rj_accepted=None, swaps_accepted=None,
                      moves_accepted_fraction=None, random_state=None,
                      host_random_state=None, sampler_clock=None,
                      kernel_states=None):
@@ -282,6 +300,8 @@ class HDFBackend(Backend):
             g["log_like"][sl] = log_like
             g["log_prior"][sl] = np.asarray(log_prior, dtype=self.dtype)
             g["betas"][sl] = np.asarray(betas, dtype=self.dtype)
+            if blobs is not None and g.attrs["has_blobs"]:
+                g["blobs"][sl] = np.asarray(blobs)
             for field, value in (("accepted", accepted),
                                  ("rj_accepted", rj_accepted),
                                  ("swaps_accepted", swaps_accepted)):
@@ -388,6 +408,10 @@ class HDFBackend(Backend):
                 return {str(n): read(g[name][n]) for n in keep}
             if name in ("log_like", "log_prior", "betas"):
                 return read(g[name])
+            if name == "blobs":
+                if not g.attrs["has_blobs"]:
+                    raise AttributeError("No blobs stored.")
+                return read(g["blobs"])
             raise ValueError(f"Unknown value name: {name}")
 
     def _counter(self, field):
@@ -445,8 +469,9 @@ class HDFBackend(Backend):
                 inds[str(name)] = m
             log_like, log_prior = g["log_like"][it], g["log_prior"][it]
             betas = g["betas"][it]
+            blobs = g["blobs"][it] if g.attrs["has_blobs"] else None
         return State(coords, inds=inds, log_like=log_like,
-                     log_prior=log_prior, betas=betas,
+                     log_prior=log_prior, betas=betas, blobs=blobs,
                      random_state=self.random_state)
 
 

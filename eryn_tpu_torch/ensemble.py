@@ -41,7 +41,7 @@ from .moves.move import EvalContext, Move
 from .moves.tempering import TemperatureControl
 from .pbar import get_progress_bar
 from .prior import ProbDistContainer
-from .state import State, resolve_device
+from .state import BranchSupplemental, State, resolve_device
 from .utils.periodic import PeriodicContainer
 from .utils.pytree import tree_flatten
 
@@ -129,6 +129,13 @@ class PriorEvaluator:
         return total.to(self.dtype)
 
 
+_HOST_LIKELIHOODS = (
+    "A NumPy (host) likelihood is not supported by eryn_tpu_torch yet: host "
+    "likelihoods, with the callback mode and pool, are a later slice of the "
+    "port (ROADMAP.md, queue 1, item 2). Write log_like_fn in torch."
+)
+
+
 class LikelihoodEvaluator:
     """Batched likelihood evaluation.
 
@@ -137,11 +144,19 @@ class LikelihoodEvaluator:
     flattened batch.  One walker's arguments are its coordinates ``(ndim,)`` for a
     single branch with one leaf and no reversible jump (``rj``);
     ``(coords (nleaves_max, ndim), inds (nleaves_max,))`` for one branch
-    otherwise; and the per-branch dicts for several branches.
+    otherwise; and the per-branch dicts for several branches.  With
+    ``provide_supplemental`` one more argument follows: the walker's branch
+    supplemental ``{name: tensor}`` for one branch, ``{branch: {name:
+    tensor}}`` for several.
+
+    It returns the log-likelihood, or ``(log_like, blobs)``: :meth:`check`
+    finds which on a probe batch and sets ``returns_blobs`` and
+    ``blob_shape`` (one walker's blob shape).
     """
 
     def __init__(self, fn, *, branch_names, ndims, nleaves_max, args, kwargs,
-                 vectorize, fill_zero_leaves_val, dtype, rj=False):
+                 vectorize, fill_zero_leaves_val, dtype, rj=False,
+                 provide_supplemental=False):
         self.fn = fn
         self.branch_names = list(branch_names)
         self.ndims = ndims
@@ -149,6 +164,7 @@ class LikelihoodEvaluator:
         self.args = tuple(args) if args is not None else ()
         self.kwargs = dict(kwargs) if kwargs is not None else {}
         self.vectorize = vectorize
+        self.provide_supplemental = bool(provide_supplemental)
         self.dtype = dtype
         self.fill_zero_leaves_val = max(
             float(fill_zero_leaves_val), float(torch.finfo(dtype).min / 2)
@@ -160,58 +176,100 @@ class LikelihoodEvaluator:
             and self.nleaves_max[self.branch_names[0]] == 1
             and not rj
         )
+        self.returns_blobs = False
+        self.blob_shape = self.blob_dtype = None
 
-    def _call(self, cdict, idict, batched):
+    def _supp_args(self, sdict):
+        """The supplemental argument under ``provide_supplemental``: the
+        bare ``{name: tensor}`` of a single branch, ``{branch: {name:
+        tensor}}`` for several (a branch without one gets ``{}``)."""
+        if not self.provide_supplemental:
+            return ()
+        sdict = sdict or {}
+        if len(self.branch_names) == 1:
+            return (sdict.get(self.branch_names[0]) or {},)
+        return ({n: sdict.get(n) or {} for n in self.branch_names},)
+
+    def _call(self, cdict, idict, sdict, batched):
         name = self.branch_names[0]
+        supp = self._supp_args(sdict)
         if self._simple:
             x = cdict[name][:, 0] if batched else cdict[name][0]
-            return self.fn(x, *self.args, **self.kwargs)
+            return self.fn(x, *supp, *self.args, **self.kwargs)
         if len(self.branch_names) == 1:
-            return self.fn(cdict[name], idict[name], *self.args, **self.kwargs)
-        return self.fn(cdict, idict, *self.args, **self.kwargs)
+            return self.fn(cdict[name], idict[name], *supp, *self.args,
+                           **self.kwargs)
+        return self.fn(cdict, idict, *supp, *self.args, **self.kwargs)
 
-    def _evaluate(self, cdict, idict):
+    def _raw(self, cdict, idict, sdict):
+        """What the function returns for a flat batch."""
         if self.vectorize:
-            return self._call(cdict, idict, batched=True)
+            return self._call(cdict, idict, sdict, batched=True)
         return torch.func.vmap(
-            lambda c, i: self._call(c, i, batched=False)
-        )(cdict, idict)
+            lambda c, i, s: self._call(c, i, s, batched=False)
+        )(cdict, idict, sdict)
 
-    def check(self, device):
-        """Evaluate on a probe batch of two walkers; raise a ``TypeError``
-        that names the fix when the function cannot be batched."""
+    def _evaluate(self, cdict, idict, sdict=None):
+        """``(log_like, blobs or None)`` of a flat batch."""
+        out = self._raw(cdict, idict, sdict or {})
+        if isinstance(out, (tuple, list)):
+            return out[0], out[1]
+        return out, None
+
+    def check(self, device, branch_supps=None):
+        """Evaluate on a probe batch of two walkers (their supplementals the
+        first two of ``branch_supps``, flat); raise a ``TypeError`` that
+        names the fix when the function cannot be batched or returns
+        anything but torch tensors, and find whether it returns blobs."""
         c, i = self._probe(device)
+        s = self._probe_supps(branch_supps)
         try:
-            out = self._evaluate(c, i)
+            out = self._raw(c, i, s)
         except Exception as err:
             if self.vectorize:
                 raise TypeError(
-                    f"log_like_fn failed on a batch of walkers ({err})."
+                    f"log_like_fn failed on a batch of walkers ({err}). "
+                    f"{_HOST_LIKELIHOODS}"
                 ) from err
             raise TypeError(
                 "log_like_fn could not be vectorized over walkers with "
                 f"torch.func.vmap ({err}). Write it for a batch of walkers "
-                "and pass vectorize=True."
+                f"and pass vectorize=True. {_HOST_LIKELIHOODS}"
             ) from err
-        if isinstance(out, (tuple, list)):
-            raise NotImplementedError(
-                "log_like_fn returned (log_like, blobs); blobs are not "
-                "supported by eryn_tpu_torch yet."
-            )
-        if tuple(torch.as_tensor(out).shape) != (2,):
+        parts = list(out) if isinstance(out, (tuple, list)) else [out]
+        if len(parts) not in (1, 2) or not all(
+                isinstance(p, torch.Tensor) for p in parts):
+            kinds = ", ".join(type(p).__name__ for p in parts)
             raise TypeError(
-                f"log_like_fn returned shape {tuple(out.shape)} for 2 walkers."
+                f"log_like_fn returned {type(out).__name__} ({kinds}); it "
+                "must return a torch.Tensor of log-likelihoods, or a pair "
+                f"(log_like, blobs) of tensors. {_HOST_LIKELIHOODS}"
             )
+        if tuple(parts[0].shape) != (2,):
+            raise TypeError(
+                f"log_like_fn returned shape {tuple(parts[0].shape)} for 2 "
+                "walkers."
+            )
+        self.returns_blobs = len(parts) == 2
+        if self.returns_blobs:
+            if parts[1].ndim < 1 or parts[1].shape[0] != 2:
+                raise TypeError(
+                    f"log_like_fn returned blobs of shape "
+                    f"{tuple(parts[1].shape)} for 2 walkers."
+                )
+            self.blob_shape = tuple(parts[1].shape[1:])
+            self.blob_dtype = parts[1].dtype
 
-    def check_grad(self, device):
+    def check_grad(self, device, branch_supps=None):
         """Differentiate the sum over a probe batch of two walkers with
         ``torch.func.grad``, as the gradient moves do; raise a
         ``TypeError`` that names the fix when that fails, and warn when the
         value does not depend on the coordinates through differentiable
         torch operations (its gradient would be zero)."""
         c, i = self._probe(device)
+        s = self._probe_supps(branch_supps)
         try:
-            torch.func.grad(lambda c: self._evaluate(c, i).sum())(c)
+            torch.func.grad(lambda c: self._evaluate(c, i, s)[0].sum())(c)
         except Exception as err:
             raise TypeError(
                 "log_like_fn could not be differentiated with torch.func.grad "
@@ -223,7 +281,7 @@ class LikelihoodEvaluator:
             ) from err
         with torch.enable_grad():
             c = {n: x.clone().requires_grad_(True) for n, x in c.items()}
-            out = self._evaluate(c, i)
+            out = self._evaluate(c, i, s)[0]
         if not out.requires_grad:
             warnings.warn(
                 "log_like_fn does not depend on the coordinates through "
@@ -245,22 +303,41 @@ class LikelihoodEvaluator:
         }
         return c, i
 
-    def __call__(self, coords: dict, inds: dict, logp):
+    @staticmethod
+    def _probe_supps(branch_supps):
+        """The first two walkers of each entry of ``branch_supps``
+        (``{branch: {name: (ntemps, nwalkers, ...)}}``), flat."""
+        if not branch_supps:
+            return {}
+        return {n: {k: v.reshape((-1,) + tuple(v.shape[2:]))[:2]
+                    for k, v in h.items()}
+                for n, h in branch_supps.items()}
+
+    def __call__(self, coords: dict, inds: dict, logp, branch_supps=None):
         """coords ``{name: (ntemps, n, nleaves_max, ndim)}``, logp ``(ntemps,
-        n)``; returns ``(log_like (ntemps, n), None)``."""
+        n)``, ``branch_supps`` ``{name: {key: (ntemps, n, ...)}}`` or None;
+        returns ``(log_like (ntemps, n), blobs (ntemps, n, ...) or None)``.
+        Walkers outside the prior's support are evaluated at zeros and get
+        ``-inf``; their blobs are what the function returned there."""
         batch_shape = logp.shape
         N = logp.numel()
         cf = {n: c.reshape((N,) + c.shape[2:]) for n, c in coords.items()}
         inf = {n: m.reshape((N,) + m.shape[2:]) for n, m in inds.items()}
+        sf = None
+        if self.provide_supplemental and branch_supps:
+            sf = {n: {k: v.reshape((N,) + v.shape[2:]) for k, v in h.items()}
+                  for n, h in branch_supps.items() if h is not None}
         finite = torch.isfinite(logp.reshape(N))
         # out-of-support walkers are evaluated at zeros and rejected below
         cf_safe = {n: torch.where(finite[:, None, None], c, 0.0)
                    for n, c in cf.items()}
-        ll = self._evaluate(cf_safe, inf).to(self.dtype)
-        ll = torch.where(finite, ll, -torch.inf)
+        ll, blobs = self._evaluate(cf_safe, inf, sf)
+        ll = torch.where(finite, ll.to(self.dtype), -torch.inf)
         nleaves = sum(m.sum(dim=-1) for m in inf.values())
         ll = torch.where((nleaves == 0) & finite, self.fill_zero_leaves_val, ll)
-        return ll.reshape(batch_shape), None
+        if blobs is not None:
+            blobs = blobs.reshape(batch_shape + blobs.shape[1:])
+        return ll.reshape(batch_shape), blobs
 
 
 class EnsembleSampler:
@@ -286,6 +363,15 @@ class EnsembleSampler:
     last_sample, sampler)`` every ``stopping_iterations`` stored
     iterations, ending the run when it returns True (``utils.updates``,
     ``utils.stopping``).
+
+    ``provide_supplemental=True`` passes each walker's branch supplemental
+    to the likelihood as one more argument (see
+    :class:`LikelihoodEvaluator`).  A likelihood that returns ``(log_like,
+    blobs)`` has its blobs stored with the chain (``get_blobs``), in
+    ``blobs_dtype`` (a NumPy dtype; default the blobs' own).  Blobs, the
+    state supplemental and the branch supplementals of the initial state
+    ride every step and the swaps; their object-dtype entries follow their
+    walkers on the host, reordered at the end of each segment.
 
     ``cuda_graph`` (default True): on a CUDA device, each move's step is
     captured as a CUDA graph the second time it is due and replayed from
@@ -314,6 +400,8 @@ class EnsembleSampler:
         kwargs=None,
         backend=None,
         vectorize=False,
+        provide_supplemental=False,
+        blobs_dtype=None,
         fill_zero_leaves_val=-1e300,
         num_repeats_in_model=1,
         num_repeats_rj=1,
@@ -337,6 +425,8 @@ class EnsembleSampler:
         self.num_repeats_rj = int(num_repeats_rj)
         self.track_moves = track_moves
         self.info = info
+        self.provide_supplemental = bool(provide_supplemental)
+        self.blobs_dtype = None if blobs_dtype is None else np.dtype(blobs_dtype)
 
         if branch_names is None:
             branch_names = [f"model_{i}" for i in range(nbranches)]
@@ -433,8 +523,13 @@ class EnsembleSampler:
             fill_zero_leaves_val=fill_zero_leaves_val,
             dtype=self.dtype,
             rj=self.has_reversible_jump,
+            provide_supplemental=self.provide_supplemental,
         )
         self._like_checked = False
+        # host (object-dtype) supplemental entries by owner ("__state__" or
+        # a branch), reordered by the swaps at each segment end
+        self._host_supps = {}
+        self._blob_layout = None  # (shape, torch dtype) of a state's blobs
 
         self._seed = (
             int(seed) if seed is not None
@@ -646,6 +741,20 @@ class EnsembleSampler:
         first run (:meth:`_init_kernel_states`); the moves' accept counters
         restart."""
         self._previous_state = backend.get_last_sample()
+        blobs = self._previous_state.blobs
+        if (blobs is not None and self.blobs_dtype is not None
+                and np.dtype(blobs.numpy().dtype) != self.blobs_dtype):
+            raise ValueError(
+                f"blobs_dtype {self.blobs_dtype} does not match the backend's "
+                f"stored blobs ({blobs.numpy().dtype})."
+            )
+        if self.provide_supplemental:
+            warnings.warn(
+                "provide_supplemental=True on a resumed backend: a backend "
+                "stores no supplementals, so run_mcmc(None, ...) continues "
+                "without them; pass a state that carries them instead.",
+                stacklevel=3,
+            )
         for gen, stored in ((self._gen, backend.random_state),
                             (self._host_gen, backend.host_random_state)):
             if stored is None:  # e.g. a file eryn_tpu wrote: seed= holds
@@ -709,6 +818,9 @@ class EnsembleSampler:
         per_step = sum(
             int(np.prod(s)) for _, _, s in self._snap_layout()
         ) * itemsize + sum(int(np.prod(s)) for _, _, s in self._u8_layout())
+        if self._blob_layout is not None:
+            shape, dtype = self._blob_layout
+            per_step += int(np.prod(shape)) * dtype.itemsize
         cap = max(1, (256 << 20) // per_step)
         return min(8192, max(1024, 1 << (cap.bit_length() - 1)))
 
@@ -747,7 +859,15 @@ class EnsembleSampler:
         def put(x, dtype=None):
             return x.to(device=self.device, dtype=dtype or self.dtype)
 
-        coords, inds = {}, {}
+        def put_supp(supp):
+            # numeric entries to the device in their own dtypes; host
+            # entries stay where they are
+            if supp is None:
+                return None
+            return supp.map_tensors(
+                lambda x: x.to(device=self.device).contiguous())
+
+        coords, inds, branch_supps = {}, {}, {}
         for name in self.branch_names:
             b = state.branches[name]
             c = put(b.coords)
@@ -761,10 +881,15 @@ class EnsembleSampler:
                     f"match expected {self.shape[name]}."
                 )
             coords[name], inds[name] = c.contiguous(), m.contiguous()
+            branch_supps[name] = put_supp(b.branch_supplemental)
+        supplemental = put_supp(state.supplemental)
+        # the likelihood's supplemental argument, as the moves pass it
+        supp_args = {n: s.holder for n, s in branch_supps.items()
+                     if s is not None} or None
         if not self._like_checked:
-            self._like_eval.check(self.device)
+            self._like_eval.check(self.device, supp_args)
             if self._needs_gradient():
-                self._like_eval.check_grad(self.device)
+                self._like_eval.check_grad(self.device, supp_args)
             # the priors' first evaluation builds their device constants (a
             # copy from the host): here, not in the first segment, also when
             # the state brings its log-prior (a resumed chain)
@@ -785,10 +910,21 @@ class EnsembleSampler:
             log_prior = put(state.log_prior).reshape(nt_nw)
         else:
             log_prior = self._prior_eval(coords, inds)
+        blobs = state.blobs
+        if blobs is not None:
+            # in the likelihood's dtype, which every step merges in
+            blobs = blobs.to(device=self.device,
+                             dtype=self._like_eval.blob_dtype or blobs.dtype)
         if state.log_like is not None:
             log_like = put(state.log_like).reshape(nt_nw)
-        else:
-            log_like, _ = self._like_eval(coords, inds, log_prior)
+        if state.log_like is None or (blobs is None
+                                      and self._like_eval.returns_blobs):
+            ll_new, blobs_new = self._like_eval(coords, inds, log_prior,
+                                                supp_args)
+            if state.log_like is None:
+                log_like = ll_new
+            if blobs is None:
+                blobs = blobs_new
 
         if not skip_initial_state_check:
             if torch.isnan(log_like).any():
@@ -799,10 +935,83 @@ class EnsembleSampler:
         # per segment (a host copy for the host backend)
         self._static_inds = inds
         self._static_inds_host = {n: m.cpu().numpy() for n, m in inds.items()}
+        if blobs is not None:
+            blobs = blobs.contiguous()
+            dtype = (blobs.dtype if self.blobs_dtype is None
+                     else torch.from_numpy(np.empty(0, self.blobs_dtype)).dtype)
+            self._blob_layout = (tuple(blobs.shape), dtype)
+        else:
+            self._blob_layout = None
+        # the registry of host entries is rebuilt here, so that a later run
+        # on a state without them inherits nothing
+        self._host_supps = {}
+        if supplemental is not None and supplemental.host_holder:
+            self._host_supps["__state__"] = supplemental.host_holder
+        for name, supp in branch_supps.items():
+            if supp is not None and supp.host_holder:
+                self._host_supps[name] = supp.host_holder
         return State(
             coords, inds=inds, log_like=log_like.contiguous(),
             log_prior=log_prior.contiguous(), betas=betas.contiguous(),
+            blobs=blobs, supplemental=supplemental,
+            branch_supplemental=branch_supps,
         )
+
+    def _blobs_example(self):
+        """One step's blobs as an empty host array in the stored dtype (what
+        a host or file backend allocates from), or None without blobs."""
+        if self._blob_layout is None:
+            return None
+        shape, dtype = self._blob_layout
+        return torch.empty(shape, dtype=dtype).numpy()
+
+    def _inject_prov(self, state):
+        """The state with an int64 identity index ``__prov__`` in its
+        supplemental: the swaps move it with everything else, so at the end
+        of a segment it holds, for every slot, the flat slot its walker came
+        from, by which :meth:`_apply_prov` reorders the host entries."""
+        nt, nw = self.ntemps, self.nwalkers
+        prov = torch.arange(nt * nw, dtype=torch.int64,
+                            device=self.device).reshape(nt, nw)
+        supp = state.supplemental
+        if supp is None:
+            supp = BranchSupplemental({}, base_shape=(nt, nw))
+        return state.replace(
+            supplemental=supp.with_holder({**supp.holder, "__prov__": prov}))
+
+    def _apply_prov(self, state):
+        """Reorder the registered host entries by the segment's ``__prov__``
+        (a host read), drop it, and attach the host entries to ``state``'s
+        supplementals."""
+        nt, nw = self.ntemps, self.nwalkers
+        supp = state.supplemental
+        if supp is not None and "__prov__" in supp.holder:
+            holder = dict(supp.holder)
+            prov = holder.pop("__prov__").cpu().numpy().ravel()
+            supp = supp.with_holder(holder)
+            if not np.array_equal(prov, np.arange(nt * nw)):
+                for host in self._host_supps.values():
+                    for key, arr in list(host.items()):
+                        flat = arr.reshape((nt * nw,) + arr.shape[2:])
+                        host[key] = flat[prov].reshape(arr.shape)
+        host_state = self._host_supps.get("__state__")
+        if host_state is not None:
+            if supp is None:
+                supp = BranchSupplemental({}, base_shape=(nt, nw))
+            supp.host_holder = host_state
+        elif supp is not None and not supp.holder and not supp.host_holder:
+            supp = None
+        branch_supps = {}
+        for name, host in self._host_supps.items():
+            if name == "__state__":
+                continue
+            bsupp = state.branches[name].branch_supplemental
+            if bsupp is None:
+                bsupp = BranchSupplemental({}, base_shape=(nt, nw))
+            bsupp.host_holder = host
+            branch_supps[name] = bsupp
+        return state.replace(supplemental=supp,
+                             branch_supplemental=branch_supps)
 
     # ------------------------------------------------------------------
     # the segment loop
@@ -902,11 +1111,15 @@ class EnsembleSampler:
         :meth:`_step` runs it eagerly.
 
         Returns ``(state, snaps)``: ``snaps`` holds the packed ``fp`` buffer
-        ``(nstored, F)`` (coords, log_like, log_prior, betas, swaps) and the
+        ``(nstored, F)`` (coords, log_like, log_prior, betas, swaps), the
         packed ``u8`` buffer (:meth:`_u8_layout`: accept flags, and under
-        reversible jump the RJ accept flags and the leaf masks), both on the
-        device, or is None without ``store``."""
+        reversible jump the RJ accept flags and the leaf masks) and, where
+        the state has blobs, ``blobs`` ``(nstored, ntemps, nwalkers, ...)``
+        in the blob dtype, all on the device, or is None without
+        ``store``."""
         self._ensure_kernel_states(state)
+        if self._host_supps and self.ntemps > 1:
+            state = self._inject_prov(state)
         if self._m_acc is None:
             self._m_acc = torch.zeros(
                 (len(self._all_move_list), self.ntemps, self.nwalkers),
@@ -917,6 +1130,10 @@ class EnsembleSampler:
         time = self._start_clock(tc)
         graphs = None
         if self._graphed:
+            if self._graphs is not None and not self._graphs.fits(state):
+                # another layout of the state (blobs or supplementals added
+                # or gone): new buffers and graphs
+                self.drop_step_graphs()
             if self._graphs is None:
                 self._graphs = StepGraphs(self)
             graphs = self._graphs
@@ -932,6 +1149,10 @@ class EnsembleSampler:
                 "u8": torch.empty((nstored, width_u8), dtype=torch.uint8,
                                   device=self.device),
             }
+            if self._blob_layout is not None:
+                shape, dtype = self._blob_layout
+                snaps["blobs"] = torch.empty((nstored,) + shape, dtype=dtype,
+                                             device=self.device)
         k = 0
         for s in range(nstored):
             for _ in range(thin_by):
@@ -960,6 +1181,8 @@ class EnsembleSampler:
                      for kind, name, _ in self._u8_layout()],
                     out=snaps["u8"][s],
                 )
+                if "blobs" in snaps:
+                    snaps["blobs"][s].copy_(state.blobs)
         if graphs is not None:
             # copies: the buffers change with the next replay
             state, time, swaps = graphs.export()
@@ -968,6 +1191,8 @@ class EnsembleSampler:
             tc.time = time
             tc.betas = state.betas
             tc.swaps_accepted = swaps
+        if self._host_supps:
+            state = self._apply_prov(state)
         self._previous_state = state
         return state, snaps
 
@@ -1032,6 +1257,7 @@ class EnsembleSampler:
         fractions = self._move_fractions()
         staged = dict(
             fp=_to_host(snaps["fp"]), u8=_to_host(snaps["u8"]),
+            blobs=_to_host(snaps["blobs"]) if "blobs" in snaps else None,
             fractions=None if fractions is None else {
                 k: _to_host(v) for k, v in fractions.items()},
             clock=(None if tc is None or not isinstance(tc.time, torch.Tensor)
@@ -1067,6 +1293,7 @@ class EnsembleSampler:
             log_like=fields["log_like"],
             log_prior=fields["log_prior"],
             betas=fields["betas"],
+            blobs=None if staged["blobs"] is None else staged["blobs"].numpy(),
             accepted=flags["accepted"].numpy(),
             rj_accepted=None if rj is None else rj.numpy(),
             swaps_accepted=fields["swaps"] if nt > 1 else None,
@@ -1106,6 +1333,7 @@ class EnsembleSampler:
                 "log_like": fields["log_like"],
                 "log_prior": fields["log_prior"],
                 "betas": fields["betas"],
+                "blobs": packed.get("blobs"),
             }
 
         return unpack
@@ -1190,7 +1418,7 @@ class EnsembleSampler:
         state = self._setup_state(initial_state, skip_initial_state_check)
         self._ensure_kernel_states(state)
         if store:
-            self.backend.grow(iterations)
+            self.backend.grow(iterations, self._blobs_example())
         tuned = self._tuned_moves(tune)
         total = None if iterations is None else iterations * thin_by
         try:
@@ -1279,7 +1507,7 @@ class EnsembleSampler:
                 if store and i == 0:
                     # a host backend allocates while the device runs the
                     # first segment
-                    self.backend.grow(nsteps)
+                    self.backend.grow(nsteps, self._blobs_example())
                 i0, i = i, i + n
                 hook_now = bool(tuned) or stop_fires(i0, i) or update_fires(i0, i)
                 if pipelined:
@@ -1335,16 +1563,27 @@ class EnsembleSampler:
         over the active leaves, a tensor on the sampler's device."""
         return self._prior_eval(*self._coerce_eval_inputs(coords, inds))
 
-    def compute_log_like(self, coords, inds=None, logp=None):
-        """``(log_like, None)`` of ``coords`` (as for
+    def compute_log_like(self, coords, inds=None, logp=None, supps=None,
+                         branch_supps=None):
+        """``(log_like, blobs or None)`` of ``coords`` (as for
         :meth:`compute_log_prior`); walkers where ``logp`` is not finite
-        get ``-inf`` without an evaluation."""
+        get ``-inf`` (their blobs are the function's at zeros).
+        ``branch_supps`` (``{branch: {name: tensor}}``, leading dims those
+        of the coordinates) go to the likelihood under
+        ``provide_supplemental``; ``supps`` is accepted as ``eryn_tpu``
+        accepts it and not used."""
         coords, inds = self._coerce_eval_inputs(coords, inds)
         if logp is None:
             logp = self._prior_eval(coords, inds)
         else:
             logp = torch.as_tensor(logp, dtype=self.dtype, device=self.device)
-        return self._like_eval(coords, inds, logp)
+        if branch_supps is not None:
+            branch_supps = {
+                n: {k: torch.as_tensor(v, device=self.device)
+                    for k, v in (h.holder if isinstance(h, BranchSupplemental)
+                                 else h).items()}
+                for n, h in branch_supps.items() if h is not None}
+        return self._like_eval(coords, inds, logp, branch_supps)
 
     @property
     def acceptance_fraction(self):
@@ -1369,6 +1608,11 @@ class EnsembleSampler:
 
     def get_log_like(self, **kwargs):
         return self.backend.get_log_like(**kwargs)
+
+    def get_blobs(self, **kwargs):
+        """The stored blobs ``(nsteps, ntemps, nwalkers, ...)`` (the getter
+        keywords as for :meth:`get_chain`), or None without blobs."""
+        return self.backend.get_blobs(**kwargs)
 
     def get_log_prior(self, **kwargs):
         return self.backend.get_log_prior(**kwargs)

@@ -59,23 +59,32 @@ def _contiguous_copy(x):
     return x.clone(memory_format=torch.contiguous_format)
 
 
-_FIELDS = ("log_like", "log_prior", "betas")
+def _layout(state):
+    """What the buffers of ``state`` are: each tensor's path, shape and
+    dtype (:meth:`~eryn_tpu_torch.state.State.tensor_leaves`)."""
+    return [(path, tuple(x.shape), x.dtype) for path, x in state.tensor_leaves()]
 
 
 def _assign_state(dst, src):
-    """Copy every tensor of the state ``src`` into the state ``dst``."""
-    for name, b in dst.branches.items():
-        _assign(b.coords, src.branches[name].coords)
-        _assign(b.inds, src.branches[name].inds)
-    for name in _FIELDS:
-        _assign(getattr(dst, name), getattr(src, name))
+    """Copy every tensor of the state ``src`` (coordinates, masks, the
+    per-walker fields, blobs, the numeric supplemental entries) into the
+    state ``dst`` of the same layout."""
+    src_leaves = src.tensor_leaves()
+    dst_leaves = dst.tensor_leaves()
+    if [p for p, _ in src_leaves] != [p for p, _ in dst_leaves]:
+        raise RuntimeError(
+            "a step changed the layout of the state: "
+            f"{[p for p, _ in dst_leaves]} -> {[p for p, _ in src_leaves]}")
+    for (_, d), (_, x) in zip(dst_leaves, src_leaves):
+        _assign(d, x)
 
 
 class StepGraphs:
     """Static buffers and one CUDA graph per move of a sampler.
 
     ``state`` (coordinates and leaf masks per branch, log-likelihood,
-    log-prior, ladder), ``clock``, ``accepted``, ``rj_accepted`` (None
+    log-prior, ladder, blobs, and the numeric entries of the state and
+    branch supplementals), ``clock``, ``accepted``, ``rj_accepted`` (None
     without reversible jump) and ``swaps`` are the buffers a step reads and
     writes; the sampler's ``_m_acc`` and kernel states are written in place.
     """
@@ -85,21 +94,21 @@ class StepGraphs:
         self.graphs = {}  # (move index, first of its kind): (graph, counts)
         self.warm = set()  # keys whose body has run eagerly once
         self.pool = self.stream = None
-        self.state = self.clock = None
+        self.state = self.clock = self.layout = None
         self.accepted = self.rj_accepted = self.swaps = None
+
+    def fits(self, state):
+        """Whether ``state`` has the layout of the buffers (true before they
+        are made)."""
+        return self.state is None or _layout(state) == self.layout
 
     def load(self, state, time):
         """Copy ``state`` and the clock ``time`` into the buffers (made at
-        the first call); returns the buffers' state."""
+        the first call, in the layout of ``state``: see :meth:`fits`);
+        returns the buffers' state."""
         if self.state is None:
-            self.state = state.replace(
-                coords={n: _contiguous_copy(b.coords)
-                        for n, b in state.branches.items()},
-                inds={n: _contiguous_copy(b.inds)
-                      for n, b in state.branches.items()},
-                **{name: _contiguous_copy(getattr(state, name))
-                   for name in _FIELDS},
-            )
+            self.state = state.map_tensors(_contiguous_copy)
+            self.layout = _layout(state)
             self.clock = time.clone()
             logl = self.state.log_like
             ntemps = logl.shape[0]

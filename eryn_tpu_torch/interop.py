@@ -1,8 +1,10 @@
 """Carry an ensemble and a ladder between packages as numpy arrays.
 
 A state travels as a dict ``{"coords": {branch: array}, "inds": {branch:
-array}, "log_like": array, "log_prior": array, "betas": array}`` (missing
-fields are None); a tempering control as ``{"betas", "time",
+array}, "log_like": array, "log_prior": array, "betas": array, "blobs":
+array, "supplemental": {name: array}, "branch_supplemental": {branch:
+{name: array}}}`` (missing fields are None; the supplementals hold their
+numeric entries); a tempering control as ``{"betas", "time",
 "swaps_accepted", "swaps_proposed"}``; priors as ``{key: (constructor
 name, params)}``; a move's kernel state as its tree of arrays (dicts walked
 in sorted key order, as both packages store them).  Any package whose
@@ -16,7 +18,7 @@ import numpy as np
 import torch
 
 from . import prior as _prior
-from .state import State, resolve_device
+from .state import BranchSupplemental, State, resolve_device
 from .utils.pytree import tree_flatten, tree_unflatten
 
 __all__ = [
@@ -63,7 +65,8 @@ def priors_from_spec(spec, device=None):
 
 def state_from_numpy(d, device=None, dtype=torch.float32):
     """Build a :class:`State` on ``device`` (default: the card, see
-    :func:`~eryn_tpu_torch.state.resolve_device`) from a numpy dict."""
+    :func:`~eryn_tpu_torch.state.resolve_device`) from a numpy dict.  Blobs
+    and supplemental entries keep their own dtypes."""
     device = resolve_device(device)
 
     def put(x, dt=dtype):
@@ -72,22 +75,45 @@ def state_from_numpy(d, device=None, dtype=torch.float32):
             np.array(x), dtype=dt, device=device
         )
 
+    def supp(h):
+        if h is None:
+            return None
+        return BranchSupplemental(
+            {k: torch.as_tensor(np.array(v), device=device)
+             for k, v in h.items()})
+
     inds = d.get("inds")
+    blobs = d.get("blobs")
+    bsupps = d.get("branch_supplemental") or {}
     return State(
         {n: put(c) for n, c in d["coords"].items()},
         inds=None if inds is None else {
             n: put(m, torch.bool) for n, m in inds.items()
         },
+        blobs=None if blobs is None else torch.as_tensor(
+            np.array(blobs), device=device),
+        supplemental=supp(d.get("supplemental")),
+        branch_supplemental={n: supp(h) for n, h in bsupps.items()},
         **{f: put(d.get(f)) for f in _FIELDS},
     )
 
 
 def state_to_numpy(state):
     """Numpy dict of a :class:`State` (from this package or any state with
-    the same attribute names)."""
+    the same attribute names; a supplemental's numeric entries are its
+    ``holder``)."""
+    def supp(s):
+        return None if s is None else {k: _host(v)
+                                       for k, v in s.holder.items()}
+
     return {
         "coords": {n: _host(b.coords) for n, b in state.branches.items()},
         "inds": {n: _host(b.inds) for n, b in state.branches.items()},
+        "blobs": _host(state.blobs),
+        "supplemental": supp(state.supplemental),
+        "branch_supplemental": {
+            n: supp(b.branch_supplemental) for n, b in state.branches.items()
+            if b.branch_supplemental is not None},
         **{f: _host(getattr(state, f)) for f in _FIELDS},
     }
 

@@ -17,7 +17,7 @@ import numpy as np
 import torch
 
 from .kde import cholesky_or_nan, periodic_refused
-from .move import Move, mh_decide
+from .move import Move, merge_blobs, mh_decide, state_branch_supps
 from .tempering import tempered_log_likelihood
 
 __all__ = ["AIMHMove"]
@@ -182,7 +182,8 @@ class AIMHMove(Move):
         inds = dict(state.branches_inds)
         full = {**state.branches_coords, **q_branches}
         lp1 = ctx.compute_log_prior(full, inds)
-        ll1, _ = ctx.compute_log_like(full, inds, lp1)
+        ll1, bl1 = ctx.compute_log_like(full, inds, lp1,
+                                        state_branch_supps(state))
         logP_new = tempered_log_likelihood(ll1, betas) + lp1
         logP_old = tempered_log_likelihood(logl0, betas) + state.log_prior
         acc = mh_decide(self.draw_accept(generator, logP_new), factors,
@@ -216,5 +217,6 @@ class AIMHMove(Move):
                   "t": ks["t"] + 1}
 
         new_state = state.replace(coords=new_coords, inds=inds, log_like=logl,
-                                  log_prior=logp)
+                                  log_prior=logp,
+                                  blobs=merge_blobs(acc, bl1, state.blobs))
         return new_state, acc, ks

@@ -20,6 +20,8 @@ from __future__ import annotations
 import torch
 
 from .hmc import HMCMove
+from .mala import unpack_aux
+from .move import merge_blobs
 
 __all__ = ["ChEESHMCMove"]
 
@@ -123,19 +125,22 @@ class ChEESHMCMove(HMCMove):
 
         p0 = self._momenta(generator, names, coords, masks)
         kinetic, half_kick, drift = self._leapfrog_fns(names, masks, eps)
-        (ll1, lp1), g = grad_fn(coords)
+        aux, g = grad_fn(coords)
+        ll1, lp1, bl1 = unpack_aux(aux)
         x1, p1 = coords, p0
         for i in range(self.max_leapfrog):
             act = i < L
             p = half_kick(p1, g)
             x = drift(x1, p)
-            (ll, lp), g_new = grad_fn(x)
+            aux, g_new = grad_fn(x)
+            ll, lp, bl = unpack_aux(aux)
             p = half_kick(p, g_new)
             x1 = {n: torch.where(act, x[n], x1[n]) for n in names}
             p1 = {n: torch.where(act, p[n], p1[n]) for n in names}
             g = {n: torch.where(act, g_new[n], g[n]) for n in names}
             ll1 = torch.where(act, ll, ll1)
             lp1 = torch.where(act, lp, lp1)
+            bl1 = merge_blobs(act, bl, bl1)
         factors = kinetic(p0) - kinetic(p1)
         if self.leapfrog_total is not None:
             self.leapfrog_total.add_(L)
@@ -145,7 +150,7 @@ class ChEESHMCMove(HMCMove):
                                          p1, factors, ll1, lp1, betas, u, T,
                                          eps_time, eps)
         return self._accept_and_merge(generator, state, names, coords, x1,
-                                      factors, ll1, lp1, betas, ks)
+                                      factors, ll1, lp1, betas, ks, bl1)
 
     def _adapt_traj_length(self, ks, state, names, masks, coords, x1, p1,
                            factors, ll1, lp1, betas, u, T, eps_time, eps):

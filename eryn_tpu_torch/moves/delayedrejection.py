@@ -19,7 +19,7 @@ from __future__ import annotations
 
 import torch
 
-from .move import Move
+from .move import Move, merge_blobs, state_branch_supps
 from .tempering import tempered_log_likelihood
 
 __all__ = ["DelayedRejection"]
@@ -71,11 +71,13 @@ class DelayedRejection(Move):
         if betas is None:
             betas = torch.ones(ntemps, dtype=logl.dtype, device=logl.device)
         names = self.proposal.run_branches(state)
+        blobs = state.blobs
+        supps = state_branch_supps(state)
         logP_x = tempered_log_likelihood(logl, betas) + logp
 
         # the candidate chain x -> y1 -> ... -> yK, each evaluated once
         chain_logP = [logP_x]
-        chain_vals = []  # (q_full, log-likelihood, log-prior) per candidate
+        chain_vals = []  # (q_full, log-likelihood, log-prior, blobs) each
         prev_q = coords
         for _stage in range(self.max_iter + 1):
             q, _factors, kernel_state = self.proposal.get_proposal_kernel(
@@ -84,9 +86,9 @@ class DelayedRejection(Move):
             )
             q_full = {**prev_q, **q}
             lp_c = ctx.compute_log_prior(q_full, inds)
-            ll_c, _ = ctx.compute_log_like(q_full, inds, lp_c)
+            ll_c, bl_c = ctx.compute_log_like(q_full, inds, lp_c, supps)
             chain_logP.append(tempered_log_likelihood(ll_c, betas) + lp_c)
-            chain_vals.append((q_full, ll_c, lp_c))
+            chain_vals.append((q_full, ll_c, lp_c, bl_c))
             prev_q = q_full
 
         # alpha[(s, e)]: acceptance of the sub-path z_s -> z_e
@@ -116,7 +118,7 @@ class DelayedRejection(Move):
         for stage in range(1, self.max_iter + 2):
             a = alpha(0, stage)
             u = self.draw_accept(generator, a)
-            q_full, ll_c, lp_c = chain_vals[stage - 1]
+            q_full, ll_c, lp_c, bl_c = chain_vals[stage - 1]
             # only a walker's first accepting stage counts
             acc_now = ~accepted & (u < a)
             for n in names:
@@ -124,9 +126,12 @@ class DelayedRejection(Move):
                                         coords[n])
             logl = torch.where(acc_now, ll_c, logl)
             logp = torch.where(acc_now, lp_c, logp)
+            # a stage's blobs where that stage accepts
+            blobs = merge_blobs(acc_now, bl_c, blobs)
             accepted = accepted | acc_now
 
         new_state = state.replace(
-            coords=coords, inds=inds, log_like=logl, log_prior=logp
+            coords=coords, inds=inds, log_like=logl, log_prior=logp,
+            blobs=blobs,
         )
         return new_state, accepted, kernel_state

@@ -14,7 +14,13 @@ from __future__ import annotations
 import torch
 
 from ..utils.pytree import tree_flatten, tree_unflatten
-from .move import Move, mh_decide, refuse_host_hooks
+from .move import (
+    Move,
+    merge_blobs,
+    mh_decide,
+    refuse_host_hooks,
+    state_branch_supps,
+)
 from .tempering import tempered_log_likelihood
 
 __all__ = ["GroupMove"]
@@ -100,6 +106,8 @@ class GroupMove(Move):
         inds = dict(state.branches_inds)
         logl = state.log_like
         logp = state.log_prior
+        blobs = state.blobs
+        supps = state_branch_supps(state)
         ntemps, nwalkers = logl.shape
         betas = state.betas
         if betas is None:
@@ -129,7 +137,8 @@ class GroupMove(Move):
 
             q_full = {**coords, **q}
             logp_new = ctx.compute_log_prior(q_full, inds)
-            logl_new, _ = ctx.compute_log_like(q_full, inds, logp_new)
+            logl_new, blobs_new = ctx.compute_log_like(q_full, inds, logp_new,
+                                                       supps)
 
             logP_new = tempered_log_likelihood(logl_new, betas) + logp_new
             logP_old = tempered_log_likelihood(logl, betas) + logp
@@ -141,10 +150,12 @@ class GroupMove(Move):
                 coords[n] = torch.where(acc4, q_full[n], coords[n])
             logl = torch.where(acc, logl_new, logl)
             logp = torch.where(acc, logp_new, logp)
+            blobs = merge_blobs(acc, blobs_new, blobs)
             accepted = accepted | acc
 
         new_state = state.replace(
-            coords=coords, inds=inds, log_like=logl, log_prior=logp
+            coords=coords, inds=inds, log_like=logl, log_prior=logp,
+            blobs=blobs,
         )
         new_kernel_state = {
             "iter": it + 1,

@@ -14,7 +14,8 @@ from __future__ import annotations
 
 import torch
 
-from .mala import MALAMove
+from .mala import MALAMove, unpack_aux
+from .move import merge_blobs
 
 __all__ = ["HMCMove"]
 
@@ -100,11 +101,12 @@ class HMCMove(MALAMove):
 
     def _run_leapfrog(self, generator, names, coords, masks, eps, grad_fn):
         """Momenta and the (optionally length-jittered) trajectory from
-        ``coords``: ``(x1, ll1, lp1, factors)`` with ``factors = K(p0) -
-        K(p1)``."""
+        ``coords``: ``(x1, ll1, lp1, factors, blobs1)`` with ``factors =
+        K(p0) - K(p1)``."""
         p0 = self._momenta(generator, names, coords, masks)
         kinetic, half_kick, drift = self._leapfrog_fns(names, masks, eps)
-        (ll, lp), g = grad_fn(coords)
+        aux, g = grad_fn(coords)
+        ll, lp, bl = unpack_aux(aux)
         first = masks[names[0]]
         lengths = self.draw_lengths(generator, first.shape[:2], first.device)
 
@@ -112,10 +114,11 @@ class HMCMove(MALAMove):
         for i in range(self.num_leapfrog):
             p_new = half_kick(p, g)
             x_new = drift(x, p_new)
-            (ll_new, lp_new), g_new = grad_fn(x_new)
+            aux, g_new = grad_fn(x_new)
+            ll_new, lp_new, bl_new = unpack_aux(aux)
             p_new = half_kick(p_new, g_new)
             if lengths is None:
-                x, p, g, ll, lp = x_new, p_new, g_new, ll_new, lp_new
+                x, p, g, ll, lp, bl = x_new, p_new, g_new, ll_new, lp_new, bl_new
                 continue
             act = i < lengths
             a4 = act[:, :, None, None]
@@ -124,7 +127,8 @@ class HMCMove(MALAMove):
             g = {n: torch.where(a4, g_new[n], g[n]) for n in names}
             ll = torch.where(act, ll_new, ll)
             lp = torch.where(act, lp_new, lp)
-        return x, ll, lp, kinetic(p0) - kinetic(p)
+            bl = merge_blobs(act, bl_new, bl)
+        return x, ll, lp, kinetic(p0) - kinetic(p), bl
 
     def _propose_impl(self, generator, state, ctx, kernel_state=()):
         if self.ensemble_precondition:
@@ -137,7 +141,8 @@ class HMCMove(MALAMove):
                                         state.log_like, kernel_state)
                for n in names}
         masks = {n: inds[n][..., None] for n in names}
-        x1, ll1, lp1, factors = self._run_leapfrog(generator, names, coords,
-                                                   masks, eps, grad_fn)
+        x1, ll1, lp1, factors, bl1 = self._run_leapfrog(
+            generator, names, coords, masks, eps, grad_fn)
         return self._accept_and_merge(generator, state, names, coords, x1,
-                                      factors, ll1, lp1, betas, kernel_state)
+                                      factors, ll1, lp1, betas, kernel_state,
+                                      bl1)

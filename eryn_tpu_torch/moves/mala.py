@@ -21,19 +21,23 @@ from __future__ import annotations
 import numpy as np
 import torch
 
-from .move import Move, mh_decide
+from .move import Move, merge_blobs, mh_decide, state_branch_supps
 from .tempering import tempered_log_likelihood
 
 __all__ = ["MALAMove", "grad_context"]
 
 
-def grad_context(ctx, fixed, inds, betas):
+def grad_context(ctx, fixed, inds, betas, supps=None):
     """The gradient of the tempered log posterior of a block of walkers.
 
     ``fixed`` holds the coordinates of the branches that do not move,
-    ``inds`` every branch's leaf masks and ``betas`` the ``(ntemps,)``
-    ladder.  Returns ``grad_fn(active) -> ((log_like, log_prior), grad)``
-    with ``active`` and ``grad`` dicts over the moving branches.  The sum
+    ``inds`` every branch's leaf masks, ``betas`` the ``(ntemps,)``
+    ladder and ``supps`` the block's branch supplementals
+    (:func:`~eryn_tpu_torch.moves.move.state_branch_supps`).  Returns
+    ``grad_fn(active) -> (aux, grad)`` with ``active`` and ``grad`` dicts
+    over the moving branches and ``aux`` ``(log_like, log_prior)``, or
+    ``(log_like, log_prior, blobs)`` where the likelihood returns blobs
+    (:func:`unpack_aux` reads either).  The sum
     runs over finite ``logP`` only and a non-finite gradient is set to
     zero, so a walker at ``-inf`` (outside the prior, where the likelihood
     is evaluated at zeros) takes a pure noise step instead of freezing.
@@ -42,9 +46,10 @@ def grad_context(ctx, fixed, inds, betas):
     def logP_sum(active):
         full = {**fixed, **active}
         lp = ctx.compute_log_prior(full, inds)
-        ll, _ = ctx.compute_log_like(full, inds, lp)
+        ll, bl = ctx.compute_log_like(full, inds, lp, supps)
         logP = tempered_log_likelihood(ll, betas) + lp
-        return torch.where(torch.isfinite(logP), logP, 0.0).sum(), (ll, lp)
+        aux = (ll, lp) if bl is None else (ll, lp, bl)
+        return torch.where(torch.isfinite(logP), logP, 0.0).sum(), aux
 
     raw = torch.func.grad_and_value(logP_sum, has_aux=True)
 
@@ -54,6 +59,12 @@ def grad_context(ctx, fixed, inds, betas):
                      for n, v in g.items()}
 
     return grad_fn
+
+
+def unpack_aux(aux):
+    """``(log_like, log_prior, blobs or None)`` of a :func:`grad_context`
+    aux."""
+    return tuple(aux) if len(aux) == 3 else (*aux, None)
 
 
 class MALAMove(Move):
@@ -205,7 +216,8 @@ class MALAMove(Move):
         betas = state.betas
         if betas is None:
             betas = state.log_like.new_ones((state.log_like.shape[0],))
-        return names, coords, inds, betas, grad_context(ctx, fixed, inds, betas)
+        return names, coords, inds, betas, grad_context(
+            ctx, fixed, inds, betas, state_branch_supps(state))
 
     def _wrap_periodic(self, name, q):
         if self.periodic is not None:
@@ -229,7 +241,7 @@ class MALAMove(Move):
         return torch.nan_to_num(torch.exp(torch.clamp(lnpdiff, max=0.0)))
 
     def _accept_and_merge(self, generator, state, names, coords, q, factors,
-                          ll1, lp1, betas, kernel_state):
+                          ll1, lp1, betas, kernel_state, bl1=None):
         logP_new = tempered_log_likelihood(ll1, betas) + lp1
         logP_old = (tempered_log_likelihood(state.log_like, betas)
                     + state.log_prior)
@@ -246,7 +258,8 @@ class MALAMove(Move):
             kernel_state = self._adapt_scale(kernel_state, alpha)
         new_state = state.replace(coords=new_coords,
                                   inds=dict(state.branches_inds),
-                                  log_like=logl, log_prior=logp)
+                                  log_like=logl, log_prior=logp,
+                                  blobs=merge_blobs(acc, bl1, state.blobs))
         return new_state, acc, kernel_state
 
     # -- the red/blue preconditioned form -------------------------------------
@@ -277,8 +290,8 @@ class MALAMove(Move):
                               propose_block=None):
         """Two permuted halves in turn, each with the other half's spread
         as its mass matrix.  ``propose_block(generator, names, x, masks,
-        eps, grad_fn) -> (q, ll1, lp1, factors)`` is the proposal of one
-        half (None: the Langevin one)."""
+        eps, grad_fn) -> (q, ll1, lp1, factors, blobs1)`` is the proposal
+        of one half (None: the Langevin one)."""
         if propose_block is None:
             propose_block = self._langevin
         names = self.run_branches(state)
@@ -296,6 +309,7 @@ class MALAMove(Move):
         inds_p = {n: state.branches_inds[n][:, perm] for n in all_names}
         logl_p = logl0[:, perm]
         logp_p = state.log_prior[:, perm]
+        blobs_p = None if state.blobs is None else state.blobs[:, perm]
         acc_p = torch.zeros((ntemps, nwalkers), dtype=torch.bool,
                             device=logl0.device)
 
@@ -318,12 +332,14 @@ class MALAMove(Move):
             inds_blk = {n: inds_p[n][:, blk] for n in all_names}
             fixed = {n: coords_p[n][:, blk] for n in all_names
                      if n not in names}
-            grad_fn = grad_context(ctx, fixed, inds_blk, betas)
+            grad_fn = grad_context(
+                ctx, fixed, inds_blk, betas,
+                state_branch_supps(state, perm=perm, block=(off, ns)))
             x = {n: coords_p[n][:, blk] for n in names}
             masks_blk = {n: inds_blk[n][..., None] for n in names}
 
-            q, ll1, lp1, factors = propose_block(generator, names, x,
-                                                 masks_blk, eps_tree, grad_fn)
+            q, ll1, lp1, factors, bl1 = propose_block(
+                generator, names, x, masks_blk, eps_tree, grad_fn)
 
             prev_logl = logl_p[:, blk]
             prev_logp = logp_p[:, blk]
@@ -340,6 +356,8 @@ class MALAMove(Move):
                                                   x[n])
             logl_p[:, blk] = torch.where(acc, ll1, prev_logl)
             logp_p[:, blk] = torch.where(acc, lp1, prev_logp)
+            if blobs_p is not None:
+                blobs_p[:, blk] = merge_blobs(acc, bl1, blobs_p[:, blk])
             acc_p[:, blk] = acc
 
         if self.tune_steps > 0 and kernel_state:
@@ -350,6 +368,7 @@ class MALAMove(Move):
             coords={n: coords_p[n][:, inv_perm] for n in all_names},
             inds=dict(state.branches_inds),
             log_like=logl_p[:, inv_perm], log_prior=logp_p[:, inv_perm],
+            blobs=None if blobs_p is None else blobs_p[:, inv_perm],
         )
         return new_state, acc_p[:, inv_perm], kernel_state
 
@@ -367,7 +386,8 @@ class MALAMove(Move):
         return factors
 
     def _langevin(self, generator, names, x, masks, eps, grad_fn):
-        """The Langevin proposal from ``x``: ``(q, ll1, lp1, factors)``."""
+        """The Langevin proposal from ``x``: ``(q, ll1, lp1, factors,
+        blobs1)``."""
         xi = self.draw_noise(generator, x)
         _, grad_x = grad_fn(x)
         q = {}
@@ -375,10 +395,11 @@ class MALAMove(Move):
             step = 0.5 * eps[n] ** 2 * grad_x[n] + eps[n] * xi[n]
             q[n] = self._wrap_periodic(
                 n, x[n] + torch.where(masks[n], step, 0.0))
-        (ll1, lp1), grad_q = grad_fn(q)
+        aux, grad_q = grad_fn(q)
+        ll1, lp1, bl1 = unpack_aux(aux)
         factors = self._mala_factors(names, x, q, grad_x, grad_q, masks, eps,
                                      ll1)
-        return q, ll1, lp1, factors
+        return q, ll1, lp1, factors, bl1
 
     def _propose_impl(self, generator, state, ctx, kernel_state=()):
         if self.ensemble_precondition:
@@ -390,7 +411,8 @@ class MALAMove(Move):
                                         state.log_like, kernel_state)
                for n in names}
         masks = {n: inds[n][..., None] for n in names}
-        q, ll1, lp1, factors = self._langevin(generator, names, coords, masks,
-                                              eps, grad_fn)
+        q, ll1, lp1, factors, bl1 = self._langevin(generator, names, coords,
+                                                   masks, eps, grad_fn)
         return self._accept_and_merge(generator, state, names, coords, q,
-                                      factors, ll1, lp1, betas, kernel_state)
+                                      factors, ll1, lp1, betas, kernel_state,
+                                      bl1)

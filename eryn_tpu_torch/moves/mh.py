@@ -9,7 +9,13 @@ from __future__ import annotations
 
 import torch
 
-from .move import Move, mh_decide, refuse_host_hooks
+from .move import (
+    Move,
+    merge_blobs,
+    mh_decide,
+    refuse_host_hooks,
+    state_branch_supps,
+)
 from .tempering import tempered_log_likelihood
 
 __all__ = ["MHMove"]
@@ -41,6 +47,8 @@ class MHMove(Move):
         inds = dict(state.branches_inds)
         logl = state.log_like
         logp = state.log_prior
+        blobs = state.blobs
+        supps = state_branch_supps(state)
         ntemps, nwalkers = logl.shape
         betas = state.betas
         if betas is None:
@@ -61,7 +69,8 @@ class MHMove(Move):
 
             q_full = {**coords, **q}
             logp_new = ctx.compute_log_prior(q_full, inds)
-            logl_new, _ = ctx.compute_log_like(q_full, inds, logp_new)
+            logl_new, blobs_new = ctx.compute_log_like(q_full, inds, logp_new,
+                                                       supps)
 
             logP_new = tempered_log_likelihood(logl_new, betas) + logp_new
             logP_old = tempered_log_likelihood(logl, betas) + logp
@@ -73,9 +82,11 @@ class MHMove(Move):
                 coords[n] = torch.where(acc4, q_full[n], coords[n])
             logl = torch.where(acc, logl_new, logl)
             logp = torch.where(acc, logp_new, logp)
+            blobs = merge_blobs(acc, blobs_new, blobs)
             accepted = accepted | acc
 
         new_state = state.replace(
-            coords=coords, inds=inds, log_like=logl, log_prior=logp
+            coords=coords, inds=inds, log_like=logl, log_prior=logp,
+            blobs=blobs,
         )
         return new_state, accepted, kernel_state

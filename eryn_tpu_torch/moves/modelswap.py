@@ -16,7 +16,7 @@ import numpy as np
 import torch
 
 from ..prior import ProbDistContainer
-from .move import mh_decide
+from .move import merge_blobs, mh_decide, state_branch_supps
 from .rj import ReversibleJumpMove
 from .tempering import tempered_log_likelihood
 
@@ -169,7 +169,8 @@ class ModelSwapRJMove(ReversibleJumpMove):
         q_full = {**coords, **q_coords}
         inds_full = {**inds, **new_inds}
         logp_new = ctx.compute_log_prior(q_full, inds_full)
-        logl_new, _ = ctx.compute_log_like(q_full, inds_full, logp_new)
+        logl_new, blobs_new = ctx.compute_log_like(
+            q_full, inds_full, logp_new, state_branch_supps(state))
 
         factors = lq_old - lq_new
         logP_new = tempered_log_likelihood(logl_new, betas) + logp_new
@@ -185,6 +186,7 @@ class ModelSwapRJMove(ReversibleJumpMove):
             coords=coords, inds=inds,
             log_like=torch.where(acc, logl_new, logl),
             log_prior=torch.where(acc, logp_new, logp),
+            blobs=merge_blobs(acc, blobs_new, state.blobs),
         )
         return new_state, acc.to(logl.dtype), kernel_state
 

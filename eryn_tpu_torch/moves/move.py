@@ -26,7 +26,9 @@ __all__ = [
     "mh_accept",
     "mh_decide",
     "active_ndim",
+    "merge_blobs",
     "refuse_host_hooks",
+    "state_branch_supps",
 ]
 
 
@@ -35,8 +37,11 @@ class EvalContext(NamedTuple):
 
     Attributes:
         compute_log_prior: ``(coords_dict, inds_dict) -> (ntemps, n)``.
-        compute_log_like: ``(coords_dict, inds_dict, logp) -> (logl, blobs)``;
-            ``logp`` guards evaluation outside the prior support.
+        compute_log_like: ``(coords_dict, inds_dict, logp, branch_supps=None)
+            -> (logl, blobs)``; ``logp`` guards evaluation outside the prior
+            support, ``branch_supps`` (:func:`state_branch_supps`) are the
+            walkers' branch supplementals, and ``blobs`` is None unless the
+            likelihood returns some.
         tempering: :class:`~eryn_tpu_torch.moves.tempering.TemperatureControl`
             or None.
         prior_containers: ``{branch: ProbDistContainer}``.
@@ -83,6 +88,34 @@ def refuse_host_hooks(move, hooks, instead):
         )
 
 
+def state_branch_supps(state, perm=None, block=None):
+    """The numeric entries of each branch supplemental, ``{branch: {name:
+    tensor}}``, for the likelihood: walker-permuted by ``perm`` and cut to
+    the block ``(off, ns)`` of the walker axis when given.  None when no
+    branch carries a supplemental."""
+    out = {}
+    for name, supp in state.branches_supplemental.items():
+        if supp is None:
+            continue
+        holder = supp.holder
+        if perm is not None:
+            holder = {k: v[:, perm] for k, v in holder.items()}
+        if block is not None:
+            off, ns = block
+            holder = {k: v[:, off:off + ns] for k, v in holder.items()}
+        out[name] = holder
+    return out or None
+
+
+def merge_blobs(acc, new, old):
+    """``old`` blobs with the walkers where ``acc`` (leading dims of the
+    blobs) holds taking ``new``; None stays None."""
+    if old is None or new is None:
+        return old
+    return torch.where(acc.reshape(acc.shape + (1,) * (old.ndim - acc.ndim)),
+                       new, old)
+
+
 def active_ndim(state, names=None):
     """Per-walker active dimensionality ``sum_b nleaves_b * ndim_b`` from the
     leaf masks: the dimension count of the detailed-balance factors."""
@@ -115,11 +148,13 @@ class Move:
         periodic=None,
         gibbs_sampling_setup=None,
         prevent_swaps=False,
+        skip_supp_names_update=(),
         proposal_branch_names=None,
     ):
         self.temperature_control = temperature_control
         self.periodic = PeriodicContainer.coerce(periodic)
         self.prevent_swaps = prevent_swaps
+        self.skip_supp_names_update = list(skip_supp_names_update)
         self.proposal_branch_names = proposal_branch_names
         self._initialize_branch_setup(gibbs_sampling_setup, is_rj=self.is_rj)
         # host counters and the kernel state, synced by the sampler after
@@ -252,6 +287,57 @@ class Move:
 
     def _propose_impl(self, generator, state, ctx, kernel_state):
         raise NotImplementedError
+
+    def update(self, old_state, new_state, accepted, subset=None):
+        """``old_state`` with the accepted walkers of ``new_state`` merged
+        in: coordinates, masks, log-likelihood, log-prior, blobs and the
+        numeric supplemental entries (but ``skip_supp_names_update``), on
+        the device and without a host read.
+
+        ``accepted`` is ``(ntemps, nwalkers)``; ``subset``, when
+        ``new_state`` covers only part of the walkers, is its ``(ntemps,
+        ns)`` int walker indices into ``old_state``.  Returns a new state.
+        """
+        accepted = accepted.to(torch.bool)
+        if subset is not None:
+            subset = subset.to(torch.int64)
+            accepted = torch.gather(accepted, 1, subset)
+
+        def merge(old, new):
+            if old is None or new is None:
+                return old
+            if subset is None:
+                return merge_blobs(accepted, new, old)
+            idx = subset.reshape(subset.shape + (1,) * (old.ndim - 2))
+            idx = idx.expand(subset.shape + old.shape[2:])
+            cur = torch.gather(old, 1, idx)
+            return old.scatter(1, idx, merge_blobs(accepted, new, cur))
+
+        def merge_supp(old, new):
+            if old is None or new is None:
+                return old
+            holder = dict(old.holder)
+            for key, value in new.holder.items():
+                if key in self.skip_supp_names_update or key not in holder:
+                    continue
+                holder[key] = merge(holder[key], value)
+            return old.with_holder(holder)
+
+        return old_state.replace(
+            coords={n: merge(b.coords, new_state.branches[n].coords)
+                    for n, b in old_state.branches.items()},
+            inds={n: merge(b.inds, new_state.branches[n].inds)
+                  for n, b in old_state.branches.items()},
+            branch_supplemental={
+                n: merge_supp(b.branch_supplemental,
+                              new_state.branches[n].branch_supplemental)
+                for n, b in old_state.branches.items()},
+            log_like=merge(old_state.log_like, new_state.log_like),
+            log_prior=merge(old_state.log_prior, new_state.log_prior),
+            blobs=merge(old_state.blobs, new_state.blobs),
+            supplemental=merge_supp(old_state.supplemental,
+                                    new_state.supplemental),
+        )
 
     def propose_kernel(self, generator, state, time, ctx, kernel_state=()):
         """Proposal plus tempering epilogue.

@@ -12,8 +12,8 @@ from __future__ import annotations
 import torch
 
 from ..prior import ProbDistContainer
-from .move import mh_decide, refuse_host_hooks
-from .multipletry import MultipleTryMove, repeat_walkers
+from .move import merge_blobs, mh_decide, refuse_host_hooks, state_branch_supps
+from .multipletry import MultipleTryMove, repeat_supps, repeat_walkers
 from .tempering import tempered_log_likelihood
 
 __all__ = ["MTDistGenMove"]
@@ -89,9 +89,13 @@ class MTDistGenMove(MultipleTryMove):
             coords[name] = repeat_walkers(b.coords, num_try)
             inds[name] = repeat_walkers(b.inds, num_try)
         lp = ctx.compute_log_prior(coords, inds)
-        ll, _ = ctx.compute_log_like(coords, inds, lp)
+        ll, blobs = ctx.compute_log_like(
+            coords, inds, lp, repeat_supps(state_branch_supps(state), num_try))
+        if blobs is not None:
+            blobs = blobs.reshape((ntemps, nwalkers, num_try)
+                                  + blobs.shape[2:])
         return (ll.reshape(ntemps, nwalkers, num_try),
-                lp.reshape(ntemps, nwalkers, num_try))
+                lp.reshape(ntemps, nwalkers, num_try), blobs)
 
     def _propose_impl(self, generator, state, ctx, kernel_state=()):
         ntemps = state.log_like.shape[0]
@@ -99,7 +103,7 @@ class MTDistGenMove(MultipleTryMove):
         if betas is None:
             betas = torch.ones(ntemps, dtype=state.log_like.dtype,
                                device=state.log_like.device)
-        coords_out, ll_out, lp_out, factors = self.mt_select_kernel(
+        coords_out, ll_out, lp_out, factors, blobs_out = self.mt_select_kernel(
             generator, state, ctx)
 
         logP_new = tempered_log_likelihood(ll_out, betas) + lp_out
@@ -116,5 +120,6 @@ class MTDistGenMove(MultipleTryMove):
             coords=coords, inds=dict(state.branches_inds),
             log_like=torch.where(acc, ll_out, state.log_like),
             log_prior=torch.where(acc, lp_out, state.log_prior),
+            blobs=merge_blobs(acc, blobs_out, state.blobs),
         )
         return new_state, acc, kernel_state

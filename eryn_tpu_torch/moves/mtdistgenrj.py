@@ -17,12 +17,14 @@ import math
 import torch
 
 from ..prior import ProbDistContainer
-from .move import mh_decide, refuse_host_hooks
+from .move import merge_blobs, mh_decide, refuse_host_hooks, state_branch_supps
 from .multipletry import (
     categorical_pick,
     gumbel_from_uniform,
     logsumexp,
     pick_try,
+    pick_try_blobs,
+    repeat_supps,
     repeat_walkers,
 )
 from .rj import ReversibleJumpMove, rj_change_kernel
@@ -94,6 +96,8 @@ class MTDistGenMoveRJ(ReversibleJumpMove):
         inds = dict(state.branches_inds)
         logl = state.log_like
         logp = state.log_prior
+        blobs = state.blobs
+        supps = state_branch_supps(state)
         ntemps, nwalkers = logl.shape
         betas = state.betas
         if betas is None:
@@ -122,7 +126,8 @@ class MTDistGenMoveRJ(ReversibleJumpMove):
             # the base ("one leaf less") state
             base_inds = {**inds, name: inds_without}
             lp_without = ctx.compute_log_prior(coords, base_inds)
-            ll_without, _ = ctx.compute_log_like(coords, base_inds, lp_without)
+            ll_without, blobs_without = ctx.compute_log_like(
+                coords, base_inds, lp_without, supps)
 
             # deaths take the removed leaf as try 0
             at_slot = torch.where(slot_onehot[..., None], c, 0.0).sum(dim=2)
@@ -142,9 +147,12 @@ class MTDistGenMoveRJ(ReversibleJumpMove):
                                            tries_rep, coords_rep[name])
             inds_rep[name] = inds_rep[name] | slot_mask_rep
             lp_try = ctx.compute_log_prior(coords_rep, inds_rep)
-            ll_try, _ = ctx.compute_log_like(coords_rep, inds_rep, lp_try)
+            ll_try, blobs_try = ctx.compute_log_like(
+                coords_rep, inds_rep, lp_try, repeat_supps(supps, T))
             lp_try = lp_try.reshape(nt, nw, T)
             ll_try = ll_try.reshape(nt, nw, T)
+            if blobs_try is not None:
+                blobs_try = blobs_try.reshape((nt, nw, T) + blobs_try.shape[2:])
 
             # importance weights; the base prior in the proposal density
             # cancels the existing leaves' priors
@@ -191,6 +199,10 @@ class MTDistGenMoveRJ(ReversibleJumpMove):
                                  torch.where(death, ll_without, logl))
             lp_new = torch.where(birth, lp_chosen,
                                  torch.where(death, lp_without, logp))
+            # a birth takes the chosen try's blobs, a death the base state's
+            blobs_new = merge_blobs(
+                birth, pick_try_blobs(j, blobs_try),
+                merge_blobs(death, blobs_without, blobs))
 
             logP_new = tempered_log_likelihood(ll_new, betas) + lp_new
             logP_old = tempered_log_likelihood(logl, betas) + logp
@@ -203,9 +215,11 @@ class MTDistGenMoveRJ(ReversibleJumpMove):
             inds[name] = torch.where(acc[:, :, None], new_inds_branch, m)
             logl = torch.where(acc, ll_new, logl)
             logp = torch.where(acc, lp_new, logp)
+            blobs = merge_blobs(acc, blobs_new, blobs)
             accepted = accepted + acc
 
         new_state = state.replace(
-            coords=coords, inds=inds, log_like=logl, log_prior=logp
+            coords=coords, inds=inds, log_like=logl, log_prior=logp,
+            blobs=blobs,
         )
         return new_state, accepted, kernel_state

@@ -96,9 +96,34 @@ def repeat_walkers(x, num_try):
         nt, nw * num_try, *x.shape[2:])
 
 
+def repeat_supps(supps, num_try):
+    """:func:`~eryn_tpu_torch.moves.move.state_branch_supps` output with
+    each walker repeated ``num_try`` times, as :func:`repeat_walkers`."""
+    if supps is None:
+        return None
+    return {n: {k: repeat_walkers(v, num_try) for k, v in h.items()}
+            for n, h in supps.items()}
+
+
 def pick_try(one_hot, x):
     """The entry of ``x`` ``(..., num_try)`` at the picked try."""
     return torch.where(one_hot, x, 0.0).sum(dim=-1)
+
+
+def pick_try_blobs(j, blobs):
+    """The blobs ``(ntemps, nwalkers, num_try, ...)`` of the tries ``j``
+    ``(ntemps, nwalkers)``, as they are; None stays None."""
+    if blobs is None:
+        return None
+    idx = j.reshape(j.shape + (1,) * (blobs.ndim - 2))
+    idx = idx.expand(j.shape + (1,) + blobs.shape[3:])
+    return torch.gather(blobs, 2, idx).squeeze(2)
+
+
+def unpack_eval(out):
+    """``(ll, lp, blobs)`` of an ``mt_eval_kernel`` result, which may
+    leave the blobs out."""
+    return tuple(out) if len(out) == 3 else (*out, None)
 
 
 class MultipleTryMove(Move):
@@ -113,7 +138,9 @@ class MultipleTryMove(Move):
     * ``special_generate_logpdf_kernel(state, coords=None) -> (ntemps,
       nwalkers)``: the proposal log-density of ``coords`` (default: the
       current target coordinates) under the proposal anchored on ``state``;
-    * ``mt_eval_kernel(ctx, state, tries) -> (ll, lp)`` per try;
+    * ``mt_eval_kernel(ctx, state, tries) -> (ll, lp, blobs)`` per try
+      (``blobs`` ``(ntemps, nwalkers, num_try, ...)`` or None; ``(ll,
+      lp)`` is taken too);
     * ``_current_target_coords(state)`` and, for a state-dependent
       proposal with ``independent=False``, ``_with_target_coords(state,
       coords)``.
@@ -169,8 +196,8 @@ class MultipleTryMove(Move):
         """The multiple-try machinery of an in-model step.
 
         Returns ``(chosen coords (ntemps, nwalkers, ndim), ll, lp,
-        factors)`` such that ``factors + logP_new - logP_old`` is the ratio
-        of the weight sums.
+        factors, blobs)`` such that ``factors + logP_new - logP_old`` is the
+        ratio of the weight sums; ``blobs`` are the chosen try's, or None.
         """
         ntemps = state.log_like.shape[0]
         betas = state.betas
@@ -180,12 +207,12 @@ class MultipleTryMove(Move):
 
         tries, logq = self.special_generate_kernel(generator, state,
                                                    self.num_try)
-        ll, lp = self.mt_eval_kernel(ctx, state, tries)
+        ll, lp, blobs = unpack_eval(self.mt_eval_kernel(ctx, state, tries))
         logP = tempered_log_likelihood(ll, betas[:, None, None]) + lp
         logw = logP if self.symmetric else logP - logq
         log_sum_w = logsumexp(logw, axis=-1)
 
-        _, one_hot = categorical_pick(logw, self.draw_gumbel(generator, logw))
+        j, one_hot = categorical_pick(logw, self.draw_gumbel(generator, logw))
         coords_out = torch.where(one_hot[..., None], tries, 0.0).sum(dim=2)
         ll_out = pick_try(one_hot, ll)
         lp_out = pick_try(one_hot, lp)
@@ -214,14 +241,15 @@ class MultipleTryMove(Move):
                 cur_logq = self.special_generate_logpdf_kernel(state_y,
                                                                coords=cur)
                 aux_logq = torch.where(one_hot, cur_logq[:, :, None], aux_logq)
-            aux_ll, aux_lp = self.mt_eval_kernel(ctx, state, aux_tries)
+            aux_ll, aux_lp, _ = unpack_eval(
+                self.mt_eval_kernel(ctx, state, aux_tries))
             aux_logP = (tempered_log_likelihood(aux_ll, betas[:, None, None])
                         + aux_lp)
             aux_logw = aux_logP if self.symmetric else aux_logP - aux_logq
 
         aux_log_sum_w = logsumexp(aux_logw, axis=-1)
         factors = (cur_logP - aux_log_sum_w) - (logP_out - log_sum_w)
-        return coords_out, ll_out, lp_out, factors
+        return coords_out, ll_out, lp_out, factors, pick_try_blobs(j, blobs)
 
 
 class MultipleTryMoveRJ(MultipleTryMove):

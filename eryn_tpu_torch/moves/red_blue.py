@@ -10,7 +10,7 @@ from __future__ import annotations
 
 import torch
 
-from .move import Move, mh_decide
+from .move import Move, merge_blobs, mh_decide, state_branch_supps
 from .tempering import tempered_log_likelihood
 
 __all__ = ["RedBlueMove"]
@@ -90,6 +90,7 @@ class RedBlueMove(Move):
         inds = dict(state.branches_inds)
         logl = state.log_like
         logp = state.log_prior
+        blobs = state.blobs
         betas = state.betas
         if betas is None:
             betas = torch.ones(ntemps, dtype=logl.dtype, device=device)
@@ -114,6 +115,7 @@ class RedBlueMove(Move):
             inds_p = {n: inds[n][:, perm] for n in all_names}
             logl_p = logl[:, perm]
             logp_p = logp[:, perm]
+            blobs_p = None if blobs is None else blobs[:, perm]
             acc_p = accepted[:, perm]
 
             for off, ns in zip(offsets, sizes):
@@ -133,7 +135,11 @@ class RedBlueMove(Move):
                 }
                 inds_eval = {n: inds_p[n][:, blk] for n in all_names}
                 logp_new = ctx.compute_log_prior(q_eval, inds_eval)
-                logl_new, _ = ctx.compute_log_like(q_eval, inds_eval, logp_new)
+                # the block's walkers' supplementals, which the move leaves
+                # as they are
+                logl_new, blobs_new = ctx.compute_log_like(
+                    q_eval, inds_eval, logp_new,
+                    state_branch_supps(state, perm=perm, block=(off, ns)))
 
                 prev_logl = logl_p[:, blk]
                 prev_logp = logp_p[:, blk]
@@ -147,15 +153,21 @@ class RedBlueMove(Move):
                     coords_p[n][:, blk] = torch.where(acc4, q[n], s_coords[n])
                 logl_p[:, blk] = torch.where(acc, logl_new, prev_logl)
                 logp_p[:, blk] = torch.where(acc, logp_new, prev_logp)
+                if blobs_p is not None:
+                    blobs_p[:, blk] = merge_blobs(acc, blobs_new,
+                                                  blobs_p[:, blk])
                 # a walker accepted in any Gibbs iteration counts as accepted
                 acc_p[:, blk] = acc | acc_p[:, blk]
 
             coords = {n: coords_p[n][:, inv_perm] for n in all_names}
             logl = logl_p[:, inv_perm]
             logp = logp_p[:, inv_perm]
+            if blobs_p is not None:
+                blobs = blobs_p[:, inv_perm]
             accepted = acc_p[:, inv_perm]
 
         new_state = state.replace(
-            coords=coords, inds=inds, log_like=logl, log_prior=logp
+            coords=coords, inds=inds, log_like=logl, log_prior=logp,
+            blobs=blobs,
         )
         return new_state, accepted, kernel_state

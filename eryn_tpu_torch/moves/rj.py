@@ -14,7 +14,13 @@ import math
 
 import torch
 
-from .move import Move, mh_accept, refuse_host_hooks
+from .move import (
+    Move,
+    merge_blobs,
+    mh_accept,
+    refuse_host_hooks,
+    state_branch_supps,
+)
 from .tempering import tempered_log_likelihood
 
 __all__ = ["ReversibleJumpMove", "rj_change_kernel"]
@@ -118,6 +124,8 @@ class ReversibleJumpMove(Move):
         inds = dict(state.branches_inds)
         logl = state.log_like
         logp = state.log_prior
+        blobs = state.blobs
+        supps = state_branch_supps(state)
         ntemps, nwalkers = logl.shape
         betas = state.betas
         if betas is None:
@@ -138,7 +146,8 @@ class ReversibleJumpMove(Move):
             q_full = {**coords, name: q_branch}
             inds_full = {**inds, name: new_inds_branch}
             logp_new = ctx.compute_log_prior(q_full, inds_full)
-            logl_new, _ = ctx.compute_log_like(q_full, inds_full, logp_new)
+            logl_new, blobs_new = ctx.compute_log_like(q_full, inds_full,
+                                                       logp_new, supps)
 
             logP_new = tempered_log_likelihood(logl_new, betas) + logp_new
             logP_old = tempered_log_likelihood(logl, betas) + logp
@@ -157,9 +166,11 @@ class ReversibleJumpMove(Move):
                                      inds[name])
             logl = torch.where(acc, logl_new, logl)
             logp = torch.where(acc, logp_new, logp)
+            blobs = merge_blobs(acc, blobs_new, blobs)
             accepted = accepted + acc
 
         new_state = state.replace(
-            coords=coords, inds=inds, log_like=logl, log_prior=logp
+            coords=coords, inds=inds, log_like=logl, log_prior=logp,
+            blobs=blobs,
         )
         return new_state, accepted, kernel_state

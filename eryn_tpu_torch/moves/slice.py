@@ -22,7 +22,7 @@ from __future__ import annotations
 
 import torch
 
-from .move import Move
+from .move import Move, merge_blobs, state_branch_supps
 from .tempering import tempered_log_likelihood
 
 __all__ = ["SliceMove"]
@@ -103,6 +103,7 @@ class SliceMove(Move):
         coords = dict(state.branches_coords)
         inds = dict(state.branches_inds)
         logp = state.log_prior
+        blobs = state.blobs
         betas = state.betas
         if betas is None:
             betas = logl.new_ones((ntemps,))
@@ -134,6 +135,7 @@ class SliceMove(Move):
             inds_p = {n: inds[n][:, perm] for n in all_names}
             logl_p = logl[:, perm]
             logp_p = logp[:, perm]
+            blobs_p = None if blobs is None else blobs[:, perm]
             acc_p = accepted[:, perm]
 
             for off, ns in zip(offsets, sizes):
@@ -173,17 +175,20 @@ class SliceMove(Move):
                 fixed = {n: coords_p[n][:, blk] for n in all_names
                          if n not in names}
                 inds_eval = {n: inds_p[n][:, blk] for n in all_names}
+                supps_blk = state_branch_supps(state, perm=perm,
+                                               block=(off, ns))
 
                 def eval_at(lam, s_coords=s_coords, eta=eta, fixed=fixed,
-                            inds_eval=inds_eval):
-                    """Tempered log posterior, log-likelihood and log prior
-                    at ``x + lam * eta``."""
+                            inds_eval=inds_eval, supps_blk=supps_blk):
+                    """Tempered log posterior, log-likelihood, log prior and
+                    blobs at ``x + lam * eta``."""
                     q = {n: self._wrap(n, s_coords[n]
                                        + lam[:, :, None, None] * eta[n])
                          for n in names}
                     lp = ctx.compute_log_prior({**fixed, **q}, inds_eval)
-                    ll, _ = ctx.compute_log_like({**fixed, **q}, inds_eval, lp)
-                    return tempered_log_likelihood(ll, betas) + lp, ll, lp
+                    ll, bl = ctx.compute_log_like({**fixed, **q}, inds_eval,
+                                                  lp, supps_blk)
+                    return tempered_log_likelihood(ll, betas) + lp, ll, lp, bl
 
                 prev_logl = logl_p[:, blk]
                 prev_logp = logp_p[:, blk]
@@ -215,16 +220,18 @@ class SliceMove(Move):
                 lam_sel = logl.new_zeros((ntemps, ns))
                 done = ~act
                 ll_sel, lp_sel = prev_logl, prev_logp
+                bl_sel = None if blobs_p is None else blobs_p[:, blk]
                 ncnt = logl.new_zeros(())
                 for it in range(self.max_shrink):
                     needed[1] += (~done).any()
                     lam = L + u_shrink[it] * (R - L)
-                    logP, ll, lp = eval_at(lam)
+                    logP, ll, lp, bl = eval_at(lam)
                     in_slice = logP > y
                     newly = in_slice & ~done
                     lam_sel = torch.where(newly, lam, lam_sel)
                     ll_sel = torch.where(newly, ll, ll_sel)
                     lp_sel = torch.where(newly, lp, lp_sel)
+                    bl_sel = merge_blobs(newly, bl, bl_sel)
                     shrinkL = ~in_slice & ~done & (lam < 0)
                     shrinkR = ~in_slice & ~done & (lam >= 0)
                     L = torch.where(shrinkL, lam, L)
@@ -245,11 +252,16 @@ class SliceMove(Move):
                                                       qn, s_coords[n])
                 logl_p[:, blk] = torch.where(done, ll_sel, prev_logl)
                 logp_p[:, blk] = torch.where(done, lp_sel, prev_logp)
+                if blobs_p is not None:
+                    blobs_p[:, blk] = merge_blobs(done, bl_sel,
+                                                  blobs_p[:, blk])
                 acc_p[:, blk] = (done & act) | acc_p[:, blk]
 
             coords = {n: coords_p[n][:, inv_perm] for n in all_names}
             logl = logl_p[:, inv_perm]
             logp = logp_p[:, inv_perm]
+            if blobs_p is not None:
+                blobs = blobs_p[:, inv_perm]
             accepted = acc_p[:, inv_perm]
 
         # zeus eq. 16, frozen after tune_steps
@@ -268,5 +280,5 @@ class SliceMove(Move):
             self.loop_iterations.add_(needed)
 
         new_state = state.replace(coords=coords, inds=inds, log_like=logl,
-                                  log_prior=logp)
+                                  log_prior=logp, blobs=blobs)
         return new_state, accepted, {"mu": mu_new, "t": t + 1}

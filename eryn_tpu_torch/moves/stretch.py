@@ -147,6 +147,7 @@ class StretchMove(RedBlueMove):
             q_branches = q_to_branches(q, q.shape[1])
             inds_blk = {n: inds[n][:, halves[half]] for n in names}
             logp_new = ctx.compute_log_prior(q_branches, inds_blk)
+            # blobs and supplementals take the general path (_can_fuse)
             logl_new, _ = ctx.compute_log_like(q_branches, inds_blk, logp_new)
             return logl_new.contiguous(), logp_new.contiguous()
 

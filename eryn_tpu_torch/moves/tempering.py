@@ -180,6 +180,8 @@ class TemperatureControl:
     (on the CPU through its plain PyTorch version); False always runs the
     general cascade.  ``swap_scheme`` is ``"cascade"`` or ``"deo"``,
     ``adaptation_scheme`` ``"vousden"`` or ``"syed"`` (see the module).
+    The swaps move blobs and the numeric supplemental entries with their
+    walkers, but the state supplemental's ``skip_swap_supp_names``.
     """
 
     def __init__(
@@ -197,6 +199,7 @@ class TemperatureControl:
         use_kernels=None,
         swap_scheme="cascade",
         adaptation_scheme="vousden",
+        skip_swap_supp_names=(),
     ):
         if swap_scheme not in ("cascade", "deo"):
             raise ValueError(
@@ -218,6 +221,7 @@ class TemperatureControl:
         self.betas = betas
         self.ntemps = ntemps = len(betas)
         self.permute = permute
+        self.skip_swap_supp_names = list(skip_swap_supp_names)
         self.use_kernels = use_kernels
         self.swap_scheme = swap_scheme
         self.adaptation_scheme = adaptation_scheme
@@ -272,24 +276,32 @@ class TemperatureControl:
             return self._swap_cascade_kernel(
                 swap_tree, logl, betas, pi, shifts, raccept
             )
-        if self.permute:
-            perms = torch.argsort(
-                torch.rand((ntemps - 1, 2, nwalkers), generator=generator,
-                           device=logl.device),
-                dim=-1,
-            )
-        else:
-            perms = torch.arange(nwalkers, device=logl.device).expand(
-                ntemps - 1, 2, nwalkers
-            )
-        raccept = torch.log(
-            torch.rand((ntemps - 1, nwalkers), generator=generator,
-                       dtype=logl.dtype, device=logl.device)
-        )
+        perms, raccept = self.draw_general(generator, ntemps, nwalkers,
+                                           logl.dtype, logl.device)
         swap_tree, logl, accepted = self._swap_cascade_general(
             swap_tree, logl, betas, perms, raccept
         )
         return swap_tree, logl, accepted, nwalkers
+
+    def draw_general(self, generator, ntemps, nwalkers, dtype, device):
+        """Randomness of one general cascade: the walker orders ``perms``
+        ``(ntemps - 1, 2, nwalkers)`` (identities without ``permute``) and
+        the log-uniform acceptance draws ``raccept``."""
+        if self.permute:
+            perms = torch.argsort(
+                torch.rand((ntemps - 1, 2, nwalkers), generator=generator,
+                           device=device),
+                dim=-1,
+            )
+        else:
+            perms = torch.arange(nwalkers, device=device).expand(
+                ntemps - 1, 2, nwalkers
+            )
+        raccept = torch.log(
+            torch.rand((ntemps - 1, nwalkers), generator=generator,
+                       dtype=dtype, device=device)
+        )
+        return perms, raccept
 
     @staticmethod
     def draw_kernel(generator, ntemps, nwalkers, dtype, device):
@@ -527,6 +539,19 @@ class TemperatureControl:
             "inds": state.branches_inds,
             "log_prior": state.log_prior,
         }
+        branch_supps = {n: s.holder
+                        for n, s in state.branches_supplemental.items()
+                        if s is not None and s.holder}
+        if branch_supps:
+            swap_tree["branch_supps"] = branch_supps
+        if state.blobs is not None:
+            swap_tree["blobs"] = state.blobs
+        supp = state.supplemental
+        if supp is not None:
+            moved = {k: v for k, v in supp.holder.items()
+                     if k not in self.skip_swap_supp_names}
+            if moved:
+                swap_tree["supps"] = moved
         deo = self.swap_scheme == "deo"
         # the cascade needs no clock (and an override may take none)
         swap_tree, logl, swaps_accepted, swaps_proposed = self.swap_kernel(
@@ -564,11 +589,18 @@ class TemperatureControl:
             # the clock is DEO's parity: it ticks on every phase, the
             # reversible-jump moves' too
             time = time + 1
+        if "supps" in swap_tree:
+            supp = supp.with_holder({**supp.holder, **swap_tree["supps"]})
         new_state = state.replace(
             coords=swap_tree["coords"],
             inds=swap_tree["inds"],
+            branch_supplemental={
+                n: state.branches[n].branch_supplemental.with_holder(h)
+                for n, h in swap_tree.get("branch_supps", {}).items()},
             log_like=logl,
             log_prior=swap_tree["log_prior"],
+            blobs=swap_tree.get("blobs"),
             betas=betas,
+            supplemental=supp,
         )
         return new_state, swaps_accepted, time

@@ -64,7 +64,8 @@ __all__ = [
 ROLLED_THRESHOLD = 640
 
 #: leaves one launch of :func:`pt_swap_cascade_tree` moves: the capacity of
-#: the table that rides the launch by value (``csrc/pt_swap.cu:kMaxLeaves``)
+#: the table that rides the launch by value (``csrc/pt_swap.cu:kMaxLeaves``).
+#: More leaves take one launch per group of at most this many
 MAX_LEAVES = 32
 
 #: shared memory a block may use on the H100; an ensemble whose rings of
@@ -261,9 +262,13 @@ def pt_swap_cascade_tree(logl, leaves, betas, pi, shifts, raccept, out_logl,
 
     Args:
         logl: ``(ntemps, nwalkers)`` log-likelihoods, float32 or float64.
-        leaves: sequence of at most :data:`MAX_LEAVES` contiguous tensors
-            with leading ``(ntemps, nwalkers)`` dims, of any dtype (bool
-            masks and integers move as bytes), swapped as ``logl`` is.
+        leaves: sequence of contiguous tensors with leading ``(ntemps,
+            nwalkers)`` dims, of any dtype (bool masks and integers move as
+            bytes), swapped as ``logl`` is.  Above :data:`MAX_LEAVES` the
+            kernel is launched once per group of at most that many leaves,
+            every launch on the same draws, so every group makes the same
+            swaps; only the first writes ``out_logl``, ``accepted`` and
+            ``sel``.
         betas: ``(ntemps,)`` inverse temperatures; rung ``i`` decides with
             ``betas[i-1] - betas[i]``.
         pi: ``(nwalkers,)`` int64 relabelling: slot ``w`` holds walker
@@ -293,10 +298,6 @@ def pt_swap_cascade_tree(logl, leaves, betas, pi, shifts, raccept, out_logl,
                                         raccept, out_logl, out_leaves,
                                         accepted, sel)
     ntemps, nwalkers = logl.shape
-    if len(leaves) > MAX_LEAVES:
-        raise ValueError(
-            f"pt_swap_cascade_tree moves at most {MAX_LEAVES} leaves in one "
-            f"launch; got {len(leaves)}.")
     more = {} if sel is None else {"sel": (sel, (ntemps - 1, nwalkers))}
     for k, (leaf, out) in enumerate(zip(leaves, out_leaves)):
         more[f"leaves[{k}]"] = (leaf, leaf.shape, leaf.dtype)
@@ -326,9 +327,18 @@ def pt_swap_cascade_tree(logl, leaves, betas, pi, shifts, raccept, out_logl,
                 "more; the kernel indexes a leaf with 32 bits.")
         if row_bytes:
             table.append((leaf, out, row_bytes, 0))
-    _launch(nwalkers > ROLLED_THRESHOLD, logl, betas, None, pi, shifts,
-            raccept, out_logl, accepted, sel, table,
-            _chunk_walkers(nwalkers) if chunk is None else chunk)
+    chunk = _chunk_walkers(nwalkers) if chunk is None else chunk
+    rolled = nwalkers > ROLLED_THRESHOLD
+    for g in range(max(1, -(-len(table) // MAX_LEAVES))):
+        group = table[g * MAX_LEAVES:(g + 1) * MAX_LEAVES]
+        if g == 0:
+            _launch(rolled, logl, betas, None, pi, shifts, raccept, out_logl,
+                    accepted, sel, group, chunk)
+        else:
+            # the same decisions again; the kernel works on its logl output
+            # in place, so a later group writes it into scratch
+            _launch(rolled, logl, betas, None, pi, shifts, raccept,
+                    torch.empty_like(out_logl), None, None, group, chunk)
 
 
 def _launch_channels(name, rolled, logl, channels, dbetas, shifts, raccept):

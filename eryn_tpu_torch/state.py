@@ -14,6 +14,9 @@ and dtype when it sets up a run.
 
 from __future__ import annotations
 
+import copy as _copy
+
+import numpy as np
 import torch
 
 __all__ = ["Branch", "BranchSupplemental", "State", "resolve_device"]
@@ -55,8 +58,9 @@ def _coerce_coords(coords):
 
 
 class Branch:
-    """One model type in the ensemble: padded leaf coordinates and their
-    activation mask."""
+    """One model type in the ensemble: padded leaf coordinates, their
+    activation mask and the branch's supplemental (``branch_supplemental``,
+    also read as ``supplemental``)."""
 
     def __init__(self, coords, inds=None, branch_supplemental=None):
         coords = _coerce_coords(coords)
@@ -76,6 +80,15 @@ class Branch:
         self.coords = coords
         self.inds = inds
         self.branch_supplemental = branch_supplemental
+
+    @property
+    def supplemental(self):
+        """The name ``eryn_tpu`` reads ``branch_supplemental`` by."""
+        return self.branch_supplemental
+
+    @supplemental.setter
+    def supplemental(self, value):
+        self.branch_supplemental = value
 
     @property
     def shape(self):
@@ -105,33 +118,223 @@ class Branch:
         return f"Branch(shape={self.shape})"
 
 
+def _as_object_array(value):
+    """``value`` as a NumPy object array when it is object-like (object
+    dtype, or a sequence NumPy cannot make numeric), else None."""
+    if isinstance(value, np.ndarray) and value.dtype == object:
+        return value
+    if isinstance(value, (list, tuple)):
+        try:
+            probe = np.asarray(value)
+        except ValueError:  # ragged
+            probe = np.empty(len(value), dtype=object)
+            probe[:] = value
+        if probe.dtype == object:
+            return probe
+    return None
+
+
+def _expand_index(idx, ndim):
+    """``idx`` with trailing unit dims up to ``ndim``."""
+    return idx.reshape(tuple(idx.shape) + (1,) * (ndim - idx.ndim))
+
+
 class BranchSupplemental:
-    """Dict of tensors indexed like the ensemble (leading ``base_shape``).
+    """Per-walker side data indexed like the ensemble (leading
+    ``base_shape``, by default the first two dims of the first entry).
 
-    Only the holder is ported: the sampler's main path carries no
-    supplemental data, and a state that holds some takes the general (CPU)
-    proposal path."""
+    Numeric entries are tensors (``holder``): the sampler moves them to its
+    device, passes a branch's entries to the likelihood under
+    ``provide_supplemental=True``, and the swap phase moves them with their
+    walkers, inside the graphed step.  Object-dtype entries stay NumPy
+    object arrays on the host (``host_holder``): the sampler follows each
+    walker through the swaps with an index that rides the step and
+    reorders them at the end of each segment.
+    """
 
-    def __init__(self, obj_info: dict, base_shape=None):
-        self.holder = {k: _as_tensor(v) for k, v in obj_info.items()}
-        if base_shape is None and self.holder:
-            base_shape = tuple(next(iter(self.holder.values())).shape[:2])
-        self.base_shape = tuple(base_shape or ())
+    def __init__(self, obj_info: dict, base_shape=None, copy=False):
+        self.holder = {}
+        self.host_holder = {}
+        self.base_shape = tuple(base_shape) if base_shape is not None else None
+        self.add_objects(obj_info, copy=copy)
+        if self.base_shape is None:
+            self.base_shape = self._infer_base_shape()
+
+    def _infer_base_shape(self):
+        for source in (self.holder, self.host_holder):
+            if source:
+                return tuple(next(iter(source.values())).shape[:2])
+        return ()
+
+    def _check_base(self, name, shape):
+        base = self.base_shape
+        if base and tuple(shape[:len(base)]) != base:
+            raise ValueError(
+                f"Supplemental entry '{name}' with shape {tuple(shape)} does "
+                f"not lead with base_shape {base}."
+            )
+
+    def add_objects(self, obj_info: dict, copy=False):
+        """Add entries; each must lead with ``base_shape`` (its trailing
+        dims are free).  Object-dtype values go to ``host_holder``; with
+        ``copy`` they are copied."""
+        for name, value in obj_info.items():
+            obj = _as_object_array(value)
+            if obj is not None:
+                self._check_base(name, obj.shape)
+                self.holder.pop(name, None)
+                self.host_holder[name] = obj.copy() if copy else obj
+                continue
+            arr = _as_tensor(value)
+            self._check_base(name, arr.shape)
+            self.host_holder.pop(name, None)
+            self.holder[name] = arr.clone() if copy else arr
+
+    def remove_objects(self, names):
+        """Remove the entries ``names`` (a string or a list of them)."""
+        if isinstance(names, str):
+            names = [names]
+        if not isinstance(names, list):
+            raise ValueError("names must be a string or list of strings.")
+        for name in names:
+            if name in self.host_holder:
+                del self.host_holder[name]
+            else:
+                del self.holder[name]
+
+    @property
+    def contained_objects(self):
+        """The names of the entries, numeric first."""
+        return list(self.holder) + list(self.host_holder)
+
+    def __contains__(self, name):
+        return name in self.holder or name in self.host_holder
 
     def __getitem__(self, key):
-        return self.holder[key]
+        if isinstance(key, str):
+            if key in self.holder:
+                return self.holder[key]
+            return self.host_holder[key]
+        # any other key indexes every entry
+        out = {name: value[key] for name, value in self.holder.items()}
+        out.update({name: value[key]
+                    for name, value in self.host_holder.items()})
+        return out
 
-    def __contains__(self, key):
-        return key in self.holder
+    def __setitem__(self, key, value):
+        if isinstance(key, str):
+            self.add_objects({key: value})
+            return
+        if not isinstance(value, dict):
+            raise ValueError(
+                "Setting with an index requires a dict of per-name values."
+            )
+        for name, val in value.items():
+            if name in self.host_holder:
+                self.host_holder[name][key] = val
+            elif name in self.holder:
+                # a new tensor: a state that shares the old one keeps it
+                new = self.holder[name].clone()
+                new[key] = _as_tensor(val).to(device=new.device,
+                                              dtype=new.dtype)
+                self.holder[name] = new
+            # a name not stored is ignored, as in Eryn
+
+    def take_along_axis(self, indices, axis: int, skip_names=()):
+        """Every entry but ``skip_names`` gathered along ``axis`` by
+        ``indices`` (of the dims of ``base_shape``; an entry's trailing
+        dims broadcast)."""
+        out = {}
+        for name, values in self.holder.items():
+            if name in skip_names:
+                continue
+            idx = _as_tensor(indices).to(device=values.device,
+                                         dtype=torch.int64)
+            idx = _expand_index(idx, values.ndim)
+            shape = list(values.shape)
+            shape[axis] = idx.shape[axis]
+            out[name] = torch.gather(values, axis, idx.expand(shape))
+        idx_np = np.asarray(indices.cpu() if isinstance(indices, torch.Tensor)
+                            else indices)
+        for name, values in self.host_holder.items():
+            if name in skip_names:
+                continue
+            idx = idx_np.reshape(idx_np.shape + (1,) * (values.ndim
+                                                         - idx_np.ndim))
+            out[name] = np.take_along_axis(values, idx, axis=axis)
+        return out
+
+    def put_along_axis(self, indices, values_in: dict, axis: int):
+        """Scatter ``values_in`` into the entries along ``axis`` at
+        ``indices``; a numeric entry becomes a new tensor."""
+        for name, target in list(self.holder.items()):
+            if name not in values_in:
+                continue
+            idx = _as_tensor(indices).to(device=target.device,
+                                         dtype=torch.int64)
+            idx = _expand_index(idx, target.ndim)
+            shape = list(target.shape)
+            shape[axis] = idx.shape[axis]
+            src = _as_tensor(values_in[name]).to(device=target.device,
+                                                 dtype=target.dtype)
+            self.holder[name] = target.scatter(
+                axis, idx.expand(shape), src.expand(shape))
+        idx_np = np.asarray(indices.cpu() if isinstance(indices, torch.Tensor)
+                            else indices)
+        for name, target in self.host_holder.items():
+            if name not in values_in:
+                continue
+            idx = idx_np.reshape(idx_np.shape + (1,) * (target.ndim
+                                                         - idx_np.ndim))
+            idx = np.broadcast_to(
+                idx, np.take_along_axis(target, idx, axis=axis).shape)
+            np.put_along_axis(target, idx, values_in[name], axis=axis)
+
+    @property
+    def flat(self):
+        """Every entry with the ``base_shape`` dims flattened into one."""
+        nbase = len(self.base_shape)
+        out = {name: v.reshape((-1,) + tuple(v.shape[nbase:]))
+               for name, v in self.holder.items()}
+        out.update({name: v.reshape((-1,) + v.shape[nbase:])
+                    for name, v in self.host_holder.items()})
+        return out
+
+    def with_holder(self, holder):
+        """A supplemental with the numeric entries ``holder`` and this one's
+        host entries (shared, not copied) and ``base_shape``: what a step
+        makes when its entries move."""
+        new = BranchSupplemental.__new__(BranchSupplemental)
+        new.holder = dict(holder)
+        new.host_holder = self.host_holder
+        new.base_shape = self.base_shape
+        return new
+
+    def map_tensors(self, fn):
+        """:meth:`with_holder` of ``fn`` applied to every numeric entry."""
+        return self.with_holder({k: fn(v) for k, v in self.holder.items()})
+
+    def copy(self):
+        """An independent copy: numeric entries cloned, host entries deep
+        copied."""
+        new = self.map_tensors(torch.clone)
+        new.host_holder = {k: _copy.deepcopy(v)
+                           for k, v in self.host_holder.items()}
+        return new
 
     def __repr__(self):
-        return f"BranchSupplemental({list(self.holder)})"
+        host = f", host={list(self.host_holder)}" if self.host_holder else ""
+        return f"BranchSupplemental({list(self.holder)}{host})"
 
 
 class State:
     """Full ensemble snapshot: ``branches``, ``log_like``, ``log_prior``,
     ``blobs``, ``betas``, ``supplemental`` and ``random_state`` (the state of
-    the sampler's ``torch.Generator``)."""
+    the sampler's ``torch.Generator``).
+
+    ``State(other)`` shares ``other``'s branches and supplementals;
+    ``State(other, copy=True)`` clones every tensor and deep-copies the host
+    entries of the supplementals."""
 
     def __init__(
         self,
@@ -148,21 +351,23 @@ class State:
     ):
         if isinstance(coords, State):
             other = coords
-            clone = (lambda x: None if x is None else x.clone()) if copy else (
-                lambda x: x
-            )
-            self.branches = {
-                n: Branch(
-                    clone(b.coords), inds=clone(b.inds),
-                    branch_supplemental=b.branch_supplemental,
-                )
-                for n, b in other.branches.items()
-            }
-            self.log_like = clone(other.log_like)
-            self.log_prior = clone(other.log_prior)
-            self.blobs = clone(other.blobs)
-            self.betas = clone(other.betas)
-            self.supplemental = other.supplemental
+            if copy:
+                def supp(s):
+                    return None if s is None else s.copy()
+
+                self.branches = {
+                    n: Branch(b.coords.clone(), inds=b.inds.clone(),
+                              branch_supplemental=supp(b.branch_supplemental))
+                    for n, b in other.branches.items()
+                }
+                self.supplemental = supp(other.supplemental)
+            else:
+                self.branches = dict(other.branches)
+                self.supplemental = other.supplemental
+            for field in ("log_like", "log_prior", "blobs", "betas"):
+                x = getattr(other, field)
+                setattr(self, field, x.clone() if copy and x is not None
+                        else x)
             self.random_state = other.random_state
             return
 
@@ -200,6 +405,8 @@ class State:
         self.log_prior = opt(log_prior)
         self.blobs = opt(blobs)
         self.betas = opt(betas)
+        if isinstance(supplemental, dict):
+            supplemental = BranchSupplemental(supplemental)
         self.supplemental = supplemental
         self.random_state = random_state
         if self.log_like is not None and self.log_like.ndim == 1:
@@ -231,6 +438,16 @@ class State:
     def nwalkers(self):
         return next(iter(self.branches.values())).nwalkers
 
+    def copy_into_self(self, state_to_copy: "State"):
+        """Take every field of ``state_to_copy`` (shared, not copied)."""
+        self.branches = dict(state_to_copy.branches)
+        self.log_like = state_to_copy.log_like
+        self.log_prior = state_to_copy.log_prior
+        self.blobs = state_to_copy.blobs
+        self.betas = state_to_copy.betas
+        self.supplemental = state_to_copy.supplemental
+        self.random_state = state_to_copy.random_state
+
     def get_log_posterior(self, temper=False):
         """Tempered or untempered log posterior."""
         betas = self.betas[:, None] if temper and self.betas is not None else 1.0
@@ -239,9 +456,54 @@ class State:
     def get_betas(self):
         return self.betas
 
+    def tensor_leaves(self):
+        """Every tensor of the state as ``(path, tensor)`` in a fixed order:
+        per branch its coordinates and masks, the per-walker fields that are
+        set, the numeric entries of the state supplemental, then of each
+        branch supplemental (entries in sorted name order)."""
+        out = []
+        for n, b in self.branches.items():
+            out += [(("coords", n), b.coords), (("inds", n), b.inds)]
+        for field in ("log_like", "log_prior", "betas", "blobs"):
+            x = getattr(self, field)
+            if x is not None:
+                out.append(((field,), x))
+        if self.supplemental is not None:
+            out += [(("supplemental", k), self.supplemental.holder[k])
+                    for k in sorted(self.supplemental.holder)]
+        for n, b in self.branches.items():
+            supp = b.branch_supplemental
+            if supp is not None:
+                out += [(("branch_supplemental", n, k), supp.holder[k])
+                        for k in sorted(supp.holder)]
+        return out
+
+    def map_tensors(self, fn):
+        """A state of the same layout with ``fn`` applied to every tensor of
+        :meth:`tensor_leaves`; host entries of the supplementals are
+        shared."""
+        def supp(s):
+            return None if s is None else s.map_tensors(fn)
+
+        def opt(x):
+            return None if x is None else fn(x)
+
+        new = State.__new__(State)
+        new.branches = {
+            n: Branch(fn(b.coords), inds=fn(b.inds),
+                      branch_supplemental=supp(b.branch_supplemental))
+            for n, b in self.branches.items()
+        }
+        for field in ("log_like", "log_prior", "betas", "blobs"):
+            setattr(new, field, opt(getattr(self, field)))
+        new.supplemental = supp(self.supplemental)
+        new.random_state = self.random_state
+        return new
+
     def replace(self, **updates) -> "State":
-        """Copy of this state with the given fields replaced (``coords`` and
-        ``inds`` as per-branch dicts)."""
+        """Copy of this state with the given fields replaced (``coords``,
+        ``inds`` and ``branch_supplemental`` as per-branch dicts; a branch
+        missing from ``branch_supplemental`` keeps its own)."""
         new = State.__new__(State)
         new.branches = dict(self.branches)
         new.log_like = updates.pop("log_like", self.log_like)
@@ -250,14 +512,15 @@ class State:
         new.betas = updates.pop("betas", self.betas)
         new.supplemental = updates.pop("supplemental", self.supplemental)
         new.random_state = updates.pop("random_state", self.random_state)
-        if "coords" in updates or "inds" in updates:
+        if ("coords" in updates or "inds" in updates
+                or "branch_supplemental" in updates):
             coords = updates.pop("coords", self.branches_coords)
             inds = updates.pop("inds", self.branches_inds)
+            supps = {**self.branches_supplemental,
+                     **updates.pop("branch_supplemental", {})}
             new.branches = {
-                n: Branch(
-                    coords[n], inds=inds[n],
-                    branch_supplemental=self.branches[n].branch_supplemental,
-                )
+                n: Branch(coords[n], inds=inds[n],
+                          branch_supplemental=supps[n])
                 for n in self.branches
             }
         if updates:

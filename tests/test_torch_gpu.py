@@ -260,11 +260,6 @@ def test_tree_cascade_rejects_what_the_kernel_does_not_take(cuda):
     args, outs = _tree_case(torch.float32, 3, 16, 1, 2)
     logl, leaves, betas, pi, shifts, raccept = args
     out_logl, out_leaves, accepted, sel = outs()
-    many = [leaves[2]] * (pt_swap.MAX_LEAVES + 1)
-    with pytest.raises(ValueError, match="at most 32 leaves"):
-        pt_swap.pt_swap_cascade_tree(
-            logl, many, betas, pi, shifts, raccept, out_logl,
-            [torch.empty_like(x) for x in many], accepted)
     with pytest.raises(TypeError, match="pi has dtype"):
         pt_swap.pt_swap_cascade_tree(logl, leaves, betas, pi.int(), shifts,
                                      raccept, out_logl, out_leaves, accepted)
@@ -276,14 +271,67 @@ def test_tree_cascade_rejects_what_the_kernel_does_not_take(cuda):
     with pytest.raises(ValueError, match="overlaps its input"):
         pt_swap.pt_swap_cascade_tree(logl, leaves, betas, pi, shifts, raccept,
                                      out_logl, leaves, accepted)
-    # a table that is exactly full is taken
-    full = [leaves[2]] * pt_swap.MAX_LEAVES
-    full_out = [torch.empty_like(x) for x in full]
-    pt_swap.pt_swap_cascade_tree(logl, full, betas, pi, shifts, raccept,
-                                 out_logl, full_out, accepted)
+    # a table that is exactly full is one launch, one leaf more two
     ref = outs()
     pt_swap.pt_swap_cascade_tree_ref(*args, *ref)
-    assert all(torch.equal(x, ref[1][2]) for x in full_out)
+    for n, launches in ((pt_swap.MAX_LEAVES, 1), (pt_swap.MAX_LEAVES + 1, 2)):
+        many = [leaves[2]] * n
+        many_out = [torch.empty_like(x) for x in many]
+        before = pt_swap.pt_swap_cascade_multi.launches
+        pt_swap.pt_swap_cascade_tree(logl, many, betas, pi, shifts, raccept,
+                                     out_logl, many_out, accepted)
+        torch.cuda.synchronize()
+        assert pt_swap.pt_swap_cascade_multi.launches == before + launches
+        assert all(torch.equal(x, ref[1][2]) for x in many_out)
+        assert torch.equal(out_logl, ref[0]) and torch.equal(accepted, ref[2])
+
+
+def _mixed_leaves(g, dtype, nt, nw, nleaves):
+    """The leaves a state with blobs and supplementals adds to the swap
+    tree: float blobs of width 2, an int64 tag, a float64 entry and a bool
+    flag, repeated to ``nleaves``."""
+    kinds = [
+        lambda: _randn(g, dtype, nt, nw, 2),
+        lambda: torch.randint(-2**40, 2**40, (nt, nw), generator=g,
+                              dtype=torch.int64).cuda(),
+        lambda: _randn(g, torch.float64, nt, nw, 3),
+        lambda: _rand(g, dtype, nt, nw) < 0.5,
+    ]
+    return [kinds[k % len(kinds)]() for k in range(nleaves)]
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.float64])
+@pytest.mark.parametrize("shape", [(10, 100), (20, 1000)])
+@pytest.mark.parametrize("nleaves", [7, 40])
+def test_tree_cascade_moves_mixed_leaves_in_groups(cuda, dtype, shape,
+                                                   nleaves):
+    """Blobs, an int64 tag, a float64 and a bool leaf beside the state's
+    own, bitwise equal to the plain version, plain and rolled; above 32
+    leaves one launch per group of 32, each counted, on the same draws."""
+    nt, nw = shape
+    args, _ = _tree_case(dtype, nt, nw, 1, 5)
+    logl, leaves, betas, pi, shifts, raccept = args
+    leaves = leaves + _mixed_leaves(_gen(), dtype, nt, nw, nleaves - 3)
+
+    def outs():
+        return (torch.empty_like(logl), [torch.empty_like(x) for x in leaves],
+                torch.empty(nt - 1, dtype=dtype, device="cuda"),
+                torch.empty((nt - 1, nw), dtype=dtype, device="cuda"))
+
+    out_k, out_r = outs(), outs()
+    counter = (pt_swap._cascade_multi_rolled if nw > pt_swap.ROLLED_THRESHOLD
+               else pt_swap.pt_swap_cascade_multi)
+    before = counter.launches
+    pt_swap.pt_swap_cascade_tree(logl, leaves, betas, pi, shifts, raccept,
+                                 *out_k)
+    pt_swap.pt_swap_cascade_tree_ref(logl, leaves, betas, pi, shifts, raccept,
+                                     *out_r)
+    torch.cuda.synchronize()
+    assert counter.launches == before + -(-nleaves // pt_swap.MAX_LEAVES)
+    for a, b in zip((out_k[0], *out_k[1], *out_k[2:]),
+                    (out_r[0], *out_r[1], *out_r[2:])):
+        assert a.dtype == b.dtype and torch.equal(a, b)
+    assert 0 < out_k[2].sum() < (nt - 1) * nw
 
 
 @pytest.mark.parametrize("dtype", [torch.float32, torch.float64])
@@ -963,3 +1011,79 @@ def test_zoo_graphed_equals_eager(cuda, kind):
     assert runs[True]["time"] == (2 * n if kind == "combine" else n)
     acc = runs[True]["accepted"][0] / n
     assert 0 < acc.mean(), acc
+
+
+# ----------------------------------------------------------------------
+# blobs and supplementals through the graphed step
+# ----------------------------------------------------------------------
+BLOB_MOVES = ["stretch", "de", "gaussian", "mala", "chees", "slice", "mt"]
+
+
+def _blob_run(cuda, kind, cuda_graph):
+    """A 4 x 32 x 3 tempered Gaussian whose likelihood returns ``(ll, [-2
+    ll, x0])`` and divides by a branch supplemental ``sigma`` of ones, with
+    a state tag ``rid`` and a host object per walker; its record."""
+    from eryn_tpu_torch import (BranchSupplemental, EnsembleSampler,
+                                ProbDistContainer, State, uniform_dist)
+    from eryn_tpu_torch import moves as tm
+
+    nt, nw = 4, 32
+    pr = ProbDistContainer({i: uniform_dist(-5.0, 5.0) for i in range(3)})
+    move = {
+        "stretch": lambda: tm.StretchMove(),
+        "de": lambda: tm.DEMove(),
+        "gaussian": lambda: tm.GaussianMove({"model_0": np.full(3, 0.25)}),
+        "mala": lambda: tm.MALAMove(tune_steps=20),
+        "chees": lambda: tm.ChEESHMCMove(tune_steps=20, max_leapfrog=8),
+        "slice": lambda: tm.SliceMove(tune_steps=20),
+        "mt": lambda: tm.MTDistGenMove({"model_0": pr}, num_try=4),
+    }[kind]()
+
+    def ll(x, supps):
+        v = -0.5 * torch.sum((x / supps["sigma"]) ** 2)
+        return v, torch.stack([-2.0 * v, x[0]])
+
+    sampler = EnsembleSampler(
+        nw, 3, ll, pr, moves=move, provide_supplemental=True,
+        tempering_kwargs=dict(ntemps=nt), seed=0, device=cuda,
+        cuda_graph=cuda_graph)
+    g = torch.Generator(cuda).manual_seed(1)
+    objs = np.empty((nt, nw), dtype=object)
+    objs[...] = [[("w", t * nw + w) for w in range(nw)] for t in range(nt)]
+    state = State(
+        {"model_0": pr.rvs(size=(nt, nw), generator=g)},
+        supplemental=BranchSupplemental(
+            {"rid": torch.arange(nt * nw, device=cuda).reshape(nt, nw),
+             "obj": objs}),
+        branch_supplemental={"model_0": BranchSupplemental(
+            {"sigma": torch.ones((nt, nw), device=cuda)})})
+    cascade = pt_swap.pt_swap_cascade_multi.launches
+    stretch = sk.stretch_propose.launches + sk.stretch_accept.launches
+    sampler.run_mcmc(state, 30, burn=10)
+    assert pt_swap.pt_swap_cascade_multi.launches - cascade == 40
+    assert sk.stretch_propose.launches + sk.stretch_accept.launches == stretch
+    last = sampler._previous_state
+    return {"chain": sampler.get_chain()["model_0"],
+            "log_like": sampler.get_log_like(), "blobs": sampler.get_blobs(),
+            "rid": last.supplemental["rid"].cpu().numpy(),
+            "obj": np.array([o[1] for o in last.supplemental["obj"].ravel()]),
+            "sigma": last.branches["model_0"].supplemental["sigma"].cpu().numpy()}
+
+
+@pytest.mark.parametrize("kind", BLOB_MOVES)
+def test_blobs_and_supplementals_graphed_equal_eager(cuda, kind):
+    """Blobs, a state tag, a branch supplemental and a host object through
+    the graphed step: equal to the eager loop digit for digit, the blob
+    identity on every stored sample, the tag a permutation that the host
+    objects follow, one cascade launch a step and no stretch kernel."""
+    eager, graphed = (_blob_run(cuda, kind, g) for g in (False, True))
+    for key in eager:
+        np.testing.assert_array_equal(graphed[key], eager[key], err_msg=key)
+    np.testing.assert_array_equal(graphed["blobs"][..., 0],
+                                  -2.0 * graphed["log_like"])
+    np.testing.assert_array_equal(graphed["blobs"][..., 1],
+                                  graphed["chain"][:, :, :, 0, 0])
+    rid = graphed["rid"].ravel()
+    assert sorted(rid.tolist()) == list(range(rid.size))
+    assert not np.array_equal(rid, np.arange(rid.size))
+    np.testing.assert_array_equal(graphed["obj"], rid)
