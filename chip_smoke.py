@@ -123,6 +123,21 @@ Phases, each printing its own lines:
      ``replica_flow[deo]`` (``benchmarks/replica_flow.py``'s 8 x 16
      configuration through ``sample()``, the replica tag in the state
      supplemental: round trips, and per replica per 1k steps);
+   * the host side, after the graph-vs-eager phase below and outside the
+     check that segments never wait (these steps visit the host by
+     design): ``host_like[north-star]`` (the north-star with a NumPy
+     likelihood per walker, 100 warm and 300 stored steps: host mode, no
+     capture, the fused stretch kernels and the cascade around the host
+     calls, the north-star's gates, ``host_like_steps_per_s`` and the host
+     ms a step spends inside the user function), ``host_like_vec[...]``
+     (the same with ``vectorize=True``), ``host_like_pool[...]`` (per
+     walker through a spawn pool of two processes, 50 stored steps: the
+     chain and log-likelihoods equal to the serial run digit for digit,
+     more than one worker process) and ``hybrid_host[4 x 100]``
+     (``benchmarks/hybrid_host.py``'s configuration: the stretch move alone,
+     graphed; beside a host MH move at weight 0.1, graphed and with
+     ``cuda_graph=False``, equal digit for digit; replays the native slots
+     less the first, host proposals the host slots, one cascade a slot);
    * a flat-likelihood RJ run (64 walkers, 3 leaves): a uniform leaf-count
      posterior.  It checks the RJ moves, is not part of the main path, and
      its launches stay out of the report.
@@ -143,7 +158,9 @@ Phases, each printing its own lines:
    device time per launch, 50 steady steps of the first four legs, the DEO
    leg, ``rj_pulse128``, the zoo's ``CombineMove`` and MT-RJ legs,
    ``config_d`` and ``modelswap`` graphed (10 steps of the best stack and
-   the zoo's slice leg, about 3,000 device ops a step each), and of the
+   the zoo's slice leg, about 3,000 device ops a step each), the host
+   likelihood legs (10 steps per walker, 50 vectorized) and the hybrid leg,
+   and of the
    graph-vs-eager legs eager (10 steps of jittered HMC, ChEES and slice)
    (device kernels, memcpys and memsets per step, what the host launched
    per step, device-busy share, the top five device ops), and the device
@@ -1027,7 +1044,7 @@ def _assert_stretch_launches(launches, steps):
 # legs whose steps run the capped loops (about 3,000 device ops a step):
 # fewer profiled steps keep the profiler's event lists short
 HEAVY_LEGS = ("best_stack", "zoo[SliceMove]", "zoo[ChEESHMCMove]",
-              "zoo[HMCMove(jittered (3, 7))]")
+              "zoo[HMCMove(jittered (3, 7))]", "host_like[north-star]")
 
 
 def _profile_steps(leg):
@@ -2871,6 +2888,292 @@ def hooks_leg(torch, card):
     return launches, {}, ("hooks[north-star]", s, s._previous_state)
 
 
+# ----------------------------------------------------------------------
+# the host side: NumPy likelihoods, a pool, and a host move among native
+# ones (between the replays of the native moves' graphs)
+# ----------------------------------------------------------------------
+HOST_WARM, HOST_STORED = 100, 300
+POOL_STEPS = 50
+# benchmarks/hybrid_host.py:43-105: 4 x 100, 5-D, U(-10, 10), the start
+# uniform(-2, 2) from default_rng(0), seed 7; the stretch move at weight
+# 0.9 and a host MH move at 0.1; 64 warm and 300 timed steps in segments
+# of 32
+HYB_NT, HYB_NW, HYB_WARM, HYB_STEPS, HYB_SEG = 4, 100, 64, 300, 32
+POOL_PIDS_ENV = "CHIP_SMOKE_POOL_PIDS"
+
+
+def host_log_like(x):
+    """The north-star's likelihood in NumPy for one walker's ``(5,)`` row.
+    Module-level, so that a spawn pool's workers unpickle it by name; in a
+    process where ``CHIP_SMOKE_POOL_PIDS`` names a file it appends its pid
+    there."""
+    import os
+
+    import numpy as np
+
+    pid_file = os.environ.get(POOL_PIDS_ENV)
+    if pid_file:
+        with open(pid_file, "a") as fh:
+            fh.write(f"{os.getpid()}\n")
+    return -0.5 * float(np.sum(x ** 2))
+
+
+def host_log_like_rows(x):
+    """The same for the ``(n, 5)`` rows of a vectorized call."""
+    import numpy as np
+
+    return -0.5 * np.sum(x ** 2, axis=-1)
+
+
+class _Timed:
+    """A likelihood that adds the wall time spent inside it to
+    ``seconds``."""
+
+    def __init__(self, fn):
+        self.fn, self.seconds, self.calls = fn, 0.0, 0
+
+    def __call__(self, *args, **kwargs):
+        t0 = time.perf_counter()
+        try:
+            return self.fn(*args, **kwargs)
+        finally:
+            self.seconds += time.perf_counter() - t0
+            self.calls += 1
+
+
+def _host_sampler(torch, fn, seed=0, **kw):
+    """The north-star configuration with a NumPy likelihood."""
+    import warnings
+
+    from eryn_tpu_torch import EnsembleSampler, ProbDistContainer, uniform_dist
+
+    priors = ProbDistContainer({i: uniform_dist(-5.0, 5.0) for i in range(NDIM)})
+    sampler = EnsembleSampler(NW, NDIM, fn, priors,
+                              tempering_kwargs=dict(ntemps=NT), seed=seed,
+                              device="cuda", **kw)
+    coords = priors.rvs(size=(NT, NW), generator=torch.Generator(
+        device="cuda").manual_seed(0))
+    with warnings.catch_warnings(record=True) as caught:
+        warnings.simplefilter("always")
+        state = sampler._setup_state(coords)
+    assert any("never as a CUDA graph" in str(w.message) for w in caught), \
+        [str(w.message) for w in caught]
+    assert sampler.likelihood_mode == "host", sampler.likelihood_mode
+    return sampler, state
+
+
+def _assert_host_mode_launches(leg, sampler, launches, steps):
+    """A host likelihood: no graph, one of each stretch kernel and one
+    cascade a step."""
+    assert sampler.graph_captures == sampler.graph_replays == 0, leg
+    _assert_stretch_launches(launches, steps)
+    assert launches["pt_swap_cascade_multi"] == steps, (leg, launches)
+    assert launches["_cascade_multi_rolled"] == launches["onehot_select"] \
+        == launches["group_stretch_propose"] == 0, (leg, launches)
+
+
+def host_like_leg(torch, card, vectorize=False):
+    """The north-star with a NumPy likelihood: per walker, or with
+    ``vectorize=True`` once per red/blue half on its ``(n, 5)`` rows; 100
+    warm and 300 stored steps into the default ``DeviceBackend``, every
+    step eager (no capture), the fused stretch kernels and the cascade
+    around the host calls."""
+    import numpy as np
+
+    leg = "host_like_vec[north-star]" if vectorize else "host_like[north-star]"
+    key = "host_like_vec" if vectorize else "host_like"
+    fn = _Timed(host_log_like_rows if vectorize else host_log_like)
+    read = _counting(_kernels())
+    s, state = _host_sampler(torch, fn, vectorize=vectorize)
+    s.run_mcmc(state, HOST_WARM, store=False)
+    torch.cuda.synchronize()
+    fn.seconds, fn.calls = 0.0, 0
+    t0 = time.perf_counter()
+    s.run_mcmc(None, HOST_STORED)
+    torch.cuda.synchronize()
+    dt = time.perf_counter() - t0
+    steps = HOST_WARM + HOST_STORED
+    launches = read()
+    _assert_host_mode_launches(leg, s, launches, steps)
+    _check_gaussian_chain(np, leg, s, NT)
+    rates = {f"{key}_steps_per_s": HOST_STORED / dt,
+             f"{key}_user_ms_per_step": 1e3 * fn.seconds / HOST_STORED,
+             f"{key}_calls_per_step": fn.calls / HOST_STORED}
+    print(f"rate: {key}_steps_per_s = {rates[key + '_steps_per_s']:.1f}; "
+          f"inside the user function "
+          f"{rates[key + '_user_ms_per_step']:.3f} ms a step over "
+          f"{rates[key + '_calls_per_step']:.1f} calls ({card})")
+    print(f"launches[{leg}]: {launches} over {steps} steps, no graph")
+    return launches, rates, (leg, s, s._previous_state)
+
+
+def host_like_vec_leg(torch, card):
+    return host_like_leg(torch, card, vectorize=True)
+
+
+def host_like_pool_leg(torch, card):
+    """The per-walker NumPy likelihood through a spawn pool of two
+    processes (which never touch CUDA), 50 stored steps: its chain and
+    log-likelihoods equal to the serial run of the same seed digit for
+    digit, and the likelihood ran in more than one worker process."""
+    import multiprocessing as mp
+    import os
+
+    import numpy as np
+
+    leg = "host_like_pool[north-star]"
+    pid_file = ROOT / "build" / "chip_smoke_pool_pids.txt"
+    pid_file.parent.mkdir(parents=True, exist_ok=True)
+    pid_file.unlink(missing_ok=True)
+    read = _counting(_kernels())
+    runs = {}
+    for pooled in (True, False):
+        if pooled:
+            os.environ[POOL_PIDS_ENV] = str(pid_file)
+            pool = mp.get_context("spawn").Pool(2)
+            os.environ.pop(POOL_PIDS_ENV)
+        else:
+            pool = None
+        try:
+            s, state = _host_sampler(torch, host_log_like, pool=pool)
+            t0 = time.perf_counter()
+            s.run_mcmc(state, POOL_STEPS)
+            torch.cuda.synchronize()
+            dt = time.perf_counter() - t0
+        finally:
+            if pool is not None:
+                pool.close()
+                pool.join()
+        runs[pooled] = (s, POOL_STEPS / dt)
+    launches = read()
+    for pooled, (s, _) in runs.items():
+        assert s.graph_captures == s.graph_replays == 0, leg
+    _assert_host_mode_launches(leg, runs[False][0], launches,
+                               2 * POOL_STEPS)
+    (sp, rate_pool), (ss, rate_serial) = runs[True], runs[False]
+    np.testing.assert_array_equal(sp.get_chain()["model_0"],
+                                  ss.get_chain()["model_0"])
+    np.testing.assert_array_equal(sp.get_log_like(), ss.get_log_like())
+    pids = {int(p) for p in pid_file.read_text().split()} - {os.getpid()}
+    assert len(pids) > 1, pids
+    rates = {"host_like_pool_steps_per_s": rate_pool,
+             "host_like_serial_steps_per_s": rate_serial}
+    print(f"rate: host_like_pool_steps_per_s = {rate_pool:.1f} (Pool(2), "
+          f"spawn) beside the serial {rate_serial:.1f} ({card})")
+    print(f"pool[{leg}]: chain and log-likelihoods equal to the serial run "
+          f"digit for digit over {POOL_STEPS} steps; {len(pids)} worker "
+          f"processes ran the likelihood")
+    print(f"launches[{leg}]: {launches} over {2 * POOL_STEPS} steps, "
+          "no graph")
+    return launches, rates, []
+
+
+def _host_mh_class():
+    """The host move of benchmarks/hybrid_host.py: Eryn's host
+    ``get_proposal``, ``q = c + 0.3 randn`` from the sampler's RandomState,
+    zero factors; counts its calls."""
+    import numpy as np
+
+    from eryn_tpu_torch.moves import MHMove
+
+    class CustomHostMH(MHMove):
+        calls = 0
+
+        def get_proposal(self, branches_coords, random, branches_inds=None,
+                         **kwargs):
+            type(self).calls += 1
+            q = {n: np.asarray(c) + 0.3 * random.randn(*np.shape(c))
+                 for n, c in branches_coords.items()}
+            return q, np.zeros(next(iter(q.values())).shape[:2])
+
+    return CustomHostMH
+
+
+def hybrid_host_leg(torch, card):
+    """benchmarks/hybrid_host.py's configuration in three forms: the
+    stretch move alone (graphed), the stretch move and the host move
+    (graphed: the stretch slots replay, the host slots run eagerly between),
+    and the same with ``cuda_graph=False``.  The two hybrid runs are equal
+    digit for digit; replays are the native slots (but the first), host
+    proposals the host slots; every slot ends in one cascade launch."""
+    import warnings
+
+    import numpy as np
+
+    from eryn_tpu_torch import EnsembleSampler, ProbDistContainer, uniform_dist
+    from eryn_tpu_torch.moves import StretchMove
+
+    leg = "hybrid_host[4 x 100]"
+    priors = ProbDistContainer({i: uniform_dist(-10.0, 10.0)
+                                for i in range(NDIM)})
+    coords = np.random.default_rng(0).uniform(-2, 2, (HYB_NT, HYB_NW, 1, NDIM))
+    host_mh = _host_mh_class()
+
+    def log_like(x):
+        return -0.5 * torch.sum(x * x)
+
+    read = _counting(_kernels())
+    rates, runs, slots = {}, {}, {"stretch": 0, "cascade": 0}
+    for form in ("native", "hybrid", "hybrid_eager"):
+        moves = (StretchMove() if form == "native" else
+                 [(StretchMove(), 0.9), (host_mh(), 0.1)])
+        with warnings.catch_warnings():
+            warnings.simplefilter("ignore")
+            s = EnsembleSampler(
+                HYB_NW, NDIM, log_like, priors, moves=moves,
+                tempering_kwargs=dict(ntemps=HYB_NT), seed=7, device="cuda",
+                cuda_graph=form != "hybrid_eager")
+        host_mh.calls = 0
+        guard = (_segments_never_wait() if form == "native"
+                 else contextlib.nullcontext())
+        with guard:
+            s.run_mcmc(coords, HYB_WARM, segment_size=HYB_SEG)
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            s.run_mcmc(None, HYB_STEPS, segment_size=HYB_SEG)
+            torch.cuda.synchronize()
+            dt = time.perf_counter() - t0
+        rates[f"{form}_steps_per_s"] = HYB_STEPS / dt
+        total = HYB_WARM + HYB_STEPS
+        native = s.moves[0].num_proposals
+        host = 0 if form == "native" else s.moves[1].num_proposals
+        assert native + host == total, (form, native, host)
+        assert host_mh.calls == host, (form, host_mh.calls, host)
+        if form != "native":
+            assert host > 0, form
+        replays = (native - 1) if form != "hybrid_eager" else 0
+        assert s.graph_replays == replays, (form, s.graph_replays, replays)
+        slots["stretch"] += native
+        slots["cascade"] += total
+        cold = s.get_chain(temp_index=0)["model_0"].reshape(-1, NDIM)
+        mean = cold.mean(axis=0, dtype=np.float64)
+        var = cold.var(axis=0, dtype=np.float64)
+        print(f"chain[{leg}, {form}]: cold mean {np.round(mean, 4).tolist()} "
+              f"var {np.round(var, 4).tolist()}; {native} stretch slots, "
+              f"{host} host slots, {s.graph_replays} graph replays")
+        assert np.all(np.abs(mean) < 0.1) and np.all(np.abs(var - 1) < 0.2)
+        if form == "hybrid":
+            kept = (leg, s, s._previous_state)
+        runs[form] = {k: np.asarray(v) for k, v in dict(
+            chain=s.get_chain()["model_0"], log_like=s.get_log_like(),
+            betas=s.get_betas(), accepted=s.backend.accepted,
+            swaps=s.backend.swaps_accepted).items()}
+    for key in runs["hybrid"]:
+        np.testing.assert_array_equal(runs["hybrid"][key],
+                                      runs["hybrid_eager"][key], err_msg=key)
+    launches = read()
+    _assert_stretch_launches(launches, slots["stretch"])
+    assert launches["pt_swap_cascade_multi"] == slots["cascade"], launches
+    print(f"rate: native_steps_per_s = {rates['native_steps_per_s']:.1f}, "
+          f"hybrid_steps_per_s = {rates['hybrid_steps_per_s']:.1f}, "
+          f"hybrid_eager_steps_per_s = "
+          f"{rates['hybrid_eager_steps_per_s']:.1f} ({card})")
+    print(f"hybrid[{leg}]: graphed equal to cuda_graph=False digit for digit")
+    print(f"launches[{leg}]: {launches} over three runs of "
+          f"{HYB_WARM + HYB_STEPS} steps")
+    return launches, rates, kept
+
+
 def main(argv=None):
     parser = argparse.ArgumentParser(description=__doc__.split("\n")[0])
     parser.add_argument("--out", help="also write the report as JSON here")
@@ -2979,6 +3282,15 @@ def main(argv=None):
         t0 = time.perf_counter()
         compared, eager = graph_vs_eager(torch, smi)
         print(f"phase 4: graph_vs_eager {time.perf_counter() - t0:.1f} s")
+    # the host side: these steps visit the host by design, so they run
+    # outside the check that segments never wait (the hybrid leg's native
+    # form runs inside it)
+    with _plain_versions_forbidden():
+        for leg in (host_like_leg, host_like_vec_leg, host_like_pool_leg,
+                    hybrid_host_leg):
+            t0 = time.perf_counter()
+            legs.append(leg(torch, smi))
+            print(f"phase 4: {leg.__name__} {time.perf_counter() - t0:.1f} s")
     print("phase 4: one cascade launch per tempering phase on every leg but "
           "the DEO ones (none there), every step a replay of its moves' "
           "graphs, no segment waited for the device, and no plain version of "
@@ -3002,6 +3314,13 @@ def main(argv=None):
           f"{rates['blobs_lisa_rj_null_steps_per_s']:.1f} beside "
           f"lisa_rj_null_steps_per_s = "
           f"{rates['lisa_rj_null_steps_per_s']:.1f} ({smi})")
+    print(f"rate: host_like_steps_per_s = {rates['host_like_steps_per_s']:.1f}"
+          f" (per walker), host_like_vec_steps_per_s = "
+          f"{rates['host_like_vec_steps_per_s']:.1f} (vectorized), "
+          f"host_like_pool_steps_per_s = "
+          f"{rates['host_like_pool_steps_per_s']:.1f} beside "
+          f"stored_device_steps_per_s = "
+          f"{rates['stored_device_steps_per_s']:.1f} ({smi})")
     rates["lisa_rj_overhead_frac"] = (rates["lisa_rj_steps_per_s"]
                                       / rates["lisa_rj_null_steps_per_s"])
     print(f"rate: lisa_rj_overhead_frac = {rates['lisa_rj_overhead_frac']:.4f} "
@@ -3026,7 +3345,9 @@ def main(argv=None):
     for leg in ("north-star", "config E", "LISA RJ", "LISA RJ null", "deo",
                 "rj_pulse128", "zoo[CombineMove]", "zoo[MT-RJ x8]",
                 "config_d", "modelswap", "best_stack", "zoo[SliceMove]",
-                "blobs[north-star]", "blobs[lisa-rj-null]"):
+                "blobs[north-star]", "blobs[lisa-rj-null]",
+                "host_like[north-star]", "host_like_vec[north-star]",
+                "hybrid_host[4 x 100]"):
         profiles.update(profile_steps(torch, leg, *by_name[leg], smi,
                                       steps=_profile_steps(leg)))
     phases = tempering_phase_device_ms(

@@ -89,6 +89,7 @@ class Backend:
         )
         self.random_state = None
         self.host_random_state = None
+        self.numpy_random_state = None
         self._kernel_state_leaves = None
         self._sampler_clock = None
         self.initialized = True
@@ -133,7 +134,7 @@ class Backend:
                      blobs=None, accepted=None, rj_accepted=None, swaps_accepted=None,
                      moves_accepted_fraction=None, random_state=None,
                      host_random_state=None, sampler_clock=None,
-                     kernel_states=None):
+                     kernel_states=None, numpy_random_state=None):
         """Append a segment of stored steps (every array leads with the
         ``nstored`` axis; ``inds`` may also be one step's masks, constant
         over the segment; ``blobs`` are stored where the storage was grown
@@ -169,11 +170,40 @@ class Backend:
             self.random_state = random_state
         if host_random_state is not None:
             self.host_random_state = host_random_state
+        if numpy_random_state is not None:
+            self.numpy_random_state = numpy_random_state
         if sampler_clock is not None:
             self.save_sampler_clock(sampler_clock)
         if kernel_states is not None:
             self._kernel_state_leaves = kernel_states
         self.iteration += n
+
+    def save_step(self, state, accepted, rj_accepted=None,
+                  swaps_accepted=None, moves_accepted_fraction=None):
+        """Append one stored step from a state: Eryn's per-step write, for
+        a loop driven from the host (storage grown beforehand with
+        :meth:`grow`).  ``accepted`` ``(ntemps, nwalkers)`` and the other
+        counts are this step's; the state's tensors are copied to the
+        host."""
+        def host(x):
+            if x is None:
+                return None
+            if hasattr(x, "detach"):
+                x = x.detach().cpu().numpy()
+            return np.asarray(x)[None]
+
+        betas = (np.ones((1, self.ntemps)) if state.betas is None
+                 else host(state.betas))
+        self.save_segment(
+            coords={n: host(state.branches[n].coords)
+                    for n in self.branch_names},
+            inds={n: host(state.branches[n].inds) for n in self.branch_names},
+            log_like=host(state.log_like), log_prior=host(state.log_prior),
+            betas=betas, blobs=host(state.blobs), accepted=host(accepted),
+            rj_accepted=host(rj_accepted),
+            swaps_accepted=host(swaps_accepted),
+            moves_accepted_fraction=moves_accepted_fraction,
+        )
 
     # ------------------------------------------------------------------
     # checkpoint: what a resumed run needs beyond the chain

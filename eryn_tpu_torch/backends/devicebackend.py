@@ -114,7 +114,7 @@ class DeviceBackend(Backend):
     def save_segment_packed(self, n, packed, unpack, accepted_sum=None,
                             rj_accepted_sum=None, swaps_accepted_sum=None,
                             moves_accepted_fraction=None, random_state=None,
-                            host_random_state=None):
+                            host_random_state=None, numpy_random_state=None):
         """Append a segment as the sampler's packed snapshot buffers.  No
         device work and no host transfer happen here: counter sums arrive
         pre-reduced, and ``unpack`` runs on first read.  The clock and the
@@ -146,6 +146,8 @@ class DeviceBackend(Backend):
             self.random_state = random_state
         if host_random_state is not None:
             self.host_random_state = host_random_state
+        if numpy_random_state is not None:
+            self.numpy_random_state = numpy_random_state
         self.iteration += int(n)
         if (
             self.max_device_bytes is not None

@@ -12,7 +12,9 @@ attribute ``tempering_time``), so a file written by either package opens and
 resumes in the other.
 
 The sampler's two ``torch.Generator`` states are datasets of their own,
-``torch_generator/device`` and ``torch_generator/host``: ``eryn_tpu`` reads
+``torch_generator/device`` and ``torch_generator/host``, beside its
+``numpy.random.RandomState`` (the host hooks' generator) as
+``torch_generator/numpy``: ``eryn_tpu`` reads
 the attribute ``prng_state_key`` as a JAX key and collects every attribute
 named ``random_state_*``, so neither name may hold them.  A file written by
 ``eryn_tpu`` has neither dataset, and a port sampler resuming it seeds its
@@ -243,6 +245,12 @@ class HDFBackend(Backend):
         """The state of the sampler's host generator (uint8), or None."""
         return self._generator_state("host")
 
+    @property
+    def numpy_random_state(self):
+        """The state of the sampler's ``numpy.random.RandomState`` (uint8),
+        or None."""
+        return self._generator_state("numpy")
+
     # ------------------------------------------------------------------
     # writes
     # ------------------------------------------------------------------
@@ -278,7 +286,7 @@ class HDFBackend(Backend):
                      blobs=None, accepted=None, rj_accepted=None, swaps_accepted=None,
                      moves_accepted_fraction=None, random_state=None,
                      host_random_state=None, sampler_clock=None,
-                     kernel_states=None):
+                     kernel_states=None, numpy_random_state=None):
         """Append a segment and its checkpoint (see
         :meth:`Backend.save_segment`) in one opening of the file, with
         ``iteration`` written last: a process killed between two segments
@@ -314,7 +322,8 @@ class HDFBackend(Backend):
                         g["moves"][key]["acceptance_fraction"][:] = (
                             np.asarray(val))
             for which, state in (("device", random_state),
-                                 ("host", host_random_state)):
+                                 ("host", host_random_state),
+                                 ("numpy", numpy_random_state)):
                 if state is not None:
                     _put(g.require_group(_GENERATORS), which,
                          np.asarray(state, dtype=np.uint8))

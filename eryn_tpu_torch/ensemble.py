@@ -18,7 +18,11 @@ backend that holds a chain continues it.
 Likelihood contract: ``log_like_fn`` is written in torch for one walker and
 vectorized with :func:`torch.func.vmap` over the flattened
 ``(ntemps * nwalkers)`` ensemble, or, with ``vectorize=True``, called once on
-the whole batch.
+the whole batch; or it is a NumPy function, which runs on the host as Eryn
+calls it (per walker, through ``pool.map`` when a pool is given, or once per
+batch under ``vectorize=True``).  A step that visits the host (a host
+likelihood or prior, or a move written for Eryn's host protocol) runs
+eagerly in its slot of the schedule; the other moves keep their graphs.
 """
 
 from __future__ import annotations
@@ -37,6 +41,7 @@ from .graphs import StepGraphs
 from .interop import restore_kernel_state
 from .model import Model
 from .moves import DistributionGenerateRJ, StretchMove
+from .moves.legacy import host_propose
 from .moves.move import EvalContext, Move
 from .moves.tempering import TemperatureControl
 from .pbar import get_progress_bar
@@ -48,6 +53,27 @@ from .utils.pytree import tree_flatten
 __all__ = ["EnsembleSampler"]
 
 _NUMPY_DTYPE = {torch.float32: np.float32, torch.float64: np.float64}
+
+
+def _numpy_state_bytes(random):
+    """The state of a ``numpy.random.RandomState`` as uint8 bytes: its 624
+    key words, position, Gaussian flag and cached Gaussian."""
+    _, keys, pos, has_gauss, cached = random.get_state()
+    return np.concatenate([
+        np.asarray(keys, dtype=np.uint32).view(np.uint8),
+        np.asarray([pos, has_gauss], dtype=np.int64).view(np.uint8),
+        np.asarray([cached], dtype=np.float64).view(np.uint8),
+    ])
+
+
+def _restore_numpy_state(random, stored):
+    """Set ``random`` to the state :func:`_numpy_state_bytes` stored."""
+    stored = np.ascontiguousarray(np.asarray(stored, dtype=np.uint8))
+    keys = stored[:624 * 4].view(np.uint32)
+    pos, has_gauss = stored[624 * 4:624 * 4 + 16].view(np.int64)
+    cached = stored[624 * 4 + 16:].view(np.float64)[0]
+    random.set_state(("MT19937", keys, int(pos), int(has_gauss),
+                      float(cached)))
 
 
 def _crossed(prev, now, interval):
@@ -112,11 +138,13 @@ def _segment_plan(nsteps, seg, taper=False, min_seg=64):
 
 
 class PriorEvaluator:
-    """Summed log prior over active leaves."""
+    """Summed log prior over active leaves.  ``host`` says whether a
+    container evaluates a distribution on the host."""
 
     def __init__(self, containers: dict, dtype):
         self.containers = containers
         self.dtype = dtype
+        self.host = any(getattr(c, "host", False) for c in containers.values())
 
     def __call__(self, coords: dict, inds: dict):
         """coords ``{name: (..., nleaves_max, ndim)}``, inds ``{name: (...,
@@ -129,34 +157,53 @@ class PriorEvaluator:
         return total.to(self.dtype)
 
 
-_HOST_LIKELIHOODS = (
-    "A NumPy (host) likelihood is not supported by eryn_tpu_torch yet: host "
-    "likelihoods, with the callback mode and pool, are a later slice of the "
-    "port (ROADMAP.md, queue 1, item 2). Write log_like_fn in torch."
-)
+class _CallbackWorker:
+    """One walker's call of a host likelihood, ``(argument, keywords) ->
+    result``: picklable, so that ``pool.map`` can send it to other
+    processes (the function pickles by its module path)."""
+
+    def __init__(self, fn, args, kwargs):
+        self.fn = fn
+        self.args = tuple(args) if args else ()
+        self.kwargs = dict(kwargs) if kwargs else {}
+
+    def __call__(self, item):
+        arg, kwargs_i = item
+        return self.fn(arg, *self.args, **{**self.kwargs, **kwargs_i})
+
+
+def _is_host_value(x):
+    """A NumPy value or a Python number, or a list or tuple of them."""
+    if isinstance(x, (list, tuple)):
+        return all(_is_host_value(v) for v in x)
+    return isinstance(x, (np.ndarray, np.generic, float, int))
 
 
 class LikelihoodEvaluator:
-    """Batched likelihood evaluation.
+    """Batched likelihood evaluation, in one of three modes (``mode``, set
+    by :meth:`check`):
 
-    The function is written for one walker and vectorized with
-    ``torch.func.vmap``, or, with ``vectorize=True``, called once on the
-    flattened batch.  One walker's arguments are its coordinates ``(ndim,)`` for a
-    single branch with one leaf and no reversible jump (``rj``);
-    ``(coords (nleaves_max, ndim), inds (nleaves_max,))`` for one branch
-    otherwise; and the per-branch dicts for several branches.  With
+    * ``"vmap"``: a torch function written for one walker, vectorized with
+      ``torch.func.vmap``;
+    * ``"vectorize"``: with ``vectorize=True``, a torch function called once
+      on the flattened batch;
+    * ``"host"``: a NumPy function, called as Eryn calls it (see
+      :meth:`_host_eval`) on a host copy of the batch.
+
+    In the torch modes one walker's arguments are its coordinates
+    ``(ndim,)`` for a single branch with one leaf and no reversible jump
+    (``rj``); ``(coords (nleaves_max, ndim), inds (nleaves_max,))`` for one
+    branch otherwise; and the per-branch dicts for several branches.  With
     ``provide_supplemental`` one more argument follows: the walker's branch
     supplemental ``{name: tensor}`` for one branch, ``{branch: {name:
-    tensor}}`` for several.
-
-    It returns the log-likelihood, or ``(log_like, blobs)``: :meth:`check`
-    finds which on a probe batch and sets ``returns_blobs`` and
-    ``blob_shape`` (one walker's blob shape).
+    tensor}}`` for several.  The function returns the log-likelihood, or
+    ``(log_like, blobs)``: :meth:`check` finds which on a probe batch and
+    sets ``returns_blobs`` and ``blob_shape`` (one walker's blob shape).
     """
 
     def __init__(self, fn, *, branch_names, ndims, nleaves_max, args, kwargs,
                  vectorize, fill_zero_leaves_val, dtype, rj=False,
-                 provide_supplemental=False):
+                 provide_supplemental=False, provide_groups=False, pool=None):
         self.fn = fn
         self.branch_names = list(branch_names)
         self.ndims = ndims
@@ -165,6 +212,9 @@ class LikelihoodEvaluator:
         self.kwargs = dict(kwargs) if kwargs is not None else {}
         self.vectorize = vectorize
         self.provide_supplemental = bool(provide_supplemental)
+        self.provide_groups = bool(provide_groups)
+        self.pool = pool
+        self.rj = rj
         self.dtype = dtype
         self.fill_zero_leaves_val = max(
             float(fill_zero_leaves_val), float(torch.finfo(dtype).min / 2)
@@ -176,8 +226,14 @@ class LikelihoodEvaluator:
             and self.nleaves_max[self.branch_names[0]] == 1
             and not rj
         )
+        self.mode = None
         self.returns_blobs = False
         self.blob_shape = self.blob_dtype = None
+
+    @property
+    def host(self):
+        """Whether an evaluation visits the host."""
+        return self.mode == "host"
 
     def _supp_args(self, sdict):
         """The supplemental argument under ``provide_supplemental``: the
@@ -216,40 +272,63 @@ class LikelihoodEvaluator:
             return out[0], out[1]
         return out, None
 
-    def check(self, device, branch_supps=None):
-        """Evaluate on a probe batch of two walkers (their supplementals the
-        first two of ``branch_supps``, flat); raise a ``TypeError`` that
-        names the fix when the function cannot be batched or returns
-        anything but torch tensors, and find whether it returns blobs."""
-        c, i = self._probe(device)
-        s = self._probe_supps(branch_supps)
+    def check(self, device, branch_supps=None, coords=None, inds=None):
+        """Choose the mode on a probe batch (two walkers at zeros for torch;
+        on the host the first three walkers of ``coords`` and ``inds``
+        (``{name: (ntemps, nwalkers, ...)}``) where given, else zeros; their
+        supplementals the first of ``branch_supps``) and find whether the
+        function returns blobs.  A function that cannot be batched in
+        torch, or returns anything but torch tensors, is called as a NumPy
+        likelihood, and runs on the host (with a warning) when that returns
+        NumPy values or Python numbers; else a ``TypeError`` gives both
+        failures."""
+        c, i = self._probe(device, 2)
+        s = self._probe_supps(branch_supps, 2)
         try:
             out = self._raw(c, i, s)
-        except Exception as err:
-            if self.vectorize:
+            parts = list(out) if isinstance(out, (tuple, list)) else [out]
+            if len(parts) not in (1, 2) or not all(
+                    isinstance(p, torch.Tensor) for p in parts):
+                kinds = ", ".join(type(p).__name__ for p in parts)
                 raise TypeError(
-                    f"log_like_fn failed on a batch of walkers ({err}). "
-                    f"{_HOST_LIKELIHOODS}"
-                ) from err
-            raise TypeError(
+                    f"log_like_fn returned {type(out).__name__} ({kinds}); "
+                    "it must return a torch.Tensor of log-likelihoods, or a "
+                    "pair (log_like, blobs) of tensors")
+        except Exception as err:
+            torch_err = err
+        else:
+            self._check_torch(parts)
+            return
+        if self.vectorize:
+            torch_msg = f"log_like_fn failed on a batch of walkers ({torch_err})"
+        else:
+            torch_msg = (
                 "log_like_fn could not be vectorized over walkers with "
-                f"torch.func.vmap ({err}). Write it for a batch of walkers "
-                f"and pass vectorize=True. {_HOST_LIKELIHOODS}"
-            ) from err
-        parts = list(out) if isinstance(out, (tuple, list)) else [out]
-        if len(parts) not in (1, 2) or not all(
-                isinstance(p, torch.Tensor) for p in parts):
-            kinds = ", ".join(type(p).__name__ for p in parts)
+                f"torch.func.vmap ({torch_err}); a torch function written for "
+                "a batch of walkers takes vectorize=True")
+        try:
+            self._check_host(device, branch_supps, coords, inds)
+        except Exception as err:
             raise TypeError(
-                f"log_like_fn returned {type(out).__name__} ({kinds}); it "
-                "must return a torch.Tensor of log-likelihoods, or a pair "
-                f"(log_like, blobs) of tensors. {_HOST_LIKELIHOODS}"
-            )
+                f"{torch_msg}. Called as a NumPy likelihood on host arrays, "
+                f"it failed too ({type(err).__name__}: {err})."
+            ) from err
+        warnings.warn(
+            f"{torch_msg}. It runs as a NumPy likelihood on the host: every "
+            "evaluation copies the batch to the host and back, and a step "
+            "that evaluates it runs eagerly, never as a CUDA graph "
+            "(graph_replays stays 0). Write it in torch to keep the steps "
+            "on the device.",
+            stacklevel=4,
+        )
+
+    def _check_torch(self, parts):
         if tuple(parts[0].shape) != (2,):
             raise TypeError(
                 f"log_like_fn returned shape {tuple(parts[0].shape)} for 2 "
                 "walkers."
             )
+        self.mode = "vectorize" if self.vectorize else "vmap"
         self.returns_blobs = len(parts) == 2
         if self.returns_blobs:
             if parts[1].ndim < 1 or parts[1].shape[0] != 2:
@@ -260,15 +339,61 @@ class LikelihoodEvaluator:
             self.blob_shape = tuple(parts[1].shape[1:])
             self.blob_dtype = parts[1].dtype
 
+    def _check_host(self, device, branch_supps, coords=None, inds=None):
+        """Call the function the host way on a probe batch of three
+        walkers (floating-point warnings off: the probe's values are not
+        kept); raises unless every return is a NumPy value or a Python
+        number, of the shape the walkers need.  Sets the mode and the
+        blobs."""
+        if coords is None:
+            c, i = self._probe(device, 3)
+        else:
+            c = {n: x.reshape((-1,) + tuple(x.shape[2:]))[:3]
+                 for n, x in coords.items()}
+            i = {n: m.reshape((-1,) + tuple(m.shape[2:]))[:3]
+                 for n, m in inds.items()}
+        n = next(iter(c.values())).shape[0]
+        s = self._probe_supps(branch_supps, n)
+        returned = []
+
+        def spy(*args, **kwargs):
+            out = self.fn(*args, **kwargs)
+            returned.append(out)
+            return out
+
+        probe = LikelihoodEvaluator(
+            spy, branch_names=self.branch_names, ndims=self.ndims,
+            nleaves_max=self.nleaves_max, args=self.args, kwargs=self.kwargs,
+            vectorize=self.vectorize, fill_zero_leaves_val=-1e300,
+            dtype=self.dtype, rj=self.rj,
+            provide_supplemental=self.provide_supplemental,
+            provide_groups=self.provide_groups)
+        probe.mode = "host"
+        probe._discover = True
+        with np.errstate(all="ignore"):
+            probe._host_call(c, i, torch.zeros((n,), dtype=self.dtype,
+                                               device=device), s)
+        bad = [type(r).__name__ for r in returned if not _is_host_value(r)]
+        if bad:
+            raise TypeError(
+                f"it returned {bad[0]}, not NumPy values or Python floats")
+        self.mode = "host"
+        self.returns_blobs = probe.returns_blobs
+        if self.returns_blobs:
+            self.blob_shape = probe.blob_shape
+            self.blob_dtype = self.dtype
+
     def check_grad(self, device, branch_supps=None):
         """Differentiate the sum over a probe batch of two walkers with
         ``torch.func.grad``, as the gradient moves do; raise a
         ``TypeError`` that names the fix when that fails, and warn when the
         value does not depend on the coordinates through differentiable
         torch operations (its gradient would be zero)."""
-        c, i = self._probe(device)
-        s = self._probe_supps(branch_supps)
+        c, i = self._probe(device, 2)
+        s = self._probe_supps(branch_supps, 2)
         try:
+            if self.host:
+                raise TypeError("it is a NumPy likelihood, run on the host")
             torch.func.grad(lambda c: self._evaluate(c, i, s)[0].sum())(c)
         except Exception as err:
             raise TypeError(
@@ -290,35 +415,37 @@ class LikelihoodEvaluator:
                 stacklevel=4,
             )
 
-    def _probe(self, device):
+    def _probe(self, device, n):
         c = {
-            n: torch.zeros((2, self.nleaves_max[n], self.ndims[n]),
-                           dtype=self.dtype, device=device)
-            for n in self.branch_names
+            name: torch.zeros((n, self.nleaves_max[name], self.ndims[name]),
+                              dtype=self.dtype, device=device)
+            for name in self.branch_names
         }
         i = {
-            n: torch.ones((2, self.nleaves_max[n]), dtype=torch.bool,
-                          device=device)
-            for n in self.branch_names
+            name: torch.ones((n, self.nleaves_max[name]), dtype=torch.bool,
+                             device=device)
+            for name in self.branch_names
         }
         return c, i
 
     @staticmethod
-    def _probe_supps(branch_supps):
-        """The first two walkers of each entry of ``branch_supps``
+    def _probe_supps(branch_supps, n):
+        """The first ``n`` walkers of each entry of ``branch_supps``
         (``{branch: {name: (ntemps, nwalkers, ...)}}``), flat."""
         if not branch_supps:
             return {}
-        return {n: {k: v.reshape((-1,) + tuple(v.shape[2:]))[:2]
-                    for k, v in h.items()}
-                for n, h in branch_supps.items()}
+        return {name: {k: v.reshape((-1,) + tuple(v.shape[2:]))[:n]
+                       for k, v in h.items()}
+                for name, h in branch_supps.items()}
 
     def __call__(self, coords: dict, inds: dict, logp, branch_supps=None):
         """coords ``{name: (ntemps, n, nleaves_max, ndim)}``, logp ``(ntemps,
         n)``, ``branch_supps`` ``{name: {key: (ntemps, n, ...)}}`` or None;
         returns ``(log_like (ntemps, n), blobs (ntemps, n, ...) or None)``.
-        Walkers outside the prior's support are evaluated at zeros and get
-        ``-inf``; their blobs are what the function returned there."""
+        Walkers outside the prior's support get ``-inf``: in the torch
+        modes they are evaluated at zeros (their blobs are what the
+        function returned there), on the host they are not evaluated (their
+        blobs are NaN)."""
         batch_shape = logp.shape
         N = logp.numel()
         cf = {n: c.reshape((N,) + c.shape[2:]) for n, c in coords.items()}
@@ -327,6 +454,11 @@ class LikelihoodEvaluator:
         if self.provide_supplemental and branch_supps:
             sf = {n: {k: v.reshape((N,) + v.shape[2:]) for k, v in h.items()}
                   for n, h in branch_supps.items() if h is not None}
+        if self.host:
+            ll, blobs = self._host_call(cf, inf, logp.reshape(N), sf)
+            if blobs is not None:
+                blobs = blobs.reshape(batch_shape + blobs.shape[1:])
+            return ll.reshape(batch_shape), blobs
         finite = torch.isfinite(logp.reshape(N))
         # out-of-support walkers are evaluated at zeros and rejected below
         cf_safe = {n: torch.where(finite[:, None, None], c, 0.0)
@@ -338,6 +470,182 @@ class LikelihoodEvaluator:
         if blobs is not None:
             blobs = blobs.reshape(batch_shape + blobs.shape[1:])
         return ll.reshape(batch_shape), blobs
+
+    # ------------------------------------------------------------------
+    # the host mode
+    # ------------------------------------------------------------------
+    _discover = False  # True on the probe: the blobs' width is being found
+
+    def _host_call(self, cf, inf, logp, sf):
+        """Evaluate a flat batch on the host: one copy of the coordinates,
+        masks and log-priors to the host, :meth:`_host_eval`, and one copy
+        of the log-likelihoods (and blobs) back."""
+        device = logp.device
+        names = self.branch_names
+        parts = ([cf[n].reshape(-1) for n in names]
+                 + [inf[n].reshape(-1).to(self.dtype) for n in names]
+                 + [logp.reshape(-1).to(self.dtype)])
+        flat = torch.cat(parts).cpu().numpy()
+        cf_h, inf_h, off = {}, {}, 0
+        for n in names:
+            size = cf[n].numel()
+            cf_h[n] = flat[off:off + size].reshape(tuple(cf[n].shape))
+            off += size
+        for n in names:
+            size = inf[n].numel()
+            inf_h[n] = flat[off:off + size].reshape(tuple(inf[n].shape)) != 0
+            off += size
+        lp_h = flat[off:]
+        sf_h = None if sf is None else {
+            n: {k: v.detach().cpu().numpy() for k, v in h.items()}
+            for n, h in sf.items()}
+        ll, blobs = self._host_eval(cf_h, inf_h, lp_h, sf_h)
+        N = ll.shape[0]
+        if blobs is None and self.returns_blobs:
+            blobs = np.full((N,) + tuple(self.blob_shape), np.nan)
+        if blobs is None:
+            return torch.from_numpy(ll).to(device=device, dtype=self.dtype), None
+        both = torch.from_numpy(
+            np.concatenate([ll[:, None], blobs.reshape(N, -1)], axis=1)
+        ).to(device=device, dtype=self.dtype)
+        return both[:, 0], both[:, 1:].reshape((N,) + blobs.shape[1:])
+
+    def _blob_buffer(self, N, nblobs):
+        """The host blobs of ``N`` walkers, NaN: ``nblobs`` per walker as
+        the function returned them, checked against (or, on the probe,
+        setting) ``blob_shape``; None for a return without blobs."""
+        if nblobs is None:
+            return None
+        shape = (int(nblobs),)
+        if self._discover and not self.returns_blobs:
+            self.returns_blobs, self.blob_shape = True, shape
+        if not self.returns_blobs or tuple(self.blob_shape) != shape:
+            raise ValueError(
+                f"log_like_fn returned {nblobs} blob value(s) per walker, "
+                f"but {self.blob_shape[0] if self.returns_blobs else 0} at "
+                "set-up.")
+        return np.full((N,) + shape, np.nan)
+
+    def _host_eval_vectorized(self, coords_flat, inds_flat, logp_flat,
+                              supps_flat=None):
+        """Eryn's ``vectorize=True`` call: the active leaves of every
+        walker that reaches the function, flattened per branch, with the
+        walker of each leaf (``groups``) under ``provide_groups`` and the
+        active leaves' branch supplementals as the keyword
+        ``branch_supps``; one call for the batch.  A ``(n, 1)`` return is
+        the log-likelihood, ``(n, 1 + k)`` carries ``k`` blobs."""
+        names = self.branch_names
+        N = logp_flat.shape[0]
+        out = np.full(N, -np.inf, dtype=np.float64)
+        finite = np.isfinite(logp_flat)
+        # walkers without leaves never reach the function
+        nleaves_tot = sum(inds_flat[n].sum(axis=-1) for n in names)
+        out[(nleaves_tot == 0) & finite] = self.fill_zero_leaves_val
+        keep = np.where(finite & (nleaves_tot > 0))[0]
+        if keep.size == 0:
+            return out, None
+        x_in, groups_in, supps_in = [], [], []
+        for n in names:
+            m = inds_flat[n][keep]
+            walker_ids = np.broadcast_to(np.arange(keep.size)[:, None],
+                                         m.shape)
+            x_in.append(coords_flat[n][keep][m])
+            groups_in.append(walker_ids[m])
+            if self.provide_supplemental and supps_flat and n in supps_flat:
+                supps_in.append({
+                    k: v[keep][m] if v.shape[1:2] == m.shape[1:2] else v[keep]
+                    for k, v in supps_flat[n].items()})
+            else:
+                supps_in.append(None)
+        if len(names) == 1:
+            args = (x_in[0], groups_in[0]) if self.provide_groups \
+                else (x_in[0],)
+        else:
+            args = (x_in, groups_in) if self.provide_groups else (x_in,)
+        kwargs_in = {}
+        if self.provide_supplemental and supps_flat:
+            kwargs_in["branch_supps"] = (supps_in[0] if len(names) == 1
+                                         else supps_in)
+        res = np.asarray(self.fn(*args, *self.args,
+                                 **{**self.kwargs, **kwargs_in}))
+        if res.ndim == 2 and res.shape[1] == 1:
+            # a keepdims return is the log-likelihood, not blobs
+            res = res[:, 0]
+        if res.shape[:1] != (keep.size,) or res.ndim > 2:
+            raise TypeError(
+                f"log_like_fn returned shape {res.shape} for {keep.size} "
+                "walkers; a vectorized likelihood returns (n,) values, or "
+                "(n, 1 + k) with k blobs.")
+        if res.ndim == 2:
+            out_blobs = self._blob_buffer(N, res.shape[1] - 1)
+            out[keep] = res[:, 0]
+            out_blobs[keep] = res[:, 1:]
+            return out, out_blobs
+        out[keep] = res
+        return out, None
+
+    def _host_eval(self, coords_flat, inds_flat, logp_flat, supps_flat=None):
+        """Eryn's call of a host likelihood on flat host arrays: per walker
+        that reaches the function (inside the prior, with a leaf), its
+        active leaves ``(n, ndim)`` per branch (a list over branches, None
+        for a branch without one; the bare ``(ndim,)`` row for one branch of
+        one leaf without reversible jump), its active leaves' branch
+        supplementals as the keyword ``branch_supps``, all fanned out
+        through ``pool.map`` when there is a pool.  A return ``[log_like,
+        *blobs]`` carries blobs.  ``vectorize=True`` goes to
+        :meth:`_host_eval_vectorized`.  Returns ``(log_like, blobs or
+        None)``, float64 host arrays."""
+        if self.vectorize:
+            return self._host_eval_vectorized(coords_flat, inds_flat,
+                                              logp_flat, supps_flat)
+        names = self.branch_names
+        N = logp_flat.shape[0]
+        out = np.full(N, -np.inf, dtype=np.float64)
+        items, keep = [], []
+        for i in range(N):
+            if not np.isfinite(logp_flat[i]):
+                continue
+            per_branch, total = [], 0
+            for n in names:
+                active = coords_flat[n][i][inds_flat[n][i]]
+                total += active.shape[0]
+                per_branch.append(active if active.shape[0] > 0 else None)
+            if total == 0:
+                out[i] = self.fill_zero_leaves_val
+                continue
+            kwargs_i = {}
+            if self.provide_supplemental and supps_flat:
+                kwargs_i["branch_supps"] = {
+                    n: ({k: (v[i][inds_flat[n][i]]
+                             if v[i].shape[:1] == inds_flat[n][i].shape[:1]
+                             else v[i])
+                         for k, v in supps_flat[n].items()}
+                        if n in supps_flat else None)
+                    for n in names}
+            if len(names) > 1:
+                arg = per_branch
+            else:
+                arg = per_branch[0]
+                if self.nleaves_max[names[0]] == 1 and not self.rj:
+                    arg = arg[0]
+            items.append((arg, kwargs_i))
+            keep.append(i)
+        out_blobs = None
+        if items:
+            worker = _CallbackWorker(self.fn, self.args, self.kwargs)
+            map_fn = self.pool.map if self.pool is not None else map
+            for i, res in zip(keep, map_fn(worker, items)):
+                res = np.asarray(res, dtype=np.float64).reshape(-1)
+                if res.size > 1:
+                    if out_blobs is None:
+                        out_blobs = self._blob_buffer(N, res.size - 1)
+                    out_blobs[i] = res[1:]
+                elif out_blobs is not None or self.returns_blobs:
+                    raise ValueError(
+                        "log_like_fn returned blobs for some walkers and "
+                        "not for others.")
+                out[i] = res[0]
+        return out, out_blobs
 
 
 class EnsembleSampler:
@@ -364,9 +672,20 @@ class EnsembleSampler:
     iterations, ending the run when it returns True (``utils.updates``,
     ``utils.stopping``).
 
+    A NumPy ``log_like_fn`` runs on the host (``likelihood_mode ==
+    "host"``, :class:`LikelihoodEvaluator`): per walker, fanned out through
+    ``pool.map`` when ``pool`` is given (the function must then pickle), or
+    with ``vectorize=True`` once per batch on the active leaves, with the
+    walker of each leaf as a second argument under ``provide_groups``.
+    A move written for Eryn's host protocol (``host_move``,
+    :mod:`~eryn_tpu_torch.moves.legacy`) runs eagerly in its slots of the
+    schedule with ``random``, the sampler's ``numpy.random.RandomState``
+    (seeded from ``seed``); the native moves keep their graphs.
+
     ``provide_supplemental=True`` passes each walker's branch supplemental
     to the likelihood as one more argument (see
-    :class:`LikelihoodEvaluator`).  A likelihood that returns ``(log_like,
+    :class:`LikelihoodEvaluator`; a host likelihood takes it as the keyword
+    ``branch_supps``).  A likelihood that returns ``(log_like,
     blobs)`` has its blobs stored with the chain (``get_blobs``), in
     ``blobs_dtype`` (a NumPy dtype; default the blobs' own).  Blobs, the
     state supplemental and the branch supplementals of the initial state
@@ -377,7 +696,9 @@ class EnsembleSampler:
     captured as a CUDA graph the second time it is due and replayed from
     then on (``graph_replays`` counts the replays).  Everything a step runs,
     the likelihood included, must then stay on the device; a capture that
-    fails raises a ``RuntimeError``.  ``cuda_graph=False`` runs the eager
+    fails raises a ``RuntimeError``.  A host likelihood or prior makes every
+    step visit the host: the segments run the eager loop, and nothing is
+    captured.  ``cuda_graph=False`` runs the eager
     loop, which launches every op of every step from Python, as the CPU
     always does.
     """
@@ -400,6 +721,8 @@ class EnsembleSampler:
         kwargs=None,
         backend=None,
         vectorize=False,
+        provide_groups=False,
+        pool=None,
         provide_supplemental=False,
         blobs_dtype=None,
         fill_zero_leaves_val=-1e300,
@@ -509,6 +832,32 @@ class EnsembleSampler:
             base = type(move).__name__
             self.all_moves[f"{base}_{counts.get(base, 0)}"] = move
             counts[base] = counts.get(base, 0) + 1
+        self._host_moves = [bool(m.host_move) for m in self._all_move_list]
+        nested = [type(m).__name__ for m in _walk_moves(self._all_move_list)
+                  if m.host_move and m not in self._all_move_list]
+        if nested:
+            # a composite runs its children's kernels: the hooks would be
+            # skipped without a word
+            raise ValueError(
+                f"{nested} implement the reference's host extension protocol "
+                "inside a composite move (CombineMove), which runs its "
+                "children's kernels; pass a host move to the sampler as a "
+                "move of its own.")
+        if any(self._host_moves):
+            if all(self._host_moves):
+                how = ("the sampler will run step-by-step on the host: no "
+                       "step is captured as a CUDA graph")
+            else:
+                how = ("the sampler runs HYBRID: the native moves keep their "
+                       "CUDA graphs, and each slot of the schedule that "
+                       "draws a host move runs it eagerly")
+            warnings.warn(
+                "One or more moves implement the reference's host extension "
+                f"protocol (get_proposal, the friends or special_* hooks, or "
+                f"propose); {how}. Port the hook to its *_kernel form to "
+                "keep every step on the device.",
+                stacklevel=2,
+            )
 
         self.log_like_fn = log_like_fn
         self._prior_eval = PriorEvaluator(self.priors, self.dtype)
@@ -524,7 +873,10 @@ class EnsembleSampler:
             dtype=self.dtype,
             rj=self.has_reversible_jump,
             provide_supplemental=self.provide_supplemental,
+            provide_groups=provide_groups,
+            pool=pool,
         )
+        self.pool = pool
         self._like_checked = False
         # host (object-dtype) supplemental entries by owner ("__state__" or
         # a branch), reordered by the swaps at each segment end
@@ -541,6 +893,11 @@ class EnsembleSampler:
         # draw would make every step wait for the device
         self._host_gen = torch.Generator()
         self._host_gen.manual_seed(self._seed)
+        # the host hooks' generator: NumPy's API, seeded as np.random.seed
+        # seeds the global one
+        self._np_random = np.random.RandomState(self._seed)
+        if self.temperature_control is not None:
+            self.temperature_control.generator = self._gen
 
         self.cuda_graph = bool(cuda_graph)
         self._graphs = None
@@ -769,6 +1126,9 @@ class EnsembleSampler:
                 )
                 continue
             gen.set_state(stored)
+        stored = backend.numpy_random_state
+        if stored is not None:
+            _restore_numpy_state(self._np_random, stored)
         clock = backend.get_sampler_clock()
         if clock is not None and self.temperature_control is not None:
             self.temperature_control.time = torch.full(
@@ -824,6 +1184,20 @@ class EnsembleSampler:
         cap = max(1, (256 << 20) // per_step)
         return min(8192, max(1024, 1 << (cap.bit_length() - 1)))
 
+    @property
+    def likelihood_mode(self):
+        """How the likelihood is evaluated: ``"vmap"``, ``"vectorize"`` or
+        ``"host"`` (see :class:`LikelihoodEvaluator`); None before the first
+        run checks it.  In ``"host"`` mode no step is captured as a CUDA
+        graph."""
+        return self._like_eval.mode
+
+    @property
+    def _visits_host(self):
+        """Whether every evaluation visits the host (a host likelihood or
+        prior)."""
+        return self._like_eval.host or self._prior_eval.host
+
     def get_eval_context(self):
         return EvalContext(
             compute_log_prior=self._prior_eval,
@@ -833,11 +1207,24 @@ class EnsembleSampler:
         )
 
     def get_model(self):
-        """Eryn-compatible model carrier."""
+        """Eryn's model carrier for host moves: the likelihood and prior
+        take and return host arrays, ``random`` is the sampler's
+        ``numpy.random.RandomState``, ``generator`` its torch generator."""
+        def log_prior(coords, inds=None):
+            return self.compute_log_prior(coords, inds).cpu().numpy()
+
+        def log_like(coords, inds=None, logp=None, supps=None,
+                     branch_supps=None):
+            ll, blobs = self.compute_log_like(coords, inds, logp, supps,
+                                              branch_supps)
+            return (ll.cpu().numpy(),
+                    None if blobs is None else blobs.cpu().numpy())
+
         return Model(
-            self.log_like_fn, self._like_eval, self._prior_eval,
-            self.temperature_control, map, self._gen,
-            eval_context=self.get_eval_context(),
+            self.log_like_fn, log_like, log_prior, self.temperature_control,
+            self.pool.map if self.pool is not None else map,
+            self._np_random, eval_context=self.get_eval_context(),
+            generator=self._gen,
         )
 
     # ------------------------------------------------------------------
@@ -887,7 +1274,7 @@ class EnsembleSampler:
         supp_args = {n: s.holder for n, s in branch_supps.items()
                      if s is not None} or None
         if not self._like_checked:
-            self._like_eval.check(self.device, supp_args)
+            self._like_eval.check(self.device, supp_args, coords, inds)
             if self._needs_gradient():
                 self._like_eval.check_grad(self.device, supp_args)
             # the priors' first evaluation builds their device constants (a
@@ -1048,11 +1435,14 @@ class EnsembleSampler:
         accepted = rj_accepted = swaps = None
         for j in move_idx:
             move = self._all_move_list[j]
-            state, acc, sw, time, self._kernel_states[j] = (
-                move.propose_kernel(
-                    self._gen, state, time, ctx, self._kernel_states[j]
+            if self._host_moves[j]:
+                state, acc, sw, time = self._host_step(move, state, time)
+            else:
+                state, acc, sw, time, self._kernel_states[j] = (
+                    move.propose_kernel(
+                        self._gen, state, time, ctx, self._kernel_states[j]
+                    )
                 )
-            )
             self._m_acc[j] += acc
             self._m_nprop[j] += 1
             if j < len(self.moves):
@@ -1064,6 +1454,27 @@ class EnsembleSampler:
             accepted = state.log_like.new_zeros(state.log_like.shape)
             swaps = state.log_like.new_zeros((max(self.ntemps - 1, 0),))
         return state, time, accepted, rj_accepted, swaps
+
+    def _host_step(self, move, state, time):
+        """One proposal of a host move (:func:`~eryn_tpu_torch.moves.
+        legacy.host_propose`) at the clock ``time``: the control holds the
+        state's ladder and the clock while it runs, and its swap phase, if
+        it ran one, advances them as a native step's epilogue does.
+        Returns ``(state, accepted, swaps, time)`` as :meth:`_step`'s
+        moves do."""
+        tc = self.temperature_control
+        if tc is not None:
+            tc.time, tc.betas, tc.swaps_accepted = time, state.betas, None
+        state, accepted = host_propose(move, self.get_model(), state)
+        acc = torch.as_tensor(accepted).to(device=self.device,
+                                           dtype=self.dtype)
+        swaps = None if tc is None else tc.swaps_accepted
+        if swaps is None:
+            swaps = acc.new_zeros((max(self.ntemps - 1, 0),))
+        if tc is not None:
+            time = torch.as_tensor(tc.time, device=self.device).to(
+                torch.int64)
+        return state, acc, swaps, time
 
     def _u8_layout(self):
         """Per-step u8 snapshot: the accept counts and, when leaf masks can
@@ -1091,8 +1502,10 @@ class EnsembleSampler:
 
     @property
     def _graphed(self):
-        """Whether segments replay the moves' CUDA graphs."""
-        return self.cuda_graph and self.device.type == "cuda"
+        """Whether segments replay the moves' CUDA graphs: not where every
+        step visits the host."""
+        return (self.cuda_graph and self.device.type == "cuda"
+                and not self._visits_host)
 
     def _start_clock(self, tc):
         """The adaptation clock at the start of a segment, a 0-d int64
@@ -1245,6 +1658,7 @@ class EnsembleSampler:
             moves_accepted_fraction=self._move_fractions(),
             random_state=self.random_state,
             host_random_state=self._host_gen.get_state(),
+            numpy_random_state=_numpy_state_bytes(self._np_random),
         )
 
     def _stage(self, snaps):
@@ -1269,6 +1683,7 @@ class EnsembleSampler:
             ],
             random_state=self.random_state,
             host_random_state=self._host_gen.get_state(),
+            numpy_random_state=_numpy_state_bytes(self._np_random),
             copied=None,
         )
         if self.device.type == "cuda":
@@ -1302,6 +1717,7 @@ class EnsembleSampler:
             },
             random_state=staged["random_state"],
             host_random_state=staged["host_random_state"],
+            numpy_random_state=staged["numpy_random_state"],
             sampler_clock=None if clock is None else int(clock),
             kernel_states=(list(self.all_moves),
                            [host_leaves(x) for x in staged["kernel_leaves"]]),
@@ -1359,7 +1775,8 @@ class EnsembleSampler:
         """The moves' fresh kernel states, or on a resumed backend the
         stored ones, validated leaf by leaf against the fresh structure:
         a mismatch (the moves changed) warns and starts fresh."""
-        fresh = [m.init_kernel_state(state) for m in self._all_move_list]
+        fresh = [() if m.host_move else m.init_kernel_state(state)
+                 for m in self._all_move_list]
         stored = self.backend.get_kernel_states()
         if stored is None or self.backend.iteration == 0:
             return fresh

@@ -12,6 +12,10 @@ buffers.  The move schedule stays on the host, so a step is one replay per
 entry of its schedule row: the graphs grow with the moves, not with the
 rows (moves to the power of the repeats).
 
+A host move (Eryn's host protocol, :mod:`~eryn_tpu_torch.moves.legacy`) is
+never captured: its slot copies the buffers out, runs the move eagerly and
+copies the result back, between the replays of the native moves.
+
 A move is captured the second time it is due: its first run is the same
 body, eager, which builds the kernels, lets ``torch.func.vmap`` trace the
 likelihood and warms the allocator.  Every graph shares one memory pool
@@ -139,6 +143,9 @@ class StepGraphs:
             key = (j, kind not in kinds)
             kinds.add(kind)
             smp._m_nprop[j] += 1
+            if smp._host_moves[j]:
+                self._host_entry(key)
+                continue
             entry = self.graphs.get(key)
             if entry is None:
                 if key not in self.warm:
@@ -151,6 +158,31 @@ class StepGraphs:
             for kernel, n in counts:
                 kernel.launches += n
             smp.graph_replays += 1
+
+    def _host_entry(self, key):
+        """A host move's slot: the buffers' state out, the move run eagerly
+        (:meth:`EnsembleSampler._host_step`), its result back in."""
+        j, first = key
+        smp = self.sampler
+        state, clock, _ = self.export()
+        state, acc, swaps, clock = smp._host_step(smp._all_move_list[j],
+                                                  state, clock)
+        self.load(state, clock)
+        smp._m_acc[j] += acc
+        self._record(j, first, acc, swaps)
+
+    def _record(self, j, first, acc, swaps):
+        """The step's accept flags (and, for an in-model move, swaps) into
+        their buffers: the first move of its kind sets them, later ones add
+        their flags."""
+        in_model = j < len(self.sampler.moves)
+        out = self.accepted if in_model else self.rj_accepted
+        if first:
+            out.copy_(acc)
+        else:
+            out.add_(acc)
+        if in_model:
+            self.swaps.copy_(swaps)
 
     def _body(self, key, ctx):
         """What a graph records: the move on the buffers, then the results
@@ -166,14 +198,7 @@ class StepGraphs:
                             _tensor_leaves(new_kernel_state)):
             _assign(dst, src)
         smp._m_acc[j] += acc
-        in_model = j < len(smp.moves)
-        out = self.accepted if in_model else self.rj_accepted
-        if first:
-            out.copy_(acc)
-        else:
-            out.add_(acc)
-        if in_model:
-            self.swaps.copy_(swaps)
+        self._record(j, first, acc, swaps)
         _assign(self.clock, time)
         _assign_state(self.state, state)
 

@@ -51,7 +51,7 @@ class AIMHMove(Move):
             raise NotImplementedError(
                 f"AIMHMove(df={df}): eryn_tpu_torch draws the chi-square of "
                 "an integer df up to 512 only (a gamma sampler on the "
-                "sampler's generator is ROADMAP.md, queue 1, item 8's "
+                "sampler's generator is ROADMAP.md, queue 1, item 4's "
                 "left-out part); pass an integer df.")
         if self.gibbs_iterations != [None]:
             raise ValueError(

@@ -10,19 +10,54 @@ the contiguous sub-paths of the candidate chain,
 
 memoised per sub-path.  Shapes are static: all ``max_iter + 1``
 candidates are evaluated every step, and a walker accepts at its first
-accepting stage.  ``eryn_tpu``'s host-protocol shims (``get_new_state``,
-``dr_scheme``, ``DelayedRejectionContainer``) are not ported (ROADMAP.md,
-queue 1, item 9).
+accepting stage.  Eryn's host protocol is here too: one stage on host
+arrays (:meth:`DelayedRejection.dr_scheme`, :meth:`~DelayedRejection.
+get_new_state`) and :class:`DelayedRejectionContainer`.
 """
 
 from __future__ import annotations
 
+import numpy as np
 import torch
 
 from .move import Move, merge_blobs, state_branch_supps
 from .tempering import tempered_log_likelihood
 
-__all__ = ["DelayedRejection"]
+__all__ = ["DelayedRejection", "DelayedRejectionContainer"]
+
+
+class DelayedRejectionContainer:
+    """Eryn's record of a delayed-rejection run: configuration attributes
+    from the keywords, and the ``coords``, ``log_prob``, ``log_prior`` and
+    ``alpha`` of each stage that :meth:`append` records."""
+
+    def __init__(self, proposal=None, max_iter=10, **kwargs):
+        self.proposal = proposal
+        self.max_iter = max_iter
+        for key, item in kwargs.items():
+            setattr(self, key, item)
+        self.coords = []
+        self.log_prob = []
+        self.log_prior = []
+        self.alpha = []
+
+    def append(self, new_coords, new_log_prob, new_log_prior, new_alpha):
+        """Record one stage."""
+        self.coords.append(new_coords)
+        self.log_prob.append(new_log_prob)
+        self.log_prior.append(new_log_prior)
+        self.alpha.append(new_alpha)
+
+
+def _host_log_posterior(move, state):
+    """The tempered posterior of ``state`` on the host (untempered without
+    a control)."""
+    logl = np.asarray(state.log_like)
+    logp = np.asarray(state.log_prior)
+    tc = move.temperature_control
+    if tc is None:
+        return logl + logp
+    return tc.compute_log_posterior_tempered(logl, logp)
 
 
 class DelayedRejection(Move):
@@ -56,6 +91,72 @@ class DelayedRejection(Move):
             self.proposal.periodic = self.periodic
         if self.proposal.temperature_control is None:
             self.proposal.temperature_control = self.temperature_control
+
+    # ------------------------------------------------------------------
+    # Eryn's host protocol: one stage on host arrays
+    # ------------------------------------------------------------------
+    def get_new_state(self, model, state, keep):
+        """A new candidate for every walker from the wrapped proposal (its
+        host ``get_proposal``, or its kernel on a generator seeded from
+        ``model.random``), the priors set to ``-inf`` off ``keep`` so that
+        only those walkers' likelihoods are evaluated.  Returns
+        ``(new_state, factors)`` on the host."""
+        from ..state import State
+
+        try:
+            qn, factors = self.proposal.get_proposal(
+                state.branches_coords, model.random,
+                branches_inds=state.branches_inds)
+        except NotImplementedError:
+            coords = {n: torch.as_tensor(np.asarray(v))
+                      for n, v in state.branches_coords.items()}
+            inds = {n: torch.as_tensor(np.asarray(v)).bool()
+                    for n, v in state.branches_inds.items()}
+            gen = torch.Generator().manual_seed(
+                int(model.random.randint(0, 2**31 - 1)))
+            qn, factors, _ = self.proposal.get_proposal_kernel(
+                gen, coords, inds, self.proposal.init_kernel_state(state))
+        qn = {n: np.asarray(q) for n, q in qn.items()}
+        logp = np.array(model.compute_log_prior_fn(
+            qn, inds=state.branches_inds))
+        keep = np.asarray(keep, dtype=bool)
+        logp[~keep] = -np.inf
+        logl, new_blobs = model.compute_log_like_fn(
+            qn, inds=state.branches_inds, logp=logp)
+        new_state = State(qn, log_like=np.asarray(logl), log_prior=logp,
+                          blobs=new_blobs, inds=state.branches_inds,
+                          supplemental=state.supplemental)
+        return new_state, np.asarray(factors)
+
+    def dr_scheme(self, state, new_state, keep_rejected, model, ntemps,
+                  nwalkers, inds_for_change, inds=None, dr_iter=0):
+        """One delayed-rejection stage on the host: new candidates from the
+        rejected ones, the one-stage-back acceptance against the
+        ``past_alpha`` entry of ``new_state``'s supplemental, and the
+        freshly accepted walkers merged into ``state``.  Returns ``(state,
+        new_accepted, new_state)``; ``new_state`` records ``alpha`` and
+        ``past_alpha``."""
+        from ..state import State
+
+        randU = model.random.rand(ntemps, nwalkers)
+        old_new_state = State(new_state, copy=True)
+        new_state, log_proposal_ratio = self.get_new_state(
+            model, new_state, np.asarray(keep_rejected, dtype=bool))
+        logP = _host_log_posterior(self, new_state)
+        prev_logP = _host_log_posterior(self, old_new_state)
+        past_alpha = np.asarray(old_new_state.supplemental[:]["past_alpha"])
+        with np.errstate(divide="ignore", invalid="ignore", over="ignore"):
+            # -inf - -inf is NaN off the keep set: those walkers reject
+            lndiff = logP - prev_logP + np.asarray(log_proposal_ratio)
+            alpha_1 = np.minimum(np.exp(lndiff), 1.0)
+            dr_alpha = np.exp(lndiff + np.log(1.0 - alpha_1)
+                              - np.log(1.0 - past_alpha))
+        dr_alpha = np.nan_to_num(np.minimum(dr_alpha, 1.0))
+        new_state.supplemental["alpha"] = dr_alpha
+        new_state.supplemental["past_alpha"] = dr_alpha
+        new_accepted = np.logical_or(dr_alpha >= 1.0, randU < dr_alpha)
+        state = self.update(state, new_state, new_accepted)
+        return state, new_accepted, new_state
 
     def init_kernel_state(self, state):
         self.propagate_wiring()

@@ -9,9 +9,11 @@ whole ensemble.
 
 from __future__ import annotations
 
+import numpy as np
 import torch
 
 from ..prior import ProbDistContainer
+from .move import stock_host_api
 from .rj import ReversibleJumpMove, rj_change_kernel
 
 __all__ = ["DistributionGenerateRJ"]
@@ -36,6 +38,89 @@ class DistributionGenerateRJ(ReversibleJumpMove):
     def run_branches(self, state):
         names = super().run_branches(state)
         return [n for n in names if n in self.generate_dist]
+
+    # ------------------------------------------------------------------
+    # Eryn's host protocol, for subclasses written against it
+    # ------------------------------------------------------------------
+    @stock_host_api
+    def get_model_change_proposal(self, inds, random, nleaves_min,
+                                  nleaves_max):
+        """The birth and death slots on host masks ``(ntemps, nwalkers,
+        nleaves_max)``: ``{"+1": (n, 3), "-1": (n, 3)}`` index rows
+        ``(temperature, walker, leaf)``.  A walker at an end of the range
+        moves inward; the slot is uniform among the inactive (birth) or
+        active (death) leaves."""
+        inds = np.asarray(inds, dtype=bool)
+        ntemps, nwalkers, nlmax = inds.shape
+        nleaves = inds.sum(axis=-1)
+        if self.fix_change is None:
+            change = random.choice([-1, +1], size=nleaves.shape)
+        else:
+            change = np.full(nleaves.shape, self.fix_change)
+        change = (change * ((nleaves != nleaves_min)
+                            & (nleaves != nleaves_max))
+                  + (nleaves == nleaves_min).astype(int)
+                  - (nleaves == nleaves_max).astype(int))
+        # a stable argsort of the mask lists the inactive slots first, in
+        # index order: the j-th inactive slot is order[..., j], the j-th
+        # active one order[..., n_inactive + j]
+        order = np.argsort(inds, axis=-1, kind="stable")
+        n_inactive = nlmax - nleaves
+        u = random.rand(ntemps, nwalkers)
+        j_add = np.minimum((u * np.maximum(n_inactive, 1)).astype(int),
+                           nlmax - 1)
+        j_rem = np.minimum((u * np.maximum(nleaves, 1)).astype(int),
+                           nlmax - 1)
+        slot_add = np.take_along_axis(order, j_add[..., None], -1)[..., 0]
+        slot_rem = np.take_along_axis(
+            order, np.minimum(n_inactive + j_rem, nlmax - 1)[..., None],
+            -1)[..., 0]
+        out = {}
+        t, w = np.nonzero(change == +1)
+        out["+1"] = np.stack([t, w, slot_add[t, w]], axis=-1).astype(int)
+        t, w = np.nonzero(change == -1)
+        out["-1"] = np.stack([t, w, slot_rem[t, w]], axis=-1).astype(int)
+        return out
+
+    @stock_host_api
+    def get_proposal(self, all_coords, all_inds, nleaves_min_all,
+                     nleaves_max_all, random, **kwargs):
+        """The host birth/death proposal: masks flipped at the slots of
+        :meth:`get_model_change_proposal`, births drawn from the branch's
+        distribution; returns ``(q, new_inds, factors)`` with the factors
+        ``-logpdf(born)`` and ``+logpdf(removed)``."""
+        from .legacy import host_logpdf, host_rvs
+
+        q, new_inds, changes = {}, {}, {}
+        for name, inds in all_inds.items():
+            nmin, nmax = nleaves_min_all[name], nleaves_max_all[name]
+            if nmin == nmax:
+                continue
+            if nmin > nmax:
+                raise ValueError(
+                    "nleaves_min is greater than nleaves_max. Not allowed.")
+            changes[name] = self.get_model_change_proposal(inds, random,
+                                                           nmin, nmax)
+        factors = None
+        for name in all_coords:
+            coords = np.asarray(all_coords[name])
+            q[name] = coords.copy()
+            new_inds[name] = np.asarray(all_inds[name], dtype=bool).copy()
+            if factors is None:
+                factors = np.zeros(coords.shape[:2])
+            if name not in changes:
+                continue
+            dist = self.generate_dist[name]
+            rem = tuple(changes[name]["-1"].T)
+            new_inds[name][rem] = False
+            if rem[0].size:
+                factors[rem[:2]] += host_logpdf(dist, q[name][rem])
+            add = tuple(changes[name]["+1"].T)
+            new_inds[name][add] = True
+            if add[0].size:
+                q[name][add] = host_rvs(dist, random, add[0].size)
+                factors[add[:2]] -= host_logpdf(dist, q[name][add])
+        return q, new_inds, factors
 
     def draw_rj(self, generator, name, coords):
         """Randomness of one branch's proposal: the change uniforms ``(nt,

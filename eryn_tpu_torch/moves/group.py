@@ -18,8 +18,8 @@ from .move import (
     Move,
     merge_blobs,
     mh_decide,
-    refuse_host_hooks,
     state_branch_supps,
+    stock_host_api,
 )
 from .tempering import tempered_log_likelihood
 
@@ -57,20 +57,48 @@ class GroupMove(Move):
         n_iter_update: refresh period of the stationary group (at least 2
             unless ``live_dangerously``).
 
-    A subclass that defines ``eryn_tpu``'s host hooks ``setup_friends`` or
-    ``find_friends`` raises.
+    A subclass that writes Eryn's host hooks ``setup_friends(branches)``
+    or ``find_friends(name, s, s_inds=None, branch_supps=None)`` (and
+    optionally ``fix_friends``) on NumPy arrays is a host move
+    (:mod:`~eryn_tpu_torch.moves.legacy`).
     """
 
     def __init__(self, nfriends=None, n_iter_update=100,
                  live_dangerously=False, **kwargs):
         super().__init__(**kwargs)
-        refuse_host_hooks(self, ("setup_friends", "find_friends"),
-                          "setup_friends_kernel and find_friends_kernel")
+        cls = type(self)
+        if (cls.setup_friends is not GroupMove.setup_friends
+                or cls.find_friends is not GroupMove.find_friends):
+            self.host_move = True
+            self._legacy_family = "group"
+            self.iter = 0
         self.nfriends = nfriends
         self.n_iter_update = int(n_iter_update)
         if self.n_iter_update <= 1 and not live_dangerously:
             raise ValueError("n_iter_update must be greater than or equal to 2.")
 
+    # -- Eryn's host hooks ------------------------------------------------
+    def setup_friends(self, branches):
+        """Host hook: the friends bookkeeping from the host branches."""
+        raise NotImplementedError
+
+    def find_friends(self, name, s, s_inds=None, branch_supps=None):
+        """Host hook: the complement point of each point of ``s``."""
+        raise NotImplementedError
+
+    def fix_friends(self, branches):
+        """Host hook: repair the friends of leaves born through reversible
+        jump (optional)."""
+
+    @stock_host_api
+    def get_proposal(self, s_all, random, gibbs_ndim=None, s_inds_all=None,
+                     **kwargs):
+        """Eryn's host hook, abstract (``GroupStretchMove`` has one)."""
+        raise NotImplementedError(
+            "GroupMove subclasses implement get_proposal (host protocol) or "
+            "group_proposal_kernel.")
+
+    # -- the traced protocol ----------------------------------------------
     def setup_friends_kernel(self, branches_coords, branches_inds):
         raise NotImplementedError
 

@@ -16,6 +16,7 @@ from __future__ import annotations
 import torch
 
 from .group import GroupMove
+from .move import stock_host_api
 from .stretch import StretchMove
 
 __all__ = ["GroupStretchMove"]
@@ -46,12 +47,24 @@ class GroupStretchMove(GroupMove, StretchMove):
     ``a`` is the stretch scale; the other arguments are
     :class:`~eryn_tpu_torch.moves.group.GroupMove`'s.  A subclass may
     override ``setup_friends_kernel`` and ``find_friends_kernel`` (e.g. for
-    nearest-neighbour friends).
+    nearest-neighbour friends), or Eryn's host hooks ``setup_friends`` and
+    ``find_friends``, which make it a host move.
     """
 
     def __init__(self, a=2.0, **kwargs):
         GroupMove.__init__(self, **kwargs)
         self.a = float(a)
+
+    @stock_host_api
+    def get_proposal(self, s_all, random, gibbs_ndim=None, s_inds_all=None,
+                     branch_supps=None, **kwargs):
+        """The host protocol's stretch against the complement of
+        ``find_friends``; returns ``(q, factors)``."""
+        from .legacy import groupstretch_get_proposal
+
+        return groupstretch_get_proposal(
+            self, s_all, random, gibbs_ndim=gibbs_ndim,
+            s_inds_all=s_inds_all, branch_supps=branch_supps)
 
     def setup_friends_kernel(self, branches_coords, branches_inds):
         """Default: the ensemble (its first ``nfriends`` walkers) as the

@@ -13,8 +13,9 @@ from .move import (
     Move,
     merge_blobs,
     mh_decide,
-    refuse_host_hooks,
+    overrides_host_api,
     state_branch_supps,
+    stock_host_api,
 )
 from .tempering import tempered_log_likelihood
 
@@ -31,12 +32,25 @@ class MHMove(Move):
     Gibbs parameter selection, which an asymmetric proposal must apply
     before it computes its factors.  The base class applies the mask once
     more afterwards (exact only for symmetric proposals).  A subclass that
-    defines ``eryn_tpu``'s host hook ``get_proposal`` raises.
+    writes Eryn's host hook ``get_proposal(branches_coords, random,
+    branches_inds=None, **kwargs) -> (q, factors)`` on NumPy arrays is a
+    host move (:mod:`~eryn_tpu_torch.moves.legacy`).
     """
 
     def __init__(self, **kwargs):
         super().__init__(**kwargs)
-        refuse_host_hooks(self, ("get_proposal",), "get_proposal_kernel")
+        if overrides_host_api(self, "get_proposal"):
+            self.host_move = True
+            self._legacy_family = "mh"
+
+    @stock_host_api
+    def get_proposal(self, branches_coords, random, branches_inds=None,
+                     **kwargs):
+        """Eryn's host hook, abstract: a subclass that writes it runs on
+        the host."""
+        raise NotImplementedError(
+            "MHMove subclasses implement get_proposal (host protocol) or "
+            "get_proposal_kernel.")
 
     def get_proposal_kernel(self, generator, branch_coords, branch_inds,
                             kernel_state, param_masks=None):

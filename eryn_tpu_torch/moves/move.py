@@ -5,10 +5,12 @@ Port of :mod:`eryn_tpu.moves.move`.  A move is a configuration shell whose
 
     ``(generator, state, time, ctx) -> (state, accepted, swaps_accepted, time)``,
 
-drawing its randomness from the sampler's ``torch.Generator``.  The host
-protocol of Eryn's moves (``propose(model, state)`` and the
-``get_proposal`` hooks) is not ported yet: a subclass that defines one of
-those hooks raises at construction (:func:`refuse_host_hooks`).
+drawing its randomness from the sampler's ``torch.Generator``.  Eryn's host
+protocol is here too: :meth:`Move.propose` ``(model, state)``, and the
+NumPy hooks of a subclass written for Eryn (``get_proposal``, the friends
+and the multiple-try hooks, or ``propose`` itself), which flag the move
+``host_move`` and run through :mod:`eryn_tpu_torch.moves.legacy` on host
+copies of the state.
 """
 
 from __future__ import annotations
@@ -19,6 +21,7 @@ import numpy as np
 import torch
 
 from ..utils.periodic import PeriodicContainer
+from .tempering import _host
 
 __all__ = [
     "Move",
@@ -27,8 +30,9 @@ __all__ = [
     "mh_decide",
     "active_ndim",
     "merge_blobs",
-    "refuse_host_hooks",
+    "overrides_host_api",
     "state_branch_supps",
+    "stock_host_api",
 ]
 
 
@@ -70,22 +74,19 @@ def mh_accept(generator, factors, logP_new, logP_old):
     return mh_decide(u, factors, logP_new, logP_old)
 
 
-def refuse_host_hooks(move, hooks, instead):
-    """Raise a ``NotImplementedError`` when the class of ``move`` defines one
-    of ``hooks``, the host-protocol hooks that ``eryn_tpu`` runs through its
-    host bridge (``moves/legacy.py``).  The port has no host bridge yet
-    (ROADMAP.md, queue 1, item 9), so such a move would otherwise run its
-    traced path and quietly skip the override; ``instead`` names the kernel
-    hooks to implement."""
-    cls = type(move)
-    found = [h for h in hooks if hasattr(cls, h)]
-    if found:
-        raise NotImplementedError(
-            f"{cls.__name__} defines the host-protocol hook(s) {found}, which "
-            "eryn_tpu runs through its host bridge; eryn_tpu_torch has no "
-            "host bridge yet (ROADMAP.md, queue 1, item 9). Implement "
-            f"{instead} instead."
-        )
+def stock_host_api(fn):
+    """Mark the package's own implementation of a host-protocol method
+    (``get_proposal`` and the like): only a subclass's override of one
+    makes a move a host move."""
+    fn._stock_host_api = True
+    return fn
+
+
+def overrides_host_api(obj, name):
+    """Whether the class of ``obj`` provides ``name`` other than through a
+    :func:`stock_host_api` implementation."""
+    fn = getattr(type(obj), name, None)
+    return fn is not None and not getattr(fn, "_stock_host_api", False)
 
 
 def state_branch_supps(state, perm=None, block=None):
@@ -141,6 +142,9 @@ class Move:
     #: reversible-jump moves skip ladder adaptation
     adapt_temps = True
     is_rj = False
+    #: a move written for Eryn's host protocol (see the module); its family
+    #: (``_legacy_family``) picks the protocol
+    host_move = False
 
     def __init__(
         self,
@@ -157,6 +161,10 @@ class Move:
         self.skip_supp_names_update = list(skip_supp_names_update)
         self.proposal_branch_names = proposal_branch_names
         self._initialize_branch_setup(gibbs_sampling_setup, is_rj=self.is_rj)
+        if overrides_host_api(self, "propose"):
+            # a propose of its own runs on the host, as the user wrote it
+            self.host_move = True
+            self._legacy_family = "custom-propose"
         # host counters and the kernel state, synced by the sampler after
         # each run
         self.accepted = None
@@ -285,6 +293,10 @@ class Move:
         it.  On a CUDA device a change of the move's configuration also
         needs ``sampler.drop_step_graphs()``."""
 
+    def setup(self, branches):
+        """Per-proposal hook of the host protocol: a host move's family
+        calls it with the host branches (or coordinates) first."""
+
     def _propose_impl(self, generator, state, ctx, kernel_state):
         raise NotImplementedError
 
@@ -296,11 +308,13 @@ class Move:
 
         ``accepted`` is ``(ntemps, nwalkers)``; ``subset``, when
         ``new_state`` covers only part of the walkers, is its ``(ntemps,
-        ns)`` int walker indices into ``old_state``.  Returns a new state.
+        ns)`` int walker indices into ``old_state``; either may be a NumPy
+        array.  Returns a new state.
         """
-        accepted = accepted.to(torch.bool)
+        device = old_state.log_like.device
+        accepted = torch.as_tensor(accepted, device=device).to(torch.bool)
         if subset is not None:
-            subset = subset.to(torch.int64)
+            subset = torch.as_tensor(subset, device=device).to(torch.int64)
             accepted = torch.gather(accepted, 1, subset)
 
         def merge(old, new):
@@ -359,3 +373,106 @@ class Move:
         else:
             swaps_accepted = logl.new_zeros((max(ntemps - 1, 0),))
         return state, accepted.to(logl.dtype), swaps_accepted, time, kernel_state
+
+    # ------------------------------------------------------------------
+    # Eryn's host protocol
+    # ------------------------------------------------------------------
+    @stock_host_api
+    def propose(self, model, state):
+        """One proposal with Eryn's entry point: ``model`` is the sampler's
+        :class:`~eryn_tpu_torch.model.Model`.  A host move runs its
+        family's host protocol (:func:`~eryn_tpu_torch.moves.legacy.
+        host_propose`); any other move runs :meth:`propose_kernel` once,
+        eagerly, on the model's generator at the control's clock (which it
+        advances, with the ladder and the swap counts).  Counts the
+        proposal on the move; returns ``(state, accepted)``, the flags a
+        NumPy bool array."""
+        if self.host_move:
+            from .legacy import host_propose
+
+            return host_propose(self, model, state)
+        tc = model.temperature_control
+        device = state.log_like.device
+        time = torch.as_tensor(0 if tc is None else tc.time,
+                               device=device).to(torch.int64)
+        if self.kernel_state is None:
+            self.kernel_state = self.init_kernel_state(state)
+        state, accepted, swaps, time, self.kernel_state = self.propose_kernel(
+            model.generator, state, time, model.get_eval_context(),
+            self.kernel_state)
+        if tc is not None:
+            tc.time, tc.swaps_accepted = time, swaps
+            if state.betas is not None:
+                tc.betas = state.betas
+        accepted = _host(accepted).astype(bool)
+        self.accepted = (accepted.astype(float) if self.accepted is None
+                         else np.asarray(self.accepted) + accepted)
+        self.num_proposals += 1
+        return state, accepted
+
+    def gibbs_sampling_setup_iterator(self, all_branch_names):
+        """Eryn's Gibbs splits: ``(branch_names_run, inds_run)`` per split,
+        the masks NumPy arrays or None."""
+        from .legacy import gibbs_iterator
+
+        yield from gibbs_iterator(self, all_branch_names)
+
+    def setup_proposals(self, branch_names_run, inds_run, branches_coords,
+                        branches_inds):
+        """Gibbs-aware proposal inputs on host arrays: ``(coords, inds,
+        at_least_one_proposal)``."""
+        from .legacy import setup_proposals
+
+        return setup_proposals(branch_names_run, inds_run, branches_coords,
+                               branches_inds)
+
+    def cleanup_proposals_gibbs(self, branch_names_run, inds_run, q,
+                                branches_coords, new_inds=None,
+                                branches_inds=None, new_branch_supps=None,
+                                branches_supplemental=None):
+        """Restore the parameters this Gibbs split holds fixed and fill in
+        the branches not proposed, in ``q``, ``new_inds`` and
+        ``new_branch_supps`` (in place, on host arrays)."""
+        import copy
+
+        from .legacy import cleanup_proposals_gibbs
+
+        cleanup_proposals_gibbs(branch_names_run, inds_run, q,
+                                branches_coords)
+        for key in branches_coords:
+            if new_inds is not None and key not in new_inds:
+                if branches_inds is None:
+                    raise ValueError(
+                        "new_inds given without branches_inds to fill in "
+                        f"branch {key!r}.")
+                new_inds[key] = np.array(_host(branches_inds[key]))
+            if new_branch_supps is not None and key not in new_branch_supps:
+                if branches_supplemental is None:
+                    raise ValueError(
+                        "new_branch_supps given without "
+                        f"branches_supplemental to fill in branch {key!r}.")
+                new_branch_supps[key] = copy.deepcopy(
+                    branches_supplemental[key])
+
+    def ensure_ordering(self, correct_key_order, q, new_inds,
+                        new_branch_supps):
+        """``q``, ``new_inds`` and ``new_branch_supps`` in the branch order
+        ``correct_key_order`` (a missing branch supplemental is None)."""
+        order = list(correct_key_order)
+        q = {key: q[key] for key in order}
+        new_inds = {key: new_inds[key] for key in order}
+        if new_branch_supps is not None:
+            new_branch_supps = {key: new_branch_supps.get(key)
+                                for key in order}
+        return q, new_inds, new_branch_supps
+
+    def fix_logp_gibbs(self, branch_names_run, inds_run, logp, inds):
+        """In place on a host ``logp``: a walker with no leaf in this split
+        but leaves elsewhere gets ``-inf``, one without leaves anywhere 0."""
+        from .legacy import fix_logp_gibbs
+
+        fix_logp_gibbs(branch_names_run, inds_run, logp, inds)
+
+    def compute_log_posterior_basic(self, logl, logp):
+        """The untempered ``logl + logp``."""
+        return logl + logp

@@ -9,10 +9,17 @@ move targets one branch with ``nleaves_max == 1``.
 
 from __future__ import annotations
 
+import numpy as np
 import torch
 
 from ..prior import ProbDistContainer
-from .move import merge_blobs, mh_decide, refuse_host_hooks, state_branch_supps
+from .move import (
+    merge_blobs,
+    mh_decide,
+    overrides_host_api,
+    state_branch_supps,
+    stock_host_api,
+)
 from .multipletry import MultipleTryMove, repeat_supps, repeat_walkers
 from .tempering import tempered_log_likelihood
 
@@ -22,10 +29,11 @@ __all__ = ["MTDistGenMove"]
 class MTDistGenMove(MultipleTryMove):
     """Multiple-try draw from ``generate_dist`` (``{branch:
     ProbDistContainer}``, its first branch the target; a container alone
-    is the branch ``model_0``'s).  A subclass that defines ``eryn_tpu``'s
-    host hooks (``special_like_func``, ``special_prior_func``,
+    is the branch ``model_0``'s).  A subclass that writes Eryn's host hooks
+    (``special_like_func``, ``special_prior_func``,
     ``special_generate_func``, ``special_generate_logpdf``,
-    ``get_proposal``) raises."""
+    ``get_proposal``) is a host move of the whole-ensemble family: the
+    stock hooks below fill in the ones it leaves."""
 
     def __init__(self, generate_dist, **kwargs):
         if isinstance(generate_dist, ProbDistContainer):
@@ -34,14 +42,72 @@ class MTDistGenMove(MultipleTryMove):
         self.key_in = list(generate_dist)[0]
         self.generate_dist = generate_dist[self.key_in]
         super().__init__(**kwargs)
-        refuse_host_hooks(
-            self,
-            ("special_like_func", "special_prior_func",
-             "special_generate_func", "special_generate_logpdf",
-             "get_proposal"),
-            "special_generate_kernel, special_generate_logpdf_kernel and "
-            "mt_eval_kernel",
-        )
+        if any(overrides_host_api(self, hook) for hook in (
+                "special_like_func", "special_prior_func",
+                "special_generate_func", "special_generate_logpdf",
+                "get_proposal")):
+            self.host_move = True
+            self._legacy_family = "mh"
+
+    # ------------------------------------------------------------------
+    # the stock hooks of Eryn's host protocol
+    # ------------------------------------------------------------------
+    @stock_host_api
+    def special_generate_logpdf(self, generated_coords):
+        """The proposal log-density of host points under the
+        distribution."""
+        from .legacy import host_logpdf
+
+        return host_logpdf(self.generate_dist, generated_coords)
+
+    @stock_host_api
+    def special_generate_func(self, coords, random, size=1, fill_tuple=None,
+                              fill_values=None, **kwargs):
+        """``size`` tries per point drawn from the distribution (with the
+        host ``random``) and their log-density."""
+        from .legacy import host_rvs
+
+        nwalkers = coords.shape[0]
+        if not isinstance(size, int):
+            raise ValueError("size must be an int.")
+        generated = host_rvs(self.generate_dist, random, (nwalkers, size))
+        if fill_values is not None:
+            generated[fill_tuple] = fill_values
+        logpdf = self.special_generate_logpdf(
+            generated.reshape(nwalkers * size, -1)).reshape(nwalkers, size)
+        return generated, logpdf
+
+    @stock_host_api
+    def set_coords_and_inds(self, generated_coords):
+        """The coordinates that evaluate the flattened tries: the target
+        branch holds the tries, every other branch its walkers' leaves
+        repeated per try."""
+        ndim = self.current_state.branches[self.key_in].shape[-1]
+        n_all = generated_coords.reshape(-1, ndim).shape[0]
+        coords_in = {
+            self.key_in: generated_coords.reshape(-1, 1, ndim)[None]}
+        for key, branch in self.current_state.branches.items():
+            if key == self.key_in:
+                continue
+            flat = np.asarray(branch.coords).reshape(
+                (-1,) + tuple(branch.shape[-2:]))
+            coords_in[key] = np.repeat(flat, n_all // flat.shape[0],
+                                       axis=0)[None]
+        return coords_in
+
+    @stock_host_api
+    def special_like_func(self, generated_coords, **kwargs):
+        """The likelihood of each try through the sampler's."""
+        coords_in = self.set_coords_and_inds(generated_coords)
+        ll = self.current_model.compute_log_like_fn(coords_in)[0]
+        return np.asarray(ll)[0].reshape(-1, self.num_try)
+
+    @stock_host_api
+    def special_prior_func(self, generated_coords, **kwargs):
+        """The prior of each try through the sampler's."""
+        coords_in = self.set_coords_and_inds(generated_coords)
+        lp = self.current_model.compute_log_prior_fn(coords_in)
+        return np.asarray(lp).reshape(-1, self.num_try)
 
     def init_kernel_state(self, state):
         self.prepare_constants(state)

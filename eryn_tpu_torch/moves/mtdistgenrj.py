@@ -14,11 +14,21 @@ from __future__ import annotations
 
 import math
 
+import numpy as np
 import torch
 
 from ..prior import ProbDistContainer
-from .move import merge_blobs, mh_decide, refuse_host_hooks, state_branch_supps
+from .distgenrj import DistributionGenerateRJ
+from .move import (
+    merge_blobs,
+    mh_decide,
+    overrides_host_api,
+    state_branch_supps,
+    stock_host_api,
+)
 from .multipletry import (
+    MultipleTryMove,
+    MultipleTryMoveRJ,
     categorical_pick,
     gumbel_from_uniform,
     logsumexp,
@@ -55,12 +65,95 @@ class MTDistGenMoveRJ(ReversibleJumpMove):
         self.symmetric = False
         self.mt_rj = True
         super().__init__(*args, **kwargs)
-        refuse_host_hooks(
-            self,
-            ("special_like_func", "special_prior_func",
-             "special_generate_func", "special_generate_logpdf"),
-            "_propose_impl",
-        )
+        if any(overrides_host_api(self, hook) for hook in (
+                "special_like_func", "special_prior_func",
+                "special_generate_func", "special_generate_logpdf")):
+            self.host_move = True
+            self._legacy_family = "rj"
+
+    # ------------------------------------------------------------------
+    # Eryn's host protocol: the multiple-try machinery of MultipleTryMove and
+    # MultipleTryMoveRJ (the same functions), the slots of
+    # DistributionGenerateRJ, and the stock hooks below
+    # ------------------------------------------------------------------
+    get_mt_log_posterior = MultipleTryMove.get_mt_log_posterior
+    readout_adjustment = MultipleTryMove.readout_adjustment
+    get_mt_proposal = MultipleTryMove.get_mt_proposal
+    get_proposal = MultipleTryMoveRJ.get_proposal
+    get_model_change_proposal = DistributionGenerateRJ.get_model_change_proposal
+
+    @stock_host_api
+    def special_generate_logpdf(self, generated_coords):
+        """The proposal log-density under the branch's distribution."""
+        from .legacy import host_logpdf
+
+        return host_logpdf(self.generate_dist[self.key_in], generated_coords)
+
+    @stock_host_api
+    def special_generate_func(self, coords, random, size=1, fill_tuple=None,
+                              fill_values=None, **kwargs):
+        """``size`` tries per walker from the branch's distribution; a
+        remover's removed leaf fills its try slot 0 (``fill_tuple``)."""
+        from .legacy import host_rvs
+
+        nwalkers = coords.shape[0]
+        if not isinstance(size, int):
+            raise ValueError("size must be an int.")
+        generated = host_rvs(self.generate_dist[self.key_in], random,
+                             (nwalkers, size))
+        if fill_values is not None:
+            generated[fill_tuple] = fill_values
+        logpdf = self.special_generate_logpdf(
+            generated.reshape(nwalkers * size, -1)).reshape(nwalkers, size)
+        return generated, logpdf
+
+    @stock_host_api
+    def set_coords_and_inds(self, generated_coords, inds_leaves_rj=None):
+        """The coordinates and masks that evaluate the flattened tries:
+        each walker repeated ``num_try`` times with its changing leaf set to
+        the try and switched on."""
+        st = self.current_state
+        bc = np.asarray(st.branches[self.key_in].coords)
+        bi = np.asarray(st.branches[self.key_in].inds)
+        nl, nd = bc.shape[-2:]
+        n_all = bc.shape[0] * bc.shape[1]
+        coords_in = np.repeat(bc.reshape(-1, nl, nd), self.num_try, axis=0)
+        inds_in = np.repeat(bi.reshape(-1, nl), self.num_try, axis=0)
+        rows = np.arange(n_all * self.num_try)
+        leaves = np.repeat(np.asarray(inds_leaves_rj, dtype=int),
+                           self.num_try)
+        coords_in[rows, leaves] = np.asarray(generated_coords).reshape(-1, nd)
+        inds_in[rows, leaves] = True
+        coords_dict = {self.key_in: coords_in[None]}
+        inds_dict = {self.key_in: inds_in[None]}
+        for key, branch in st.branches.items():
+            if key == self.key_in:
+                continue
+            okc = np.asarray(branch.coords).reshape(
+                (-1,) + tuple(branch.shape[-2:]))
+            oki = np.asarray(branch.inds).reshape(-1, branch.shape[-2])
+            coords_dict[key] = np.repeat(okc, self.num_try, axis=0)[None]
+            inds_dict[key] = np.repeat(oki, self.num_try, axis=0)[None]
+        return coords_dict, inds_dict
+
+    @stock_host_api
+    def special_like_func(self, generated_coords, inds_leaves_rj=None,
+                          **kwargs):
+        """The likelihood of each try with the changing leaf set to it."""
+        coords_in, inds_in = self.set_coords_and_inds(
+            generated_coords, inds_leaves_rj=inds_leaves_rj)
+        ll = self.current_model.compute_log_like_fn(coords_in,
+                                                    inds=inds_in)[0]
+        return np.asarray(ll)[0].reshape(-1, self.num_try)
+
+    @stock_host_api
+    def special_prior_func(self, generated_coords, inds_leaves_rj=None,
+                           **kwargs):
+        """The prior of each try with the changing leaf set to it."""
+        coords_in, inds_in = self.set_coords_and_inds(
+            generated_coords, inds_leaves_rj=inds_leaves_rj)
+        lp = self.current_model.compute_log_prior_fn(coords_in, inds=inds_in)
+        return np.asarray(lp).reshape(-1, self.num_try)
 
     def run_branches(self, state):
         names = super().run_branches(state)

@@ -18,7 +18,7 @@ from __future__ import annotations
 import numpy as np
 import torch
 
-from .move import Move
+from .move import Move, stock_host_api
 from .tempering import tempered_log_likelihood
 
 __all__ = [
@@ -40,10 +40,12 @@ def logsumexp(a, axis=None):
     return torch.logsumexp(a, dim=axis)
 
 
-def get_mt_computations(logP, log_proposal_pdf, symmetric=False, xp=None):
+def get_mt_computations(logP, log_proposal_pdf, symmetric=False, xp=None,
+                        random=None):
     """Importance weights and the try picked per batch row, on host arrays:
     ``eryn_tpu``'s public helper with its signature, drawing the pick's
-    uniforms from NumPy's global generator as it does.
+    uniforms from ``random`` (a ``numpy.random.RandomState``; by default
+    NumPy's global generator, as ``eryn_tpu`` does).
 
     ``logP`` and ``log_proposal_pdf`` are ``(nbatch, num_try)``.  Returns
     ``(log_importance_weights, log_sum_weights, inds_keep)``.
@@ -60,7 +62,8 @@ def get_mt_computations(logP, log_proposal_pdf, symmetric=False, xp=None):
         xp.exp(log_importance_weights - max_w[:, None]).sum(axis=-1)
     )
     probs = xp.exp(log_importance_weights - log_sum_weights[:, None])
-    u = xp.asarray(np.random.rand(probs.shape[0]))
+    u = xp.asarray((np.random if random is None else random).rand(
+        probs.shape[0]))
     inds_keep = (probs.cumsum(1) > u[:, None]).argmax(1)
     return log_importance_weights, log_sum_weights, inds_keep
 
@@ -163,6 +166,216 @@ class MultipleTryMove(Move):
                 "If rj==True, symmetric and independent must both be False."
             )
 
+    # ------------------------------------------------------------------
+    # Eryn's host protocol: a subclass writes the special_* hooks on NumPy
+    # arrays, and the stock get_mt_proposal drives them
+    # ------------------------------------------------------------------
+    @stock_host_api
+    def special_like_func(self, generated_coords, *args, inds_leaves_rj=None,
+                          **kwargs):
+        """Host hook: the likelihood of each try, ``(nbatch, num_try)``."""
+        raise NotImplementedError
+
+    @stock_host_api
+    def special_prior_func(self, generated_coords, *args, **kwargs):
+        """Host hook: the prior of each try, ``(nbatch, num_try)``."""
+        raise NotImplementedError
+
+    @stock_host_api
+    def special_generate_func(self, coords, random, size=1, *args,
+                              fill_tuple=None, fill_values=None, **kwargs):
+        """Host hook: ``size`` tries per point of ``coords`` and their
+        proposal log-density."""
+        raise NotImplementedError
+
+    @stock_host_api
+    def special_generate_logpdf(self, coords):
+        """Host hook: the proposal log-density of ``coords``."""
+        raise NotImplementedError
+
+    def get_mt_log_posterior(self, ll, lp, betas=None):
+        """The tempered posterior of the tries (``betas`` per batch row)."""
+        ll = np.asarray(ll)
+        if betas is not None:
+            betas = np.asarray(betas)
+            ll = betas[..., None] * ll if ll.ndim > betas.ndim else betas * ll
+        return ll + np.asarray(lp)
+
+    def readout_adjustment(self, out_vals, all_vals_prop, aux_all_vals):
+        """Hook reading the proposal's internals; nothing by default."""
+
+    def get_mt_proposal(self, coords, random, args_generate=(),
+                        kwargs_generate={}, args_like=(), kwargs_like={},
+                        args_prior=(), kwargs_prior={}, betas=None,
+                        ll_in=None, lp_in=None, inds_leaves_rj=None,
+                        inds_reverse_rj=None):
+        """The multiple-try proposal of flat independent points ``coords``
+        ``(nbatch, ndim)`` on the host: ``num_try`` tries each through the
+        ``special_*`` hooks, one picked by its importance weight with
+        ``random``, and the auxiliary set (the tries themselves with the
+        current point in the picked slot when ``independent``; the one leaf
+        less model under reversible jump; tries drawn anew from the picked
+        point with the current point in its slot otherwise, the standard
+        multiple-try construction, where ``eryn_tpu``'s reference names an
+        undefined variable).  Sets ``mt_ll``, ``mt_lp`` and the readouts;
+        returns ``(chosen points, factors)``."""
+        import warnings
+
+        rj = getattr(self, "mt_rj", False)
+        if rj:
+            if (ll_in is None or lp_in is None or inds_leaves_rj is None
+                    or inds_reverse_rj is None):
+                raise ValueError(
+                    "If using rj, must provide ll_in, lp_in, "
+                    "inds_leaves_rj, and inds_reverse_rj.")
+            fill_tuple = (inds_reverse_rj, np.zeros_like(inds_reverse_rj))
+            fill_values = coords[inds_reverse_rj]
+        else:
+            fill_tuple = fill_values = None
+
+        generated_points, log_proposal_pdf = self.special_generate_func(
+            coords, random, *args_generate, size=self.num_try,
+            fill_values=fill_values, fill_tuple=fill_tuple, **kwargs_generate)
+        generated_points = np.asarray(generated_points)
+        log_proposal_pdf = np.asarray(log_proposal_pdf, dtype=np.float64)
+        ll = np.asarray(self.special_like_func(
+            generated_points, *args_like, inds_leaves_rj=inds_leaves_rj,
+            **kwargs_like), dtype=np.float64)
+        if np.any(np.isnan(ll)):
+            warnings.warn("Getting nans for ll in multiple try.")
+            ll[np.isnan(ll)] = -1e300
+        lp = np.asarray(self.special_prior_func(
+            generated_points, *args_prior, inds_leaves_rj=inds_leaves_rj,
+            **kwargs_prior), dtype=np.float64)
+        if rj:
+            # the proposal density of a leaf that exists is its prior
+            log_proposal_pdf = log_proposal_pdf + lp_in[:, None]
+        logP = self.get_mt_log_posterior(ll, lp, betas=betas)
+
+        _, log_sum_weights, inds_keep = get_mt_computations(
+            logP, log_proposal_pdf, symmetric=self.symmetric, random=random)
+        inds_keep = np.asarray(inds_keep)
+        if rj:
+            inds_keep[np.asarray(inds_reverse_rj)] = 0
+        inds_tuple = (np.arange(len(inds_keep)), inds_keep)
+        lp_out, ll_out, logP_out = lp[inds_tuple], ll[inds_tuple], \
+            logP[inds_tuple]
+        self.mt_lp, self.mt_ll = lp_out, ll_out
+        generated_points_out = generated_points[inds_tuple].copy()
+        log_proposal_pdf_out = log_proposal_pdf[inds_tuple]
+
+        if self.independent:
+            aux_ll, aux_lp = ll.copy(), lp.copy()
+            aux_log_proposal_pdf_sub = np.asarray(
+                self.special_generate_logpdf(coords))
+            if ll_in is None:
+                if not hasattr(self, "special_generate_like"):
+                    raise ValueError(
+                        "independent=True requires ll_in (or a "
+                        "special_generate_like hook) for the current "
+                        "points' likelihood.")
+                ll_in = np.asarray(self.special_generate_like(coords))
+            if lp_in is None:
+                if not hasattr(self, "special_generate_prior"):
+                    raise ValueError(
+                        "independent=True requires lp_in (or a "
+                        "special_generate_prior hook) for the current "
+                        "points' prior.")
+                lp_in = np.asarray(self.special_generate_prior(coords))
+            aux_ll[inds_tuple] = np.asarray(ll_in)
+            aux_lp[inds_tuple] = np.asarray(lp_in)
+            aux_logP = self.get_mt_log_posterior(aux_ll, aux_lp, betas=betas)
+            aux_log_proposal_pdf = log_proposal_pdf.copy()
+            aux_log_proposal_pdf[inds_tuple] = aux_log_proposal_pdf_sub
+            aux_log_importance_weights = aux_logP - aux_log_proposal_pdf
+        elif rj:
+            # the auxiliary set repeats the one leaf less model
+            aux_ll = np.repeat(np.asarray(ll_in)[:, None], self.num_try, -1)
+            aux_lp = np.repeat(np.asarray(lp_in)[:, None], self.num_try, -1)
+            aux_log_proposal_pdf = aux_lp.copy()
+            aux_logP = self.get_mt_log_posterior(aux_ll, aux_lp, betas=betas)
+            aux_log_importance_weights = aux_logP - aux_log_proposal_pdf
+        else:
+            aux_generated_points, aux_log_proposal_pdf = \
+                self.special_generate_func(
+                    generated_points_out, random, *args_generate,
+                    size=self.num_try, fill_tuple=inds_tuple,
+                    fill_values=coords, **kwargs_generate)
+            aux_ll = np.asarray(self.special_like_func(
+                np.asarray(aux_generated_points), *args_like, **kwargs_like),
+                dtype=np.float64)
+            aux_lp = np.asarray(self.special_prior_func(
+                np.asarray(aux_generated_points)), dtype=np.float64)
+            aux_log_proposal_pdf = np.asarray(aux_log_proposal_pdf,
+                                              dtype=np.float64)
+            aux_logP = self.get_mt_log_posterior(aux_ll, aux_lp, betas=betas)
+            aux_log_importance_weights = (
+                aux_logP if self.symmetric else aux_logP - aux_log_proposal_pdf)
+
+        aux_logP_out = aux_logP[inds_tuple]
+        max_aux = np.max(aux_log_importance_weights, axis=-1)
+        aux_log_sum_weights = max_aux + np.log(np.exp(
+            aux_log_importance_weights - max_aux[:, None]).sum(-1))
+        aux_log_proposal_pdf_out = aux_log_proposal_pdf[inds_tuple]
+        # factors + logP_out - aux_logP_out is the ratio of the weight sums
+        factors = ((aux_logP_out - aux_log_sum_weights)
+                   - (logP_out - log_sum_weights))
+        if rj:
+            inds_reverse_rj = np.asarray(inds_reverse_rj)
+            factors[inds_reverse_rj] *= -1
+            self.mt_ll[inds_reverse_rj] = np.asarray(ll_in)[inds_reverse_rj]
+            self.mt_lp[inds_reverse_rj] = np.asarray(lp_in)[inds_reverse_rj]
+            self.inds_reverse_rj = inds_reverse_rj
+            self.inds_forward_rj = np.delete(np.arange(coords.shape[0]),
+                                             inds_reverse_rj)
+        self.aux_logP_out, self.logP_out = aux_logP_out, logP_out
+        self.aux_ll, self.aux_lp = aux_ll, aux_lp
+        self.log_sum_weights = log_sum_weights
+        self.aux_log_sum_weights = aux_log_sum_weights
+        self.readout_adjustment(
+            [logP_out, ll_out, lp_out, log_proposal_pdf_out, log_sum_weights],
+            [logP, ll, lp, log_proposal_pdf, log_sum_weights],
+            [aux_logP, aux_ll, aux_lp, aux_log_proposal_pdf,
+             aux_log_sum_weights])
+        return generated_points_out, factors
+
+    @stock_host_api
+    def get_proposal(self, branches_coords, random, branches_inds=None,
+                     **kwargs):
+        """The host multiple-try proposal with the whole-ensemble
+        protocol's signature: one branch, one active leaf per walker,
+        flattened through :meth:`get_mt_proposal`; sets ``mt_ll`` and
+        ``mt_lp`` for the protocol to take."""
+        if len(branches_coords) > 1:
+            raise ValueError(
+                "Can only propose change to one model at a time with MT.")
+        key_in = list(branches_coords)[0]
+        self.key_in = key_in
+        coords = np.asarray(branches_coords[key_in])
+        m = (np.ones(coords.shape[:-1], dtype=bool) if branches_inds is None
+             else np.asarray(branches_inds[key_in], dtype=bool))
+        if np.any(m.sum(axis=-1) > 1):
+            raise ValueError(
+                "MT base proposals require exactly one active leaf.")
+        ntemps, nwalkers, nl = coords.shape[:3]
+        betas_here = None
+        if self.temperature_control is not None:
+            betas_here = np.repeat(
+                np.asarray(self.current_state.betas)[:, None],
+                nwalkers * nl).reshape(m.shape)[m]
+        ll_here = np.repeat(np.asarray(self.current_state.log_like)[:, :, None],
+                            nl, axis=-1)[m]
+        lp_here = np.repeat(
+            np.asarray(self.current_state.log_prior)[:, :, None], nl,
+            axis=-1)[m]
+        points, factors = self.get_mt_proposal(
+            coords[m], random, betas=betas_here, ll_in=ll_here,
+            lp_in=lp_here)
+        self.mt_ll = self.mt_ll.reshape(ntemps, nwalkers)
+        self.mt_lp = self.mt_lp.reshape(ntemps, nwalkers)
+        return ({key_in: points.reshape(ntemps, nwalkers, 1, -1)},
+                factors.reshape(ntemps, nwalkers))
+
     def special_generate_kernel(self, generator, state, num_try):
         raise NotImplementedError
 
@@ -261,6 +474,91 @@ class MultipleTryMoveRJ(MultipleTryMove):
     def __init__(self, *args, **kwargs):
         kwargs.setdefault("rj", True)
         super().__init__(*args, **kwargs)
+
+    @stock_host_api
+    def get_proposal(self, branches_coords, branches_inds, nleaves_min_all,
+                     nleaves_max_all, random, **kwargs):
+        """The host multiple-try birth/death with the reversible-jump
+        protocol's signature: one branch, +1/-1 changes from
+        ``get_model_change_proposal``, a death taken as an inverted birth
+        (the removed leaf in try slot 0) and the one leaf less model as the
+        auxiliary base.  Returns ``(q, new_inds, factors)``; sets ``mt_ll``
+        and ``mt_lp``.  The removers' one leaf less likelihood takes their
+        own priors (``eryn_tpu``'s reference passes the whole ensemble's,
+        of another shape)."""
+        if len(branches_coords) > 1:
+            raise ValueError(
+                "Can only propose change to one model at a time with MT.")
+        key_in = list(branches_coords)[0]
+        self.key_in = key_in
+        if branches_inds is None:
+            raise ValueError("In MT RJ proposal, branches_inds cannot be None.")
+        coords_b = np.asarray(branches_coords[key_in])
+        inds_b = np.asarray(branches_inds[key_in], dtype=bool)
+        ntemps, nwalkers, _, ndim = coords_b.shape
+        st = self.current_state
+        betas_here = None
+        if self.temperature_control is not None:
+            betas_here = np.repeat(np.asarray(st.betas)[:, None], nwalkers,
+                                   axis=-1).flatten()
+        ll_here = np.array(st.log_like, dtype=float).flatten()
+        lp_here = np.array(st.log_prior, dtype=float).flatten()
+        nmin, nmax = nleaves_min_all[key_in], nleaves_max_all[key_in]
+        if nmin == nmax:
+            raise ValueError(
+                "MT RJ proposal requires that nleaves_min != nleaves_max.")
+        if nmin > nmax:
+            raise ValueError(
+                "nleaves_min is greater than nleaves_max. Not allowed.")
+        changes = self.get_model_change_proposal(inds_b, random, nmin, nmax)
+
+        inds_leaves_rj = np.zeros(ntemps * nwalkers, dtype=int)
+        coords_in = np.zeros((ntemps * nwalkers, ndim))
+        inds_reverse_rj = None
+        new_inds = {n: np.array(v) for n, v in branches_inds.items()}
+        q = {n: np.array(v) for n, v in branches_coords.items()}
+        for change, idx in changes.items():
+            if change not in ("+1", "-1"):
+                raise ValueError("MT RJ is only implemented for +1/-1 moves.")
+            t_i, w_i, l_i = idx[:, 0], idx[:, 1], idx[:, 2]
+            inds_leaves_rj[t_i * nwalkers + w_i] = l_i
+            coords_in[t_i * nwalkers + w_i] = coords_b[(t_i, w_i, l_i)]
+            new_inds[key_in][(t_i, w_i, l_i)] = change == "+1"
+            if change == "-1":
+                inds_reverse_rj = t_i * nwalkers + w_i
+
+        if inds_reverse_rj is not None and inds_reverse_rj.size:
+            # the removers' one leaf less model (the leaf is off in
+            # new_inds already)
+            rev_coords, rev_inds = {}, {}
+            for key, branch in st.branches.items():
+                bc = np.asarray(branch.coords)
+                nl_k, nd_k = bc.shape[-2:]
+                rev_coords[key] = bc.reshape(-1, nl_k, nd_k)[
+                    inds_reverse_rj][None]
+                im = new_inds[key] if key == key_in else np.asarray(branch.inds)
+                rev_inds[key] = im.reshape(-1, nl_k)[inds_reverse_rj][None]
+            model = self.current_model
+            lp_rev = np.asarray(model.compute_log_prior_fn(
+                rev_coords, inds=rev_inds))[0]
+            ll_rev = np.asarray(model.compute_log_like_fn(
+                rev_coords, inds=rev_inds, logp=lp_rev[None])[0])[0]
+            ll_here[inds_reverse_rj] = ll_rev
+            lp_here[inds_reverse_rj] = lp_rev
+        elif inds_reverse_rj is None:
+            inds_reverse_rj = np.array([], dtype=int)
+
+        points, factors = self.get_mt_proposal(
+            coords_in, random, betas=betas_here, ll_in=ll_here,
+            lp_in=lp_here, inds_leaves_rj=inds_leaves_rj,
+            inds_reverse_rj=inds_reverse_rj)
+        self.mt_ll = self.mt_ll.reshape(ntemps, nwalkers)
+        self.mt_lp = self.mt_lp.reshape(ntemps, nwalkers)
+        forward = np.delete(np.arange(coords_in.shape[0]), inds_reverse_rj)
+        add = changes.get("+1")
+        if add is not None and add.size:
+            q[key_in][(add[:, 0], add[:, 1], add[:, 2])] = points[forward]
+        return q, new_inds, np.asarray(factors).reshape(ntemps, nwalkers)
 
     def mt_select_kernel(self, generator, state, ctx):
         raise NotImplementedError(

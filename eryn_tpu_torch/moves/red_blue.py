@@ -10,7 +10,14 @@ from __future__ import annotations
 
 import torch
 
-from .move import Move, merge_blobs, mh_decide, state_branch_supps
+from .move import (
+    Move,
+    merge_blobs,
+    mh_decide,
+    overrides_host_api,
+    state_branch_supps,
+    stock_host_api,
+)
 from .tempering import tempered_log_likelihood
 
 __all__ = ["RedBlueMove"]
@@ -27,7 +34,10 @@ class RedBlueMove(Move):
     Subclasses implement ``get_proposal_kernel(generator, s_coords, c_coords,
     s_inds, param_masks) -> (q_dict, factors)`` with ``factors`` shaped
     ``(ntemps, Ns)``.  A subclass that sets ``_needs_c_inds`` also receives
-    the complement's leaf masks as ``c_inds``.
+    the complement's leaf masks as ``c_inds``.  A subclass that writes
+    Eryn's host hook ``get_proposal(s_all, c_all, random, gibbs_ndim=None)
+    -> (q, factors)`` on NumPy arrays is a host move
+    (:mod:`~eryn_tpu_torch.moves.legacy`).
     """
 
     _needs_c_inds = False
@@ -38,9 +48,25 @@ class RedBlueMove(Move):
         self.nsplits = int(nsplits)
         self.randomize_split = randomize_split
         self.live_dangerously = live_dangerously
+        # a group move's get_proposal is of its own protocol: GroupMove
+        # classifies it
+        from .group import GroupMove
+
+        if (overrides_host_api(self, "get_proposal")
+                and not isinstance(self, GroupMove)):
+            self.host_move = True
+            self._legacy_family = "redblue"
 
     def setup(self, branches):
         """Per-proposal setup hook."""
+
+    @stock_host_api
+    def get_proposal(self, s_all, c_all, random, gibbs_ndim=None):
+        """Eryn's host hook, abstract: a subclass that writes it runs on
+        the host."""
+        raise NotImplementedError(
+            "RedBlueMove subclasses implement get_proposal (host protocol) "
+            "or get_proposal_kernel.")
 
     def get_proposal_kernel(self, generator, s_coords, c_coords, s_inds,
                             param_masks=None):

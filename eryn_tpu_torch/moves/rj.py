@@ -3,9 +3,9 @@
 Port of :mod:`eryn_tpu.moves.rj`, the traced protocol only: births and
 deaths flip the static-shape leaf masks, the affected slot is a masked
 argmax over random keys, and the detailed-balance corrections at the edges
-of the leaf-count range are ``where`` masks.  The host protocol
-(``get_proposal`` / ``get_model_change_proposal``) is not ported yet: a
-subclass that defines it raises.
+of the leaf-count range are ``where`` masks.  A subclass that writes Eryn's
+host protocol (``get_proposal`` / ``get_model_change_proposal`` on NumPy
+arrays) is a host move (:mod:`~eryn_tpu_torch.moves.legacy`).
 """
 
 from __future__ import annotations
@@ -18,8 +18,9 @@ from .move import (
     Move,
     merge_blobs,
     mh_accept,
-    refuse_host_hooks,
+    overrides_host_api,
     state_branch_supps,
+    stock_host_api,
 )
 from .tempering import tempered_log_likelihood
 
@@ -86,13 +87,29 @@ class ReversibleJumpMove(Move):
     def __init__(self, nleaves_max=None, nleaves_min=None, fix_change=None,
                  **kwargs):
         super().__init__(**kwargs)
-        refuse_host_hooks(self, ("get_proposal", "get_model_change_proposal"),
-                          "get_proposal_kernel")
+        if (overrides_host_api(self, "get_proposal")
+                or overrides_host_api(self, "get_model_change_proposal")):
+            self.host_move = True
+            self._legacy_family = "rj"
         self.nleaves_max = dict(nleaves_max) if nleaves_max else {}
         self.nleaves_min = dict(nleaves_min) if nleaves_min else {}
         if fix_change not in (None, 1, -1):
             raise ValueError("fix_change must be None, +1, or -1.")
         self.fix_change = fix_change
+
+    @stock_host_api
+    def get_proposal(self, all_coords, all_inds, nleaves_min_all,
+                     nleaves_max_all, random, **kwargs):
+        """Eryn's host hook, abstract: ``(q, new_inds, factors)``."""
+        raise NotImplementedError(
+            "ReversibleJumpMove subclasses implement get_proposal (host "
+            "protocol) or get_proposal_kernel.")
+
+    @stock_host_api
+    def get_model_change_proposal(self, inds, random, nleaves_min,
+                                  nleaves_max):
+        """Eryn's host hook, abstract: the birth and death slots."""
+        raise NotImplementedError
 
     def get_proposal_kernel(self, generator, name, coords, inds):
         raise NotImplementedError

@@ -15,6 +15,7 @@ from __future__ import annotations
 
 import math
 
+import numpy as np
 import torch
 
 from ..ops.stretch_kernels import (
@@ -22,7 +23,7 @@ from ..ops.stretch_kernels import (
     stretch_accept_propose,
     stretch_propose,
 )
-from .move import active_ndim
+from .move import active_ndim, stock_host_api
 from .red_blue import RedBlueMove
 
 __all__ = ["StretchMove"]
@@ -49,6 +50,39 @@ class StretchMove(RedBlueMove):
         self.a = float(a)
         self.use_kernels = use_kernels
         self.use_log_proposal = bool(use_log_proposal)
+
+    # ------------------------------------------------------------------
+    # Eryn's host protocol, for subclasses written against it
+    # ------------------------------------------------------------------
+    @stock_host_api
+    def get_proposal(self, s_all, c_all, random, gibbs_ndim=None, **kwargs):
+        """The stretch proposal of a red/blue split on NumPy arrays with
+        the host ``random``; returns ``(q, factors)``."""
+        from .legacy import stretch_get_proposal
+
+        return stretch_get_proposal(self, s_all, c_all, random,
+                                    gibbs_ndim=gibbs_ndim)
+
+    def get_new_points(self, name, s, c_temp, Ns, branch_shape, branch_i,
+                       random_number_generator):
+        """One branch stretched along the ray to its complement on NumPy
+        arrays; ``self.zz`` is drawn at the first branch and shared."""
+        from .legacy import _periodic_np
+
+        ntemps = branch_shape[0]
+        s, c_temp = np.asarray(s), np.asarray(c_temp)
+        if branch_i == 0:
+            u = random_number_generator.rand(ntemps, Ns)
+            if self.use_log_proposal:
+                self.zz = np.exp((2.0 * u - 1.0) * np.log(self.a))
+            else:
+                self.zz = ((self.a - 1.0) * u + 1.0) ** 2 / self.a
+        diff = (c_temp - s if self.periodic is None
+                else _periodic_np(self.periodic, "distance", name, s, c_temp))
+        temp = c_temp - diff * self.zz[:, :, None, None]
+        if self.periodic is not None:
+            temp = _periodic_np(self.periodic, "wrap", name, temp)
+        return temp
 
     # ------------------------------------------------------------------
     # fused path

@@ -232,6 +232,45 @@ class TemperatureControl:
         self.stop_adaptation = stop_adaptation
         self.swaps_proposed = np.full(ntemps - 1, nwalkers)
         self.swaps_accepted = np.zeros(ntemps - 1)
+        # the generator of the host API's swaps (temper_comps,
+        # temperature_swaps); a sampler gives its own
+        self.generator = None
+        self._deo_phase_ticked = False
+
+    # ------------------------------------------------------------------
+    # tempered posterior
+    # ------------------------------------------------------------------
+    def tempered_likelihood(self, logl, betas=None):
+        """``beta * logl`` with the ``beta == 0`` guard, on NumPy arrays or
+        tensors (the kind of ``logl``); ``betas`` default to the ladder, and
+        a 1-D ``logl`` needs them."""
+        if betas is None:
+            if np.ndim(logl) == 1:
+                raise ValueError(
+                    "If inputing a 1D logl array, need to provide 1D betas "
+                    "array of the same length."
+                )
+            betas = self.betas
+        if isinstance(logl, torch.Tensor):
+            return tempered_log_likelihood(
+                logl, torch.as_tensor(betas, dtype=logl.dtype,
+                                      device=logl.device))
+        logl, betas = np.asarray(logl), _host(betas)
+        if logl.ndim == 2 and betas.ndim == 1:
+            betas = betas[:, None]
+        with np.errstate(invalid="ignore"):
+            out = logl * betas
+        return np.where(np.isnan(out), -np.inf, out)
+
+    def compute_log_posterior_tempered(self, logl, logp, betas=None):
+        """``beta * logl + logp`` (see :meth:`tempered_likelihood`)."""
+        if betas is None:
+            betas = self.betas
+        out = self.tempered_likelihood(logl, betas)
+        if isinstance(out, torch.Tensor):
+            return out + torch.as_tensor(logp, dtype=out.dtype,
+                                         device=out.device)
+        return out + _host(logp)
 
     # ------------------------------------------------------------------
     # swap cascade
@@ -604,3 +643,183 @@ class TemperatureControl:
             supplemental=supp,
         )
         return new_state, swaps_accepted, time
+
+    # ------------------------------------------------------------------
+    # the host API: a step run on the host (moves/legacy.py) and user code
+    # written against Eryn's mutation-style calls
+    # ------------------------------------------------------------------
+    def _host_generator(self, generator):
+        generator = generator if generator is not None else self.generator
+        if generator is None:
+            raise ValueError(
+                "The host tempering API draws from a torch.Generator: pass "
+                "generator=, or use a control wired to a sampler (which "
+                "gives it its own).")
+        return generator
+
+    def temper_comps(self, state, adapt=True, generator=None):
+        """One swap phase of a filled :class:`~eryn_tpu_torch.state.State`
+        and, with ``adapt``, the ladder's adaptation: :meth:`temper_kernel`
+        on the generator's device (the swap kernel on a CUDA device) at the
+        clock ``time``, which advances as in the sampler's own steps.
+        ``betas``, ``time`` and ``swaps_accepted`` take the phase's values;
+        returns the new state."""
+        generator = self._host_generator(generator)
+        device = generator.device
+        if state.log_like.device != device:
+            state = state.map_tensors(lambda x: x.to(device))
+        if state.betas is None:
+            state = state.replace(betas=torch.as_tensor(
+                _host(self.betas), dtype=state.log_like.dtype, device=device))
+        time = torch.as_tensor(self.time, device=device).to(torch.int64)
+        new_state, swaps, time = self.temper_kernel(generator, state, time,
+                                                    adapt=adapt)
+        self.swaps_accepted = swaps
+        self.swaps_proposed = np.full(self.ntemps - 1, state.nwalkers)
+        self.time = time
+        self.betas = new_state.betas
+        return new_state
+
+    def temperature_swaps(self, x, logP, logl, logp, inds=None, blobs=None,
+                          supps=None, branch_supps=None, generator=None):
+        """Eryn's swap call on host arrays: one swap phase of ``x``
+        (``{branch: coords}``), ``logl``, ``logp`` and the optional ``inds``,
+        ``blobs`` and supplementals (their entries set in place), drawn from
+        the generator on its device.  Records ``swaps_accepted`` (under DEO
+        the clock ticks, once per phase with :meth:`adapt_temps`) and
+        returns ``(x, logP, logl, logp, inds, blobs, supps,
+        branch_supps)``, ``logP`` tempered anew from the swapped parts."""
+        generator = self._host_generator(generator)
+        device = generator.device
+        logl = np.asarray(logl)
+
+        def put(v):
+            return torch.as_tensor(np.asarray(v), device=device)
+
+        swap_tree = {"logp": put(logp)}
+        if x is not None:
+            swap_tree["x"] = {n: put(v) for n, v in x.items()}
+        if inds is not None:
+            swap_tree["inds"] = {n: put(v) for n, v in inds.items()}
+        if blobs is not None:
+            swap_tree["blobs"] = put(blobs)
+        supps_holder = getattr(supps, "holder", None)
+        if supps_holder:
+            swap_tree["supps"] = {k: put(v) for k, v in supps_holder.items()
+                                  if k not in self.skip_swap_supp_names}
+        bs_holders = {n: {k: put(v) for k, v in bs.holder.items()}
+                      for n, bs in (branch_supps or {}).items()
+                      if getattr(bs, "holder", None)}
+        if bs_holders:
+            swap_tree["branch_supps"] = bs_holders
+        logl_t = put(logl)
+        betas = torch.as_tensor(_host(self.betas), dtype=logl_t.dtype,
+                                device=device)
+        swap_tree, logl_new, accepted, proposed = self.swap_kernel(
+            generator, swap_tree, logl_t, betas)
+        nwalkers = logl.shape[-1]
+        ratios = _host(accepted) / np.maximum(_host(proposed), 1.0)
+        if self.swap_scheme == "deo":
+            # the per-attempt rescale of temper_kernel; the parity clock
+            # ticks once this phase, also when adapt_temps follows
+            ratios = 2.0 * ratios
+            self.time = int(_host(self.time)) + 1
+            self._deo_phase_ticked = True
+        self.swaps_accepted = ratios * nwalkers
+        self.swaps_proposed = np.full(self.ntemps - 1, nwalkers)
+        logl_out = _host(logl_new)
+        logp_out = _host(swap_tree["logp"])
+        logP_out = self.compute_log_posterior_tempered(logl_out, logp_out)
+
+        def out(tree):
+            return {n: _host(v) for n, v in tree.items()}
+
+        if supps_holder:
+            for k, v in swap_tree["supps"].items():
+                supps[k] = _host(v)
+        for name, holder in swap_tree.get("branch_supps", {}).items():
+            for k, v in holder.items():
+                branch_supps[name][k] = _host(v)
+        return (out(swap_tree["x"]) if x is not None else None, logP_out,
+                logl_out, logp_out,
+                out(swap_tree["inds"]) if inds is not None else None,
+                _host(swap_tree["blobs"]) if blobs is not None else None,
+                supps, branch_supps)
+
+    def do_swaps_indexing(self, i, iperm_sel, i1perm_sel, dbeta, x, logP,
+                          logl, logp, inds=None, blobs=None, supps=None,
+                          branch_supps=None):
+        """Apply one rung's accepted swaps in place between rungs ``i`` and
+        ``i - 1`` on host arrays: ``iperm_sel`` and ``i1perm_sel`` are the
+        accepted walkers of each, and ``logP`` is tempered anew with
+        ``dbeta = betas[i - 1] - betas[i]``.  Returns Eryn's 8-tuple
+        ``(x, logP, logl, logp, inds, blobs, supps, branch_supps)``."""
+        iperm_sel = np.asarray(iperm_sel)
+        i1perm_sel = np.asarray(i1perm_sel)
+
+        def swap_pairwise(arr):
+            keep_hi = np.copy(arr[i, iperm_sel])
+            arr[i, iperm_sel] = arr[i - 1, i1perm_sel]
+            arr[i - 1, i1perm_sel] = keep_hi
+
+        def swap_holder(holder):
+            hi = holder[i, iperm_sel]
+            lo = holder[i - 1, i1perm_sel]
+            for key in self.skip_swap_supp_names:
+                for side in (hi, lo):
+                    if hasattr(side, "pop"):
+                        side.pop(key, None)
+            holder[i, iperm_sel] = lo
+            holder[i - 1, i1perm_sel] = hi
+
+        for name in x:
+            swap_pairwise(x[name])
+            if inds is not None and name in inds:
+                swap_pairwise(inds[name])
+            if branch_supps is not None and branch_supps.get(name) is not None:
+                swap_holder(branch_supps[name])
+
+        logl_hi = np.copy(logl[i, iperm_sel])
+        logl_lo = np.copy(logl[i - 1, i1perm_sel])
+        logp_hi = np.copy(logp[i, iperm_sel])
+        logP_hi = np.copy(logP[i, iperm_sel])
+        logP_lo = np.copy(logP[i - 1, i1perm_sel])
+        logl[i, iperm_sel] = logl_lo
+        logp[i, iperm_sel] = logp[i - 1, i1perm_sel]
+        logP[i, iperm_sel] = logP_lo - dbeta * logl_lo
+        logl[i - 1, i1perm_sel] = logl_hi
+        logp[i - 1, i1perm_sel] = logp_hi
+        logP[i - 1, i1perm_sel] = logP_hi + dbeta * logl_hi
+        if blobs is not None:
+            swap_pairwise(blobs)
+        if supps is not None:
+            swap_holder(supps)
+        return (x, logP, logl, logp, inds, blobs, supps, branch_supps)
+
+    def adapt_temps(self):
+        """Ladder adaptation from ``swaps_accepted / swaps_proposed`` on
+        the host, as Eryn's call: ``betas`` move and the clock advances
+        (unless :meth:`temperature_swaps` already ticked this DEO phase)."""
+        if self.adaptive and self.ntemps > 1:
+            time = int(_host(self.time))
+            if self.stop_adaptation < 0 or time < self.stop_adaptation:
+                betas = torch.as_tensor(_host(self.betas), dtype=torch.float64)
+                ratios = torch.as_tensor(
+                    _host(self.swaps_accepted) / _host(self.swaps_proposed),
+                    dtype=torch.float64)
+                if self.adaptation_scheme == "syed":
+                    proposed = None
+                    if self.swap_scheme == "deo":
+                        # the 2x per-attempt values, zero on the boundaries
+                        # not attempted
+                        proposed = ratios > 0
+                        ratios = ratios / 2.0
+                    new = self.syed_schedule_kernel(time, betas, ratios,
+                                                    proposed=proposed)
+                else:
+                    new = self.ladder_adjustment_kernel(time, betas, ratios)
+                self.betas = new.numpy()
+            if self._deo_phase_ticked:
+                self._deo_phase_ticked = False
+            else:
+                self.time = int(_host(self.time)) + 1

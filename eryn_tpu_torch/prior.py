@@ -8,8 +8,11 @@ generator's device (the counterpart of the JAX package's keyed
 ``sample(key, shape)``), and ``rvs`` is the same draw under Eryn's name.
 ``ppf`` takes host arrays (NumPy, float64) and tensors alike.
 
-A distribution needs a torch ``logpdf`` and ``sample``: a SciPy object,
-which :mod:`eryn_tpu` evaluates through a host callback, is refused.
+A distribution with a NumPy ``logpdf`` and no torch ``sample``, such as a
+SciPy frozen distribution, is a host distribution: the container evaluates
+it on a host copy of its columns and draws from it with a NumPy generator
+seeded from the torch one, and reports ``host = True`` (a step that
+evaluates it is never captured as a CUDA graph).
 """
 
 from __future__ import annotations
@@ -59,6 +62,25 @@ def _columns(x, inds):
     if np.array_equal(inds, np.arange(first, first + len(inds))):
         return x[..., first:first + len(inds)]
     return torch.stack([x[..., int(i)] for i in inds], dim=-1)
+
+
+def _is_host(dist):
+    """A distribution without a torch ``sample``: its ``logpdf`` takes and
+    returns NumPy arrays (a SciPy frozen distribution)."""
+    return not hasattr(dist, "sample")
+
+
+def _host_rvs(dist, generator, size, width, dtype):
+    """``size`` draws (of ``width`` columns) of a host distribution from a
+    ``numpy.random.RandomState`` seeded by one draw of ``generator``, as a
+    tensor on the generator's device."""
+    seed = int(torch.randint(0, 2**31 - 1, (1,), generator=generator,
+                             device=generator.device).item())
+    vals = np.asarray(dist.rvs(size=size,
+                               random_state=np.random.RandomState(seed)))
+    shape = size if width == 1 else size + (width,)
+    return torch.as_tensor(vals.reshape(shape), dtype=dtype,
+                           device=generator.device)
 
 
 class Distribution:
@@ -258,6 +280,8 @@ class ProbDistContainer:
     ``logpdf`` takes any leading batch shape ``(..., ndim)``.  When every
     parameter has its own uniform prior (the common case, and the
     sampler's path) the bounds are applied as one vector comparison.
+    ``host`` says whether a distribution is evaluated on the host (see
+    the module).
     """
 
     def __init__(self, priors_in: dict):
@@ -295,13 +319,11 @@ class ProbDistContainer:
                 raise ValueError(
                     "Keys for the prior dictionary must be an integer, a "
                     "string, or a tuple of either, all of one type.")
-            if not (hasattr(dist, "logpdf") and hasattr(dist, "sample")):
+            if not hasattr(dist, "logpdf") or not (
+                    hasattr(dist, "sample") or hasattr(dist, "rvs")):
                 raise TypeError(
                     f"The distribution for {key!r} ({type(dist).__name__}) "
-                    "has no torch logpdf and sample. eryn_tpu evaluates such "
-                    "a (SciPy) distribution through a host callback; the "
-                    "port has no callback mode yet (ROADMAP queue 1, item 9)."
-                    " Use the distributions of eryn_tpu_torch.prior.")
+                    "has no logpdf, or neither sample nor rvs.")
             self.priors.append((np.asarray(inds), dist))
 
         all_inds = np.concatenate([inds for inds, _ in self.priors])
@@ -321,6 +343,7 @@ class ProbDistContainer:
         self.key_order = key_order if has_strings else list(range(self.ndim))
         self._uniform = len(self.priors) == self.ndim and all(
             isinstance(d, UniformDistribution) for _, d in self.priors)
+        self.host = any(_is_host(d) for _, d in self.priors)
         # bounds tensors per (device, dtype): building them from Python lists
         # in the hot path would be a host-to-device copy per evaluation
         self._bounds = {}
@@ -354,10 +377,19 @@ class ProbDistContainer:
             in_range = (x >= mins) & (x <= maxs)
             return torch.where(in_range, logvals, -math.inf).sum(dim=-1)
         total = torch.zeros(x.shape[:-1], dtype=x.dtype, device=x.device)
+        x_host = None
         for inds, dist in self.priors:
             if not self._selected(inds, keys):
                 continue
-            total = total + dist.logpdf(_columns(x, inds))
+            if not _is_host(dist):
+                total = total + dist.logpdf(_columns(x, inds))
+                continue
+            if x_host is None:  # one copy to the host for every host prior
+                x_host = x.detach().cpu().numpy()
+            cols = x_host[..., inds[0]] if len(inds) == 1 else x_host[..., inds]
+            lp = np.asarray(dist.logpdf(cols), dtype=np.float64)
+            total = total + torch.as_tensor(
+                lp.reshape(x.shape[:-1]), dtype=x.dtype, device=x.device)
         return total
 
     def ppf(self, x, keys=None):
@@ -412,7 +444,9 @@ class ProbDistContainer:
             if len(inds) > 1 or not hasattr(dist, "ppf"):
                 gen = torch.Generator().manual_seed(
                     int(rng.integers(0, 2**31 - 1)))
-                draws = dist.sample(gen, (n,), torch.float64)
+                draws = (_host_rvs(dist, gen, (n,), len(inds), torch.float64)
+                         if _is_host(dist)
+                         else dist.sample(gen, (n,), torch.float64))
                 out[:, list(inds)] = draws.cpu().numpy().reshape(n, len(inds))
                 continue
             strata = (rng.permutation(n) + rng.uniform(size=n)) / n
@@ -430,7 +464,10 @@ class ProbDistContainer:
         for inds, dist in self.priors:
             if not self._selected(inds, keys):
                 continue
-            vals = dist.sample(generator, size, dtype)
+            if _is_host(dist):
+                vals = _host_rvs(dist, generator, size, len(inds), dtype)
+            else:
+                vals = dist.sample(generator, size, dtype)
             if len(inds) == 1:
                 out[..., int(inds[0])] = vals
             else:

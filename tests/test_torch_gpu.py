@@ -1087,3 +1087,74 @@ def test_blobs_and_supplementals_graphed_equal_eager(cuda, kind):
     assert sorted(rid.tolist()) == list(range(rid.size))
     assert not np.array_equal(rid, np.arange(rid.size))
     np.testing.assert_array_equal(graphed["obj"], rid)
+
+
+# ----------------------------------------------------------------------
+# the host side: a NumPy likelihood, and a host move among native ones
+# ----------------------------------------------------------------------
+@pytest.mark.parametrize("vectorize", [False, True])
+def test_host_likelihood_on_the_card_captures_nothing(cuda, vectorize):
+    """A NumPy likelihood on the card with ``cuda_graph=True``: host mode,
+    no graph captured or replayed, one of each stretch kernel and one
+    cascade a step; its chain equals the ``cuda_graph=False`` run's."""
+    from eryn_tpu_torch import EnsembleSampler, ProbDistContainer, uniform_dist
+
+    def ll(x):
+        if vectorize:
+            return -0.5 * np.sum(x**2, axis=-1)
+        return -0.5 * float(np.sum(x**2))
+
+    pr = ProbDistContainer({i: uniform_dist(-5.0, 5.0) for i in range(3)})
+    kernels = (sk.stretch_propose, sk.stretch_accept_propose,
+               sk.stretch_accept, pt_swap.pt_swap_cascade_multi)
+    chains = []
+    for graph in (True, False):
+        s = EnsembleSampler(16, 3, ll, pr, tempering_kwargs=dict(ntemps=3),
+                            seed=0, device=cuda, cuda_graph=graph,
+                            vectorize=vectorize)
+        before = [k.launches for k in kernels]
+        start = pr.rvs(size=(3, 16),
+                       generator=torch.Generator(cuda).manual_seed(1))
+        with pytest.warns(UserWarning, match="never as a CUDA graph"):
+            s.run_mcmc(start, 30, burn=10)
+        assert s.likelihood_mode == "host"
+        assert s.graph_captures == s.graph_replays == 0 and s._graphs is None
+        assert [k.launches - b for k, b in zip(kernels, before)] == [40] * 4
+        chains.append(s.get_chain()["model_0"])
+    np.testing.assert_array_equal(chains[0], chains[1])
+
+
+def test_hybrid_run_graphed_equals_eager(cuda):
+    """A host MH move beside the stretch move: graphed, the stretch slots
+    replay their graph and the host slots run eagerly between them; the run
+    equals the ``cuda_graph=False`` run digit for digit."""
+    from eryn_tpu_torch import EnsembleSampler, ProbDistContainer, uniform_dist
+    from eryn_tpu_torch.moves import MHMove, StretchMove
+
+    class HostMH(MHMove):
+        def get_proposal(self, branches_coords, random, branches_inds=None,
+                         **kwargs):
+            q = {n: np.asarray(c) + 0.3 * random.randn(*np.shape(c))
+                 for n, c in branches_coords.items()}
+            return q, np.zeros(next(iter(q.values())).shape[:2])
+
+    pr = ProbDistContainer({i: uniform_dist(-5.0, 5.0) for i in range(3)})
+    runs = {}
+    for graph in (False, True):
+        with pytest.warns(UserWarning, match="HYBRID"):
+            s = EnsembleSampler(
+                32, 3, lambda x: -0.5 * torch.sum(x * x), pr,
+                moves=[(StretchMove(), 0.8), (HostMH(), 0.2)],
+                tempering_kwargs=dict(ntemps=4), seed=0, device=cuda,
+                cuda_graph=graph)
+        start = pr.rvs(size=(4, 32),
+                       generator=torch.Generator(cuda).manual_seed(1))
+        runs[graph] = _run_record(s, start, 60, 20)
+        native, host = s.moves
+        assert native.num_proposals + host.num_proposals == 80
+        assert host.num_proposals > 0
+        if graph:
+            assert s.graph_replays == native.num_proposals - 1
+    for key in runs[False]:
+        np.testing.assert_array_equal(runs[True][key], runs[False][key],
+                                      err_msg=key)

@@ -13,8 +13,9 @@
 * Statistically: the port's sampler with each move on a small tempered
   unit Gaussian, cold moments against the target.
 * The guards: ``dr_moves=``, ``requires_fixed_dimension`` on a branch that
-  reversible jump varies (inside a ``CombineMove`` too), a subclass that
-  defines a host hook of eryn_tpu's host bridge.
+  reversible jump varies (inside a ``CombineMove`` too); a subclass that
+  writes one of Eryn's host hooks is a host move and runs one proposal of
+  its family's host protocol.
 """
 
 import numpy as np
@@ -360,8 +361,62 @@ def test_fixed_dimension_move_refuses_a_varying_branch(wrap):
 
 
 def _subclass(base, hook):
-    return type(f"Custom{base.__name__}", (base,),
-                {hook: lambda self, *args, **kwargs: None})
+    """A subclass writing Eryn's host hook ``hook`` (counting its calls):
+    the friends hooks as a snapshot of the ensemble, a whole-ensemble
+    ``get_proposal`` as a Gaussian walk, any other hook as the package's
+    stock one."""
+    def counted(name, fn):
+        def hook_fn(self, *args, **kwargs):
+            if name == hook:
+                self.hook_calls = getattr(self, "hook_calls", 0) + 1
+            return fn(self, *args, **kwargs)
+        return hook_fn
+
+    def setup_friends(self, branches):
+        self.friends = {n: np.array(b.coords[0]) for n, b in branches.items()}
+
+    def find_friends(self, name, s, s_inds=None, branch_supps=None):
+        pick = np.random.randint(self.friends[name].shape[0], size=s.shape[:2])
+        return self.friends[name][pick]
+
+    def walk(self, coords, random, branches_inds=None, **kwargs):
+        q = {n: np.asarray(c) + 0.3 * random.randn(*np.shape(c))
+             for n, c in coords.items()}
+        return q, np.zeros(next(iter(q.values())).shape[:2])
+
+    own = {"setup_friends": setup_friends, "find_friends": find_friends,
+           "get_proposal": walk}
+    names = (("setup_friends", "find_friends") if hook in own
+             and base is tm.GroupStretchMove else (hook,))
+    return type(f"Custom{base.__name__}", (base,), {
+        n: counted(n, own.get(n) or getattr(base, n)) for n in names})
+
+
+def _host_hook_sampler(move):
+    pr = et.ProbDistContainer({i: et.uniform_dist(-5.0, 5.0)
+                               for i in range(NDIM)})
+    if move.is_rj:
+        move.nleaves_max, move.nleaves_min = {"model_0": 3}, {"model_0": 0}
+        kw = dict(nleaves_max=3, rj_moves=move,
+                  moves=tm.GroupStretchMove(n_iter_update=4))
+
+        def ll(c, i):
+            return -0.5 * torch.sum(torch.where(i[:, None], c, 0.0) ** 2)
+    else:
+        kw = dict(moves=move)
+
+        def ll(x):
+            return -0.5 * torch.sum(x * x)
+    with pytest.warns(UserWarning, match="host extension protocol"):
+        s = et.EnsembleSampler(NW, NDIM, ll, pr, device="cpu", seed=2,
+                               tempering_kwargs=dict(ntemps=NT), **kw)
+    gen = torch.Generator().manual_seed(0)
+    nl = 3 if move.is_rj else 1
+    coords = pr.rvs(size=(NT, NW, nl), generator=gen)
+    inds = torch.rand((NT, NW, nl), generator=gen) < 0.6
+    inds[..., 0] = True
+    return s, s._setup_state(et.State({"model_0": coords},
+                                      inds={"model_0": inds}))
 
 
 @pytest.mark.parametrize("base,hook,args", [
@@ -374,12 +429,22 @@ def _subclass(base, hook):
     (tm.DistributionGenerateRJ, "get_model_change_proposal", (None,)),
     (tm.MTDistGenMoveRJ, "special_generate_func", (None,)),
 ])
-def test_a_host_hook_raises_naming_the_host_bridge(base, hook, args):
+def test_a_host_hook_makes_a_host_move(base, hook, args):
+    """A subclass that writes one of Eryn's host hooks is flagged
+    ``host_move`` and runs one ``propose(model, state)`` of its family's
+    host protocol on the CPU, its hook called, the swap phase after it."""
     cls = _subclass(base, hook)
     if args == (None,):
-        args = ({"model_0": _priors(et, [(0, 1)])},)
-    with pytest.raises(NotImplementedError, match="item 9"):
-        cls(*args)
+        args = ({"model_0": _priors(et, [(-5, 5)] * NDIM)},)
+    move = cls(*args)
+    assert move.host_move
+    s, state = _host_hook_sampler(move)
+    out, accepted = move.propose(s.get_model(), state)
+    assert move.num_proposals == 1 and accepted.shape == (NT, NW)
+    assert move.hook_calls > 0
+    assert out.log_like.shape == (NT, NW)
+    assert torch.all(torch.isfinite(out.log_like))
+    assert int(s.temperature_control.time) == (0 if move.is_rj else 1)
 
 
 def test_delayed_rejection_refuses_an_asymmetric_proposal():

@@ -6,8 +6,8 @@ within 1e-12 in float64 of eryn_tpu's on the same numpy inputs (eryn_tpu
 under ``jax.enable_x64``); float32 containers within 1e-6 relative, ``-inf``
 in the same places.  ``rvs_stratified`` draws the same strata as eryn_tpu
 for one seed (1e-12; the tuple-key blocks come from each package's own
-generator).  The constructors' ``ValueError``s and the ``TypeError`` on a
-SciPy object; ``groups_from_inds`` exactly.
+generator).  The constructors' ``ValueError``s; a SciPy object's logpdf,
+evaluated on the host, equals SciPy's; ``groups_from_inds`` exactly.
 """
 
 import numpy as np
@@ -277,9 +277,17 @@ def test_constructor_errors():
                               1: jp.uniform_dist(0, 1)})
 
 
-def test_a_scipy_distribution_is_refused():
-    with pytest.raises(TypeError, match="item 9"):
-        tp.ProbDistContainer({0: scipy.stats.norm(0.0, 1.0)})
+def test_a_scipy_distribution_is_evaluated_on_the_host():
+    """A SciPy frozen distribution is a host distribution: the container's
+    logpdf of its column is SciPy's, beside a torch one."""
+    c = tp.ProbDistContainer({0: scipy.stats.norm(0.5, 2.0),
+                              1: tp.uniform_dist(-1.0, 1.0)})
+    assert c.host
+    x = np.random.default_rng(1).uniform(-2, 2, (4, 5, 2))
+    want = scipy.stats.norm(0.5, 2.0).logpdf(x[..., 0]) + np.where(
+        np.abs(x[..., 1]) <= 1.0, np.log(0.5), -np.inf)
+    np.testing.assert_allclose(c.logpdf(torch.as_tensor(x)).numpy(), want,
+                               rtol=1e-12)
 
 
 def test_groups_from_inds_matches_jax():

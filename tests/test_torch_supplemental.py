@@ -12,10 +12,11 @@
   ``skip_swap_supp_names``) and a branch supplemental, for the kernel
   cascade, the general cascade and DEO, given the draws eryn_tpu makes from
   its key: every moved tensor equal to eryn_tpu's.
-* Two faults: a state's supplementals survived no ``run_mcmc`` (the 6 x 32
-  probe; the tags must come back permuted), and a NumPy likelihood passed
-  the wiring check (8 walkers, 2-D; refused with a ``TypeError`` that names
-  the later slice, with and without ``vectorize``).
+* A fault: a state's supplementals survived no ``run_mcmc`` (the 6 x 32
+  probe; the tags must come back permuted).  A NumPy likelihood (8 walkers,
+  2-D) runs in host mode, with and without ``vectorize``; returns that are
+  neither torch tensors nor NumPy values per walker are refused with a
+  ``TypeError``.
 * ``Move.update`` merges accepted walkers' supplemental entries but
   ``skip_supp_names_update``, over the whole ensemble and a subset.
 * A graph-path run (each replay run as its captured body) with blobs, a
@@ -417,18 +418,20 @@ def test_supplementals_survive_run_mcmc():
 
 
 @pytest.mark.parametrize("vectorize", [True, False])
-def test_a_numpy_likelihood_is_refused_at_wiring(vectorize):
-    """The queue-3 probe: ``-0.5 sum(np.asarray(x)^2)`` on 8 walkers in 2-D
-    is refused with a ``TypeError`` that names the slice of host
-    likelihoods, before anything runs."""
+def test_a_numpy_likelihood_runs_in_host_mode(vectorize):
+    """``-0.5 sum(np.asarray(x)^2)`` on 8 walkers in 2-D runs on the host
+    (``likelihood_mode == "host"``), its log-likelihoods the function's."""
     pr = _priors()
     ens = et.EnsembleSampler(
         8, NDIM, lambda x: -0.5 * np.sum(np.asarray(x) ** 2, axis=-1), pr,
         device="cpu", vectorize=vectorize)
     start = pr.rvs(size=(8,), generator=torch.Generator().manual_seed(0))
-    with pytest.raises(TypeError, match="queue 1, item 2"):
+    with pytest.warns(UserWarning, match="runs as a NumPy likelihood"):
         ens.run_mcmc(start, 5)
-    assert ens.backend.iteration == 0
+    assert ens.likelihood_mode == "host" and ens.backend.iteration == 5
+    chain = ens.get_chain()["model_0"][:, 0, :, 0]
+    np.testing.assert_allclose(ens.get_log_like()[:, 0],
+                               -0.5 * np.sum(chain**2, axis=-1), rtol=1e-5)
 
 
 @pytest.mark.parametrize("out", ["float", "list", "ndarray pair"])
@@ -440,7 +443,9 @@ def test_non_tensor_returns_are_refused(out):
 
     ens = et.EnsembleSampler(8, NDIM, fn, _priors(), device="cpu",
                              vectorize=True)
-    with pytest.raises(TypeError, match="later slice"):
+    # neither torch tensors nor, called on NumPy arrays, one value per
+    # walker of the probe
+    with pytest.raises(TypeError, match="Called as a NumPy likelihood"):
         ens.run_mcmc(torch.zeros(8, NDIM), 2)
 
 
