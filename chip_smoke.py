@@ -17,7 +17,11 @@ Phases, each printing its own lines:
 1. device: the card's name and ``nvidia-smi`` name and power limit;
 2. build: the CUDA kernels from ``eryn_tpu_torch/csrc`` (one ``nvcc`` per
    source, in parallel);
-3. kernels: each of the seven kernels (three for the stretch step, two
+3. kernels: the grouped launches of the stretch kernels, the cascade
+   (plain and rolled) and the group-stretch proposal at 1, 4 and 64
+   groups against their plain grouped versions (max abs error 0, and at
+   one group the ungrouped launch) and their times; each of the seven
+   kernels (three for the stretch step, two
    cascades, the group-stretch proposal and the selection alone) against
    its plain PyTorch version on the card, in float32 and float64, at the
    main path's shapes and at odd shapes (the cascades in the sampler's tree
@@ -138,6 +142,22 @@ Phases, each printing its own lines:
      graphed; beside a host MH move at weight 0.1, graphed and with
      ``cuda_graph=False``, equal digit for digit; replays the native slots
      less the first, host proposals the host slots, one cascade a slot);
+   * the batched independent ensembles (``ParaEnsembleSampler``, each
+     move's step mapped over a group axis, the kernels launched once for
+     every group): ``para[north-star x64]`` (64 groups of the north-star
+     configuration, 200 steps of burn-in and 1,000 stored: each group's
+     cold moments, acceptance, swaps and adapted ladder, the groups' chains
+     pairwise different, 3 stretch launches and 1 cascade a step whatever
+     the number of groups; ``para_steps_per_s`` and
+     ``para_group_steps_per_s`` beside the single north-star's stored
+     rate), ``para[zoo x4]`` (``tests/test_para.py:244-272`` on the card:
+     ChEES, slice and DEO at 4 x 24, 2-D, 80 + 150 steps, each group's
+     moments), ``para[rj_pulse128 x16]`` (config C in 16 groups, 500 + 1,000
+     steps: kernels 5 and 3 grouped, each group's leaf-count mode and
+     pulse centre), ``para[groups_running]`` (stopped groups frozen bitwise,
+     state and stored chain) and ``pickle[north-star]`` (a graphed sampler
+     pickled and unpickled: the clone's next 200 steps equal the
+     original's digit for digit);
    * a flat-likelihood RJ run (64 walkers, 3 leaves): a uniform leaf-count
      posterior.  It checks the RJ moves, is not part of the main path, and
      its launches stay out of the report.
@@ -149,9 +169,9 @@ Phases, each printing its own lines:
    and each chain must meet its target.  Then graph vs eager: the first
    four legs, the blob leg (blobs, ``rid``, ``sigma`` and a host object
    compared too), the DEO leg, the zoo's ``CombineMove`` and MT-RJ legs, and
-   its MALA, jittered HMC (3 to 7 steps), ChEES, slice and AIMH legs at
-   a quarter of their depth from one seed, with ``cuda_graph=False`` and
-   graphed; their chains, ladders, clocks, accept and swap counts and
+   its MALA, jittered HMC (3 to 7 steps), ChEES, slice and AIMH legs and
+   ``para[north-star x64]`` at a quarter of their depth from one seed, with
+   ``cuda_graph=False`` and graphed; their chains, ladders, clocks, accept and swap counts and
    kernel states must be equal digit for digit, and their host time per step, replays per
    step and steps/s are printed side by side;
 5. profiles (``torch.profiler``, after every timed run): each kernel's
@@ -159,8 +179,8 @@ Phases, each printing its own lines:
    leg, ``rj_pulse128``, the zoo's ``CombineMove`` and MT-RJ legs,
    ``config_d`` and ``modelswap`` graphed (10 steps of the best stack and
    the zoo's slice leg, about 3,000 device ops a step each), the host
-   likelihood legs (10 steps per walker, 50 vectorized) and the hybrid leg,
-   and of the
+   likelihood legs (10 steps per walker, 50 vectorized), the hybrid leg
+   and ``para[north-star x64]``, and of the
    graph-vs-eager legs eager (10 steps of jittered HMC, ChEES and slice)
    (device kernels, memcpys and memsets per step, what the host launched
    per step, device-busy share, the top five device ops), and the device
@@ -3174,6 +3194,699 @@ def hybrid_host_leg(torch, card):
     return launches, rates, kept
 
 
+# ----------------------------------------------------------------------
+# batched independent ensembles (ParaEnsembleSampler): the kernels with a
+# group axis, the para legs, and pickling
+# ----------------------------------------------------------------------
+# para[north-star x64]: the north-star configuration in 64 groups
+PARA_G, PARA_WARM, PARA_STEPS = 64, 200, 1000
+# para[zoo x4] (tests/test_para.py:244-272): 4 groups x 24 walkers, 2-D
+PZ_G, PZ_NW, PZ_NDIM, PZ_BURN, PZ_STEPS = 4, 24, 2, 80, 150
+# para[rj_pulse128 x16]: config C in 16 groups
+PR_G, PR_WARM, PR_STEPS = 16, 500, 1000
+GROUP_SIZES = (1, 4, 64)
+# the grouped launches a para leg makes (the rolled cascade is held to its
+# plain version in phase 3 only: no para leg exceeds 640 walkers)
+PARA_KERNELS = ("stretch_propose", "stretch_accept_propose", "stretch_accept",
+                "pt_swap_cascade_multi", "group_stretch_propose")
+
+
+def _stack_groups(torch, parts):
+    """Tensors, or dicts of them, of ``G`` groups stacked on a leading
+    axis (``parts``: one tuple of arguments per group)."""
+    out = []
+    for items in zip(*parts):
+        if isinstance(items[0], dict):
+            out.append({n: torch.stack([x[n] for x in items])
+                        for n in items[0]})
+        elif isinstance(items[0], (list, tuple)):
+            out.append([torch.stack(xs) for xs in zip(*items)])
+        else:
+            out.append(torch.stack(items))
+    return out
+
+
+def _grouped_stretch_state(torch, rand, randn, gen, dtype, G, nt, nw, D):
+    parts = [_stretch_state(torch, rand, randn, gen, dtype, nt, nw, D)
+             for _ in range(G)]
+    st = {k: torch.stack([p[0][k] for p in parts]) for k in parts[0][0]}
+    new = [tuple(torch.stack([p[1][h][i] for p in parts]) for i in range(2))
+           for h in range(2)]
+    return st, new
+
+
+def _grouped_stretch_stages(torch, sk, st, new, log_proposal):
+    """One grouped fused step and the split form (half 0's accept alone,
+    then half 1's proposal from it) through the grouped kernels and their
+    plain versions, each plain stage fed the kernel stage's inputs; yields
+    ``(kernel, kernel outputs, plain outputs)``."""
+    X, nd, perm, u = st["X"], st["ndim_act"], st["perm"], st["u_all"]
+    logl, logp, betas = st["logl"], st["logp"], st["betas"]
+    kw = dict(a=2.0, log_proposal=log_proposal)
+    nan = float("nan")
+
+    def outs():
+        return (torch.full_like(X, nan),
+                *(torch.full_like(logl, nan) for _ in range(3)))
+
+    o_k, o_r = outs(), outs()
+    q0, f0 = sk.stretch_propose_grouped(X, X, nd, perm, u, 0, **kw)
+    yield ("stretch_propose", (q0, f0),
+           sk.stretch_propose_grouped_ref(X, X, nd, perm, u, 0, **kw))
+    a0 = (q0, X, *new[0], logl, logp, f0, betas, nd, perm, u)
+    q1, f1 = sk.stretch_accept_propose_grouped(*a0, *o_k, **kw)
+    q1r, f1r = sk.stretch_accept_propose_grouped_ref(*a0, *o_r, **kw)
+    yield "stretch_accept_propose", (q1, f1, *o_k), (q1r, f1r, *o_r)
+    a1 = (q1, X, *new[1], logl, logp, f1, betas, perm, u, 1)
+    sk.stretch_accept_grouped(*a1, *o_k)
+    sk.stretch_accept_grouped_ref(*a1, *o_r)
+    assert not o_k[0].isnan().any() and 0 < float(o_k[3].sum()) < o_k[3].numel()
+    yield "stretch_accept", o_k, o_r
+    s_k, s_r = outs(), outs()
+    a0s = (q0, X, *new[0], logl, logp, f0, betas, perm, u, 0)
+    sk.stretch_accept_grouped(*a0s, *s_k)
+    sk.stretch_accept_grouped_ref(*a0s, *s_r)
+    yield "stretch_accept", s_k, s_r
+    yield ("stretch_propose",
+           sk.stretch_propose_grouped(X, s_k[0], nd, perm, u, 1, **kw),
+           sk.stretch_propose_grouped_ref(X, s_k[0], nd, perm, u, 1, **kw))
+
+
+def _grouped_tree_args(torch, rand, randn, gen, G, nt, nw, nl, nd, dtype):
+    parts = [_tree_args(torch, rand, randn, gen, nt, nw, nl, nd, dtype)[0]
+             for _ in range(G)]
+    args = _stack_groups(torch, parts)
+    logl = args[0]
+
+    def outs():
+        return (torch.empty_like(logl), [torch.empty_like(x) for x in args[1]],
+                logl.new_empty((G, nt - 1)), logl.new_empty((G, nt - 1, nw)))
+
+    return args, outs
+
+
+def _grouped_group_args(torch, rand, randn, dtype, G, **case):
+    """``G`` groups of :func:`_group_args`, the moving block a view of the
+    stacked permuted ensemble as the move has it."""
+    parts = [_group_args(torch, rand, randn, dtype, **case)[0]
+             for _ in range(G)]
+    s, si, c, ci, u, uu = _stack_groups(torch, [p[:6] for p in parts])
+    off, ns = parts[0][6]
+    blk = slice(off, off + ns)
+    return ({n: x[:, :, blk] for n, x in c.items()},
+            {n: x[:, :, blk] for n, x in ci.items()}, c, ci, u, uu, (off, ns))
+
+
+def check_grouped_kernels(torch, dtype_name):
+    """The grouped launches (a leading group axis, one launch for every
+    group) against their plain grouped versions at ``G`` in
+    :data:`GROUP_SIZES`: the stretch step fused and split at the north-star
+    shape, the cascade in the tree form at the north-star shape (plain) and
+    config E's (rolled), the group-stretch proposal at the RJ shape.  Max
+    abs error 0, NaN in the same places, decisions identical; at ``G = 1``
+    each equals the ungrouped launch bitwise.  Returns ``{kernel[grouped]:
+    max_abs_err}``."""
+    from eryn_tpu_torch.ops import pt_swap, select_kernels, stretch_kernels as sk
+
+    dtype = getattr(torch, dtype_name)
+    gen = torch.Generator().manual_seed(4321)
+    errs = {}
+
+    def rand(*shape):
+        return torch.rand(shape, generator=gen, dtype=torch.float64).to(
+            device="cuda", dtype=dtype)
+
+    def randn(*shape):
+        return torch.randn(shape, generator=gen, dtype=torch.float64).to(
+            device="cuda", dtype=dtype)
+
+    def record(name, outs_k, outs_r):
+        for a, b in zip(outs_k, outs_r):
+            assert a.dtype == b.dtype and torch.equal(a.isnan(), b.isnan()), name
+        err = max(_max_err(a, b) for a, b in zip(outs_k, outs_r))
+        assert err == 0.0, (name, G, dtype_name, err)
+        key = f"{name}[grouped]"
+        errs[key] = max(errs.get(key, 0.0), err)
+
+    for G in GROUP_SIZES:
+        for log_proposal in (False, True):
+            st, new = _grouped_stretch_state(torch, rand, randn, gen, dtype, G,
+                                             NT, NW, NDIM)
+            kept = {}
+            for name, outs_k, outs_r in _grouped_stretch_stages(
+                    torch, sk, st, new, log_proposal):
+                record(name, outs_k, outs_r)
+                kept.setdefault(name, [t.clone() for t in outs_k])
+            if G == 1:
+                # the ungrouped launches on group 0 give the same numbers,
+                # stage by stage
+                one = {k: v[0] for k, v in st.items()}
+                new0 = [tuple(x[0] for x in h) for h in new]
+                kw = dict(a=2.0, log_proposal=log_proposal)
+                outs = (torch.full_like(one["X"], float("nan")),
+                        *(torch.full_like(one["logl"], float("nan"))
+                          for _ in range(3)))
+                X, nd, perm, u = (one[k] for k in ("X", "ndim_act", "perm",
+                                                   "u_all"))
+                q0, f0 = sk.stretch_propose(X, X, nd, perm, u, 0, **kw)
+                q1, f1 = sk.stretch_accept_propose(
+                    q0, X, *new0[0], one["logl"], one["logp"], f0,
+                    one["betas"], nd, perm, u, *outs, **kw)
+                stages = {"stretch_propose": (q0, f0),
+                          "stretch_accept_propose": (q1, f1, *outs)}
+                stages = {k: [t.clone() for t in v] for k, v in stages.items()}
+                sk.stretch_accept(q1, X, *new0[1], one["logl"], one["logp"],
+                                  f1, one["betas"], perm, u, 1, *outs)
+                stages["stretch_accept"] = outs
+                for name, ungrouped in stages.items():
+                    for a, b in zip(ungrouped, kept[name]):
+                        assert torch.equal(a.isnan(), b[0].isnan()) and (
+                            _max_err(a, b[0]) == 0.0), f"{name} at G = 1"
+        for nt, nw in ((NT, NW), (E_NT, E_NW)):
+            name = ("_cascade_multi_rolled" if nw > pt_swap.ROLLED_THRESHOLD
+                    else "pt_swap_cascade_multi")
+            args, outs = _grouped_tree_args(torch, rand, randn, gen, G, nt, nw,
+                                            1, NDIM, dtype)
+            out_k, out_r = outs(), outs()
+            before = getattr(pt_swap, name).launches
+            pt_swap.pt_swap_cascade_tree_grouped(*args, *out_k)
+            assert getattr(pt_swap, name).launches == before + 1
+            pt_swap.pt_swap_cascade_tree_grouped_ref(*args, *out_r)
+            assert 0 < float(out_r[2].sum()) < G * (nt - 1) * nw
+            record(name, _flat(out_k), _flat(out_r))
+            if G == 1:
+                one = tuple(x[0] if not isinstance(x, list) else [y[0] for y in x]
+                            for x in outs())
+                pt_swap.pt_swap_cascade_tree(args[0][0], [x[0] for x in args[1]],
+                                             *(x[0] for x in args[2:]), *one)
+                for a, b in zip(_flat(one), _flat(out_k)):
+                    assert torch.equal(a, b[0]), f"{name} at G = 1"
+        gargs = _grouped_group_args(torch, rand, randn, dtype, G,
+                                    **GROUP_CASES[1])
+        q_k, f_k = select_kernels.group_stretch_propose_grouped(*gargs)
+        q_r, f_r = select_kernels.group_stretch_propose_grouped_ref(*gargs)
+        record("group_stretch_propose", (f_k, *q_k.values()),
+               (f_r, *q_r.values()))
+        if G == 1:
+            q1, f1 = select_kernels.group_stretch_propose(
+                *({n: x[0] for n, x in d.items()} for d in gargs[:4]),
+                gargs[4][0], {n: x[0] for n, x in gargs[5].items()}, gargs[6])
+            assert torch.equal(f1, f_k[0]) and all(
+                torch.equal(q1[n].isnan(), q_k[n][0].isnan()) for n in q1)
+    torch.cuda.synchronize()
+    return errs
+
+
+def time_grouped_kernels(torch):
+    """The grouped launches and their plain grouped versions, float32: the
+    stretch step and the cascade at ``G = 64`` of the north-star shape, the
+    rolled cascade at ``G = 4`` of config E's, the group-stretch proposal
+    at ``G = 16`` of config C's (block 0 of the split); as
+    :func:`time_kernels` (bound: ``G`` times the bytes and operations of
+    one group)."""
+    from eryn_tpu_torch.ops import pt_swap, select_kernels
+    from eryn_tpu_torch.ops import stretch_kernels as sk
+
+    g = torch.Generator(device="cuda").manual_seed(17)
+    f32 = dict(device="cuda", dtype=torch.float32)
+
+    def rand(*shape):
+        return torch.rand(shape, generator=g, **f32)
+
+    def randn(*shape):
+        return torch.randn(shape, generator=g, **f32)
+
+    calls = {}
+    G = PARA_G
+    st, new = _grouped_stretch_state(torch, rand, randn, g, torch.float32, G,
+                                     NT, NW, NDIM)
+    X, nd, perm, u = st["X"], st["ndim_act"], st["perm"], st["u_all"]
+    outs = (torch.empty_like(X), *(torch.empty_like(st["logl"])
+                                   for _ in range(3)))
+    q0, f0 = sk.stretch_propose_grouped(X, X, nd, perm, u, 0)
+    acc0 = (q0, X, *new[0], st["logl"], st["logp"], f0, st["betas"], nd, perm,
+            u, *outs)
+    q1, f1 = sk.stretch_accept_propose_grouped(*acc0)
+    acc1 = (q1, X, *new[1], st["logl"], st["logp"], f1, st["betas"], perm, u,
+            1, *outs)
+    b = {k: 0 for k in ("propose", "accept_propose", "accept")}
+    for i in range(G):
+        for k, v in _stretch_bytes(torch, NT, NW, NDIM, 4, u[i]).items():
+            b[k] += v
+    n0, n1 = NW - NW // 2, NW // 2
+    ops_p, ops_a = 3 * NDIM + 9, NDIM + 10
+    tag = f"[G={G}]"
+    calls["stretch_propose" + tag] = (
+        lambda: sk.stretch_propose_grouped(X, X, nd, perm, u, 0),
+        lambda: sk.stretch_propose_grouped_ref(X, X, nd, perm, u, 0),
+        b["propose"], G * NT * n0 * ops_p)
+    calls["stretch_accept_propose" + tag] = (
+        lambda: sk.stretch_accept_propose_grouped(*acc0),
+        lambda: sk.stretch_accept_propose_grouped_ref(*acc0),
+        b["accept_propose"], G * NT * (n0 * ops_a + n1 * ops_p))
+    calls["stretch_accept" + tag] = (
+        lambda: sk.stretch_accept_grouped(*acc1),
+        lambda: sk.stretch_accept_grouped_ref(*acc1),
+        b["accept"], G * NT * n1 * ops_a)
+    for name, gs, (nt, nw) in (("pt_swap_cascade_multi", G, (NT, NW)),
+                               ("_cascade_multi_rolled", 4, (E_NT, E_NW))):
+        args, mk = _grouped_tree_args(torch, rand, randn, g, gs, nt, nw, 1,
+                                      NDIM, torch.float32)
+        o = mk()[:3]
+        nbytes = 2 * _nbytes(args[0], *args[1]) + _nbytes(*args[2:], o[2])
+        calls[f"{name}[G={gs}]"] = (
+            lambda a=args, o=o: pt_swap.pt_swap_cascade_tree_grouped(*a, *o),
+            lambda a=args, o=o: pt_swap.pt_swap_cascade_tree_grouped_ref(*a, *o),
+            nbytes, 3 * gs * (nt - 1) * nw)
+    case = dict(nt=NT, nw=NW, shapes={"model_0": (P_NLMAX, 3)}, off=0,
+                ns=NW // 2, overflow=False)
+    gargs = _grouped_group_args(torch, rand, randn, torch.float32, PR_G, **case)
+    nbytes = ops = 0
+    for i in range(PR_G):
+        one = (*({n: x[i] for n, x in d.items()} for d in gargs[:4]),
+               gargs[4][i], {n: x[i] for n, x in gargs[5].items()}, gargs[6])
+        nb, no = _group_bytes_ops(torch, one)
+        nbytes, ops = nbytes + nb, ops + no
+    calls[f"group_stretch_propose[G={PR_G}]"] = (
+        lambda: select_kernels.group_stretch_propose_grouped(*gargs),
+        lambda: select_kernels.group_stretch_propose_grouped_ref(*gargs),
+        nbytes, ops)
+    times = {}
+    for name, (run_k, run_r, nbytes, ops) in calls.items():
+        t_bytes = nbytes / HBM_BYTES_PER_S * 1e3
+        t_ops = ops / F32_OPS_PER_S * 1e3
+        times[name] = {
+            "ms": _time_ms(run_k),
+            "plain_ms": _time_ms(run_r, reps=10),
+            "bound_ms": max(t_bytes, t_ops),
+            "bound_by": "bytes" if t_bytes >= t_ops else "operations",
+        }
+    return times, {k: c[0] for k, c in calls.items()}
+
+
+class _ParaBulk:
+    """A batched runner seen as :func:`profile_steps` sees a sampler:
+    ``_run_bulk`` advances the runner's own state."""
+
+    def __init__(self, para):
+        self.para = para
+
+    def _run_bulk(self, state, nstored, thin_by, store=True):
+        st, clock = self.para._state
+        st, clock, _ = self.para._run_segment(st, clock, nstored, thin_by,
+                                              store)
+        self.para._state = (st, clock)
+        return st, None
+
+
+@contextlib.contextmanager
+def _para_segments_never_wait():
+    """:func:`_segments_never_wait` for the batched runner's segments
+    (``ParaEnsembleSampler._run_segment``); the host copy of a stored
+    segment runs after it."""
+    import torch
+
+    from eryn_tpu_torch.parallel import ParaEnsembleSampler
+
+    run = ParaEnsembleSampler._run_segment
+
+    def checked(self, *args, **kwargs):
+        torch.cuda.set_sync_debug_mode("error")
+        try:
+            return run(self, *args, **kwargs)
+        finally:
+            torch.cuda.set_sync_debug_mode("default")
+
+    ParaEnsembleSampler._run_segment = checked
+    try:
+        yield
+    finally:
+        ParaEnsembleSampler._run_segment = run
+
+
+def _para_gaussian(torch, G, seed, cuda_graph=True, nw=NW, ndim=NDIM, nt=NT,
+                   **kw):
+    """The north-star target in ``G`` groups, and its start."""
+    from eryn_tpu_torch import ProbDistContainer, uniform_dist
+    from eryn_tpu_torch.parallel import ParaEnsembleSampler
+
+    invcov = torch.eye(ndim, device="cuda")
+
+    def log_like(x):
+        return -0.5 * torch.sum(x * (invcov @ x))
+
+    lo = -5.0 if ndim == NDIM else -6.0
+    priors = ProbDistContainer({i: uniform_dist(lo, -lo) for i in range(ndim)})
+    if nt > 1:
+        kw.setdefault("tempering_kwargs", dict(ntemps=nt))
+    para = ParaEnsembleSampler(G, nw, ndim, log_like, priors, seed=seed,
+                               device="cuda", cuda_graph=cuda_graph, **kw)
+    coords = priors.rvs(size=(G, nt, nw), generator=torch.Generator(
+        device="cuda").manual_seed(seed))
+    return para, coords
+
+
+def _para_launches(launches):
+    return {f"{k}[grouped]": launches[k] for k in PARA_KERNELS}
+
+
+def _assert_para_replays(leg, para, steps, per_step):
+    warm = len(para._graphs.warm)
+    assert warm == per_step, (leg, para._graphs.warm)
+    assert para.graph_replays == per_step * steps - warm, (
+        leg, para.graph_replays, steps)
+    return para.graph_replays
+
+
+def para_north_star_leg(torch, card):
+    """``para[north-star x64]``: 64 groups of the north-star configuration
+    (10 x 100, 5-D unit Gaussian, ``StretchMove``, the cascade, vousden,
+    float32), graphed: ``PARA_WARM`` steps of burn-in, then ``PARA_STEPS``
+    stored (the chain stays on the device), timed; the first
+    ``get_chain()`` (its copy to the host), timed; ``PARA_STEPS`` steps
+    without storing, timed after as many untimed.  Gates per group: the
+    north-star's cold moments, acceptance, swaps and adapted ladder, every
+    group's chain its own; 3 stretch launches and 1 cascade a step for all
+    the groups together, every entry a replay."""
+    import numpy as np
+
+    from eryn_tpu_torch import make_ladder
+
+    leg = f"para[north-star x{PARA_G}]"
+    para, coords = _para_gaussian(torch, PARA_G, 20)
+    read = _counting(_kernels())
+    para.run_mcmc(coords, 0, burn=PARA_WARM)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    para.run_mcmc(None, PARA_STEPS)
+    torch.cuda.synchronize()
+    dt = time.perf_counter() - t0
+    # the stored chain stays on the device: the first getter copies it
+    t0 = time.perf_counter()
+    chain = para.get_chain()["model_0"]
+    t_get = time.perf_counter() - t0
+    # the same steps without storing
+    bulk = _ParaBulk(para)
+    bulk._run_bulk(None, 1, PARA_STEPS, store=False)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    bulk._run_bulk(None, 1, PARA_STEPS, store=False)
+    torch.cuda.synchronize()
+    dt_nostore = time.perf_counter() - t0
+    steps = PARA_WARM + 3 * PARA_STEPS
+    launches = read()
+    replays = _assert_para_replays(leg, para, steps, 1)
+    _assert_stretch_launches(launches, steps)
+    assert launches["pt_swap_cascade_multi"] == steps, launches
+    assert sum(launches.values()) == 4 * steps, launches
+    cold = chain[:, :, 0, :, 0, :]  # (n, G, nw, ndim)
+    cold = cold.transpose(1, 0, 2, 3).reshape(PARA_G, -1, NDIM)
+    mean = cold.mean(axis=1, dtype=np.float64)
+    var = cold.var(axis=1, dtype=np.float64)
+    acc = para.acceptance_fraction[:, 0].mean(axis=-1)
+    swaps = para.swap_acceptance_fraction
+    betas = para.get_betas()[-1]
+    ladder = make_ladder(NDIM, NT)
+    print(f"chain[{leg}]: per group, cold |mean| max "
+          f"{np.abs(mean).max():.4f}, |var - 1| max "
+          f"{np.abs(var - 1).max():.4f}, acceptance in "
+          f"[{acc.min():.4f}, {acc.max():.4f}], swap acceptance in "
+          f"[{swaps.min():.4f}, {swaps.max():.4f}]")
+    assert np.all(np.abs(mean) < 0.05), mean
+    assert np.all(np.abs(var - 1.0) < 0.1), var
+    assert np.all((acc > 0.2) & (acc < 0.8)), acc
+    assert np.all((swaps > 0) & (swaps < 1)), swaps
+    assert not any(np.allclose(b, ladder) for b in betas), \
+        "a group's ladder did not adapt"
+    last = chain[PARA_STEPS - 1].reshape(PARA_G, -1)
+    assert len(np.unique(last, axis=0)) == PARA_G, "two groups' chains agree"
+    rates = {"para_steps_per_s": PARA_STEPS / dt,
+             "para_group_steps_per_s": PARA_G * PARA_STEPS / dt,
+             "para_nostore_steps_per_s": PARA_STEPS / dt_nostore,
+             "para_get_chain_s": t_get}
+    print(f"rate: para_steps_per_s = {rates['para_steps_per_s']:.1f}, "
+          f"para_group_steps_per_s = {rates['para_group_steps_per_s']:.1f} "
+          f"({PARA_G} groups, {PARA_STEPS} stored steps), "
+          f"para_nostore_steps_per_s = "
+          f"{rates['para_nostore_steps_per_s']:.1f}, the first get_chain() "
+          f"{t_get:.4f} s (the stored chain to the host; {card})")
+    print(f"launches[{leg}]: {launches} over {steps} steps, {replays} graph "
+          f"replays")
+    return _para_launches(launches), rates, (leg, _ParaBulk(para), None)
+
+
+def para_zoo_leg(torch, card):
+    """``para[zoo x4]``, the contract of ``tests/test_para.py:244-272`` on
+    the card: 4 groups x 24 walkers on the 2-D unit Gaussian with
+    ``ChEESHMCMove(tune_steps=50, max_leapfrog=8)``, ``SliceMove(
+    tune_steps=50)`` and DEO at 3 temperatures, ``PZ_BURN`` + ``PZ_STEPS``
+    steps, graphed; each group's cold mean and standard deviation within
+    0.35 of 0 and 1.  No kernel runs ChEES or slice (one temperature); DEO
+    runs the three stretch kernels and no cascade."""
+    import numpy as np
+
+    from eryn_tpu_torch.moves import ChEESHMCMove, SliceMove
+
+    read = _counting(_kernels())
+    total = {}
+    rates = {}
+    for label, kw, nt in (
+            ("chees", dict(moves=[ChEESHMCMove(tune_steps=50,
+                                               max_leapfrog=8)]), 1),
+            ("slice", dict(moves=[SliceMove(tune_steps=50)]), 1),
+            ("deo", dict(tempering_kwargs=dict(ntemps=3,
+                                               swap_scheme="deo")), 3)):
+        leg = f"para[zoo x{PZ_G}][{label}]"
+        para, coords = _para_gaussian(torch, PZ_G, 61, nw=PZ_NW,
+                                      ndim=PZ_NDIM, nt=nt, **kw)
+        before = read()
+        t0 = time.perf_counter()
+        para.run_mcmc(coords, PZ_STEPS, burn=PZ_BURN)
+        torch.cuda.synchronize()
+        dt = time.perf_counter() - t0
+        launches = {k: v - before[k] for k, v in read().items()}
+        steps = PZ_STEPS + PZ_BURN
+        _assert_para_replays(leg, para, steps, 1)
+        stretch = steps if label == "deo" else 0
+        assert launches["stretch_propose"] == stretch, launches
+        assert sum(launches.values()) == 3 * stretch, launches
+        chain = para.get_chain()["model_0"][:, :, 0]
+        worst = 0.0, 0.0
+        for g in range(PZ_G):
+            vals = chain[:, g].reshape(-1, PZ_NDIM)
+            dm = np.abs(vals.mean(axis=0)).max()
+            ds = np.abs(vals.std(axis=0) - 1.0).max()
+            assert dm < 0.35 and ds < 0.35, (label, g, dm, ds)
+            worst = max(worst[0], dm), max(worst[1], ds)
+        rates[f"para_zoo_{label}_steps_per_s"] = steps / dt
+        print(f"chain[{leg}]: per group |mean| <= {worst[0]:.4f}, "
+              f"|std - 1| <= {worst[1]:.4f}; {steps / dt:.1f} steps/s with "
+              f"captures ({card})")
+        for k, v in launches.items():
+            total[k] = total.get(k, 0) + v
+    return _para_launches(total), rates, []
+
+
+def para_rj_pulse128_leg(torch, card):
+    """``para[rj_pulse128 x16]``: config C (``bench.py:225-275``: 10 x 100,
+    up to 4 pulse leaves, the 128-point template, group stretch and
+    births and deaths) in 16 groups, graphed: ``PR_WARM`` steps of burn-in,
+    then ``PR_STEPS`` stored, timed.  Kernels 5 and 3 grouped, two each a
+    step; gates per group over the second half: the cold leaf-count mode at
+    least 1 and the median pulse centre within 0.3 of 4."""
+    import numpy as np
+
+    from eryn_tpu_torch.moves import RedBlueGroupStretchMove
+    from eryn_tpu_torch.parallel import ParaEnsembleSampler
+
+    leg = f"para[rj_pulse128 x{PR_G}]"
+    ll, pr, fill = _pulse_problem(torch, np, npts=P_NPTS)
+    para = ParaEnsembleSampler(
+        PR_G, NW, 3, ll, pr, nleaves_max=P_NLMAX, nleaves_min=0,
+        moves=RedBlueGroupStretchMove(), rj_moves=True,
+        tempering_kwargs=dict(ntemps=NT), fill_zero_leaves_val=fill, seed=3,
+        device="cuda")
+    coords = pr.rvs(size=(PR_G, NT, NW, P_NLMAX), generator=torch.Generator(
+        device="cuda").manual_seed(3), dtype=torch.float32)
+    inds = np.random.default_rng(4).random((PR_G, NT, NW, P_NLMAX)) < 0.3
+    read = _counting(_kernels())
+    para.run_mcmc({"model_0": coords}, 0, burn=PR_WARM,
+                  inds={"model_0": inds})
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    para.run_mcmc(None, PR_STEPS)
+    torch.cuda.synchronize()
+    dt = time.perf_counter() - t0
+    steps = PR_WARM + PR_STEPS
+    launches = read()
+    replays = _assert_para_replays(leg, para, steps, 2)
+    assert launches["group_stretch_propose"] == 2 * steps, launches
+    assert launches["pt_swap_cascade_multi"] == 2 * steps, launches
+    assert sum(launches.values()) == 4 * steps, launches
+    half = slice(PR_STEPS // 2, None)
+    inds_c = para.get_inds()["model_0"][half, :, 0]  # (n, G, nw, nl)
+    centres = para.get_chain()["model_0"][half, :, 0][..., 1]
+    modes, medians = [], []
+    for g in range(PR_G):
+        counts = np.bincount(inds_c[:, g].sum(-1).ravel(),
+                             minlength=P_NLMAX + 1)
+        modes.append(int(np.argmax(counts)))
+        medians.append(float(np.median(centres[:, g][inds_c[:, g]])))
+    print(f"chain[{leg}]: per group cold leaf-count modes {modes}, median "
+          f"pulse centres in [{min(medians):.4f}, {max(medians):.4f}]")
+    assert min(modes) >= 1, modes
+    assert max(abs(m - 4.0) for m in medians) < 0.3, medians
+    rates = {"para_rj_pulse128_steps_per_s": PR_STEPS / dt,
+             "para_rj_pulse128_group_steps_per_s": PR_G * PR_STEPS / dt}
+    print(f"rate: para_rj_pulse128_steps_per_s = "
+          f"{rates['para_rj_pulse128_steps_per_s']:.1f}, group steps/s "
+          f"{rates['para_rj_pulse128_group_steps_per_s']:.1f} ({card})")
+    print(f"launches[{leg}]: {launches} over {steps} steps, {replays} graph "
+          f"replays")
+    return _para_launches(launches), rates, (leg, _ParaBulk(para), None)
+
+
+def para_groups_running_leg(torch, card):
+    """``para[groups_running]``: 8 north-star groups, 50 steps; then 10
+    burn and 50 stored steps in one call with groups 1 and 5 stopped: their
+    state (``ParaState.group_view``) and their stored chain (log-likelihood
+    and coordinates) repeat the frozen snapshot bitwise, and the running
+    groups advance; then 20 with every group running, and the stopped ones
+    advance again."""
+    import numpy as np
+
+    leg = "para[groups_running]"
+    G, n, burn = 8, 50, 10
+    para, coords = _para_gaussian(torch, G, 21)
+    read = _counting(_kernels())
+    st1 = para.run_mcmc(coords, n)
+    frozen = {k: v.cpu().numpy() for k, v in st1.group_view(
+        {"ll": st1.log_like, "x": st1.branches["model_0"].coords,
+         "b": st1.betas[:, None]}).items()}
+    running = np.ones(G, bool)
+    running[[1, 5]] = False
+    st2 = para.run_mcmc(None, n, burn=burn, groups_running=running)
+    now = {k: v.cpu().numpy() for k, v in st2.group_view(
+        {"ll": st2.log_like, "x": st2.branches["model_0"].coords,
+         "b": st2.betas[:, None]}).items()}
+    assert np.array_equal(st2.groups_running.cpu().numpy(), running)
+    for k in now:
+        assert np.array_equal(now[k][~running], frozen[k][~running]), k
+        assert not np.array_equal(now[k][running], frozen[k][running]), k
+    ll = para.get_log_like()
+    assert np.array_equal(ll[n:, ~running],
+                          np.broadcast_to(frozen["ll"][~running],
+                                          ll[n:, ~running].shape))
+    x = para.get_chain()["model_0"]
+    assert np.array_equal(x[n:, ~running],
+                          np.broadcast_to(frozen["x"][~running],
+                                          x[n:, ~running].shape))
+    st3 = para.run_mcmc(None, 20)
+    ll3 = st3.group_view({"ll": st3.log_like})["ll"].cpu().numpy()
+    assert not np.array_equal(ll3[~running], frozen["ll"][~running])
+    launches = read()
+    _assert_stretch_launches(launches, 2 * n + burn + 20)
+    print(f"chain[{leg}]: groups 1 and 5 frozen bitwise over {burn} burn "
+          f"and {n} stored steps "
+          f"(state and stored chain), the other six advanced; all eight "
+          f"advance once running again")
+    return _para_launches(launches), {}, []
+
+
+def graph_vs_eager_para(torch, card):
+    """``graph-vs-eager[para]``: ``para[north-star x64]`` at a quarter of
+    its depth from one seed, ``cuda_graph=False`` and graphed: the chains,
+    log-likelihoods, log-priors, ladders and accept and swap fractions equal
+    digit for digit; host and wall ms a step side by side."""
+    import numpy as np
+
+    leg = f"para[north-star x{PARA_G}]"
+    warm, n = PARA_WARM // 4, PARA_STEPS // 4
+    runs = {}
+    for form in ("eager", "graphed"):
+        para, coords = _para_gaussian(torch, PARA_G, 22,
+                                      cuda_graph=form == "graphed")
+        para.run_mcmc(coords, 0, burn=warm)
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        para.run_mcmc(None, n)
+        torch.cuda.synchronize()
+        dt = time.perf_counter() - t0
+        runs[form] = dict(
+            wall_ms_per_step=dt / n * 1e3,
+            state=dict(chain=para.get_chain()["model_0"],
+                       log_like=para.get_log_like(),
+                       log_prior=para.get_log_prior(), betas=para.get_betas(),
+                       acc=para.acceptance_fraction,
+                       swaps=para.swap_acceptance_fraction))
+        if form == "graphed":
+            _assert_para_replays(leg, para, warm + n, 1)
+        else:
+            assert para.graph_replays == 0
+    a, b = runs["eager"].pop("state"), runs["graphed"].pop("state")
+    for key in a:
+        assert np.array_equal(a[key], b[key]), f"graph vs eager, {leg}: {key}"
+    e, g = runs["eager"], runs["graphed"]
+    print(f"graph-vs-eager[{leg}]: {n} stored steps a form, chains, "
+          f"log-likelihoods, ladders and accept and swap fractions equal "
+          f"digit for digit; wall {e['wall_ms_per_step']:.4f} / "
+          f"{g['wall_ms_per_step']:.4f} ms per step (eager / graphed; "
+          f"{card})")
+    return {leg: runs}
+
+
+def unit_gaussian_log_like(x):
+    """The north-star likelihood at module level, so that a sampler built
+    on it pickles."""
+    return -0.5 * (x * x).sum()
+
+
+def pickle_leg(torch, card):
+    """``pickle[north-star]``: a graphed north-star segment (200 steps of
+    burn-in and 200 stored into the default ``DeviceBackend``), then
+    ``pickle.dumps`` and ``loads``: the clone (its graphs captured anew) and
+    the original each run 200 more stored steps, equal digit for digit."""
+    import pickle
+
+    import numpy as np
+
+    from eryn_tpu_torch import EnsembleSampler, ProbDistContainer, uniform_dist
+
+    leg = "pickle[north-star]"
+    priors = ProbDistContainer({i: uniform_dist(-5.0, 5.0)
+                                for i in range(NDIM)})
+    s = EnsembleSampler(NW, NDIM, unit_gaussian_log_like, priors,
+                        tempering_kwargs=dict(ntemps=NT), seed=23,
+                        device="cuda")
+    coords = priors.rvs(size=(NT, NW), generator=torch.Generator(
+        device="cuda").manual_seed(23))
+    read = _counting(_kernels())
+    s.run_mcmc(coords, 200, burn=200)
+    blob = pickle.dumps(s)
+    clone = pickle.loads(blob)
+    assert clone._graphs is None and clone.pool is None
+    captures, replays = clone.graph_captures, clone.graph_replays
+    s.run_mcmc(None, 200)
+    clone.run_mcmc(None, 200)
+    for name, fn in (("chain", lambda x: x.get_chain()["model_0"]),
+                     ("log_like", lambda x: x.get_log_like()),
+                     ("betas", lambda x: x.get_betas())):
+        a, b = fn(s), fn(clone)
+        assert a.shape == b.shape and np.array_equal(a, b), f"{leg}: {name}"
+    # the clone's first step runs eagerly, its second is captured and
+    # replayed
+    assert clone.graph_captures == captures + 1
+    assert clone.graph_replays == replays + 199
+    launches = read()
+    _assert_stretch_launches(launches, 800)
+    print(f"{leg}: {len(blob)} bytes pickled; the clone's next 200 steps "
+          f"equal the original's digit for digit (chain, log-likelihoods, "
+          f"ladder), its graph captured anew; timing "
+          f"{s.timing.summary()['steps_per_second']:.1f} steps/s over "
+          f"{s.timing.segments} segments ({card})")
+    return launches, {}, []
+
+
 def main(argv=None):
     parser = argparse.ArgumentParser(description=__doc__.split("\n")[0])
     parser.add_argument("--out", help="also write the report as JSON here")
@@ -3242,7 +3955,16 @@ def main(argv=None):
         for k, e in check_kernels(torch, dtype_name).items():
             errs[k] = max(errs.get(k, 0.0), e)
         print(f"kernels[{dtype_name}]: agree with their plain versions")
+    for dtype_name in ("float32", "float64"):
+        for k, e in check_grouped_kernels(torch, dtype_name).items():
+            errs[k] = max(errs.get(k, 0.0), e)
+        print(f"kernels[{dtype_name}, grouped]: the grouped launches at G in "
+              f"{GROUP_SIZES} equal their plain versions (max abs error 0), "
+              f"and at G = 1 the ungrouped launches")
     times, launchers = time_kernels(torch)
+    gtimes, glaunchers = time_grouped_kernels(torch)
+    times.update(gtimes)
+    launchers.update(glaunchers)
     floor = times.pop("empty_launch")
     print(f"time: empty launch {floor['ms']:.4f} ms per call ({smi})")
     for k, t in times.items():
@@ -3263,14 +3985,17 @@ def main(argv=None):
               "into Backend() alone, and the resume legs continue in this "
               "process from an in-memory Backend(), not from a SIGKILLed "
               "child's HDF5 file")
-    with _plain_versions_forbidden(), _segments_never_wait():
+    with _plain_versions_forbidden(), _segments_never_wait(), \
+            _para_segments_never_wait():
         for leg in (north_star_leg, config_e_leg, lisa_rj_leg,
                     lisa_rj_null_leg, custom_move_leg, hdf_leg,
                     resume_north_star_leg, resume_lisa_null_leg, hooks_leg,
                     deo_leg, evidence_leg, rj_pulse128_leg, zoo_leg,
                     zoo_mt_rj_leg, config_d_leg, modelswap_leg,
                     best_stack_leg, blobs_north_star_leg,
-                    blobs_lisa_rj_null_leg, replica_flow_leg):
+                    blobs_lisa_rj_null_leg, replica_flow_leg,
+                    para_north_star_leg, para_zoo_leg, para_rj_pulse128_leg,
+                    para_groups_running_leg, pickle_leg):
             t0 = time.perf_counter()
             legs.append(leg(torch, smi))
             print(f"phase 4: {leg.__name__} {time.perf_counter() - t0:.1f} s")
@@ -3281,6 +4006,7 @@ def main(argv=None):
         print(f"phase 4: flat_rj_leg {time.perf_counter() - t0:.1f} s")
         t0 = time.perf_counter()
         compared, eager = graph_vs_eager(torch, smi)
+        compared.update(graph_vs_eager_para(torch, smi))
         print(f"phase 4: graph_vs_eager {time.perf_counter() - t0:.1f} s")
     # the host side: these steps visit the host by design, so they run
     # outside the check that segments never wait (the hybrid leg's native
@@ -3321,6 +4047,11 @@ def main(argv=None):
           f"{rates['host_like_pool_steps_per_s']:.1f} beside "
           f"stored_device_steps_per_s = "
           f"{rates['stored_device_steps_per_s']:.1f} ({smi})")
+    print(f"rate: para_steps_per_s = {rates['para_steps_per_s']:.1f} "
+          f"({PARA_G} groups, para_group_steps_per_s = "
+          f"{rates['para_group_steps_per_s']:.1f}) beside the single "
+          f"north-star's stored_device_steps_per_s = "
+          f"{rates['stored_device_steps_per_s']:.1f} ({smi})")
     rates["lisa_rj_overhead_frac"] = (rates["lisa_rj_steps_per_s"]
                                       / rates["lisa_rj_null_steps_per_s"])
     print(f"rate: lisa_rj_overhead_frac = {rates['lisa_rj_overhead_frac']:.4f} "
@@ -3347,7 +4078,7 @@ def main(argv=None):
                 "config_d", "modelswap", "best_stack", "zoo[SliceMove]",
                 "blobs[north-star]", "blobs[lisa-rj-null]",
                 "host_like[north-star]", "host_like_vec[north-star]",
-                "hybrid_host[4 x 100]"):
+                "hybrid_host[4 x 100]", f"para[north-star x{PARA_G}]"):
         profiles.update(profile_steps(torch, leg, *by_name[leg], smi,
                                       steps=_profile_steps(leg)))
     phases = tempering_phase_device_ms(
@@ -3375,11 +4106,25 @@ def main(argv=None):
         "onehot_select": ("eryn_tpu_torch/csrc/select_kernels.cu",
                           "eryn_tpu/ops/select_kernels.py:145"),
     }
+    # the grouped launches (ParaEnsembleSampler), timed at the para legs'
+    # shapes; the rolled cascade runs in phase 3 only (no para leg exceeds
+    # 640 walkers), so it lists no launch
+    grouped = {
+        "stretch_propose": f"[G={PARA_G}]",
+        "stretch_accept_propose": f"[G={PARA_G}]",
+        "stretch_accept": f"[G={PARA_G}]",
+        "pt_swap_cascade_multi": f"[G={PARA_G}]",
+        "_cascade_multi_rolled": "[G=4]",
+        "group_stretch_propose": f"[G={PR_G}]",
+    }
+    for k, tag in grouped.items():
+        sources[f"{k}[grouped]"] = sources[k]
+        times[f"{k}[grouped]"] = {"shape": tag, **times.pop(k + tag)}
     # no single PyTorch call computes any of these functions (the selection's
     # torch.searchsorted gives only the indices), so library_ms is null
     report = {"kernels": [
         {"name": k, "route": "cuda", "source": src, "replaces": rep,
-         "launches": launches[k], "max_abs_err": errs[k],
+         "launches": launches.get(k, 0), "max_abs_err": errs[k],
          **times[k], "library_ms": None, "launch_floor_ms": floor["ms"],
          "launch_floor_device_ms": floor["device_ms"]}
         for k, (src, rep) in sources.items()

@@ -11,12 +11,14 @@ kernels (``csrc/``): the stretch proposal, the tempered accept, the swap
 cascade and its large-ensemble form, the group-stretch proposal and the
 masked-uniform complement selection inside it.  Each kernel has a plain
 PyTorch version, which is what runs for tensors on the CPU.
+``eryn_tpu_torch.parallel.ParaEnsembleSampler`` runs many independent
+ensembles in the same launches (``ParaState`` holds their state).
 """
 
 __version__ = "0.1.0"
 
 from .backends import Backend, DeviceBackend, HDFBackend, TempHDFBackend
-from .ensemble import EnsembleSampler
+from .ensemble import EnsembleSampler, walkers_independent
 from .model import Model
 from .moves import (
     BasicSymmetricModelSwapRJMove,
@@ -49,7 +51,7 @@ from .prior import (
     normal_dist,
     uniform_dist,
 )
-from .state import Branch, BranchSupplemental, State
+from .state import Branch, BranchSupplemental, ParaState, State
 from .utils.transform import TransformContainer
 
 __all__ = [
@@ -77,6 +79,7 @@ __all__ = [
     "MultipleTryMoveRJ",
     "MultivariateNormalDistribution",
     "NormalDistribution",
+    "ParaState",
     "ProbDistContainer",
     "State",
     "StretchMove",
@@ -90,5 +93,6 @@ __all__ = [
     "mvn_dist",
     "normal_dist",
     "uniform_dist",
+    "walkers_independent",
     "__version__",
 ]

@@ -53,6 +53,16 @@ class _LazySeg:
             self._packed = None
         return self._data[key]
 
+    def __getstate__(self):
+        # the unpacker is a closure of the sampler: a pickled segment is
+        # unpacked first
+        self["chain"]
+        return (self.n, self._data)
+
+    def __setstate__(self, state):
+        self.n, self._data = state
+        self._packed = self._unpack = None
+
 
 class DeviceBackend(Backend):
     """In-memory backend whose chain stays on the device (see the module

@@ -42,6 +42,12 @@
 // 3. The accepted pairings of each rung are counted in the kernel (a warp
 //    reduction and one shared-memory atomic a warp).
 //
+// Groups: ng independent ladders (ParaEnsembleSampler) in one launch, every
+// array with a leading group axis (logl (ng, nt, nw), betas (ng, nt), pi
+// (ng, nw), shifts (ng, nt - 1), raccept (ng, nt - 1, nw), the leaves and
+// the outputs likewise); blockIdx.y is the group, and a block's shared
+// memory holds one ladder, as without groups (ng = 1).
+//
 // What bounds it on the card: a few hundred kilobytes move, so the time is
 // the launch plus nt - 1 dependent rungs.  A rung is bound by instruction
 // rate (about a hundred instructions a walker, 32 warps on one SM at 1000
@@ -177,10 +183,39 @@ __device__ void move_leaf(const Leaf& lf, const long long* pi, const int* perm,
 #undef ERYN_MOVE
 }
 
+// Group g = blockIdx.y of a grouped launch: every array of the arguments
+// and every leaf advanced to the group's own, the arrays lying group after
+// group with a leading group axis.
+template <typename T>
+__device__ CascadeArgs<T> group_args(CascadeArgs<T> a, long g) {
+  const long rows = g * a.nt * a.nw, rungs = g * (a.nt - 1);
+  a.logl += rows;
+  if (a.betas) a.betas += g * a.nt;
+  if (a.dbetas) a.dbetas += rungs;
+  if (a.pi) a.pi += g * a.nw;
+  a.shifts += rungs;
+  a.raccept += rungs * a.nw;
+  a.out_logl += rows;
+  if (a.accepted) a.accepted += rungs;
+  if (a.sel) a.sel += rungs * a.nw;
+  if (a.origin) a.origin += rows;
+  return a;
+}
+
+__device__ Leaf group_leaf(Leaf lf, long g, int nt, int nw) {
+  const long bytes = g * nt * static_cast<long>(nw) * lf.row_bytes *
+                     (lf.channels ? lf.channels : 1);
+  lf.in += bytes;
+  lf.out += bytes;
+  return lf;
+}
+
 template <typename T, bool kRolled, bool kGlobal>
 __global__ void __launch_bounds__(1024, 1)
-pt_swap_cascade_kernel(const CascadeArgs<T> a, const LeafTable leaves) {
+pt_swap_cascade_kernel(const CascadeArgs<T> args, const LeafTable leaves) {
   extern __shared__ __align__(16) unsigned char smem[];
+  const long g = blockIdx.y;
+  const CascadeArgs<T> a = group_args(args, g);
   const int nt = a.nt, nw = a.nw;
   const int tid = threadIdx.x, bd = blockDim.x;
   const int m = kRolled ? ((nw + 127) / 128) * 128 : nw;
@@ -370,18 +405,19 @@ pt_swap_cascade_kernel(const CascadeArgs<T> a, const LeafTable leaves) {
   const int nwarps = bd >> 5, warp = tid >> 5, nl = leaves.n;
   if (nl > nwarps) {
     for (int l = 0; l < nl; ++l)
-      move_leaf<kGlobal>(leaves.leaf[l], a.pi, perm, origin, nt, nw, w0, nc,
-                         a.cw, tid, bd);
+      move_leaf<kGlobal>(group_leaf(leaves.leaf[l], g, nt, nw), a.pi, perm,
+                         origin, nt, nw, w0, nc, a.cw, tid, bd);
   } else if (nl > 0) {
     const int l = warp % nl;
     const int share = (nwarps - l + nl - 1) / nl;  // warps on leaf l
-    move_leaf<kGlobal>(leaves.leaf[l], a.pi, perm, origin, nt, nw, w0, nc,
-                       a.cw, (warp / nl) * 32 + (tid & 31), share * 32);
+    move_leaf<kGlobal>(group_leaf(leaves.leaf[l], g, nt, nw), a.pi, perm,
+                       origin, nt, nw, w0, nc, a.cw,
+                       (warp / nl) * 32 + (tid & 31), share * 32);
   }
 }
 
 template <typename T, bool kRolled, bool kGlobal>
-int launch_kernel(const CascadeArgs<T>& a, const LeafTable& tab, int grid,
+int launch_kernel(const CascadeArgs<T>& a, const LeafTable& tab, dim3 grid,
                   int threads, size_t shared, cudaStream_t stream) {
   auto kernel = pt_swap_cascade_kernel<T, kRolled, kGlobal>;
   if (shared > 48 * 1024) {
@@ -400,9 +436,10 @@ int launch_cascade(const void* logl, const void* betas, const void* dbetas,
                    void* out_logl, void* accepted, void* sel, void* origin,
                    const void* const* leaf_in, void* const* leaf_out,
                    const int* leaf_row_bytes, const int* leaf_channels,
-                   int nleaves, int nt, int nw, int cw, int rolled,
+                   int nleaves, int ng, int nt, int nw, int cw, int rolled,
                    int shared_limit, void* stream) {
-  if (nleaves < 0 || nleaves > kMaxLeaves || nt < 1 || nw < 1 || cw < 1)
+  if (nleaves < 0 || nleaves > kMaxLeaves || ng < 1 || ng > 65535 || nt < 1 ||
+      nw < 1 || cw < 1)
     return static_cast<int>(cudaErrorInvalidValue);
   if (cw > nw) cw = nw;
   CascadeArgs<T> a;
@@ -439,10 +476,11 @@ int launch_cascade(const void* logl, const void* betas, const void* dbetas,
   cudaStream_t st = static_cast<cudaStream_t>(stream);
   if (shared > static_cast<size_t>(shared_limit)) {
     if (!origin) return static_cast<int>(cudaErrorInvalidValue);
-    return rolled ? launch_kernel<T, true, true>(a, tab, 1, threads, 0, st)
-                  : launch_kernel<T, false, true>(a, tab, 1, threads, 0, st);
+    const dim3 one(1, ng);
+    return rolled ? launch_kernel<T, true, true>(a, tab, one, threads, 0, st)
+                  : launch_kernel<T, false, true>(a, tab, one, threads, 0, st);
   }
-  const int grid = (nw + cw - 1) / cw;
+  const dim3 grid((nw + cw - 1) / cw, ng);
   return rolled
              ? launch_kernel<T, true, false>(a, tab, grid, threads, shared, st)
              : launch_kernel<T, false, false>(a, tab, grid, threads, shared, st);
@@ -460,13 +498,13 @@ int eryn_pt_swap_cascade_f32(const void* logl, const void* betas,
                              void* out_logl, void* accepted, void* sel,
                              void* origin, const void* const* leaf_in,
                              void* const* leaf_out, const int* leaf_row_bytes,
-                             const int* leaf_channels, int nleaves, int nt,
-                             int nw, int cw, int rolled, int shared_limit,
-                             void* stream) {
+                             const int* leaf_channels, int nleaves, int ng,
+                             int nt, int nw, int cw, int rolled,
+                             int shared_limit, void* stream) {
   return launch_cascade<float>(logl, betas, dbetas, pi, shifts, raccept,
                                out_logl, accepted, sel, origin, leaf_in,
                                leaf_out, leaf_row_bytes, leaf_channels,
-                               nleaves, nt, nw, cw, rolled, shared_limit,
+                               nleaves, ng, nt, nw, cw, rolled, shared_limit,
                                stream);
 }
 
@@ -476,14 +514,14 @@ int eryn_pt_swap_cascade_f64(const void* logl, const void* betas,
                              void* out_logl, void* accepted, void* sel,
                              void* origin, const void* const* leaf_in,
                              void* const* leaf_out, const int* leaf_row_bytes,
-                             const int* leaf_channels, int nleaves, int nt,
-                             int nw, int cw, int rolled, int shared_limit,
-                             void* stream) {
+                             const int* leaf_channels, int nleaves, int ng,
+                             int nt, int nw, int cw, int rolled,
+                             int shared_limit, void* stream) {
   return launch_cascade<double>(logl, betas, dbetas, pi, shifts, raccept,
                                 out_logl, accepted, sel, origin, leaf_in,
                                 leaf_out, leaf_row_bytes, leaf_channels,
-                                nleaves, nt, nw, cw, rolled, shared_limit,
-                                stream);
+                                nleaves, ng, nt, nw, cw, rolled,
+                                shared_limit, stream);
 }
 
 // One launch of a kernel that does nothing: the launch floor that

@@ -38,6 +38,13 @@
 //   The updated half-0 rows are read back through L1/L2 after the barrier,
 //   not staged in shared memory.
 //
+// Groups: ng independent ensembles (ParaEnsembleSampler) lie one after
+// another, every per-group array with a leading group axis: the state
+// (ng, nt, nw, .), perm (ng, nw), u_all (ng, 2, 3, nt, nw), betas (ng, nt).
+// A launch runs ng * nt blocks; block b works on group g = b / nt and
+// temperature t = b % nt, with the group's arrays found by offsets, so one
+// launch covers every group and ng = 1 is the ungrouped launch.
+//
 // Threads loop over the walkers of a half with a stride of blockDim.x, so
 // halves beyond 1024 walkers stay right.  The arithmetic is that of the TPU
 // kernels, through the round-to-nearest intrinsics of common.cuh.
@@ -150,6 +157,23 @@ __device__ __forceinline__ void accept_half(
   }
 }
 
+// Where block blockIdx.x of a grouped launch works: group g, temperature t,
+// and the offsets of the group's arrays, in elements (rows: walker rows of
+// the state; half(ns): rows of a half's (ng, nt, ns) arrays).
+struct Group {
+  long g;
+  int t;
+  long rows, perm, u, betas;
+  __device__ Group(int nt, int nw)
+      : g(blockIdx.x / nt),
+        t(static_cast<int>(blockIdx.x - g * nt)),
+        rows(g * nt * nw),
+        perm(g * nw),
+        u(6 * rows),
+        betas(g * nt) {}
+  __device__ long half(long ns) const { return betas * ns; }
+};
+
 // at most 1024 threads a block, so at most 64 registers a thread
 constexpr int kMaxThreads = 1024;
 
@@ -159,8 +183,12 @@ __global__ void __launch_bounds__(kMaxThreads) stretch_propose_kernel(
     const T* __restrict__ ndim_act, const long long* __restrict__ perm,
     const T* __restrict__ u_all, T* __restrict__ q, T* __restrict__ fac,
     int nt, int nw, int D, int half, T a, T a_minus_1, int log_proposal) {
-  propose_half(X, C, ndim_act, perm, u_all, q, fac, blockIdx.x, nt, nw, D,
-               half, a, a_minus_1, log_proposal);
+  const Group grp(nt, nw);
+  const long ns = half ? nw / 2 : nw - nw / 2;
+  propose_half(X + grp.rows * D, C + grp.rows * D, ndim_act + grp.rows,
+               perm + grp.perm, u_all + grp.u, q + grp.half(ns) * D,
+               fac + grp.half(ns), grp.t, nt, nw, D, half, a, a_minus_1,
+               log_proposal);
 }
 
 template <typename T>
@@ -172,8 +200,13 @@ __global__ void __launch_bounds__(kMaxThreads) stretch_accept_kernel(
     const long long* __restrict__ perm, const T* __restrict__ u_all,
     T* __restrict__ X_out, T* __restrict__ logl_out, T* __restrict__ logp_out,
     T* __restrict__ acc_out, int nt, int nw, int D, int half) {
-  accept_half(q, X, ll_new, lp_new, logl, logp, fac, betas, perm, u_all,
-              X_out, logl_out, logp_out, acc_out, blockIdx.x, nt, nw, D, half);
+  const Group grp(nt, nw);
+  const long h = grp.half(half ? nw / 2 : nw - nw / 2);
+  accept_half(q + h * D, X + grp.rows * D, ll_new + h, lp_new + h,
+              logl + grp.rows, logp + grp.rows, fac + h, betas + grp.betas,
+              perm + grp.perm, u_all + grp.u, X_out + grp.rows * D,
+              logl_out + grp.rows, logp_out + grp.rows, acc_out + grp.rows,
+              grp.t, nt, nw, D, half);
 }
 
 // Block t accepts half 0 of temperature t, then proposes half 1 of the same
@@ -191,11 +224,20 @@ __global__ void __launch_bounds__(kMaxThreads) stretch_accept_propose_kernel(
     T* __restrict__ logp_out, T* __restrict__ acc_out, T* __restrict__ q1,
     T* __restrict__ fac1, int nt, int nw, int D, T a, T a_minus_1,
     int log_proposal) {
-  accept_half(q0, X, ll_new, lp_new, logl, logp, fac0, betas, perm, u_all,
-              X_out, logl_out, logp_out, acc_out, blockIdx.x, nt, nw, D, 0);
+  const Group grp(nt, nw);
+  const long h0 = grp.half(nw - nw / 2), h1 = grp.half(nw / 2);
+  X += grp.rows * D;
+  X_out += grp.rows * D;
+  perm += grp.perm;
+  u_all += grp.u;
+  accept_half(q0 + h0 * D, X, ll_new + h0, lp_new + h0, logl + grp.rows,
+              logp + grp.rows, fac0 + h0, betas + grp.betas, perm, u_all,
+              X_out, logl_out + grp.rows, logp_out + grp.rows,
+              acc_out + grp.rows, grp.t, nt, nw, D, 0);
   __syncthreads();
-  propose_half(X, static_cast<const T*>(X_out), ndim_act, perm, u_all, q1,
-               fac1, blockIdx.x, nt, nw, D, 1, a, a_minus_1, log_proposal);
+  propose_half(X, static_cast<const T*>(X_out), ndim_act + grp.rows, perm,
+               u_all, q1 + h1 * D, fac1 + h1, grp.t, nt, nw, D, 1, a,
+               a_minus_1, log_proposal);
 }
 
 // one warp at least, one thread per walker of the larger half up to
@@ -208,9 +250,9 @@ inline int threads_for(int nw) {
 template <typename T>
 int launch_propose(const void* X, const void* C, const void* ndim_act,
                    const void* perm, const void* u_all, void* q, void* fac,
-                   int nt, int nw, int D, int half, double a, int log_proposal,
-                   void* stream) {
-  stretch_propose_kernel<T><<<nt, threads_for(nw), 0,
+                   int ng, int nt, int nw, int D, int half, double a,
+                   int log_proposal, void* stream) {
+  stretch_propose_kernel<T><<<ng * nt, threads_for(nw), 0,
                               static_cast<cudaStream_t>(stream)>>>(
       static_cast<const T*>(X), static_cast<const T*>(C),
       static_cast<const T*>(ndim_act), static_cast<const long long*>(perm),
@@ -224,9 +266,9 @@ int launch_accept(const void* q, const void* X, const void* ll_new,
                   const void* lp_new, const void* logl, const void* logp,
                   const void* fac, const void* betas, const void* perm,
                   const void* u_all, void* X_out, void* logl_out,
-                  void* logp_out, void* acc_out, int nt, int nw, int D,
-                  int half, void* stream) {
-  stretch_accept_kernel<T><<<nt, threads_for(nw), 0,
+                  void* logp_out, void* acc_out, int ng, int nt, int nw,
+                  int D, int half, void* stream) {
+  stretch_accept_kernel<T><<<ng * nt, threads_for(nw), 0,
                              static_cast<cudaStream_t>(stream)>>>(
       static_cast<const T*>(q), static_cast<const T*>(X),
       static_cast<const T*>(ll_new), static_cast<const T*>(lp_new),
@@ -245,9 +287,9 @@ int launch_accept_propose(const void* q0, const void* X, const void* ll_new,
                           const void* betas, const void* ndim_act,
                           const void* perm, const void* u_all, void* X_out,
                           void* logl_out, void* logp_out, void* acc_out,
-                          void* q1, void* fac1, int nt, int nw, int D,
-                          double a, int log_proposal, void* stream) {
-  stretch_accept_propose_kernel<T><<<nt, threads_for(nw), 0,
+                          void* q1, void* fac1, int ng, int nt, int nw,
+                          int D, double a, int log_proposal, void* stream) {
+  stretch_accept_propose_kernel<T><<<ng * nt, threads_for(nw), 0,
                                      static_cast<cudaStream_t>(stream)>>>(
       static_cast<const T*>(q0), static_cast<const T*>(X),
       static_cast<const T*>(ll_new), static_cast<const T*>(lp_new),
@@ -264,37 +306,38 @@ int launch_accept_propose(const void* q0, const void* X, const void* ll_new,
 }  // namespace
 
 // Plain C interface, loaded with ctypes.  perm is int64; every other array
-// is in the state dtype (f32 or f64).  Every function returns
+// is in the state dtype (f32 or f64); ng is the number of groups (1 for one
+// ensemble).  Every function returns
 // cudaGetLastError() after its launch (0 on success).
 #define ERYN_STRETCH_ENTRIES(T, SUFFIX)                                       \
   int eryn_stretch_propose_##SUFFIX(                                          \
       const void* X, const void* C, const void* ndim_act, const void* perm,   \
-      const void* u_all, void* q, void* fac, int nt, int nw, int D, int half, \
-      double a, int log_proposal, void* stream) {                             \
-    return launch_propose<T>(X, C, ndim_act, perm, u_all, q, fac, nt, nw, D,  \
-                             half, a, log_proposal, stream);                  \
+      const void* u_all, void* q, void* fac, int ng, int nt, int nw, int D,   \
+      int half, double a, int log_proposal, void* stream) {                   \
+    return launch_propose<T>(X, C, ndim_act, perm, u_all, q, fac, ng, nt, nw, \
+                             D, half, a, log_proposal, stream);               \
   }                                                                           \
   int eryn_stretch_accept_##SUFFIX(                                           \
       const void* q, const void* X, const void* ll_new, const void* lp_new,   \
       const void* logl, const void* logp, const void* fac, const void* betas, \
       const void* perm, const void* u_all, void* X_out, void* logl_out,       \
-      void* logp_out, void* acc_out, int nt, int nw, int D, int half,         \
+      void* logp_out, void* acc_out, int ng, int nt, int nw, int D, int half, \
       void* stream) {                                                         \
     return launch_accept<T>(q, X, ll_new, lp_new, logl, logp, fac, betas,     \
                             perm, u_all, X_out, logl_out, logp_out, acc_out,  \
-                            nt, nw, D, half, stream);                         \
+                            ng, nt, nw, D, half, stream);                     \
   }                                                                           \
   int eryn_stretch_accept_propose_##SUFFIX(                                   \
       const void* q0, const void* X, const void* ll_new, const void* lp_new,  \
       const void* logl, const void* logp, const void* fac0,                   \
       const void* betas, const void* ndim_act, const void* perm,              \
       const void* u_all, void* X_out, void* logl_out, void* logp_out,         \
-      void* acc_out, void* q1, void* fac1, int nt, int nw, int D, double a,   \
-      int log_proposal, void* stream) {                                       \
+      void* acc_out, void* q1, void* fac1, int ng, int nt, int nw, int D,     \
+      double a, int log_proposal, void* stream) {                             \
     return launch_accept_propose<T>(q0, X, ll_new, lp_new, logl, logp, fac0,  \
                                     betas, ndim_act, perm, u_all, X_out,      \
                                     logl_out, logp_out, acc_out, q1, fac1,    \
-                                    nt, nw, D, a, log_proposal, stream);      \
+                                    ng, nt, nw, D, a, log_proposal, stream);  \
   }
 
 extern "C" {

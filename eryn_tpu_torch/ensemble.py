@@ -48,6 +48,7 @@ from .pbar import get_progress_bar
 from .prior import ProbDistContainer
 from .state import BranchSupplemental, State, resolve_device
 from .utils.periodic import PeriodicContainer
+from .utils.profiling import SegmentTimer
 from .utils.pytree import tree_flatten
 
 __all__ = ["EnsembleSampler"]
@@ -135,6 +136,29 @@ def _segment_plan(nsteps, seg, taper=False, min_seg=64):
         cascade += [b, b]
         plan[i:i + 1] = cascade
     return plan
+
+
+def check_segments(moves):
+    """Call ``check_segment`` of each move (composites' children included)
+    that has one: a device flag a segment raised is read at its end."""
+    for move in _walk_moves(moves):
+        check = getattr(move, "check_segment", None)
+        if check is not None:
+            check()
+
+
+def walkers_independent(coords):
+    """Whether the walkers ``coords`` ``(nwalkers, ...)`` span the parameter
+    space: finite, and their centred, scaled matrix conditioned to at most
+    1e8 (as ``eryn_tpu.ensemble.walkers_independent``; NumPy)."""
+    flat = np.asarray(coords)
+    flat = flat.reshape(flat.shape[0], -1)
+    if not np.all(np.isfinite(flat)):
+        return False
+    c = flat - np.mean(flat, axis=0)[None, :]
+    scale = np.max(np.abs(c), axis=0)
+    scale[scale == 0.0] = 1.0
+    return bool(np.linalg.cond((c / scale).astype(float)) <= 1e8)
 
 
 class PriorEvaluator:
@@ -234,6 +258,10 @@ class LikelihoodEvaluator:
     def host(self):
         """Whether an evaluation visits the host."""
         return self.mode == "host"
+
+    def __getstate__(self):
+        # a pool holds processes: a pickled evaluator maps without one
+        return {**self.__dict__, "pool": None}
 
     def _supp_args(self, sdict):
         """The supplemental argument under ``provide_supplemental``: the
@@ -739,6 +767,7 @@ class EnsembleSampler:
         stopping_fn=None,
         stopping_iterations=-1,
         dr_moves=None,
+        dr_max_iter=5,
     ):
         self.dtype = dtype if dtype is not None else torch.float32
         if self.dtype not in _NUMPY_DTYPE:
@@ -750,6 +779,12 @@ class EnsembleSampler:
         self.info = info
         self.provide_supplemental = bool(provide_supplemental)
         self.blobs_dtype = None if blobs_dtype is None else np.dtype(blobs_dtype)
+        # Eryn's cap on delayed-rejection stages inside reversible jump:
+        # accepted, so that code written for eryn_tpu runs, and ignored, since
+        # no move runs delayed rejection (dr_moves is refused below)
+        self.dr_max_iter = int(dr_max_iter)
+        #: ``(nsteps, seconds)`` of every segment run (utils.profiling)
+        self.timing = SegmentTimer()
 
         if branch_names is None:
             branch_names = [f"model_{i}" for i in range(nbranches)]
@@ -1155,6 +1190,32 @@ class EnsembleSampler:
         """State of the sampler's ``torch.Generator``."""
         return self._gen.get_state()
 
+    def __getstate__(self):
+        """Pickle without the pool and the captured graphs (they hold
+        processes and device memory that cannot cross a process; the graphs
+        are captured anew at the next segment); the generators travel as
+        their states, with the clock, the kernel states and the backend,
+        so an unpickled sampler continues the chain digit for digit."""
+        d = self.__dict__.copy()
+        d["pool"] = None
+        d["_graphs"] = None
+        d["timing"] = None
+        for key in ("_gen", "_host_gen"):
+            gen = d[key]
+            d[key] = (str(gen.device), gen.get_state())
+        return d
+
+    def __setstate__(self, d):
+        for key in ("_gen", "_host_gen"):
+            device, rng = d[key]
+            gen = torch.Generator(device=device)
+            gen.set_state(rng)
+            d[key] = gen
+        d["timing"] = SegmentTimer()
+        self.__dict__.update(d)
+        if self.temperature_control is not None:
+            self.temperature_control.generator = self._gen
+
     def drop_step_graphs(self):
         """Release the captured step graphs; the next step of each move
         runs eagerly once and is captured anew.  Call it after changing a
@@ -1540,6 +1601,7 @@ class EnsembleSampler:
             )
         ctx = self.get_eval_context()
         tc = self.temperature_control
+        mark = self.timing.start(self.device)
         time = self._start_clock(tc)
         graphs = None
         if self._graphed:
@@ -1607,6 +1669,8 @@ class EnsembleSampler:
         if self._host_supps:
             state = self._apply_prov(state)
         self._previous_state = state
+        self.timing.stop(mark, nstored * thin_by)
+        check_segments(self._all_move_list)
         return state, snaps
 
     @staticmethod

@@ -9,7 +9,10 @@ numeric entries); a tempering control as ``{"betas", "time",
 name, params)}``; a move's kernel state as its tree of arrays (dicts walked
 in sorted key order, as both packages store them).  Any package whose
 arrays convert with ``np.asarray`` can build these, so two samplers can
-start from the same ensemble, ladder, priors and kernel states.
+start from the same ensemble, ladder, priors and kernel states.  A
+:class:`~eryn_tpu_torch.state.ParaState` travels as the same dict, folded
+(``(ngroups * ntemps, ...)``) or group-batched, with ``"ngroups"`` and
+``"groups_running"``.
 """
 
 from __future__ import annotations
@@ -18,12 +21,14 @@ import numpy as np
 import torch
 
 from . import prior as _prior
-from .state import BranchSupplemental, State, resolve_device
+from .state import BranchSupplemental, ParaState, State, resolve_device
 from .utils.pytree import tree_flatten, tree_unflatten
 
 __all__ = [
     "kernel_state_from_numpy",
     "kernel_state_to_numpy",
+    "para_state_from_numpy",
+    "para_state_to_numpy",
     "priors_from_spec",
     "state_from_numpy",
     "state_to_numpy",
@@ -116,6 +121,39 @@ def state_to_numpy(state):
             if b.branch_supplemental is not None},
         **{f: _host(getattr(state, f)) for f in _FIELDS},
     }
+
+
+def para_state_from_numpy(d, device=None, dtype=torch.float32):
+    """A :class:`ParaState` on ``device`` (default: the card) from a numpy
+    dict of :func:`state_from_numpy`'s fields, group-batched
+    (``(ngroups, ntemps, ...)``) or folded, with optional ``"ngroups"``
+    (needed for folded input) and ``"groups_running"``: the state of
+    :class:`eryn_tpu.state.ParaState` carried over."""
+    device = resolve_device(device)
+
+    def put(x, dt=dtype):
+        return None if x is None else torch.tensor(
+            np.array(x), dtype=dt, device=device)
+
+    inds = d.get("inds")
+    running = d.get("groups_running")
+    return ParaState(
+        {n: put(c) for n, c in d["coords"].items()},
+        groups_running=None if running is None else put(running, torch.bool),
+        ngroups=d.get("ngroups"),
+        inds=None if inds is None else {
+            n: put(m, torch.bool) for n, m in inds.items()},
+        **{f: put(d.get(f)) for f in _FIELDS},
+    )
+
+
+def para_state_to_numpy(state):
+    """Numpy dict of a :class:`ParaState` (of this package or of
+    ``eryn_tpu``), folded, with ``"ngroups"`` and ``"groups_running"``."""
+    out = state_to_numpy(state)
+    out["ngroups"] = state.ngroups
+    out["groups_running"] = _host(state.groups_running)
+    return out
 
 
 def tempering_from_numpy(tc, d):

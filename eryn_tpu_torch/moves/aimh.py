@@ -7,8 +7,13 @@ move's proposals and then fixed.  DIME is ``moves=[(DEMove(), 1 - p),
 (AIMHMove(), p)]``.  The moments' update is computed every step and kept
 by a ``torch.where`` on the tuning flag (``eryn_tpu``'s ``lax.cond``); the
 Cholesky factor is ``torch.linalg.cholesky_ex``, NaN where it fails, as
-``jnp.linalg.cholesky`` gives; the chi-square of an integer ``df`` is
-``-2 sum log U (+ Z^2)`` on the sampler's generator.
+``jnp.linalg.cholesky`` gives; the chi-square of an integer ``df`` up to
+512 is ``-2 sum log U (+ Z^2)`` on the sampler's generator, and of any
+other ``df`` twice a Marsaglia-Tsang gamma draw of shape ``df / 2``, in
+:data:`GAMMA_ROUNDS` masked rounds (a fixed number, so the step stays one
+capturable graph).  A draw whose rounds all reject is NaN, which no
+proposal accepts, and counts in ``gamma_misses``, a device counter that
+the sampler reads at the end of each segment and raises on.
 """
 
 from __future__ import annotations
@@ -20,15 +25,21 @@ from .kde import cholesky_or_nan, periodic_refused
 from .move import Move, merge_blobs, mh_decide, state_branch_supps
 from .tempering import tempered_log_likelihood
 
-__all__ = ["AIMHMove"]
+__all__ = ["AIMHMove", "GAMMA_ROUNDS"]
+
+#: rounds of the Marsaglia-Tsang gamma sampler: each accepts with
+#: probability above 0.95 for a shape above 1, so all of them reject with
+#: probability below 1e-10
+GAMMA_ROUNDS = 8
 
 
 class AIMHMove(Move):
     """Adaptive Student-t independence proposal, per temperature.
 
     Args:
-        df: Student-t degrees of freedom, an integer above 2 and at most
-            512 (the chi-square is drawn from uniforms and a normal).
+        df: Student-t degrees of freedom, above 2 (an integer up to 512
+            draws the chi-square from uniforms and a normal, any other a
+            gamma by Marsaglia and Tsang).
         rho: per-proposal discount of the accumulated moments.
         tune_steps: adapting proposals of this move (0: the initial fit
             for ever).
@@ -47,12 +58,10 @@ class AIMHMove(Move):
         super().__init__(**kwargs)
         if df <= 2.0:
             raise ValueError("df must exceed 2 (finite proposal covariance).")
-        if not float(df).is_integer() or df > 512:
-            raise NotImplementedError(
-                f"AIMHMove(df={df}): eryn_tpu_torch draws the chi-square of "
-                "an integer df up to 512 only (a gamma sampler on the "
-                "sampler's generator is ROADMAP.md, queue 1, item 4's "
-                "left-out part); pass an integer df.")
+        #: the chi-square is a gamma draw (not an integer df up to 512)
+        self.gamma = not float(df).is_integer() or df > 512
+        self.device_counters = ("gamma_misses",) if self.gamma else ()
+        self.gamma_misses = None
         if self.gibbs_iterations != [None]:
             raise ValueError(
                 "gibbs_sampling_setup is not supported by AIMHMove (the "
@@ -101,6 +110,9 @@ class AIMHMove(Move):
                     "trans-dimensional targets.")
         x = self._flatten(state, names)
         nt, nw, _ = x.shape
+        if self.gamma and self.gamma_misses is None:
+            self.gamma_misses = torch.zeros((), dtype=torch.int64,
+                                            device=x.device)
         mean, cov = self._batch_moments(x)
         return {"w": x.new_full((nt,), float(nw)), "mean": mean, "cov": cov,
                 "t": torch.zeros((), dtype=torch.int32, device=x.device)}
@@ -129,9 +141,14 @@ class AIMHMove(Move):
         """Randomness of one proposal: the normals ``(nt, nw, D)``, the
         chi-square's uniforms ``(nt, nw, df // 2)`` in ``[tiny, 1)`` (None
         for df < 2) and, for an odd df, its normal ``(nt, nw)`` (else
-        None)."""
+        None).  For a gamma draw the second is the rounds' normals and
+        uniforms, ``(2, GAMMA_ROUNDS, nt, nw)``, and the third None."""
         kw = dict(generator=generator, dtype=like.dtype, device=like.device)
         z = torch.randn((nt, nw, D), **kw)
+        if self.gamma:
+            normals = torch.randn((GAMMA_ROUNDS, nt, nw), **kw)
+            return z, torch.stack(
+                [normals, torch.rand((GAMMA_ROUNDS, nt, nw), **kw)]), None
         k = int(self.df)
         uu = zz = None
         if k // 2:
@@ -143,12 +160,40 @@ class AIMHMove(Move):
         return z, uu, zz
 
     def _chisquare(self, uu, zz, like):
+        if self.gamma:
+            return self._chisquare_gamma(uu)
         u = like.new_zeros(like.shape)
         if uu is not None:
             u = -2.0 * torch.sum(torch.log(uu), dim=-1)
         if zz is not None:
             u = u + zz * zz
         return u
+
+    def _chisquare_gamma(self, draws):
+        """``2 Gamma(df / 2)`` by Marsaglia and Tsang (2000) from the
+        rounds' normals and uniforms: the first round that accepts gives
+        ``d v``; a draw with none is NaN and counts in ``gamma_misses``."""
+        x, u = draws[0], draws[1]
+        d = self.df / 2.0 - 1.0 / 3.0
+        c = 1.0 / np.sqrt(9.0 * d)
+        v = (1.0 + c * x) ** 3
+        ok = (v > 0) & (torch.log(u) < 0.5 * x * x + d - d * v
+                        + d * torch.log(torch.clamp(v, min=1e-30)))
+        first = torch.argmax(ok.to(torch.int8), dim=0, keepdim=True)
+        value = torch.gather(d * v, 0, first)[0]
+        found = ok.any(dim=0)
+        if self.gamma_misses is not None:
+            self.gamma_misses.add_((~found).sum())
+        return torch.where(found, 2.0 * value, torch.nan)
+
+    def check_segment(self):
+        """Raise if a gamma draw of the segments run so far exhausted its
+        rounds (reads the device counter: the segment's end waits)."""
+        if self.gamma_misses is not None and int(self.gamma_misses):
+            raise RuntimeError(
+                f"AIMHMove(df={self.df}): {int(self.gamma_misses)} chi-square "
+                f"draws rejected in all {GAMMA_ROUNDS} rounds of the gamma "
+                "sampler; their proposals were refused.")
 
     def _propose_impl(self, generator, state, ctx, kernel_state=()):
         names = self.run_branches(state)

@@ -58,6 +58,8 @@ class ChEESHMCMove(HMCMove):
     centred coordinates.
     """
 
+    device_counters = ("leapfrog_total",)
+
     def __init__(self, eps=None, max_leapfrog=32, init_num_leapfrog=5,
                  adam_lr=0.025, target_acceptance=0.651, tune_steps=500,
                  **kwargs):

@@ -145,6 +145,9 @@ class Move:
     #: a move written for Eryn's host protocol (see the module); its family
     #: (``_legacy_family``) picks the protocol
     host_move = False
+    #: attributes holding device tensors the step adds to in place (what the
+    #: data needed); the batched runner keeps them per group and sums them
+    device_counters = ()
 
     def __init__(
         self,

@@ -85,8 +85,11 @@ class ReversibleJumpMove(Move):
     is_rj = True
 
     def __init__(self, nleaves_max=None, nleaves_min=None, fix_change=None,
-                 **kwargs):
+                 dr_max_iter=5, **kwargs):
         super().__init__(**kwargs)
+        # Eryn's cap on delayed-rejection stages: accepted, as eryn_tpu's
+        # move takes it, and ignored (no move runs delayed rejection)
+        self.dr_max_iter = int(dr_max_iter)
         if (overrides_host_api(self, "get_proposal")
                 or overrides_host_api(self, "get_model_change_proposal")):
             self.host_move = True

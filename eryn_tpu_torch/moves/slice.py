@@ -42,6 +42,8 @@ class SliceMove(Move):
             walkers into blocks every proposal.
     """
 
+    device_counters = ("loop_iterations",)
+
     def __init__(self, mu=1.0, max_expand=6, max_shrink=16, tune_steps=500,
                  nsplits=2, randomize_split=True, **kwargs):
         super().__init__(**kwargs)
@@ -112,7 +114,10 @@ class SliceMove(Move):
         mu = kernel_state["mu"]
         ne_total = logl.new_zeros(())
         nc_total = logl.new_zeros(())
-        needed = torch.zeros(3, dtype=torch.int64, device=device)
+        # out of place: under the batched runner's map the counts are per
+        # group
+        needed = [torch.zeros((), dtype=torch.int64, device=device)
+                  for _ in range(3)]
 
         sizes = [nwalkers // self.nsplits
                  + (1 if i < nwalkers % self.nsplits else 0)
@@ -205,7 +210,7 @@ class SliceMove(Move):
                 R = L + 1.0
                 ne = logl.new_zeros(())
                 for _ in range(self.max_expand - 1):
-                    needed[0] += ((J > 0) | (K > 0)).any()
+                    needed[0] = needed[0] + ((J > 0) | (K > 0)).any()
                     logP_L = eval_at(L)[0]
                     logP_R = eval_at(R)[0]
                     growL = (J > 0) & (logP_L > y)
@@ -223,7 +228,7 @@ class SliceMove(Move):
                 bl_sel = None if blobs_p is None else blobs_p[:, blk]
                 ncnt = logl.new_zeros(())
                 for it in range(self.max_shrink):
-                    needed[1] += (~done).any()
+                    needed[1] = needed[1] + (~done).any()
                     lam = L + u_shrink[it] * (R - L)
                     logP, ll, lp, bl = eval_at(lam)
                     in_slice = logP > y
@@ -238,7 +243,7 @@ class SliceMove(Move):
                     R = torch.where(shrinkR, lam, R)
                     ncnt = ncnt + (shrinkL | shrinkR).sum().to(dtype)
                     done = done | in_slice
-                needed[2] += 1
+                needed[2] = needed[2] + 1
                 ne_total = ne_total + ne
                 nc_total = nc_total + ncnt
 
@@ -277,7 +282,7 @@ class SliceMove(Move):
         else:
             mu_new = mu
         if self.loop_iterations is not None:
-            self.loop_iterations.add_(needed)
+            self.loop_iterations.add_(torch.stack(needed))
 
         new_state = state.replace(coords=coords, inds=inds, log_like=logl,
                                   log_prior=logp, blobs=blobs)

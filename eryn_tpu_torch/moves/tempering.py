@@ -240,6 +240,11 @@ class TemperatureControl:
     # ------------------------------------------------------------------
     # tempered posterior
     # ------------------------------------------------------------------
+    def __getstate__(self):
+        # the sampler's generator is the sampler's to pickle: it hands it
+        # back on unpickling
+        return {**self.__dict__, "generator": None}
+
     def tempered_likelihood(self, logl, betas=None):
         """``beta * logl`` with the ``beta == 0`` guard, on NumPy arrays or
         tensors (the kind of ``logl``); ``betas`` default to the ladder, and

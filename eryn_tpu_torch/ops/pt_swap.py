@@ -30,7 +30,12 @@ entries share it:
   ensemble that is already relabelled.
 
 Each has a plain PyTorch version (``*_ref``), which CPU tensors take; on a
-CUDA tensor a wrapper launches the kernel or raises.  The launch counters
+CUDA tensor a wrapper launches the kernel or raises.
+:func:`pt_swap_cascade_tree_grouped` runs ``G`` independent ladders in one
+launch (every argument with a leading group axis, ``blockIdx.y`` the group
+in the kernel); inside ``torch.func.vmap`` :func:`pt_swap_cascade_tree`
+reaches it through a custom op (:mod:`~eryn_tpu_torch.ops._grouped`).  The
+launch counters
 belong to the two variants of the kernel: ``pt_swap_cascade_multi.launches``
 counts launches of the cascade modulo ``nwalkers``,
 ``_cascade_multi_rolled.launches`` of the cascade modulo the padded width,
@@ -44,7 +49,7 @@ import math
 
 import torch
 
-from . import _build
+from . import _build, _grouped
 from ._checks import SUFFIX, check_cuda_args
 
 __all__ = [
@@ -56,6 +61,8 @@ __all__ = [
     "pt_swap_cascade_multi_ref",
     "pt_swap_cascade_rolled",
     "pt_swap_cascade_tree",
+    "pt_swap_cascade_tree_grouped",
+    "pt_swap_cascade_tree_grouped_ref",
     "pt_swap_cascade_tree_ref",
 ]
 
@@ -219,16 +226,21 @@ def _chunk_walkers(nwalkers):
 
 def _launch(rolled, logl, betas, dbetas, pi, shifts, raccept, out_logl,
             accepted, sel, table, chunk):
-    """Launch the cascade kernel and count the launch.  ``table`` lists, per
-    leaf, ``(tensor in, tensor out, row bytes, channels)``."""
-    ntemps, nwalkers = logl.shape
+    """Launch the cascade kernel over the groups of ``logl`` ``(G, ntemps,
+    nwalkers)`` (every other array with the same leading group axis) and
+    count the launch.  ``table`` lists, per leaf, ``(tensor in, tensor out,
+    row bytes, channels)``."""
+    ngroups, ntemps, nwalkers = logl.shape
     if ntemps * nwalkers >= 2**31:
         raise ValueError(
             "the swap cascade carries int32 origins and supports fewer than "
             f"2**31 ensemble slots; got {ntemps * nwalkers}.")
+    if ngroups > 65535:
+        raise ValueError(
+            f"the swap cascade takes at most 65535 groups; got {ngroups}.")
     scratch = None
     if _shared_bytes(ntemps, nwalkers, chunk, logl.element_size()) > SHARED_LIMIT:
-        scratch = torch.empty((ntemps, nwalkers), dtype=torch.int32,
+        scratch = torch.empty((ngroups, ntemps, nwalkers), dtype=torch.int32,
                               device=logl.device)
     n = len(table)
     ptr = ctypes.c_void_p * n
@@ -240,14 +252,14 @@ def _launch(rolled, logl, betas, dbetas, pi, shifts, raccept, out_logl,
     name = "_cascade_multi_rolled" if rolled else "pt_swap_cascade_multi"
     _build.launch(
         f"eryn_pt_swap_cascade_{SUFFIX[logl.dtype]}", name, logl.get_device(),
-        "ppppppppppppppiiiiiip",
+        "ppppppppppppppiiiiiiip",
         logl.data_ptr(), address(betas), address(dbetas), address(pi),
         shifts.data_ptr(), raccept.data_ptr(), out_logl.data_ptr(),
         address(accepted), address(sel), address(scratch),
         ptr(*(t[0].data_ptr() for t in table)),
         ptr(*(t[1].data_ptr() for t in table)),
         ints(*(t[2] for t in table)), ints(*(t[3] for t in table)),
-        n, ntemps, nwalkers, chunk, int(rolled), SHARED_LIMIT,
+        n, ngroups, ntemps, nwalkers, chunk, int(rolled), SHARED_LIMIT,
     )
     if rolled:
         _cascade_multi_rolled.launches += 1
@@ -293,34 +305,56 @@ def pt_swap_cascade_tree(logl, leaves, betas, pi, shifts, raccept, out_logl,
         raise ValueError(
             f"pt_swap_cascade_tree: {len(leaves)} leaves but "
             f"{len(out_leaves)} outputs.")
+    if _grouped.batched(logl, leaves, betas, pi, shifts, raccept, out_logl,
+                        out_leaves, accepted, sel):
+        new_logl, new_leaves, new_acc, new_sel = _cascade_tree_op(
+            logl, list(leaves), betas, pi, shifts, raccept, sel is not None)
+        for out, x in zip([out_logl, accepted, *out_leaves],
+                          [new_logl, new_acc, *new_leaves]):
+            out.copy_(x)
+        if sel is not None:
+            sel.copy_(new_sel)
+        return
     if logl.device.type == "cpu":
         return pt_swap_cascade_tree_ref(logl, leaves, betas, pi, shifts,
                                         raccept, out_logl, out_leaves,
                                         accepted, sel)
-    ntemps, nwalkers = logl.shape
-    more = {} if sel is None else {"sel": (sel, (ntemps - 1, nwalkers))}
+    _tree_launch(logl[None], [x[None] for x in leaves], betas[None], pi[None],
+                 shifts[None], raccept[None], out_logl[None],
+                 [x[None] for x in out_leaves], accepted[None],
+                 None if sel is None else sel[None], chunk)
+
+
+def _tree_launch(logl, leaves, betas, pi, shifts, raccept, out_logl,
+                 out_leaves, accepted, sel, chunk):
+    """Check the arguments of a grouped tree cascade (every one with a
+    leading group axis) and launch it, once per group of at most
+    :data:`MAX_LEAVES` leaves."""
+    G, ntemps, nwalkers = logl.shape
+    more = {} if sel is None else {"sel": (sel, (G, ntemps - 1, nwalkers))}
     for k, (leaf, out) in enumerate(zip(leaves, out_leaves)):
         more[f"leaves[{k}]"] = (leaf, leaf.shape, leaf.dtype)
         more[f"out_leaves[{k}]"] = (out, leaf.shape, leaf.dtype)
     check_cuda_args(
         "pt_swap_cascade_tree", logl.dtype, logl.device,
-        logl=(logl, (ntemps, nwalkers)), betas=(betas, (ntemps,)),
-        pi=(pi, (nwalkers,), torch.int64), i_shifts=(shifts, (ntemps - 1,)),
-        raccept=(raccept, (ntemps - 1, nwalkers)),
-        out_logl=(out_logl, (ntemps, nwalkers)),
-        accepted=(accepted, (ntemps - 1,)), **more,
+        logl=(logl, (G, ntemps, nwalkers)), betas=(betas, (G, ntemps)),
+        pi=(pi, (G, nwalkers), torch.int64),
+        i_shifts=(shifts, (G, ntemps - 1)),
+        raccept=(raccept, (G, ntemps - 1, nwalkers)),
+        out_logl=(out_logl, (G, ntemps, nwalkers)),
+        accepted=(accepted, (G, ntemps - 1)), **more,
     )
     table = []
     for k, (leaf, out) in enumerate(zip(leaves, out_leaves)):
-        if leaf.shape[:2] != (ntemps, nwalkers):
+        if leaf.shape[:3] != (G, ntemps, nwalkers):
             raise ValueError(
                 f"pt_swap_cascade_tree: leaves[{k}] has shape "
-                f"{tuple(leaf.shape)}, expected leading dims "
+                f"{tuple(leaf.shape[1:])}, expected leading dims "
                 f"{(ntemps, nwalkers)}.")
         if leaf.data_ptr() == out.data_ptr():
             raise ValueError(
                 f"pt_swap_cascade_tree: out_leaves[{k}] overlaps its input.")
-        row_bytes = math.prod(leaf.shape[2:]) * leaf.element_size()
+        row_bytes = math.prod(leaf.shape[3:]) * leaf.element_size()
         if ntemps * nwalkers * row_bytes >= 2**31:
             raise ValueError(
                 f"pt_swap_cascade_tree: leaves[{k}] holds 2**31 bytes or "
@@ -341,6 +375,72 @@ def pt_swap_cascade_tree(logl, leaves, betas, pi, shifts, raccept, out_logl,
                     torch.empty_like(out_logl), None, None, group, chunk)
 
 
+def pt_swap_cascade_tree_grouped_ref(logl, leaves, betas, pi, shifts,
+                                     raccept, out_logl, out_leaves, accepted,
+                                     sel=None):
+    """Plain version of :func:`pt_swap_cascade_tree_grouped`: the plain
+    version of each group in turn."""
+    for g in range(logl.shape[0]):
+        pt_swap_cascade_tree_ref(
+            logl[g], [x[g] for x in leaves], betas[g], pi[g], shifts[g],
+            raccept[g], out_logl[g], [x[g] for x in out_leaves], accepted[g],
+            None if sel is None else sel[g])
+
+
+def pt_swap_cascade_tree_grouped(logl, leaves, betas, pi, shifts, raccept,
+                                 out_logl, out_leaves, accepted, sel=None,
+                                 chunk=None):
+    """:func:`pt_swap_cascade_tree` of ``G`` independent ladders in one
+    launch: ``logl`` ``(G, ntemps, nwalkers)``, each leaf ``(G, ntemps,
+    nwalkers, ...)``, ``betas`` ``(G, ntemps)``, ``pi`` ``(G, nwalkers)``,
+    ``shifts`` ``(G, ntemps - 1)``, ``raccept`` ``(G, ntemps - 1,
+    nwalkers)``, and the outputs likewise (``accepted`` ``(G, ntemps -
+    1)``).  Group ``g`` computes what the ungrouped call computes on the
+    ``g``-th entries; CPU tensors take the plain version."""
+    if logl.device.type == "cpu":
+        return pt_swap_cascade_tree_grouped_ref(
+            logl, leaves, betas, pi, shifts, raccept, out_logl, out_leaves,
+            accepted, sel)
+    _tree_launch(logl, list(leaves), betas, pi, shifts, raccept, out_logl,
+                 list(out_leaves), accepted, sel, chunk)
+
+
+Tensor = torch.Tensor
+
+
+@torch.library.custom_op("eryn_tpu_torch::pt_swap_cascade_tree",
+                         mutates_args=())
+def _cascade_tree_op(logl: Tensor, leaves: list[Tensor], betas: Tensor,
+                     pi: Tensor, shifts: Tensor, raccept: Tensor,
+                     with_sel: bool,
+                     ) -> tuple[Tensor, list[Tensor], Tensor, Tensor]:
+    out_logl = torch.empty_like(logl)
+    out_leaves = [torch.empty_like(x) for x in leaves]
+    accepted = logl.new_empty((logl.shape[0] - 1,))
+    sel = torch.empty_like(raccept)
+    pt_swap_cascade_tree(logl, leaves, betas, pi, shifts, raccept, out_logl,
+                         out_leaves, accepted, sel if with_sel else None)
+    return out_logl, out_leaves, accepted, sel
+
+
+@_cascade_tree_op.register_vmap
+def _(info, in_dims, logl, leaves, betas, pi, shifts, raccept, with_sel):
+    logl, betas, pi, shifts, raccept = (
+        _grouped.leading(info, x, d) for x, d in zip(
+            (logl, betas, pi, shifts, raccept),
+            (in_dims[0], *in_dims[2:6])))
+    leaves = _grouped.leading_all(info, leaves, in_dims[1])
+    out_logl = torch.empty_like(logl)
+    out_leaves = [torch.empty_like(x) for x in leaves]
+    accepted = logl.new_empty((logl.shape[0], logl.shape[1] - 1))
+    sel = torch.empty_like(raccept)
+    pt_swap_cascade_tree_grouped(logl, leaves, betas, pi, shifts, raccept,
+                                 out_logl, out_leaves, accepted,
+                                 sel if with_sel else None)
+    return ((out_logl, out_leaves, accepted, sel),
+            (0, [0] * len(out_leaves), 0, 0))
+
+
 def _launch_channels(name, rolled, logl, channels, dbetas, shifts, raccept):
     """Check the arguments of a channel-form cascade, allocate its outputs
     and launch."""
@@ -357,8 +457,9 @@ def _launch_channels(name, rolled, logl, channels, dbetas, shifts, raccept):
     out_c = torch.empty_like(channels)
     sel = torch.empty_like(raccept)
     table = [(channels, out_c, channels.element_size(), D)] if D else []
-    _launch(rolled, logl, None, dbetas, None, shifts, raccept, out_l, None,
-            sel, table, _chunk_walkers(nwalkers))
+    _launch(rolled, logl[None], None, dbetas[None], None, shifts[None],
+            raccept[None], out_l[None], None, sel[None], table,
+            _chunk_walkers(nwalkers))
     return out_l, out_c, sel
 
 

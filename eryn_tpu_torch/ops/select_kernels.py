@@ -20,22 +20,33 @@ bit counts in shared memory, a pick a search over the prefixes and the
   (running counts, queries, a zeroed payload).
 
 Each takes its plain version only for tensors on the CPU.
+
+:func:`group_stretch_propose_grouped` is the proposal of ``G`` independent
+ensembles in one launch.  Every input of the kernel is per temperature row
+but the per-leaf dimensions and the periods, which are the move's and the
+same for every group; so ``G`` groups of ``nt`` temperatures are ``G * nt``
+rows of the same launch, and only the wrapper changes.  Inside
+``torch.func.vmap`` :func:`group_stretch_propose` reaches it through a
+custom op (:mod:`~eryn_tpu_torch.ops._grouped`).
 """
 
 from __future__ import annotations
 
 import ctypes
 import math
+from typing import Optional
 
 import torch
 
 from ..utils.periodic import wrap_coords, wrap_distance
-from . import _build
+from . import _build, _grouped
 from ._checks import SUFFIX, check_cuda_args
 
 __all__ = [
     "MAX_BRANCHES",
     "group_stretch_propose",
+    "group_stretch_propose_grouped",
+    "group_stretch_propose_grouped_ref",
     "group_stretch_propose_ref",
     "onehot_select",
     "onehot_select_ref",
@@ -255,6 +266,10 @@ def group_stretch_propose(s, s_inds, c, c_inds, u, uu, skip=(0, 0), a=2.0,
     """
     names = list(s)
     first = s[names[0]]
+    if _grouped.batched(u, *(list(x.values())
+                             for x in (s, s_inds, c, c_inds, uu))):
+        return _grouped_call(s, s_inds, c, c_inds, u, uu, skip, a,
+                             log_proposal, per_leaf, periods)
     if first.device.type == "cpu":
         return group_stretch_propose_ref(s, s_inds, c, c_inds, u, uu, skip, a,
                                          log_proposal, per_leaf, periods)
@@ -323,3 +338,107 @@ def group_stretch_propose(s, s_inds, c, c_inds, u, uu, skip=(0, 0), a=2.0,
 
 
 group_stretch_propose.launches = 0
+
+
+def group_stretch_propose_grouped_ref(s, s_inds, c, c_inds, u, uu,
+                                      skip=(0, 0), a=2.0, log_proposal=False,
+                                      per_leaf=None, periods=None):
+    """Plain version of :func:`group_stretch_propose_grouped`: the plain
+    version of each group in turn."""
+    names = list(s)
+    parts = [
+        group_stretch_propose_ref(
+            *({n: x[n][g] for n in names} for x in (s, s_inds, c, c_inds)),
+            u[g], {n: uu[n][g] for n in names}, skip, a, log_proposal,
+            per_leaf, periods)
+        for g in range(u.shape[0])
+    ]
+    return ({n: torch.stack([q[n] for q, _ in parts]) for n in names},
+            torch.stack([f for _, f in parts]))
+
+
+def group_stretch_propose_grouped(s, s_inds, c, c_inds, u, uu, skip=(0, 0),
+                                  a=2.0, log_proposal=False, per_leaf=None,
+                                  periods=None):
+    """:func:`group_stretch_propose` of ``G`` groups in one launch: every
+    tensor of ``s``, ``s_inds``, ``c``, ``c_inds``, ``uu`` and ``u`` with a
+    leading group axis (``s`` and ``s_inds`` a block of walkers of a
+    contiguous tensor, or contiguous), ``per_leaf`` and ``periods`` shared
+    by the groups.  The ``G * nt`` rows are one launch of the kernel."""
+    names = list(s)
+    if u.device.type == "cpu":
+        return group_stretch_propose_grouped_ref(
+            s, s_inds, c, c_inds, u, uu, skip, a, log_proposal, per_leaf,
+            periods)
+    G, nt = u.shape[:2]
+
+    def rows(x):
+        return {n: x[n].reshape((G * nt,) + tuple(x[n].shape[2:]))
+                for n in names}
+
+    q, factors = group_stretch_propose(
+        rows(s), rows(s_inds), rows(c), rows(c_inds),
+        u.reshape((G * nt,) + tuple(u.shape[2:])), rows(uu), skip, a,
+        log_proposal, per_leaf, periods)
+    return ({n: q[n].reshape((G, nt) + tuple(q[n].shape[1:])) for n in names},
+            factors.reshape(G, nt, -1))
+
+
+def _grouped_call(s, s_inds, c, c_inds, u, uu, skip, a, log_proposal,
+                  per_leaf, periods):
+    """Call the custom op of the proposal on the branches' lists."""
+    names = list(s)
+
+    def opt(table):
+        return [None if table is None else table.get(n) for n in names]
+
+    *q, factors = _group_stretch_op(
+        *([x[n] for n in names] for x in (s, s_inds, c, c_inds)), u,
+        [uu[n] for n in names], list(skip), float(a), bool(log_proposal),
+        opt(per_leaf), opt(periods))
+    return dict(zip(names, q)), factors
+
+
+Tensor = torch.Tensor
+
+
+def _as_tables(names, per_leaf, periods):
+    def table(xs):
+        return None if all(x is None for x in xs) else dict(zip(names, xs))
+
+    return table(per_leaf), table(periods)
+
+
+@torch.library.custom_op("eryn_tpu_torch::group_stretch_propose",
+                         mutates_args=())
+def _group_stretch_op(
+        s: list[Tensor], s_inds: list[Tensor], c: list[Tensor],
+        c_inds: list[Tensor], u: Tensor, uu: list[Tensor], skip: list[int],
+        a: float, log_proposal: bool, per_leaf: list[Optional[Tensor]],
+        periods: list[Optional[Tensor]]) -> list[Tensor]:
+    names = [str(k) for k in range(len(s))]
+    q, factors = group_stretch_propose(
+        *(dict(zip(names, x)) for x in (s, s_inds, c, c_inds)), u,
+        dict(zip(names, uu)), tuple(skip), a, log_proposal,
+        *_as_tables(names, per_leaf, periods))
+    return [q[n] for n in names] + [factors]
+
+
+@_group_stretch_op.register_vmap
+def _(info, in_dims, s, s_inds, c, c_inds, u, uu, skip, a, log_proposal,
+      per_leaf, periods):
+    if any(d is not None for d in (in_dims[9] or []) + (in_dims[10] or [])):
+        raise ValueError(
+            "group_stretch_propose under vmap: the per-leaf dimensions and "
+            "the periods are the move's, shared by every group.")
+    names = [str(k) for k in range(len(s))]
+
+    def lead(xs, dims):
+        return dict(zip(names, _grouped.leading_all(info, xs, dims)))
+
+    q, factors = group_stretch_propose_grouped(
+        lead(s, in_dims[0]), lead(s_inds, in_dims[1]), lead(c, in_dims[2]),
+        lead(c_inds, in_dims[3]), _grouped.leading(info, u, in_dims[4]),
+        lead(uu, in_dims[5]), tuple(skip), a, log_proposal,
+        *_as_tables(names, per_leaf, periods))
+    return [q[n] for n in names] + [factors], [0] * (len(names) + 1)

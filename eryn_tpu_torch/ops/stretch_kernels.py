@@ -18,6 +18,13 @@ a CUDA tensor it launches the kernel or raises.  :func:`stretch_propose_block`
 and :func:`stretch_accept_block` are the JAX kernels' arithmetic on
 contiguous half blocks, which the plain versions call between a gather by
 ``perm`` and a scatter back to walker order.
+
+Groups: each entry has a grouped form (``*_grouped``, plain version
+``*_grouped_ref``) over ``G`` independent ensembles, every argument with a
+leading group axis (``perm`` ``(G, nw)``, ``u_all`` ``(G, 2, 3, nt, nw)``,
+``betas`` ``(G, nt)``, ...), one launch of ``G * nt`` blocks.  Inside
+``torch.func.vmap`` the wrappers reach it through the custom ops of
+:mod:`~eryn_tpu_torch.ops._grouped`.
 """
 
 from __future__ import annotations
@@ -26,17 +33,23 @@ import math
 
 import torch
 
-from . import _build
+from . import _build, _grouped
 from ._checks import SUFFIX, check_cuda_args
 
 __all__ = [
     "stretch_accept",
     "stretch_accept_block",
+    "stretch_accept_grouped",
+    "stretch_accept_grouped_ref",
     "stretch_accept_propose",
+    "stretch_accept_propose_grouped",
+    "stretch_accept_propose_grouped_ref",
     "stretch_accept_propose_ref",
     "stretch_accept_ref",
     "stretch_propose",
     "stretch_propose_block",
+    "stretch_propose_grouped",
+    "stretch_propose_grouped_ref",
     "stretch_propose_ref",
 ]
 
@@ -187,48 +200,66 @@ def stretch_propose(X, C, ndim_act, perm, u_all, half, a=2.0,
     Returns:
         ``(q (nt, ns, D), factors (nt, ns))`` in the half's order.
     """
+    if _grouped.batched(X, C, ndim_act, perm, u_all):
+        return _stretch_propose_op(X, C, ndim_act, perm, u_all, half,
+                                   float(a), bool(log_proposal))
     if X.device.type == "cpu":
         return stretch_propose_ref(X, C, ndim_act, perm, u_all, half, a,
                                    log_proposal)
-    nt, nw, D = X.shape
-    ns = _half_size(nw, half)
-    check_cuda_args(
-        "stretch_propose", X.dtype, X.device,
-        X=(X, (nt, nw, D)), C=(C, (nt, nw, D)), ndim_act=(ndim_act, (nt, nw)),
-        perm=(perm, (nw,), torch.int64), u_all=(u_all, (2, 3, nt, nw)),
-    )
-    q = torch.empty((nt, ns, D), dtype=X.dtype, device=X.device)
-    fac = torch.empty((nt, ns), dtype=X.dtype, device=X.device)
-    _launch(
-        "stretch_propose", X, "pppppppiiiidip",
-        X.data_ptr(), C.data_ptr(), ndim_act.data_ptr(), perm.data_ptr(),
-        u_all.data_ptr(), q.data_ptr(), fac.data_ptr(), nt, nw, D, half,
-        float(a), int(bool(log_proposal)),
-    )
-    stretch_propose.launches += 1
-    return q, fac
+    return _propose_launch(X[None], C[None], ndim_act[None], perm[None],
+                           u_all[None], half, a, log_proposal, squeeze=True)
 
 
 stretch_propose.launches = 0
 
 
+def _propose_launch(X, C, ndim_act, perm, u_all, half, a, log_proposal,
+                    squeeze=False):
+    """One launch of the proposal over the groups of ``X`` ``(G, nt, nw,
+    D)``; ``squeeze`` drops the group axis of the results."""
+    G, nt, nw, D = X.shape
+    ns = _half_size(nw, half)
+    check_cuda_args(
+        "stretch_propose", X.dtype, X.device,
+        X=(X, (G, nt, nw, D)), C=(C, (G, nt, nw, D)),
+        ndim_act=(ndim_act, (G, nt, nw)), perm=(perm, (G, nw), torch.int64),
+        u_all=(u_all, (G, 2, 3, nt, nw)),
+    )
+    q = torch.empty((G, nt, ns, D), dtype=X.dtype, device=X.device)
+    fac = torch.empty((G, nt, ns), dtype=X.dtype, device=X.device)
+    _launch(
+        "stretch_propose", X, "pppppppiiiiidip",
+        X.data_ptr(), C.data_ptr(), ndim_act.data_ptr(), perm.data_ptr(),
+        u_all.data_ptr(), q.data_ptr(), fac.data_ptr(), G, nt, nw, D, half,
+        float(a), int(bool(log_proposal)),
+    )
+    stretch_propose.launches += 1
+    return (q[0], fac[0]) if squeeze else (q, fac)
+
+
 def _check_accept(name, ins, half, outs, **more):
-    """Check the inputs and outputs of an accept; returns ``(nt, nw, D)``."""
+    """Check the inputs and outputs of an accept, each with a leading group
+    axis; returns ``(G, nt, nw, D)``."""
     q, X, ll_new, lp_new, logl, logp, factors, betas, perm, u_all = ins
     X_out, logl_out, logp_out, acc_out = outs
-    nt, nw, D = X.shape
+    G, nt, nw, D = X.shape
     ns = _half_size(nw, half)
-    blk, state = (nt, ns), (nt, nw)
+    blk, state = (G, nt, ns), (G, nt, nw)
     check_cuda_args(
         name, X.dtype, X.device,
-        q=(q, (nt, ns, D)), X=(X, (nt, nw, D)), ll_new=(ll_new, blk),
+        q=(q, (G, nt, ns, D)), X=(X, (G, nt, nw, D)), ll_new=(ll_new, blk),
         lp_new=(lp_new, blk), logl=(logl, state), logp=(logp, state),
-        factors=(factors, blk), betas=(betas, (nt,)),
-        perm=(perm, (nw,), torch.int64), u_all=(u_all, (2, 3, nt, nw)),
-        X_out=(X_out, (nt, nw, D)), logl_out=(logl_out, state),
+        factors=(factors, blk), betas=(betas, (G, nt)),
+        perm=(perm, (G, nw), torch.int64), u_all=(u_all, (G, 2, 3, nt, nw)),
+        X_out=(X_out, (G, nt, nw, D)), logl_out=(logl_out, state),
         logp_out=(logp_out, state), acc_out=(acc_out, state), **more,
     )
-    return nt, nw, D
+    return G, nt, nw, D
+
+
+def _lift(tensors):
+    """A leading group axis of one on each tensor (a view)."""
+    return tuple(t[None] for t in tensors)
 
 
 def stretch_accept(q, X, ll_new, lp_new, logl, logp, factors, betas, perm,
@@ -249,17 +280,26 @@ def stretch_accept(q, X, ll_new, lp_new, logl, logp, factors, betas, perm,
     """
     ins = (q, X, ll_new, lp_new, logl, logp, factors, betas, perm, u_all)
     outs = (X_out, logl_out, logp_out, acc_out)
+    if _grouped.batched(*ins, *outs):
+        for out, new in zip(outs, _stretch_accept_op(*ins, half, *outs)):
+            out.copy_(new)
+        return
     if X.device.type == "cpu":
         return stretch_accept_ref(*ins, half, *outs)
-    nt, nw, D = _check_accept("stretch_accept", ins, half, outs)
-    _launch(
-        "stretch_accept", X, "ppppppppppppppiiiip",
-        *(t.data_ptr() for t in ins + outs), nt, nw, D, half,
-    )
-    stretch_accept.launches += 1
+    _accept_launch(_lift(ins), half, _lift(outs))
 
 
 stretch_accept.launches = 0
+
+
+def _accept_launch(ins, half, outs):
+    """One launch of the accept over the groups of ``ins`` and ``outs``."""
+    G, nt, nw, D = _check_accept("stretch_accept", ins, half, outs)
+    _launch(
+        "stretch_accept", ins[1], "ppppppppppppppiiiiip",
+        *(t.data_ptr() for t in ins + outs), G, nt, nw, D, half,
+    )
+    stretch_accept.launches += 1
 
 
 def stretch_accept_propose(q, X, ll_new, lp_new, logl, logp, factors, betas,
@@ -273,23 +313,186 @@ def stretch_accept_propose(q, X, ll_new, lp_new, logl, logp, factors, betas,
     """
     ins = (q, X, ll_new, lp_new, logl, logp, factors, betas, perm, u_all)
     outs = (X_out, logl_out, logp_out, acc_out)
+    if _grouped.batched(*ins, ndim_act, *outs):
+        *new, q1, fac1 = _stretch_accept_propose_op(
+            *ins, ndim_act, *outs, float(a), bool(log_proposal))
+        for out, x in zip(outs, new):
+            out.copy_(x)
+        return q1, fac1
     if X.device.type == "cpu":
         return stretch_accept_propose_ref(
             *ins[:8], ndim_act, perm, u_all, *outs, a, log_proposal,
         )
-    nt, nw, D = X.shape
+    q1, fac1 = _accept_propose_launch(_lift(ins), ndim_act[None],
+                                      _lift(outs), a, log_proposal)
+    return q1[0], fac1[0]
+
+
+stretch_accept_propose.launches = 0
+
+
+def _accept_propose_launch(ins, ndim_act, outs, a, log_proposal):
+    """One launch of the fused accept and proposal over the groups."""
+    G, nt, nw, D = ins[1].shape
     _check_accept("stretch_accept_propose", ins, 0, outs,
-                  ndim_act=(ndim_act, (nt, nw)))
-    q1 = torch.empty((nt, nw // 2, D), dtype=X.dtype, device=X.device)
-    fac1 = torch.empty((nt, nw // 2), dtype=X.dtype, device=X.device)
+                  ndim_act=(ndim_act, (G, nt, nw)))
+    X = ins[1]
+    q1 = torch.empty((G, nt, nw // 2, D), dtype=X.dtype, device=X.device)
+    fac1 = torch.empty((G, nt, nw // 2), dtype=X.dtype, device=X.device)
     _launch(
-        "stretch_accept_propose", X, "pppppppppppppppppiiidip",
-        *(t.data_ptr() for t in (*ins[:8], ndim_act, perm, u_all, *outs, q1,
+        "stretch_accept_propose", X, "pppppppppppppppppiiiidip",
+        *(t.data_ptr() for t in (*ins[:8], ndim_act, *ins[8:], *outs, q1,
                                  fac1)),
-        nt, nw, D, float(a), int(bool(log_proposal)),
+        G, nt, nw, D, float(a), int(bool(log_proposal)),
     )
     stretch_accept_propose.launches += 1
     return q1, fac1
 
 
-stretch_accept_propose.launches = 0
+# ----------------------------------------------------------------------
+# grouped entries: G ensembles in one launch, every argument with a
+# leading group axis
+# ----------------------------------------------------------------------
+def stretch_propose_grouped_ref(X, C, ndim_act, perm, u_all, half, a=2.0,
+                                log_proposal=False):
+    """Plain version of :func:`stretch_propose_grouped`: the plain version
+    of each group in turn."""
+    parts = [stretch_propose_ref(X[g], C[g], ndim_act[g], perm[g], u_all[g],
+                                 half, a, log_proposal)
+             for g in range(X.shape[0])]
+    return (torch.stack([p[0] for p in parts]),
+            torch.stack([p[1] for p in parts]))
+
+
+def stretch_propose_grouped(X, C, ndim_act, perm, u_all, half, a=2.0,
+                            log_proposal=False):
+    """:func:`stretch_propose` of ``G`` groups in one launch: ``X``, ``C``
+    ``(G, nt, nw, D)``, ``ndim_act`` ``(G, nt, nw)``, ``perm`` ``(G, nw)``,
+    ``u_all`` ``(G, 2, 3, nt, nw)``; returns ``(q (G, nt, ns, D), factors
+    (G, nt, ns))``.  CPU tensors take the plain version."""
+    if X.device.type == "cpu":
+        return stretch_propose_grouped_ref(X, C, ndim_act, perm, u_all, half,
+                                           a, log_proposal)
+    return _propose_launch(X, C, ndim_act, perm, u_all, half, a, log_proposal)
+
+
+def stretch_accept_grouped_ref(q, X, ll_new, lp_new, logl, logp, factors,
+                               betas, perm, u_all, half, X_out, logl_out,
+                               logp_out, acc_out):
+    """Plain version of :func:`stretch_accept_grouped`."""
+    for g in range(X.shape[0]):
+        stretch_accept_ref(q[g], X[g], ll_new[g], lp_new[g], logl[g], logp[g],
+                           factors[g], betas[g], perm[g], u_all[g], half,
+                           X_out[g], logl_out[g], logp_out[g], acc_out[g])
+
+
+def stretch_accept_grouped(q, X, ll_new, lp_new, logl, logp, factors, betas,
+                           perm, u_all, half, X_out, logl_out, logp_out,
+                           acc_out):
+    """:func:`stretch_accept` of ``G`` groups in one launch, every argument
+    with a leading group axis (``betas`` ``(G, nt)``)."""
+    ins = (q, X, ll_new, lp_new, logl, logp, factors, betas, perm, u_all)
+    outs = (X_out, logl_out, logp_out, acc_out)
+    if X.device.type == "cpu":
+        return stretch_accept_grouped_ref(*ins, half, *outs)
+    _accept_launch(ins, half, outs)
+
+
+def stretch_accept_propose_grouped_ref(q, X, ll_new, lp_new, logl, logp,
+                                       factors, betas, ndim_act, perm, u_all,
+                                       X_out, logl_out, logp_out, acc_out,
+                                       a=2.0, log_proposal=False):
+    """Plain version of :func:`stretch_accept_propose_grouped`."""
+    stretch_accept_grouped_ref(q, X, ll_new, lp_new, logl, logp, factors,
+                               betas, perm, u_all, 0, X_out, logl_out,
+                               logp_out, acc_out)
+    return stretch_propose_grouped_ref(X, X_out, ndim_act, perm, u_all, 1, a,
+                                       log_proposal)
+
+
+def stretch_accept_propose_grouped(q, X, ll_new, lp_new, logl, logp, factors,
+                                   betas, ndim_act, perm, u_all, X_out,
+                                   logl_out, logp_out, acc_out, a=2.0,
+                                   log_proposal=False):
+    """:func:`stretch_accept_propose` of ``G`` groups in one launch, every
+    argument with a leading group axis; returns half 1's ``(q, factors)``
+    ``(G, nt, nw // 2, D)`` and ``(G, nt, nw // 2)``."""
+    ins = (q, X, ll_new, lp_new, logl, logp, factors, betas, perm, u_all)
+    outs = (X_out, logl_out, logp_out, acc_out)
+    if X.device.type == "cpu":
+        return stretch_accept_propose_grouped_ref(
+            *ins[:8], ndim_act, perm, u_all, *outs, a, log_proposal)
+    return _accept_propose_launch(ins, ndim_act, outs, a, log_proposal)
+
+
+# ----------------------------------------------------------------------
+# the custom ops the wrappers call inside torch.func.vmap
+# ----------------------------------------------------------------------
+Tensor = torch.Tensor
+
+
+@torch.library.custom_op("eryn_tpu_torch::stretch_propose", mutates_args=())
+def _stretch_propose_op(X: Tensor, C: Tensor, ndim_act: Tensor, perm: Tensor,
+                        u_all: Tensor, half: int, a: float,
+                        log_proposal: bool) -> tuple[Tensor, Tensor]:
+    return stretch_propose(X, C, ndim_act, perm, u_all, half, a,
+                           log_proposal)
+
+
+@_stretch_propose_op.register_vmap
+def _(info, in_dims, X, C, ndim_act, perm, u_all, half, a, log_proposal):
+    args = [_grouped.leading(info, x, d)
+            for x, d in zip((X, C, ndim_act, perm, u_all), in_dims)]
+    return stretch_propose_grouped(*args, half, a, log_proposal), (0, 0)
+
+
+@torch.library.custom_op("eryn_tpu_torch::stretch_accept", mutates_args=())
+def _stretch_accept_op(
+        q: Tensor, X: Tensor, ll_new: Tensor, lp_new: Tensor, logl: Tensor,
+        logp: Tensor, factors: Tensor, betas: Tensor, perm: Tensor,
+        u_all: Tensor, half: int, X_out: Tensor, logl_out: Tensor,
+        logp_out: Tensor, acc_out: Tensor,
+) -> tuple[Tensor, Tensor, Tensor, Tensor]:
+    outs = tuple(t.clone() for t in (X_out, logl_out, logp_out, acc_out))
+    stretch_accept(q, X, ll_new, lp_new, logl, logp, factors, betas, perm,
+                   u_all, half, *outs)
+    return outs
+
+
+@_stretch_accept_op.register_vmap
+def _(info, in_dims, q, X, ll_new, lp_new, logl, logp, factors, betas, perm,
+      u_all, half, X_out, logl_out, logp_out, acc_out):
+    ins = [_grouped.leading(info, x, d) for x, d in zip(
+        (q, X, ll_new, lp_new, logl, logp, factors, betas, perm, u_all),
+        in_dims[:10])]
+    outs = [_grouped.leading(info, x, d).clone() for x, d in zip(
+        (X_out, logl_out, logp_out, acc_out), in_dims[11:])]
+    stretch_accept_grouped(*ins, half, *outs)
+    return tuple(outs), (0, 0, 0, 0)
+
+
+@torch.library.custom_op("eryn_tpu_torch::stretch_accept_propose",
+                         mutates_args=())
+def _stretch_accept_propose_op(
+        q: Tensor, X: Tensor, ll_new: Tensor, lp_new: Tensor, logl: Tensor,
+        logp: Tensor, factors: Tensor, betas: Tensor, perm: Tensor,
+        u_all: Tensor, ndim_act: Tensor, X_out: Tensor, logl_out: Tensor,
+        logp_out: Tensor, acc_out: Tensor, a: float, log_proposal: bool,
+) -> tuple[Tensor, Tensor, Tensor, Tensor, Tensor, Tensor]:
+    outs = tuple(t.clone() for t in (X_out, logl_out, logp_out, acc_out))
+    return (*outs, *stretch_accept_propose(
+        q, X, ll_new, lp_new, logl, logp, factors, betas, ndim_act, perm,
+        u_all, *outs, a, log_proposal))
+
+
+@_stretch_accept_propose_op.register_vmap
+def _(info, in_dims, q, X, ll_new, lp_new, logl, logp, factors, betas, perm,
+      u_all, ndim_act, X_out, logl_out, logp_out, acc_out, a, log_proposal):
+    ins = [_grouped.leading(info, x, d) for x, d in zip(
+        (q, X, ll_new, lp_new, logl, logp, factors, betas, perm, u_all,
+         ndim_act), in_dims[:11])]
+    outs = [_grouped.leading(info, x, d).clone() for x, d in zip(
+        (X_out, logl_out, logp_out, acc_out), in_dims[11:15])]
+    q1, fac1 = stretch_accept_propose_grouped(
+        *ins[:8], ins[10], ins[8], ins[9], *outs, a, log_proposal)
+    return (*outs, q1, fac1), (0,) * 6

@@ -19,7 +19,8 @@ import copy as _copy
 import numpy as np
 import torch
 
-__all__ = ["Branch", "BranchSupplemental", "State", "resolve_device"]
+__all__ = ["Branch", "BranchSupplemental", "ParaState", "State",
+           "resolve_device"]
 
 
 def resolve_device(device):
@@ -530,3 +531,67 @@ class State:
     def __repr__(self):
         shapes = {n: b.shape for n, b in self.branches.items()}
         return f"State(branches={shapes})"
+
+
+class ParaState(State):
+    """State of ``ngroups`` independent ensembles
+    (:class:`~eryn_tpu_torch.parallel.ParaEnsembleSampler`), port of
+    :class:`eryn_tpu.state.ParaState`.
+
+    Group-batched 5-D coordinates ``(ngroups, ntemps, nwalkers,
+    nleaves_max, ndim)`` are stored with the group and temperature axes
+    folded together (a leading ``ngroups * ntemps``), as are 4-D leaf masks,
+    3-D ``log_like`` and ``log_prior`` and 2-D ``betas``; input that is
+    already folded passes through as it is.  ``ngroups`` is kept for
+    :meth:`group_view`, and ``groups_running`` is the ``(ngroups,)`` bool
+    mask of the groups a run advanced.
+    """
+
+    def __init__(self, coords, groups_running=None, ngroups=None, **kwargs):
+        if isinstance(coords, dict):
+            first = next(iter(coords.values()))
+            arr = first.coords if isinstance(first, Branch) else _as_tensor(first)
+            if arr.ndim == 5:
+                ngroups = arr.shape[0] if ngroups is None else ngroups
+                coords = {n: _fold(c) for n, c in coords.items()}
+                if kwargs.get("inds") is not None:
+                    kwargs["inds"] = {
+                        n: _fold(v) if _as_tensor(v).ndim == 4 else _as_tensor(v)
+                        for n, v in kwargs["inds"].items()
+                    }
+                for field in ("log_like", "log_prior"):
+                    if kwargs.get(field) is not None:
+                        x = _as_tensor(kwargs[field])
+                        kwargs[field] = _fold(x) if x.ndim == 3 else x
+                if kwargs.get("betas") is not None:
+                    b = _as_tensor(kwargs["betas"])
+                    if b.ndim == 2:
+                        kwargs["betas"] = b.reshape(-1)
+        super().__init__(coords, **kwargs)
+        self.ngroups = ngroups
+        self.groups_running = (None if groups_running is None
+                               else _as_tensor(groups_running))
+
+    def group_view(self, field_dict):
+        """Unfold ``(ngroups * ntemps, ...)`` tensors of a (nested) dict back
+        to ``(ngroups, ntemps, ...)``."""
+        if self.ngroups is None:
+            return field_dict
+        ng = self.ngroups
+
+        def unfold(x):
+            if isinstance(x, dict):
+                return {k: unfold(v) for k, v in x.items()}
+            return x.reshape((ng, x.shape[0] // ng) + tuple(x.shape[1:]))
+
+        return unfold(field_dict)
+
+    def __repr__(self):
+        shapes = {n: b.shape for n, b in self.branches.items()}
+        return f"ParaState(ngroups={self.ngroups}, branches={shapes})"
+
+
+def _fold(x):
+    """The two leading axes of ``x`` as one."""
+    x = _as_tensor(x)
+    return x.reshape((x.shape[0] * x.shape[1],) + tuple(x.shape[2:]))

@@ -1158,3 +1158,236 @@ def test_hybrid_run_graphed_equals_eager(cuda):
     for key in runs[False]:
         np.testing.assert_array_equal(runs[True][key], runs[False][key],
                                       err_msg=key)
+
+
+# ----------------------------------------------------------------------
+# groups: the kernels with a leading group axis, under torch.func.vmap,
+# and the batched runner graphed against its eager loop
+# ----------------------------------------------------------------------
+def _grouped_stretch(dtype, G, nt, nw, D):
+    """``G`` stretch states of :func:`_stretch_state` stacked on a leading
+    group axis, each group's draws its own."""
+    parts = [_stretch_state(dtype, nt, nw, D) for _ in range(G)]
+    g = torch.Generator().manual_seed(G)
+    for st, _ in parts:
+        st["perm"] = torch.randperm(nw, generator=g).cuda()
+        st["u_all"] = _rand(g, dtype, 2, 3, nt, nw)
+    st = {k: torch.stack([p[0][k] for p in parts]) for k in parts[0][0]}
+    new = [tuple(torch.stack([p[1][h][i] for p in parts]) for i in range(2))
+           for h in range(2)]
+    return st, new
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.float64])
+@pytest.mark.parametrize("G", [1, 4])
+def test_grouped_stretch_kernels(cuda, dtype, G):
+    """The split and fused stretch steps over ``G`` groups in one launch
+    each equal their plain grouped versions bitwise (a grouped launch runs
+    each group's arithmetic of the ungrouped one); at ``G = 1`` they equal
+    the ungrouped launch."""
+    nt, nw, D = 10, 100, 5
+    st, new = _grouped_stretch(dtype, G, nt, nw, D)
+    X, nd, perm, u, betas = (st[k] for k in ("X", "ndim_act", "perm", "u_all",
+                                             "betas"))
+    before = [k.launches for k in (sk.stretch_propose, sk.stretch_accept_propose,
+                                   sk.stretch_accept)]
+
+    def outs():
+        return (torch.full_like(X, np.nan),
+                *(torch.full_like(st["logl"], np.nan) for _ in range(3)))
+
+    runs = {}
+    for form in ("kernel", "plain"):
+        sfx = "" if form == "kernel" else "_ref"
+        propose = getattr(sk, "stretch_propose_grouped" + sfx)
+        acc_prop = getattr(sk, "stretch_accept_propose_grouped" + sfx)
+        accept = getattr(sk, "stretch_accept_grouped" + sfx)
+        o = outs()
+        q0, f0 = propose(X, X, nd, perm, u, 0)
+        q1, f1 = acc_prop(q0, X, *new[0], st["logl"], st["logp"], f0, betas,
+                          nd, perm, u, *o)
+        accept(q1, X, *new[1], st["logl"], st["logp"], f1, betas, perm, u, 1,
+               *o)
+        # the split form: accept half 0 alone, then propose half 1
+        o2 = outs()
+        accept(q0, X, *new[0], st["logl"], st["logp"], f0, betas, perm, u, 0,
+               *o2)
+        q1s, f1s = propose(X, o2[0], nd, perm, u, 1)
+        runs[form] = (q0, f0, q1, f1, *o, q1s, f1s, *o2)
+    torch.cuda.synchronize()
+    for a, b in zip(runs["kernel"], runs["plain"]):
+        assert torch.equal(a.isnan(), b.isnan()) and _max_abs(a, b) == 0.0
+    after = [k.launches for k in (sk.stretch_propose, sk.stretch_accept_propose,
+                                  sk.stretch_accept)]
+    assert [a - b for a, b in zip(after, before)] == [2, 1, 2]
+    assert 0 < float(runs["kernel"][7].sum()) < G * nt * nw
+    if G == 1:
+        o = outs()
+        q0, f0 = sk.stretch_propose(X[0], X[0], nd[0], perm[0], u[0], 0)
+        q1, f1 = sk.stretch_accept_propose(
+            q0, X[0], new[0][0][0], new[0][1][0], st["logl"][0],
+            st["logp"][0], f0, betas[0], nd[0], perm[0], u[0],
+            *(x[0] for x in o))
+        for a, b in zip((q0, f0, q1, f1), runs["kernel"][:4]):
+            assert torch.equal(a, b[0])
+
+
+def _max_abs(a, b):
+    same = (a == b) | (a.isnan() & b.isnan())
+    d = (a.double() - b.double()).abs().masked_fill(same, 0.0)
+    return float(d.max()) if d.numel() else 0.0
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.float64])
+@pytest.mark.parametrize("G", [1, 4])
+@pytest.mark.parametrize("nw", [100, 1000])
+def test_grouped_cascade(cuda, dtype, G, nw):
+    """``G`` ladders in one launch (``blockIdx.y``), plain and rolled, in
+    the grid form and with the rows in global memory: bitwise the plain
+    grouped version, and at ``G = 1`` the ungrouped launch."""
+    nt, nl, nd = 5, 2, 3
+    g = torch.Generator().manual_seed(nw + G)
+    logl = _randn(g, dtype, G, nt, nw) * 10
+    leaves = [_randn(g, dtype, G, nt, nw, nl, nd),
+              _rand(g, dtype, G, nt, nw, nl) < 0.4, _randn(g, dtype, G, nt, nw)]
+    betas = torch.logspace(0, -2, nt, dtype=dtype, device="cuda").expand(
+        G, nt) * (1 + 0.1 * _rand(g, dtype, G, 1))
+    betas = betas.contiguous()
+    pi = torch.stack([torch.randperm(nw, generator=g) for _ in range(G)]).cuda()
+    shifts = torch.randint(0, nw, (G, nt - 1), generator=g,
+                           dtype=torch.int32).cuda()
+    raccept = torch.log(_rand(g, dtype, G, nt - 1, nw))
+
+    def outs():
+        return (torch.empty_like(logl), [torch.empty_like(x) for x in leaves],
+                logl.new_empty((G, nt - 1)), logl.new_empty((G, nt - 1, nw)))
+
+    args = (logl, leaves, betas, pi, shifts, raccept)
+    ref = outs()
+    pt_swap.pt_swap_cascade_tree_grouped_ref(*args, *ref)
+    flat = lambda o: (o[0], *o[1], o[2], o[3])  # noqa: E731
+    for form in ("grid", "global"):
+        got = outs()
+        limit = pt_swap.SHARED_LIMIT
+        if form == "global":
+            pt_swap.SHARED_LIMIT = 0
+        try:
+            pt_swap.pt_swap_cascade_tree_grouped(*args, *got)
+        finally:
+            pt_swap.SHARED_LIMIT = limit
+        for a, b in zip(flat(got), flat(ref)):
+            assert a.dtype == b.dtype and torch.equal(a, b), form
+    assert 0 < float(ref[2].sum()) < G * (nt - 1) * nw
+    if G == 1:
+        one = (torch.empty_like(logl[0]), [torch.empty_like(x[0]) for x in leaves],
+               logl.new_empty(nt - 1), logl.new_empty((nt - 1, nw)))
+        pt_swap.pt_swap_cascade_tree(*(x[0] for x in (logl,)),
+                                     [x[0] for x in leaves],
+                                     *(x[0] for x in args[2:]), *one)
+        for a, b in zip(flat(one), flat(ref)):
+            assert torch.equal(a, b[0])
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.float64])
+@pytest.mark.parametrize("G", [1, 4])
+def test_grouped_group_stretch_propose(cuda, dtype, G):
+    """``G * nt`` rows of one launch equal each group's plain version."""
+    cases = [_group_case(dtype, nt=10, nw=200, shapes={"m": (8, 3)}, off=100,
+                         ns=100, seed=i) for i in range(G)]
+    args = []
+    for i in range(6):
+        if isinstance(cases[0][0][i], dict):
+            args.append({n: torch.stack([c[0][i][n] for c in cases])
+                         for n in cases[0][0][i]})
+        else:
+            args.append(torch.stack([c[0][i] for c in cases]))
+    # the moving block as a view of the permuted ensemble, as the move has it
+    args[0] = {n: x[:, :, 100:200] for n, x in args[2].items()}
+    args[1] = {n: x[:, :, 100:200] for n, x in args[3].items()}
+    before = select_kernels.group_stretch_propose.launches
+    q, f = select_kernels.group_stretch_propose_grouped(*args, skip=(100, 100))
+    assert select_kernels.group_stretch_propose.launches == before + 1
+    q_r, f_r = select_kernels.group_stretch_propose_grouped_ref(
+        *args, skip=(100, 100))
+    assert torch.equal(f, f_r) and all(_same(q[n], q_r[n]) for n in q)
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.float64])
+def test_vmapped_ops_equal_a_loop_over_groups(cuda, dtype):
+    """Inside ``torch.func.vmap`` the wrappers reach the grouped launches
+    (one launch for every group) through their custom ops; the results
+    equal a Python loop over the groups, launch by launch."""
+    G, nt, nw, D = 3, 4, 40, 3
+    st, new = _grouped_stretch(dtype, G, nt, nw, D)
+
+    def step(X, nd, perm, u, ll, lp, betas, l0, p0, l1, p1):
+        q, f0 = sk.stretch_propose(X, X, nd, perm, u, 0)
+        outs = (torch.empty_like(X), torch.empty_like(ll),
+                torch.empty_like(ll), torch.empty_like(ll))
+        q1, f1 = sk.stretch_accept_propose(q, X, l0, p0, ll, lp, f0, betas,
+                                           nd, perm, u, *outs)
+        sk.stretch_accept(q1, X, l1, p1, ll, lp, f1, betas, perm, u, 1, *outs)
+        return outs
+
+    ins = (st["X"], st["ndim_act"], st["perm"], st["u_all"], st["logl"],
+           st["logp"], st["betas"], *new[0], *new[1])
+    counters = (sk.stretch_propose, sk.stretch_accept_propose, sk.stretch_accept)
+    before = [k.launches for k in counters]
+    batched = torch.func.vmap(step)(*ins)
+    assert [k.launches - b for k, b in zip(counters, before)] == [1, 1, 1]
+    for g in range(G):
+        one = step(*(x[g] for x in ins))
+        for a, b in zip(batched, one):
+            assert torch.equal(a[g], b)
+
+
+@pytest.mark.parametrize("kind", ["gaussian", "rj"])
+def test_para_graphed_equals_eager(cuda, kind):
+    """The batched runner's graphed chain equals its eager chain digit for
+    digit, with one launch of each stretch kernel (or two group-stretch
+    proposals) and one cascade a step for all the groups together."""
+    from eryn_tpu_torch import ProbDistContainer, uniform_dist
+    from eryn_tpu_torch.moves import RedBlueGroupStretchMove
+    from eryn_tpu_torch.parallel import ParaEnsembleSampler
+
+    G, steps, burn = 4, 40, 10
+    g = torch.Generator(cuda).manual_seed(3)
+    if kind == "rj":
+        pr = ProbDistContainer({i: uniform_dist(-1.0, 1.0) for i in range(2)})
+        kw = dict(nleaves_max=3, rj_moves=True, fill_zero_leaves_val=0.0,
+                  moves=RedBlueGroupStretchMove(live_dangerously=True))
+        ll = lambda c, i: -0.5 * torch.sum(  # noqa: E731
+            torch.where(i[:, None], c, 0.0) ** 2)
+        ndim, nt = 2, 3
+        coords = pr.rvs(size=(G, nt, 32, 3), generator=g)
+        inds = torch.rand((G, nt, 32, 3), generator=g, device=cuda) < 0.5
+    else:
+        pr = ProbDistContainer({i: uniform_dist(-5.0, 5.0) for i in range(3)})
+        kw, ndim, nt, inds = {}, 3, 4, None
+        ll = lambda x: -0.5 * torch.sum(x * x)  # noqa: E731
+        coords = pr.rvs(size=(G, nt, 32), generator=g)
+    kernels = (sk.stretch_propose, sk.stretch_accept_propose, sk.stretch_accept,
+               pt_swap.pt_swap_cascade_multi, select_kernels.group_stretch_propose)
+    runs = {}
+    for graphed in (False, True):
+        para = ParaEnsembleSampler(G, 32, ndim, ll, pr,
+                                   tempering_kwargs=dict(ntemps=nt), seed=5,
+                                   device=cuda, cuda_graph=graphed, **kw)
+        before = [k.launches for k in kernels]
+        para.run_mcmc(coords, steps, burn=burn, inds=inds)
+        runs[graphed] = dict(
+            chain=para.get_chain()["model_0"], inds=para.get_inds()["model_0"],
+            log_like=para.get_log_like(), betas=para.get_betas(),
+            launches=[k.launches - b for k, b in zip(kernels, before)])
+        if graphed:
+            per_step = 2 if kind == "rj" else 1
+            assert para.graph_replays == per_step * (steps + burn) - len(
+                para._graphs.warm)
+    for key in runs[False]:
+        np.testing.assert_array_equal(runs[True][key], runs[False][key],
+                                      err_msg=key)
+    n = steps + burn
+    expect = ([n] * 3 + [n, 0]) if kind == "gaussian" else [0] * 3 + [2 * n, 2 * n]
+    assert runs[True]["launches"] == expect
+    chain = runs[True]["chain"]
+    assert not np.array_equal(chain[:, 0], chain[:, 1])

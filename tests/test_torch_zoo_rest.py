@@ -349,8 +349,8 @@ def test_aimh_step_matches_jax(dtype, kw):
 
 
 def test_aimh_refusals():
-    with pytest.raises(NotImplementedError, match="integer df"):
-        tm.AIMHMove(df=4.5)
+    # any df above 2 is taken: a non-integer one draws a gamma
+    assert tm.AIMHMove(df=4.5).gamma and not tm.AIMHMove(df=10).gamma
     with pytest.raises(ValueError, match="df must exceed 2"):
         tm.AIMHMove(df=2.0)
     pr = et.ProbDistContainer({i: et.uniform_dist(-5.0, 5.0)
