@@ -158,6 +158,23 @@ Phases, each printing its own lines:
      state and stored chain) and ``pickle[north-star]`` (a graphed sampler
      pickled and unpickled: the clone's next 200 steps equal the
      original's digit for digit);
+   * ``plot_hook[north-star]``: 200 warm and 1,200 stored steps into
+     ``DeviceBackend`` with ``run_mcmc``'s plot hook every 100 stored
+     iterations (a generator that reads what ``PlotContainer``'s base and
+     tempering groups read, and needs no matplotlib), graphed and with
+     ``cuda_graph=False``, and graphed without the hook: fires at 100, ...,
+     1,200, the three chains equal digit for digit, every step but the
+     first a replay; ``plot_hook_steps_per_s`` beside the unhooked rate,
+     each fire's time and the bytes it copied to the host;
+   * after the host legs, ``examples[<name>]``: each script of
+     ``eryn_tpu_torch/examples`` that needs no matplotlib (``basic_gaussian``,
+     ``custom_moves``, ``gradient_moves``, ``multibranch_search``,
+     ``nonreversible_pt``, ``pt_evidence``, ``rj_pulse_search``), its
+     ``main()`` at full scale with its own assertions: the kernels it runs
+     were launched (``EXAMPLE_KERNELS``), and ``custom_moves``'s host route
+     reached ``get_proposal`` while its in-graph route was captured;
+     ``runtime_plots`` runs only where matplotlib is installed (a line says
+     so when it is not);
    * a flat-likelihood RJ run (64 walkers, 3 leaves): a uniform leaf-count
      posterior.  It checks the RJ moves, is not part of the main path, and
      its launches stay out of the report.
@@ -3887,6 +3904,213 @@ def pickle_leg(torch, card):
     return launches, {}, []
 
 
+# ----------------------------------------------------------------------
+# runtime plotting (the run_mcmc plot hook) and the port's examples
+# ----------------------------------------------------------------------
+PLOT_EVERY, PLOT_SEED = 100, 24
+STRETCH_KERNELS = ("stretch_propose", "stretch_accept_propose",
+                   "stretch_accept")
+CASCADE = ("pt_swap_cascade_multi",)
+# the kernels each example launches (basic_gaussian, custom_moves and
+# gradient_moves run one temperature: no swap phase; custom_moves and the
+# gradient moves have no kernel of their own)
+EXAMPLE_KERNELS = {
+    "basic_gaussian": STRETCH_KERNELS,
+    "custom_moves": (),
+    "gradient_moves": STRETCH_KERNELS,
+    "multibranch_search": ("group_stretch_propose",) + CASCADE,
+    "nonreversible_pt": STRETCH_KERNELS + CASCADE,
+    "pt_evidence": STRETCH_KERNELS + CASCADE,
+    "rj_pulse_search": ("group_stretch_propose",) + CASCADE,
+}
+
+
+class _PlotProbe:
+    """A plot generator that needs no matplotlib: each call reads what
+    ``PlotContainer``'s base and tempering groups read (``get_chain``,
+    ``get_inds``, ``get_log_like``, ``get_betas``, ``accepted``,
+    ``swaps_accepted``, ``iteration``) and records the stored iteration, the
+    call's wall time (and each read's) and the bytes its reads brought to
+    the host."""
+
+    READS = ("chain", "inds", "log_like", "betas", "counters")
+
+    def __init__(self):
+        self.backend = None
+        self.iterations, self.ms, self.nbytes, self.split_ms = [], [], [], []
+
+    def generate_plot_info(self, burn=0, thin=1):
+        import numpy as np
+
+        b = self.backend
+        kw = dict(discard=burn, thin=thin)
+        reads = (lambda: [b.get_chain(**kw)["model_0"]],
+                 lambda: list(b.get_inds(**kw).values()),
+                 lambda: [b.get_log_like(**kw)], lambda: [b.get_betas(**kw)],
+                 lambda: [np.asarray(b.accepted),
+                          np.asarray(b.swaps_accepted)])
+        arrays, split = [], []
+        t0 = time.perf_counter()
+        it = b.iteration
+        for read in reads:
+            t1 = time.perf_counter()
+            arrays += read()
+            split.append(1e3 * (time.perf_counter() - t1))
+        self.ms.append(1e3 * (time.perf_counter() - t0))
+        self.split_ms.append(split)
+        self.iterations.append(it)
+        self.nbytes.append(sum(a.nbytes for a in arrays))
+        chain = arrays[0]
+        assert chain.shape == (it, NT, NW, 1, NDIM), chain.shape
+        assert np.all(np.isfinite(chain)) and np.all(np.isfinite(arrays[2]))
+
+
+def plot_hook_leg(torch, card):
+    """``plot_hook[north-star]``: the north-star, 200 warm steps, then 1,200
+    stored into the default ``DeviceBackend`` with a plot generator every
+    100 stored iterations (``_PlotProbe``), graphed and with
+    ``cuda_graph=False``, and graphed without the hook, from one seed.  The
+    generator fires at 100, 200, ..., 1,200; the three chains are equal
+    digit for digit (the hook touches no generator); every step but the
+    first eager one is a replay (the shorter segments replay the same
+    graph); the timed stored runs give ``plot_hook_steps_per_s`` beside the
+    unhooked rate, and each fire's time and bytes."""
+    import numpy as np
+
+    leg = "plot_hook[north-star]"
+    read = _counting(_kernels())
+    runs = {}
+    for label, graphed, hooked in (("graphed", True, True),
+                                   ("eager", False, True),
+                                   ("unhooked", True, False)):
+        s, priors = _gaussian_sampler(torch, NT, NW, PLOT_SEED,
+                                      cuda_graph=graphed)
+        coords = priors.rvs(size=(NT, NW), generator=torch.Generator(
+            device="cuda").manual_seed(PLOT_SEED))
+        s.run_mcmc(coords, WARM_STEPS, store=False)
+        probe = None
+        if hooked:
+            probe = _PlotProbe()
+            probe.backend = s.backend
+            s.plot_generator, s.plot_iterations = probe, PLOT_EVERY
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        s.run_mcmc(None, STORED_STEPS)
+        torch.cuda.synchronize()
+        rate = STORED_STEPS / (time.perf_counter() - t0)
+        runs[label] = (s, probe, rate, _chain_record(np, s))
+    launches = read()
+    steps = WARM_STEPS + STORED_STEPS
+    expected = list(range(PLOT_EVERY, STORED_STEPS + 1, PLOT_EVERY))
+    for label in ("graphed", "eager"):
+        assert runs[label][1].iterations == expected, (
+            label, runs[label][1].iterations)
+    for label in ("eager", "unhooked"):
+        _assert_same_record(np, f"{leg} graphed against {label}",
+                            runs["graphed"][3], runs[label][3])
+    replays = sum(_assert_replays(leg, runs[k][0], steps, 1)
+                  for k in ("graphed", "unhooked"))
+    assert runs["eager"][0].graph_replays == 0
+    _assert_stretch_launches(launches, 3 * steps)
+    assert launches["pt_swap_cascade_multi"] == 3 * steps, launches
+    assert sum(launches.values()) == 4 * 3 * steps, launches
+    probe, rate = runs["graphed"][1], runs["graphed"][2]
+    base = runs["unhooked"][2]
+    ms = probe.ms
+    print(f"{leg}: the generator fired at {probe.iterations} (graphed and "
+          f"cuda_graph=False); the hooked chains equal the unhooked one "
+          f"digit for digit over {steps} steps")
+    print(f"rate: plot_hook_steps_per_s = {rate:.1f} beside the unhooked "
+          f"stored_steps_per_s = {base:.1f} ({rate / base:.4f}); eager "
+          f"hooked {runs['eager'][2]:.1f} ({card})")
+    print(f"rate: plot_hook_fire_ms first {ms[0]:.3f}, median "
+          f"{float(np.median(ms)):.3f}, last {ms[-1]:.3f}, total "
+          f"{sum(ms):.3f} over {len(ms)} fires ({card})")
+    print(f"rate: plot_hook_fire_bytes first {probe.nbytes[0]}, last "
+          f"{probe.nbytes[-1]}, total {sum(probe.nbytes)} copied to the "
+          f"host ({card})")
+    split = dict(zip(_PlotProbe.READS, (round(x, 3) for x in
+                                        probe.split_ms[-1])))
+    print(f"rate: plot_hook_last_fire_ms by read {split}; "
+          f"{probe.nbytes[-1] / ms[-1] / 1e6:.3f} GB/s ({card})")
+    print(f"launches[{leg}]: {launches} over {3 * steps} steps, {replays} "
+          f"graph replays")
+    rates = {"plot_hook_steps_per_s": rate,
+             "plot_hook_unhooked_steps_per_s": base,
+             "plot_hook_eager_steps_per_s": runs["eager"][2],
+             "plot_hook_fire_ms": [ms[0], float(np.median(ms)), ms[-1]],
+             "plot_hook_fire_bytes": probe.nbytes,
+             "plot_hook_last_fire_ms_by_read": split}
+    return launches, rates, (leg, runs["graphed"][0],
+                             runs["graphed"][0]._previous_state)
+
+
+def examples_leg(torch, card):
+    """``examples[<name>]``: each example of ``eryn_tpu_torch/examples``
+    that needs no matplotlib, its ``main()`` at full scale on the card (its
+    own assertions included), with the launch counters set to 0 just
+    before it: the kernels :data:`EXAMPLE_KERNELS` names were launched; the
+    host route of ``custom_moves`` reached ``get_proposal`` and its
+    in-graph route was captured.  ``runtime_plots`` runs when matplotlib is
+    installed."""
+    import importlib
+    import importlib.util
+    import tempfile
+
+    total, rates = {}, {}
+    for name, kernels in EXAMPLE_KERNELS.items():
+        leg = f"examples[{name}]"
+        module = importlib.import_module(f"eryn_tpu_torch.examples.{name}")
+        read = _counting(_kernels())
+        t0 = time.perf_counter()
+        out = module.main()
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+        launches = read()
+        for k in kernels:
+            assert launches[k] > 0, (leg, k, launches)
+        if name == "custom_moves":
+            assert out["host_proposals"] > 0, out
+            assert out["host_graph_captures"] == 0, out
+            assert out["kernel_graph_captures"] == 1, out
+            # the warm run and the timed run, one eager step
+            assert out["kernel_graph_replays"] == (
+                out["steps"] + max(out["steps"] // 4, 4) - 1), out
+            rates["custom_moves_host_steps_per_s"] = out["host_steps_per_s"]
+            rates["custom_moves_kernel_steps_per_s"] = (
+                out["kernel_steps_per_s"])
+        if name == "basic_gaussian":
+            rates["basic_gaussian_steps_per_s"] = (
+                out["timing"]["steps_per_second"])
+        rates[f"examples[{name}]_s"] = wall
+        rates[f"examples[{name}]_summary"] = out
+        for k, v in launches.items():
+            total[k] = total.get(k, 0) + v
+        ran = {k: v for k, v in launches.items() if v}
+        print(f"{leg}: passed in {wall:.2f} s at full scale; launches {ran} "
+              f"({card})")
+    if importlib.util.find_spec("matplotlib") is None:
+        print("examples[runtime_plots]: not run: matplotlib is not "
+              "installed here")
+    else:
+        from eryn_tpu_torch.examples import runtime_plots
+
+        with tempfile.TemporaryDirectory() as tmp:
+            read = _counting(_kernels())
+            t0 = time.perf_counter()
+            out = runtime_plots.main(outdir=tmp)
+            wall = time.perf_counter() - t0
+            launches = read()
+        assert "pt_gaussian_corner_model_0.png" in out["files"], out
+        assert "rj_pulses_leaves_model_0.png" in out["files"], out
+        for k, v in launches.items():
+            total[k] = total.get(k, 0) + v
+        rates["examples[runtime_plots]_s"] = wall
+        print(f"examples[runtime_plots]: {len(out['files'])} files in "
+              f"{wall:.2f} s ({card})")
+    return total, rates, []
+
+
 def main(argv=None):
     parser = argparse.ArgumentParser(description=__doc__.split("\n")[0])
     parser.add_argument("--out", help="also write the report as JSON here")
@@ -3995,7 +4219,7 @@ def main(argv=None):
                     best_stack_leg, blobs_north_star_leg,
                     blobs_lisa_rj_null_leg, replica_flow_leg,
                     para_north_star_leg, para_zoo_leg, para_rj_pulse128_leg,
-                    para_groups_running_leg, pickle_leg):
+                    para_groups_running_leg, pickle_leg, plot_hook_leg):
             t0 = time.perf_counter()
             legs.append(leg(torch, smi))
             print(f"phase 4: {leg.__name__} {time.perf_counter() - t0:.1f} s")
@@ -4013,7 +4237,7 @@ def main(argv=None):
     # form runs inside it)
     with _plain_versions_forbidden():
         for leg in (host_like_leg, host_like_vec_leg, host_like_pool_leg,
-                    hybrid_host_leg):
+                    hybrid_host_leg, examples_leg):
             t0 = time.perf_counter()
             legs.append(leg(torch, smi))
             print(f"phase 4: {leg.__name__} {time.perf_counter() - t0:.1f} s")
@@ -4137,7 +4361,7 @@ def main(argv=None):
              "times": times, "launch_floor": floor, "profiles": profiles,
              "host_us": host_us, "graph_vs_eager": compared,
              "tempering_phases": phases},
-            indent=1
+            indent=1, default=lambda x: x.tolist()  # the examples' arrays
         ))
     print(json.dumps(report))
     print(json.dumps({"ok": True, "device": {

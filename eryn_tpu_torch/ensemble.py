@@ -48,6 +48,7 @@ from .pbar import get_progress_bar
 from .prior import ProbDistContainer
 from .state import BranchSupplemental, State, resolve_device
 from .utils.periodic import PeriodicContainer
+from .utils.plot import PlotContainer
 from .utils.profiling import SegmentTimer
 from .utils.pytree import tree_flatten
 
@@ -698,7 +699,12 @@ class EnsembleSampler:
     ``update_iterations`` sampler steps, and ``stopping_fn(iteration,
     last_sample, sampler)`` every ``stopping_iterations`` stored
     iterations, ending the run when it returns True (``utils.updates``,
-    ``utils.stopping``).
+    ``utils.stopping``).  ``plot_generator.generate_plot_info(burn=0,
+    thin=1)`` runs every ``plot_iterations`` stored iterations; with
+    ``plot_iterations > 0`` and no generator, a
+    :class:`~eryn_tpu_torch.utils.PlotContainer` on the sampler's backend
+    writes ``output_*.png`` into ``plot_folder`` (default ``"."``): the
+    base plots, and the tempering and RJ ones where there are temperatures.
 
     A NumPy ``log_like_fn`` runs on the host (``likelihood_mode ==
     "host"``, :class:`LikelihoodEvaluator`): per walker, fanned out through
@@ -766,6 +772,9 @@ class EnsembleSampler:
         update_iterations=-1,
         stopping_fn=None,
         stopping_iterations=-1,
+        plot_iterations=-1,
+        plot_generator=None,
+        plot_folder=None,
         dr_moves=None,
         dr_max_iter=5,
     ):
@@ -943,6 +952,8 @@ class EnsembleSampler:
         self.update_iterations = update_iterations
         self.stopping_fn = stopping_fn
         self.stopping_iterations = stopping_iterations
+        self.plot_iterations = plot_iterations
+        self.plot_generator = plot_generator
 
         self._previous_state = None
         self._kernel_states = None
@@ -965,6 +976,14 @@ class EnsembleSampler:
             self._check_backend(backend)
             if backend.iteration > 0:
                 self._resume(backend)
+
+        if self.plot_iterations > 0 and self.plot_generator is None:
+            self.plot_generator = PlotContainer(
+                fp="output", backend=self.backend,
+                plot_dir=plot_folder or ".",
+                which_plots=(("base", "tempering", "rj") if self.ntemps > 1
+                             else ("base",)),
+            )
 
     # ------------------------------------------------------------------
     def _per_branch(self, value, label):
@@ -1940,9 +1959,12 @@ class EnsembleSampler:
         it after each segment; ``progress`` shows a ``tqdm`` bar.  The hooks
         fire at the first segment boundary at or past each multiple of
         their interval (``update_iterations`` counts steps, so it fires as
-        often under ``thin_by``); there the backend holds every segment
-        run.  Between hooks a host or file backend writes each segment
-        while the device runs the next."""
+        often under ``thin_by``; ``plot_iterations`` and
+        ``stopping_iterations`` count stored iterations); there the backend
+        holds every segment run, and the order is: the move counters, the
+        tuning, the plots, the stopping check, the update.  Between hooks a
+        host or file backend writes each segment while the device runs the
+        next."""
         state = self._setup_state(initial_state, skip_initial_state_check)
         thin_by = int(thin_by)
         if thin_by <= 0:
@@ -1959,6 +1981,11 @@ class EnsembleSampler:
             if post_burn_update and self.update_fn is not None:
                 self.update_fn(0, state, self)
 
+        def plot_fires(i0, i):
+            return (self.plot_generator is not None
+                    and self.plot_iterations > 0
+                    and _crossed(i0, i, self.plot_iterations))
+
         def stop_fires(i0, i):
             return (self.stopping_fn is not None
                     and self.stopping_iterations > 0
@@ -1971,7 +1998,8 @@ class EnsembleSampler:
                                  self.update_iterations))
 
         intervals = [n for fn, n in ((self.stopping_fn, self.stopping_iterations),
-                                     (self.update_fn, self.update_iterations))
+                                     (self.update_fn, self.update_iterations),
+                                     (self.plot_generator, self.plot_iterations))
                      if fn is not None and n > 0]
         if segment_size is not None:
             seg = int(segment_size)
@@ -1990,7 +2018,8 @@ class EnsembleSampler:
                     # first segment
                     self.backend.grow(nsteps, self._blobs_example())
                 i0, i = i, i + n
-                hook_now = bool(tuned) or stop_fires(i0, i) or update_fires(i0, i)
+                hook_now = (bool(tuned) or plot_fires(i0, i)
+                            or stop_fires(i0, i) or update_fires(i0, i))
                 if pipelined:
                     staged = self._stage(snaps)
                     # the previous segment is written while this one runs
@@ -2007,6 +2036,8 @@ class EnsembleSampler:
                     self._sync_move_counters()
                 for m in tuned:
                     m.tune(state, m.accepted)
+                if plot_fires(i0, i):
+                    self.plot_generator.generate_plot_info(burn=0, thin=1)
                 if stop_fires(i0, i) and self.stopping_fn(i, state, self):
                     break
                 if update_fires(i0, i):

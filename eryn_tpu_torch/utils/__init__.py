@@ -1,6 +1,7 @@
 """Diagnostics, hooks and parameter utilities of the port."""
 
 from .periodic import PeriodicContainer
+from .plot import PlotContainer  # imports matplotlib only when it draws
 from .profiling import SegmentTimer, trace_profile
 from .stopping import AutoCorrelationStop, SearchConvergeStopping, Stopping
 from .updates import (
@@ -28,7 +29,8 @@ from .utility import (
 )
 
 __all__ = ["AdjustStretchProposalScale", "AutoCorrelationStop",
-           "CompositeUpdate", "PeriodicContainer", "SearchConvergeStopping",
+           "CompositeUpdate", "PeriodicContainer", "PlotContainer",
+           "SearchConvergeStopping",
            "SegmentTimer", "Stopping", "TransformContainer", "Update",
            "UpdateStep",
            "effective_sample_size", "effective_sample_size_torch", "get_acf",
