@@ -3563,6 +3563,20 @@ def _para_gaussian(torch, G, seed, cuda_graph=True, nw=NW, ndim=NDIM, nt=NT,
     return para, coords
 
 
+def _para_digest(para):
+    """The first 16 hex digits of a sha256 of a batched runner's stored
+    chain, log-likelihoods and ladders: equal digests, equal chains."""
+    import hashlib
+
+    import numpy as np
+
+    h = hashlib.sha256()
+    for a in (para.get_chain()["model_0"], para.get_log_like(),
+              para.get_betas()):
+        h.update(np.ascontiguousarray(a).tobytes())
+    return h.hexdigest()[:16]
+
+
 def _para_launches(launches):
     return {f"{k}[grouped]": launches[k] for k in PARA_KERNELS}
 
@@ -3649,6 +3663,7 @@ def para_north_star_leg(torch, card):
           f"{t_get:.4f} s (the stored chain to the host; {card})")
     print(f"launches[{leg}]: {launches} over {steps} steps, {replays} graph "
           f"replays")
+    print(f"digest[{leg}]: {_para_digest(para)}")
     return _para_launches(launches), rates, (leg, _ParaBulk(para), None)
 
 
@@ -3760,6 +3775,7 @@ def para_rj_pulse128_leg(torch, card):
           f"{rates['para_rj_pulse128_group_steps_per_s']:.1f} ({card})")
     print(f"launches[{leg}]: {launches} over {steps} steps, {replays} graph "
           f"replays")
+    print(f"digest[{leg}]: {_para_digest(para)}")
     return _para_launches(launches), rates, (leg, _ParaBulk(para), None)
 
 
@@ -4111,6 +4127,264 @@ def examples_leg(torch, card):
     return total, rates, []
 
 
+# ----------------------------------------------------------------------
+# the device mesh: the north-star over torch.distributed ranks
+# ----------------------------------------------------------------------
+# mesh[...] legs: the north-star (10 x 100, 5-D), 50 steps of burn-in and
+# 200 stored into DeviceBackend (sharded, then 100 more under DEO and the
+# Syed ladder); para_mesh[...]: 64 groups over 4 ranks
+MESH_SEED, MESH_WARM, MESH_STEPS, MESH_DEO_STEPS = 31, 50, 200, 100
+MESH_DEO = dict(swap_scheme="deo", adaptation_scheme="syed")
+PM_SEED, PM_WARM, PM_STEPS = 33, 20, 100
+MESH_TIMEOUT = 240
+
+
+def _mesh_record(s):
+    """What a mesh leg's chain is held to: the getters' global arrays."""
+    return {"chain": s.get_chain()["model_0"], "log_like": s.get_log_like(),
+            "log_prior": s.get_log_prior(), "betas": s.get_betas(),
+            "acc": s.acceptance_fraction, "swaps": s.swap_acceptance_fraction}
+
+
+def _mesh_north_star(torch, cuda_graph=True, tempering=None):
+    """The mesh legs' sampler (into DeviceBackend) and its global start."""
+    from eryn_tpu_torch import DeviceBackend, State
+
+    s, priors = _gaussian_sampler(torch, NT, NW, MESH_SEED,
+                                  backend=DeviceBackend(),
+                                  cuda_graph=cuda_graph, tempering=tempering)
+    coords = priors.rvs(size=(NT, NW), generator=torch.Generator(
+        device="cuda").manual_seed(MESH_SEED))
+    return s, State({"model_0": coords[:, :, None, :]})
+
+
+def _comm_check(torch, group):
+    """The comm layer's collectives on CUDA tensors over ``group`` (one
+    rank: each returns its input); returns the ops checked."""
+    from eryn_tpu_torch.parallel import _comm
+
+    x = torch.arange(12.0, device="cuda").reshape(4, 3)
+    out = torch.empty_like(x)
+    _comm.all_gather_into_tensor(out, x, group=group)
+    assert torch.equal(out, x), out
+    out = torch.empty_like(x)
+    _comm.all_to_all_single(out, x, [4], [4], group=group)
+    assert torch.equal(out, x), out
+    y = x.clone()
+    _comm.all_reduce(y, group=group)
+    assert torch.equal(y, x), y
+    return ["all_gather_into_tensor", "all_to_all_single", "all_reduce"]
+
+
+def _mesh_rank(rank, world, temp_parallel):
+    """One rank of a mesh leg: the north-star sharded over a ``(temp,
+    walker)`` mesh of ``world`` ranks (on one card, every rank's shard on
+    ``cuda:0``), the audit of one step first (it leaves the chain as it
+    was), then the run, timed; the counts of this process's launches."""
+    import torch
+    import torch.distributed as dist
+
+    from eryn_tpu_torch.parallel import (
+        _comm,
+        audit_sampler_comm,
+        make_mesh,
+        mesh_of_state,
+        shard_state,
+    )
+
+    read = _counting(_kernels())
+    out = {"backend": dist.get_backend(), "device": str(torch.device(
+        "cuda", torch.cuda.current_device()))}
+    with _plain_versions_forbidden():
+        mesh = make_mesh(world, temp_parallel=temp_parallel)
+        s, state = _mesh_north_star(torch)
+        state = shard_state(state, mesh)
+        out["sharded"] = mesh_of_state(state) is not None
+        if world == 1:
+            out["comm"] = _comm_check(torch, dist.group.WORLD)
+        else:
+            out["audit"] = audit_sampler_comm(s, state)
+            out["shard"] = tuple(state.log_like.shape) if (
+                state.log_like is not None) else tuple(
+                state.branches["model_0"].coords.shape[:2])
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        s.run_mcmc(state, MESH_STEPS, burn=MESH_WARM)
+        torch.cuda.synchronize()
+        out["seconds"] = time.perf_counter() - t0
+        out["graph_replays"] = s.graph_replays
+        out["record"] = _mesh_record(s)
+        if world > 1:  # DEO: the edge rungs' point-to-point exchanges
+            s, state = _mesh_north_star(torch, tempering=MESH_DEO)
+            s.run_mcmc(shard_state(state, mesh), MESH_DEO_STEPS)
+            out["deo_record"] = _mesh_record(s)
+    out["launches"] = read()
+    out["staged"] = dict(_comm.STAGED)
+    return out
+
+
+def _para_mesh_rank(rank, world):
+    """One rank of ``para_mesh[...]``: its groups of the 64 over a group
+    mesh, graphed (the step makes no collective), timed."""
+    import torch
+
+    from eryn_tpu_torch.parallel import _comm, make_group_mesh
+
+    read = _counting(_kernels())
+    with _plain_versions_forbidden():
+        mesh = make_group_mesh(world)
+        para, coords = _para_gaussian(torch, PARA_G, PM_SEED, mesh=mesh)
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        para.run_mcmc(coords, PM_STEPS, burn=PM_WARM)
+        torch.cuda.synchronize()
+        seconds = time.perf_counter() - t0
+        record = {"chain": para.get_chain()["model_0"],
+                  "log_like": para.get_log_like(),
+                  "betas": para.get_betas(), "acc": para.acceptance_fraction}
+    return {"seconds": seconds, "record": record, "launches": read(),
+            "groups": para._g, "graph_replays": para.graph_replays,
+            "staged": dict(_comm.STAGED)}
+
+
+def _same_record(np, leg, got, ref):
+    """A leg's chain equals the one-rank chain digit for digit."""
+    assert set(got) == set(ref), (leg, set(got), set(ref))
+    for key in ref:
+        if not np.array_equal(got[key], ref[key], equal_nan=True):
+            diff = np.nanmax(np.abs(np.asarray(got[key], dtype=np.float64)
+                                    - np.asarray(ref[key], dtype=np.float64)))
+            raise AssertionError(
+                f"{leg}: {key} differs from the one-rank eager chain "
+                f"(max abs {diff})")
+
+
+def _sum_launches(ranks):
+    total = {}
+    for r in ranks:
+        for k, v in r["launches"].items():
+            total[k] = total.get(k, 0) + v
+    return total
+
+
+def mesh_legs(torch, card):
+    """The device mesh on one card: ``mesh[north-star,1rank,nccl]`` (the
+    comm layer and the sampler over NCCL at world size 1, where a state on
+    a one-rank mesh runs the one-rank step), ``mesh[north-star,4rank,gloo]``
+    (four ranks on ``cuda:0`` over gloo, a ``(2, 2)`` mesh, the sharded
+    step) and ``para_mesh[north-star x64,4rank]`` (64 groups over a group
+    mesh of four ranks).  Each chain equals the one-rank eager chain of its
+    seed digit for digit; kernels 1-3 launch on the card in every rank.  The
+    sharded step runs eagerly: gloo's collectives cannot be captured in a
+    CUDA graph.  Returns the launches of every rank and of the one-rank
+    references, and the legs' rates."""
+    import numpy as np
+
+    from eryn_tpu_torch.parallel._spawn import launch
+
+    read = _counting(_kernels())
+    ref_s, ref_state = _mesh_north_star(torch, cuda_graph=False)
+    ref_s.run_mcmc(ref_state, MESH_STEPS, burn=MESH_WARM)
+    ref = _mesh_record(ref_s)
+    ref_s, ref_state = _mesh_north_star(torch, cuda_graph=False,
+                                        tempering=MESH_DEO)
+    ref_s.run_mcmc(ref_state, MESH_DEO_STEPS)
+    ref_deo = _mesh_record(ref_s)
+    launches = read()
+    read = _counting(_kernels())
+    pref, pcoords = _para_gaussian(torch, PARA_G, PM_SEED, cuda_graph=False)
+    pref.run_mcmc(pcoords, PM_STEPS, burn=PM_WARM)
+    pref = {"chain": pref.get_chain()["model_0"],
+            "log_like": pref.get_log_like(), "betas": pref.get_betas(),
+            "acc": pref.acceptance_fraction}
+    launches.update(_para_launches(read()))  # the grouped launches
+    steps = MESH_WARM + MESH_STEPS
+    rates = {}
+
+    for leg, world, backend, tp in (
+            ("mesh[north-star,1rank,nccl]", 1, "nccl", 1),
+            ("mesh[north-star,4rank,gloo]", 4, "gloo", 2)):
+        t0 = time.perf_counter()
+        ranks = launch(_mesh_rank, world, tp, backend=backend,
+                       timeout=MESH_TIMEOUT)
+        wall = time.perf_counter() - t0
+        for r in ranks:
+            assert r["backend"] == backend and r["device"] == "cuda:0", r
+            assert r["sharded"] == (world > 1), r
+            _same_record(np, leg, r["record"], ref)
+            if world > 1:
+                _same_record(np, f"{leg}, DEO", r["deo_record"], ref_deo)
+        got = _sum_launches(ranks)
+        # every rank launched kernels 1-3 on the card in every step: the
+        # fused trio on one rank, kernels 1 and 2 twice unfused when sharded
+        for r in ranks:
+            n = r["launches"]
+            assert n["pt_swap_cascade_multi"] == steps + (world > 1), n
+            if world == 1:
+                _assert_stretch_launches(n, steps)
+            else:  # the audited step runs once more; DEO's steps after
+                assert n["stretch_propose"] == n["stretch_accept"] == 2 * (
+                    steps + 1 + MESH_DEO_STEPS), n
+                assert n["stretch_accept_propose"] == 0, n
+        for k, v in got.items():
+            launches[k] = launches.get(k, 0) + v
+        sps = steps / max(r["seconds"] for r in ranks)
+        rates[f"{leg}_steps_per_s"] = sps
+        rates[f"{leg}_wall_s"] = wall
+        staged = ranks[0]["staged"]
+        how = ("eager: the sharded step runs outside CUDA graphs, whose "
+               "capture gloo's collectives cannot join" if world > 1 else
+               f"graphed ({ranks[0]['graph_replays']} replays): a state on a "
+               "one-rank mesh runs the one-rank step")
+        deo = (f", and {MESH_DEO_STEPS} steps under DEO and the Syed ladder "
+               "likewise" if world > 1 else "")
+        print(f"{leg}: equals the one-rank eager chain digit for digit "
+              f"(chain, log_like, log_prior, betas, acceptance, swaps{deo}); "
+              f"{sps:.1f} steps/s over {steps} steps, wall {wall:.1f} s with "
+              f"the ranks' start; {how}; staged through host memory: "
+              f"{staged or 'none'}; launches {got} ({card})")
+        if world == 1:
+            print(f"{leg}: NCCL collectives on the card: "
+                  f"{ranks[0]['comm']} ({card})")
+        else:
+            audit = ranks[0]["audit"]
+            worst = max(r["audit"]["total_bytes"] for r in ranks)
+            rates[f"{leg}_audit_total_bytes"] = worst
+            print(f"{leg}: audit per_op {audit['per_op']} (rank 0; shard "
+                  f"{ranks[0]['shard']}), total_bytes {worst} at most over "
+                  f"the ranks, payload_bytes {audit['payload_bytes']}, "
+                  f"full_coords_bytes {audit['full_coords_bytes']}, "
+                  f"big_gathers {audit['big_gathers']}")
+            assert all(r["audit"]["big_gathers"] == [] for r in ranks)
+            assert worst <= 4.0 * audit["payload_bytes"], worst
+
+    leg = f"para_mesh[north-star x{PARA_G},4rank]"
+    t0 = time.perf_counter()
+    ranks = launch(_para_mesh_rank, 4, backend="gloo", timeout=MESH_TIMEOUT)
+    wall = time.perf_counter() - t0
+    psteps = PM_WARM + PM_STEPS
+    for r in ranks:
+        assert r["groups"] == PARA_G // 4, r["groups"]
+        _same_record(np, leg, r["record"], pref)
+        n = r["launches"]
+        assert n["pt_swap_cascade_multi"] == psteps, n
+        _assert_stretch_launches(n, psteps)
+    got = _sum_launches(ranks)
+    for k, v in _para_launches(got).items():
+        launches[k] = launches.get(k, 0) + v
+    sps = psteps / max(r["seconds"] for r in ranks)
+    rates[f"{leg}_steps_per_s"] = sps
+    rates[f"{leg}_wall_s"] = wall
+    print(f"{leg}: every group equals the one-process eager runner's digit "
+          f"for digit (chain, log_like, betas, acceptance); "
+          f"{PARA_G // 4} groups a rank, {sps:.1f} steps/s of all the groups "
+          f"over {psteps} steps (graphed, {ranks[0]['graph_replays']} "
+          f"replays a rank; the step makes no collective), wall {wall:.1f} s "
+          f"with the ranks' start; staged through host memory: "
+          f"{ranks[0]['staged'] or 'none'}; launches {got} ({card})")
+    return launches, rates, []
+
+
 def main(argv=None):
     parser = argparse.ArgumentParser(description=__doc__.split("\n")[0])
     parser.add_argument("--out", help="also write the report as JSON here")
@@ -4122,6 +4396,15 @@ def main(argv=None):
         "--null-leg", action="store_true",
         help="after the build, only run and profile the null-likelihood RJ "
              "leg, through the package's public names, and stop")
+    parser.add_argument(
+        "--mesh-legs", action="store_true",
+        help="after the build, only run the device mesh's legs, and stop")
+    parser.add_argument(
+        "--para-digest", action="store_true",
+        help="after the build, only run para[north-star x64] and "
+             "para[rj_pulse128 x16] and print their chains' digests, and "
+             "stop: copied into an earlier tree of the port it digests that "
+             "tree's chains")
     parser.add_argument(
         "--resume-child", nargs=2, metavar=("CONFIG", "FILE"),
         help="run the first part of a resume leg into an HDF5 file until "
@@ -4165,6 +4448,16 @@ def main(argv=None):
 
     if args.cascade_scan:
         cascade_scan(torch, smi)
+        return 0
+    if args.mesh_legs or args.para_digest:
+        with _plain_versions_forbidden():
+            legs = ([mesh_legs] if args.mesh_legs else []) + (
+                [para_north_star_leg, para_rj_pulse128_leg]
+                if args.para_digest else [])
+            for leg in legs:
+                t0 = time.perf_counter()
+                leg(torch, smi)
+                print(f"{leg.__name__}: {time.perf_counter() - t0:.1f} s")
         return 0
     if args.null_leg:
         with _segments_never_wait():
@@ -4237,7 +4530,7 @@ def main(argv=None):
     # form runs inside it)
     with _plain_versions_forbidden():
         for leg in (host_like_leg, host_like_vec_leg, host_like_pool_leg,
-                    hybrid_host_leg, examples_leg):
+                    hybrid_host_leg, examples_leg, mesh_legs):
             t0 = time.perf_counter()
             legs.append(leg(torch, smi))
             print(f"phase 4: {leg.__name__} {time.perf_counter() - t0:.1f} s")

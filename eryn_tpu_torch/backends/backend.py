@@ -31,9 +31,16 @@ def host_leaves(leaves):
 
 
 class Backend:
-    """In-memory backend."""
+    """In-memory backend.
+
+    Under a device mesh (:mod:`~eryn_tpu_torch.parallel.mesh`) the sampler
+    resets it with its rank's shard's dims and calls :meth:`shard_over`: it
+    then stores the rank's shard, and its getters, which every rank calls,
+    gather the shards into the global arrays."""
 
     device_resident = False
+    #: the rank's MeshLayout whose shard this backend stores, or None
+    _shard = None
 
     def __init__(self, store_missing_leaves=np.nan, dtype=None):
         self.initialized = False
@@ -93,6 +100,20 @@ class Backend:
         self._kernel_state_leaves = None
         self._sampler_clock = None
         self.initialized = True
+
+    def shard_over(self, layout):
+        """Store this rank's shard of the ensemble that ``layout`` (a
+        :class:`~eryn_tpu_torch.parallel.mesh.MeshLayout`) splits; the
+        backend was just reset with the shard's dims.  ``ntemps``,
+        ``nwalkers`` and :attr:`shape` are the global ensemble's from
+        here."""
+        self._shard = layout
+        self.ntemps, self.nwalkers = layout.ntemps, layout.nwalkers
+        # the ladder and the swap counts are whole on every rank
+        if self.betas is not None:
+            self.betas = np.empty((0, self.ntemps), dtype=self.dtype)
+        self.swaps_accepted = (np.zeros((self.ntemps - 1,))
+                               if self.ntemps > 1 else None)
 
     @property
     def shape(self):
@@ -258,6 +279,26 @@ class Backend:
 
     def get_value(self, name, thin=1, discard=0, temp_index=None,
                   branch_names=None, slice_vals=None):
+        if self._shard is None:
+            return self._get_value(name, thin, discard, temp_index,
+                                   branch_names, slice_vals)
+        out = self._get_value(name, thin, discard, None, branch_names,
+                              slice_vals)
+        step = not isinstance(slice_vals, (int, np.integer))
+
+        def whole(x):
+            if name != "betas":  # the ladder is whole on every rank
+                x = self._shard.gather_numpy(x, axis=int(step))
+            if temp_index is None:
+                return x
+            return x[:, temp_index] if step else x[temp_index]
+
+        if isinstance(out, dict):
+            return {n: whole(x) for n, x in out.items()}
+        return whole(out)
+
+    def _get_value(self, name, thin=1, discard=0, temp_index=None,
+                   branch_names=None, slice_vals=None):
         self._check_stored()
         if slice_vals is None:
             slice_vals = slice(discard + thin - 1, self.iteration, thin)

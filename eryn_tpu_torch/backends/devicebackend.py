@@ -170,12 +170,15 @@ class DeviceBackend(Backend):
     # ------------------------------------------------------------------
     def _seg_arrays(self, field, branch=None):
         """Per-segment device tensors of one field (static masks broadcast
-        to the segment length)."""
+        to the segment length); under a device mesh the global ones,
+        gathered from every rank's shard."""
         parts = []
         for seg in self._segs:
             arr = seg[field][branch] if branch is not None else seg[field]
             if field == "inds" and arr.ndim == 3:
                 arr = arr.expand((seg.n,) + tuple(arr.shape))
+            if self._shard is not None and field != "betas":
+                arr = self._shard.gather(arr, axis=1)
             parts.append(arr)
         return parts
 

@@ -956,6 +956,9 @@ class EnsembleSampler:
         self.plot_generator = plot_generator
 
         self._previous_state = None
+        # the rank's MeshLayout while the state is sharded over a device
+        # mesh (parallel.mesh), else None
+        self._mesh_layout = None
         self._kernel_states = None
         self._m_acc = None
         self._m_nprop = np.zeros(len(self._all_move_list))
@@ -1107,17 +1110,102 @@ class EnsembleSampler:
         return {n: p.key_order for n, p in self.priors.items()}
 
     def _reset_backend(self, backend):
+        ntemps, nwalkers = self._local_dims
         backend.reset(
-            self.nwalkers,
+            nwalkers,
             self.ndims,
             nleaves_max=self.nleaves_max,
-            ntemps=self.ntemps,
+            ntemps=ntemps,
             branch_names=self.branch_names,
             rj=self.has_reversible_jump,
             moves=list(self.all_moves) if self.track_moves else None,
             info=self.info,
             key_order=self.key_order,
         )
+        if self._mesh_layout is not None:
+            backend.shard_over(self._mesh_layout)
+
+    @property
+    def _local_dims(self):
+        """``(ntemps, nwalkers)`` of the state this process holds: this
+        rank's shard under a device mesh, else the ensemble's."""
+        lay = self._mesh_layout
+        return (self.ntemps, self.nwalkers) if lay is None else (lay.nt, lay.nw)
+
+    def _use_mesh(self, state):
+        """Find the device mesh of ``state`` (``eryn_tpu``'s
+        ``_detect_sharding``) and hand its layout to the moves, the
+        temperature control and the backend.  Under a mesh only the sharded
+        step's configuration runs (see :meth:`_check_mesh`)."""
+        from .parallel.mesh import mesh_of_state
+
+        mesh = mesh_of_state(state)
+        layout = None if mesh is None else state.sharding.layout
+        if layout is self._mesh_layout:
+            return
+        if layout is not None and (layout.ntemps, layout.nwalkers) != (
+                self.ntemps, self.nwalkers):
+            raise ValueError(
+                f"The state is sharded from a {layout.ntemps} x "
+                f"{layout.nwalkers} ensemble; the sampler's is "
+                f"{self.ntemps} x {self.nwalkers}.")
+        if self.backend.iteration > 0:
+            raise NotImplementedError(
+                "A backend that already holds a chain does not continue on "
+                "another placement of the state (sharded over a device "
+                "mesh, or not) in eryn_tpu_torch: store the run in a new "
+                "Backend or DeviceBackend.")
+        if layout is not None:
+            self._check_mesh()
+        self._mesh_layout = layout
+        for move in self._all_move_list:
+            move.mesh_layout = layout
+        if self.temperature_control is not None:
+            self.temperature_control.mesh_layout = layout
+        self._graphs = None
+        self._m_acc = None
+        self._reset_backend(self.backend)
+
+    @staticmethod
+    def _refuse_under_mesh(what):
+        raise NotImplementedError(
+            f"{what} does not run under a device mesh in eryn_tpu_torch "
+            "(parallel.mesh): the sharded step is StretchMove's fused path "
+            "with the kernel cascade or DEO, into a Backend or "
+            "DeviceBackend.")
+
+    def _check_mesh(self, state=None):
+        """Raise ``NotImplementedError`` for what has no sharded form: every
+        move but the fused ``StretchMove``, reversible jump, the general
+        (``permute=False`` or ``use_kernels=False``) cascade, ``HDFBackend``
+        and the ``run_mcmc`` hooks; with the set-up ``state``, host
+        likelihoods and priors, blobs and supplementals."""
+        refuse = self._refuse_under_mesh
+        if state is not None:
+            if self._like_eval.host or self._prior_eval.host:
+                refuse("A host (NumPy) likelihood or prior")
+            if (self._like_eval.returns_blobs or self.provide_supplemental
+                    or state.supplemental is not None
+                    or any(b.branch_supplemental is not None
+                           for b in state.branches.values())):
+                refuse("Blobs and supplementals")
+            return
+        if self.has_reversible_jump:
+            refuse("Reversible jump")
+        for move in self._all_move_list:
+            why = move.mesh_ready()
+            if why is not None:
+                refuse(why)
+        tc = self.temperature_control
+        if (tc is not None and tc.swap_scheme == "cascade"
+                and (not tc.permute or tc.use_kernels is False)):
+            refuse("The general swap cascade (permute=False or "
+                   "use_kernels=False)")
+        if isinstance(self.backend, HDFBackend):
+            refuse("HDFBackend")
+        if (self.update_fn is not None or self.stopping_fn is not None
+                or self.plot_iterations > 0):
+            refuse("update_fn, stopping_fn and the plot hook")
 
     def _check_backend(self, backend):
         """A backend that holds a chain must match the moves (when they are
@@ -1322,6 +1410,8 @@ class EnsembleSampler:
             initial_state if isinstance(initial_state, State)
             else State(initial_state)
         )
+        self._use_mesh(state)
+        ntemps, nwalkers = self._local_dims
 
         def put(x, dtype=None):
             return x.to(device=self.device, dtype=dtype or self.dtype)
@@ -1339,13 +1429,14 @@ class EnsembleSampler:
             b = state.branches[name]
             c = put(b.coords)
             m = b.inds.to(device=self.device)
-            if c.shape[0] == 1 and self.ntemps > 1:
-                c = c.repeat(self.ntemps, 1, 1, 1)
-                m = m.repeat(self.ntemps, 1, 1)
-            if tuple(c.shape) != self.shape[name]:
+            if c.shape[0] == 1 and ntemps > 1:
+                c = c.repeat(ntemps, 1, 1, 1)
+                m = m.repeat(ntemps, 1, 1)
+            want = (ntemps, nwalkers) + self.shape[name][2:]
+            if tuple(c.shape) != want:
                 raise ValueError(
                     f"Branch {name} coords shape {tuple(c.shape)} does not "
-                    f"match expected {self.shape[name]}."
+                    f"match expected {want}."
                 )
             coords[name], inds[name] = c.contiguous(), m.contiguous()
             branch_supps[name] = put_supp(b.branch_supplemental)
@@ -1372,7 +1463,7 @@ class EnsembleSampler:
             betas = put(state.betas)
             tc.betas = betas
 
-        nt_nw = (self.ntemps, self.nwalkers)
+        nt_nw = (ntemps, nwalkers)
         if state.log_prior is not None:
             log_prior = put(state.log_prior).reshape(nt_nw)
         else:
@@ -1417,12 +1508,16 @@ class EnsembleSampler:
         for name, supp in branch_supps.items():
             if supp is not None and supp.host_holder:
                 self._host_supps[name] = supp.host_holder
-        return State(
+        out = State(
             coords, inds=inds, log_like=log_like.contiguous(),
             log_prior=log_prior.contiguous(), betas=betas.contiguous(),
             blobs=blobs, supplemental=supplemental,
             branch_supplemental=branch_supps,
         )
+        if self._mesh_layout is not None:
+            self._check_mesh(out)
+            out.sharding = state.sharding
+        return out
 
     def _blobs_example(self):
         """One step's blobs as an empty host array in the stored dtype (what
@@ -1559,7 +1654,7 @@ class EnsembleSampler:
     def _u8_layout(self):
         """Per-step u8 snapshot: the accept counts and, when leaf masks can
         change, the RJ accept counts and every branch's masks."""
-        nt, nw = self.ntemps, self.nwalkers
+        nt, nw = self._local_dims
         out = [("accepted", None, (nt, nw))]
         if self.has_reversible_jump:
             out.append(("rj_accepted", None, (nt, nw)))
@@ -1569,15 +1664,15 @@ class EnsembleSampler:
         return out
 
     def _snap_layout(self):
-        nt, nw = self.ntemps, self.nwalkers
+        nt, nw = self._local_dims
         return [
             ("coords", n, (nt, nw, self.nleaves_max[n], self.ndims[n]))
             for n in self.branch_names
         ] + [
             ("log_like", None, (nt, nw)),
             ("log_prior", None, (nt, nw)),
-            ("betas", None, (nt,)),
-            ("swaps", None, (max(nt - 1, 0),)),
+            ("betas", None, (self.ntemps,)),
+            ("swaps", None, (max(self.ntemps - 1, 0),)),
         ]
 
     @property
@@ -1585,7 +1680,7 @@ class EnsembleSampler:
         """Whether segments replay the moves' CUDA graphs: not where every
         step visits the host."""
         return (self.cuda_graph and self.device.type == "cuda"
-                and not self._visits_host)
+                and not self._visits_host and self._mesh_layout is None)
 
     def _start_clock(self, tc):
         """The adaptation clock at the start of a segment, a 0-d int64
@@ -1615,7 +1710,7 @@ class EnsembleSampler:
             state = self._inject_prov(state)
         if self._m_acc is None:
             self._m_acc = torch.zeros(
-                (len(self._all_move_list), self.ntemps, self.nwalkers),
+                (len(self._all_move_list),) + self._local_dims,
                 dtype=self.dtype, device=self.device,
             )
         ctx = self.get_eval_context()
@@ -2099,7 +2194,10 @@ class EnsembleSampler:
 
     @property
     def acceptance_fraction(self):
-        return self.backend.accepted / float(self.backend.iteration)
+        accepted = self.backend.accepted
+        if self._mesh_layout is not None:  # every rank's walkers
+            accepted = self._mesh_layout.gather_numpy(accepted)
+        return accepted / float(self.backend.iteration)
 
     @property
     def rj_acceptance_fraction(self):

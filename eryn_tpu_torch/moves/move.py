@@ -148,6 +148,15 @@ class Move:
     #: attributes holding device tensors the step adds to in place (what the
     #: data needed); the batched runner keeps them per group and sums them
     device_counters = ()
+    #: the rank's :class:`~eryn_tpu_torch.parallel.mesh.MeshLayout` while
+    #: the sampler runs a state sharded over a device mesh (the sampler sets
+    #: it), else None: the state's tensors are then this rank's shard
+    mesh_layout = None
+
+    def mesh_ready(self):
+        """None if this move runs on a state sharded over a device mesh,
+        else what does not (the sampler raises at set-up)."""
+        return type(self).__name__
 
     def __init__(
         self,
@@ -368,7 +377,8 @@ class Move:
             generator, state, ctx, kernel_state
         )
         logl = state.log_like
-        ntemps = logl.shape[0]
+        ntemps = (logl.shape[0] if self.mesh_layout is None
+                  else self.mesh_layout.ntemps)
         if ctx.tempering is not None and ntemps > 1 and not self.prevent_swaps:
             state, swaps_accepted, time = ctx.tempering.temper_kernel(
                 generator, state, time, adapt=self.adapt_temps

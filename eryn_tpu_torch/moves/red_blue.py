@@ -94,7 +94,8 @@ class RedBlueMove(Move):
         )
 
     def _check_walkers(self, state, names):
-        ntemps, nwalkers = state.log_like.shape
+        nwalkers = (state.log_like.shape[1] if self.mesh_layout is None
+                    else self.mesh_layout.nwalkers)
         total_ndim = sum(
             state.branches[n].nleaves_max * state.branches[n].ndim
             for n in names

@@ -9,6 +9,12 @@ Port of :mod:`eryn_tpu.moves.stretch`.  Two paths:
   launches per step around the two halves' likelihood calls (propose half
   0; accept half 0 and propose half 1; accept half 1), taken on a CUDA
   device whenever the structure allows it.
+
+On a state sharded over a device mesh (:mod:`~eryn_tpu_torch.parallel.
+mesh`) the move takes the sharded form of the fused path
+(:meth:`StretchMove._propose_impl_sharded`): the same draws at their global
+shape, each half's complement gathered within the temperature shard, and
+kernels 1 and 2 on this rank's walkers.
 """
 
 from __future__ import annotations
@@ -107,7 +113,26 @@ class StretchMove(RedBlueMove):
             and self.run_branches(state) == list(state.branches)
         )
 
+    def mesh_ready(self):
+        """The sharded step is the fused path's: no periodic parameters, no
+        Gibbs splits, two randomized halves over every branch, the stock
+        proposal, and kernels allowed (``use_kernels`` not False)."""
+        if type(self) is not StretchMove:
+            return super().mesh_ready()
+        if (self.use_kernels is False or self.periodic is not None
+                or self.gibbs_iterations != [None] or self.nsplits != 2
+                or not self.randomize_split
+                or self.proposal_branch_names is not None):
+            return ("StretchMove with periodic parameters, a "
+                    "gibbs_sampling_setup, nsplits other than 2, a fixed "
+                    "split, a branch subset or use_kernels=False")
+        return None
+
     def _propose_impl(self, generator, state, ctx, kernel_state=()):
+        if self.mesh_layout is not None:
+            new_state, accepted = self._propose_impl_sharded(
+                generator, state, ctx)
+            return new_state, accepted, kernel_state
         if self._can_fuse(state):
             ntemps, nwalkers = state.log_like.shape
             perm, u_all = self.draw_fused(
@@ -201,6 +226,104 @@ class StretchMove(RedBlueMove):
             log_like=logl_out, log_prior=logp_out,
         )
         return new_state, accepted
+
+    def _propose_impl_sharded(self, generator, state, ctx):
+        """One fused stretch step on this rank's shard of a state sharded
+        over a ``(temp, walker)`` mesh (``self.mesh_layout``).
+
+        Every rank draws the step's permutation and uniforms at their
+        global shape (:meth:`draw_fused`) from the same generator and keeps
+        its temperatures' rows.  The kernels then run on walker-order views
+        ``(nt, nwalkers, D)`` of the rank's temperatures: the rank's own
+        walkers in place, and before each half the half's complement (the
+        other half's walkers, the first half's merged) gathered from the
+        walker shard that holds each (:meth:`~eryn_tpu_torch.parallel.mesh.
+        MeshLayout.fill_rows`).  Kernel 1 proposes the whole half, the
+        likelihood and prior run on the rank's walkers of it only, and
+        kernel 2 accepts the half (with zeros for the other ranks'
+        walkers, whose rows are discarded).  Kernels 1 and 2 run unfused:
+        the complement of the second half is gathered between them.
+        Returns ``(state, accepted)`` for the rank's shard."""
+        lay = self.mesh_layout
+        names = list(state.branches)
+        self._check_walkers(state, names)
+        logl = state.log_like.contiguous()
+        logp = state.log_prior.contiguous()
+        nt, nw, w0 = lay.nt, lay.nw, lay.w0
+        NW = lay.nwalkers
+        dtype, device = logl.dtype, logl.device
+        perm, u_all = self.draw_fused(generator, lay.ntemps, NW, dtype, device)
+        u_all = u_all[:, :, lay.t0:lay.t0 + nt].contiguous()
+        betas = state.betas[lay.t0:lay.t0 + nt].contiguous()
+
+        shapes = [(n, state.branches[n].nleaves_max, state.branches[n].ndim)
+                  for n in names]
+        parts = [state.branches[n].coords.reshape(nt, nw, -1) for n in names]
+        X_loc = parts[0] if len(parts) == 1 else torch.cat(parts, dim=-1)
+        inds = state.branches_inds
+
+        def view(x):
+            # a walker-order view of the rank's temperatures: its own
+            # walkers in place, zeros elsewhere until filled
+            out = x.new_zeros((nt, NW) + tuple(x.shape[2:]))
+            out[:, w0:w0 + nw] = x
+            return out
+
+        X = view(X_loc)
+        ndim_act = view(active_ndim(state, names).to(dtype))
+        L, P = view(logl), view(logp)
+
+        def q_to_branches(q, ns):
+            out, off = {}, 0
+            for n, nl, nd in shapes:
+                out[n] = q[..., off:off + nl * nd].reshape(nt, ns, nl, nd)
+                off += nl * nd
+            return out
+
+        # the exchange plans are the permutation's: one host read a step
+        order = perm.cpu().numpy()
+        n0 = NW - NW // 2
+        walkers = (order[:n0], order[n0:])
+
+        def evaluate(q, half):
+            """The half's new log-likelihood and log-prior, ``(nt, ns)``:
+            evaluated on this rank's walkers, zeros elsewhere."""
+            w = walkers[half]
+            mine = np.flatnonzero((w >= w0) & (w < w0 + nw))
+            ll = q.new_zeros(q.shape[:2])
+            lp = q.new_zeros(q.shape[:2])
+            if mine.size:
+                pos = torch.as_tensor(mine, device=device)
+                own = torch.as_tensor(w[mine] - w0, device=device)
+                q_branches = q_to_branches(q[:, pos], mine.size)
+                inds_blk = {n: inds[n][:, own] for n in names}
+                lp_new = ctx.compute_log_prior(q_branches, inds_blk)
+                ll_new, _ = ctx.compute_log_like(q_branches, inds_blk, lp_new)
+                ll[:, pos] = ll_new
+                lp[:, pos] = lp_new
+            return ll, lp
+
+        kw = dict(a=self.a, log_proposal=self.use_log_proposal)
+        outs = (torch.empty_like(X), torch.empty_like(L),
+                torch.empty_like(L), torch.empty_like(L))
+        lay.fill_rows(X, X_loc, walkers[1])
+        q, factors = stretch_propose(X, X, ndim_act, perm, u_all, 0, **kw)
+        stretch_accept(q, X, *evaluate(q, 0), L, P, factors, betas, perm,
+                       u_all, 0, *outs)
+        X_out, logl_out, logp_out, accepted = outs
+        lay.fill_rows(X_out, X_out[:, w0:w0 + nw], walkers[0])
+        q, factors = stretch_propose(X, X_out, ndim_act, perm, u_all, 1, **kw)
+        stretch_accept(q, X, *evaluate(q, 1), L, P, factors, betas, perm,
+                       u_all, 1, *outs)
+
+        def own(x):
+            return x[:, w0:w0 + nw].contiguous()
+
+        new_state = state.replace(
+            coords=q_to_branches(own(X_out), nw), inds=inds,
+            log_like=own(logl_out), log_prior=own(logp_out),
+        )
+        return new_state, own(accepted)
 
     # ------------------------------------------------------------------
     # general path

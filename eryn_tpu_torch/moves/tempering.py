@@ -182,7 +182,17 @@ class TemperatureControl:
     ``adaptation_scheme`` ``"vousden"`` or ``"syed"`` (see the module).
     The swaps move blobs and the numeric supplemental entries with their
     walkers, but the state supplemental's ``skip_swap_supp_names``.
+
+    On a state sharded over a device mesh (``mesh_layout``, which the
+    sampler sets) the swap phase runs sharded: the kernel cascade decides
+    on the gathered log-likelihood (:meth:`_swap_cascade_sharded`), DEO
+    exchanges the neighbouring shards' edge rungs
+    (:meth:`_swap_deo_sharded`); the ladder stays whole on every rank.
     """
+
+    #: the rank's :class:`~eryn_tpu_torch.parallel.mesh.MeshLayout` under a
+    #: device mesh, else None
+    mesh_layout = None
 
     def __init__(
         self,
@@ -304,9 +314,12 @@ class TemperatureControl:
             :func:`~eryn_tpu_torch.ops.pt_swap.proposals_per_rung`), under
             DEO a tensor, 0 on the boundaries not attempted.
         """
-        ntemps, nwalkers = logl.shape
+        ntemps, nwalkers = self._dims(logl)
         if ntemps == 1:
             return swap_tree, logl, logl.new_zeros((0,)), logl.new_zeros((0,))
+        if self.mesh_layout is not None:
+            return self._swap_sharded(generator, swap_tree, logl, betas,
+                                      self.time if time is None else time)
         if self.swap_scheme == "deo":
             raccept = self.draw_deo(generator, ntemps, nwalkers, logl.dtype,
                                     logl.device)
@@ -326,6 +339,101 @@ class TemperatureControl:
             swap_tree, logl, betas, perms, raccept
         )
         return swap_tree, logl, accepted, nwalkers
+
+    def _dims(self, logl):
+        """The ensemble's ``(ntemps, nwalkers)``: the global ones under a
+        device mesh, where ``logl`` is this rank's shard."""
+        if self.mesh_layout is None:
+            return tuple(logl.shape)
+        return self.mesh_layout.ntemps, self.mesh_layout.nwalkers
+
+    def _swap_sharded(self, generator, swap_tree, logl, betas, time):
+        """:meth:`swap_kernel` on this rank's shard: the draws of the kernel
+        cascade (or of DEO) at their global shape, then the sharded form of
+        the phase."""
+        ntemps, nwalkers = self._dims(logl)
+        if self.swap_scheme == "deo":
+            raccept = self.draw_deo(generator, ntemps, nwalkers, logl.dtype,
+                                    logl.device)
+            return self._swap_deo_sharded(swap_tree, logl, betas, time,
+                                          raccept)
+        pi, shifts, raccept = self.draw_kernel(generator, ntemps, nwalkers,
+                                               logl.dtype, logl.device)
+        return self._swap_cascade_sharded(swap_tree, logl, betas, pi, shifts,
+                                          raccept)
+
+    def _swap_cascade_sharded(self, swap_tree, logl, betas, pi, shifts,
+                              raccept):
+        """The kernel cascade on a sharded state: the log-likelihood
+        gathered over the mesh (``(ntemps, nwalkers)``, small), one launch
+        of :func:`~eryn_tpu_torch.ops.pt_swap.pt_swap_cascade_tree` on it
+        with one int32 leaf, the slots' origins (every rank makes the same
+        decisions), then each slot of this rank's shard takes its origin's
+        row: rows held here are copied, the others moved once
+        (:meth:`~eryn_tpu_torch.parallel.mesh.MeshLayout.move_rows`).
+        Returns what :meth:`_swap_cascade_kernel` returns, for the shard."""
+        lay = self.mesh_layout
+        ntemps, nwalkers = lay.ntemps, lay.nwalkers
+        full = lay.gather(logl)
+        origin = torch.arange(ntemps * nwalkers, dtype=torch.int32,
+                              device=logl.device).reshape(ntemps, nwalkers)
+        out_logl = torch.empty_like(full)
+        out_origin = torch.empty_like(origin)
+        accepted = full.new_empty((ntemps - 1,))
+        pt_swap_cascade_tree(full, [origin], betas, pi, shifts, raccept,
+                             out_logl, [out_origin], accepted)
+        proposed = proposals_per_rung(nwalkers, shifts, logl.dtype)
+        paths, leaves = zip(*_flatten(swap_tree))
+        moved = lay.move_rows(list(leaves), out_origin)
+        return (_unflatten(paths, moved), lay.local(out_logl).contiguous(),
+                accepted, proposed)
+
+    def _swap_deo_sharded(self, swap_tree, logl, betas, time, raccept):
+        """A DEO phase on a sharded state: this shard's rungs with the
+        neighbouring shards' edge rungs (the only rows a parity phase pairs
+        across shards: each walker with itself, so within the walker
+        shard), the decisions of :meth:`_swap_kernel_deo` on those rows,
+        and the accepted swaps of each boundary counted where its lower
+        rung lies and summed over the mesh (integer counts: exact).
+        Returns what :meth:`_swap_kernel_deo` returns, for the shard."""
+        lay = self.mesh_layout
+        ntemps, nwalkers = lay.ntemps, lay.nwalkers
+        nt, t0, w0 = lay.nt, lay.t0, lay.w0
+        dtype, device = logl.dtype, logl.device
+        paths, leaves = zip(*_flatten(swap_tree))
+        ext = lay.temp_halo([logl, *leaves])
+        lo = t0 - 1 if t0 > 0 else 0  # the global rung of ext's first row
+        hi = lo + ext[0].shape[0]
+        parity = torch.as_tensor(time, device=device) % 2
+        bounds = torch.arange(lo, hi - 1, device=device)
+        active = bounds % 2 == parity
+        dbetas = (betas[lo:hi - 1] - betas[lo + 1:hi]).to(dtype)
+        ll = ext[0]
+        paccept = dbetas[:, None] * (ll[1:] - ll[:-1])
+        sel = (paccept > raccept[lo:hi - 1, w0:w0 + lay.nw]) & active[:, None]
+        pad = torch.zeros((1, lay.nw), dtype=torch.bool, device=device)
+        move_down = torch.cat([sel, pad])
+        move_up = torch.cat([pad, sel])
+        keep = slice(t0 - lo, t0 - lo + nt)
+
+        def exchange(x):
+            down = torch.cat([x[1:], x[-1:]])
+            up = torch.cat([x[:1], x[:-1]])
+            extra = (1,) * (x.ndim - 2)
+            return torch.where(move_down.reshape(move_down.shape + extra),
+                               down,
+                               torch.where(move_up.reshape(move_up.shape
+                                                           + extra), up, x)
+                               )[keep].contiguous()
+
+        counts = logl.new_zeros((ntemps - 1,))
+        own = slice(t0, min(t0 + nt, ntemps - 1))  # boundaries counted here
+        counts[own] = sel[own.start - lo:own.stop - lo].sum(dim=-1).to(dtype)
+        lay.sum(counts)
+        proposed = (torch.arange(ntemps - 1, device=device) % 2
+                    == parity).to(dtype) * nwalkers
+        return (_unflatten(paths, [exchange(x) for x in ext[1:]]),
+                exchange(ext[0]), counts, proposed)
 
     def draw_general(self, generator, ntemps, nwalkers, dtype, device):
         """Randomness of one general cascade: the walker orders ``perms``
@@ -575,7 +683,7 @@ class TemperatureControl:
         Returns:
             ``(state, swaps_accepted, time)``.
         """
-        ntemps, nwalkers = state.log_like.shape
+        ntemps, nwalkers = self._dims(state.log_like)
         if ntemps == 1:
             return state, state.log_like.new_zeros((0,)), time
         swap_tree = {

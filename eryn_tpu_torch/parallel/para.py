@@ -17,23 +17,42 @@ CUDA graph on group-batched buffers and replayed, as
 
 Every group has its own draws (``randomness="different"``: each draw of a
 step is drawn for all groups at once from the sampler's generator), its own
-adapting ladder, its own clock (``(ngroups,)``) and its own kernel states;
-the move schedule is drawn on the host once per step for all groups.
+adapting ladder, its own clock (``(ngroups,)``) and its own kernel states.
+Where a family of moves (in-model, reversible jump) has one move, every
+group runs it.  Where it has two or more, each group draws its own move on
+the device at every slot of a step, as ``eryn_tpu``'s per-group
+``lax.switch`` does: every move of the family runs on every group, and each
+group keeps the result of its own draw.
+
+Over a group mesh (:func:`~eryn_tpu_torch.parallel.mesh.make_group_mesh`,
+one process per device) rank ``r`` of ``n`` runs the groups ``r, r + n, r +
+2n, ...``.  The step makes no collective.  Each of its draws is drawn at the
+shape of all the groups and the rank keeps its own rows, so every group's
+chain is the one a single process runs; the getters gather the groups back
+into their global order.
 """
 
 from __future__ import annotations
 
+import warnings
+
 import numpy as np
 import torch
+from torch.overrides import TorchFunctionMode
 
 from ..ensemble import EnsembleSampler, _walk_moves, check_segments
 from ..graphs import StepGraphs, _assign
 from ..state import ParaState, State
 from ..utils.pytree import tree_flatten, tree_unflatten
+from . import _comm
 
 __all__ = ["ParaEnsembleSampler"]
 
 _FIELDS = ("log_like", "log_prior", "betas")
+
+#: schedule entries of a slot whose move each group draws on the device:
+#: the in-model family's and the reversible-jump family's
+_IN_SLOT, _RJ_SLOT = -1, -2
 
 
 def _state_dict(state):
@@ -58,6 +77,12 @@ def _map(fn, *trees):
             **{f: fn(*(t[f] for t in trees)) for f in _FIELDS}}
 
 
+def _blend(keep, new, old):
+    """``new`` for the groups where ``keep`` ``(ngroups,)`` holds, else
+    ``old``."""
+    return torch.where(keep.reshape((-1,) + (1,) * (new.ndim - 1)), new, old)
+
+
 def _device_counters(move):
     """``(object, attribute)`` of each device counter a move (or a child of
     a composite) adds to inside its step: these are kept per group under
@@ -67,9 +92,45 @@ def _device_counters(move):
             if getattr(m, a, None) is not None]
 
 
+class _RankRows(TorchFunctionMode):
+    """Inside rank ``r`` of ``n``'s mapped step: each ``torch.rand``,
+    ``torch.randn`` and ``torch.randint`` draws ``n`` rows where it drew one,
+    and the rank keeps row ``r``.  Under ``vmap(randomness="different")``
+    over ``G / n`` groups that is one draw of the elements one process draws
+    for all ``G`` groups, and group ``b`` of the rank gets the numbers of
+    group ``b * n + r``."""
+
+    def __init__(self, n, r):
+        super().__init__()
+        self.n, self.r = n, r
+
+    def __torch_function__(self, func, types, args=(), kwargs=None):
+        kwargs = dict(kwargs or {})
+        if func in (torch.rand, torch.randn):
+            size = kwargs.pop("size", None)
+            if size is None:
+                size = (args[0] if len(args) == 1
+                        and not isinstance(args[0], int) else args)
+            return func((self.n,) + tuple(size), **kwargs)[self.r]
+        if func is torch.randint:
+            size = kwargs.pop("size", None)
+            if size is None:
+                *bounds, size = args
+            else:
+                bounds = list(args)
+            return func(*bounds, (self.n,) + tuple(size), **kwargs)[self.r]
+        return func(*args, **kwargs)
+
+
 def _inner(name):
     """A read-only attribute forwarded to the inner ``EnsembleSampler``."""
     return property(lambda self: getattr(self.sampler, name))
+
+
+def _rank_groups(x, n, r):
+    """Rank ``r`` of ``n``'s groups ``r, r + n, ...`` of a leading group
+    axis."""
+    return x if n == 1 else x[r::n]
 
 
 class _ParaGraphs(StepGraphs):
@@ -96,14 +157,49 @@ class _ParaGraphs(StepGraphs):
         return (_map(torch.clone, self.state), self.clock.clone(),
                 self.swaps.clone())
 
+    def step(self, row, ctx):
+        """One step of every group: per entry of ``row`` (a move index, or
+        a slot whose move each group draws), the replay of its graph, its
+        capture, or its first run eagerly."""
+        smp = self.sampler
+        kinds = set()
+        for j in row:
+            j = int(j)
+            kind = smp._in_model(j)
+            key = (j, kind not in kinds)
+            kinds.add(kind)
+            if j >= 0:
+                smp._m_nprop[j] += 1
+            entry = self.graphs.get(key)
+            if entry is None:
+                if key not in self.warm:
+                    self._body(key, ctx)
+                    self.warm.add(key)
+                    continue
+                entry = self.graphs[key] = self._capture(key, ctx)
+            graph, counts = entry
+            graph.replay()
+            for kernel, n in counts:
+                kernel.launches += n
+            smp.graph_replays += 1
+
+    def _record(self, j, first, acc, swaps):
+        out = self.accepted if self.sampler._in_model(j) else self.rj_accepted
+        if first:
+            out.copy_(acc)
+        else:
+            out.add_(acc)
+        if self.sampler._in_model(j):
+            self.swaps.copy_(swaps)
+
     def _body(self, key, ctx):
         j, first = key
         smp = self.sampler
-        st, acc, swaps, time, ks = smp._mapped_step(j, self.state,
-                                                    self.clock, ctx)
-        for dst, src in zip(smp._ks_tensors(j), ks):
-            _assign(dst, src)
-        smp._m_acc[j] += acc
+        st, acc, swaps, time, kstates = smp._run_entry(j, self.state,
+                                                       self.clock, ctx)
+        for m, ks in kstates:
+            for dst, src in zip(smp._ks_tensors(m), ks):
+                _assign(dst, src)
         self._record(j, first, acc, swaps)
         _assign(self.clock, time)
         _map(_assign, self.state, st)
@@ -118,25 +214,43 @@ class ParaEnsembleSampler:
     states and chain.  The batched chain stays in memory (``(nsteps,
     ngroups, ntemps, nwalkers, ...)``, on the sampler's device; the getters
     return host arrays) and a ``backend`` is refused: export a group
-    through an ordinary sampler's backend.
-    ``mesh`` (groups spread over devices) is not ported: anything but None
-    raises.  Moves that run on the host, and host likelihoods, are refused.
+    through an ordinary sampler's backend.  Moves that run on the host, and
+    host likelihoods, are refused.  A likelihood that returns ``(log_like,
+    blobs)`` runs on its log-likelihood: the blobs are dropped, with a
+    warning at the first set-up, as ``eryn_tpu``'s runner drops them.
+
+    ``mesh``, a 1-D group mesh (:func:`~eryn_tpu_torch.parallel.mesh.
+    make_group_mesh`, one rank per device), spreads the groups over the
+    ranks: every rank builds the sampler alike and passes the same global
+    inputs, runs its groups ``r, r + n, ...`` (see the module), and the
+    getters return every group in global order; :meth:`run_mcmc` returns
+    the rank's groups.  ``ngroups`` must divide by the mesh's size.
     """
 
     def __init__(self, ngroups, nwalkers, ndims, log_like_fn, priors,
                  seed=None, mesh=None, **kwargs):
+        self.ngroups = int(ngroups)
+        self.mesh = mesh
+        self._n, self._r = 1, 0  # the group mesh's size, this rank
         if mesh is not None:
-            raise NotImplementedError(
-                "ParaEnsembleSampler(mesh=...) spreads the groups over a "
-                "device mesh in eryn_tpu; eryn_tpu_torch runs every group on "
-                "one card (parallel/mesh.py is not ported): pass mesh=None.")
+            if (getattr(mesh, "ndim", None) != 1
+                    or not hasattr(mesh, "get_local_rank")):
+                raise ValueError(
+                    "ParaEnsembleSampler expects a 1-D group mesh "
+                    f"(parallel.make_group_mesh); got {mesh!r}.")
+            self._n, self._r = int(mesh.size()), int(mesh.get_local_rank())
+            if self.ngroups % self._n != 0:
+                raise ValueError(
+                    f"ngroups ({self.ngroups}) must be divisible by the "
+                    f"group-mesh size ({self._n}).")
+        #: the groups this process runs
+        self._g = self.ngroups // self._n
         if "backend" in kwargs:
             # silently dropping a backend would lose the user's chain file
             raise ValueError(
                 "ParaEnsembleSampler keeps its batched chain in memory and "
                 "does not accept a backend; export per group through "
                 "ordinary single-group backends instead.")
-        self.ngroups = int(ngroups)
         self.sampler = s = EnsembleSampler(
             nwalkers, ndims, log_like_fn, priors, seed=seed, **kwargs)
         if any(s._host_moves):
@@ -150,6 +264,9 @@ class ParaEnsembleSampler:
         self._kernel_states = None
         self._m_acc = None
         self._m_nprop = np.zeros(len(s._all_move_list))
+        # per group, the proposals of the moves each group draws itself
+        self._m_nprop_g = None
+        self._warned_blobs = False
         self._state = None  # (state dict, clock)
         self._segments = []  # stored segments, on the device
         self._host = {}  # the getters' host copies
@@ -177,8 +294,13 @@ class ParaEnsembleSampler:
             c, torch.Tensor) else c)) for n, c in coords.items()}
         if inds is not None and not isinstance(inds, dict):
             inds = {s.branch_names[0]: inds}
+        coords = {n: _rank_groups(c, self._n, self._r)
+                  for n, c in coords.items()}
+        if inds is not None:
+            inds = {n: _rank_groups(v, self._n, self._r)
+                    for n, v in inds.items()}
         states = []
-        for g in range(self.ngroups):
+        for g in range(self._g):
             state = s._setup_state(State(
                 {n: c[g] for n, c in coords.items()},
                 inds=None if inds is None else {
@@ -186,13 +308,19 @@ class ParaEnsembleSampler:
                         v, torch.Tensor) else v[g]).bool()
                     for n, v in inds.items()}),
                 skip_initial_state_check=True)
-            if state.blobs is not None or any(
-                    b.branch_supplemental is not None
-                    for b in state.branches.values()):
+            if any(b.branch_supplemental is not None
+                   for b in state.branches.values()):
                 raise NotImplementedError(
                     "ParaEnsembleSampler carries coordinates, masks, "
                     "log-likelihoods, log-priors and the ladder; blobs and "
                     "supplementals take EnsembleSampler.")
+            if state.blobs is not None and not self._warned_blobs:
+                self._warned_blobs = True
+                warnings.warn(
+                    "ParaEnsembleSampler runs a likelihood that returns "
+                    "(log_like, blobs) on its log-likelihood and drops the "
+                    "blobs, as eryn_tpu's runner does; EnsembleSampler "
+                    "stores them.", stacklevel=3)
             states.append(_state_dict(state))
         if s._like_eval.host or s._prior_eval.host:
             raise ValueError(
@@ -207,18 +335,19 @@ class ParaEnsembleSampler:
         return [x for x in tree_flatten(self._kernel_states[j])[0]
                 if isinstance(x, torch.Tensor)]
 
-    def _mapped_step(self, j, st, time, ctx):
+    def _mapped_step(self, j, st, time, ctx, keep=None):
         """Move ``j`` on every group at once: ``torch.func.vmap`` of its
         ``propose_kernel`` over the state dict, the clock, the kernel
         state's tensors and the move's device counters.  Returns ``(state
         dict, accepted, swaps, clock, kernel-state tensors)``, each with a
-        leading group axis; the counters are summed into the move's."""
+        leading group axis; the counters of the groups ``keep`` (a
+        ``(ngroups,)`` bool, default all) are summed into the move's."""
         s = self.sampler
         move = s._all_move_list[j]
         leaves, spec = tree_flatten(self._kernel_states[j])
         where = [i for i, x in enumerate(leaves) if isinstance(x, torch.Tensor)]
         counters = _device_counters(move)
-        zeros = [torch.zeros((self.ngroups,) + tuple(getattr(o, a).shape),
+        zeros = [torch.zeros((self._g,) + tuple(getattr(o, a).shape),
                              dtype=getattr(o, a).dtype, device=self.device)
                  for o, a in counters]
 
@@ -240,27 +369,104 @@ class ParaEnsembleSampler:
             ks_t = [x for x in tree_flatten(ks)[0] if isinstance(x, torch.Tensor)]
             return _state_dict(new), acc, swaps, time, ks_t, cnt
 
-        out = torch.func.vmap(one, randomness="different")(
-            st, time, [leaves[i] for i in where], zeros)
+        mapped = torch.func.vmap(one, randomness="different")
+        if self._n == 1:
+            out = mapped(st, time, [leaves[i] for i in where], zeros)
+        else:
+            with _RankRows(self._n, self._r):
+                out = mapped(st, time, [leaves[i] for i in where], zeros)
         for (o, a), c in zip(counters, out[5]):
+            if keep is not None:
+                c = _blend(keep, c, torch.zeros_like(c))
             getattr(o, a).add_(c.sum(dim=0))
         return out[:5]
+
+    def _in_model(self, j):
+        """Whether schedule entry ``j`` (a move index or a slot marker) is
+        an in-model move."""
+        return j == _IN_SLOT or 0 <= j < len(self.sampler.moves)
+
+    def _schedule(self, nsteps):
+        """The step's entries: as ``EnsembleSampler._draw_schedule``'s rows
+        where a family has one move (every group runs it), a slot marker
+        (:data:`_IN_SLOT`, :data:`_RJ_SLOT`) where it has more, whose move
+        each group draws on the device."""
+        s = self.sampler
+        cols = [np.full((nsteps, s.num_repeats_in_model),
+                        0 if len(s.moves) == 1 else _IN_SLOT)]
+        if s.has_reversible_jump:
+            cols.append(np.full(
+                (nsteps, s.num_repeats_rj),
+                len(s.moves) if len(s.rj_moves) == 1 else _RJ_SLOT))
+        return np.concatenate(cols, axis=1)
+
+    def _family(self, marker):
+        """The move indices of a slot marker's family and its cumulative
+        weights (float64, on the device)."""
+        s = self.sampler
+        if marker == _IN_SLOT:
+            idx, w = range(len(s.moves)), s.weights
+        else:
+            idx, w = range(len(s.moves), len(s._all_move_list)), s.rj_weights
+        w = np.asarray(w, dtype=np.float64)
+        cum = torch.as_tensor(np.cumsum(w / w.sum()), device=self.device)
+        return list(idx), cum
+
+    def _run_entry(self, j, st, time, ctx):
+        """One entry of a step on every group: move ``j``, or for a slot
+        marker the move each group draws (:meth:`_group_slot`).  Adds the
+        accept flags into the move counters; returns ``(state dict,
+        accepted, swaps, clock, [(move index, kernel-state tensors)])``."""
+        if j < 0:
+            return self._group_slot(j, st, time, ctx)
+        st, acc, swaps, time, ks = self._mapped_step(j, st, time, ctx)
+        self._m_acc[j] += acc
+        return st, acc, swaps, time, [(j, ks)]
+
+    def _group_slot(self, marker, st, time, ctx):
+        """A slot whose move each group draws: one uniform per group (drawn
+        for all ``ngroups`` groups; a rank of a group mesh keeps its own)
+        picks a move of the family by its weight, every move of the family
+        runs on every group from the slot's state, and each group keeps the
+        state, clock, flags, swaps, kernel state and counters of its own
+        draw."""
+        moves, cum = self._family(marker)
+        u = torch.rand((self.ngroups,), generator=self._gen,
+                       dtype=torch.float64, device=self.device)
+        pick = torch.searchsorted(
+            cum, _rank_groups(u, self._n, self._r).contiguous(), right=True
+        ).clamp_(max=len(moves) - 1)
+        out_st, out_time, accepted, swaps, kstates = st, time, None, None, []
+        for pos, j in enumerate(moves):
+            keep = pick == pos
+            new, acc, sw, t, ks = self._mapped_step(j, st, time, ctx, keep)
+            out_st = _map(lambda n, o: _blend(keep, n, o), new, out_st)
+            out_time = _blend(keep, t, out_time)
+            acc = _blend(keep, acc, torch.zeros_like(acc))
+            accepted = acc if accepted is None else accepted + acc
+            swaps = sw if swaps is None else _blend(keep, sw, swaps)
+            kstates.append((j, [_blend(keep, x, o) for x, o in zip(
+                ks, self._ks_tensors(j))]))
+            self._m_acc[j] += acc
+            self._m_nprop_g[j] += keep
+        return out_st, accepted, swaps, out_time, kstates
 
     def _step(self, st, time, row, ctx):
         """One eager step of every group (see ``EnsembleSampler._step``)."""
         s = self.sampler
         accepted = rj_accepted = swaps = None
         for j in row:
-            st, acc, sw, time, ks_t = self._mapped_step(j, st, time, ctx)
-            leaves, spec = tree_flatten(self._kernel_states[j])
-            it = iter(ks_t)
-            # contiguous: a groups_running blend writes into them
-            self._kernel_states[j] = tree_unflatten(spec, [
-                next(it).contiguous() if isinstance(x, torch.Tensor) else x
-                for x in leaves])
-            self._m_acc[j] += acc
-            self._m_nprop[j] += 1
-            if j < len(s.moves):
+            st, acc, sw, time, kstates = self._run_entry(j, st, time, ctx)
+            for m, ks_t in kstates:
+                leaves, spec = tree_flatten(self._kernel_states[m])
+                it = iter(ks_t)
+                # contiguous: a groups_running blend writes into them
+                self._kernel_states[m] = tree_unflatten(spec, [
+                    next(it).contiguous() if isinstance(x, torch.Tensor) else x
+                    for x in leaves])
+            if j >= 0:
+                self._m_nprop[j] += 1
+            if self._in_model(j):
                 accepted = acc if accepted is None else accepted + acc
                 swaps = sw
             else:
@@ -268,7 +474,7 @@ class ParaEnsembleSampler:
         if accepted is None:
             accepted = torch.zeros_like(st["log_like"])
             swaps = st["log_like"].new_zeros(
-                (self.ngroups, max(s.ntemps - 1, 0)))
+                (self._g, max(s.ntemps - 1, 0)))
         return st, time, accepted, rj_accepted, swaps
 
     def _run_segment(self, st, time, nstored, thin_by, store):
@@ -283,7 +489,7 @@ class ParaEnsembleSampler:
                 self._graphs = _ParaGraphs(self)
             graphs = self._graphs
             st = graphs.load(st, time)
-        schedule = s._draw_schedule(nstored * thin_by)
+        schedule = self._schedule(nstored * thin_by)
         bufs = None
         if store:
             keep = dict(st) if s._inds_change else {
@@ -339,23 +545,27 @@ class ParaEnsembleSampler:
             if tuple(running.shape) != (self.ngroups,):
                 raise ValueError(
                     f"groups_running must have shape ({self.ngroups},).")
+            running = _rank_groups(running, self._n, self._r)
         if self._state is None or coords is not None:
             st, state0 = self._setup_states(coords, inds)
-            time = torch.zeros((self.ngroups,), dtype=torch.int64,
+            time = torch.zeros((self._g,), dtype=torch.int64,
                                device=self.device)
             proto = [m.init_kernel_state(state0) for m in s._all_move_list]
-            self._kernel_states = [_broadcast(ks, self.ngroups)
+            self._kernel_states = [_broadcast(ks, self._g)
                                    for ks in proto]
             self._state = (st, time)
             self._graphs = None
         if self._m_acc is None:
             nt, nw = s.ntemps, s.nwalkers
             self._m_acc = torch.zeros(
-                (len(s._all_move_list), self.ngroups, nt, nw),
+                (len(s._all_move_list), self._g, nt, nw),
                 dtype=s.dtype, device=self.device)
-            self._acc_sum = torch.zeros((self.ngroups, nt, nw), dtype=s.dtype,
+            self._m_nprop_g = torch.zeros(
+                (len(s._all_move_list), self._g), dtype=torch.int64,
+                device=self.device)
+            self._acc_sum = torch.zeros((self._g, nt, nw), dtype=s.dtype,
                                         device=self.device)
-            self._swaps_sum = torch.zeros((self.ngroups, max(nt - 1, 0)),
+            self._swaps_sum = torch.zeros((self._g, max(nt - 1, 0)),
                                           dtype=s.dtype, device=self.device)
         st, time = self._state
         gate = running is not None and not bool(running.all())
@@ -379,7 +589,7 @@ class ParaEnsembleSampler:
         return ParaState(
             st["coords"], inds=st["inds"],
             **{f: st[f] for f in _FIELDS},
-            groups_running=(torch.ones(self.ngroups, dtype=torch.bool,
+            groups_running=(torch.ones(self._g, dtype=torch.bool,
                                        device=self.device)
                             if running is None else running))
 
@@ -427,31 +637,66 @@ class ParaEnsembleSampler:
 
     def _get(self, key):
         """The stored field ``key`` over every segment, as host arrays
-        (copied from the device once, until the next stored segment)."""
+        (copied from the device once, until the next stored segment); over a
+        group mesh every rank's groups, in global order."""
         if key not in self._host:
             first = self._segments[0][key]
+
+            def whole(parts):
+                return self._all_groups(torch.cat(parts), axis=1)
+
             if isinstance(first, dict):
                 self._host[key] = {
-                    n: torch.cat([seg[key][n] for seg in self._segments]
-                                 ).cpu().numpy() for n in first}
+                    n: whole([seg[key][n] for seg in self._segments])
+                    for n in first}
             else:
-                self._host[key] = torch.cat(
-                    [seg[key] for seg in self._segments]).cpu().numpy()
+                self._host[key] = whole([seg[key] for seg in self._segments])
         return self._host[key]
+
+    def _all_groups(self, x, axis=0):
+        """``x``, this rank's groups along ``axis``, as a host array of every
+        group in global order (one gather over the group mesh)."""
+        if self._n == 1:
+            return x.cpu().numpy()
+        group = self.mesh.get_group()
+        if torch.distributed.get_backend(group) != "nccl":
+            x = x.cpu()
+        send = x.movedim(axis, 0).contiguous()
+        as_bytes = send.dtype == torch.bool
+        if as_bytes:
+            send = send.view(torch.uint8)
+        out = send.new_empty((self._n * send.shape[0],) + send.shape[1:])
+        _comm.all_gather_into_tensor(out, send, group=group)
+        # rank r's group b is group b * n + r
+        out = out.view((self._n, self._g) + send.shape[1:]).transpose(0, 1)
+        out = out.reshape((self.ngroups,) + send.shape[1:])
+        if as_bytes:
+            out = out.view(torch.bool)
+        return out.movedim(0, axis).cpu().numpy()
+
+    @property
+    def move_proposals(self):
+        """Per move and group, the proposals each group made with each
+        move, ``(nmoves, ngroups)``: every group runs a move that is the
+        only one of its family, and draws its own among two or more."""
+        if self._m_nprop_g is None:
+            return np.zeros((len(self._m_nprop), self.ngroups), dtype=np.int64)
+        drawn = self._all_groups(self._m_nprop_g, axis=1)
+        return drawn + self._m_nprop.astype(np.int64)[:, None]
 
     # ------------------------------------------------------------------
     @property
     def acceptance_fraction(self):
         """Per group, temperature and walker, the accepted share of the
         stored steps' in-model proposals, ``(ngroups, ntemps, nwalkers)``."""
-        return (self._acc_sum / max(self._nstored, 1)).cpu().numpy()
+        return self._all_groups(self._acc_sum / max(self._nstored, 1))
 
     @property
     def swap_acceptance_fraction(self):
         """Per group and boundary, the accepted swaps per walker of the
         stored steps, ``(ngroups, ntemps - 1)``."""
         nw = self.sampler.nwalkers
-        return (self._swaps_sum / max(self._nstored, 1) / nw).cpu().numpy()
+        return self._all_groups(self._swaps_sum / max(self._nstored, 1) / nw)
 
     def get_chain(self):
         return self._get("coords")

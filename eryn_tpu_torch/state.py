@@ -335,7 +335,14 @@ class State:
 
     ``State(other)`` shares ``other``'s branches and supplementals;
     ``State(other, copy=True)`` clones every tensor and deep-copies the host
-    entries of the supplementals."""
+    entries of the supplementals.
+
+    ``sharding`` is None, or, for a rank's shard of a state on a device
+    mesh, the :class:`~eryn_tpu_torch.parallel.mesh.StateSharding` that
+    :func:`~eryn_tpu_torch.parallel.mesh.shard_state` recorded; the copies
+    and replacements below keep it."""
+
+    sharding = None
 
     def __init__(
         self,
@@ -370,6 +377,7 @@ class State:
                 setattr(self, field, x.clone() if copy and x is not None
                         else x)
             self.random_state = other.random_state
+            self.sharding = other.sharding
             return
 
         if isinstance(coords, Branch):
@@ -448,6 +456,7 @@ class State:
         self.betas = state_to_copy.betas
         self.supplemental = state_to_copy.supplemental
         self.random_state = state_to_copy.random_state
+        self.sharding = state_to_copy.sharding
 
     def get_log_posterior(self, temper=False):
         """Tempered or untempered log posterior."""
@@ -499,6 +508,7 @@ class State:
             setattr(new, field, opt(getattr(self, field)))
         new.supplemental = supp(self.supplemental)
         new.random_state = self.random_state
+        new.sharding = self.sharding
         return new
 
     def replace(self, **updates) -> "State":
@@ -513,6 +523,7 @@ class State:
         new.betas = updates.pop("betas", self.betas)
         new.supplemental = updates.pop("supplemental", self.supplemental)
         new.random_state = updates.pop("random_state", self.random_state)
+        new.sharding = self.sharding
         if ("coords" in updates or "inds" in updates
                 or "branch_supplemental" in updates):
             coords = updates.pop("coords", self.branches_coords)

@@ -134,9 +134,10 @@ def test_para_burn_ignores_thin_by_and_rejects_backend():
 
 
 def test_para_mesh_raises():
-    """``tests/test_para.py::test_para_groups_sharded_over_mesh`` is not
-    ported (one card): ``mesh=`` raises."""
-    with pytest.raises(NotImplementedError, match="mesh"):
+    """``mesh=`` takes a 1-D group mesh (``tests/test_torch_mesh.py`` runs
+    one over spawned ranks); anything else raises ``eryn_tpu``'s
+    ``ValueError``."""
+    with pytest.raises(ValueError, match="1-D group mesh"):
         ParaEnsembleSampler(2, 16, 2, _torch_ll, _priors(), device="cpu",
                             mesh=object())
 
@@ -448,3 +449,81 @@ def test_para_graph_path_buffers_match_the_eager_loop(monkeypatch):
         graphed.sampler.moves[1].leapfrog_total) > 0
     assert graphed.graph_replays == 25 - len(graphed._graphs.warm)
     assert eager._graphs is None
+
+
+def _blob_ll_torch(x):
+    return -0.5 * torch.sum(x ** 2), torch.sum(x)
+
+
+def test_para_blob_likelihood_runs_like_eryn_tpu():
+    """The queue's inputs (3 groups of 2 x 8 walkers in 2-D, a likelihood
+    returning ``(log_like, sum(x))``): the port runs it on its
+    log-likelihood and drops the blobs with one warning, as ``eryn_tpu``
+    runs it.  The getters' shapes are equal, and over 800 more steps (the
+    first 200 dropped) each group's cold moments in both packages lie
+    within 0.3 of the unit Gaussian's (``tests/test_para.py``'s tolerance)
+    and within 0.35 of the other package's."""
+    import warnings
+
+    ng, nt, nw, nd = 3, 2, 8, 2
+    coords = np.random.default_rng(5).uniform(-1, 1, (ng, nt, nw, nd))
+    jpr = eryn_tpu.ProbDistContainer(
+        {i: eryn_tpu.uniform_dist(-6, 6) for i in range(nd)})
+    jp = JaxPara(ng, nw, nd, lambda x: (-0.5 * jnp.sum(x ** 2), jnp.sum(x)),
+                 jpr, tempering_kwargs=dict(ntemps=nt), seed=8)
+    tp = ParaEnsembleSampler(
+        ng, nw, nd, _blob_ll_torch, et.ProbDistContainer(
+            {i: et.uniform_dist(-6, 6) for i in range(nd)}),
+        tempering_kwargs=dict(ntemps=nt), seed=8, device="cpu")
+    jp.run_mcmc(jnp.asarray(coords), 10)
+    with pytest.warns(UserWarning, match="drops the blobs"):
+        tp.run_mcmc(coords.astype(np.float32), 10)
+    for getter in ("get_log_like", "get_log_prior", "get_betas"):
+        assert getattr(tp, getter)().shape == np.asarray(
+            getattr(jp, getter)()).shape, getter
+    assert tp.get_chain()["model_0"].shape == (10, ng, nt, nw, 1, nd)
+    assert tp.get_chain()["model_0"].shape == np.asarray(
+        jp.get_chain()["model_0"]).shape
+    with warnings.catch_warnings():
+        warnings.simplefilter("error")  # the warning came once
+        tp.run_mcmc(None, 800)
+    jp.run_mcmc(None, 800)
+    for g in range(ng):
+        moments = []
+        for p in (tp, jp):
+            vals = np.asarray(p.get_chain()["model_0"])[210:, g, 0]
+            vals = vals.reshape(-1, nd)
+            moments.append((vals.mean(axis=0), vals.std(axis=0)))
+            assert np.abs(moments[-1][0]).max() < 0.3, (g, moments)
+            assert np.abs(moments[-1][1] - 1.0).max() < 0.3, (g, moments)
+        assert np.abs(moments[0][0] - moments[1][0]).max() < 0.35
+        assert np.abs(moments[0][1] - moments[1][1]).max() < 0.35
+
+
+def test_para_groups_draw_their_own_moves():
+    """Two moves at weights 0.5 / 0.5: each group draws its own move at
+    every step (``eryn_tpu``'s per-group ``lax.switch``), so the groups'
+    move sequences differ, and over 400 steps each group's share of the
+    first move lies within four binomial standard deviations (0.1) of 0.5.
+    With one move every group runs it at every step."""
+    ng = 6
+    para = _para(ngroups=ng, seed=12, moves=[
+        (et.StretchMove(), 0.5), (et.StretchMove(a=1.5), 0.5)])
+    seqs = []
+    para.run_mcmc(_coords(ng), 1)
+    for _ in range(20):
+        before = para.move_proposals.copy()
+        para.run_mcmc(None, 1)
+        step = para.move_proposals - before
+        assert np.array_equal(step.sum(axis=0), np.ones(ng))
+        seqs.append(step[0])
+    seqs = np.array(seqs).T  # (ngroups, steps): 1 where move 0 ran
+    assert len({tuple(s) for s in seqs}) > 1, seqs
+    para.run_mcmc(None, 379)
+    counts = para.move_proposals
+    assert counts.shape == (2, ng) and np.all(counts.sum(axis=0) == 400)
+    share = counts[0] / 400.0
+    assert np.all(np.abs(share - 0.5) <= 4 * np.sqrt(0.25 / 400)), share
+    single = _para(ngroups=ng, seed=12)
+    single.run_mcmc(_coords(ng), 7)
+    assert np.array_equal(single.move_proposals, np.full((1, ng), 7))
