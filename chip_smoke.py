@@ -31,7 +31,8 @@ Phases, each printing its own lines:
    and rolled; the group-stretch proposal on both
    blocks of the RJ split and with two branches, a Gibbs table, an empty
    complement, picks beyond the count, a periodic dimension and the log
-   proposal), then
+   proposal, and at a (2, 2) mesh rank's shape, five temperatures of the
+   LISA ensemble), then
    each kernel's time per wrapper call beside its plain version's,
    its bound (bytes over the memory rate against operations over the peak
    rate) and the time of one empty launch, and the host cost of a
@@ -175,6 +176,20 @@ Phases, each printing its own lines:
      reached ``get_proposal`` while its in-graph route was captured;
      ``runtime_plots`` runs only where matplotlib is installed (a line says
      so when it is not);
+   * after the examples, the device mesh (``parallel.mesh``; ranks spawned
+     over ``torch.distributed``, every sharded step eager):
+     ``mesh[north-star,1rank,nccl]``, ``mesh[north-star,4rank,gloo]`` (a
+     (2, 2) mesh of four ranks sharing the card, and DEO),
+     ``para_mesh[north-star x64,4rank]``, and on a (2, 2) mesh of four
+     ranks ``mesh[lisa-rj-null,4rank,gloo]`` and ``mesh[lisa-rj,4rank,gloo]``
+     (the LISA-style RJ configuration with the null and the 8192-point
+     likelihood: the group stretch's kernel 5 on each rank's view of its
+     temperatures, births and deaths, the cascade) and
+     ``mesh[redblue-zoo,4rank,gloo]`` (the north-star with DE, DE-snooker,
+     walk and KDE at 0.25 each), 20 + 100 steps each: every chain equal to
+     its one-rank eager chain digit for digit (the heavy leg, where it
+     drifts, held to the LISA gates with its first differing step), kernels
+     5 and 3 launched by every rank;
    * a flat-likelihood RJ run (64 walkers, 3 leaves): a uniform leaf-count
      posterior.  It checks the RJ moves, is not part of the main path, and
      its launches stay out of the report.
@@ -564,9 +579,23 @@ def check_kernels(torch, dtype_name):
         for n in s:
             assert torch.equal(q_k[n][~si[n]].isnan(), s[n][~si[n]].isnan())
             assert (q_k[n][0][si[n][0]] != s[n][0][si[n][0]]).any()
+    # the launch of a (2, 2) mesh rank of the LISA legs: its five
+    # temperatures of the whole permuted ensemble
+    args, kw = _group_args(torch, rand, randn, dtype, **GROUP_SHARDED)
+    q_k, f_k = select_kernels.group_stretch_propose(*args, **kw)
+    q_r, f_r = select_kernels.group_stretch_propose_ref(*args, **kw)
+    record("group_stretch_propose[sharded]", (f_k, *q_k.values()),
+           (f_r, *q_r.values()))
+    assert errs["group_stretch_propose[sharded]"] == 0.0, (
+        "group_stretch_propose disagrees at a mesh rank's shape")
     torch.cuda.synchronize()
     return errs
 
+
+# group_stretch_propose on a (2, 2) mesh rank of the LISA legs: half the
+# temperatures, every walker of the view, block 0 of the split
+GROUP_SHARDED = dict(nt=L_NT // 2, nw=L_NW, shapes={"m": (L_NLMAX, 3)},
+                     off=0, ns=L_NW // 2)
 
 # group_stretch_propose's checks: the RJ shape (both blocks of the split),
 # then two branches with a Gibbs per-leaf table, an empty complement on one
@@ -764,6 +793,14 @@ def time_kernels(torch):
         lambda: select_kernels.group_stretch_propose(*grp_args, **grp_kw),
         lambda: select_kernels.group_stretch_propose_ref(*grp_args, **grp_kw),
         *_group_bytes_ops(torch, grp_args),
+    )
+    # a (2, 2) mesh rank's launch in the LISA legs
+    shd_args, shd_kw = _group_args(torch, rand, randn, torch.float32,
+                                   **GROUP_SHARDED, overflow=False)
+    calls["group_stretch_propose[sharded]"] = (
+        lambda: select_kernels.group_stretch_propose(*shd_args, **shd_kw),
+        lambda: select_kernels.group_stretch_propose_ref(*shd_args, **shd_kw),
+        *_group_bytes_ops(torch, shd_args),
     )
     empty = _build.function("eryn_empty_launch", "p")
 
@@ -4385,6 +4422,200 @@ def mesh_legs(torch, card):
     return launches, rates, []
 
 
+# mesh[lisa-rj...] and mesh[redblue-zoo...]: the LISA-style RJ configuration
+# (10 x 200, 8 leaves; null and 8192-point likelihoods) and the north-star
+# with DE, DE-snooker, walk and KDE at 0.25 each, on a (2, 2) mesh of four
+# ranks: 20 steps of burn-in and 100 stored into DeviceBackend
+MR_WARM, MR_STEPS, MR_ZOO_SEED = 20, 100, 35
+MESH_RJ_LEGS = ("lisa-rj-null", "lisa-rj", "redblue-zoo")
+
+
+def _mesh_rj_sampler(torch, np, leg, cuda_graph=True):
+    """A ``mesh[lisa-rj...]`` or ``mesh[redblue-zoo...]`` leg's sampler (into
+    DeviceBackend) and its global start, not evaluated."""
+    from eryn_tpu_torch import DeviceBackend, EnsembleSampler, State
+    from eryn_tpu_torch import moves as tm
+
+    if leg == "redblue-zoo":
+        s, priors = _gaussian_sampler(
+            torch, NT, NW, MR_ZOO_SEED, backend=DeviceBackend(),
+            cuda_graph=cuda_graph,
+            moves=[(tm.DEMove(), 0.25), (tm.DESnookerMove(), 0.25),
+                   (tm.WalkMove(), 0.25), (tm.KDEMove(), 0.25)])
+        coords = priors.rvs(size=(NT, NW), generator=torch.Generator(
+            device="cuda").manual_seed(MR_ZOO_SEED))
+        return s, State({"model_0": coords[:, :, None, :]})
+    ll, pr, fill = _pulse_problem(torch, np, null=leg == "lisa-rj-null")
+    s = EnsembleSampler(
+        L_NW, 3, ll, pr, nleaves_max=L_NLMAX, nleaves_min=0,
+        moves=tm.RedBlueGroupStretchMove(), rj_moves=True,
+        tempering_kwargs=dict(ntemps=L_NT), fill_zero_leaves_val=fill,
+        seed=3, device="cuda", cuda_graph=cuda_graph,
+        backend=DeviceBackend())
+    coords = pr.rvs(size=(L_NT, L_NW, L_NLMAX), generator=torch.Generator(
+        device="cuda").manual_seed(3), dtype=torch.float32)
+    inds = np.random.default_rng(4).random((L_NT, L_NW, L_NLMAX)) < 0.4
+    return s, State({"model_0": coords}, inds={
+        "model_0": torch.as_tensor(inds, device="cuda")})
+
+
+def _mesh_rj_record(s):
+    """:func:`_mesh_record`, with the masks, the leaf counts and the RJ
+    acceptance under reversible jump."""
+    out = _mesh_record(s)
+    if s.has_reversible_jump:
+        out.update(inds=s.get_inds()["model_0"],
+                   nleaves=s.get_nleaves()["model_0"],
+                   rj_acc=s.rj_acceptance_fraction)
+    return out
+
+
+def _mesh_rj_rank(rank, world):
+    """One rank of the ``mesh[lisa-rj...]`` and ``mesh[redblue-zoo...]``
+    legs, in turn on one ``(2, 2)`` mesh: each leg's state sharded, its run
+    timed, its launches counted (the counters set to 0 just before it), the
+    getters' global arrays, and the LISA summary of the heavy leg."""
+    import numpy as np
+    import torch
+
+    from eryn_tpu_torch.parallel import _comm, make_mesh, shard_state
+
+    out = {}
+    with _plain_versions_forbidden():
+        mesh = make_mesh(world, temp_parallel=2)
+        for leg in MESH_RJ_LEGS:
+            s, state = _mesh_rj_sampler(torch, np, leg)
+            state = shard_state(state, mesh)
+            read = _counting(_kernels())
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            s.run_mcmc(state, MR_STEPS, burn=MR_WARM)
+            torch.cuda.synchronize()
+            seconds = time.perf_counter() - t0
+            launches = read()
+            out[leg] = {"seconds": seconds, "launches": launches,
+                        "record": _mesh_rj_record(s),
+                        "shard": tuple(s._previous_state.log_like.shape),
+                        "graph_replays": s.graph_replays}
+            if leg == "lisa-rj":
+                out[leg]["summary"] = _rj_chain_summary(np, s, MR_STEPS)
+    out["staged"] = dict(_comm.STAGED)
+    return out
+
+
+def _first_difference(np, got, ref):
+    """The first stored step at which any getter's array differs, and the
+    largest absolute difference over the run (NaN in the same places is
+    equal); None where every array is equal."""
+    first, worst = None, 0.0
+    for key in ref:
+        a = np.asarray(got[key], dtype=np.float64)
+        b = np.asarray(ref[key], dtype=np.float64)
+        if np.array_equal(a, b, equal_nan=True):
+            continue
+        worst = max(worst, float(np.nanmax(np.abs(a - b))))
+        if a.ndim > 1 and a.shape[0] == MR_STEPS:
+            diff = ~((a == b) | (np.isnan(a) & np.isnan(b)))
+            step = int(np.flatnonzero(diff.reshape(MR_STEPS, -1).any(1))[0])
+            first = step if first is None else min(first, step)
+    if first is None and worst == 0.0:
+        return None
+    return first, worst
+
+
+def mesh_rj_legs(torch, card):
+    """Reversible jump and the red/blue family on the device mesh:
+    ``mesh[lisa-rj-null,4rank,gloo]``, ``mesh[lisa-rj,4rank,gloo]`` and
+    ``mesh[redblue-zoo,4rank,gloo]`` on a ``(2, 2)`` mesh of four ranks
+    sharing ``cuda:0`` over gloo, 20 + 100 steps each into DeviceBackend.
+    The null LISA and the zoo chains equal their one-rank eager chains digit
+    for digit; the heavy LISA chain does, or, where the 8192-point
+    reduction rounds with the batch's row count, meets the LISA RJ gates
+    (leaf-count mode >= 1, pulse centre within 0.3 of 4) with its first
+    differing step and largest difference printed.  Each rank launches
+    kernel 5 twice a LISA step (its view of its five temperatures) and
+    kernel 3 once a tempering phase; no plain version runs.  Returns the
+    launches of the ranks and of the references, the ranks' kernel 5
+    launches also under ``group_stretch_propose[sharded]``, and the legs'
+    rates."""
+    import numpy as np
+
+    from eryn_tpu_torch.parallel._spawn import launch
+
+    refs, launches = {}, {}
+    for leg in MESH_RJ_LEGS:
+        read = _counting(_kernels())
+        s, state = _mesh_rj_sampler(torch, np, leg, cuda_graph=False)
+        s.run_mcmc(state, MR_STEPS, burn=MR_WARM)
+        refs[leg] = _mesh_rj_record(s)
+        if leg == "lisa-rj":
+            _print_rj_chain(np, f"mesh[{leg}], one-rank eager",
+                            _rj_chain_summary(np, s, MR_STEPS))
+        for k, v in read().items():
+            launches[k] = launches.get(k, 0) + v
+    t0 = time.perf_counter()
+    ranks = launch(_mesh_rj_rank, 4, backend="gloo", timeout=MESH_TIMEOUT)
+    wall = time.perf_counter() - t0
+    steps = MR_WARM + MR_STEPS
+    rates = {}
+    sharded = 0
+    for leg in MESH_RJ_LEGS:
+        name = f"mesh[{leg},4rank,gloo]"
+        drift = None
+        for r in ranks:
+            got = r[leg]
+            assert got["shard"] == (L_NT // 2 if leg != "redblue-zoo"
+                                    else NT // 2,
+                                    (L_NW if leg != "redblue-zoo"
+                                     else NW) // 2), got["shard"]
+            assert got["graph_replays"] == 0, got["graph_replays"]
+            if leg == "lisa-rj":
+                drift = _first_difference(np, got["record"], refs[leg])
+                if drift is not None:
+                    c = got["summary"]
+                    _print_rj_chain(np, f"{name}, rank", c)
+                    assert int(np.argmax(c["counts"])) >= 1, c["counts"]
+                    assert abs(c["median_b"] - 4.0) < 0.3, c["median_b"]
+            else:
+                _same_record(np, name, got["record"], refs[leg])
+            n = got["launches"]
+            rj = leg != "redblue-zoo"
+            assert n["pt_swap_cascade_multi"] == (1 + rj) * steps, (name, n)
+            assert n["group_stretch_propose"] == 2 * steps * rj, (name, n)
+            assert all(n[k] == 0 for k in (
+                "stretch_propose", "stretch_accept_propose", "stretch_accept",
+                "_cascade_multi_rolled", "onehot_select")), (name, n)
+            if rj:
+                sharded += n["group_stretch_propose"]
+        got = _sum_launches([r[leg] for r in ranks])
+        for k, v in got.items():
+            launches[k] = launches.get(k, 0) + v
+        sps = steps / max(r[leg]["seconds"] for r in ranks)
+        rates[f"{name}_steps_per_s"] = sps
+        rates[f"{name}_digit_for_digit"] = drift is None
+        if drift is not None:
+            rates[f"{name}_first_difference"] = {"step": drift[0],
+                                                 "max_abs": drift[1]}
+        what = ("chain, masks, leaf counts, log_like, log_prior, betas, "
+                "acceptance, RJ acceptance, swaps" if leg != "redblue-zoo"
+                else "chain, log_like, log_prior, betas, acceptance, swaps")
+        if drift is None:
+            verdict = ("equals the one-rank eager chain digit for digit "
+                       f"({what})")
+        else:
+            verdict = (f"differs from the one-rank eager chain from stored "
+                       f"step {drift[0]} (largest difference {drift[1]:.6g}) "
+                       f"and meets the LISA RJ gates")
+        print(f"{name}: {verdict}; {sps:.1f} steps/s over {steps} steps "
+              f"(the slowest rank; eager); launches {got} ({card})")
+    launches["group_stretch_propose[sharded]"] = sharded
+    rates["mesh_rj_legs_wall_s"] = wall
+    print(f"mesh[lisa-rj...|redblue-zoo,4rank,gloo]: wall {wall:.1f} s with "
+          f"the ranks' start; staged through host memory: "
+          f"{ranks[0]['staged'] or 'none'} ({card})")
+    return launches, rates, []
+
+
 def main(argv=None):
     parser = argparse.ArgumentParser(description=__doc__.split("\n")[0])
     parser.add_argument("--out", help="also write the report as JSON here")
@@ -4451,7 +4682,7 @@ def main(argv=None):
         return 0
     if args.mesh_legs or args.para_digest:
         with _plain_versions_forbidden():
-            legs = ([mesh_legs] if args.mesh_legs else []) + (
+            legs = ([mesh_legs, mesh_rj_legs] if args.mesh_legs else []) + (
                 [para_north_star_leg, para_rj_pulse128_leg]
                 if args.para_digest else [])
             for leg in legs:
@@ -4530,7 +4761,8 @@ def main(argv=None):
     # form runs inside it)
     with _plain_versions_forbidden():
         for leg in (host_like_leg, host_like_vec_leg, host_like_pool_leg,
-                    hybrid_host_leg, examples_leg, mesh_legs):
+                    hybrid_host_leg, examples_leg, mesh_legs,
+                    mesh_rj_legs):
             t0 = time.perf_counter()
             legs.append(leg(torch, smi))
             print(f"phase 4: {leg.__name__} {time.perf_counter() - t0:.1f} s")
@@ -4620,6 +4852,10 @@ def main(argv=None):
                                   "eryn_tpu/ops/pt_swap.py:232"),
         "group_stretch_propose": ("eryn_tpu_torch/csrc/select_kernels.cu",
                                   "eryn_tpu/ops/select_kernels.py:145"),
+        # the mesh ranks' launches, timed at a (2, 2) rank's LISA shape
+        "group_stretch_propose[sharded]": (
+            "eryn_tpu_torch/csrc/select_kernels.cu",
+            "eryn_tpu/ops/select_kernels.py:145"),
         "onehot_select": ("eryn_tpu_torch/csrc/select_kernels.cu",
                           "eryn_tpu/ops/select_kernels.py:145"),
     }

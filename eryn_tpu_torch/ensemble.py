@@ -1170,16 +1170,21 @@ class EnsembleSampler:
     def _refuse_under_mesh(what):
         raise NotImplementedError(
             f"{what} does not run under a device mesh in eryn_tpu_torch "
-            "(parallel.mesh): the sharded step is StretchMove's fused path "
-            "with the kernel cascade or DEO, into a Backend or "
-            "DeviceBackend.")
+            "(parallel.mesh): the sharded step runs StretchMove's fused "
+            "path, RedBlueGroupStretchMove, DEMove, DESnookerMove, WalkMove, "
+            "KDEMove, GroupStretchMove and reversible jump by "
+            "DistributionGenerateRJ, with the kernel cascade or DEO, into a "
+            "Backend or DeviceBackend.")
 
     def _check_mesh(self, state=None):
-        """Raise ``NotImplementedError`` for what has no sharded form: every
-        move but the fused ``StretchMove``, reversible jump, the general
-        (``permute=False`` or ``use_kernels=False``) cascade, ``HDFBackend``
-        and the ``run_mcmc`` hooks; with the set-up ``state``, host
-        likelihoods and priors, blobs and supplementals."""
+        """Raise ``NotImplementedError`` for what has no sharded form: a
+        move whose ``mesh_ready`` names it (``SliceMove``, the per-walker
+        and gradient moves, a periodic or general-path ``StretchMove``, any
+        subclass of a move that runs sharded), the general
+        (``permute=False`` or ``use_kernels=False``) cascade,
+        ``HDFBackend`` and the ``run_mcmc`` hooks; with the set-up
+        ``state``, host likelihoods and priors, blobs and supplementals.
+        Reversible jump runs sharded (its moves' ``mesh_ready``)."""
         refuse = self._refuse_under_mesh
         if state is not None:
             if self._like_eval.host or self._prior_eval.host:
@@ -1190,8 +1195,6 @@ class EnsembleSampler:
                            for b in state.branches.values())):
                 refuse("Blobs and supplementals")
             return
-        if self.has_reversible_jump:
-            refuse("Reversible jump")
         for move in self._all_move_list:
             why = move.mesh_ready()
             if why is not None:
@@ -2203,7 +2206,10 @@ class EnsembleSampler:
     def rj_acceptance_fraction(self):
         if not self.has_reversible_jump:
             return None
-        return self.backend.rj_accepted / float(self.backend.iteration)
+        rj_accepted = self.backend.rj_accepted
+        if self._mesh_layout is not None:  # every rank's walkers
+            rj_accepted = self._mesh_layout.gather_numpy(rj_accepted)
+        return rj_accepted / float(self.backend.iteration)
 
     @property
     def swap_acceptance_fraction(self):

@@ -57,8 +57,12 @@ def _active_ndim(s_coords, s_inds, param_masks, names, like):
     return ndim_active
 
 
-def _randint(generator, high, shape, device):
-    return torch.randint(0, high, shape, generator=generator, device=device)
+def _randint(move, generator, high, shape, device):
+    """``randint`` draws in ``[0, high)`` (the move's
+    :meth:`~eryn_tpu_torch.moves.move.Move.rank_draw`)."""
+    return move.rank_draw(
+        lambda sh: torch.randint(0, high, sh, generator=generator,
+                                 device=device), shape)
 
 
 class DEMove(RedBlueMove):
@@ -69,6 +73,8 @@ class DEMove(RedBlueMove):
     ``hop_prob`` a walker proposes with ``gamma = 1`` (a mode hop).
     Symmetric: the factors are zero.
     """
+
+    _mesh_sharded = True
 
     def __init__(self, sigma=1e-5, gamma0=None, hop_prob=0.1, **kwargs):
         super().__init__(**kwargs)
@@ -81,10 +87,12 @@ class DEMove(RedBlueMove):
         uniforms ``(ntemps, ns)`` (None without hops), and per branch the
         two index draws in ``[0, nc)`` and ``[0, nc - 1)``."""
         kw = dict(generator=generator, dtype=like.dtype, device=like.device)
-        gauss = torch.randn((ntemps, ns), **kw)
-        hop = torch.rand((ntemps, ns), **kw) if self.hop_prob > 0.0 else None
-        picks = {n: (_randint(generator, nc, (ntemps, ns), like.device),
-                     _randint(generator, nc - 1, (ntemps, ns), like.device))
+        gauss = self.rank_draw(lambda sh: torch.randn(sh, **kw), (ntemps, ns))
+        hop = (self.rank_draw(lambda sh: torch.rand(sh, **kw), (ntemps, ns))
+               if self.hop_prob > 0.0 else None)
+        picks = {n: (_randint(self, generator, nc, (ntemps, ns), like.device),
+                     _randint(self, generator, nc - 1, (ntemps, ns),
+                              like.device))
                  for n in names}
         return gauss, hop, picks
 
@@ -135,15 +143,17 @@ class DESnookerMove(RedBlueMove):
     parameters, summed over branches.
     """
 
+    _mesh_sharded = True
+
     def __init__(self, gammas=1.7, **kwargs):
         super().__init__(**kwargs)
         self.gammas = float(gammas)
 
-    @staticmethod
-    def draw_snooker(generator, names, ntemps, ns, nc, device):
+    def draw_snooker(self, generator, names, ntemps, ns, nc, device):
         """Per branch the three index draws in ``[0, nc)``, ``[0, nc - 1)``
         and ``[0, nc - 2)``, each ``(ntemps, ns)``."""
-        return {n: tuple(_randint(generator, nc - k, (ntemps, ns), device)
+        return {n: tuple(_randint(self, generator, nc - k, (ntemps, ns),
+                                  device)
                          for k in range(3))
                 for n in names}
 

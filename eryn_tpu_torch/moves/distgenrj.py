@@ -29,6 +29,8 @@ class DistributionGenerateRJ(ReversibleJumpMove):
         fix_change: force +1 (birth-only) or -1 (death-only) proposals.
     """
 
+    _mesh_sharded = True
+
     def __init__(self, generate_dist, *args, **kwargs):
         if isinstance(generate_dist, ProbDistContainer):
             generate_dist = {"model_0": generate_dist}
@@ -129,11 +131,18 @@ class DistributionGenerateRJ(ReversibleJumpMove):
         distribution."""
         ntemps, nwalkers, nleaves_max, _ = coords.shape
         kw = dict(generator=generator, dtype=coords.dtype, device=coords.device)
-        u_change = torch.rand((ntemps, nwalkers), **kw)
-        slot_keys = torch.rand((ntemps, nwalkers, nleaves_max), **kw)
-        draw = self.generate_dist[name].sample(
-            generator, (ntemps, nwalkers), dtype=coords.dtype
-        )
+
+        def rand(shape):
+            return torch.rand(shape, **kw)
+
+        def birth(shape):
+            return self.generate_dist[name].sample(generator, shape,
+                                                   dtype=coords.dtype)
+
+        u_change = self.rank_draw(rand, (ntemps, nwalkers), per_walker=True)
+        slot_keys = self.rank_draw(rand, (ntemps, nwalkers, nleaves_max),
+                                   per_walker=True)
+        draw = self.rank_draw(birth, (ntemps, nwalkers), per_walker=True)
         return u_change, slot_keys, draw
 
     def get_proposal_kernel(self, generator, name, coords, inds):

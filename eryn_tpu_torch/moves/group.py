@@ -7,6 +7,12 @@ window's snapshot of the ensemble, and the refresh is a ``where`` blend on
 the counter, so a captured step refreshes at the replays where it is due.
 All walkers update at once, which makes the move usable under reversible
 jump.
+
+On a state sharded over a device mesh the table is built from every walker
+of the rank's temperatures, gathered over the walker axis at each refresh
+(the sharded step is eager, so the refresh is decided on the host and other
+steps exchange nothing), and the proposal runs on the rank's walkers with
+every draw at its global shape.
 """
 
 from __future__ import annotations
@@ -117,16 +123,32 @@ class GroupMove(Move):
                               param_masks):
         raise NotImplementedError
 
+    def _walker_views(self, coords, inds):
+        """``coords`` and ``inds`` over every walker of the state's
+        temperatures: on a state sharded over a device mesh each walker
+        shard's rows gathered within the temperature shard (one exchange,
+        :meth:`~eryn_tpu_torch.parallel.mesh.MeshLayout.fill_rows`), else
+        the trees as they are."""
+        lay = self.mesh_layout
+        if lay is None:
+            return coords, inds
+        names = list(coords)
+        views = lay.gather_walkers([coords[n] for n in names]
+                                   + [inds[n] for n in names])
+        k = len(names)
+        return dict(zip(names, views[:k])), dict(zip(names, views[k:]))
+
     def init_kernel_state(self, state):
         self.prepare_constants(state)
+        coords, inds = self._walker_views(state.branches_coords,
+                                          state.branches_inds)
         # copies: a captured step writes the kernel state in place
         return {
             "iter": torch.zeros((), dtype=torch.int32,
                                 device=state.log_like.device),
-            "friends": _clone(self.setup_friends_kernel(
-                state.branches_coords, state.branches_inds)),
-            "snap_coords": _clone(state.branches_coords),
-            "snap_inds": _clone(state.branches_inds),
+            "friends": _clone(self.setup_friends_kernel(coords, inds)),
+            "snap_coords": _clone(coords),
+            "snap_inds": _clone(inds),
         }
 
     def _propose_impl(self, generator, state, ctx, kernel_state):
@@ -137,20 +159,28 @@ class GroupMove(Move):
         blobs = state.blobs
         supps = state_branch_supps(state)
         ntemps, nwalkers = logl.shape
-        betas = state.betas
-        if betas is None:
-            betas = torch.ones(ntemps, dtype=logl.dtype, device=logl.device)
+        betas = self.rank_betas(state)
         accepted = torch.zeros((ntemps, nwalkers), dtype=torch.bool,
                                device=logl.device)
 
         it = kernel_state["iter"]
         # the stationary group and its snapshot are refreshed from the
         # pre-proposal state at window boundaries
-        refresh = (it % self.n_iter_update) == 0
-        friends = _blend(refresh, self.setup_friends_kernel(coords, inds),
-                         kernel_state["friends"])
-        snap_coords = _blend(refresh, coords, kernel_state["snap_coords"])
-        snap_inds = _blend(refresh, inds, kernel_state["snap_inds"])
+        if self.mesh_layout is None:
+            refresh = (it % self.n_iter_update) == 0
+            friends = _blend(refresh, self.setup_friends_kernel(coords, inds),
+                             kernel_state["friends"])
+            snap_coords = _blend(refresh, coords, kernel_state["snap_coords"])
+            snap_inds = _blend(refresh, inds, kernel_state["snap_inds"])
+        elif int(it) % self.n_iter_update == 0:
+            # sharded, hence eager: the host decides, and only a refresh
+            # gathers the temperatures' walkers
+            snap_coords, snap_inds = self._walker_views(coords, inds)
+            friends = self.setup_friends_kernel(snap_coords, snap_inds)
+        else:
+            friends = kernel_state["friends"]
+            snap_coords = kernel_state["snap_coords"]
+            snap_inds = kernel_state["snap_inds"]
         friends = self.fix_friends_kernel(friends, snap_coords, snap_inds)
 
         for names, param_masks in self.gibbs_iterations_for(state):
@@ -170,8 +200,9 @@ class GroupMove(Move):
 
             logP_new = tempered_log_likelihood(logl_new, betas) + logp_new
             logP_old = tempered_log_likelihood(logl, betas) + logp
-            acc = mh_decide(self.draw_accept(generator, logP_new), factors,
-                            logP_new, logP_old)
+            acc = mh_decide(
+                self.draw_accept(generator, logP_new, per_walker=True),
+                factors, logP_new, logP_old)
 
             acc4 = acc[:, :, None, None]
             for n in names:

@@ -22,15 +22,17 @@ from .stretch import StretchMove
 __all__ = ["GroupStretchMove"]
 
 
-def pick_friends(u, table):
+def pick_friends(u, table, first=0):
     """Each walker's friend from the uniforms ``u`` ``(ntemps, ns)``: walker
     ``w`` below the table's width ``nfr`` draws one of the other ``nfr - 1``
     columns (skipping its own), the rest one of all ``nfr``; returns the
-    rows ``(ntemps, ns, nleaves_max, ndim)`` of ``table``."""
+    rows ``(ntemps, ns, nleaves_max, ndim)`` of ``table``.  ``first`` is the
+    ensemble index of ``u``'s first walker (a shard's offset under a device
+    mesh)."""
     ntemps, ns = u.shape
     nfr = table.shape[1]
     if nfr > 1:
-        widx = torch.arange(ns, device=u.device)[None, :]
+        widx = torch.arange(first, first + ns, device=u.device)[None, :]
         r_excl = torch.floor(u * (nfr - 1)).to(torch.int64)
         r_excl = r_excl + (r_excl >= widx).to(torch.int64)
         r_full = torch.floor(u * nfr).to(torch.int64)
@@ -50,6 +52,8 @@ class GroupStretchMove(GroupMove, StretchMove):
     nearest-neighbour friends), or Eryn's host hooks ``setup_friends`` and
     ``find_friends``, which make it a host move.
     """
+
+    _mesh_sharded = True
 
     def __init__(self, a=2.0, **kwargs):
         GroupMove.__init__(self, **kwargs)
@@ -75,21 +79,26 @@ class GroupStretchMove(GroupMove, StretchMove):
             for name, c in branches_coords.items()
         }
 
-    @staticmethod
-    def draw_friends(generator, like):
+    def draw_friends(self, generator, like):
         """The uniforms of one branch's friend pick, shaped and typed like
-        ``like`` ``(ntemps, ns)``."""
-        return torch.rand(like.shape, generator=generator, dtype=like.dtype,
-                          device=like.device)
+        ``like`` ``(ntemps, ns)``, one per walker of the state."""
+        return self.rank_draw(
+            lambda shape: torch.rand(shape, generator=generator,
+                                     dtype=like.dtype, device=like.device),
+            like.shape, per_walker=True)
 
     def find_friends_kernel(self, generator, name, s_coords, s_inds, friends):
         u = self.draw_friends(generator, s_coords[:, :, 0, 0])
-        return pick_friends(u, friends[name])
+        lay = self.mesh_layout
+        return pick_friends(u, friends[name], 0 if lay is None else lay.w0)
 
     def draw_stretch(self, generator, ntemps, ns, dtype, device):
-        """The uniforms of the stretch factor ``z``, ``(ntemps, ns)``."""
-        return torch.rand((ntemps, ns), generator=generator, dtype=dtype,
-                          device=device)
+        """The uniforms of the stretch factor ``z``, ``(ntemps, ns)``, one
+        per walker of the state."""
+        return self.rank_draw(
+            lambda shape: torch.rand(shape, generator=generator, dtype=dtype,
+                                     device=device),
+            (ntemps, ns), per_walker=True)
 
     def group_proposal_kernel(self, generator, s_coords, s_inds, friends,
                               param_masks):

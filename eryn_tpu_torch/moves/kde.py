@@ -58,6 +58,8 @@ class KDEMove(RedBlueMove):
             relative to its mean variance.
     """
 
+    _mesh_sharded = True
+
     def __init__(self, bw_method=None, jitter=1e-10, **kwargs):
         super().__init__(**kwargs)
         self.bw_method = bw_method
@@ -78,15 +80,20 @@ class KDEMove(RedBlueMove):
         logk = logk - 0.5 * d * math.log(2.0 * math.pi)
         return torch.logsumexp(logk, dim=-1) - math.log(nc)
 
-    @staticmethod
-    def draw_kde(generator, names, nt, ns, nc, dims, like):
+    def draw_kde(self, generator, names, nt, ns, nc, dims, like):
         """Per branch the kernel picked per walker in ``[0, nc)`` and the
         standard normals ``(nt, ns, d)`` of its draw, ``dims`` mapping
         branches to ``d``."""
-        return {n: (torch.randint(0, nc, (nt, ns), generator=generator,
-                                  device=like.device),
-                    torch.randn((nt, ns, dims[n]), generator=generator,
-                                dtype=like.dtype, device=like.device))
+        def pick(shape):
+            return torch.randint(0, nc, shape, generator=generator,
+                                 device=like.device)
+
+        def normal(shape):
+            return torch.randn(shape, generator=generator, dtype=like.dtype,
+                               device=like.device)
+
+        return {n: (self.rank_draw(pick, (nt, ns)),
+                    self.rank_draw(normal, (nt, ns, dims[n])))
                 for n in names}
 
     def get_proposal_kernel(self, generator, s_coords, c_coords, s_inds,

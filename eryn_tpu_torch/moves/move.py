@@ -155,7 +155,13 @@ class Move:
 
     def mesh_ready(self):
         """None if this move runs on a state sharded over a device mesh,
-        else what does not (the sampler raises at set-up)."""
+        else what does not (the sampler raises at set-up).  A class runs
+        sharded where it sets ``_mesh_sharded = True`` itself (every draw of
+        its a :meth:`rank_draw`): a subclass, whose draws the package cannot
+        vouch for, does not inherit it, and a host move never runs
+        sharded."""
+        if type(self).__dict__.get("_mesh_sharded") and not self.host_move:
+            return None
         return type(self).__name__
 
     def __init__(
@@ -292,12 +298,48 @@ class Move:
         return torch.argsort(
             torch.rand(nwalkers, generator=generator, device=device))
 
-    @staticmethod
-    def draw_accept(generator, like):
+    def rank_draw(self, draw, shape, per_walker=False):
+        """``draw(shape)``: a random array whose leading axis is the
+        temperatures and, with ``per_walker``, whose second is the walkers
+        of the state.  On a state sharded over a device mesh
+        (:attr:`mesh_layout`) it is drawn at its global shape, every
+        temperature (and with ``per_walker`` every walker), from the same
+        generator as one process, and this rank's rows are kept: the sharded
+        chain draws what one process draws.  Every draw of a move that runs
+        sharded goes through here, but the walker permutation, which is
+        whole already.  Without ``per_walker`` the second axis is taken as
+        it is given (a red/blue block's walkers, the whole ensemble's under
+        a mesh)."""
+        shape = tuple(shape)
+        lay = self.mesh_layout
+        if lay is None:
+            return draw(shape)
+        if per_walker:
+            x = draw((lay.ntemps, lay.nwalkers) + shape[2:])
+            return x[lay.t0:lay.t0 + lay.nt,
+                     lay.w0:lay.w0 + lay.nw].contiguous()
+        return draw((lay.ntemps,) + shape[1:])[lay.t0:lay.t0 + lay.nt]
+
+    def rank_betas(self, state):
+        """The inverse temperatures of the state's rows (ones without a
+        ladder); under a device mesh, where the ladder is whole on every
+        rank, this rank's temperatures' only."""
+        logl = state.log_like
+        if state.betas is None:
+            return torch.ones(logl.shape[0], dtype=logl.dtype,
+                              device=logl.device)
+        lay = self.mesh_layout
+        if lay is None:
+            return state.betas
+        return state.betas[lay.t0:lay.t0 + lay.nt]
+
+    def draw_accept(self, generator, like, per_walker=False):
         """The uniforms of one Metropolis-Hastings decision, shaped like
-        ``like``."""
-        return torch.rand(like.shape, generator=generator, dtype=like.dtype,
-                          device=like.device)
+        ``like`` (see :meth:`rank_draw` for ``per_walker``)."""
+        return self.rank_draw(
+            lambda shape: torch.rand(shape, generator=generator,
+                                     dtype=like.dtype, device=like.device),
+            like.shape, per_walker)
 
     def tune(self, state, accepted):
         """Adjust the move from its cumulative ``accepted`` counts; the

@@ -36,19 +36,21 @@ class RedBlueGroupStretchMove(StretchMove):
     """
 
     _needs_c_inds = True
+    _mesh_sharded = True
 
-    @staticmethod
-    def draw_group(generator, ntemps, ns, leaves, dtype, device):
+    def draw_group(self, generator, ntemps, ns, leaves, dtype, device):
         """Randomness of one half: ``u`` ``(ntemps, ns)`` for the stretch
         factor, and per branch ``uu`` ``(ntemps, ns, nleaves)`` for the
-        complement leaf, ``leaves`` mapping branch names to leaf counts."""
-        u = torch.rand((ntemps, ns), generator=generator, dtype=dtype,
-                       device=device)
-        uu = {
-            name: torch.rand((ntemps, ns, nl), generator=generator,
-                             dtype=dtype, device=device)
-            for name, nl in leaves.items()
-        }
+        complement leaf, ``leaves`` mapping branch names to leaf counts
+        (each drawn at every temperature under a device mesh,
+        :meth:`~eryn_tpu_torch.moves.move.Move.rank_draw`)."""
+        def rand(shape):
+            return torch.rand(shape, generator=generator, dtype=dtype,
+                              device=device)
+
+        u = self.rank_draw(rand, (ntemps, ns))
+        uu = {name: self.rank_draw(rand, (ntemps, ns, nl))
+              for name, nl in leaves.items()}
         return u, uu
 
     def _propose(self, generator, s, s_inds, c, c_inds, param_masks, skip):

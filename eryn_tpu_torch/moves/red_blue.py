@@ -4,10 +4,18 @@ Port of :mod:`eryn_tpu.moves.red_blue` (the general path).  One random
 permutation splits the walker axis into ``nsplits`` contiguous blocks; each
 block is proposed from its complement, evaluated and accepted in turn, and
 each later block sees the earlier blocks' updated positions.
+
+On a state sharded over a device mesh (:mod:`~eryn_tpu_torch.parallel.
+mesh`) the stock red/blue moves (the group stretch, DE, DE-snooker, walk and
+KDE: :meth:`~eryn_tpu_torch.moves.move.Move.mesh_ready`) take the sharded
+form (:meth:`RedBlueMove._propose_impl_sharded`): the same draws at
+their global shape, each block's complement gathered within the temperature
+shard, and the likelihood on this rank's walkers.
 """
 
 from __future__ import annotations
 
+import numpy as np
 import torch
 
 from .move import (
@@ -93,6 +101,14 @@ class RedBlueMove(Move):
             {n: inds_p[n][:, blk] for n in names}, param_masks, **kwargs
         )
 
+    def _splits(self, nwalkers):
+        """The blocks' sizes and offsets along the permuted walker axis."""
+        sizes = [
+            nwalkers // self.nsplits + (1 if i < nwalkers % self.nsplits else 0)
+            for i in range(self.nsplits)
+        ]
+        return sizes, [sum(sizes[:i]) for i in range(self.nsplits)]
+
     def _check_walkers(self, state, names):
         nwalkers = (state.log_like.shape[1] if self.mesh_layout is None
                     else self.mesh_layout.nwalkers)
@@ -108,6 +124,10 @@ class RedBlueMove(Move):
             )
 
     def _propose_impl(self, generator, state, ctx, kernel_state=()):
+        if self.mesh_layout is not None:
+            new_state, accepted = self._propose_impl_sharded(generator, state,
+                                                             ctx)
+            return new_state, accepted, kernel_state
         ntemps, nwalkers = state.log_like.shape
         device = state.log_like.device
         self._check_walkers(state, self.run_branches(state))
@@ -124,11 +144,7 @@ class RedBlueMove(Move):
         accepted = torch.zeros((ntemps, nwalkers), dtype=torch.bool,
                                device=device)
 
-        sizes = [
-            nwalkers // self.nsplits + (1 if i < nwalkers % self.nsplits else 0)
-            for i in range(self.nsplits)
-        ]
-        offsets = [sum(sizes[:i]) for i in range(self.nsplits)]
+        sizes, offsets = self._splits(nwalkers)
 
         all_names = list(coords)
         for names, param_masks in self.gibbs_iterations_for(state):
@@ -171,7 +187,8 @@ class RedBlueMove(Move):
                 prev_logl = logl_p[:, blk]
                 prev_logp = logp_p[:, blk]
                 logP_new = tempered_log_likelihood(logl_new, betas) + logp_new
-                logP_old = tempered_log_likelihood(prev_logl, betas) + prev_logp
+                logP_old = (tempered_log_likelihood(prev_logl, betas)
+                            + prev_logp)
                 acc = mh_decide(self.draw_accept(generator, logP_new), factors,
                                 logP_new, logP_old)
 
@@ -198,3 +215,100 @@ class RedBlueMove(Move):
             blobs=blobs,
         )
         return new_state, accepted, kernel_state
+
+    def _propose_impl_sharded(self, generator, state, ctx):
+        """One proposal on this rank's shard of a state sharded over a
+        ``(temp, walker)`` mesh (``self.mesh_layout``), equal to one
+        process's proposal on the whole ensemble.
+
+        The proposal runs on walker-order views ``(nt, nwalkers, ...)`` of
+        the rank's temperatures: its own walkers in place, and before each
+        block the rows the block's complement needs from the other walker
+        shards (:meth:`~eryn_tpu_torch.parallel.mesh.MeshLayout.fill_rows`,
+        every branch's coordinates and masks in one exchange): before the
+        first block of a split every other block's rows, before a later
+        block the rows that the block before it merged.
+        :meth:`get_proposal_block` proposes the whole block on the permuted
+        view as one process does (its draws at every temperature, each
+        kept for the rank's), the prior and the likelihood run on the
+        rank's walkers of the block only (zeros for the other ranks'), and
+        the decision takes the block's draw.  The other ranks' rows of the
+        view are discarded.  Returns ``(state, accepted)`` for the
+        shard."""
+        lay = self.mesh_layout
+        nt, nw, w0, NW = lay.nt, lay.nw, lay.w0, lay.nwalkers
+        device = state.log_like.device
+        self._check_walkers(state, self.run_branches(state))
+        self.setup(state.branches)
+        all_names = list(state.branches)
+
+        view, own = lay.walker_view, lay.own
+        coords = {n: view(c) for n, c in state.branches_coords.items()}
+        inds = {n: view(m) for n, m in state.branches_inds.items()}
+        logl, logp = view(state.log_like), view(state.log_prior)
+        betas = self.rank_betas(state)
+        accepted = torch.zeros((nt, NW), dtype=torch.bool, device=device)
+        # the exchanged leaves, written in place below
+        leaves = [coords[n] for n in all_names] + [inds[n] for n in all_names]
+        sizes, offsets = self._splits(NW)
+
+        for names, param_masks in self.gibbs_iterations_for(state):
+            if self.randomize_split:
+                perm = self.draw_perm(generator, NW, device)
+            else:
+                perm = torch.arange(NW, device=device)
+            # the exchange plans are the permutation's: one host read
+            order = perm.cpu().numpy()
+            blocks = [order[off:off + ns] for off, ns in zip(offsets, sizes)]
+            for k, (off, ns) in enumerate(zip(offsets, sizes)):
+                fill = np.concatenate(blocks[1:]) if k == 0 else blocks[k - 1]
+                lay.fill_rows(leaves, [own(x) for x in leaves], fill)
+                coords_p = {n: coords[n][:, perm] for n in all_names}
+                inds_p = {n: inds[n][:, perm] for n in all_names}
+                blk = slice(off, off + ns)
+                s_coords = {n: coords_p[n][:, blk] for n in names}
+                q, factors = self.get_proposal_block(
+                    generator, coords_p, inds_p, off, ns, names, param_masks
+                )
+                for n in names:
+                    mask = param_masks.get(n)
+                    if mask is not None:
+                        q[n] = torch.where(mask, q[n], s_coords[n])
+
+                w = blocks[k]
+                idx = torch.as_tensor(w, device=device)
+                prev_logl, prev_logp = logl[:, idx], logp[:, idx]
+                logl_new = torch.zeros_like(prev_logl)
+                logp_new = torch.zeros_like(prev_logp)
+                mine = np.flatnonzero((w >= w0) & (w < w0 + nw))
+                if mine.size:
+                    at = torch.as_tensor(mine, device=device)
+                    q_eval = {
+                        n: (q[n] if n in q else coords_p[n][:, blk])[:, at]
+                        for n in all_names
+                    }
+                    inds_eval = {n: inds_p[n][:, blk][:, at]
+                                 for n in all_names}
+                    lp = ctx.compute_log_prior(q_eval, inds_eval)
+                    # blobs and supplementals do not run sharded
+                    ll, _ = ctx.compute_log_like(q_eval, inds_eval, lp)
+                    logl_new[:, at] = ll
+                    logp_new[:, at] = lp
+
+                logP_new = tempered_log_likelihood(logl_new, betas) + logp_new
+                logP_old = (tempered_log_likelihood(prev_logl, betas)
+                            + prev_logp)
+                acc = mh_decide(self.draw_accept(generator, logP_new), factors,
+                                logP_new, logP_old)
+                acc4 = acc[:, :, None, None]
+                for n in names:
+                    coords[n][:, idx] = torch.where(acc4, q[n], s_coords[n])
+                logl[:, idx] = torch.where(acc, logl_new, prev_logl)
+                logp[:, idx] = torch.where(acc, logp_new, prev_logp)
+                accepted[:, idx] = acc | accepted[:, idx]
+
+        new_state = state.replace(
+            coords={n: own(c) for n, c in coords.items()},
+            inds=state.branches_inds, log_like=own(logl), log_prior=own(logp),
+        )
+        return new_state, own(accepted)

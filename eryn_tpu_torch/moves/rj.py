@@ -6,6 +6,11 @@ argmax over random keys, and the detailed-balance corrections at the edges
 of the leaf-count range are ``where`` masks.  A subclass that writes Eryn's
 host protocol (``get_proposal`` / ``get_model_change_proposal`` on NumPy
 arrays) is a host move (:mod:`~eryn_tpu_torch.moves.legacy`).
+
+Births and deaths are per walker: on a state sharded over a device mesh the
+move runs on this rank's walkers as they are, with every draw at its global
+shape (:meth:`~eryn_tpu_torch.moves.move.Move.rank_draw`), and exchanges
+nothing.
 """
 
 from __future__ import annotations
@@ -17,7 +22,7 @@ import torch
 from .move import (
     Move,
     merge_blobs,
-    mh_accept,
+    mh_decide,
     overrides_host_api,
     state_branch_supps,
     stock_host_api,
@@ -147,9 +152,7 @@ class ReversibleJumpMove(Move):
         blobs = state.blobs
         supps = state_branch_supps(state)
         ntemps, nwalkers = logl.shape
-        betas = state.betas
-        if betas is None:
-            betas = torch.ones(ntemps, dtype=logl.dtype, device=logl.device)
+        betas = self.rank_betas(state)
         accepted = torch.zeros((ntemps, nwalkers), dtype=logl.dtype,
                                device=logl.device)
 
@@ -171,7 +174,9 @@ class ReversibleJumpMove(Move):
 
             logP_new = tempered_log_likelihood(logl_new, betas) + logp_new
             logP_old = tempered_log_likelihood(logl, betas) + logp
-            acc = mh_accept(generator, factors, logP_new, logP_old)
+            acc = mh_decide(
+                self.draw_accept(generator, logP_new, per_walker=True),
+                factors, logP_new, logP_old)
             # an identity proposal (no change of leaf count or coordinates)
             # is not counted as accepted; NaN dormant slots equal themselves
             entry_changed = (q_branch != coords[name]) & ~(

@@ -12,9 +12,11 @@ Port of :mod:`eryn_tpu.moves.stretch`.  Two paths:
 
 On a state sharded over a device mesh (:mod:`~eryn_tpu_torch.parallel.
 mesh`) the move takes the sharded form of the fused path
-(:meth:`StretchMove._propose_impl_sharded`): the same draws at their global
-shape, each half's complement gathered within the temperature shard, and
-kernels 1 and 2 on this rank's walkers.
+(:meth:`StretchMove._propose_impl_fused_sharded`): the same draws at
+their global shape, each half's complement gathered within the
+temperature shard, and kernels 1 and 2 on this rank's walkers.  Its
+subclasses that run sharded take
+:class:`~eryn_tpu_torch.moves.red_blue.RedBlueMove`'s sharded form.
 """
 
 from __future__ import annotations
@@ -129,8 +131,8 @@ class StretchMove(RedBlueMove):
         return None
 
     def _propose_impl(self, generator, state, ctx, kernel_state=()):
-        if self.mesh_layout is not None:
-            new_state, accepted = self._propose_impl_sharded(
+        if self.mesh_layout is not None and type(self) is StretchMove:
+            new_state, accepted = self._propose_impl_fused_sharded(
                 generator, state, ctx)
             return new_state, accepted, kernel_state
         if self._can_fuse(state):
@@ -227,7 +229,7 @@ class StretchMove(RedBlueMove):
         )
         return new_state, accepted
 
-    def _propose_impl_sharded(self, generator, state, ctx):
+    def _propose_impl_fused_sharded(self, generator, state, ctx):
         """One fused stretch step on this rank's shard of a state sharded
         over a ``(temp, walker)`` mesh (``self.mesh_layout``).
 
@@ -262,13 +264,7 @@ class StretchMove(RedBlueMove):
         X_loc = parts[0] if len(parts) == 1 else torch.cat(parts, dim=-1)
         inds = state.branches_inds
 
-        def view(x):
-            # a walker-order view of the rank's temperatures: its own
-            # walkers in place, zeros elsewhere until filled
-            out = x.new_zeros((nt, NW) + tuple(x.shape[2:]))
-            out[:, w0:w0 + nw] = x
-            return out
-
+        view, own = lay.walker_view, lay.own
         X = view(X_loc)
         ndim_act = view(active_ndim(state, names).to(dtype))
         L, P = view(logl), view(logp)
@@ -294,9 +290,9 @@ class StretchMove(RedBlueMove):
             lp = q.new_zeros(q.shape[:2])
             if mine.size:
                 pos = torch.as_tensor(mine, device=device)
-                own = torch.as_tensor(w[mine] - w0, device=device)
+                at = torch.as_tensor(w[mine] - w0, device=device)
                 q_branches = q_to_branches(q[:, pos], mine.size)
-                inds_blk = {n: inds[n][:, own] for n in names}
+                inds_blk = {n: inds[n][:, at] for n in names}
                 lp_new = ctx.compute_log_prior(q_branches, inds_blk)
                 ll_new, _ = ctx.compute_log_like(q_branches, inds_blk, lp_new)
                 ll[:, pos] = ll_new
@@ -315,9 +311,6 @@ class StretchMove(RedBlueMove):
         q, factors = stretch_propose(X, X_out, ndim_act, perm, u_all, 1, **kw)
         stretch_accept(q, X, *evaluate(q, 1), L, P, factors, betas, perm,
                        u_all, 1, *outs)
-
-        def own(x):
-            return x[:, w0:w0 + nw].contiguous()
 
         new_state = state.replace(
             coords=q_to_branches(own(X_out), nw), inds=inds,

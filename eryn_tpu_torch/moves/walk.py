@@ -26,6 +26,8 @@ class WalkMove(RedBlueMove):
             proposal's covariance the complement's).
     """
 
+    _mesh_sharded = True
+
     def __init__(self, s0=None, scale=None, **kwargs):
         super().__init__(**kwargs)
         self.s0 = s0
@@ -35,8 +37,9 @@ class WalkMove(RedBlueMove):
         """Per branch the normals ``(ntemps, ns, nc)`` of the combination
         and, with ``s0``, the uniforms of its subset (else None)."""
         kw = dict(generator=generator, dtype=like.dtype, device=like.device)
-        return {n: (torch.randn((ntemps, ns, nc), **kw),
-                    torch.rand((ntemps, ns, nc), **kw)
+        shape = (ntemps, ns, nc)
+        return {n: (self.rank_draw(lambda sh: torch.randn(sh, **kw), shape),
+                    self.rank_draw(lambda sh: torch.rand(sh, **kw), shape)
                     if self.s0 is not None else None)
                 for n in names}
 

@@ -146,9 +146,12 @@ def audit_sampler_comm(sampler, state):
             (:func:`~eryn_tpu_torch.parallel.mesh.shard_state`) on a mesh
             of more than one rank.  Every rank calls this together.
 
-    The step runs eagerly, as every sharded step does; the sampler's
-    generators, clock, ladder and last state are restored after it, so the
-    audit leaves the chain as it was.
+    The step runs eagerly, as every sharded step does, and is the whole
+    schedule of one step: under reversible jump both proposal phases, the
+    in-model move and the birth/death move, each with its swap phase,
+    whose payload carries the leaf masks.  The sampler's generators,
+    clock, ladder, moves' kernel states and last state are restored after
+    it, so the audit leaves the chain as it was.
 
     Returns:
         dict with ``per_op`` ``{op: {"count", "bytes"}}``, ``total_bytes``
@@ -168,7 +171,9 @@ def audit_sampler_comm(sampler, state):
              sampler._previous_state,
              None if tc is None else (tc.time, tc.betas, tc.swaps_accepted),
              None if sampler._m_acc is None else sampler._m_acc.clone(),
-             sampler._m_nprop.copy())
+             sampler._m_nprop.copy(),
+             None if sampler._kernel_states is None
+             else list(sampler._kernel_states))
     try:
         with recording() as calls:
             sampler._run_bulk(state, 1, 1, store=False)
@@ -179,6 +184,7 @@ def audit_sampler_comm(sampler, state):
         if tc is not None:
             tc.time, tc.betas, tc.swaps_accepted = saved[3]
         sampler._m_acc, sampler._m_nprop = saved[4], saved[5]
+        sampler._kernel_states = saved[6]
     stats = collective_stats(calls)
 
     per_op = {}

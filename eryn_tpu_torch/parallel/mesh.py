@@ -205,6 +205,26 @@ class MeshLayout:
     # ------------------------------------------------------------------
     # the sharded step's exchanges
     # ------------------------------------------------------------------
+    def walker_view(self, x):
+        """A walker-order view ``(nt, nwalkers, ...)`` of this rank's
+        temperatures from its shard ``x`` ``(nt, nw, ...)``: its own walkers
+        in place, zeros elsewhere until :meth:`fill_rows` fills them."""
+        out = x.new_zeros((self.nt, self.nwalkers) + tuple(x.shape[2:]))
+        out[:, self.w0:self.w0 + self.nw] = x
+        return out
+
+    def own(self, x):
+        """This rank's walkers ``(nt, nw, ...)`` of a walker-order view."""
+        return x[:, self.w0:self.w0 + self.nw].contiguous()
+
+    def gather_walkers(self, tensors):
+        """Walker-order views of ``tensors`` (this rank's shards) with every
+        walker filled: each walker shard's rows gathered within the
+        temperature shard in one exchange."""
+        views = [self.walker_view(x) for x in tensors]
+        self.fill_rows(views, list(tensors), np.arange(self.nwalkers))
+        return views
+
     def _group_order(self, group, members):
         """``members`` (global ranks) in ``group``'s rank order."""
         ranks = dist.get_process_group_ranks(group)
@@ -213,17 +233,29 @@ class MeshLayout:
     def fill_rows(self, buf, local, walkers):
         """Write into ``buf``, a walker-order view ``(nt, nwalkers, ...)`` of
         this rank's temperatures, the rows of every walker of ``walkers``
-        (global indices, on the host) that another rank of this temperature
-        shard holds, and send that rank the rows it needs from ``local``,
-        this rank's ``(nt, nw, ...)``: one ``all_to_all_single`` over the
-        walker axis, carrying ``nt`` rows of each walker not held here."""
+        (global indices, on the host; every rank of the temperature shard
+        passes the same) that another rank of this temperature shard holds,
+        and send that rank the rows it needs from ``local``, this rank's
+        ``(nt, nw, ...)``: one ``all_to_all_single`` over the walker axis,
+        carrying ``nt`` rows of each walker not held here.
+
+        ``buf`` and ``local`` are a tensor each, or lists of tensors of one
+        length (several leaves of any dtypes, the bool leaf masks among
+        them), whose rows then travel packed as bytes in the one
+        exchange."""
         if self.wp == 1:
             return
+        bufs = [buf] if isinstance(buf, torch.Tensor) else list(buf)
+        locs = [local] if isinstance(local, torch.Tensor) else list(local)
         w = np.sort(np.asarray(walkers))
         shard = w // self.nw
-        dev = buf.device
+        dev = bufs[0].device
         mine = torch.as_tensor(w[shard == self.wi] - self.w0, device=dev)
-        rows = local[:, mine].transpose(0, 1)  # (count, nt, ...)
+        count = int(mine.numel())
+        # a walker's rows of every leaf: (count, nt * ...) each, as bytes
+        flat = [x[:, mine].transpose(0, 1).reshape(count, x[:, :1].numel())
+                for x in locs]
+        rows = _pack(flat)
         sends, in_splits, out_splits, dest = [], [], [], []
         row_ranks = self.ranks[self.ti]
         for r in self._group_order(self.walker_group, row_ranks):
@@ -233,16 +265,20 @@ class MeshLayout:
                 out_splits.append(0)
                 continue
             sends.append(rows)
-            in_splits.append(rows.shape[0])
+            in_splits.append(count)
             theirs = w[shard == p]
             out_splits.append(theirs.size)
             dest.append(theirs)
         inp = torch.cat(sends).contiguous()
-        out = inp.new_empty((sum(out_splits),) + tuple(rows.shape[1:]))
+        out = inp.new_empty((sum(out_splits), rows.shape[1]))
         _comm.all_to_all_single(out, inp, out_splits, in_splits,
                                 group=self.walker_group)
         idx = torch.as_tensor(np.concatenate(dest), device=dev)
-        buf[:, idx] = out.transpose(0, 1)
+        # one row of each leaf gives _unpack its dtype and row width
+        like = [x[:, :1].transpose(0, 1).reshape(1, -1) for x in locs]
+        for b, got in zip(bufs, _unpack(out, like)):
+            b[:, idx] = got.reshape((idx.numel(), b.shape[0])
+                                    + tuple(b.shape[2:])).transpose(0, 1)
 
     def move_rows(self, leaves, origin):
         """Every leaf ``(nt, nw, ...)`` of this rank's shard, each slot

@@ -8,7 +8,9 @@ ends of the ladder receive less).  The bounds are ``eryn_tpu``'s: on the
 fully temperature-sharded ``(8, 1)`` mesh the cascade moves at most 2.5
 times one swap phase's payload and DEO at most 1.0 times (its all-reduce at
 most 0.05 times); on the default ``(2, 4)`` mesh with 4 temperatures the
-step moves at most 4.0 times; no all-gather or all-reduce carries the whole
+step moves at most 4.0 times; reversible jump under DEO (two proposal
+phases, the leaf masks in the swap payload; 3-D leaves, at most 2 a walker)
+moves at most 3.0 times; no all-gather or all-reduce carries the whole
 coordinates tensor anywhere.  The ranks import this module, so it imports
 ``jax`` only inside the tests.
 """
@@ -39,8 +41,37 @@ def _sampler(ntemps, **tk_extra):
         seed=7, device="cpu")
 
 
+def _rj_deo_audit(world):
+    """``tests/test_comm_pattern.py::test_rj_deo_mesh_traffic_bounded``'s
+    configuration (8 temperatures, 64 walkers, 3-D leaves, at most 2 a
+    walker, birth and death, DEO) on the ``(8, 1)`` mesh: one audited
+    step."""
+    ndim, nlmax, ntemps = 3, 2, 8
+    pr = et.ProbDistContainer({i: et.uniform_dist(-5, 5)
+                               for i in range(ndim)})
+
+    def ll(coords, inds):
+        contrib = -0.5 * torch.sum(coords ** 2, dim=-1)
+        return torch.sum(torch.where(inds, contrib, 0.0))
+
+    s = et.EnsembleSampler(
+        NWALKERS, ndim, ll, pr, nleaves_max=nlmax, nleaves_min=0,
+        moves=et.StretchMove(use_kernels=True), rj_moves=True,
+        tempering_kwargs=dict(ntemps=ntemps, swap_scheme="deo",
+                              use_kernels=True),
+        fill_zero_leaves_val=-1e4, seed=9, device="cpu")
+    rng = np.random.default_rng(2)
+    coords = rng.uniform(-5, 5, (ntemps, NWALKERS, nlmax, ndim)).astype(
+        np.float32)
+    inds = rng.random((ntemps, NWALKERS, nlmax)) < 0.5
+    state = shard_state(et.State({"model_0": torch.from_numpy(coords)},
+                                 inds={"model_0": torch.from_numpy(inds)}),
+                        make_mesh(world, temp_parallel=8))
+    return audit_sampler_comm(s, state)
+
+
 def _rank_main(rank, world):
-    out = {}
+    out = {"rj_deo_8x1": _rj_deo_audit(world)}
     for name, (ntemps, temp_parallel, extra) in CASES.items():
         mesh = make_mesh(world, temp_parallel=temp_parallel)
         s = _sampler(ntemps, **extra)
@@ -59,7 +90,8 @@ def _rank_main(rank, world):
 @pytest.fixture(scope="module")
 def audits():
     ranks = launch(_rank_main, 8, timeout=240)
-    return {name: [r[name] for r in ranks] for name in CASES}
+    return {name: [r[name] for r in ranks]
+            for name in list(CASES) + ["rj_deo_8x1"]}
 
 
 def test_cascade_swap_traffic_is_boundary_local(audits):
@@ -94,6 +126,22 @@ def test_standard_mesh_never_allgathers_full_ensemble(audits):
         assert audit["big_gathers"] == [], audit
         assert audit["per_op"]["all-to-all"]["count"] == 3, audit
         assert audit["total_bytes"] <= 4.0 * audit["payload_bytes"], audit
+
+
+def test_rj_deo_mesh_traffic_bounded(audits):
+    """Reversible jump under DEO on the ``(8, 1)`` mesh, as ``eryn_tpu``'s
+    test of that name: the step has two proposal phases (the stretch and
+    the birth/death move, neither of which leaves a rank on this mesh),
+    each with a DEO phase whose edge rungs carry the leaf masks beside the
+    coordinates (point-to-point exchanges with each neighbouring shard)
+    and one small all-reduce of the swap counts: within 3.0 payloads, and
+    no big gather."""
+    for audit in audits["rj_deo_8x1"]:
+        assert audit["big_gathers"] == [], audit
+        assert set(audit["per_op"]) == {"collective-permute",
+                                        "all-reduce"}, audit
+        assert audit["per_op"]["all-reduce"]["count"] == 2, audit
+        assert audit["total_bytes"] <= 3.0 * audit["payload_bytes"], audit
 
 
 @pytest.mark.parametrize("name", sorted(CASES))

@@ -115,20 +115,17 @@ def _para_record(p):
 
 def _refusals(mesh):
     """The named error of each configuration without a sharded form."""
-    from eryn_tpu_torch.moves import DEMove, SliceMove
+    from eryn_tpu_torch.moves import MHMove, SliceMove
 
     def ll_blobs(x):
         return -0.5 * torch.sum(x * x), torch.sum(x)
-
-    def ll_rj(c, i):
-        return torch.where(i, -0.5 * (c * c).sum(-1), 0.0).sum()
 
     def np_ll(x):
         return -0.5 * float(np.sum(np.asarray(x) ** 2))
 
     cases = {
         "SliceMove": dict(moves=SliceMove()),
-        "DEMove": dict(moves=DEMove()),
+        "MHMove": dict(moves=MHMove()),
         "StretchMove(periodic)": dict(moves=et.StretchMove(
             periodic={"model_0": {0: 1.0}})),
         "general cascade": dict(tempering_kwargs=dict(ntemps=NT,
@@ -137,9 +134,7 @@ def _refusals(mesh):
         "host likelihood": dict(log_like=np_ll),
         "HDFBackend": dict(backend=os.path.join(tempfile.mkdtemp(),
                                                  "chain.h5")),
-        "reversible jump": dict(log_like=ll_rj, nleaves_max=2,
-                                moves=et.moves.RedBlueGroupStretchMove(),
-                                rj_moves=True),
+        "hooks": dict(update_fn=lambda *args: None, update_iterations=1),
     }
     out = {}
     for name, kw in cases.items():
@@ -450,17 +445,20 @@ def test_group_mesh_equals_one_rank(ranks, world):
 
 def test_unsupported_configurations_raise_under_a_mesh(ranks):
     """What has no sharded form raises a ``NotImplementedError`` that names
-    it at set-up: other moves (``eryn_tpu``'s
-    ``test_sharded_new_move_family``, ``test_sharded_slice_move``), a
+    it at set-up: ``SliceMove`` (``eryn_tpu``'s
+    ``test_sharded_slice_move``), a per-walker move (``MHMove``), a
     periodic stretch, the general cascade, blobs, a host likelihood,
-    ``HDFBackend`` and reversible jump (``test_sharded_rbgroupstretch_rj``,
+    ``HDFBackend`` and the ``run_mcmc`` hooks.  Reversible jump and the
+    red/blue family run sharded (``tests/test_torch_mesh_rj.py``: the port
+    matches ``eryn_tpu``'s ``test_sharded_rbgroupstretch_rj``,
+    ``test_sharded_rj_group_run``, ``test_sharded_new_move_family`` and
     ``test_rj_deo_mesh_traffic_bounded``)."""
     got = ranks[2][0]["refusals"]
-    names = {"SliceMove": "SliceMove", "DEMove": "DEMove",
+    names = {"SliceMove": "SliceMove", "MHMove": "MHMove",
              "StretchMove(periodic)": "periodic",
              "general cascade": "general swap cascade",
              "blobs": "Blobs", "host likelihood": "host",
-             "HDFBackend": "HDFBackend", "reversible jump": "Reversible jump"}
+             "HDFBackend": "HDFBackend", "hooks": "update_fn"}
     for case, word in names.items():
         assert got[case] is not None, case
         assert word in got[case] and "device mesh" in got[case], got[case]
