@@ -588,6 +588,17 @@ def check_kernels(torch, dtype_name):
            (f_r, *q_r.values()))
     assert errs["group_stretch_propose[sharded]"] == 0.0, (
         "group_stretch_propose disagrees at a mesh rank's shape")
+    # and of a (2, 2) mesh rank of the zoo's MT-RJ chain, both blocks
+    for case in GROUP_SHARDED_MTRJ:
+        args, kw = _group_args(torch, rand, randn, dtype, **case)
+        q_k, f_k = select_kernels.group_stretch_propose(*args, **kw)
+        q_r, f_r = select_kernels.group_stretch_propose_ref(*args, **kw)
+        record("group_stretch_propose[sharded mt-rj]", (f_k, *q_k.values()),
+               (f_r, *q_r.values()))
+        for a, b in zip((f_k, *q_k.values()), (f_r, *q_r.values())):
+            assert torch.equal(a.isnan(), b.isnan())
+    assert errs["group_stretch_propose[sharded mt-rj]"] == 0.0, (
+        "group_stretch_propose disagrees at an MT-RJ mesh rank's shape")
     torch.cuda.synchronize()
     return errs
 
@@ -596,17 +607,26 @@ def check_kernels(torch, dtype_name):
 # temperatures, every walker of the view, block 0 of the split
 GROUP_SHARDED = dict(nt=L_NT // 2, nw=L_NW, shapes={"m": (L_NLMAX, 3)},
                      off=0, ns=L_NW // 2)
+# ... and on a (2, 2) mesh rank of the zoo's MT-RJ chain
+# (mesh[modelswap-mtrj]): half the temperatures of the 100-walker view,
+# 4 leaves of 5 dimensions, each block of the split
+GROUP_SHARDED_MTRJ = tuple(
+    dict(nt=NT // 2, nw=NW, shapes={"model_0": (Z_NLMAX, NDIM)}, off=off,
+         ns=NW // 2) for off in (0, NW // 2))
 
 # group_stretch_propose's checks: the RJ shape (both blocks of the split),
 # then two branches with a Gibbs per-leaf table, an empty complement on one
-# temperature, one periodic dimension and the log proposal; every case has
-# pick draws of exactly 1, which force k + 1 > cnt
+# temperature, one periodic dimension and the log proposal, then the zoo's
+# MT-RJ shape on one process (both blocks); every case has pick draws of
+# exactly 1, which force k + 1 > cnt
 GROUP_CASES = (
     dict(nt=L_NT, nw=L_NW, shapes={"m": (L_NLMAX, 3)}, off=0, ns=L_NW // 2),
     dict(nt=L_NT, nw=L_NW, shapes={"m": (L_NLMAX, 3)}, off=L_NW // 2,
          ns=L_NW // 2),
     dict(nt=3, nw=37, shapes={"m": (4, 2), "n": (3, 3)}, off=13, ns=12,
          empty=1, periodic=True, gibbs=True, log_proposal=True),
+    *(dict(nt=NT, nw=NW, shapes={"model_0": (Z_NLMAX, NDIM)}, off=off,
+           ns=NW // 2) for off in (0, NW // 2)),
 )
 
 
@@ -801,6 +821,15 @@ def time_kernels(torch):
         lambda: select_kernels.group_stretch_propose(*shd_args, **shd_kw),
         lambda: select_kernels.group_stretch_propose_ref(*shd_args, **shd_kw),
         *_group_bytes_ops(torch, shd_args),
+    )
+    # a (2, 2) mesh rank's launch in the zoo's MT-RJ chain, block 0
+    mtrj_args, mtrj_kw = _group_args(torch, rand, randn, torch.float32,
+                                     **GROUP_SHARDED_MTRJ[0], overflow=False)
+    calls["group_stretch_propose[sharded mt-rj]"] = (
+        lambda: select_kernels.group_stretch_propose(*mtrj_args, **mtrj_kw),
+        lambda: select_kernels.group_stretch_propose_ref(*mtrj_args,
+                                                         **mtrj_kw),
+        *_group_bytes_ops(torch, mtrj_args),
     )
     empty = _build.function("eryn_empty_launch", "p")
 
@@ -2391,10 +2420,11 @@ def best_stack_leg(torch, card):
     return launches, rates, ("best_stack", s, s._previous_state)
 
 
-def _mt_rj_sampler(torch, cuda_graph=True):
+def _mt_rj_sampler(torch, cuda_graph=True, setup=True, backend=None):
     """``move_zoo_timing.py:time_rj(mt=True)``: 10 x 100, the 5-D branch
     with up to 4 leaves, ``MTDistGenMoveRJ(num_try=8)`` and the red/blue
-    group stretch, seed 11; its set-up state."""
+    group stretch, seed 11; its set-up state (without ``setup`` the global
+    start, not evaluated)."""
     import numpy as np
 
     from eryn_tpu_torch import EnsembleSampler, ProbDistContainer, State, uniform_dist
@@ -2411,12 +2441,15 @@ def _mt_rj_sampler(torch, cuda_graph=True):
                                   nleaves_max={"model_0": Z_NLMAX},
                                   nleaves_min={"model_0": 0}, num_try=8)],
         tempering_kwargs=dict(ntemps=NT), seed=Z_RJ_SEED, device="cuda",
-        cuda_graph=cuda_graph)
+        cuda_graph=cuda_graph, backend=backend)
     coords = pr.rvs(size=(NT, NW, Z_NLMAX), generator=torch.Generator(
         device="cuda").manual_seed(Z_RJ_SEED))
     inds = np.random.default_rng(4).random((NT, NW, Z_NLMAX)) < 0.5
-    state = s._setup_state(State({"model_0": coords}, inds={
-        "model_0": torch.as_tensor(inds, device="cuda")}))
+    state = State({"model_0": coords}, inds={
+        "model_0": torch.as_tensor(inds, device="cuda")})
+    if not setup:
+        return s, state
+    state = s._setup_state(state)
     s._ensure_kernel_states(state)
     return s, state
 
@@ -2551,18 +2584,12 @@ def config_d_leg(torch, card):
     return launches, rates, (leg, s, s._previous_state)
 
 
-def modelswap_leg(torch, card):
-    """``tests/test_modelswap.py:153-181``: a pulse against a constant, 64
-    walkers x 3 temperatures, ``GaussianMove`` and ``ModelSwapRJMove``,
-    seed 23; 200 burn-in and 800 stored steps.  Gates: exactly one model
-    active in every sample, the cold chain's pulse probability within 0.1
-    of the quadrature value; two cascade launches a step."""
-    import numpy as np
-
+def _modelswap_sampler(torch, np, nt, cuda_graph=True, backend=None):
+    """``tests/test_modelswap.py:153-181``'s sampler at ``nt`` temperatures
+    and its start; with it the quadrature probability of the pulse."""
     from eryn_tpu_torch import EnsembleSampler, ProbDistContainer, State, uniform_dist
     from eryn_tpu_torch.moves import GaussianMove, ModelSwapRJMove
 
-    leg = "modelswap"
     rng = np.random.default_rng(4)
     npts = 64
     t = np.linspace(0, 1, npts)
@@ -2593,14 +2620,29 @@ def modelswap_leg(torch, card):
         nleaves_min={"pulse": 0, "const": 0},
         moves=[GaussianMove({"pulse": 0.05, "const": 0.05})],
         rj_moves=[ModelSwapRJMove({n: priors[n] for n in ("pulse", "const")})],
-        tempering_kwargs=dict(ntemps=S_NT), fill_zero_leaves_val=-1e8,
-        seed=23, device="cuda")
+        tempering_kwargs=dict(ntemps=nt), fill_zero_leaves_val=-1e8,
+        seed=23, device="cuda", cuda_graph=cuda_graph, backend=backend)
     gen = torch.Generator(device="cuda").manual_seed(7)
-    coords = {n: priors[n].rvs(size=(S_NT, S_NW, 1), generator=gen)
+    coords = {n: priors[n].rvs(size=(nt, S_NW, 1), generator=gen)
               for n in priors}
-    pick = np.random.default_rng(7).random((S_NT, S_NW)) < 0.5
-    start = State(coords, inds={"pulse": pick[..., None],
-                                "const": ~pick[..., None]})
+    pick = np.random.default_rng(7).random((nt, S_NW)) < 0.5
+    start = State(coords, inds={"pulse": torch.as_tensor(pick[..., None]),
+                                "const": torch.as_tensor(~pick[..., None])})
+    s.p_true = p_true
+    return s, start
+
+
+def modelswap_leg(torch, card):
+    """``tests/test_modelswap.py:153-181``: a pulse against a constant, 64
+    walkers x 3 temperatures, ``GaussianMove`` and ``ModelSwapRJMove``,
+    seed 23; 200 burn-in and 800 stored steps.  Gates: exactly one model
+    active in every sample, the cold chain's pulse probability within 0.1
+    of the quadrature value; two cascade launches a step."""
+    import numpy as np
+
+    leg = "modelswap"
+    s, start = _modelswap_sampler(torch, np, S_NT)
+    p_true = s.p_true
     read = _counting(_kernels())
     t0 = time.perf_counter()
     s.run_mcmc(start, S_STEPS, burn=S_BURN)
@@ -4503,10 +4545,10 @@ def _mesh_rj_rank(rank, world):
     return out
 
 
-def _first_difference(np, got, ref):
-    """The first stored step at which any getter's array differs, and the
-    largest absolute difference over the run (NaN in the same places is
-    equal); None where every array is equal."""
+def _first_difference(np, got, ref, steps=MR_STEPS):
+    """The first of ``steps`` stored steps at which any getter's array
+    differs, and the largest absolute difference over the run (NaN in the
+    same places is equal); None where every array is equal."""
     first, worst = None, 0.0
     for key in ref:
         a = np.asarray(got[key], dtype=np.float64)
@@ -4514,9 +4556,9 @@ def _first_difference(np, got, ref):
         if np.array_equal(a, b, equal_nan=True):
             continue
         worst = max(worst, float(np.nanmax(np.abs(a - b))))
-        if a.ndim > 1 and a.shape[0] == MR_STEPS:
+        if a.ndim > 1 and a.shape[0] == steps:
             diff = ~((a == b) | (np.isnan(a) & np.isnan(b)))
-            step = int(np.flatnonzero(diff.reshape(MR_STEPS, -1).any(1))[0])
+            step = int(np.flatnonzero(diff.reshape(steps, -1).any(1))[0])
             first = step if first is None else min(first, step)
     if first is None and worst == 0.0:
         return None
@@ -4616,6 +4658,262 @@ def mesh_rj_legs(torch, card):
     return launches, rates, []
 
 
+# mesh[slice|gradient-zoo|mh-zoo|modelswap-mtrj,4rank,gloo]: the rest of the
+# move zoo (benchmarks/move_zoo_timing.py:27-166) on a (2, 2) mesh of four
+# ranks, 10 steps of burn-in and 40 stored into DeviceBackend each: the
+# north-star target for the in-model moves; the model swap of
+# tests/test_modelswap.py:153-181 at 4 temperatures (the mesh halves them)
+# and the zoo's MT-RJ configuration for the two RJ moves
+MZ_WARM, MZ_STEPS, MZ_SEED, MZ_SWAP_NT = 10, 40, 37, 4
+MESH_ZOO_LEGS = ("slice", "gradient-zoo", "mh-zoo", "modelswap-mtrj")
+
+
+def _walk_mh():
+    """``MHMove`` with a Gaussian random-walk proposal, a user's subclass
+    that declares itself sharded (its normals drawn per walker through
+    ``rank_draw``)."""
+    import torch
+
+    from eryn_tpu_torch.moves import MHMove
+
+    class WalkMH(MHMove):
+        _mesh_sharded = True
+
+        def get_proposal_kernel(self, generator, branch_coords, branch_inds,
+                                kernel_state, param_masks=None):
+            q = {n: c + 0.3 * self.rank_draw(
+                    lambda sh, c=c: torch.randn(sh, generator=generator,
+                                                dtype=c.dtype,
+                                                device=c.device),
+                    c.shape, per_walker=True)
+                 for n, c in branch_coords.items()}
+            c = next(iter(q.values()))
+            return q, c.new_zeros(c.shape[:2]), kernel_state
+
+    return WalkMH()
+
+
+def _mesh_zoo_samplers(torch, np, leg, cuda_graph=True):
+    """A ``mesh[...]`` zoo leg's samplers (into DeviceBackend) and their
+    global starts, not evaluated: ``[(chain name, sampler, state)]``."""
+    from eryn_tpu_torch import (
+        DeviceBackend,
+        ProbDistContainer,
+        State,
+        uniform_dist,
+    )
+    from eryn_tpu_torch import moves as tm
+
+    def north_star(moves):
+        s, priors = _gaussian_sampler(torch, NT, NW, MZ_SEED,
+                                      backend=DeviceBackend(),
+                                      cuda_graph=cuda_graph, moves=moves)
+        coords = priors.rvs(size=(NT, NW), generator=torch.Generator(
+            device="cuda").manual_seed(MZ_SEED))
+        return s, State({"model_0": coords[:, :, None, :]})
+
+    if leg == "slice":
+        return [("SliceMove",) + north_star(tm.SliceMove())]
+    if leg == "gradient-zoo":
+        return [("MALA|HMC|ChEES",) + north_star(
+            [(tm.MALAMove(), 1 / 3), (tm.HMCMove(), 1 / 3),
+             (tm.ChEESHMCMove(), 1 / 3)])]
+    if leg == "mh-zoo":
+        dist = ProbDistContainer({i: uniform_dist(-5.0, 5.0)
+                                  for i in range(NDIM)})
+        diag = {"model_0": np.diag(np.full(NDIM, 0.5 ** 2))}
+        moves = [_walk_mh(), tm.GaussianMove(diag),
+                 tm.DistributionGenerate({"model_0": dist}), tm.AIMHMove(),
+                 tm.MTDistGenMove({"model_0": dist}, num_try=8,
+                                  independent=True),
+                 tm.DelayedRejection(tm.GaussianMove(diag), max_iter=2),
+                 tm.CombineMove([tm.GaussianMove(diag),
+                                 tm.DistributionGenerate({"model_0": dist})])]
+        return [("MH family",) + north_star([(m, 1 / 7) for m in moves])]
+    out = []
+    s, state = _mt_rj_sampler(torch, cuda_graph=cuda_graph, setup=False,
+                              backend=DeviceBackend())
+    out.append(("MTDistGenMoveRJ x8", s, state))
+    s, state = _modelswap_sampler(torch, np, MZ_SWAP_NT, cuda_graph=cuda_graph,
+                                  backend=DeviceBackend())
+    out.append(("ModelSwapRJMove", s, state))
+    return out
+
+
+def _mesh_zoo_record(s):
+    """Every getter's global array a zoo leg's chain is held to, per branch,
+    and its moves' device counters."""
+    from eryn_tpu_torch.ensemble import _walk_moves
+
+    out = {"log_like": s.get_log_like(), "log_prior": s.get_log_prior(),
+           "betas": s.get_betas(), "acc": s.acceptance_fraction,
+           "swaps": s.swap_acceptance_fraction}
+    for n in s.branch_names:
+        out[f"chain[{n}]"] = s.get_chain()[n]
+        if s.has_reversible_jump:
+            out[f"inds[{n}]"] = s.get_inds()[n]
+    if s.has_reversible_jump:
+        out["rj_acc"] = s.rj_acceptance_fraction
+    for j, m in enumerate(_walk_moves(s._all_move_list)):
+        for c in ("loop_iterations", "leapfrog_total"):
+            if getattr(m, c, None) is not None:
+                out[f"{c}[{j}]"] = getattr(m, c).cpu().numpy()
+    return out
+
+
+def _mesh_zoo_rank(rank, world):
+    """One rank of the ``mesh[...]`` zoo legs, in turn on one ``(2, 2)``
+    mesh: each chain's state sharded, its run timed, its launches counted
+    (the counters set to 0 just before it), the getters' global arrays and
+    the wall-clock ends of the legs."""
+    import numpy as np
+    import torch
+
+    from eryn_tpu_torch.parallel import _comm, make_mesh, shard_state
+
+    out = {}
+    with _plain_versions_forbidden():
+        mesh = make_mesh(world, temp_parallel=2)
+        for leg in MESH_ZOO_LEGS:
+            got = out[leg] = {"chains": {}, "seconds": 0.0, "launches": {}}
+            for name, s, state in _mesh_zoo_samplers(torch, np, leg):
+                state = shard_state(state, mesh)
+                read = _counting(_kernels())
+                torch.cuda.synchronize()
+                t0 = time.perf_counter()
+                s.run_mcmc(state, MZ_STEPS, burn=MZ_WARM)
+                torch.cuda.synchronize()
+                got["seconds"] += time.perf_counter() - t0
+                for k, v in read().items():
+                    got["launches"][k] = got["launches"].get(k, 0) + v
+                got["chains"][name] = {
+                    "record": _mesh_zoo_record(s),
+                    "shard": tuple(s._previous_state.log_like.shape),
+                    "graph_replays": s.graph_replays}
+            got["end"] = time.time()
+    out["staged"] = dict(_comm.STAGED)
+    return out
+
+
+def _zoo_gates(np, name, s_record):
+    """The statistical gates a zoo chain meets where it drifts from the
+    one-rank chain: the unit Gaussian's cold moments and the acceptance
+    in (0, 1), or under reversible jump finite log-likelihoods and leaf
+    counts in range (one candidate active in every model-swap sample)."""
+    rec = s_record
+    assert np.all(np.isfinite(rec["log_like"])), name
+    acc = np.asarray(rec["acc"])[0].mean()
+    assert 0 < acc <= 1, (name, acc)
+    if "chain[model_0]" in rec and "inds[model_0]" not in rec:
+        cold = rec["chain[model_0]"][:, 0].reshape(-1, NDIM)
+        assert np.all(np.abs(cold.mean(axis=0)) < 0.3), cold.mean(axis=0)
+        assert np.all(np.abs(cold.var(axis=0) - 1.0) < 0.5), cold.var(axis=0)
+    elif "inds[pulse]" in rec:
+        one = rec["inds[pulse]"].sum(-1) + rec["inds[const]"].sum(-1)
+        assert np.all(one == 1), name
+    else:
+        nl = rec["inds[model_0]"].sum(-1)
+        assert np.all((nl >= 0) & (nl <= Z_NLMAX)), name
+
+
+def mesh_zoo_legs(torch, card):
+    """The rest of the move zoo on the device mesh:
+    ``mesh[slice,4rank,gloo]`` (``SliceMove()``),
+    ``mesh[gradient-zoo,4rank,gloo]`` (MALA, HMC and ChEES-HMC at 1/3 each,
+    tuning on), ``mesh[mh-zoo,4rank,gloo]`` (a user's ``MHMove``,
+    ``GaussianMove``, ``DistributionGenerate``, ``AIMHMove``,
+    ``MTDistGenMove``, ``DelayedRejection`` and a ``CombineMove`` of two,
+    at 1/7 each) and ``mesh[modelswap-mtrj,4rank,gloo]`` (the model swap
+    and the zoo's multiple-try reversible jump), on a ``(2, 2)`` mesh of
+    four ranks sharing ``cuda:0`` over gloo, 10 + 40 steps each into
+    DeviceBackend.  Each chain equals its one-rank eager chain digit for
+    digit or, where it drifts on the card, prints its first differing
+    stored step and field and meets the zoo's statistical gates.  Each rank
+    launches kernel 3 once a tempering phase, as the one-rank chain does,
+    and kernel 5 twice an MT-RJ step (the group stretch's halves); no
+    plain version runs.  Returns the launches of the ranks and of the
+    references, the ranks' kernel 5 launches also under
+    ``group_stretch_propose[sharded mt-rj]`` (the shape the kernel phase
+    holds against the plain version), and the legs' rates."""
+    import numpy as np
+
+    from eryn_tpu_torch.parallel._spawn import launch
+
+    refs, ref_launches, launches = {}, {}, {}
+    for leg in MESH_ZOO_LEGS:
+        read = _counting(_kernels())
+        for name, s, state in _mesh_zoo_samplers(torch, np, leg,
+                                                 cuda_graph=False):
+            s.run_mcmc(state, MZ_STEPS, burn=MZ_WARM)
+            refs[leg, name] = _mesh_zoo_record(s)
+        ref_launches[leg] = read()
+        for k, v in ref_launches[leg].items():
+            launches[k] = launches.get(k, 0) + v
+    t0 = time.time()
+    ranks = launch(_mesh_zoo_rank, 4, backend="gloo", timeout=MESH_TIMEOUT)
+    wall = time.time() - t0
+    steps = MZ_WARM + MZ_STEPS
+    rates, sharded, last = {}, 0, t0
+    for leg in MESH_ZOO_LEGS:
+        name = f"mesh[{leg},4rank,gloo]"
+        verdicts = []
+        for chain in ranks[0][leg]["chains"]:
+            drift = None
+            for r in ranks:
+                got = r[leg]["chains"][chain]
+                assert got["graph_replays"] == 0, got["graph_replays"]
+                assert got["shard"][0] * 2 in (NT, MZ_SWAP_NT), got["shard"]
+                ref = refs[leg, chain]
+                if any(not np.array_equal(got["record"][k], ref[k],
+                                          equal_nan=True) for k in ref):
+                    drift = drift or _first_difference(
+                        np, got["record"], ref, steps=MZ_STEPS)
+                    _zoo_gates(np, f"{name} {chain}", got["record"])
+            if drift is None:
+                verdicts.append(f"{chain}: equals the one-rank eager chain "
+                                "digit for digit")
+            else:
+                verdicts.append(
+                    f"{chain}: differs from the one-rank eager chain from "
+                    f"stored step {drift[0]} (largest difference "
+                    f"{drift[1]:.6g}) and meets the zoo's gates")
+                rates[f"{name}_first_difference[{chain}]"] = {
+                    "step": drift[0], "max_abs": drift[1]}
+            rates[f"{name}_digit_for_digit[{chain}]"] = drift is None
+        for r in ranks:
+            n = r[leg]["launches"]
+            # one cascade launch a tempering phase, as on one rank
+            assert n["pt_swap_cascade_multi"] == ref_launches[leg][
+                "pt_swap_cascade_multi"], (name, n, ref_launches[leg])
+            assert n["group_stretch_propose"] == ref_launches[leg][
+                "group_stretch_propose"], (name, n)
+            assert all(n[k] == 0 for k in (
+                "stretch_propose", "stretch_accept_propose", "stretch_accept",
+                "_cascade_multi_rolled", "onehot_select")), (name, n)
+            sharded += n["group_stretch_propose"]
+        got = _sum_launches([r[leg] for r in ranks])
+        for k, v in got.items():
+            launches[k] = launches.get(k, 0) + v
+        nchains = len(ranks[0][leg]["chains"])
+        sps = nchains * steps / max(r[leg]["seconds"] for r in ranks)
+        end = max(r[leg]["end"] for r in ranks)
+        rates[f"{name}_steps_per_s"] = sps
+        rates[f"{name}_wall_s"] = end - last
+        start = "the ranks' start and " if last == t0 else ""
+        print(f"{name}: {'; '.join(verdicts)}; {sps:.1f} steps/s over "
+              f"{nchains} x {steps} steps (the slowest rank; eager), wall "
+              f"{end - last:.1f} s with {start}the set-up; kernel 3 "
+              f"launches by the ranks {got['pt_swap_cascade_multi']}; "
+              f"launches {got} ({card})")
+        last = end
+    launches["group_stretch_propose[sharded mt-rj]"] = sharded
+    rates["mesh_zoo_legs_wall_s"] = wall
+    print(f"mesh[slice|gradient-zoo|mh-zoo|modelswap-mtrj,4rank,gloo]: wall "
+          f"{wall:.1f} s with the ranks' start; staged through host memory: "
+          f"{ranks[0]['staged'] or 'none'} ({card})")
+    return launches, rates, []
+
+
 def main(argv=None):
     parser = argparse.ArgumentParser(description=__doc__.split("\n")[0])
     parser.add_argument("--out", help="also write the report as JSON here")
@@ -4682,7 +4980,8 @@ def main(argv=None):
         return 0
     if args.mesh_legs or args.para_digest:
         with _plain_versions_forbidden():
-            legs = ([mesh_legs, mesh_rj_legs] if args.mesh_legs else []) + (
+            legs = ([mesh_legs, mesh_rj_legs, mesh_zoo_legs]
+                    if args.mesh_legs else []) + (
                 [para_north_star_leg, para_rj_pulse128_leg]
                 if args.para_digest else [])
             for leg in legs:
@@ -4762,7 +5061,7 @@ def main(argv=None):
     with _plain_versions_forbidden():
         for leg in (host_like_leg, host_like_vec_leg, host_like_pool_leg,
                     hybrid_host_leg, examples_leg, mesh_legs,
-                    mesh_rj_legs):
+                    mesh_rj_legs, mesh_zoo_legs):
             t0 = time.perf_counter()
             legs.append(leg(torch, smi))
             print(f"phase 4: {leg.__name__} {time.perf_counter() - t0:.1f} s")
@@ -4852,8 +5151,14 @@ def main(argv=None):
                                   "eryn_tpu/ops/pt_swap.py:232"),
         "group_stretch_propose": ("eryn_tpu_torch/csrc/select_kernels.cu",
                                   "eryn_tpu/ops/select_kernels.py:145"),
-        # the mesh ranks' launches, timed at a (2, 2) rank's LISA shape
+        # the LISA mesh legs' ranks' launches, timed at a (2, 2) rank's
+        # LISA shape
         "group_stretch_propose[sharded]": (
+            "eryn_tpu_torch/csrc/select_kernels.cu",
+            "eryn_tpu/ops/select_kernels.py:145"),
+        # the zoo mesh legs' ranks' launches (the MT-RJ chain), timed at a
+        # (2, 2) rank's MT-RJ shape
+        "group_stretch_propose[sharded mt-rj]": (
             "eryn_tpu_torch/csrc/select_kernels.cu",
             "eryn_tpu/ops/select_kernels.py:145"),
         "onehot_select": ("eryn_tpu_torch/csrc/select_kernels.cu",

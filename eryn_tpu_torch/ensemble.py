@@ -1159,7 +1159,7 @@ class EnsembleSampler:
             self._check_mesh()
         self._mesh_layout = layout
         for move in self._all_move_list:
-            move.mesh_layout = layout
+            move.wire_mesh(layout)
         if self.temperature_control is not None:
             self.temperature_control.mesh_layout = layout
         self._graphs = None
@@ -1172,19 +1172,26 @@ class EnsembleSampler:
             f"{what} does not run under a device mesh in eryn_tpu_torch "
             "(parallel.mesh): the sharded step runs StretchMove's fused "
             "path, RedBlueGroupStretchMove, DEMove, DESnookerMove, WalkMove, "
-            "KDEMove, GroupStretchMove and reversible jump by "
-            "DistributionGenerateRJ, with the kernel cascade or DEO, into a "
-            "Backend or DeviceBackend.")
+            "KDEMove, GroupStretchMove, SliceMove, MALAMove, HMCMove, "
+            "ChEESHMCMove, GaussianMove, DistributionGenerate, AIMHMove, "
+            "MTDistGenMove, DelayedRejection and CombineMove (of moves that "
+            "run sharded), a subclass of MHMove that sets _mesh_sharded, and "
+            "reversible jump by DistributionGenerateRJ, MTDistGenMoveRJ and "
+            "the model swap, with the kernel cascade or DEO, into a Backend "
+            "or DeviceBackend.")
 
     def _check_mesh(self, state=None):
         """Raise ``NotImplementedError`` for what has no sharded form: a
-        move whose ``mesh_ready`` names it (``SliceMove``, the per-walker
-        and gradient moves, a periodic or general-path ``StretchMove``, any
-        subclass of a move that runs sharded), the general
-        (``permute=False`` or ``use_kernels=False``) cascade,
+        move whose ``mesh_ready`` names it (a host move, a periodic or
+        general-path ``StretchMove``, a subclass of a move that runs
+        sharded that does not set ``_mesh_sharded`` itself, a
+        ``CombineMove`` or ``DelayedRejection`` around such a move), the
+        general (``permute=False`` or ``use_kernels=False``) cascade,
         ``HDFBackend`` and the ``run_mcmc`` hooks; with the set-up
         ``state``, host likelihoods and priors, blobs and supplementals.
-        Reversible jump runs sharded (its moves' ``mesh_ready``)."""
+        Every other move of the package runs sharded, reversible jump
+        too (the moves' ``mesh_ready``); a backend that already holds a
+        chain is refused by :meth:`_use_mesh`."""
         refuse = self._refuse_under_mesh
         if state is not None:
             if self._like_eval.host or self._prior_eval.host:

@@ -14,6 +14,15 @@ other ``df`` twice a Marsaglia-Tsang gamma draw of shape ``df / 2``, in
 capturable graph).  A draw whose rounds all reject is NaN, which no
 proposal accepts, and counts in ``gamma_misses``, a device counter that
 the sampler reads at the end of each segment and raises on.
+
+On a state sharded over a device mesh every draw is per walker, and the
+moments are fitted per rung from the rows of every walker of the rank's
+temperatures, gathered within its temperature shard
+(:meth:`~eryn_tpu_torch.parallel.mesh.MeshLayout.gather_walkers`), with the
+same calls on the same shapes as one process: the kernel state holds the
+rank's rungs.  Past its tuning the update is not made and nothing is
+gathered (the clock is known on the host there,
+:meth:`~eryn_tpu_torch.moves.move.Move.mesh_tuning`).
 """
 
 from __future__ import annotations
@@ -52,6 +61,7 @@ class AIMHMove(Move):
     """
 
     requires_fixed_dimension = True
+    _mesh_sharded = True
 
     def __init__(self, df=10.0, rho=0.999, tune_steps=500, jitter=1e-6,
                  **kwargs):
@@ -86,9 +96,11 @@ class AIMHMove(Move):
             off += k
         return out
 
-    @staticmethod
-    def _batch_moments(x):
-        """Per-rung mean and centred covariance of ``x`` ``(nt, nw, D)``."""
+    def _batch_moments(self, x):
+        """Per-rung mean and centred covariance of ``x`` ``(nt, nw, D)``,
+        over every walker of the rank's rungs under a mesh."""
+        if self.mesh_layout is not None:
+            x = self.mesh_layout.gather_walkers([x])[0]
         nw = x.shape[1]
         mean = x.mean(dim=1)
         d = x - mean[:, None, :]
@@ -102,20 +114,26 @@ class AIMHMove(Move):
         names = self.run_branches(state)
         self._refuse(state, names)
         for n in names:
-            if not bool(state.branches_inds[n].all()):
+            # every rank decides on the whole ensemble's masks
+            if not bool(self.all_walkers(state.branches_inds[n]).all()):
                 raise ValueError(
                     "AIMHMove requires fixed-dimension models (all leaves "
                     "active): reversible-jump masks change the meaning of "
                     "the flattened parameter vector. Use KDEMove/DEMove for "
                     "trans-dimensional targets.")
         x = self._flatten(state, names)
-        nt, nw, _ = x.shape
         if self.gamma and self.gamma_misses is None:
             self.gamma_misses = torch.zeros((), dtype=torch.int64,
                                             device=x.device)
         mean, cov = self._batch_moments(x)
-        return {"w": x.new_full((nt,), float(nw)), "mean": mean, "cov": cov,
+        return {"w": x.new_full((x.shape[0],), float(self._nwalkers(x))),
+                "mean": mean, "cov": cov,
                 "t": torch.zeros((), dtype=torch.int32, device=x.device)}
+
+    def _nwalkers(self, x):
+        """The ensemble's walker count (the shard's ``x`` has its own)."""
+        lay = self.mesh_layout
+        return x.shape[1] if lay is None else lay.nwalkers
 
     def _proposal_params(self, ks, D):
         """``(mean, lower Cholesky factor)`` per rung, with the relative
@@ -142,21 +160,31 @@ class AIMHMove(Move):
         chi-square's uniforms ``(nt, nw, df // 2)`` in ``[tiny, 1)`` (None
         for df < 2) and, for an odd df, its normal ``(nt, nw)`` (else
         None).  For a gamma draw the second is the rounds' normals and
-        uniforms, ``(2, GAMMA_ROUNDS, nt, nw)``, and the third None."""
+        uniforms, ``(2, GAMMA_ROUNDS, nt, nw)``, and the third None.  Every
+        draw is per walker."""
         kw = dict(generator=generator, dtype=like.dtype, device=like.device)
-        z = torch.randn((nt, nw, D), **kw)
+
+        def randn(sh):
+            return torch.randn(sh, **kw)
+
+        def rand(sh):
+            return torch.rand(sh, **kw)
+
+        z = self.rank_draw(randn, (nt, nw, D), per_walker=True)
         if self.gamma:
-            normals = torch.randn((GAMMA_ROUNDS, nt, nw), **kw)
+            normals = self.rank_draw_rounds(randn, GAMMA_ROUNDS, (nt, nw))
             return z, torch.stack(
-                [normals, torch.rand((GAMMA_ROUNDS, nt, nw), **kw)]), None
+                [normals, self.rank_draw_rounds(rand, GAMMA_ROUNDS, (nt, nw))]
+            ), None
         k = int(self.df)
         uu = zz = None
         if k // 2:
             tiny = torch.finfo(like.dtype).tiny
-            uu = torch.clamp(torch.rand((nt, nw, k // 2), **kw) * (1.0 - tiny)
-                             + tiny, min=tiny)
+            uu = torch.clamp(
+                self.rank_draw(rand, (nt, nw, k // 2), per_walker=True)
+                * (1.0 - tiny) + tiny, min=tiny)
         if k % 2:
-            zz = torch.randn((nt, nw), **kw)
+            zz = self.rank_draw(randn, (nt, nw), per_walker=True)
         return z, uu, zz
 
     def _chisquare(self, uu, zz, like):
@@ -188,10 +216,17 @@ class AIMHMove(Move):
 
     def check_segment(self):
         """Raise if a gamma draw of the segments run so far exhausted its
-        rounds (reads the device counter: the segment's end waits)."""
-        if self.gamma_misses is not None and int(self.gamma_misses):
+        rounds (reads the device counter: the segment's end waits).  Under a
+        mesh the counter holds the rank's walkers' misses, and every rank
+        reads the mesh's sum, so that all of them raise or none."""
+        if self.gamma_misses is None:
+            return
+        misses = self.gamma_misses
+        if self.mesh_layout is not None:
+            misses = self.mesh_layout.sum(misses.clone())
+        if int(misses):
             raise RuntimeError(
-                f"AIMHMove(df={self.df}): {int(self.gamma_misses)} chi-square "
+                f"AIMHMove(df={self.df}): {int(misses)} chi-square "
                 f"draws rejected in all {GAMMA_ROUNDS} rounds of the gamma "
                 "sampler; their proposals were refused.")
 
@@ -206,7 +241,8 @@ class AIMHMove(Move):
         if ks is None:
             # bare call: the fit to the current ensemble
             mean0, cov0 = self._batch_moments(x)
-            ks = {"w": x.new_full((nt,), float(nw)), "mean": mean0,
+            ks = {"w": x.new_full((nt,), float(self._nwalkers(x))),
+                  "mean": mean0,
                   "cov": cov0,
                   "t": torch.zeros((), dtype=torch.int32, device=x.device)}
 
@@ -221,9 +257,7 @@ class AIMHMove(Move):
         # independence factor: log q(x_old) - log q(x_new)
         factors = self._t_logpdf(x, mean, chol) - self._t_logpdf(q_flat, mean,
                                                                  chol)
-        betas = state.betas
-        if betas is None:
-            betas = logl0.new_ones((nt,))
+        betas = self.rank_betas(state)
         inds = dict(state.branches_inds)
         full = {**state.branches_coords, **q_branches}
         lp1 = ctx.compute_log_prior(full, inds)
@@ -231,8 +265,8 @@ class AIMHMove(Move):
                                         state_branch_supps(state))
         logP_new = tempered_log_likelihood(ll1, betas) + lp1
         logP_old = tempered_log_likelihood(logl0, betas) + state.log_prior
-        acc = mh_decide(self.draw_accept(generator, logP_new), factors,
-                        logP_new, logP_old)
+        acc = mh_decide(self.draw_accept(generator, logP_new, per_walker=True),
+                        factors, logP_new, logP_old)
 
         new_coords = dict(state.branches_coords)
         for n in names:
@@ -241,12 +275,16 @@ class AIMHMove(Move):
         logl = torch.where(acc, ll1, logl0)
         logp = torch.where(acc, lp1, state.log_prior)
 
-        if self.tune_steps > 0:
+        if self.tune_steps > 0 and not self.mesh_tuning(ks):
+            # under a mesh past the tuning: the clock, and no exchange
+            ks = {**ks, "t": self.advance_clock(ks)}
+        elif self.tune_steps > 0:
             # the discounted weighted merge of the post-accept ensemble into
             # the running centred moments, kept while tuning
             x_new = torch.where(acc[..., None], q_flat, x)
             w, m, C = ks["w"], ks["mean"], ks["cov"]
             mb, Cb = self._batch_moments(x_new)
+            nw = self._nwalkers(x)
             w_old = self.rho * w
             w_new = w_old + nw
             delta = mb - m
@@ -259,7 +297,7 @@ class AIMHMove(Move):
             ks = {"w": torch.where(tuning, w_new, w),
                   "mean": torch.where(tuning, m_new, m),
                   "cov": torch.where(tuning, C_new, C),
-                  "t": ks["t"] + 1}
+                  "t": self.advance_clock(ks)}
 
         new_state = state.replace(coords=new_coords, inds=inds, log_like=logl,
                                   log_prior=logp,

@@ -13,6 +13,12 @@ carry only where ``i < L``: the result is that of ``eryn_tpu``'s
 ``lax.while_loop`` of ``L`` iterations, at up to ``max_leapfrog / L`` times
 its gradient evaluations, and no step reads ``L`` on the host.
 :attr:`ChEESHMCMove.leapfrog_total` sums ``L`` on the device.
+
+On a state sharded over a device mesh ``L`` is whole on every rank (the
+kernel state is), the momenta are per walker, and the ChEES criterion
+centres the cold rung's rows of every walker, gathered
+(:meth:`~eryn_tpu_torch.parallel.mesh.MeshLayout.gather_rung`), as one
+process does, while it tunes.
 """
 
 from __future__ import annotations
@@ -59,6 +65,7 @@ class ChEESHMCMove(HMCMove):
     """
 
     device_counters = ("leapfrog_total",)
+    _mesh_sharded = True
 
     def __init__(self, eps=None, max_leapfrog=32, init_num_leapfrog=5,
                  adam_lr=0.025, target_acceptance=0.651, tune_steps=500,
@@ -125,7 +132,8 @@ class ChEESHMCMove(HMCMove):
             L = torch.full((), self.init_num_leapfrog, dtype=torch.int32,
                            device=logl0.device)
 
-        p0 = self._momenta(generator, names, coords, masks)
+        p0 = self._momenta(self.draw_momenta(generator, coords), names,
+                           masks)
         kinetic, half_kick, drift = self._leapfrog_fns(names, masks, eps)
         aux, g = grad_fn(coords)
         ll1, lp1, bl1 = unpack_aux(aux)
@@ -147,7 +155,7 @@ class ChEESHMCMove(HMCMove):
         if self.leapfrog_total is not None:
             self.leapfrog_total.add_(L)
 
-        if self.tune_steps > 0 and ks:
+        if self.tune_steps > 0 and ks and self.mesh_tuning(ks):
             ks = self._adapt_traj_length(ks, state, names, masks, coords, x1,
                                          p1, factors, ll1, lp1, betas, u, T,
                                          eps_time, eps)
@@ -159,29 +167,35 @@ class ChEESHMCMove(HMCMove):
         """One Adam step on ``log T`` from the cold chain's ChEES gradient
         estimate; the identity once ``t >= tune_steps``."""
         alpha = self._acceptance_probability(state, betas, factors, ll1,
-                                             lp1)[0]
-        nwalkers = state.log_like.shape[1]
+                                             lp1)
+        # the cold rung of every walker: alpha, the masks, the start, the
+        # end point and its momenta
+        k = len(names)
+        cold = self._cold_rows(
+            alpha, *[masks[n].expand(coords[n].shape) for n in names],
+            *[coords[n] for n in names], *[x1[n] for n in names],
+            *[p1[n] for n in names])
+        alpha = cold[0]
+        nwalkers = alpha.shape[0]
 
-        def flat(d):
-            return torch.cat([d[n][0].reshape(nwalkers, -1) for n in names],
-                             dim=-1)
+        def flat(rows):
+            return torch.cat([r.reshape(nwalkers, -1) for r in rows], dim=-1)
 
         # centring over active slots only; inactive ones contribute zero
-        m_flat = flat({n: masks[n].expand(coords[n].shape)
-                       for n in names}).to(alpha.dtype)
+        m_flat = flat(cold[1:1 + k]).to(alpha.dtype)
         cnt = torch.clamp(m_flat.sum(dim=0, keepdim=True), min=1.0)
 
         def centred(x_flat):
             mean = (x_flat * m_flat).sum(dim=0, keepdim=True) / cnt
             return torch.where(m_flat > 0, x_flat - mean, 0.0)
 
-        xc_o = centred(flat(coords))
-        xc_n = centred(flat(x1))
+        xc_o = centred(flat(cold[1 + k:1 + 2 * k]))
+        xc_n = centred(flat(cold[1 + 2 * k:1 + 3 * k]))
         # the endpoint's velocity per dimension, the trajectory timed in
         # units of eps_time
-        eps_flat = flat({n: eps[n].expand((1,) + coords[n].shape[1:])
-                         for n in names})
-        p_new = flat(p1) * (eps_flat / eps_time)
+        eps_flat = flat([eps[n].expand(coords[n].shape[2:]).reshape(1, -1)
+                         .expand(nwalkers, -1) for n in names])
+        p_new = flat(cold[1 + 3 * k:]) * (eps_flat / eps_time)
         d_old = (xc_o ** 2).sum(dim=-1)
         d_new = (xc_n ** 2).sum(dim=-1)
         g_per = (d_new - d_old) * (xc_n * p_new).sum(dim=-1)

@@ -4,7 +4,8 @@ Port of :mod:`eryn_tpu.moves.combine`: the children run one after another
 in the same step, each with its own tempering epilogue (so a step has one
 swap phase per child, and the adaptation clock ticks on each), and their
 accept flags are summed.  The combination is one entry of the sampler's
-schedule, and on a CUDA device one graph.
+schedule, and on a CUDA device one graph.  It runs on a state sharded over
+a device mesh where each of its children does.
 """
 
 from __future__ import annotations
@@ -25,6 +26,8 @@ class CombineMove(Move):
     :attr:`acceptance_fraction_separate` reads it after a run.
     """
 
+    _mesh_sharded = True
+
     def __init__(self, moves, **kwargs):
         self.moves_list = list(moves)
         super().__init__(**kwargs)
@@ -43,6 +46,20 @@ class CombineMove(Move):
         counts = self.kernel_state[1].cpu().numpy().astype(np.float64)
         return [counts[i] / self.num_proposals for i in range(counts.shape[0])]
 
+    def mesh_ready(self):
+        """None where the combination and each child run sharded, else the
+        first refusal."""
+        for why in [super().mesh_ready()] + [m.mesh_ready()
+                                             for m in self.moves_list]:
+            if why is not None:
+                return why
+        return None
+
+    def wire_mesh(self, layout):
+        super().wire_mesh(layout)
+        for m in self.moves_list:
+            m.wire_mesh(layout)
+
     def propagate_wiring(self):
         """Hand the combination's tempering control and periodic container
         to the children that have none."""
@@ -56,6 +73,7 @@ class CombineMove(Move):
 
     def init_kernel_state(self, state):
         self.propagate_wiring()
+        # the rank's walkers under a mesh
         ntemps, nwalkers = state.log_like.shape
         per_child = state.log_like.new_zeros(
             (len(self.moves_list), ntemps, nwalkers))

@@ -13,6 +13,11 @@ candidates are evaluated every step, and a walker accepts at its first
 accepting stage.  Eryn's host protocol is here too: one stage on host
 arrays (:meth:`DelayedRejection.dr_scheme`, :meth:`~DelayedRejection.
 get_new_state`) and :class:`DelayedRejectionContainer`.
+
+Every stage is per walker: on a state sharded over a device mesh the device
+path runs on this rank's walkers, its draws and the wrapped proposal's at
+their global shape, and exchanges nothing (where the wrapped proposal runs
+sharded itself).
 """
 
 from __future__ import annotations
@@ -73,6 +78,8 @@ class DelayedRejection(Move):
             all ``max_iter + 1`` candidates.
     """
 
+    _mesh_sharded = True
+
     def __init__(self, proposal, max_iter=3, **kwargs):
         super().__init__(**kwargs)
         if not getattr(proposal, "symmetric_proposal", False):
@@ -85,6 +92,15 @@ class DelayedRejection(Move):
             )
         self.proposal = proposal
         self.max_iter = int(max_iter)
+
+    def mesh_ready(self):
+        """None where this move and the wrapped proposal run sharded, else
+        the first refusal."""
+        return super().mesh_ready() or self.proposal.mesh_ready()
+
+    def wire_mesh(self, layout):
+        super().wire_mesh(layout)
+        self.proposal.wire_mesh(layout)
 
     def propagate_wiring(self):
         if self.proposal.periodic is None:
@@ -167,10 +183,7 @@ class DelayedRejection(Move):
         inds = dict(state.branches_inds)
         logl = state.log_like
         logp = state.log_prior
-        ntemps = logl.shape[0]
-        betas = state.betas
-        if betas is None:
-            betas = torch.ones(ntemps, dtype=logl.dtype, device=logl.device)
+        betas = self.rank_betas(state)
         names = self.proposal.run_branches(state)
         blobs = state.blobs
         supps = state_branch_supps(state)
@@ -218,7 +231,7 @@ class DelayedRejection(Move):
                                device=logl.device)
         for stage in range(1, self.max_iter + 2):
             a = alpha(0, stage)
-            u = self.draw_accept(generator, a)
+            u = self.draw_accept(generator, a, per_walker=True)
             q_full, ll_c, lp_c, bl_c = chain_vals[stage - 1]
             # only a walker's first accepting stage counts
             acc_now = ~accepted & (u < a)

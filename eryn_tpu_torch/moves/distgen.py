@@ -24,6 +24,8 @@ class DistributionGenerate(MHMove):
             (a container alone is the branch ``model_0``'s).
     """
 
+    _mesh_sharded = True
+
     def __init__(self, generate_dist, **kwargs):
         if isinstance(generate_dist, ProbDistContainer):
             generate_dist = {"model_0": generate_dist}
@@ -70,9 +72,11 @@ class DistributionGenerate(MHMove):
 
     def draw_generate(self, generator, name, coords):
         """Randomness of one branch's proposal: a draw of the branch's
-        distribution per leaf, ``coords.shape``."""
-        return self.generate_dist[name].sample(
-            generator, coords.shape[:-1], dtype=coords.dtype)
+        distribution per leaf, ``coords.shape``, per walker."""
+        return self.rank_draw(
+            lambda sh: self.generate_dist[name].sample(generator, sh,
+                                                       dtype=coords.dtype),
+            coords.shape[:-1], per_walker=True)
 
     def get_proposal_kernel(self, generator, branch_coords, branch_inds,
                             kernel_state, param_masks=None):

@@ -90,6 +90,7 @@ class GaussianMove(MHMove):
 
     #: every mode is symmetric in (x, y), so DelayedRejection may wrap it
     symmetric_proposal = True
+    _mesh_sharded = True
 
     def __init__(self, cov_all, mode="vector", factor=None, **kwargs):
         self.all_proposal = {
@@ -120,16 +121,21 @@ class GaussianMove(MHMove):
         """Randomness of one branch's proposal: the standard normal
         ``noise`` shaped like ``coords``, the jitter's uniform (0-d, or None
         without ``factor``) and, in ``random`` mode, the dimension per leaf
-        ``(ntemps, nwalkers, nleaves_max)`` int64 (else None)."""
+        ``(ntemps, nwalkers, nleaves_max)`` int64 (else None).  The noise
+        and the dimensions are per walker, the jitter whole."""
         prop = self.all_proposal[name]
         kw = dict(generator=generator, dtype=coords.dtype,
                   device=coords.device)
-        noise = torch.randn(coords.shape, **kw)
+        noise = self.rank_draw(lambda sh: torch.randn(sh, **kw), coords.shape,
+                               per_walker=True)
         jitter = None if prop.log_factor is None else torch.rand((), **kw)
         dim = None
         if prop.mode == "random":
-            dim = torch.randint(0, coords.shape[-1], coords.shape[:-1],
-                                generator=generator, device=coords.device)
+            dim = self.rank_draw(
+                lambda sh: torch.randint(0, coords.shape[-1], sh,
+                                         generator=generator,
+                                         device=coords.device),
+                coords.shape[:-1], per_walker=True)
         return noise, jitter, dim
 
     def get_proposal_kernel(self, generator, branch_coords, branch_inds,

@@ -7,7 +7,9 @@ steps are a loop of that static length inside the step's CUDA graph.
 Momenta live on active leaves only, so the move runs under reversible
 jump.  The Metropolis correction on the Hamiltonian error maps onto the
 sampler's ``factors + logP_new - logP_old`` with ``factors = K(p0) -
-K(p1)``, ``K(p) = |p|^2 / 2``.
+K(p1)``, ``K(p) = |p|^2 / 2``.  On a state sharded over a device mesh the
+momenta and the trajectory lengths are drawn per walker, and the rest is
+:class:`~eryn_tpu_torch.moves.mala.MALAMove`'s.
 """
 
 from __future__ import annotations
@@ -37,6 +39,7 @@ class HMCMove(MALAMove):
 
     _EPS_DIM_EXP = 0.25
     _EPS_DIM_CONST = 1.2
+    _mesh_sharded = True
 
     def __init__(self, eps=None, num_leapfrog=5, target_acceptance=0.65,
                  tune_steps=500, **kwargs):
@@ -55,12 +58,14 @@ class HMCMove(MALAMove):
             self.num_leapfrog_min = None
 
     # -- draws --------------------------------------------------------------
-    @staticmethod
-    def draw_momenta(generator, coords):
+    def draw_momenta(self, generator, coords):
         """Standard normal momenta shaped like each branch of ``coords``
-        (masked to the active leaves by the move)."""
-        return {n: torch.randn(c.shape, generator=generator, dtype=c.dtype,
-                               device=c.device)
+        (masked to the active leaves by the move), per walker."""
+        return {n: self.rank_draw(
+                    lambda sh, c=c: torch.randn(sh, generator=generator,
+                                                dtype=c.dtype,
+                                                device=c.device),
+                    c.shape, per_walker=True)
                 for n, c in coords.items()}
 
     def draw_lengths(self, generator, shape, device):
@@ -68,8 +73,19 @@ class HMCMove(MALAMove):
         None for a fixed length."""
         if self.num_leapfrog_min is None:
             return None
-        return torch.randint(self.num_leapfrog_min, self.num_leapfrog + 1,
-                             shape, generator=generator, device=device)
+        return self.rank_draw(
+            lambda sh: torch.randint(self.num_leapfrog_min,
+                                     self.num_leapfrog + 1, sh,
+                                     generator=generator, device=device),
+            shape, per_walker=True)
+
+    def draw_block(self, generator, x):
+        """The draws of one trajectory from the walkers ``x``, as
+        :class:`MALAMove`'s: the momenta and the lengths (None for a fixed
+        length)."""
+        first = next(iter(x.values()))
+        return (self.draw_momenta(generator, x),
+                self.draw_lengths(generator, first.shape[:2], first.device))
 
     # -- the leapfrog plumbing (ChEESHMCMove's too) ---------------------------
     def _leapfrog_fns(self, names, masks, eps):
@@ -95,20 +111,20 @@ class HMCMove(MALAMove):
 
         return kinetic, half_kick, drift
 
-    def _momenta(self, generator, names, coords, masks):
-        draws = self.draw_momenta(generator, coords)
-        return {n: torch.where(masks[n], draws[n], 0.0) for n in names}
+    @staticmethod
+    def _momenta(momenta, names, masks):
+        """:meth:`draw_momenta`'s ``momenta`` on the active leaves."""
+        return {n: torch.where(masks[n], momenta[n], 0.0) for n in names}
 
-    def _run_leapfrog(self, generator, names, coords, masks, eps, grad_fn):
-        """Momenta and the (optionally length-jittered) trajectory from
-        ``coords``: ``(x1, ll1, lp1, factors, blobs1)`` with ``factors =
-        K(p0) - K(p1)``."""
-        p0 = self._momenta(generator, names, coords, masks)
+    def propose_block(self, draws, names, coords, masks, eps, grad_fn):
+        """The (optionally length-jittered) trajectory from ``coords`` with
+        :meth:`draw_block`'s ``draws``: ``(x1, ll1, lp1, factors,
+        blobs1)`` with ``factors = K(p0) - K(p1)``."""
+        momenta, lengths = draws
+        p0 = self._momenta(momenta, names, masks)
         kinetic, half_kick, drift = self._leapfrog_fns(names, masks, eps)
         aux, g = grad_fn(coords)
         ll, lp, bl = unpack_aux(aux)
-        first = masks[names[0]]
-        lengths = self.draw_lengths(generator, first.shape[:2], first.device)
 
         x, p = coords, p0
         for i in range(self.num_leapfrog):
@@ -129,20 +145,3 @@ class HMCMove(MALAMove):
             lp = torch.where(act, lp_new, lp)
             bl = merge_blobs(act, bl_new, bl)
         return x, ll, lp, kinetic(p0) - kinetic(p), bl
-
-    def _propose_impl(self, generator, state, ctx, kernel_state=()):
-        if self.ensemble_precondition:
-            return self._propose_impl_precond(
-                generator, state, ctx, kernel_state,
-                propose_block=self._run_leapfrog)
-        names, coords, inds, betas, grad_fn = self._grad_setup(state, ctx)
-        scale = self._current_scale(kernel_state, state.log_like)
-        eps = {n: scale * self._eps_for(n, coords[n].shape[-1],
-                                        state.log_like, kernel_state)
-               for n in names}
-        masks = {n: inds[n][..., None] for n in names}
-        x1, ll1, lp1, factors, bl1 = self._run_leapfrog(
-            generator, names, coords, masks, eps, grad_fn)
-        return self._accept_and_merge(generator, state, names, coords, x1,
-                                      factors, ll1, lp1, betas, kernel_state,
-                                      bl1)

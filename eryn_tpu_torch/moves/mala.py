@@ -14,6 +14,16 @@ takes the exact Hastings factor from the reverse drift at ``q``.  The step
 size adapts by dual averaging on a clock of the kernel state, frozen after
 ``tune_steps`` proposals.  The likelihood must be written in
 differentiable torch operations: the sampler checks that at wiring.
+
+On a state sharded over a device mesh the proposal is per walker (its
+draws at their global shape, :meth:`~eryn_tpu_torch.moves.move.Move.
+rank_draw`), and what reads the ensemble reads the rows one process reads:
+the cold rung's rows of every walker for the eps=None base and the dual
+averaging (:meth:`~eryn_tpu_torch.parallel.mesh.MeshLayout.gather_rung`;
+past the tuning nothing is gathered), and in the preconditioned form the
+red/blue blocks of :class:`~eryn_tpu_torch.moves.red_blue.WalkerBlocks`.
+A proposal's draws are made before it (:meth:`MALAMove.draw_block`), so a
+rank that holds none of a block's walkers draws what the others draw.
 """
 
 from __future__ import annotations
@@ -22,6 +32,7 @@ import numpy as np
 import torch
 
 from .move import Move, merge_blobs, mh_decide, state_branch_supps
+from .red_blue import WalkerBlocks
 from .tempering import tempered_log_likelihood
 
 __all__ = ["MALAMove", "grad_context"]
@@ -88,6 +99,7 @@ class MALAMove(Move):
 
     #: the sampler checks that the likelihood can be differentiated
     needs_gradient = True
+    _mesh_sharded = True
 
     #: dual-averaging constants (Hoffman & Gelman 2014, NUTS sec. 3.2)
     _DA_GAMMA = 0.05
@@ -122,8 +134,9 @@ class MALAMove(Move):
         dim_factor = float(d_total) ** (-self._EPS_DIM_EXP)
         out = {}
         for n in names:
-            c = state.branches_coords[n][0]
-            m = state.branches_inds[n][0][..., None].to(c.dtype)
+            c, m = self._cold_rows(state.branches_coords[n],
+                                   state.branches_inds[n])
+            m = m[..., None].to(c.dtype)
             cnt = m.sum(dim=(0, 1))
             mean = (c * m).sum(dim=(0, 1)) / torch.clamp(cnt, min=1.0)
             var = (((c - mean) ** 2) * m).sum(dim=(0, 1)) / torch.clamp(
@@ -166,15 +179,24 @@ class MALAMove(Move):
                               for n, v in self._eps_base(state).items()}
         return ks
 
+    def _cold_rows(self, *tensors):
+        """Rung 0 of every walker, ``(nwalkers, ...)``, of each ``(ntemps,
+        nwalkers, ...)`` tensor: under a mesh gathered from the ranks that
+        hold it, on every rank."""
+        lay = self.mesh_layout
+        if lay is None:
+            return [x[0] for x in tensors]
+        return lay.gather_rung(tensors, 0)
+
     # -- dual averaging -------------------------------------------------------
-    def _adapt_scale(self, kernel_state, acc):
-        """One dual-averaging update from the cold chain's mean of ``acc``;
-        the identity once ``t >= tune_steps``."""
+    def _adapt_scale(self, kernel_state, cold_acc):
+        """One dual-averaging update from the cold chain's mean acceptance
+        ``cold_acc`` (0-d); the identity once ``t >= tune_steps``."""
         ks = kernel_state
         tuning = ks["t"] < self.tune_steps
-        t = ks["t"] + 1
-        tf = t.to(acc.dtype)
-        err = self.target_acceptance - acc[0].mean()
+        t = self.advance_clock(ks)
+        tf = t.to(cold_acc.dtype)
+        err = self.target_acceptance - cold_acc
         h_avg = torch.where(
             tuning,
             (1.0 - 1.0 / (tf + self._DA_T0)) * ks["h_avg"]
@@ -190,6 +212,14 @@ class MALAMove(Move):
         return {**ks, "log_scale": log_scale, "log_scale_avg": log_scale_avg,
                 "h_avg": h_avg, "t": t}
 
+    def _tune_scale(self, kernel_state, cold_acc):
+        """:meth:`_adapt_scale` from ``cold_acc()``, the cold chain's mean
+        acceptance; under a mesh past the tuning only the clock advances,
+        and ``cold_acc``'s exchange is not made."""
+        if not self.mesh_tuning(kernel_state):
+            return {**kernel_state, "t": self.advance_clock(kernel_state)}
+        return self._adapt_scale(kernel_state, cold_acc())
+
     def _current_scale(self, kernel_state, like):
         if self.tune_steps <= 0 or not kernel_state:
             return like.new_ones(())
@@ -198,13 +228,23 @@ class MALAMove(Move):
                                      kernel_state["log_scale_avg"]))
 
     # -- draws ----------------------------------------------------------------
-    @staticmethod
-    def draw_noise(generator, coords):
+    def draw_noise(self, generator, coords):
         """The standard normals of one Langevin proposal, shaped like each
-        branch of ``coords``."""
-        return {n: torch.randn(c.shape, generator=generator, dtype=c.dtype,
-                               device=c.device)
+        branch of ``coords``, per walker."""
+        return {n: self.rank_draw(
+                    lambda sh, c=c: torch.randn(sh, generator=generator,
+                                                dtype=c.dtype,
+                                                device=c.device),
+                    c.shape, per_walker=True)
                 for n, c in coords.items()}
+
+    def draw_block(self, generator, x):
+        """The draws of one proposal from the walkers ``x`` (a dict over the
+        moving branches), made before it (:meth:`propose_block` takes them):
+        the Langevin step's normals.  A rank of a mesh that holds none of a
+        preconditioned half's walkers makes them too, so that every rank
+        draws what one process draws."""
+        return self.draw_noise(generator, x)
 
     # -- shared pieces of the gradient moves ------------------------------------
     def _grad_setup(self, state, ctx):
@@ -213,9 +253,7 @@ class MALAMove(Move):
         inds = dict(state.branches_inds)
         fixed = {n: c for n, c in state.branches_coords.items()
                  if n not in names}
-        betas = state.betas
-        if betas is None:
-            betas = state.log_like.new_ones((state.log_like.shape[0],))
+        betas = self.rank_betas(state)
         return names, coords, inds, betas, grad_context(
             ctx, fixed, inds, betas, state_branch_supps(state))
 
@@ -245,17 +283,18 @@ class MALAMove(Move):
         logP_new = tempered_log_likelihood(ll1, betas) + lp1
         logP_old = (tempered_log_likelihood(state.log_like, betas)
                     + state.log_prior)
-        acc = mh_decide(self.draw_accept(generator, logP_new), factors,
-                        logP_new, logP_old)
+        acc = mh_decide(self.draw_accept(generator, logP_new, per_walker=True),
+                        factors, logP_new, logP_old)
         new_coords = dict(state.branches_coords)
         for n in names:
             new_coords[n] = torch.where(acc[:, :, None, None], q[n], coords[n])
         logl = torch.where(acc, ll1, state.log_like)
         logp = torch.where(acc, lp1, state.log_prior)
         if self.tune_steps > 0 and kernel_state:
-            alpha = self._acceptance_probability(state, betas, factors, ll1,
-                                                 lp1)
-            kernel_state = self._adapt_scale(kernel_state, alpha)
+            kernel_state = self._tune_scale(
+                kernel_state, lambda: self._cold_rows(
+                    self._acceptance_probability(state, betas, factors, ll1,
+                                                 lp1))[0].mean())
         new_state = state.replace(coords=new_coords,
                                   inds=dict(state.branches_inds),
                                   log_like=logl, log_prior=logp,
@@ -286,21 +325,17 @@ class MALAMove(Move):
                                                    min=1e-12)).mean())
         return vec
 
-    def _propose_impl_precond(self, generator, state, ctx, kernel_state=(),
-                              propose_block=None):
+    def _propose_impl_precond(self, generator, state, ctx, kernel_state=()):
         """Two permuted halves in turn, each with the other half's spread
-        as its mass matrix.  ``propose_block(generator, names, x, masks,
-        eps, grad_fn) -> (q, ll1, lp1, factors, blobs1)`` is the proposal
-        of one half (None: the Langevin one)."""
-        if propose_block is None:
-            propose_block = self._langevin
+        as its mass matrix (:meth:`_precond_half`)."""
+        if self.mesh_layout is not None:
+            return self._propose_impl_precond_sharded(generator, state, ctx,
+                                                      kernel_state)
         names = self.run_branches(state)
         all_names = list(state.branches_coords)
         logl0 = state.log_like
         ntemps, nwalkers = logl0.shape
-        betas = state.betas
-        if betas is None:
-            betas = logl0.new_ones((ntemps,))
+        betas = self.rank_betas(state)
         scale = self._current_scale(kernel_state, logl0)
 
         perm = self.draw_perm(generator, nwalkers, logl0.device)
@@ -321,48 +356,29 @@ class MALAMove(Move):
             def comp(x, off=off, ns=ns):
                 return torch.cat([x[:, :off], x[:, off + ns:]], dim=1)
 
-            eps_tree = {}
-            for n in names:
-                sigma = self._complement_sigma(comp(coords_p[n]),
-                                               comp(inds_p[n]))
-                base = self._eps_for_precond(n, coords_p[n].shape[-1], logl0,
-                                             kernel_state)
-                eps_tree[n] = scale * base * sigma
-
-            inds_blk = {n: inds_p[n][:, blk] for n in all_names}
-            fixed = {n: coords_p[n][:, blk] for n in all_names
-                     if n not in names}
-            grad_fn = grad_context(
-                ctx, fixed, inds_blk, betas,
-                state_branch_supps(state, perm=perm, block=(off, ns)))
+            eps_tree = self._precond_eps(names, coords_p, inds_p, comp, scale,
+                                         logl0, kernel_state)
             x = {n: coords_p[n][:, blk] for n in names}
-            masks_blk = {n: inds_blk[n][..., None] for n in names}
-
-            q, ll1, lp1, factors, bl1 = propose_block(
-                generator, names, x, masks_blk, eps_tree, grad_fn)
-
-            prev_logl = logl_p[:, blk]
-            prev_logp = logp_p[:, blk]
-            logP_new = tempered_log_likelihood(ll1, betas) + lp1
-            logP_old = tempered_log_likelihood(prev_logl, betas) + prev_logp
-            acc = mh_decide(self.draw_accept(generator, logP_new), factors,
-                            logP_new, logP_old)
-            lnpdiff = factors + logP_new - logP_old
-            alpha_sum = alpha_sum + torch.nan_to_num(
-                torch.exp(torch.clamp(lnpdiff[0], max=0.0))).mean()
+            prev = (logl_p[:, blk], logp_p[:, blk])
+            q, ll1, lp1, bl1, acc, alpha = self._precond_half(
+                generator, ctx, names, x,
+                {n: inds_p[n][:, blk] for n in all_names},
+                {n: coords_p[n][:, blk] for n in all_names if n not in names},
+                state_branch_supps(state, perm=perm, block=(off, ns)), prev,
+                eps_tree, betas)
+            alpha_sum = alpha_sum + alpha[0].mean()
 
             for n in names:
                 coords_p[n][:, blk] = torch.where(acc[:, :, None, None], q[n],
                                                   x[n])
-            logl_p[:, blk] = torch.where(acc, ll1, prev_logl)
-            logp_p[:, blk] = torch.where(acc, lp1, prev_logp)
+            logl_p[:, blk] = torch.where(acc, ll1, prev[0])
+            logp_p[:, blk] = torch.where(acc, lp1, prev[1])
             if blobs_p is not None:
                 blobs_p[:, blk] = merge_blobs(acc, bl1, blobs_p[:, blk])
             acc_p[:, blk] = acc
 
         if self.tune_steps > 0 and kernel_state:
-            kernel_state = self._adapt_scale(kernel_state,
-                                             (0.5 * alpha_sum)[None, None])
+            kernel_state = self._adapt_scale(kernel_state, 0.5 * alpha_sum)
 
         new_state = state.replace(
             coords={n: coords_p[n][:, inv_perm] for n in all_names},
@@ -371,6 +387,114 @@ class MALAMove(Move):
             blobs=None if blobs_p is None else blobs_p[:, inv_perm],
         )
         return new_state, acc_p[:, inv_perm], kernel_state
+
+    def _precond_eps(self, names, coords_p, inds_p, comp, scale, like,
+                     kernel_state):
+        """A half's step sizes: the complement's spread (``comp`` of the
+        permuted ``coords_p`` and ``inds_p``) times the base and the
+        scale."""
+        eps = {}
+        for n in names:
+            sigma = self._complement_sigma(comp(coords_p[n]), comp(inds_p[n]))
+            base = self._eps_for_precond(n, coords_p[n].shape[-1], like,
+                                         kernel_state)
+            eps[n] = scale * base * sigma
+        return eps
+
+    def _precond_half(self, generator, ctx, names, x, inds, fixed, supps,
+                      prev, eps, betas):
+        """One half of the preconditioned form on its walkers ``x`` (the
+        moving branches; ``inds`` every branch's masks, ``fixed`` the other
+        branches, ``supps`` the half's supplementals): the proposal with the
+        step sizes ``eps`` from :meth:`draw_block`'s draws, and the MH
+        decision against ``prev``, ``(log_like, log_prior)``.  Returns
+        ``(q, ll1, lp1, blobs1, accepted, alpha)``, ``alpha`` each walker's
+        ``min(1, exp(lnpdiff))`` (NaN as 0)."""
+        draws = self.draw_block(generator, x)
+        grad_fn = grad_context(ctx, fixed, inds, betas, supps)
+        masks = {n: inds[n][..., None] for n in names}
+        q, ll1, lp1, factors, bl1 = self.propose_block(draws, names, x, masks,
+                                                       eps, grad_fn)
+        logP_new = tempered_log_likelihood(ll1, betas) + lp1
+        logP_old = tempered_log_likelihood(prev[0], betas) + prev[1]
+        acc = mh_decide(self.draw_accept(generator, logP_new, per_walker=True),
+                        factors, logP_new, logP_old)
+        alpha = torch.nan_to_num(torch.exp(torch.clamp(
+            factors + logP_new - logP_old, max=0.0)))
+        return q, ll1, lp1, bl1, acc, alpha
+
+    def _propose_impl_precond_sharded(self, generator, state, ctx,
+                                      kernel_state):
+        """:meth:`_propose_impl_precond` on this rank's shard of a state
+        sharded over a ``(temp, walker)`` mesh, equal to one process's: each
+        half's complement filled in by
+        :class:`~eryn_tpu_torch.moves.red_blue.WalkerBlocks`, its spread
+        computed on the whole complement, :meth:`_precond_half` on the
+        rank's walkers of the half (the half's draws, kept for them:
+        :meth:`~eryn_tpu_torch.moves.move.Move.block_walkers`), and while
+        tuning the cold acceptance of every walker gathered once for the
+        dual averaging."""
+        lay = self.mesh_layout
+        names = self.run_branches(state)
+        all_names = list(state.branches_coords)
+        logl0 = state.log_like
+        NW, device = lay.nwalkers, logl0.device
+        betas = self.rank_betas(state)
+        scale = self._current_scale(kernel_state, logl0)
+        perm = self.draw_perm(generator, NW, device)
+        view = WalkerBlocks(lay, state)
+        alpha = logl0.new_zeros((lay.nt, NW))
+        n0 = NW - NW // 2
+        halves = []
+        for blk in view.blocks(perm, (n0, NW - n0), (0, n0)):
+            halves.append(blk.idx)
+            at = (blk.at if blk.at is not None
+                  else torch.zeros(0, dtype=torch.int64, device=device))
+
+            def comp(x, off=blk.off, ns=blk.ns):
+                return torch.cat([x[:, :off], x[:, off + ns:]], dim=1)
+
+            def mine(x, block=slice(blk.off, blk.off + blk.ns), at=at):
+                return x[:, block][:, at]
+
+            eps_tree = self._precond_eps(names, blk.coords_p, blk.inds_p,
+                                         comp, scale, logl0, kernel_state)
+            x = {n: mine(blk.coords_p[n]) for n in names}
+            with self.block_walkers(blk.ns, at):
+                if blk.at is None:
+                    # none of the half is here: its draws only
+                    self.draw_block(generator, x)
+                    self.draw_accept(generator, logl0[:, :0], per_walker=True)
+                    continue
+                idx = blk.own_idx
+                prev = (view.log_like[:, idx], view.log_prior[:, idx])
+                # supplementals do not run sharded
+                q, ll1, lp1, _, acc, alpha_half = self._precond_half(
+                    generator, ctx, names, x,
+                    {n: mine(blk.inds_p[n]) for n in all_names},
+                    {n: mine(blk.coords_p[n]) for n in all_names
+                     if n not in names}, None, prev, eps_tree, betas)
+            alpha[:, idx] = alpha_half
+            for n in names:
+                view.coords[n][:, idx] = torch.where(acc[:, :, None, None],
+                                                     q[n], x[n])
+            view.log_like[:, idx] = torch.where(acc, ll1, prev[0])
+            view.log_prior[:, idx] = torch.where(acc, lp1, prev[1])
+            view.accepted[:, idx] = acc
+
+        if self.tune_steps > 0 and kernel_state:
+            def cold_acc():
+                # each half's cold acceptance in its walkers' order, as one
+                # process takes its mean
+                cold = self._cold_rows(lay.own(alpha))[0]
+                alpha_sum = logl0.new_zeros(())
+                for idx in halves:
+                    alpha_sum = alpha_sum + cold[idx].mean()
+                return 0.5 * alpha_sum
+
+            kernel_state = self._tune_scale(kernel_state, cold_acc)
+        new_state, accepted = view.result(state)
+        return new_state, accepted, kernel_state
 
     def _mala_factors(self, names, x, q, grad_x, grad_q, masks, eps, like):
         """``log q(q -> x) - log q(x -> q)`` over active coordinates, with
@@ -385,14 +509,13 @@ class MALAMove(Move):
                 dim=(-2, -1))
         return factors
 
-    def _langevin(self, generator, names, x, masks, eps, grad_fn):
-        """The Langevin proposal from ``x``: ``(q, ll1, lp1, factors,
-        blobs1)``."""
-        xi = self.draw_noise(generator, x)
+    def propose_block(self, draws, names, x, masks, eps, grad_fn):
+        """The Langevin proposal from ``x`` with :meth:`draw_block`'s
+        ``draws``: ``(q, ll1, lp1, factors, blobs1)``."""
         _, grad_x = grad_fn(x)
         q = {}
         for n in names:
-            step = 0.5 * eps[n] ** 2 * grad_x[n] + eps[n] * xi[n]
+            step = 0.5 * eps[n] ** 2 * grad_x[n] + eps[n] * draws[n]
             q[n] = self._wrap_periodic(
                 n, x[n] + torch.where(masks[n], step, 0.0))
         aux, grad_q = grad_fn(q)
@@ -411,8 +534,9 @@ class MALAMove(Move):
                                         state.log_like, kernel_state)
                for n in names}
         masks = {n: inds[n][..., None] for n in names}
-        q, ll1, lp1, factors, bl1 = self._langevin(generator, names, coords,
-                                                   masks, eps, grad_fn)
+        q, ll1, lp1, factors, bl1 = self.propose_block(
+            self.draw_block(generator, coords), names, coords, masks, eps,
+            grad_fn)
         return self._accept_and_merge(generator, state, names, coords, q,
                                       factors, ll1, lp1, betas, kernel_state,
                                       bl1)

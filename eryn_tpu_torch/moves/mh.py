@@ -3,6 +3,11 @@
 Port of :mod:`eryn_tpu.moves.mh`: the proposal, prior, likelihood and
 accept/merge act on the full ``(ntemps, nwalkers)`` block at once, one
 Gibbs split after another.
+
+Every walker's proposal and decision are its own: on a state sharded over a
+device mesh the move runs on this rank's walkers as they are, each draw at
+its global shape (:meth:`~eryn_tpu_torch.moves.move.Move.rank_draw` with
+``per_walker``), and exchanges nothing.
 """
 
 from __future__ import annotations
@@ -34,8 +39,12 @@ class MHMove(Move):
     more afterwards (exact only for symmetric proposals).  A subclass that
     writes Eryn's host hook ``get_proposal(branches_coords, random,
     branches_inds=None, **kwargs) -> (q, factors)`` on NumPy arrays is a
-    host move (:mod:`~eryn_tpu_torch.moves.legacy`).
+    host move (:mod:`~eryn_tpu_torch.moves.legacy`).  A subclass runs on a
+    sharded state where it sets ``_mesh_sharded = True`` itself and draws
+    through ``rank_draw(..., per_walker=True)``.
     """
+
+    _mesh_sharded = True
 
     def __init__(self, **kwargs):
         super().__init__(**kwargs)
@@ -64,9 +73,7 @@ class MHMove(Move):
         blobs = state.blobs
         supps = state_branch_supps(state)
         ntemps, nwalkers = logl.shape
-        betas = state.betas
-        if betas is None:
-            betas = torch.ones(ntemps, dtype=logl.dtype, device=logl.device)
+        betas = self.rank_betas(state)
         accepted = torch.zeros((ntemps, nwalkers), dtype=torch.bool,
                                device=logl.device)
 
@@ -88,8 +95,9 @@ class MHMove(Move):
 
             logP_new = tempered_log_likelihood(logl_new, betas) + logp_new
             logP_old = tempered_log_likelihood(logl, betas) + logp
-            acc = mh_decide(self.draw_accept(generator, logP_new), factors,
-                            logP_new, logP_old)
+            acc = mh_decide(
+                self.draw_accept(generator, logP_new, per_walker=True),
+                factors, logP_new, logP_old)
 
             acc4 = acc[:, :, None, None]
             for n in names:

@@ -8,6 +8,11 @@ model's leaf, births the new one's from its generating distribution
 (usually its prior), and accepts with the factors ``log q_cur(theta_cur) -
 log q_new(theta_new)``.  With equal model priors the cold chain's model
 indicator estimates ``P(model k | data) = Z_k / sum_j Z_j``.
+
+Every walker's swap is its own: on a state sharded over a device mesh the
+move runs on this rank's walkers, its draws per walker at their global
+shape, and exchanges nothing; the set-up check reads the whole ensemble's
+masks, so that every rank decides alike.
 """
 
 from __future__ import annotations
@@ -38,6 +43,8 @@ class ModelSwapRJMove(ReversibleJumpMove):
     initial state exactly one active candidate per walker: checked once,
     on the host, when the sampler sets the move up.
     """
+
+    _mesh_sharded = True
 
     def __init__(self, generate_dist=None, **kwargs):
         if isinstance(generate_dist, ProbDistContainer):
@@ -102,9 +109,10 @@ class ModelSwapRJMove(ReversibleJumpMove):
                     f"Candidate branch '{n}' must have nleaves_max == 1."
                 )
         # once, at set-up, on the host: never inside a segment
+        # every rank decides on the whole ensemble's masks
         active = np.stack(
-            [state.branches[n].inds.sum(dim=-1).cpu().numpy()
-             for n in self.model_names], axis=-1)
+            [self.all_walkers(state.branches[n].inds).sum(dim=-1).cpu()
+             .numpy() for n in self.model_names], axis=-1)
         if not (np.all(active.sum(axis=-1) == 1) and active.max() <= 1):
             raise ValueError(
                 "ModelSwapRJMove requires exactly one active leaf across "
@@ -120,12 +128,17 @@ class ModelSwapRJMove(ReversibleJumpMove):
     def draw_swap(self, generator, ntemps, nwalkers, dtype, device):
         """Randomness of one proposal: the shift of the model index per
         walker, int64 in ``1..K-1``, and a draw of every candidate's
-        distribution ``{name: (ntemps, nwalkers, ndim)}``."""
-        shift = torch.randint(1, len(self.model_names), (ntemps, nwalkers),
-                              generator=generator, device=device)
+        distribution ``{name: (ntemps, nwalkers, ndim)}``, every one per
+        walker."""
+        shift = self.rank_draw(
+            lambda sh: torch.randint(1, len(self.model_names), sh,
+                                     generator=generator, device=device),
+            (ntemps, nwalkers), per_walker=True)
         draws = {
-            n: self.generate_dist[n].sample(generator, (ntemps, nwalkers),
-                                            dtype=dtype)
+            n: self.rank_draw(
+                lambda sh, n=n: self.generate_dist[n].sample(generator, sh,
+                                                             dtype=dtype),
+                (ntemps, nwalkers), per_walker=True)
             for n in self.model_names
         }
         return shift, draws
@@ -138,9 +151,7 @@ class ModelSwapRJMove(ReversibleJumpMove):
         logl = state.log_like
         logp = state.log_prior
         ntemps, nwalkers = logl.shape
-        betas = state.betas
-        if betas is None:
-            betas = torch.ones(ntemps, dtype=logl.dtype, device=logl.device)
+        betas = self.rank_betas(state)
 
         # the current model from the masks: (nt, nw, K) one-hot
         active = torch.stack([inds[n][..., 0] for n in names], dim=-1)
@@ -175,8 +186,8 @@ class ModelSwapRJMove(ReversibleJumpMove):
         factors = lq_old - lq_new
         logP_new = tempered_log_likelihood(logl_new, betas) + logp_new
         logP_old = tempered_log_likelihood(logl, betas) + logp
-        acc = mh_decide(self.draw_accept(generator, logP_new), factors,
-                        logP_new, logP_old)
+        acc = mh_decide(self.draw_accept(generator, logP_new, per_walker=True),
+                        factors, logP_new, logP_old)
 
         for n in names:
             coords[n] = torch.where(acc[:, :, None, None], q_coords[n],
@@ -197,6 +208,8 @@ class BasicSymmetricModelSwapRJMove(ModelSwapRJMove):
     ``generate_dist=``) and the example's positional ``(nleaves_max,
     nleaves_min)`` per-branch lists, where the candidates and their
     distributions come from the sampler's priors."""
+
+    _mesh_sharded = True
 
     def __init__(self, *args, **kwargs):
         if args and isinstance(args[0], dict):

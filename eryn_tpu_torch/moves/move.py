@@ -15,6 +15,7 @@ copies of the state.
 
 from __future__ import annotations
 
+import contextlib
 from typing import Callable, NamedTuple, Optional
 
 import numpy as np
@@ -298,6 +299,60 @@ class Move:
         return torch.argsort(
             torch.rand(nwalkers, generator=generator, device=device))
 
+    #: under a mesh, while a red/blue block runs on this rank's walkers of
+    #: it: ``(ns, at)``, the block's size and the positions of those walkers
+    #: in it (:meth:`block_walkers`); None: the walkers are the shard's
+    _walker_cols = None
+
+    def wire_mesh(self, layout):
+        """Hand the rank's :class:`~eryn_tpu_torch.parallel.mesh.MeshLayout`
+        (None off a mesh) to this move; a composite hands it on to the moves
+        it runs."""
+        self.mesh_layout = layout
+
+    @contextlib.contextmanager
+    def block_walkers(self, ns, at):
+        """Within it a ``per_walker`` :meth:`rank_draw` is one per walker of
+        a red/blue block of ``ns`` walkers, of which this rank keeps those at
+        the positions ``at`` (an int tensor): the draw a block's proposal
+        makes on one process, kept for the rank's walkers of the block."""
+        self._walker_cols = (ns, at)
+        try:
+            yield
+        finally:
+            self._walker_cols = None
+
+    #: under a mesh, ``(t, t's version, t's value)`` of the last tuning
+    #: clock :meth:`mesh_tuning` read or :meth:`advance_clock` made
+    _host_clock = None
+
+    def mesh_tuning(self, kernel_state):
+        """Whether a proposal at ``kernel_state``'s clock ``t`` still tunes
+        (``t < tune_steps``).  Under a mesh the sharded step plans on the
+        host already, so the answer is a host bool, and past its tuning a
+        move skips the exchanges of the statistics whose updates the device
+        clock would discard.  The clock's value follows the tensor
+        :meth:`advance_clock` made; a clock from elsewhere (the first
+        proposal, a restored kernel state) is read once.  Without a mesh
+        True: the step's ``torch.where`` on the device clock decides."""
+        if self.mesh_layout is None:
+            return True
+        t = kernel_state["t"]
+        seen = self._host_clock
+        if seen is None or seen[0] is not t or seen[1] != t._version:
+            seen = self._host_clock = (t, t._version, int(t))
+        return seen[2] < self.tune_steps
+
+    def advance_clock(self, kernel_state):
+        """``kernel_state["t"] + 1``, its value noted for
+        :meth:`mesh_tuning`."""
+        t = kernel_state["t"]
+        nxt = t + 1
+        seen = self._host_clock
+        if seen is not None and seen[0] is t and seen[1] == t._version:
+            self._host_clock = (nxt, nxt._version, seen[2] + 1)
+        return nxt
+
     def rank_draw(self, draw, shape, per_walker=False):
         """``draw(shape)``: a random array whose leading axis is the
         temperatures and, with ``per_walker``, whose second is the walkers
@@ -309,16 +364,30 @@ class Move:
         sharded goes through here, but the walker permutation, which is
         whole already.  Without ``per_walker`` the second axis is taken as
         it is given (a red/blue block's walkers, the whole ensemble's under
-        a mesh)."""
+        a mesh); with it inside :meth:`block_walkers` it is the block's."""
         shape = tuple(shape)
         lay = self.mesh_layout
         if lay is None:
             return draw(shape)
-        if per_walker:
-            x = draw((lay.ntemps, lay.nwalkers) + shape[2:])
-            return x[lay.t0:lay.t0 + lay.nt,
-                     lay.w0:lay.w0 + lay.nw].contiguous()
-        return draw((lay.ntemps,) + shape[1:])[lay.t0:lay.t0 + lay.nt]
+        rows = slice(lay.t0, lay.t0 + lay.nt)
+        if not per_walker:
+            return draw((lay.ntemps,) + shape[1:])[rows]
+        if self._walker_cols is not None:
+            ns, at = self._walker_cols
+            return draw((lay.ntemps, ns) + shape[2:])[rows][:, at]
+        x = draw((lay.ntemps, lay.nwalkers) + shape[2:])
+        return x[rows, lay.w0:lay.w0 + lay.nw].contiguous()
+
+    def rank_draw_rounds(self, draw, rounds, shape):
+        """A per-walker :meth:`rank_draw` with a leading axis of ``rounds``
+        (the iterations of a loop drawn up front): ``draw((rounds,) +
+        shape)`` on one process, ``(rounds,) + shape`` here."""
+        def moved(sh):  # (temps, walkers, rounds, ...)
+            return torch.movedim(draw((sh[2],) + sh[:2] + sh[3:]), 0, 2)
+
+        x = self.rank_draw(moved, tuple(shape[:2]) + (rounds,)
+                           + tuple(shape[2:]), per_walker=True)
+        return torch.movedim(x, 2, 0).contiguous()
 
     def rank_betas(self, state):
         """The inverse temperatures of the state's rows (ones without a
@@ -332,6 +401,13 @@ class Move:
         if lay is None:
             return state.betas
         return state.betas[lay.t0:lay.t0 + lay.nt]
+
+    def all_walkers(self, x):
+        """``x`` ``(nt, nw, ...)`` of the state's walkers over the whole
+        ensemble: under a device mesh gathered from every rank, so that a
+        set-up check on it decides alike on every rank."""
+        lay = self.mesh_layout
+        return x if lay is None else lay.gather(x)
 
     def draw_accept(self, generator, like, per_walker=False):
         """The uniforms of one Metropolis-Hastings decision, shaped like

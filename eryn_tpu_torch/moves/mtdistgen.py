@@ -35,6 +35,8 @@ class MTDistGenMove(MultipleTryMove):
     ``get_proposal``) is a host move of the whole-ensemble family: the
     stock hooks below fill in the ones it leaves."""
 
+    _mesh_sharded = True
+
     def __init__(self, generate_dist, **kwargs):
         if isinstance(generate_dist, ProbDistContainer):
             generate_dist = {"model_0": generate_dist}
@@ -116,11 +118,12 @@ class MTDistGenMove(MultipleTryMove):
 
     def draw_tries(self, generator, state, num_try):
         """The tries ``(ntemps, nwalkers, num_try, ndim)`` drawn from the
-        distribution."""
+        distribution, per walker."""
         ntemps, nwalkers = state.log_like.shape
-        return self.generate_dist.sample(
-            generator, (ntemps, nwalkers, num_try),
-            dtype=state.branches[self.key_in].coords.dtype)
+        dtype = state.branches[self.key_in].coords.dtype
+        return self.rank_draw(
+            lambda sh: self.generate_dist.sample(generator, sh, dtype=dtype),
+            (ntemps, nwalkers, num_try), per_walker=True)
 
     def special_generate_kernel(self, generator, state, num_try):
         tries = self.draw_tries(generator, state, num_try)
@@ -164,19 +167,15 @@ class MTDistGenMove(MultipleTryMove):
                 lp.reshape(ntemps, nwalkers, num_try), blobs)
 
     def _propose_impl(self, generator, state, ctx, kernel_state=()):
-        ntemps = state.log_like.shape[0]
-        betas = state.betas
-        if betas is None:
-            betas = torch.ones(ntemps, dtype=state.log_like.dtype,
-                               device=state.log_like.device)
+        betas = self.rank_betas(state)
         coords_out, ll_out, lp_out, factors, blobs_out = self.mt_select_kernel(
             generator, state, ctx)
 
         logP_new = tempered_log_likelihood(ll_out, betas) + lp_out
         logP_old = (tempered_log_likelihood(state.log_like, betas)
                     + state.log_prior)
-        acc = mh_decide(self.draw_accept(generator, logP_new), factors,
-                        logP_new, logP_old)
+        acc = mh_decide(self.draw_accept(generator, logP_new, per_walker=True),
+                        factors, logP_new, logP_old)
 
         coords = dict(state.branches_coords)
         coords[self.key_in] = torch.where(

@@ -8,6 +8,10 @@ The acceptance reduces to the multiple-try ratio ``logsumexp(w) -
 (beta * ll_base + log num_try)`` of a birth (inverted for a death), plus
 the edge factors of the leaf-count range.  Leaves are read at the slot by a
 one-hot reduce over the leaf axis.
+
+Every walker's change is its own: on a state sharded over a device mesh the
+move runs on this rank's walkers, every draw per walker at its global
+shape, and exchanges nothing.
 """
 
 from __future__ import annotations
@@ -53,6 +57,8 @@ class MTDistGenMoveRJ(ReversibleJumpMove):
         Remaining keywords as
         :class:`~eryn_tpu_torch.moves.rj.ReversibleJumpMove`.
     """
+
+    _mesh_sharded = True
 
     def __init__(self, generate_dist, *args, num_try=1, rj=True, **kwargs):
         if isinstance(generate_dist, ProbDistContainer):
@@ -170,15 +176,22 @@ class MTDistGenMoveRJ(ReversibleJumpMove):
         """Randomness of one branch's proposal: the change uniforms ``(nt,
         nw)``, the slot keys ``(nt, nw, nleaves_max)``, the tries ``(nt, nw,
         num_try, ndim)`` and the pick's Gumbel noise ``(nt, nw,
-        num_try)``."""
+        num_try)``, every one per walker."""
         nt, nw, nl, _ = coords.shape
         kw = dict(generator=generator, dtype=coords.dtype,
                   device=coords.device)
-        u_change = torch.rand((nt, nw), **kw)
-        slot_keys = torch.rand((nt, nw, nl), **kw)
-        tries = self.generate_dist[name].sample(
-            generator, (nt, nw, self.num_try), dtype=coords.dtype)
-        gumbel = gumbel_from_uniform(torch.rand((nt, nw, self.num_try), **kw))
+
+        def rand(shape):
+            return self.rank_draw(lambda sh: torch.rand(sh, **kw), shape,
+                                  per_walker=True)
+
+        u_change = rand((nt, nw))
+        slot_keys = rand((nt, nw, nl))
+        tries = self.rank_draw(
+            lambda sh: self.generate_dist[name].sample(generator, sh,
+                                                       dtype=coords.dtype),
+            (nt, nw, self.num_try), per_walker=True)
+        gumbel = gumbel_from_uniform(rand((nt, nw, self.num_try)))
         return u_change, slot_keys, tries, gumbel
 
     def _propose_impl(self, generator, state, ctx, kernel_state=()):
@@ -192,9 +205,7 @@ class MTDistGenMoveRJ(ReversibleJumpMove):
         blobs = state.blobs
         supps = state_branch_supps(state)
         ntemps, nwalkers = logl.shape
-        betas = state.betas
-        if betas is None:
-            betas = torch.ones(ntemps, dtype=logl.dtype, device=logl.device)
+        betas = self.rank_betas(state)
         T = self.num_try
         accepted = torch.zeros((ntemps, nwalkers), dtype=logl.dtype,
                                device=logl.device)
@@ -299,8 +310,9 @@ class MTDistGenMoveRJ(ReversibleJumpMove):
 
             logP_new = tempered_log_likelihood(ll_new, betas) + lp_new
             logP_old = tempered_log_likelihood(logl, betas) + logp
-            acc = mh_decide(self.draw_accept(generator, logP_new), factors,
-                            logP_new, logP_old)
+            acc = mh_decide(
+                self.draw_accept(generator, logP_new, per_walker=True),
+                factors, logP_new, logP_old)
             acc = acc & (change != 0)
 
             coords[name] = torch.where(acc[:, :, None, None],

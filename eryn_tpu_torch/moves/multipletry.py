@@ -11,6 +11,11 @@ sampler's generator.
 
 With the factors below, ``factors + logP_new - logP_old`` reduces to
 ``logsumexp(w) - logsumexp(w_aux)``.
+
+Every walker's tries, pick and auxiliary set are its own: on a state
+sharded over a device mesh the machinery runs on this rank's walkers, the
+tries and the pick's noise drawn per walker at their global shape
+(:meth:`~eryn_tpu_torch.moves.move.Move.rank_draw`), and exchanges nothing.
 """
 
 from __future__ import annotations
@@ -398,12 +403,13 @@ class MultipleTryMove(Move):
             "set can be anchored on the chosen point."
         )
 
-    @staticmethod
-    def draw_gumbel(generator, like):
-        """The Gumbel noise of one pick, shaped and typed like ``like``."""
-        return gumbel_from_uniform(torch.rand(
-            like.shape, generator=generator, dtype=like.dtype,
-            device=like.device))
+    def draw_gumbel(self, generator, like):
+        """The Gumbel noise of one pick, shaped and typed like ``like``
+        ``(ntemps, nwalkers, num_try)``, per walker."""
+        return gumbel_from_uniform(self.rank_draw(
+            lambda sh: torch.rand(sh, generator=generator, dtype=like.dtype,
+                                  device=like.device),
+            like.shape, per_walker=True))
 
     def mt_select_kernel(self, generator, state, ctx):
         """The multiple-try machinery of an in-model step.
@@ -412,11 +418,7 @@ class MultipleTryMove(Move):
         factors, blobs)`` such that ``factors + logP_new - logP_old`` is the
         ratio of the weight sums; ``blobs`` are the chosen try's, or None.
         """
-        ntemps = state.log_like.shape[0]
-        betas = state.betas
-        if betas is None:
-            betas = torch.ones(ntemps, dtype=state.log_like.dtype,
-                               device=state.log_like.device)
+        betas = self.rank_betas(state)
 
         tries, logq = self.special_generate_kernel(generator, state,
                                                    self.num_try)

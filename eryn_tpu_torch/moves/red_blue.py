@@ -15,6 +15,8 @@ shard, and the likelihood on this rank's walkers.
 
 from __future__ import annotations
 
+from typing import NamedTuple, Optional
+
 import numpy as np
 import torch
 
@@ -28,7 +30,7 @@ from .move import (
 )
 from .tempering import tempered_log_likelihood
 
-__all__ = ["RedBlueMove"]
+__all__ = ["RedBlueMove", "WalkerBlocks"]
 
 
 def _inverse_permutation(perm):
@@ -221,13 +223,9 @@ class RedBlueMove(Move):
         ``(temp, walker)`` mesh (``self.mesh_layout``), equal to one
         process's proposal on the whole ensemble.
 
-        The proposal runs on walker-order views ``(nt, nwalkers, ...)`` of
-        the rank's temperatures: its own walkers in place, and before each
-        block the rows the block's complement needs from the other walker
-        shards (:meth:`~eryn_tpu_torch.parallel.mesh.MeshLayout.fill_rows`,
-        every branch's coordinates and masks in one exchange): before the
-        first block of a split every other block's rows, before a later
-        block the rows that the block before it merged.
+        The proposal runs on the walker-order views of :class:`WalkerBlocks`
+        (the rank's temperatures, every walker's rows that a block's
+        complement needs filled in before the block).
         :meth:`get_proposal_block` proposes the whole block on the permuted
         view as one process does (its draws at every temperature, each
         kept for the rank's), the prior and the likelihood run on the
@@ -235,59 +233,43 @@ class RedBlueMove(Move):
         the decision takes the block's draw.  The other ranks' rows of the
         view are discarded.  Returns ``(state, accepted)`` for the
         shard."""
-        lay = self.mesh_layout
-        nt, nw, w0, NW = lay.nt, lay.nw, lay.w0, lay.nwalkers
-        device = state.log_like.device
         self._check_walkers(state, self.run_branches(state))
         self.setup(state.branches)
         all_names = list(state.branches)
-
-        view, own = lay.walker_view, lay.own
-        coords = {n: view(c) for n, c in state.branches_coords.items()}
-        inds = {n: view(m) for n, m in state.branches_inds.items()}
-        logl, logp = view(state.log_like), view(state.log_prior)
+        view = WalkerBlocks(self.mesh_layout, state)
+        coords, logl, logp = view.coords, view.log_like, view.log_prior
         betas = self.rank_betas(state)
-        accepted = torch.zeros((nt, NW), dtype=torch.bool, device=device)
-        # the exchanged leaves, written in place below
-        leaves = [coords[n] for n in all_names] + [inds[n] for n in all_names]
+        NW = self.mesh_layout.nwalkers
+        device = state.log_like.device
         sizes, offsets = self._splits(NW)
 
         for names, param_masks in self.gibbs_iterations_for(state):
-            if self.randomize_split:
-                perm = self.draw_perm(generator, NW, device)
-            else:
-                perm = torch.arange(NW, device=device)
-            # the exchange plans are the permutation's: one host read
-            order = perm.cpu().numpy()
-            blocks = [order[off:off + ns] for off, ns in zip(offsets, sizes)]
-            for k, (off, ns) in enumerate(zip(offsets, sizes)):
-                fill = np.concatenate(blocks[1:]) if k == 0 else blocks[k - 1]
-                lay.fill_rows(leaves, [own(x) for x in leaves], fill)
-                coords_p = {n: coords[n][:, perm] for n in all_names}
-                inds_p = {n: inds[n][:, perm] for n in all_names}
-                blk = slice(off, off + ns)
-                s_coords = {n: coords_p[n][:, blk] for n in names}
+            perm = (self.draw_perm(generator, NW, device)
+                    if self.randomize_split
+                    else torch.arange(NW, device=device))
+            for blk in view.blocks(perm, sizes, offsets):
+                coords_p, inds_p = blk.coords_p, blk.inds_p
+                block = slice(blk.off, blk.off + blk.ns)
+                s_coords = {n: coords_p[n][:, block] for n in names}
                 q, factors = self.get_proposal_block(
-                    generator, coords_p, inds_p, off, ns, names, param_masks
-                )
+                    generator, coords_p, inds_p, blk.off, blk.ns, names,
+                    param_masks)
                 for n in names:
                     mask = param_masks.get(n)
                     if mask is not None:
                         q[n] = torch.where(mask, q[n], s_coords[n])
 
-                w = blocks[k]
-                idx = torch.as_tensor(w, device=device)
+                idx = blk.idx
                 prev_logl, prev_logp = logl[:, idx], logp[:, idx]
                 logl_new = torch.zeros_like(prev_logl)
                 logp_new = torch.zeros_like(prev_logp)
-                mine = np.flatnonzero((w >= w0) & (w < w0 + nw))
-                if mine.size:
-                    at = torch.as_tensor(mine, device=device)
+                if blk.at is not None:
+                    at = blk.at
                     q_eval = {
-                        n: (q[n] if n in q else coords_p[n][:, blk])[:, at]
+                        n: (q[n] if n in q else coords_p[n][:, block])[:, at]
                         for n in all_names
                     }
-                    inds_eval = {n: inds_p[n][:, blk][:, at]
+                    inds_eval = {n: inds_p[n][:, block][:, at]
                                  for n in all_names}
                     lp = ctx.compute_log_prior(q_eval, inds_eval)
                     # blobs and supplementals do not run sharded
@@ -305,10 +287,89 @@ class RedBlueMove(Move):
                     coords[n][:, idx] = torch.where(acc4, q[n], s_coords[n])
                 logl[:, idx] = torch.where(acc, logl_new, prev_logl)
                 logp[:, idx] = torch.where(acc, logp_new, prev_logp)
-                accepted[:, idx] = acc | accepted[:, idx]
+                view.accepted[:, idx] = acc | view.accepted[:, idx]
+        return view.result(state)
 
-        new_state = state.replace(
-            coords={n: own(c) for n, c in coords.items()},
-            inds=state.branches_inds, log_like=own(logl), log_prior=own(logp),
-        )
-        return new_state, own(accepted)
+
+class _Block(NamedTuple):
+    """One red/blue block of :meth:`WalkerBlocks.blocks`: its offset ``off``
+    and size ``ns`` on the permuted walker axis, its walkers ``idx`` (global
+    indices, in block order), ``at`` the positions in the block of this
+    rank's walkers (None where the rank holds none of them), and the
+    permuted views ``coords_p``/``inds_p`` of every branch, the complement's
+    rows filled in."""
+
+    off: int
+    ns: int
+    idx: torch.Tensor
+    at: Optional[torch.Tensor]
+    coords_p: dict
+    inds_p: dict
+
+    @property
+    def own_idx(self):
+        """The global walker indices of this rank's walkers of the block,
+        on the device, in block order."""
+        return self.idx[self.at]
+
+
+class WalkerBlocks:
+    """The sharded form of the red/blue blocks: walker-order views ``(nt,
+    nwalkers, ...)`` of this rank's temperatures of a state sharded over a
+    ``(temp, walker)`` mesh (``layout``), and before each block the rows the
+    block's complement needs from the other walker shards.
+
+    ``coords``, ``inds``, ``log_like``, ``log_prior`` and ``accepted`` hold
+    the rank's own walkers in place; a move writes the block's walkers into
+    them by global index.  :meth:`blocks` fills, before the first block of
+    a split, every other block's rows and, before a later block, the rows
+    that the block before it merged
+    (:meth:`~eryn_tpu_torch.parallel.mesh.MeshLayout.fill_rows`, every
+    branch's coordinates and masks in one exchange).  :meth:`result` is the
+    rank's shard of the proposal's state."""
+
+    def __init__(self, layout, state):
+        self.layout = layout
+        view = layout.walker_view
+        self.coords = {n: view(c) for n, c in state.branches_coords.items()}
+        self.inds = {n: view(m) for n, m in state.branches_inds.items()}
+        self.log_like = view(state.log_like)
+        self.log_prior = view(state.log_prior)
+        self.accepted = torch.zeros((layout.nt, layout.nwalkers),
+                                    dtype=torch.bool,
+                                    device=state.log_like.device)
+        # the exchanged leaves, written in place by the move
+        names = list(self.coords)
+        self._leaves = ([self.coords[n] for n in names]
+                        + [self.inds[n] for n in names])
+
+    def blocks(self, perm, sizes, offsets):
+        """Yield a :class:`_Block` per block of the permutation ``perm``
+        (blocks of ``sizes`` at ``offsets``), after its exchange.  The
+        exchange plans are the permutation's: one host read."""
+        lay = self.layout
+        order = perm.cpu().numpy()
+        device = perm.device
+        parts = [order[off:off + ns] for off, ns in zip(offsets, sizes)]
+        for k, (off, ns) in enumerate(zip(offsets, sizes)):
+            fill = np.concatenate(parts[1:]) if k == 0 else parts[k - 1]
+            lay.fill_rows(self._leaves, [lay.own(x) for x in self._leaves],
+                          fill)
+            w = parts[k]
+            mine = np.flatnonzero((w >= lay.w0) & (w < lay.w0 + lay.nw))
+            yield _Block(
+                off, ns, torch.as_tensor(w, device=device),
+                torch.as_tensor(mine, device=device) if mine.size else None,
+                {n: c[:, perm] for n, c in self.coords.items()},
+                {n: m[:, perm] for n, m in self.inds.items()})
+
+    def result(self, state):
+        """``(state, accepted)``: the rank's shard of the coordinates,
+        log-likelihood and log-prior the blocks wrote, with ``state``'s
+        leaf masks, and of the accept flags."""
+        own = self.layout.own
+        return state.replace(
+            coords={n: own(c) for n, c in self.coords.items()},
+            inds=state.branches_inds, log_like=own(self.log_like),
+            log_prior=own(self.log_prior),
+        ), own(self.accepted)

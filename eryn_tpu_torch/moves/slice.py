@@ -16,6 +16,12 @@ device value on the host.  Each iteration's numbers are drawn up front,
 ``(cap, ntemps, ns)``, iteration ``i`` using draw ``i``.
 :attr:`SliceMove.loop_iterations` counts on the device the iterations each
 loop needed.
+
+On a state sharded over a device mesh each block runs on this rank's
+walkers of it, the complement filled in by the red/blue family's
+:class:`~eryn_tpu_torch.moves.red_blue.WalkerBlocks`; the loops' exit is
+not global, so the loops need no collective, and one all-reduce a block
+gathers what the counters and ``mu`` read.
 """
 
 from __future__ import annotations
@@ -23,6 +29,7 @@ from __future__ import annotations
 import torch
 
 from .move import Move, merge_blobs, state_branch_supps
+from .red_blue import WalkerBlocks
 from .tempering import tempered_log_likelihood
 
 __all__ = ["SliceMove"]
@@ -43,6 +50,7 @@ class SliceMove(Move):
     """
 
     device_counters = ("loop_iterations",)
+    _mesh_sharded = True
 
     def __init__(self, mu=1.0, max_expand=6, max_shrink=16, tune_steps=500,
                  nsplits=2, randomize_split=True, **kwargs):
@@ -86,29 +94,170 @@ class SliceMove(Move):
         ``[0, nc)`` and ``[0, nc - 1)``, the slice level's uniform, the
         expansion budget ``J`` in ``[0, max_expand)``, the interval's
         offset uniform, and the shrinkage uniforms ``(max_shrink, ntemps,
-        ns)``."""
+        ns)``; one per walker of the block."""
         kw = dict(generator=generator, device=like.device)
         shape = (ntemps, ns)
-        l_idx = torch.randint(0, nc, shape, **kw)
-        m_idx = torch.randint(0, nc - 1, shape, **kw)
-        y = torch.rand(shape, dtype=like.dtype, **kw)
-        J = torch.randint(0, self.max_expand, shape, **kw)
-        u0 = torch.rand(shape, dtype=like.dtype, **kw)
-        u_shrink = torch.rand((self.max_shrink,) + shape, dtype=like.dtype,
-                              **kw)
+
+        def randint(lo, hi):
+            return self.rank_draw(lambda sh: torch.randint(lo, hi, sh, **kw),
+                                  shape, per_walker=True)
+
+        def rand(sh):
+            return torch.rand(sh, dtype=like.dtype, **kw)
+
+        l_idx = randint(0, nc)
+        m_idx = randint(0, nc - 1)
+        y = self.rank_draw(rand, shape, per_walker=True)
+        J = randint(0, self.max_expand)
+        u0 = self.rank_draw(rand, shape, per_walker=True)
+        u_shrink = self.rank_draw_rounds(rand, self.max_shrink, shape)
         return l_idx, m_idx, y, J, u0, u_shrink
 
+    def _splits(self, nwalkers):
+        sizes = [nwalkers // self.nsplits
+                 + (1 if i < nwalkers % self.nsplits else 0)
+                 for i in range(self.nsplits)]
+        if nwalkers - max(sizes) < 2:
+            raise RuntimeError(
+                "SliceMove needs at least two complement walkers per block "
+                f"(nwalkers={nwalkers}, nsplits={self.nsplits} leaves a "
+                f"complement of {nwalkers - max(sizes)}).")
+        return sizes, [sum(sizes[:i]) for i in range(self.nsplits)]
+
+    def _slice_block(self, ctx, names, param_masks, mu, draws, comp_coords,
+                     s_coords, fixed, inds_eval, supps, prev, betas):
+        """Slice-sample one block's walkers ``s_coords`` (``(nt, m, ...)``
+        per moving branch) along directions from the complement
+        ``comp_coords`` (every branch, ``(nt, nc, ...)``), ``draws`` being
+        :meth:`draw_slice`'s for these walkers and ``prev`` their
+        ``(log_like, log_prior, blobs)``.
+
+        Returns ``(coords, log_like, log_prior, blobs, accepted, flags, ne,
+        ncnt)``: the walkers' new values, whether each moved, each loop
+        iteration's flag that a walker still needed it (stepping out's,
+        then shrinkage's, ``(max_expand - 1 + max_shrink,)`` bool), and the
+        expansions and contractions made."""
+        l_idx, m_idx, y_u, J, u0, u_shrink = draws
+        prev_logl, prev_logp, prev_bl = prev
+        ntemps, m = prev_logl.shape
+        dtype, device = prev_logl.dtype, prev_logl.device
+        m_idx = m_idx + (m_idx >= l_idx).to(m_idx.dtype)
+        eta = {}
+        for n in names:
+            c_all = comp_coords[n]
+            idx_shape = (-1, -1) + tuple(c_all.shape[2:])
+            c_l = torch.gather(c_all, 1,
+                               l_idx[:, :, None, None].expand(idx_shape))
+            c_m = torch.gather(c_all, 1,
+                               m_idx[:, :, None, None].expand(idx_shape))
+            e = mu * self._displacement(n, c_m, c_l)
+            e = e * inds_eval[n][..., None]  # dormant leaves stay put
+            mask = param_masks.get(n) if param_masks else None
+            if mask is not None:
+                e = e * mask
+            eta[n] = e.to(dtype)
+
+        # a walker with an identically zero direction has nothing to
+        # sample and sits the block out
+        act = torch.zeros((ntemps, m), dtype=torch.bool, device=device)
+        for n in names:
+            act = act | (eta[n] != 0).any(dim=3).any(dim=2)
+
+        def eval_at(lam):
+            """Tempered log posterior, log-likelihood, log prior and blobs
+            at ``x + lam * eta``."""
+            q = {n: self._wrap(n, s_coords[n] + lam[:, :, None, None] * eta[n])
+                 for n in names}
+            lp = ctx.compute_log_prior({**fixed, **q}, inds_eval)
+            ll, bl = ctx.compute_log_like({**fixed, **q}, inds_eval, lp,
+                                          supps)
+            return tempered_log_likelihood(ll, betas) + lp, ll, lp, bl
+
+        logP0 = tempered_log_likelihood(prev_logl, betas) + prev_logp
+        # log1p(-u): u == 0 must not give y = -inf
+        y = logP0 + torch.log1p(-y_u)
+
+        # stepping out: a walker whose ends are bound (J = K = 0) no longer
+        # changes, so the loop runs to its cap
+        K = (self.max_expand - 1) - J
+        J = torch.where(act, J, 0)
+        K = torch.where(act, K, 0)
+        L = -u0
+        R = L + 1.0
+        ne = prev_logl.new_zeros(())
+        flags = []
+        for _ in range(self.max_expand - 1):
+            flags.append(((J > 0) | (K > 0)).any())
+            logP_L = eval_at(L)[0]
+            logP_R = eval_at(R)[0]
+            growL = (J > 0) & (logP_L > y)
+            growR = (K > 0) & (logP_R > y)
+            L = torch.where(growL, L - 1.0, L)
+            R = torch.where(growR, R + 1.0, R)
+            J = torch.where(growL, J - 1, 0)
+            K = torch.where(growR, K - 1, 0)
+            ne = ne + growL.sum().to(dtype) + growR.sum().to(dtype)
+
+        # shrinkage: a resolved walker no longer changes
+        lam_sel = prev_logl.new_zeros((ntemps, m))
+        done = ~act
+        ll_sel, lp_sel, bl_sel = prev_logl, prev_logp, prev_bl
+        ncnt = prev_logl.new_zeros(())
+        for it in range(self.max_shrink):
+            flags.append((~done).any())
+            lam = L + u_shrink[it] * (R - L)
+            logP, ll, lp, bl = eval_at(lam)
+            in_slice = logP > y
+            newly = in_slice & ~done
+            lam_sel = torch.where(newly, lam, lam_sel)
+            ll_sel = torch.where(newly, ll, ll_sel)
+            lp_sel = torch.where(newly, lp, lp_sel)
+            bl_sel = merge_blobs(newly, bl, bl_sel)
+            shrinkL = ~in_slice & ~done & (lam < 0)
+            shrinkR = ~in_slice & ~done & (lam >= 0)
+            L = torch.where(shrinkL, lam, L)
+            R = torch.where(shrinkR, lam, R)
+            ncnt = ncnt + (shrinkL | shrinkR).sum().to(dtype)
+            done = done | in_slice
+
+        # resolved walkers take the slice point; truncated ones keep theirs
+        lam_fin = torch.where(done, lam_sel, 0.0)
+        coords = {}
+        for n in names:
+            qn = self._wrap(n, s_coords[n] + lam_fin[:, :, None, None] * eta[n])
+            coords[n] = torch.where(done[:, :, None, None], qn, s_coords[n])
+        return (coords, torch.where(done, ll_sel, prev_logl),
+                torch.where(done, lp_sel, prev_logp),
+                None if prev_bl is None else merge_blobs(done, bl_sel, prev_bl),
+                done & act, torch.stack(flags), ne, ncnt)
+
+    def _tuned(self, kernel_state, ne_total, nc_total):
+        """The kernel state after a proposal: ``mu`` by zeus eq. 16 from the
+        proposal's expansions and contractions, frozen after
+        ``tune_steps``."""
+        mu, t = kernel_state["mu"], kernel_state["t"]
+        if self.tune_steps > 0:
+            tuning = t < self.tune_steps
+            total = ne_total + nc_total
+            factor = torch.where(
+                total > 0, 2.0 * ne_total / torch.clamp(total, min=1.0), 1.0)
+            # an all-contraction round must shrink mu, not zero it
+            factor = torch.clamp(factor, 0.5, 2.0)
+            mu = torch.where(tuning, mu * factor, mu)
+        return {"mu": mu, "t": t + 1}
+
     def _propose_impl(self, generator, state, ctx, kernel_state):
+        if self.mesh_layout is not None:
+            return self._propose_impl_sharded(generator, state, ctx,
+                                              kernel_state)
         logl = state.log_like
         ntemps, nwalkers = logl.shape
-        dtype, device = logl.dtype, logl.device
+        device = logl.device
         coords = dict(state.branches_coords)
         inds = dict(state.branches_inds)
         logp = state.log_prior
         blobs = state.blobs
-        betas = state.betas
-        if betas is None:
-            betas = logl.new_ones((ntemps,))
+        betas = self.rank_betas(state)
         accepted = torch.zeros((ntemps, nwalkers), dtype=torch.bool,
                                device=device)
         mu = kernel_state["mu"]
@@ -118,16 +267,8 @@ class SliceMove(Move):
         # group
         needed = [torch.zeros((), dtype=torch.int64, device=device)
                   for _ in range(3)]
-
-        sizes = [nwalkers // self.nsplits
-                 + (1 if i < nwalkers % self.nsplits else 0)
-                 for i in range(self.nsplits)]
-        offsets = [sum(sizes[:i]) for i in range(self.nsplits)]
-        if nwalkers - max(sizes) < 2:
-            raise RuntimeError(
-                "SliceMove needs at least two complement walkers per block "
-                f"(nwalkers={nwalkers}, nsplits={self.nsplits} leaves a "
-                f"complement of {nwalkers - max(sizes)}).")
+        E = self.max_expand - 1
+        sizes, offsets = self._splits(nwalkers)
         all_names = list(coords)
 
         for names, param_masks in self.gibbs_iterations_for(state):
@@ -145,122 +286,34 @@ class SliceMove(Move):
 
             for off, ns in zip(offsets, sizes):
                 blk = slice(off, off + ns)
-                nc = nwalkers - ns
 
                 def comp(x, off=off, ns=ns):
                     return torch.cat([x[:, :off], x[:, off + ns:]], dim=1)
 
-                s_coords = {n: coords_p[n][:, blk] for n in names}
-                s_inds = {n: inds_p[n][:, blk] for n in names}
-                l_idx, m_idx, y_u, J, u0, u_shrink = self.draw_slice(
-                    generator, ntemps, ns, nc, logl)
-                m_idx = m_idx + (m_idx >= l_idx).to(m_idx.dtype)
-                eta = {}
-                for n in names:
-                    c_all = comp(coords_p[n])
-                    idx_shape = (-1, -1) + tuple(c_all.shape[2:])
-                    c_l = torch.gather(c_all, 1,
-                                       l_idx[:, :, None, None].expand(idx_shape))
-                    c_m = torch.gather(c_all, 1,
-                                       m_idx[:, :, None, None].expand(idx_shape))
-                    e = mu * self._displacement(n, c_m, c_l)
-                    e = e * s_inds[n][..., None]  # dormant leaves stay put
-                    mask = param_masks.get(n) if param_masks else None
-                    if mask is not None:
-                        e = e * mask
-                    eta[n] = e.to(dtype)
-
-                # a walker with an identically zero direction has nothing to
-                # sample and sits the block out
-                act = torch.zeros((ntemps, ns), dtype=torch.bool,
-                                  device=device)
-                for n in names:
-                    act = act | (eta[n] != 0).any(dim=3).any(dim=2)
-
-                fixed = {n: coords_p[n][:, blk] for n in all_names
-                         if n not in names}
-                inds_eval = {n: inds_p[n][:, blk] for n in all_names}
-                supps_blk = state_branch_supps(state, perm=perm,
-                                               block=(off, ns))
-
-                def eval_at(lam, s_coords=s_coords, eta=eta, fixed=fixed,
-                            inds_eval=inds_eval, supps_blk=supps_blk):
-                    """Tempered log posterior, log-likelihood, log prior and
-                    blobs at ``x + lam * eta``."""
-                    q = {n: self._wrap(n, s_coords[n]
-                                       + lam[:, :, None, None] * eta[n])
-                         for n in names}
-                    lp = ctx.compute_log_prior({**fixed, **q}, inds_eval)
-                    ll, bl = ctx.compute_log_like({**fixed, **q}, inds_eval,
-                                                  lp, supps_blk)
-                    return tempered_log_likelihood(ll, betas) + lp, ll, lp, bl
-
-                prev_logl = logl_p[:, blk]
-                prev_logp = logp_p[:, blk]
-                logP0 = tempered_log_likelihood(prev_logl, betas) + prev_logp
-                # log1p(-u): u == 0 must not give y = -inf
-                y = logP0 + torch.log1p(-y_u)
-
-                # stepping out: a walker whose ends are bound (J = K = 0)
-                # no longer changes, so the loop runs to its cap
-                K = (self.max_expand - 1) - J
-                J = torch.where(act, J, 0)
-                K = torch.where(act, K, 0)
-                L = -u0
-                R = L + 1.0
-                ne = logl.new_zeros(())
-                for _ in range(self.max_expand - 1):
-                    needed[0] = needed[0] + ((J > 0) | (K > 0)).any()
-                    logP_L = eval_at(L)[0]
-                    logP_R = eval_at(R)[0]
-                    growL = (J > 0) & (logP_L > y)
-                    growR = (K > 0) & (logP_R > y)
-                    L = torch.where(growL, L - 1.0, L)
-                    R = torch.where(growR, R + 1.0, R)
-                    J = torch.where(growL, J - 1, 0)
-                    K = torch.where(growR, K - 1, 0)
-                    ne = ne + growL.sum().to(dtype) + growR.sum().to(dtype)
-
-                # shrinkage: a resolved walker no longer changes
-                lam_sel = logl.new_zeros((ntemps, ns))
-                done = ~act
-                ll_sel, lp_sel = prev_logl, prev_logp
-                bl_sel = None if blobs_p is None else blobs_p[:, blk]
-                ncnt = logl.new_zeros(())
-                for it in range(self.max_shrink):
-                    needed[1] = needed[1] + (~done).any()
-                    lam = L + u_shrink[it] * (R - L)
-                    logP, ll, lp, bl = eval_at(lam)
-                    in_slice = logP > y
-                    newly = in_slice & ~done
-                    lam_sel = torch.where(newly, lam, lam_sel)
-                    ll_sel = torch.where(newly, ll, ll_sel)
-                    lp_sel = torch.where(newly, lp, lp_sel)
-                    bl_sel = merge_blobs(newly, bl, bl_sel)
-                    shrinkL = ~in_slice & ~done & (lam < 0)
-                    shrinkR = ~in_slice & ~done & (lam >= 0)
-                    L = torch.where(shrinkL, lam, L)
-                    R = torch.where(shrinkR, lam, R)
-                    ncnt = ncnt + (shrinkL | shrinkR).sum().to(dtype)
-                    done = done | in_slice
+                draws = self.draw_slice(generator, ntemps, ns, nwalkers - ns,
+                                        logl)
+                q, ll, lp, bl, acc, flags, ne, ncnt = self._slice_block(
+                    ctx, names, param_masks, mu, draws,
+                    {n: comp(coords_p[n]) for n in names},
+                    {n: coords_p[n][:, blk] for n in names},
+                    {n: coords_p[n][:, blk] for n in all_names
+                     if n not in names},
+                    {n: inds_p[n][:, blk] for n in all_names},
+                    state_branch_supps(state, perm=perm, block=(off, ns)),
+                    (logl_p[:, blk], logp_p[:, blk],
+                     None if blobs_p is None else blobs_p[:, blk]), betas)
+                needed[0] = needed[0] + flags[:E].sum()
+                needed[1] = needed[1] + flags[E:].sum()
                 needed[2] = needed[2] + 1
                 ne_total = ne_total + ne
                 nc_total = nc_total + ncnt
-
-                # resolved walkers take the slice point; truncated ones keep
-                # theirs
-                lam_fin = torch.where(done, lam_sel, 0.0)
                 for n in names:
-                    qn = self._wrap(n, s_coords[n]
-                                    + lam_fin[:, :, None, None] * eta[n])
-                    coords_p[n][:, blk] = torch.where(done[:, :, None, None],
-                                                      qn, s_coords[n])
-                logl_p[:, blk] = torch.where(done, ll_sel, prev_logl)
-                logp_p[:, blk] = torch.where(done, lp_sel, prev_logp)
+                    coords_p[n][:, blk] = q[n]
+                logl_p[:, blk] = ll
+                logp_p[:, blk] = lp
                 if blobs_p is not None:
-                    blobs_p[:, blk] = merge_blobs(done, bl_sel,
-                                                  blobs_p[:, blk])
-                acc_p[:, blk] = (done & act) | acc_p[:, blk]
+                    blobs_p[:, blk] = bl
+                acc_p[:, blk] = acc | acc_p[:, blk]
 
             coords = {n: coords_p[n][:, inv_perm] for n in all_names}
             logl = logl_p[:, inv_perm]
@@ -269,21 +322,83 @@ class SliceMove(Move):
                 blobs = blobs_p[:, inv_perm]
             accepted = acc_p[:, inv_perm]
 
-        # zeus eq. 16, frozen after tune_steps
-        t = kernel_state["t"]
-        if self.tune_steps > 0:
-            tuning = t < self.tune_steps
-            total = ne_total + nc_total
-            factor = torch.where(
-                total > 0, 2.0 * ne_total / torch.clamp(total, min=1.0), 1.0)
-            # an all-contraction round must shrink mu, not zero it
-            factor = torch.clamp(factor, 0.5, 2.0)
-            mu_new = torch.where(tuning, mu * factor, mu)
-        else:
-            mu_new = mu
         if self.loop_iterations is not None:
             self.loop_iterations.add_(torch.stack(needed))
-
         new_state = state.replace(coords=coords, inds=inds, log_like=logl,
                                   log_prior=logp, blobs=blobs)
-        return new_state, accepted, {"mu": mu_new, "t": t + 1}
+        return new_state, accepted, self._tuned(kernel_state, ne_total,
+                                                nc_total)
+
+    def _propose_impl_sharded(self, generator, state, ctx, kernel_state):
+        """One proposal on this rank's shard of a state sharded over a
+        ``(temp, walker)`` mesh, equal to one process's: each block's
+        complement filled in by
+        :class:`~eryn_tpu_torch.moves.red_blue.WalkerBlocks`, the block's
+        draws made whole and kept for the rank's walkers of it
+        (:meth:`~eryn_tpu_torch.moves.move.Move.block_walkers`), the loops
+        on those walkers, and one all-reduce a block of its loops'
+        per-iteration flags (an OR across the ranks) and its expansions and
+        contractions (integer counts, exact as floats)."""
+        lay = self.mesh_layout
+        logl = state.log_like
+        NW, device, dtype = lay.nwalkers, logl.device, logl.dtype
+        betas = self.rank_betas(state)
+        mu = kernel_state["mu"]
+        ne_total = logl.new_zeros(())
+        nc_total = logl.new_zeros(())
+        needed = torch.zeros(3, dtype=torch.int64, device=device)
+        E = self.max_expand - 1
+        sizes, offsets = self._splits(NW)
+        all_names = list(state.branches)
+        view = WalkerBlocks(lay, state)
+
+        for names, param_masks in self.gibbs_iterations_for(state):
+            perm = (self.draw_perm(generator, NW, device)
+                    if self.randomize_split
+                    else torch.arange(NW, device=device))
+            for blk in view.blocks(perm, sizes, offsets):
+                block = slice(blk.off, blk.off + blk.ns)
+                at = (blk.at if blk.at is not None
+                      else torch.zeros(0, dtype=torch.int64, device=device))
+                with self.block_walkers(blk.ns, at):
+                    draws = self.draw_slice(generator, lay.nt, blk.ns,
+                                            NW - blk.ns, logl)
+                totals = logl.new_zeros((E + self.max_shrink + 2,))
+                if blk.at is not None:
+                    idx = blk.own_idx
+
+                    def comp(x, off=blk.off, ns=blk.ns):
+                        return torch.cat([x[:, :off], x[:, off + ns:]], dim=1)
+
+                    def mine(x, block=block):
+                        return x[:, block][:, at]
+
+                    q, ll, lp, _, acc, flags, ne, ncnt = self._slice_block(
+                        ctx, names, param_masks, mu, draws,
+                        {n: comp(blk.coords_p[n]) for n in names},
+                        {n: mine(blk.coords_p[n]) for n in names},
+                        {n: mine(blk.coords_p[n]) for n in all_names
+                         if n not in names},
+                        {n: mine(blk.inds_p[n]) for n in all_names},
+                        None, (view.log_like[:, idx], view.log_prior[:, idx],
+                               None), betas)
+                    for n in names:
+                        view.coords[n][:, idx] = q[n]
+                    view.log_like[:, idx] = ll
+                    view.log_prior[:, idx] = lp
+                    view.accepted[:, idx] = acc | view.accepted[:, idx]
+                    totals = torch.cat([flags.to(dtype), ne[None],
+                                        ncnt[None]])
+                lay.sum(totals)
+                flags = totals[:-2] > 0
+                needed += torch.stack([flags[:E].sum(), flags[E:].sum(),
+                                       torch.ones((), dtype=torch.int64,
+                                                  device=device)])
+                ne_total = ne_total + totals[-2]
+                nc_total = nc_total + totals[-1]
+
+        if self.loop_iterations is not None:
+            self.loop_iterations.add_(needed)
+        new_state, accepted = view.result(state)
+        return new_state, accepted, self._tuned(kernel_state, ne_total,
+                                                nc_total)

@@ -280,6 +280,45 @@ class MeshLayout:
             b[:, idx] = got.reshape((idx.numel(), b.shape[0])
                                     + tuple(b.shape[2:])).transpose(0, 1)
 
+    def gather_rung(self, tensors, t=0):
+        """Rung ``t`` of every walker, ``(nwalkers, ...)``, of each
+        ``(nt, nw, ...)`` tensor of ``tensors`` (this rank's shards), on
+        every rank: the ranks of the temperature shard that holds the rung
+        send their rows of it to every other rank in one
+        ``all_to_all_single`` over the mesh (all tensors packed as bytes),
+        so each rank receives the rung's rows it lacks and nothing else."""
+        locs = list(tensors)
+        holder = t // self.nt
+        mine = self.ti == holder
+        # a rank outside the holding shard sends nothing; its row 0 gives
+        # the packed width
+        rows = _pack([x[t - self.t0 if mine else 0].reshape(self.nw, -1)
+                      for x in locs])
+        order = dist.get_process_group_ranks(self.world)
+        coords = {r: (ti, wi) for ti, row in enumerate(self.ranks)
+                  for wi, r in enumerate(row)}
+        in_splits, out_splits, sources = [], [], []
+        for r in order:
+            other = r != self.rank
+            in_splits.append(self.nw if mine and other else 0)
+            held = coords[r][0] == holder and other
+            out_splits.append(self.nw if held else 0)
+            if held:
+                sources.append(coords[r][1])
+        inp = rows.repeat(sum(1 for n in in_splits if n), 1)
+        out = rows.new_empty((sum(out_splits), rows.shape[1]))
+        _comm.all_to_all_single(out, inp, out_splits, in_splits,
+                                group=self.world)
+        full = rows.new_empty((self.nwalkers, rows.shape[1]))
+        for k, wi in enumerate(sources):
+            full[wi * self.nw:(wi + 1) * self.nw] = out[k * self.nw:
+                                                        (k + 1) * self.nw]
+        if mine:
+            full[self.w0:self.w0 + self.nw] = rows
+        like = [x[0].reshape(self.nw, -1) for x in locs]
+        return [y.reshape((self.nwalkers,) + tuple(x.shape[2:]))
+                for y, x in zip(_unpack(full, like), locs)]
+
     def move_rows(self, leaves, origin):
         """Every leaf ``(nt, nw, ...)`` of this rank's shard, each slot
         ``(t, w)`` taking the row of the global slot ``origin[t0 + t, w0 +

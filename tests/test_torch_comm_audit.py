@@ -13,6 +13,19 @@ phases, the leaf masks in the swap payload; 3-D leaves, at most 2 a walker)
 moves at most 3.0 times; no all-gather or all-reduce carries the whole
 coordinates tensor anywhere.  The ranks import this module, so it imports
 ``jax`` only inside the tests.
+
+The rest of the move zoo is audited on the default ``(2, 4)`` mesh under
+DEO, whose swap phase moves the same bytes whatever the state (the edge
+rungs and one all-reduce of the swap counts): a step of a move that
+proposes nothing is the swap phase alone, and a step of a per-walker move
+(MH, Gaussian, distribution-draw, multiple-try, delayed rejection, HMC with
+a given step size and no tuning) receives exactly its bytes.  A move that
+reads an ensemble statistic receives at most the rows it reads more: AIMH
+and the slice move the walkers of the rank's temperatures (and slice its
+loops' one all-reduce a block), MALA's dual averaging the cold rung's
+acceptance, ChEES the cold rung's rows of its criterion.  Past their
+tuning AIMH, MALA and ChEES read no statistic: a step of each receives
+exactly the swap phase's bytes.
 """
 
 import numpy as np
@@ -20,6 +33,7 @@ import pytest
 import torch
 
 import eryn_tpu_torch as et
+from eryn_tpu_torch import moves as tm
 from eryn_tpu_torch.parallel import audit_sampler_comm, make_mesh, shard_state
 from eryn_tpu_torch.parallel._spawn import launch
 
@@ -70,8 +84,91 @@ def _rj_deo_audit(world):
     return audit_sampler_comm(s, state)
 
 
+class Stay(tm.Move):
+    """A move that proposes nothing: its step is the swap phase alone."""
+
+    _mesh_sharded = True
+
+    def _propose_impl(self, generator, state, ctx, kernel_state=()):
+        return (state, torch.zeros(state.log_like.shape, dtype=torch.bool),
+                kernel_state)
+
+
+class WalkMH(tm.MHMove):
+    """A user's per-walker MH move, sharded by its own declaration."""
+
+    _mesh_sharded = True
+
+    def get_proposal_kernel(self, generator, branch_coords, branch_inds,
+                            kernel_state, param_masks=None):
+        q = {n: c + 0.2 * self.rank_draw(
+                lambda sh, c=c: torch.randn(sh, generator=generator,
+                                            dtype=c.dtype),
+                c.shape, per_walker=True)
+             for n, c in branch_coords.items()}
+        c = next(iter(q.values()))
+        return q, c.new_zeros(c.shape[:2]), kernel_state
+
+
+def _zoo_moves():
+    """The audited moves of the zoo: the per-walker ones, then the ones
+    that read an ensemble statistic."""
+    pr = et.ProbDistContainer({i: et.uniform_dist(-5, 5)
+                               for i in range(NDIM)})
+    return {
+        "stay": Stay(),
+        "mh": WalkMH(),
+        "gaussian": tm.GaussianMove({"model_0": 0.3}),
+        "distgen": tm.DistributionGenerate({"model_0": pr}),
+        "multipletry": tm.MTDistGenMove({"model_0": pr}, num_try=3),
+        "delayedrejection": tm.DelayedRejection(
+            tm.GaussianMove({"model_0": 0.3}), max_iter=2),
+        "hmc": tm.HMCMove(eps=0.3, tune_steps=0),
+        "aimh": tm.AIMHMove(),
+        "slice": tm.SliceMove(),
+        "mala": tm.MALAMove(),
+        "chees": tm.ChEESHMCMove(max_leapfrog=8),
+        # their kernel states set past the tuning before the step
+        "aimh[tuned]": tm.AIMHMove(tune_steps=5),
+        "mala[tuned]": tm.MALAMove(tune_steps=5),
+        "chees[tuned]": tm.ChEESHMCMove(max_leapfrog=8, tune_steps=5),
+    }
+
+
+PER_WALKER = ("mh", "gaussian", "distgen", "multipletry", "delayedrejection",
+              "hmc")
+TUNED = ("aimh[tuned]", "mala[tuned]", "chees[tuned]")
+ZOO_TEMPS = 4
+
+
+def _zoo_audits(world):
+    """One audited step of each zoo move on the default ``(2, 4)`` mesh
+    under DEO (4 temperatures, 64 walkers, 8-D), its kernel state made
+    before the step."""
+    out = {}
+    for name, move in _zoo_moves().items():
+        s = et.EnsembleSampler(
+            NWALKERS, NDIM, lambda x: -0.5 * torch.sum(x ** 2),
+            et.ProbDistContainer({i: et.uniform_dist(-5, 5)
+                                  for i in range(NDIM)}),
+            moves=move, tempering_kwargs=dict(ntemps=ZOO_TEMPS,
+                                              swap_scheme="deo"),
+            seed=7, device="cpu")
+        coords = np.random.default_rng(3).uniform(
+            -5, 5, (ZOO_TEMPS, NWALKERS, 1, NDIM)).astype(np.float32)
+        state = shard_state(et.State({"model_0": torch.from_numpy(coords)}),
+                            make_mesh(world))
+        s._ensure_kernel_states(s._setup_state(state))
+        if name in TUNED:
+            ks = s._kernel_states[0]
+            s._kernel_states[0] = {
+                **ks, "t": torch.full_like(ks["t"], move.tune_steps)}
+        out[name] = audit_sampler_comm(s, state)
+    return out
+
+
 def _rank_main(rank, world):
-    out = {"rj_deo_8x1": _rj_deo_audit(world)}
+    out = {"rj_deo_8x1": _rj_deo_audit(world), "zoo": _zoo_audits(world)}
     for name, (ntemps, temp_parallel, extra) in CASES.items():
         mesh = make_mesh(world, temp_parallel=temp_parallel)
         s = _sampler(ntemps, **extra)
@@ -91,7 +188,7 @@ def _rank_main(rank, world):
 def audits():
     ranks = launch(_rank_main, 8, timeout=240)
     return {name: [r[name] for r in ranks]
-            for name in list(CASES) + ["rj_deo_8x1"]}
+            for name in list(CASES) + ["rj_deo_8x1", "zoo"]}
 
 
 def test_cascade_swap_traffic_is_boundary_local(audits):
@@ -142,6 +239,56 @@ def test_rj_deo_mesh_traffic_bounded(audits):
                                         "all-reduce"}, audit
         assert audit["per_op"]["all-reduce"]["count"] == 2, audit
         assert audit["total_bytes"] <= 3.0 * audit["payload_bytes"], audit
+
+
+@pytest.mark.parametrize("move", PER_WALKER + TUNED)
+def test_per_walker_moves_add_no_collective(audits, move):
+    """A step of a per-walker move (every draw at its global shape, the
+    rank's rows kept), or of AIMH, MALA and ChEES past their tuning,
+    receives exactly the bytes of the swap phase alone (a step of a move
+    that proposes nothing), in the same calls: the move exchanges
+    nothing."""
+    for zoo in audits["zoo"]:
+        stay, got = zoo["stay"], zoo[move]
+        assert stay["per_op"] == got["per_op"], (move, got, stay)
+        assert got["total_bytes"] == stay["total_bytes"], (move, got, stay)
+        assert set(stay["per_op"]) == {"collective-permute",
+                                       "all-reduce"}, stay
+
+
+def _statistic_bound(move):
+    """The bytes a step of ``move`` may receive beyond the swap phase's on a
+    rank of the ``(2, 4)`` mesh: the rows its statistics read."""
+    f4 = 4
+    nt = ZOO_TEMPS // 2
+    rows = nt * NWALKERS * NDIM * f4  # the rank's temperatures' walkers
+    cold = NWALKERS  # the cold rung's walkers
+    return {
+        "aimh": rows,
+        # the blocks' complement fill (coordinates and the leaf mask byte)
+        # and one all-reduce a block of the loops' flags and counts
+        "slice": nt * NWALKERS * (NDIM * f4 + 1) + 2 * (5 + 16 + 2) * f4,
+        "mala": cold * f4,
+        # the criterion's alpha, masks, start, end point and momenta, and
+        # the dual averaging's acceptance
+        "chees": cold * (2 * f4 + NDIM * (1 + 3 * f4)),
+    }[move]
+
+
+@pytest.mark.parametrize("move", ["aimh", "slice", "mala", "chees"])
+def test_statistic_moves_receive_only_the_rows_they_read(audits, move):
+    """AIMH (its moments over the walkers of the rank's temperatures), the
+    slice move (each block's complement within the temperature shard, its
+    loops' counts), MALA with tuning (the cold rung's acceptance) and ChEES
+    (the cold rung's rows of its criterion) receive at most those rows
+    beyond the swap phase's bytes, and none of them gathers a whole
+    ensemble's coordinates."""
+    for zoo in audits["zoo"]:
+        got, stay = zoo[move], zoo["stay"]
+        extra = got["total_bytes"] - stay["total_bytes"]
+        assert got["big_gathers"] == [], got
+        assert 0 < extra <= _statistic_bound(move), (move, extra, got)
+        assert extra < got["full_coords_bytes"], (move, extra)
 
 
 @pytest.mark.parametrize("name", sorted(CASES))

@@ -115,7 +115,25 @@ def _para_record(p):
 
 def _refusals(mesh):
     """The named error of each configuration without a sharded form."""
-    from eryn_tpu_torch.moves import MHMove, SliceMove
+    from eryn_tpu_torch.moves import MHMove
+
+    class KernelWalk(MHMove):
+        """A subclass of a sharded move that does not declare itself
+        sharded (``_mesh_sharded``)."""
+
+        def get_proposal_kernel(self, generator, branch_coords, branch_inds,
+                                kernel_state, param_masks=None):
+            c = next(iter(branch_coords.values()))
+            return branch_coords, c.new_zeros(c.shape[:2]), kernel_state
+
+    class HostWalk(MHMove):
+        """A host move: Eryn's NumPy ``get_proposal``
+        (``moves/legacy.py``)."""
+
+        def get_proposal(self, branches_coords, random, branches_inds=None,
+                         **kwargs):
+            c = next(iter(branches_coords.values()))
+            return branches_coords, np.zeros(np.shape(c)[:2])
 
     def ll_blobs(x):
         return -0.5 * torch.sum(x * x), torch.sum(x)
@@ -124,8 +142,8 @@ def _refusals(mesh):
         return -0.5 * float(np.sum(np.asarray(x) ** 2))
 
     cases = {
-        "SliceMove": dict(moves=SliceMove()),
-        "MHMove": dict(moves=MHMove()),
+        "MHMove subclass": dict(moves=KernelWalk()),
+        "host move": dict(moves=HostWalk()),
         "StretchMove(periodic)": dict(moves=et.StretchMove(
             periodic={"model_0": {0: 1.0}})),
         "general cascade": dict(tempering_kwargs=dict(ntemps=NT,
@@ -445,16 +463,18 @@ def test_group_mesh_equals_one_rank(ranks, world):
 
 def test_unsupported_configurations_raise_under_a_mesh(ranks):
     """What has no sharded form raises a ``NotImplementedError`` that names
-    it at set-up: ``SliceMove`` (``eryn_tpu``'s
-    ``test_sharded_slice_move``), a per-walker move (``MHMove``), a
+    it at set-up: a subclass of a sharded move (``MHMove``) that does not
+    declare itself sharded, a host move (Eryn's NumPy ``get_proposal``), a
     periodic stretch, the general cascade, blobs, a host likelihood,
-    ``HDFBackend`` and the ``run_mcmc`` hooks.  Reversible jump and the
-    red/blue family run sharded (``tests/test_torch_mesh_rj.py``: the port
-    matches ``eryn_tpu``'s ``test_sharded_rbgroupstretch_rj``,
+    ``HDFBackend`` and the ``run_mcmc`` hooks.  Reversible jump, the
+    red/blue family (``tests/test_torch_mesh_rj.py``: the port matches
+    ``eryn_tpu``'s ``test_sharded_rbgroupstretch_rj``,
     ``test_sharded_rj_group_run``, ``test_sharded_new_move_family`` and
-    ``test_rj_deo_mesh_traffic_bounded``)."""
+    ``test_rj_deo_mesh_traffic_bounded``) and the rest of the zoo
+    (``tests/test_torch_mesh_zoo.py``: ``eryn_tpu``'s
+    ``test_sharded_slice_move`` among them) run sharded."""
     got = ranks[2][0]["refusals"]
-    names = {"SliceMove": "SliceMove", "MHMove": "MHMove",
+    names = {"MHMove subclass": "KernelWalk", "host move": "HostWalk",
              "StretchMove(periodic)": "periodic",
              "general cascade": "general swap cascade",
              "blobs": "Blobs", "host likelihood": "host",
