@@ -189,7 +189,18 @@ Phases, each printing its own lines:
      walk and KDE at 0.25 each), 20 + 100 steps each: every chain equal to
      its one-rank eager chain digit for digit (the heavy leg, where it
      drifts, held to the LISA gates with its first differing step), kernels
-     5 and 3 launched by every rank;
+     5 and 3 launched by every rank; the rest of the move zoo
+     (``mesh[slice|gradient-zoo|mh-zoo|modelswap-mtrj,4rank,gloo]``); and
+     the rest of the sampler's surface (``mesh_surface_legs``, 10 + 40
+     steps each on a (2, 2) mesh): ``mesh[general-cascade,4rank,gloo]``
+     (``permute=False``), ``mesh[general-stretch,4rank,gloo]`` (a periodic
+     dimension and four splits), ``mesh[blobs,4rank,gloo]`` (blobs, a
+     branch supplemental and a host object), ``mesh[host,4rank,gloo]`` (a
+     NumPy likelihood, SciPy priors and a legacy host ``MHMove`` at 0.1)
+     and ``mesh[resume-hooks,4rank,gloo]`` (the update, stopping and plot
+     hooks, stopped at 25 stored steps and continued by a fresh sampler
+     from its ``Backend()``), each chain against its one-rank eager chain
+     and each rank's launches against that chain's;
    * a flat-likelihood RJ run (64 walkers, 3 leaves): a uniform leaf-count
      posterior.  It checks the RJ moves, is not part of the main path, and
      its launches stay out of the report.
@@ -4547,22 +4558,25 @@ def _mesh_rj_rank(rank, world):
 
 def _first_difference(np, got, ref, steps=MR_STEPS):
     """The first of ``steps`` stored steps at which any getter's array
-    differs, and the largest absolute difference over the run (NaN in the
-    same places is equal); None where every array is equal."""
-    first, worst = None, 0.0
+    differs, the largest absolute difference over the run (NaN in the
+    same places is equal) and the getter that differs first; None where
+    every array is equal."""
+    first, worst, field = None, 0.0, None
     for key in ref:
         a = np.asarray(got[key], dtype=np.float64)
         b = np.asarray(ref[key], dtype=np.float64)
         if np.array_equal(a, b, equal_nan=True):
             continue
         worst = max(worst, float(np.nanmax(np.abs(a - b))))
+        field = field or key
         if a.ndim > 1 and a.shape[0] == steps:
             diff = ~((a == b) | (np.isnan(a) & np.isnan(b)))
             step = int(np.flatnonzero(diff.reshape(steps, -1).any(1))[0])
-            first = step if first is None else min(first, step)
+            if first is None or step < first:
+                first, field = step, key
     if first is None and worst == 0.0:
         return None
-    return first, worst
+    return first, worst, field
 
 
 def mesh_rj_legs(torch, card):
@@ -4795,19 +4809,22 @@ def _mesh_zoo_rank(rank, world):
     return out
 
 
-def _zoo_gates(np, name, s_record):
+def _zoo_gates(np, name, s_record, mean=0.0, var=1.0):
     """The statistical gates a zoo chain meets where it drifts from the
-    one-rank chain: the unit Gaussian's cold moments and the acceptance
-    in (0, 1), or under reversible jump finite log-likelihoods and leaf
-    counts in range (one candidate active in every model-swap sample)."""
+    one-rank chain: the target's cold moments (``mean`` and ``var`` per
+    dimension; the unit Gaussian's by default) and the acceptance in (0,
+    1), or under reversible jump finite log-likelihoods and leaf counts in
+    range (one candidate active in every model-swap sample)."""
     rec = s_record
     assert np.all(np.isfinite(rec["log_like"])), name
     acc = np.asarray(rec["acc"])[0].mean()
     assert 0 < acc <= 1, (name, acc)
     if "chain[model_0]" in rec and "inds[model_0]" not in rec:
         cold = rec["chain[model_0]"][:, 0].reshape(-1, NDIM)
-        assert np.all(np.abs(cold.mean(axis=0)) < 0.3), cold.mean(axis=0)
-        assert np.all(np.abs(cold.var(axis=0) - 1.0) < 0.5), cold.var(axis=0)
+        assert np.all(np.abs(cold.mean(axis=0) - mean) < 0.3), (
+            name, cold.mean(axis=0))
+        assert np.all(np.abs(cold.var(axis=0) - var) < 0.5), (
+            name, cold.var(axis=0))
     elif "inds[pulse]" in rec:
         one = rec["inds[pulse]"].sum(-1) + rec["inds[const]"].sum(-1)
         assert np.all(one == 1), name
@@ -4914,6 +4931,308 @@ def mesh_zoo_legs(torch, card):
     return launches, rates, []
 
 
+# mesh[general-cascade|general-stretch|blobs|host|resume-hooks,4rank,gloo]:
+# the rest of the sampler's surface on a (2, 2) mesh of four ranks, 10 steps
+# of burn-in and 40 stored each (the north-star at 10 x 100, 5-D); the
+# resume leg stops at 25 stored steps (stopping checked every 5, the plot
+# probe every 10, AdjustStretchProposalScale every 10 steps) and a fresh
+# sampler continues its Backend() to 40
+MS_WARM, MS_STEPS, MS_SEED = 10, 40, 41
+MS_STOP, MS_STOP_EVERY, MS_PLOT_EVERY, MS_UPDATE_EVERY = 25, 5, 10, 10
+MS_PERIOD = 10.0
+MESH_SURFACE_LEGS = ("general-cascade", "general-stretch", "blobs", "host",
+                     "resume-hooks")
+
+
+class _StopAt:
+    """``AutoCorrelationStop``, or ``MS_STOP`` stored steps: it reads the
+    getters at every check."""
+
+    def __init__(self):
+        from eryn_tpu_torch.utils import AutoCorrelationStop
+
+        self.auto = AutoCorrelationStop()
+        self.calls = []
+
+    def __call__(self, i, state, sampler):
+        auto = self.auto(i, state, sampler)
+        self.calls.append(sampler.backend.iteration)
+        return auto or sampler.backend.iteration >= MS_STOP
+
+
+def _mesh_surface_sampler(torch, leg, cuda_graph=True, backend=None):
+    """A surface leg's sampler (cuda_graph as given) and its global start,
+    not evaluated."""
+    import warnings
+
+    import scipy.stats
+
+    from eryn_tpu_torch import (
+        Backend,
+        DeviceBackend,
+        EnsembleSampler,
+        ProbDistContainer,
+        State,
+        uniform_dist,
+    )
+    from eryn_tpu_torch import moves as tm
+    from eryn_tpu_torch.utils import AdjustStretchProposalScale
+
+    gen = torch.Generator(device="cuda").manual_seed(MS_SEED)
+    if leg == "blobs":
+        return _blob_sampler(torch, seed=MS_SEED, cuda_graph=cuda_graph,
+                             host_object=True)
+    if leg == "general-stretch":
+        priors = ProbDistContainer(
+            {i: uniform_dist(0.0, MS_PERIOD) if i == 0
+             else uniform_dist(-5.0, 5.0) for i in range(NDIM)})
+
+        def log_like(x):
+            return -0.5 * torch.sum(x * x)
+
+        s = EnsembleSampler(
+            NW, NDIM, log_like, priors, tempering_kwargs=dict(ntemps=NT),
+            moves=tm.StretchMove(periodic={"model_0": {0: MS_PERIOD}},
+                                 nsplits=4),
+            seed=MS_SEED, device="cuda", backend=DeviceBackend(),
+            cuda_graph=cuda_graph)
+        coords = priors.rvs(size=(NT, NW), generator=gen)
+        return s, State({"model_0": coords[:, :, None, :]})
+    if leg == "host":
+        priors = ProbDistContainer({i: scipy.stats.uniform(-5.0, 10.0)
+                                    for i in range(NDIM)})
+        with warnings.catch_warnings():
+            warnings.simplefilter("ignore")  # the host side's warnings
+            s = EnsembleSampler(
+                NW, NDIM, host_log_like, priors,
+                tempering_kwargs=dict(ntemps=NT),
+                moves=[(tm.StretchMove(), 0.9), (_host_mh_class()(), 0.1)],
+                seed=MS_SEED, device="cuda", backend=DeviceBackend(),
+                cuda_graph=cuda_graph)
+        coords = ProbDistContainer({i: uniform_dist(-5.0, 5.0)
+                                    for i in range(NDIM)}).rvs(
+            size=(NT, NW), generator=gen)
+        return s, State({"model_0": coords[:, :, None, :]})
+    if leg == "general-cascade":
+        kw = dict(tempering=dict(permute=False), backend=DeviceBackend())
+    else:  # resume-hooks
+        kw = dict(backend=backend or Backend(),
+                  update_fn=AdjustStretchProposalScale(),
+                  update_iterations=MS_UPDATE_EVERY)
+        if backend is None:  # the first sampler stops at MS_STOP
+            kw.update(stopping_fn=_StopAt(),
+                      stopping_iterations=MS_STOP_EVERY)
+    s, priors = _gaussian_sampler(torch, NT, NW, MS_SEED,
+                                  cuda_graph=cuda_graph, **kw)
+    if leg == "resume-hooks":
+        probe = _PlotProbe()
+        probe.backend = s.backend
+        s.plot_generator, s.plot_iterations = probe, MS_PLOT_EVERY
+    coords = priors.rvs(size=(NT, NW), generator=gen)
+    return s, State({"model_0": coords[:, :, None, :]})
+
+
+def _mesh_surface_moments(np, leg):
+    """The cold chain's mean and variance per dimension of a surface leg's
+    target: the unit Gaussian, the periodic dimension of
+    ``general-stretch`` a half-normal (the Gaussian on ``[0, MS_PERIOD)``)."""
+    mean, var = np.zeros(NDIM), np.ones(NDIM)
+    if leg == "general-stretch":
+        mean[0], var[0] = np.sqrt(2.0 / np.pi), 1.0 - 2.0 / np.pi
+    return mean, var
+
+
+def _mesh_surface_gates(np, name, leg, got, ref_host):
+    """What a surface leg's chain meets where it drifts from the one-rank
+    chain: the zoo's gates on the leg's target (:func:`_zoo_gates`,
+    :func:`_mesh_surface_moments`), every stored ``blob[0]`` ``-2
+    log_like`` and ``blob[1]`` the chain's first parameter, and the host
+    objects a permutation of the one-rank chain's (they follow their
+    walkers through other swaps)."""
+    rec = got["record"]
+    _zoo_gates(np, name, rec, *_mesh_surface_moments(np, leg))
+    if "blobs" in rec:
+        np.testing.assert_allclose(
+            rec["blobs"][..., 0], -2.0 * rec["log_like"],
+            rtol=float(np.finfo(np.float32).eps), atol=0, err_msg=name)
+        assert np.array_equal(rec["blobs"][..., 1],
+                              rec["chain[model_0]"][:, :, :, 0, 0]), name
+    assert set(got["host"]) == set(ref_host), name
+    for k, objs in got["host"].items():
+        assert sorted(objs) == sorted(ref_host[k]), (name, k)
+
+
+def _mesh_surface_run(torch, np, leg, mesh=None, cuda_graph=True):
+    """A surface leg's chain, sharded over ``mesh`` where given; the
+    resume leg stops and is continued by a fresh sampler on its backend.
+    Returns the sampler that ends the chain and what it is held to."""
+    import warnings
+
+    from eryn_tpu_torch.parallel import shard_state
+
+    def place(st):
+        return st if mesh is None else shard_state(st, mesh)
+
+    s, state = _mesh_surface_sampler(torch, leg, cuda_graph)
+    with warnings.catch_warnings():
+        warnings.simplefilter("ignore")
+        s.run_mcmc(place(state), MS_STEPS, burn=MS_WARM)
+    extra = {}
+    if leg == "resume-hooks":
+        stopped = s.backend.iteration
+        first = s
+        s, _ = _mesh_surface_sampler(torch, leg, cuda_graph,
+                                     backend=s.backend)
+        s.run_mcmc(place(s.get_last_sample()), MS_STEPS - stopped)
+        extra = {"stopped": np.asarray([stopped]),
+                 "stop_checks": np.asarray(first.stopping_fn.calls),
+                 "plots": np.asarray(first.plot_generator.iterations
+                                     + s.plot_generator.iterations),
+                 "a": np.asarray([first.moves[0].a, s.moves[0].a])}
+    record = _mesh_zoo_record(s)
+    record.update(extra)
+    blobs = s.get_blobs()
+    if blobs is not None:
+        record["blobs"] = blobs
+    supp = s._previous_state.supplemental
+    host = {} if supp is None else supp.host_holder
+    return s, record, {k: [str(x) for x in v.ravel()] for k, v in host.items()}
+
+
+def _mesh_surface_rank(rank, world):
+    """One rank of the surface legs, in turn on one ``(2, 2)`` mesh: each
+    chain's run timed and its launches counted (the counters set to 0 just
+    before it), the getters' global arrays, the host objects' order and the
+    wall-clock ends of the legs."""
+    import numpy as np
+    import torch
+
+    from eryn_tpu_torch.parallel import _comm, make_mesh
+
+    out = {}
+    with _plain_versions_forbidden():
+        mesh = make_mesh(world, temp_parallel=2)
+        for leg in MESH_SURFACE_LEGS:
+            read = _counting(_kernels())
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            s, record, host = _mesh_surface_run(torch, np, leg, mesh)
+            torch.cuda.synchronize()
+            out[leg] = {"seconds": time.perf_counter() - t0,
+                        "launches": read(), "record": record, "host": host,
+                        "shard": tuple(s._previous_state.log_like.shape),
+                        "graph_replays": s.graph_replays,
+                        "end": time.time()}
+    out["staged"] = dict(_comm.STAGED)
+    return out
+
+
+def mesh_surface_legs(torch, card):
+    """The rest of the sampler's surface on the device mesh, on a ``(2,
+    2)`` mesh of four ranks sharing ``cuda:0`` over gloo, 10 + 40 steps of
+    the north-star each: ``mesh[general-cascade,4rank,gloo]`` (the general
+    swap cascade, ``permute=False``), ``mesh[general-stretch,4rank,gloo]``
+    (``StretchMove``'s general path: a periodic dimension and four
+    splits), ``mesh[blobs,4rank,gloo]`` (``blobs[north-star]``'s likelihood,
+    a branch supplemental, an int64 tag and a host object a walker),
+    ``mesh[host,4rank,gloo]`` (a NumPy likelihood, SciPy priors and a
+    legacy host ``MHMove`` at 0.1 beside the stretch move) and
+    ``mesh[resume-hooks,4rank,gloo]`` (``AdjustStretchProposalScale``,
+    ``AutoCorrelationStop`` and a plot generator, stopped at 25 stored steps
+    and continued by a fresh sampler from its ``Backend()``: the card's
+    machine has no h5py).  Each chain equals its one-rank eager chain digit
+    for digit or prints its first differing stored step and field; each
+    rank launches the cascade (kernel 3), the group stretch and the
+    selection (kernel 5) as often as the one-rank chain, and kernels 1 and
+    2 unfused, twice as often as that chain's fused trio; no plain version
+    runs.  Returns the launches of the ranks and the references, and the
+    legs' rates."""
+    import numpy as np
+
+    from eryn_tpu_torch.parallel._spawn import launch
+
+    refs, ref_launches, launches = {}, {}, {}
+    for leg in MESH_SURFACE_LEGS:
+        read = _counting(_kernels())
+        _, record, host = _mesh_surface_run(torch, np, leg, cuda_graph=False)
+        refs[leg] = (record, host)
+        ref_launches[leg] = read()
+        for k, v in ref_launches[leg].items():
+            launches[k] = launches.get(k, 0) + v
+    t0 = time.time()
+    ranks = launch(_mesh_surface_rank, 4, backend="gloo",
+                   timeout=MESH_TIMEOUT)
+    wall = time.time() - t0
+    rates, last = {}, t0
+    for leg in MESH_SURFACE_LEGS:
+        name = f"mesh[{leg},4rank,gloo]"
+        ref, ref_host = refs[leg]
+        drift = None
+        for i, r in enumerate(ranks):
+            got = r[leg]
+            assert got["graph_replays"] == 0, got["graph_replays"]
+            assert got["shard"] == (NT // 2, NW // 2), got["shard"]
+            first = _first_difference(np, got["record"], ref, steps=MS_STEPS)
+            if first is None:
+                # the same swaps reorder the host objects alike
+                assert got["host"] == ref_host, (
+                    name, i, "the chain equals the one-rank chain, the host "
+                    "objects' order does not")
+            else:
+                _mesh_surface_gates(np, f"{name} rank {i}", leg, got,
+                                    ref_host)
+            drift = drift or first
+            n, m = got["launches"], ref_launches[leg]
+            for k in ("pt_swap_cascade_multi", "_cascade_multi_rolled",
+                      "group_stretch_propose", "onehot_select"):
+                assert n[k] == m[k], (name, k, n, m)
+            # the fused trio on one rank, kernels 1 and 2 unfused sharded
+            assert m["stretch_propose"] == m["stretch_accept_propose"] \
+                == m["stretch_accept"], (name, m)
+            assert n["stretch_propose"] == n["stretch_accept"] \
+                == 2 * m["stretch_propose"], (name, n, m)
+            assert n["stretch_accept_propose"] == 0, (name, n)
+        if drift is None:
+            verdict = "equals the one-rank eager chain digit for digit"
+        else:
+            verdict = (f"differs from the one-rank eager chain from stored "
+                       f"step {drift[0]} in {drift[2]} (largest difference "
+                       f"{drift[1]:.6g})")
+            rates[f"{name}_first_difference"] = {
+                "step": drift[0], "field": drift[2], "max_abs": drift[1]}
+        rates[f"{name}_digit_for_digit"] = drift is None
+        got = _sum_launches([r[leg] for r in ranks])
+        for k, v in got.items():
+            launches[k] = launches.get(k, 0) + v
+        steps = MS_WARM + MS_STEPS
+        sps = steps / max(r[leg]["seconds"] for r in ranks)
+        end = max(r[leg]["end"] for r in ranks)
+        rates[f"{name}_steps_per_s"] = sps
+        rates[f"{name}_wall_s"] = end - last
+        start = "the ranks' start and " if last == t0 else ""
+        note = ""
+        if leg == "resume-hooks":
+            rec = ref
+            note = (f"; stopped at {int(rec['stopped'][0])} stored steps "
+                    f"(checks at {rec['stop_checks'].tolist()}), plots at "
+                    f"{rec['plots'].tolist()}, stretch scale "
+                    f"{rec['a'].tolist()}; continued from its Backend(), "
+                    "not an HDF5 file: this machine has no h5py"
+                    if not _have_h5py() else
+                    f"; stopped at {int(rec['stopped'][0])} stored steps, "
+                    "continued from its Backend()")
+        print(f"{name}: {verdict}; {sps:.1f} steps/s over {steps} steps "
+              f"(the slowest rank; eager), wall {end - last:.1f} s with "
+              f"{start}the set-up; launches by the ranks {got}, by the "
+              f"one-rank chain {ref_launches[leg]}{note} ({card})")
+        last = end
+    rates["mesh_surface_legs_wall_s"] = wall
+    print(f"mesh[general-cascade|general-stretch|blobs|host|resume-hooks,"
+          f"4rank,gloo]: wall {wall:.1f} s with the ranks' start; staged "
+          f"through host memory: {ranks[0]['staged'] or 'none'} ({card})")
+    return launches, rates, []
+
+
 def main(argv=None):
     parser = argparse.ArgumentParser(description=__doc__.split("\n")[0])
     parser.add_argument("--out", help="also write the report as JSON here")
@@ -4980,8 +5299,8 @@ def main(argv=None):
         return 0
     if args.mesh_legs or args.para_digest:
         with _plain_versions_forbidden():
-            legs = ([mesh_legs, mesh_rj_legs, mesh_zoo_legs]
-                    if args.mesh_legs else []) + (
+            legs = ([mesh_legs, mesh_rj_legs, mesh_zoo_legs,
+                     mesh_surface_legs] if args.mesh_legs else []) + (
                 [para_north_star_leg, para_rj_pulse128_leg]
                 if args.para_digest else [])
             for leg in legs:
@@ -5061,7 +5380,7 @@ def main(argv=None):
     with _plain_versions_forbidden():
         for leg in (host_like_leg, host_like_vec_leg, host_like_pool_leg,
                     hybrid_host_leg, examples_leg, mesh_legs,
-                    mesh_rj_legs, mesh_zoo_legs):
+                    mesh_rj_legs, mesh_zoo_legs, mesh_surface_legs):
             t0 = time.perf_counter()
             legs.append(leg(torch, smi))
             print(f"phase 4: {leg.__name__} {time.perf_counter() - t0:.1f} s")

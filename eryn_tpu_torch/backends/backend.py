@@ -34,9 +34,13 @@ class Backend:
     """In-memory backend.
 
     Under a device mesh (:mod:`~eryn_tpu_torch.parallel.mesh`) the sampler
-    resets it with its rank's shard's dims and calls :meth:`shard_over`: it
-    then stores the rank's shard, and its getters, which every rank calls,
-    gather the shards into the global arrays."""
+    resets it through :meth:`reset_sharded`: it then stores the rank's
+    shard, and its getters and counters (``accepted``, ``rj_accepted``,
+    :attr:`move_info`), which every rank reads alike, gather the shards
+    into the global arrays.  :meth:`reshard` moves a stored chain to
+    another placement of the state (sharded, or whole in every process).
+    The kernel states it is given are the whole ensemble's whatever the
+    placement (the sampler gathers them)."""
 
     device_resident = False
     #: the rank's MeshLayout whose shard this backend stores, or None
@@ -99,14 +103,16 @@ class Backend:
         self.numpy_random_state = None
         self._kernel_state_leaves = None
         self._sampler_clock = None
+        self._shard = None
         self.initialized = True
 
-    def shard_over(self, layout):
-        """Store this rank's shard of the ensemble that ``layout`` (a
-        :class:`~eryn_tpu_torch.parallel.mesh.MeshLayout`) splits; the
-        backend was just reset with the shard's dims.  ``ntemps``,
-        ``nwalkers`` and :attr:`shape` are the global ensemble's from
-        here."""
+    def reset_sharded(self, layout, nwalkers, ndims, ntemps=1, **kwargs):
+        """:meth:`reset` for this rank's shard of the ``ntemps x nwalkers``
+        ensemble that ``layout`` (a
+        :class:`~eryn_tpu_torch.parallel.mesh.MeshLayout`) splits: the
+        storage holds the shard, and ``ntemps``, ``nwalkers`` and
+        :attr:`shape` are the global ensemble's."""
+        self.reset(layout.nw, ndims, ntemps=layout.nt, **kwargs)
         self._shard = layout
         self.ntemps, self.nwalkers = layout.ntemps, layout.nwalkers
         # the ladder and the swap counts are whole on every rank
@@ -114,6 +120,61 @@ class Backend:
             self.betas = np.empty((0, self.ntemps), dtype=self.dtype)
         self.swaps_accepted = (np.zeros((self.ntemps - 1,))
                                if self.ntemps > 1 else None)
+
+    def reshard(self, layout):
+        """Continue the stored chain on another placement: ``layout``'s
+        shard, or the whole ensemble in every process for None.  The
+        stored rows are gathered from the old placement's ranks and cut to
+        the new one's (every rank calls this together)."""
+        from ..parallel.mesh import convert_rows, same_placement
+
+        src = self._shard
+        if not same_placement(src, layout):
+            def conv(x, taxis=0):
+                return (None if x is None
+                        else convert_rows(x, taxis, taxis + 1, src, layout))
+
+            self._reshard_store(conv)
+            for name in ("accepted", "rj_accepted"):
+                self._counter_set(name, conv(self._counter_get(name)))
+            if self.moves_accepted_fraction is not None:
+                self.moves_accepted_fraction = {
+                    k: conv(np.asarray(v))
+                    for k, v in self.moves_accepted_fraction.items()}
+        self._shard = layout
+
+    def _reshard_store(self, conv):
+        """The stored steps through ``conv`` (their step axis first)."""
+        for n in self.branch_names:
+            self.chain[n] = conv(self.chain[n], 1)
+            self.inds[n] = conv(self.inds[n], 1)
+        self.log_like = conv(self.log_like, 1)
+        self.log_prior = conv(self.log_prior, 1)
+        self.blobs = conv(self.blobs, 1)
+
+    # ------------------------------------------------------------------
+    # cumulative counters: the rank's shard held, the whole ensemble's read
+    # ------------------------------------------------------------------
+    def _counter_get(self, name):
+        return self.__dict__.get("_count_" + name)
+
+    def _counter_set(self, name, value):
+        self.__dict__["_count_" + name] = value
+
+    def _whole_counter(self, name):
+        x = self._counter_get(name)
+        if x is None or self._shard is None:
+            return x
+        return self._shard.gather_numpy(np.asarray(x))
+
+    accepted = property(lambda self: self._whole_counter("accepted"),
+                        lambda self, v: self._counter_set("accepted", v))
+    rj_accepted = property(lambda self: self._whole_counter("rj_accepted"),
+                           lambda self, v: self._counter_set("rj_accepted", v))
+    # the swap counts are whole on every rank
+    swaps_accepted = property(
+        lambda self: self._counter_get("swaps_accepted"),
+        lambda self, v: self._counter_set("swaps_accepted", v))
 
     @property
     def shape(self):
@@ -181,8 +242,9 @@ class Backend:
         for field, value in (("accepted", accepted),
                              ("rj_accepted", rj_accepted),
                              ("swaps_accepted", swaps_accepted)):
-            if value is not None and getattr(self, field) is not None:
-                setattr(self, field, getattr(self, field) + np.asarray(
+            held = self._counter_get(field)
+            if value is not None and held is not None:
+                self._counter_set(field, held + np.asarray(
                     value, dtype=np.float64).sum(axis=0))
         if self.moves_accepted_fraction is not None and moves_accepted_fraction:
             for key, val in moves_accepted_fraction.items():
@@ -256,11 +318,18 @@ class Backend:
     @property
     def move_info(self):
         """``{move key: {"acceptance_fraction": array}}``, or None without
-        tracked moves."""
+        tracked moves; under a mesh the whole ensemble's."""
         if self.moves_accepted_fraction is None:
             return None
+
+        def whole(val):
+            val = np.asarray(val)
+            if self._shard is None:
+                return val
+            return self._shard.gather_numpy(val)
+
         return {
-            key: {"acceptance_fraction": np.asarray(val)}
+            key: {"acceptance_fraction": whole(val)}
             for key, val in self.moves_accepted_fraction.items()
         }
 

@@ -93,18 +93,11 @@ class DeviceBackend(Backend):
         self._counter_host[name] = value
         self._counter_dev[name] = []
 
-    accepted = property(
-        lambda self: self._counter_get("accepted"),
-        lambda self, v: self._counter_set("accepted", v),
-    )
-    rj_accepted = property(
-        lambda self: self._counter_get("rj_accepted"),
-        lambda self, v: self._counter_set("rj_accepted", v),
-    )
-    swaps_accepted = property(
-        lambda self: self._counter_get("swaps_accepted"),
-        lambda self, v: self._counter_set("swaps_accepted", v),
-    )
+    def _reshard_store(self, conv):
+        """Everything stored so far to host memory as the whole ensemble's
+        (:meth:`offload` gathers a sharded chain); later segments land on
+        the device in the new placement."""
+        self.offload()
 
     def reset(self, *args, **kwargs):
         super().reset(*args, **kwargs)

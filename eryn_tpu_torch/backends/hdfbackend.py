@@ -20,12 +20,19 @@ named ``random_state_*``, so neither name may hold them.  A file written by
 ``eryn_tpu`` has neither dataset, and a port sampler resuming it seeds its
 generators from ``seed=``.
 
+Under a device mesh (:mod:`~eryn_tpu_torch.parallel.mesh`) the file holds
+the whole ensemble, in the same schema: every rank gathers what it
+stores, the mesh's first rank (``MeshLayout.writer``) writes it, and the
+other ranks wait at a barrier after each write, so that a read on any rank
+sees it.  Every rank reads the file.
+
 ``h5py`` is imported when a backend is made; without it the constructor
 raises an ``ImportError``.
 """
 
 from __future__ import annotations
 
+import contextlib
 import os
 import time
 
@@ -106,7 +113,9 @@ class HDFBackend(Backend):
     # ------------------------------------------------------------------
     def reset(self, nwalkers, ndims, nleaves_max=1, ntemps=1, branch_names=None,
               rj=False, moves=None, info=None, key_order=None):
-        """Create the file's layout, replacing the group ``name``."""
+        """Create the file's layout, replacing the group ``name``; this
+        process writes it from here."""
+        self._rows = self._ranks = None
         if branch_names is None:
             branch_names = ["model_0"]
         if isinstance(branch_names, str):
@@ -189,6 +198,43 @@ class HDFBackend(Backend):
                         "acceptance_fraction", (ntemps, nwalkers),
                         maxshape=(ntemps, nwalkers), dtype=self.dtype, **opts)
 
+    #: the mesh whose writer rank writes the file (it stays after a
+    #: sharded chain continues whole in every rank), or None: this process
+    _ranks = None
+    #: the rank's MeshLayout whose rows this process is given to store
+    #: (gathered for the writer), or None: the whole ensemble's
+    _rows = None
+
+    def reset_sharded(self, layout, nwalkers, ndims, ntemps=1, **kwargs):
+        """The file's layout for the whole ``ntemps x nwalkers`` ensemble
+        that ``layout`` splits, written by the writer rank; every rank
+        stores through the writer from here (see the module)."""
+        if layout.writer:
+            self.reset(nwalkers, ndims, ntemps=ntemps, **kwargs)
+        self._rows = self._ranks = layout
+        layout.barrier()
+
+    def reshard(self, layout):
+        """The file holds the whole ensemble whatever the placement: from
+        here the rows to write are ``layout``'s shard (or whole), and the
+        mesh's writer rank goes on writing them."""
+        self._rows = layout
+        self._ranks = layout or self._ranks
+
+    @contextlib.contextmanager
+    def _written(self):
+        """A block in which the writer rank writes; under a mesh every rank
+        waits at its end for the write."""
+        try:
+            yield
+        finally:
+            if self._ranks is not None:
+                self._ranks.barrier()
+
+    def _writes(self):
+        """Whether this process writes the file."""
+        return self._ranks is None or self._ranks.writer
+
     # ------------------------------------------------------------------
     # attributes read from the file
     # ------------------------------------------------------------------
@@ -260,7 +306,18 @@ class HDFBackend(Backend):
     def grow(self, ngrow, blobs=None):
         """Resize the datasets by ``ngrow`` steps; ``blobs``, one step's
         blobs, creates the resizable ``blobs`` dataset (its shape and dtype)
-        at the first call that gives it and sets ``has_blobs``."""
+        at the first call that gives it and sets ``has_blobs``; under a
+        mesh ``blobs`` are the rank's shard's, and the dataset the whole
+        ensemble's."""
+        if blobs is not None and self._rows is not None:
+            lay = self._rows
+            blobs = np.empty((lay.ntemps, lay.nwalkers)
+                             + np.shape(blobs)[2:], np.asarray(blobs).dtype)
+        with self._written():
+            if self._writes():
+                self._grow(ngrow, blobs)
+
+    def _grow(self, ngrow, blobs):
         with self.open("a") as f:
             g = f[self.name]
             ntot = int(g.attrs["iteration"]) + int(ngrow)
@@ -290,7 +347,39 @@ class HDFBackend(Backend):
         """Append a segment and its checkpoint (see
         :meth:`Backend.save_segment`) in one opening of the file, with
         ``iteration`` written last: a process killed between two segments
-        leaves a file whose every part describes the same step."""
+        leaves a file whose every part describes the same step.  Under a
+        mesh the rank's shard of each field is gathered and the writer
+        writes the whole; the kernel states come whole."""
+        lay = self._rows
+        if lay is not None:
+            def whole(x, axis=1):
+                return None if x is None else lay.gather_numpy(
+                    np.asarray(x), axis=axis)
+
+            ndim = {n: np.ndim(c) for n, c in coords.items()}
+            coords = {n: whole(c) for n, c in coords.items()}
+            # the masks of a segment, or one step's (no step axis)
+            inds = {n: whole(m, 1 if np.ndim(m) == ndim[n] - 1 else 0)
+                    for n, m in inds.items()}
+            log_like, log_prior = whole(log_like), whole(log_prior)
+            blobs, accepted = whole(blobs), whole(accepted)
+            rj_accepted = whole(rj_accepted)
+            if moves_accepted_fraction is not None:
+                moves_accepted_fraction = {
+                    k: whole(v, 0) for k, v in moves_accepted_fraction.items()}
+        with self._written():
+            if self._writes():
+                self._save_segment(
+                    coords, inds, log_like, log_prior, betas, blobs,
+                    accepted, rj_accepted, swaps_accepted,
+                    moves_accepted_fraction, random_state, host_random_state,
+                    sampler_clock, kernel_states, numpy_random_state)
+
+    def _save_segment(self, coords, inds, log_like, log_prior, betas,
+                      blobs, accepted, rj_accepted, swaps_accepted,
+                      moves_accepted_fraction, random_state,
+                      host_random_state, sampler_clock, kernel_states,
+                      numpy_random_state):
         log_like = np.asarray(log_like, dtype=self.dtype)
         n = log_like.shape[0]
 
@@ -337,13 +426,18 @@ class HDFBackend(Backend):
         """Store the moves' kernel states under
         ``kernel_states/<move>/<leaf>``, rewritten whole."""
         super().save_kernel_states(kernel_states, move_keys)
-        with self.open("a") as f:
-            _write_kernel_states(f[self.name], *self._kernel_state_leaves)
+        with self._written():
+            if self._writes():
+                with self.open("a") as f:
+                    _write_kernel_states(f[self.name],
+                                         *self._kernel_state_leaves)
 
     def save_sampler_clock(self, time):
         """Store the adaptation clock as the attribute ``tempering_time``."""
-        with self.open("a") as f:
-            f[self.name].attrs["tempering_time"] = int(time)
+        with self._written():
+            if self._writes():
+                with self.open("a") as f:
+                    f[self.name].attrs["tempering_time"] = int(time)
 
     def get_sampler_clock(self):
         with self.open() as f:

@@ -50,7 +50,7 @@ from .state import BranchSupplemental, State, resolve_device
 from .utils.periodic import PeriodicContainer
 from .utils.plot import PlotContainer
 from .utils.profiling import SegmentTimer
-from .utils.pytree import tree_flatten
+from .utils.pytree import tree_flatten, tree_unflatten
 
 __all__ = ["EnsembleSampler"]
 
@@ -76,6 +76,47 @@ def _restore_numpy_state(random, stored):
     cached = stored[624 * 4 + 16:].view(np.float64)[0]
     random.set_state(("MT19937", keys, int(pos), int(has_gauss),
                       float(cached)))
+
+
+def _several_ranks():
+    """Whether this process is one rank of a ``torch.distributed`` program
+    of several."""
+    import torch.distributed as dist
+
+    return (dist.is_available() and dist.is_initialized()
+            and dist.get_world_size() > 1)
+
+
+def _placed_leaves(leaves, axes, src, dst):
+    """A kernel state's leaves (tensors, NumPy arrays, or None where one
+    could not be stored) of placement ``src`` laid out by ``dst``, along
+    each leaf's ``(rung, walker)`` axes ``axes``
+    (:meth:`~eryn_tpu_torch.moves.Move.kernel_state_axes` of the kernel
+    state made on ``dst``)."""
+    from .parallel.mesh import convert_rows, same_placement
+
+    if same_placement(src, dst) or len(axes) != len(leaves):
+        return leaves  # restore_kernel_state names a changed structure
+    return [x if x is None or ax == (None, None)
+            else convert_rows(x if isinstance(x, torch.Tensor)
+                              else np.asarray(x), *ax, src, dst)
+            for x, ax in zip(leaves, axes)]
+
+
+def _axes_of(move, kernel_state):
+    """``move``'s :meth:`~eryn_tpu_torch.moves.Move.kernel_state_axes`;
+    none for a host move, whose kernel state is empty."""
+    return [] if move.host_move else move.kernel_state_axes(kernel_state)
+
+
+def _map_rows(state, fn, dims):
+    """``state`` with ``fn`` applied to every tensor whose leading dims are
+    ``dims`` (the per-walker fields; the ladder is left as it is)."""
+    def rows(x):
+        return (fn(x).contiguous()
+                if x.ndim >= 2 and tuple(x.shape[:2]) == dims else x)
+
+    return state.map_tensors(rows)
 
 
 def _crossed(prev, now, interval):
@@ -974,13 +1015,19 @@ class EnsembleSampler:
             backend = HDFBackend(backend)
         self._backend = backend
         if not backend.initialized:
-            self._reset_backend(backend)
+            # in a program of several ranks a file is laid out at the first
+            # run, when the state's placement says which rank writes it
+            if not (isinstance(backend, HDFBackend) and _several_ranks()):
+                self._reset_backend(backend)
         else:
             self._check_backend(backend)
             if backend.iteration > 0:
                 self._resume(backend)
 
         if self.plot_iterations > 0 and self.plot_generator is None:
+            # under a mesh it runs on every rank, and the writer rank's
+            # writes the files (_use_mesh)
+            self._own_plots = True
             self.plot_generator = PlotContainer(
                 fp="output", backend=self.backend,
                 plot_dir=plot_folder or ".",
@@ -1110,20 +1157,20 @@ class EnsembleSampler:
         return {n: p.key_order for n, p in self.priors.items()}
 
     def _reset_backend(self, backend):
-        ntemps, nwalkers = self._local_dims
-        backend.reset(
-            nwalkers,
-            self.ndims,
+        kwargs = dict(
             nleaves_max=self.nleaves_max,
-            ntemps=ntemps,
+            ntemps=self.ntemps,
             branch_names=self.branch_names,
             rj=self.has_reversible_jump,
             moves=list(self.all_moves) if self.track_moves else None,
             info=self.info,
             key_order=self.key_order,
         )
-        if self._mesh_layout is not None:
-            backend.shard_over(self._mesh_layout)
+        if self._mesh_layout is None:
+            backend.reset(self.nwalkers, self.ndims, **kwargs)
+        else:
+            backend.reset_sharded(self._mesh_layout, self.nwalkers,
+                                  self.ndims, **kwargs)
 
     @property
     def _local_dims(self):
@@ -1135,13 +1182,17 @@ class EnsembleSampler:
     def _use_mesh(self, state):
         """Find the device mesh of ``state`` (``eryn_tpu``'s
         ``_detect_sharding``) and hand its layout to the moves, the
-        temperature control and the backend.  Under a mesh only the sharded
-        step's configuration runs (see :meth:`_check_mesh`)."""
-        from .parallel.mesh import mesh_of_state
+        temperature control and the backend.  A backend that already holds
+        a chain continues it on the new placement (sharded, or whole in
+        every process): its stored rows, the move counters and the kernel
+        states are gathered from the old placement and cut to the new one
+        (:meth:`~eryn_tpu_torch.backends.Backend.reshard`)."""
+        from .parallel.mesh import mesh_of_state, same_placement
 
         mesh = mesh_of_state(state)
         layout = None if mesh is None else state.sharding.layout
-        if layout is self._mesh_layout:
+        backend = self.backend
+        if layout is self._mesh_layout and backend.initialized:
             return
         if layout is not None and (layout.ntemps, layout.nwalkers) != (
                 self.ntemps, self.nwalkers):
@@ -1149,73 +1200,54 @@ class EnsembleSampler:
                 f"The state is sharded from a {layout.ntemps} x "
                 f"{layout.nwalkers} ensemble; the sampler's is "
                 f"{self.ntemps} x {self.nwalkers}.")
-        if self.backend.iteration > 0:
-            raise NotImplementedError(
-                "A backend that already holds a chain does not continue on "
-                "another placement of the state (sharded over a device "
-                "mesh, or not) in eryn_tpu_torch: store the run in a new "
-                "Backend or DeviceBackend.")
         if layout is not None:
             self._check_mesh()
+        old = self._mesh_layout
         self._mesh_layout = layout
         for move in self._all_move_list:
             move.wire_mesh(layout)
         if self.temperature_control is not None:
             self.temperature_control.mesh_layout = layout
         self._graphs = None
-        self._m_acc = None
-        self._reset_backend(self.backend)
-
-    @staticmethod
-    def _refuse_under_mesh(what):
-        raise NotImplementedError(
-            f"{what} does not run under a device mesh in eryn_tpu_torch "
-            "(parallel.mesh): the sharded step runs StretchMove's fused "
-            "path, RedBlueGroupStretchMove, DEMove, DESnookerMove, WalkMove, "
-            "KDEMove, GroupStretchMove, SliceMove, MALAMove, HMCMove, "
-            "ChEESHMCMove, GaussianMove, DistributionGenerate, AIMHMove, "
-            "MTDistGenMove, DelayedRejection and CombineMove (of moves that "
-            "run sharded), a subclass of MHMove that sets _mesh_sharded, and "
-            "reversible jump by DistributionGenerateRJ, MTDistGenMoveRJ and "
-            "the model swap, with the kernel cascade or DEO, into a Backend "
-            "or DeviceBackend.")
-
-    def _check_mesh(self, state=None):
-        """Raise ``NotImplementedError`` for what has no sharded form: a
-        move whose ``mesh_ready`` names it (a host move, a periodic or
-        general-path ``StretchMove``, a subclass of a move that runs
-        sharded that does not set ``_mesh_sharded`` itself, a
-        ``CombineMove`` or ``DelayedRejection`` around such a move), the
-        general (``permute=False`` or ``use_kernels=False``) cascade,
-        ``HDFBackend`` and the ``run_mcmc`` hooks; with the set-up
-        ``state``, host likelihoods and priors, blobs and supplementals.
-        Every other move of the package runs sharded, reversible jump
-        too (the moves' ``mesh_ready``); a backend that already holds a
-        chain is refused by :meth:`_use_mesh`."""
-        refuse = self._refuse_under_mesh
-        if state is not None:
-            if self._like_eval.host or self._prior_eval.host:
-                refuse("A host (NumPy) likelihood or prior")
-            if (self._like_eval.returns_blobs or self.provide_supplemental
-                    or state.supplemental is not None
-                    or any(b.branch_supplemental is not None
-                           for b in state.branches.values())):
-                refuse("Blobs and supplementals")
+        if self._own_plots:
+            self.plot_generator.save_files = layout is None or layout.writer
+        if not backend.initialized or backend.iteration == 0:
+            self._m_acc = None
+            self._reset_backend(backend)
             return
+        backend.reshard(layout)
+        if not same_placement(old, layout):
+            from .parallel.mesh import convert_rows
+
+            if self._m_acc is not None:
+                self._m_acc = convert_rows(self._m_acc, 1, 2, old, layout)
+            if self._kernel_states is not None:
+                # converted at the set-up, against fresh ones on the new
+                # placement
+                self._kernel_states_from = old
+
+    #: whether the sampler made the plot generator (a PlotContainer)
+    _own_plots = False
+
+    #: the placement the kernel states were made on, where it differs from
+    #: the state's (None: they are the state's)
+    _kernel_states_from = False
+
+    def _check_mesh(self):
+        """Raise ``NotImplementedError`` for a move whose ``mesh_ready``
+        names it: a subclass of a move that runs sharded that does not set
+        ``_mesh_sharded`` itself (its draws may not go through
+        ``rank_draw``), or a ``CombineMove`` or ``DelayedRejection`` around
+        one.  Everything else of the sampler runs sharded."""
         for move in self._all_move_list:
             why = move.mesh_ready()
             if why is not None:
-                refuse(why)
-        tc = self.temperature_control
-        if (tc is not None and tc.swap_scheme == "cascade"
-                and (not tc.permute or tc.use_kernels is False)):
-            refuse("The general swap cascade (permute=False or "
-                   "use_kernels=False)")
-        if isinstance(self.backend, HDFBackend):
-            refuse("HDFBackend")
-        if (self.update_fn is not None or self.stopping_fn is not None
-                or self.plot_iterations > 0):
-            refuse("update_fn, stopping_fn and the plot hook")
+                raise NotImplementedError(
+                    f"{why} does not run under a device mesh in "
+                    "eryn_tpu_torch (parallel.mesh): a subclass of a move "
+                    "that runs sharded declares itself sharded by setting "
+                    "_mesh_sharded = True in its class, once every random "
+                    "draw of it goes through Move.rank_draw.")
 
     def _check_backend(self, backend):
         """A backend that holds a chain must match the moves (when they are
@@ -1495,9 +1527,17 @@ class EnsembleSampler:
                 blobs = blobs_new
 
         if not skip_initial_state_check:
-            if torch.isnan(log_like).any():
+            # over the whole ensemble: under a mesh every rank decides alike
+            flags = torch.stack([torch.isnan(log_like).any(),
+                                 torch.isnan(log_prior).any(),
+                                 (~torch.isinf(log_prior)).any()]).double()
+            if self._mesh_layout is not None:
+                flags = flags.to(self._mesh_layout.device)
+                self._mesh_layout.sum(flags)
+            nan_ll, nan_lp, finite_lp = (bool(f > 0) for f in flags.cpu())
+            if nan_ll:
                 raise ValueError("The initial log_like was NaN.")
-            if torch.isnan(log_prior).any() or torch.isinf(log_prior).all():
+            if nan_lp or not finite_lp:
                 raise ValueError("The initial log_prior was NaN or all -inf.")
         # masks are constant without reversible jump: they are stored once
         # per segment (a host copy for the host backend)
@@ -1525,7 +1565,6 @@ class EnsembleSampler:
             branch_supplemental=branch_supps,
         )
         if self._mesh_layout is not None:
-            self._check_mesh(out)
             out.sharding = state.sharding
         return out
 
@@ -1541,10 +1580,15 @@ class EnsembleSampler:
         """The state with an int64 identity index ``__prov__`` in its
         supplemental: the swaps move it with everything else, so at the end
         of a segment it holds, for every slot, the flat slot its walker came
-        from, by which :meth:`_apply_prov` reorders the host entries."""
+        from, by which :meth:`_apply_prov` reorders the host entries.  Under
+        a mesh each rank holds its slots' rows of it (the host entries are
+        the whole ensemble's on every rank)."""
         nt, nw = self.ntemps, self.nwalkers
         prov = torch.arange(nt * nw, dtype=torch.int64,
                             device=self.device).reshape(nt, nw)
+        if self._mesh_layout is not None:
+            prov = self._mesh_layout.local(prov).contiguous()
+            nt, nw = self._local_dims
         supp = state.supplemental
         if supp is None:
             supp = BranchSupplemental({}, base_shape=(nt, nw))
@@ -1559,7 +1603,10 @@ class EnsembleSampler:
         supp = state.supplemental
         if supp is not None and "__prov__" in supp.holder:
             holder = dict(supp.holder)
-            prov = holder.pop("__prov__").cpu().numpy().ravel()
+            prov = holder.pop("__prov__")
+            if self._mesh_layout is not None:  # every rank's slots
+                prov = self._mesh_layout.gather(prov)
+            prov = prov.cpu().numpy().ravel()
             supp = supp.with_holder(holder)
             if not np.array_equal(prov, np.arange(nt * nw)):
                 for host in self._host_supps.values():
@@ -1646,13 +1693,35 @@ class EnsembleSampler:
         state's ladder and the clock while it runs, and its swap phase, if
         it ran one, advances them as a native step's epilogue does.
         Returns ``(state, accepted, swaps, time)`` as :meth:`_step`'s
-        moves do."""
+        moves do.
+
+        Under a mesh every rank runs the protocol on the whole ensemble,
+        gathered, as one process does: the same NumPy and torch generator
+        states and every draw at its global shape, the swap phase unsharded
+        (every rank makes the same decisions); then each rank keeps its
+        rows."""
         tc = self.temperature_control
+        lay = self._mesh_layout
+        if lay is not None:
+            sharding = state.sharding
+            state = _map_rows(state, lay.gather, (lay.nt, lay.nw))
         if tc is not None:
             tc.time, tc.betas, tc.swaps_accepted = time, state.betas, None
-        state, accepted = host_propose(move, self.get_model(), state)
+            tc.mesh_layout = None
+        move.wire_mesh(None)
+        try:
+            state, accepted = host_propose(move, self.get_model(), state)
+        finally:
+            move.wire_mesh(lay)
+            if tc is not None:
+                tc.mesh_layout = lay
         acc = torch.as_tensor(accepted).to(device=self.device,
                                            dtype=self.dtype)
+        if lay is not None:
+            state = _map_rows(state, lay.local,
+                              (self.ntemps, self.nwalkers))
+            state.sharding = sharding
+            acc = lay.local(acc).contiguous()
         swaps = None if tc is None else tc.swaps_accepted
         if swaps is None:
             swaps = acc.new_zeros((max(self.ntemps - 1, 0),))
@@ -1907,8 +1976,8 @@ class EnsembleSampler:
             host_random_state=staged["host_random_state"],
             numpy_random_state=staged["numpy_random_state"],
             sampler_clock=None if clock is None else int(clock),
-            kernel_states=(list(self.all_moves),
-                           [host_leaves(x) for x in staged["kernel_leaves"]]),
+            kernel_states=(list(self.all_moves), self._whole_kernel_leaves(
+                [host_leaves(x) for x in staged["kernel_leaves"]])),
         )
 
     def _make_seg_unpacker(self):
@@ -1958,13 +2027,40 @@ class EnsembleSampler:
     def _ensure_kernel_states(self, state):
         if self._kernel_states is None:
             self._kernel_states = self._init_kernel_states(state)
+        elif self._kernel_states_from is not False:
+            # the state moved to another placement since they were made
+            src, self._kernel_states_from = self._kernel_states_from, False
+            placed = []
+            for m, tree in zip(self._all_move_list, self._kernel_states):
+                leaves, spec = tree_flatten(tree)
+                placed.append(tree_unflatten(spec, _placed_leaves(
+                    leaves, _axes_of(m, tree), src,
+                    self._mesh_layout)))
+            self._kernel_states = placed
+
+    def _whole_kernel_leaves(self, per_move):
+        """``per_move``, each move's kernel-state leaves in
+        :func:`tree_flatten`'s order, as a backend stores them: the whole
+        ensemble's, so that a stored chain continues on any placement.
+        Under a device mesh they are gathered along the axes each move
+        declares (:meth:`~eryn_tpu_torch.moves.Move.kernel_state_axes`;
+        every rank calls this together)."""
+        return [_placed_leaves(leaves, _axes_of(m, ks),
+                               self._mesh_layout, None)
+                for m, ks, leaves in zip(self._all_move_list,
+                                         self._kernel_states, per_move)]
+
+    def _fresh_kernel_states(self, state):
+        return [() if m.host_move else m.init_kernel_state(state)
+                for m in self._all_move_list]
 
     def _init_kernel_states(self, state):
         """The moves' fresh kernel states, or on a resumed backend the
         stored ones, validated leaf by leaf against the fresh structure:
-        a mismatch (the moves changed) warns and starts fresh."""
-        fresh = [() if m.host_move else m.init_kernel_state(state)
-                 for m in self._all_move_list]
+        a mismatch (the moves changed) warns and starts fresh.  The stored
+        leaves are the whole ensemble's (:meth:`_whole_kernel_leaves`),
+        laid out here as the state is."""
+        fresh = self._fresh_kernel_states(state)
         stored = self.backend.get_kernel_states()
         if stored is None or self.backend.iteration == 0:
             return fresh
@@ -1974,8 +2070,11 @@ class EnsembleSampler:
                 raise ValueError("move keys changed")
             if len(stored_leaves) != len(fresh):
                 raise ValueError("move count changed")
-            return [restore_kernel_state(f, leaves)
-                    for f, leaves in zip(fresh, stored_leaves)]
+            return [restore_kernel_state(f, _placed_leaves(
+                        leaves, _axes_of(m, f), None,
+                        self._mesh_layout))
+                    for m, f, leaves in zip(self._all_move_list, fresh,
+                                            stored_leaves)]
         except ValueError as err:
             warnings.warn(
                 "Stored move kernel states are incompatible with the current "
@@ -1995,8 +2094,10 @@ class EnsembleSampler:
         if tc is not None:
             self.backend.save_sampler_clock(int(tc.time))
         if self._kernel_states is not None:
-            self.backend.save_kernel_states(self._kernel_states,
-                                            move_keys=list(self.all_moves))
+            self.backend.save_kernel_states(
+                self._whole_kernel_leaves([tree_flatten(ks)[0]
+                                           for ks in self._kernel_states]),
+                move_keys=list(self.all_moves))
 
     def _tuned_moves(self, tune):
         return [m for m in self._all_move_list
@@ -2143,7 +2244,7 @@ class EnsembleSampler:
                     m.tune(state, m.accepted)
                 if plot_fires(i0, i):
                     self.plot_generator.generate_plot_info(burn=0, thin=1)
-                if stop_fires(i0, i) and self.stopping_fn(i, state, self):
+                if stop_fires(i0, i) and self._stop(i, state):
                     break
                 if update_fires(i0, i):
                     self.update_fn(i, state, self)
@@ -2152,6 +2253,14 @@ class EnsembleSampler:
         self._sync_move_counters()
         self._finalize_kernel_states(store)
         return state
+
+    def _stop(self, i, state):
+        """``stopping_fn``'s decision; under a mesh, where it runs on every
+        rank on the gathered getters, the writer rank's, on every rank."""
+        stop = bool(self.stopping_fn(i, state, self))
+        if self._mesh_layout is not None:
+            stop = self._mesh_layout.writer_says(stop)
+        return stop
 
     def _coerce_eval_inputs(self, coords, inds):
         if not isinstance(coords, dict):
@@ -2204,19 +2313,14 @@ class EnsembleSampler:
 
     @property
     def acceptance_fraction(self):
-        accepted = self.backend.accepted
-        if self._mesh_layout is not None:  # every rank's walkers
-            accepted = self._mesh_layout.gather_numpy(accepted)
-        return accepted / float(self.backend.iteration)
+        # under a mesh the backend's counters are the whole ensemble's
+        return self.backend.accepted / float(self.backend.iteration)
 
     @property
     def rj_acceptance_fraction(self):
         if not self.has_reversible_jump:
             return None
-        rj_accepted = self.backend.rj_accepted
-        if self._mesh_layout is not None:  # every rank's walkers
-            rj_accepted = self._mesh_layout.gather_numpy(rj_accepted)
-        return rj_accepted / float(self.backend.iteration)
+        return self.backend.rj_accepted / float(self.backend.iteration)
 
     @property
     def swap_acceptance_fraction(self):

@@ -31,7 +31,13 @@ import numpy as np
 import torch
 
 from .kde import cholesky_or_nan, periodic_refused
-from .move import Move, merge_blobs, mh_decide, state_branch_supps
+from .move import (
+    Move,
+    leaf_axes,
+    merge_blobs,
+    mh_decide,
+    state_branch_supps,
+)
 from .tempering import tempered_log_likelihood
 
 __all__ = ["AIMHMove", "GAMMA_ROUNDS"]
@@ -129,6 +135,11 @@ class AIMHMove(Move):
         return {"w": x.new_full((x.shape[0],), float(self._nwalkers(x))),
                 "mean": mean, "cov": cov,
                 "t": torch.zeros((), dtype=torch.int32, device=x.device)}
+
+    def kernel_state_axes(self, kernel_state):
+        # the weights and moments of the rank's rungs, over all their walkers
+        return [ax for k in sorted(kernel_state) for ax in leaf_axes(
+            kernel_state[k], (None, None) if k == "t" else (0, None))]
 
     def _nwalkers(self, x):
         """The ensemble's walker count (the shard's ``x`` has its own)."""

@@ -82,6 +82,11 @@ class CombineMove(Move):
             per_child,
         )
 
+    def kernel_state_axes(self, kernel_state):
+        child_states, _ = kernel_state
+        return [ax for m, ks in zip(self.moves_list, child_states)
+                for ax in m.kernel_state_axes(ks)] + [(1, 2)]
+
     def propose_kernel(self, generator, state, time, ctx, kernel_state=()):
         child_states, per_child = kernel_state
         accs, new_states = [], []

@@ -178,6 +178,9 @@ class DelayedRejection(Move):
         self.propagate_wiring()
         return self.proposal.init_kernel_state(state)
 
+    def kernel_state_axes(self, kernel_state):
+        return self.proposal.kernel_state_axes(kernel_state)
+
     def _propose_impl(self, generator, state, ctx, kernel_state=()):
         coords = dict(state.branches_coords)
         inds = dict(state.branches_inds)

@@ -22,6 +22,7 @@ import torch
 from ..utils.pytree import tree_flatten, tree_unflatten
 from .move import (
     Move,
+    leaf_axes,
     merge_blobs,
     mh_decide,
     state_branch_supps,
@@ -150,6 +151,11 @@ class GroupMove(Move):
             "snap_coords": _clone(coords),
             "snap_inds": _clone(inds),
         }
+
+    def kernel_state_axes(self, kernel_state):
+        # the friends and the snapshot: the rank's rungs, all their walkers
+        return [ax for k in sorted(kernel_state) for ax in leaf_axes(
+            kernel_state[k], (None, None) if k == "iter" else (0, None))]
 
     def _propose_impl(self, generator, state, ctx, kernel_state):
         coords = dict(state.branches_coords)

@@ -22,6 +22,7 @@ import numpy as np
 import torch
 
 from ..utils.periodic import PeriodicContainer
+from ..utils.pytree import tree_flatten
 from .tempering import _host
 
 __all__ = [
@@ -30,6 +31,7 @@ __all__ = [
     "mh_accept",
     "mh_decide",
     "active_ndim",
+    "leaf_axes",
     "merge_blobs",
     "overrides_host_api",
     "state_branch_supps",
@@ -109,6 +111,12 @@ def state_branch_supps(state, perm=None, block=None):
     return out or None
 
 
+def leaf_axes(tree, axes):
+    """``axes`` once for every leaf of ``tree`` (for
+    :meth:`Move.kernel_state_axes`)."""
+    return [axes] * len(tree_flatten(tree)[0])
+
+
 def merge_blobs(acc, new, old):
     """``old`` blobs with the walkers where ``acc`` (leading dims of the
     blobs) holds taking ``new``; None stays None."""
@@ -159,9 +167,10 @@ class Move:
         else what does not (the sampler raises at set-up).  A class runs
         sharded where it sets ``_mesh_sharded = True`` itself (every draw of
         its a :meth:`rank_draw`): a subclass, whose draws the package cannot
-        vouch for, does not inherit it, and a host move never runs
-        sharded."""
-        if type(self).__dict__.get("_mesh_sharded") and not self.host_move:
+        vouch for, does not inherit it.  A host move runs sharded too: the
+        sampler runs its protocol on the gathered state in every rank, from
+        the same NumPy generator, and each rank keeps its rows."""
+        if self.host_move or type(self).__dict__.get("_mesh_sharded"):
             return None
         return type(self).__name__
 
@@ -281,6 +290,16 @@ class Move:
     def init_kernel_state(self, state):
         """Per-move carry (e.g. tuned scales); empty for the stretch move."""
         return ()
+
+    def kernel_state_axes(self, kernel_state):
+        """Each leaf's ``(rung axis, walker axis)`` on a state sharded over
+        a device mesh, in :func:`~eryn_tpu_torch.utils.pytree.tree_flatten`'s
+        order: the axes along which the rank holds its block of the leaf,
+        either None where every rank holds it whole along that mesh axis.
+        A backend that stores the whole ensemble, or a chain continued on
+        another placement, gathers and cuts the leaves along them.  Default:
+        every leaf whole (a tuned scale, a step count)."""
+        return leaf_axes(kernel_state, (None, None))
 
     def prepare_constants(self, state):
         """Build on the state's device the constants a step reads (the Gibbs

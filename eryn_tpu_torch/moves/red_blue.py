@@ -6,11 +6,13 @@ block is proposed from its complement, evaluated and accepted in turn, and
 each later block sees the earlier blocks' updated positions.
 
 On a state sharded over a device mesh (:mod:`~eryn_tpu_torch.parallel.
-mesh`) the stock red/blue moves (the group stretch, DE, DE-snooker, walk and
-KDE: :meth:`~eryn_tpu_torch.moves.move.Move.mesh_ready`) take the sharded
-form (:meth:`RedBlueMove._propose_impl_sharded`): the same draws at
-their global shape, each block's complement gathered within the temperature
-shard, and the likelihood on this rank's walkers.
+mesh`) the stock red/blue moves (the stretch's general path, the group
+stretch, DE, DE-snooker, walk and KDE:
+:meth:`~eryn_tpu_torch.moves.move.Move.mesh_ready`) take the sharded form
+(:meth:`RedBlueMove._propose_impl_sharded`): the same draws at their global
+shape, each block's complement gathered within the temperature shard, and
+the likelihood on this rank's walkers, with their branch supplementals,
+their blobs merged where they lie.
 """
 
 from __future__ import annotations
@@ -263,6 +265,7 @@ class RedBlueMove(Move):
                 prev_logl, prev_logp = logl[:, idx], logp[:, idx]
                 logl_new = torch.zeros_like(prev_logl)
                 logp_new = torch.zeros_like(prev_logp)
+                blobs_new = None
                 if blk.at is not None:
                     at = blk.at
                     q_eval = {
@@ -272,8 +275,12 @@ class RedBlueMove(Move):
                     inds_eval = {n: inds_p[n][:, block][:, at]
                                  for n in all_names}
                     lp = ctx.compute_log_prior(q_eval, inds_eval)
-                    # blobs and supplementals do not run sharded
-                    ll, _ = ctx.compute_log_like(q_eval, inds_eval, lp)
+                    # the rank's walkers of the block with their branch
+                    # supplementals, which the move leaves as they are
+                    own = blk.own_idx - self.mesh_layout.w0
+                    ll, blobs_new = ctx.compute_log_like(
+                        q_eval, inds_eval, lp,
+                        state_branch_supps(state, perm=own))
                     logl_new[:, at] = ll
                     logp_new[:, at] = lp
 
@@ -287,6 +294,11 @@ class RedBlueMove(Move):
                     coords[n][:, idx] = torch.where(acc4, q[n], s_coords[n])
                 logl[:, idx] = torch.where(acc, logl_new, prev_logl)
                 logp[:, idx] = torch.where(acc, logp_new, prev_logp)
+                if blobs_new is not None and view.blobs is not None:
+                    # only the rank's walkers carry blobs
+                    own_idx = blk.own_idx
+                    view.blobs[:, own_idx] = merge_blobs(
+                        acc[:, blk.at], blobs_new, view.blobs[:, own_idx])
                 view.accepted[:, idx] = acc | view.accepted[:, idx]
         return view.result(state)
 
@@ -335,6 +347,8 @@ class WalkerBlocks:
         self.inds = {n: view(m) for n, m in state.branches_inds.items()}
         self.log_like = view(state.log_like)
         self.log_prior = view(state.log_prior)
+        # blobs: the rank's walkers only, never exchanged
+        self.blobs = None if state.blobs is None else view(state.blobs)
         self.accepted = torch.zeros((layout.nt, layout.nwalkers),
                                     dtype=torch.bool,
                                     device=state.log_like.device)
@@ -365,11 +379,12 @@ class WalkerBlocks:
 
     def result(self, state):
         """``(state, accepted)``: the rank's shard of the coordinates,
-        log-likelihood and log-prior the blocks wrote, with ``state``'s
-        leaf masks, and of the accept flags."""
+        log-likelihood, log-prior and blobs the blocks wrote, with
+        ``state``'s leaf masks, and of the accept flags."""
         own = self.layout.own
         return state.replace(
             coords={n: own(c) for n, c in self.coords.items()},
             inds=state.branches_inds, log_like=own(self.log_like),
             log_prior=own(self.log_prior),
+            blobs=None if self.blobs is None else own(self.blobs),
         ), own(self.accepted)

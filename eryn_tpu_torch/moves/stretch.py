@@ -11,12 +11,14 @@ Port of :mod:`eryn_tpu.moves.stretch`.  Two paths:
   device whenever the structure allows it.
 
 On a state sharded over a device mesh (:mod:`~eryn_tpu_torch.parallel.
-mesh`) the move takes the sharded form of the fused path
-(:meth:`StretchMove._propose_impl_fused_sharded`): the same draws at
-their global shape, each half's complement gathered within the
-temperature shard, and kernels 1 and 2 on this rank's walkers.  Its
-subclasses that run sharded take
-:class:`~eryn_tpu_torch.moves.red_blue.RedBlueMove`'s sharded form.
+mesh`) the move takes the path one process would take, in its sharded
+form: the fused path's
+(:meth:`StretchMove._propose_impl_fused_sharded`: the same draws at their
+global shape, each half's complement gathered within the temperature
+shard, and kernels 1 and 2 on this rank's walkers), or the general path
+through :class:`~eryn_tpu_torch.moves.red_blue.RedBlueMove`'s sharded form
+(its draws through :meth:`~eryn_tpu_torch.moves.move.Move.rank_draw`),
+which its subclasses that run sharded take too.
 """
 
 from __future__ import annotations
@@ -52,6 +54,8 @@ class StretchMove(RedBlueMove):
     general path, which stretches along the minimal signed distance and
     wraps the proposal.
     """
+
+    _mesh_sharded = True
 
     def __init__(self, a=2.0, use_kernels=None, use_log_proposal=False, **kwargs):
         super().__init__(**kwargs)
@@ -115,27 +119,12 @@ class StretchMove(RedBlueMove):
             and self.run_branches(state) == list(state.branches)
         )
 
-    def mesh_ready(self):
-        """The sharded step is the fused path's: no periodic parameters, no
-        Gibbs splits, two randomized halves over every branch, the stock
-        proposal, and kernels allowed (``use_kernels`` not False)."""
-        if type(self) is not StretchMove:
-            return super().mesh_ready()
-        if (self.use_kernels is False or self.periodic is not None
-                or self.gibbs_iterations != [None] or self.nsplits != 2
-                or not self.randomize_split
-                or self.proposal_branch_names is not None):
-            return ("StretchMove with periodic parameters, a "
-                    "gibbs_sampling_setup, nsplits other than 2, a fixed "
-                    "split, a branch subset or use_kernels=False")
-        return None
-
     def _propose_impl(self, generator, state, ctx, kernel_state=()):
-        if self.mesh_layout is not None and type(self) is StretchMove:
-            new_state, accepted = self._propose_impl_fused_sharded(
-                generator, state, ctx)
-            return new_state, accepted, kernel_state
         if self._can_fuse(state):
+            if self.mesh_layout is not None:
+                new_state, accepted = self._propose_impl_fused_sharded(
+                    generator, state, ctx)
+                return new_state, accepted, kernel_state
             ntemps, nwalkers = state.log_like.shape
             perm, u_all = self.draw_fused(
                 generator, ntemps, nwalkers, state.log_like.dtype,
@@ -324,9 +313,9 @@ class StretchMove(RedBlueMove):
     def choose_c_vals(self, generator, c, ns):
         """Uniform random complement walker per proposed walker."""
         ntemps, nc = c.shape[:2]
-        rint = torch.randint(
-            0, nc, (ntemps, ns), generator=generator, device=c.device
-        )
+        rint = self.rank_draw(
+            lambda sh: torch.randint(0, nc, sh, generator=generator,
+                                     device=c.device), (ntemps, ns))
         idx = rint[:, :, None, None].expand(ntemps, ns, *c.shape[2:])
         return torch.gather(c, 1, idx)
 
@@ -338,8 +327,9 @@ class StretchMove(RedBlueMove):
         dtype, device = first.dtype, first.device
 
         # one z per walker, shared across branches
-        u = torch.rand((ntemps, ns), generator=generator, dtype=dtype,
-                       device=device)
+        u = self.rank_draw(
+            lambda sh: torch.rand(sh, generator=generator, dtype=dtype,
+                                  device=device), (ntemps, ns))
         if self.use_log_proposal:
             zz = torch.exp((2.0 * u - 1.0) * math.log(self.a))
         else:

@@ -184,8 +184,9 @@ class TemperatureControl:
     walkers, but the state supplemental's ``skip_swap_supp_names``.
 
     On a state sharded over a device mesh (``mesh_layout``, which the
-    sampler sets) the swap phase runs sharded: the kernel cascade decides
-    on the gathered log-likelihood (:meth:`_swap_cascade_sharded`), DEO
+    sampler sets) the swap phase runs sharded: the kernel cascade and the
+    general cascade decide on the gathered log-likelihood
+    (:meth:`_swap_cascade_sharded`, :meth:`_swap_general_sharded`), DEO
     exchanges the neighbouring shards' edge rungs
     (:meth:`_swap_deo_sharded`); the ladder stays whole on every rank.
     """
@@ -348,18 +349,24 @@ class TemperatureControl:
         return self.mesh_layout.ntemps, self.mesh_layout.nwalkers
 
     def _swap_sharded(self, generator, swap_tree, logl, betas, time):
-        """:meth:`swap_kernel` on this rank's shard: the draws of the kernel
-        cascade (or of DEO) at their global shape, then the sharded form of
-        the phase."""
+        """:meth:`swap_kernel` on this rank's shard: the draws of the phase
+        one process would run (DEO, the kernel cascade or the general
+        cascade, chosen as there) at their global shape, then the sharded
+        form of the phase."""
         ntemps, nwalkers = self._dims(logl)
         if self.swap_scheme == "deo":
             raccept = self.draw_deo(generator, ntemps, nwalkers, logl.dtype,
                                     logl.device)
             return self._swap_deo_sharded(swap_tree, logl, betas, time,
                                           raccept)
-        pi, shifts, raccept = self.draw_kernel(generator, ntemps, nwalkers,
-                                               logl.dtype, logl.device)
-        return self._swap_cascade_sharded(swap_tree, logl, betas, pi, shifts,
+        if self._use_kernel_cascade(logl):
+            pi, shifts, raccept = self.draw_kernel(
+                generator, ntemps, nwalkers, logl.dtype, logl.device)
+            return self._swap_cascade_sharded(swap_tree, logl, betas, pi,
+                                              shifts, raccept)
+        perms, raccept = self.draw_general(generator, ntemps, nwalkers,
+                                           logl.dtype, logl.device)
+        return self._swap_general_sharded(swap_tree, logl, betas, perms,
                                           raccept)
 
     def _swap_cascade_sharded(self, swap_tree, logl, betas, pi, shifts,
@@ -387,6 +394,22 @@ class TemperatureControl:
         moved = lay.move_rows(list(leaves), out_origin)
         return (_unflatten(paths, moved), lay.local(out_logl).contiguous(),
                 accepted, proposed)
+
+    def _swap_general_sharded(self, swap_tree, logl, betas, perms, raccept):
+        """The general cascade on a sharded state: its decisions
+        (:meth:`_cascade_general_decisions`) on the log-likelihood gathered
+        over the mesh, which every rank makes alike, then each slot of this
+        rank's shard takes its origin's row, each row moved once
+        (:meth:`~eryn_tpu_torch.parallel.mesh.MeshLayout.move_rows`).
+        Returns what :meth:`swap_kernel` returns, for the shard."""
+        lay = self.mesh_layout
+        logl_new, flat, accepted = self._cascade_general_decisions(
+            lay.gather(logl), betas, perms, raccept)
+        paths, leaves = zip(*_flatten(swap_tree))
+        moved = lay.move_rows(list(leaves),
+                              flat.reshape(lay.ntemps, lay.nwalkers))
+        return (_unflatten(paths, moved), lay.local(logl_new).contiguous(),
+                accepted, lay.nwalkers)
 
     def _swap_deo_sharded(self, swap_tree, logl, betas, time, raccept):
         """A DEO phase on a sharded state: this shard's rungs with the
@@ -524,6 +547,20 @@ class TemperatureControl:
         ``(ntemps - 1, 2, nwalkers)`` (walker orders of rung i and rung i-1
         per boundary)."""
         ntemps, nwalkers = logl.shape
+        logl_new, flat, accepted = self._cascade_general_decisions(
+            logl, betas, perms, raccept)
+        swap_tree = _gather_walkers(swap_tree, flat, ntemps, nwalkers)
+        return swap_tree, logl_new, accepted
+
+    @staticmethod
+    def _cascade_general_decisions(logl, betas, perms, raccept):
+        """The general cascade's decisions on the whole ``(ntemps,
+        nwalkers)`` log-likelihood: ``(log-likelihood after the phase, the
+        flat slot each slot's walker came from, accepted swaps per
+        boundary)``.  Per rung, the log-likelihood travels with an origin
+        channel in its dtype, which float32 carries exactly up to
+        :func:`~eryn_tpu_torch.ops.pt_swap._check_provenance_capacity`."""
+        ntemps, nwalkers = logl.shape
         if logl.dtype == torch.float32:  # float64 carries exact ints to 2^53
             _check_provenance_capacity(ntemps, nwalkers)
         inv_perms = torch.argsort(perms, dim=-1)
@@ -543,8 +580,7 @@ class TemperatureControl:
             data[i] = torch.where(sel, di1, di)[inv_perms[i - 1, 0]]
             data[i - 1] = torch.where(sel, di, di1)[inv_perms[i - 1, 1]]
         flat = data[..., 1].long().reshape(-1)
-        swap_tree = _gather_walkers(swap_tree, flat, ntemps, nwalkers)
-        return swap_tree, data[..., 0], torch.stack(accepted[::-1])
+        return data[..., 0], flat, torch.stack(accepted[::-1])
 
     def _swap_cascade_kernel(self, swap_tree, logl, betas, pi, shifts, raccept):
         """Kernel cascade from the given draws (see :meth:`draw_kernel`), in

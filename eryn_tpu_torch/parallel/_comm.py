@@ -3,7 +3,9 @@
 Four operations, each on a process group of the mesh (the whole mesh, or
 the ranks along one of its dimensions): :func:`all_gather_into_tensor`,
 :func:`all_to_all_single` (with uneven splits), :func:`all_reduce` (a sum)
-and :func:`batch_isend_irecv` (point-to-point exchanges).  Every call goes
+and :func:`batch_isend_irecv` (point-to-point exchanges); and
+:func:`barrier`, which moves no data (a file's readers wait for its
+writer).  Every call goes
 through ``torch.distributed``'s module attributes, so
 :mod:`~eryn_tpu_torch.parallel.comm_audit` sees it.
 
@@ -25,6 +27,7 @@ __all__ = [
     "all_gather_into_tensor",
     "all_reduce",
     "all_to_all_single",
+    "barrier",
     "batch_isend_irecv",
 ]
 
@@ -118,3 +121,8 @@ def batch_isend_irecv(sends, recvs, group=None):
 
     _run("batch_isend_irecv", group, fn, [t.contiguous() for t, _ in sends],
          [t for t, _ in recvs])
+
+
+def barrier(group=None):
+    """Wait until every rank of ``group`` reaches this call."""
+    dist.barrier(group=group)

@@ -149,9 +149,10 @@ def audit_sampler_comm(sampler, state):
     The step runs eagerly, as every sharded step does, and is the whole
     schedule of one step: under reversible jump both proposal phases, the
     in-model move and the birth/death move, each with its swap phase,
-    whose payload carries the leaf masks.  The sampler's generators,
-    clock, ladder, moves' kernel states and last state are restored after
-    it, so the audit leaves the chain as it was.
+    whose payload carries the leaf masks.  The sampler's generators (the
+    host moves' NumPy one too), clock, ladder, moves' kernel states and
+    last state are restored after it, so the audit leaves the chain as it
+    was.
 
     Returns:
         dict with ``per_op`` ``{op: {"count", "bytes"}}``, ``total_bytes``
@@ -167,6 +168,7 @@ def audit_sampler_comm(sampler, state):
         raise ValueError("audit_sampler_comm needs a state sharded over a "
                          "mesh of more than one rank (shard_state).")
     tc = sampler.temperature_control
+    numpy_state = sampler._np_random.get_state()
     saved = (sampler._gen.get_state(), sampler._host_gen.get_state(),
              sampler._previous_state,
              None if tc is None else (tc.time, tc.betas, tc.swaps_accepted),
@@ -180,6 +182,7 @@ def audit_sampler_comm(sampler, state):
     finally:
         sampler._gen.set_state(saved[0])
         sampler._host_gen.set_state(saved[1])
+        sampler._np_random.set_state(numpy_state)
         sampler._previous_state = saved[2]
         if tc is not None:
             tc.time, tc.betas, tc.swaps_accepted = saved[3]

@@ -186,21 +186,8 @@ class MeshLayout:
     def gather(self, x, axis=0):
         """The global tensor of which ``x`` is this rank's shard along axes
         ``(axis, axis + 1)`` (``(nt, nw)`` there), gathered over the whole
-        mesh on ``x``'s device.  Bool tensors travel as bytes."""
-        x = x.contiguous()
-        send = x.view(torch.uint8) if x.dtype == torch.bool else x
-        out = send.new_empty((self.size * send.shape[0],)
-                             + tuple(send.shape[1:]))
-        _comm.all_gather_into_tensor(out, send, group=self.world)
-        out = out.view((self.size,) + tuple(send.shape))
-        shape = list(x.shape)
-        shape[axis], shape[axis + 1] = self.ntemps, self.nwalkers
-        full = send.new_empty(shape)
-        lead = (slice(None),) * axis
-        for block, (ti, wi) in zip(out, self._rank_order()):
-            full[lead + (slice(ti * self.nt, (ti + 1) * self.nt),
-                         slice(wi * self.nw, (wi + 1) * self.nw))] = block
-        return full.view(torch.bool) if x.dtype == torch.bool else full
+        mesh on ``x``'s device (:meth:`gather_axes`)."""
+        return self.gather_axes(x, axis, axis + 1)
 
     # ------------------------------------------------------------------
     # the sharded step's exchanges
@@ -397,11 +384,113 @@ class MeshLayout:
         """Sum ``t`` over the mesh, in place."""
         return _comm.all_reduce(t, group=self.world)
 
+    @property
+    def writer(self):
+        """Whether this rank writes what the mesh stores once (an HDF5
+        file): the mesh's first rank, ``ranks[0][0]``."""
+        return self.rank == self.ranks[0][0]
+
+    def barrier(self):
+        """Wait for every rank of the mesh (a file's readers for its
+        writer)."""
+        _comm.barrier(group=self.world)
+
+    def writer_says(self, flag):
+        """``flag`` as the writer rank has it, on every rank (one
+        all-reduce of one number): a decision, such as stopping a run, that
+        no rank may take alone."""
+        comm = self.device if _needs_device(self.world) else torch.device("cpu")
+        t = torch.tensor([1.0 if (flag and self.writer) else 0.0],
+                         device=comm)
+        self.sum(t)
+        return bool(t.item() > 0)
+
+    def gather_axes(self, x, taxis=None, waxis=None):
+        """The global tensor of which ``x`` is this rank's block along the
+        temperature axis ``taxis`` (``nt`` long there) and the walker axis
+        ``waxis`` (``nw``); either is None where ``x`` is whole along it,
+        and the block is then taken from the ranks at coordinate 0 of that
+        mesh axis.  One all-gather over the mesh; bool tensors travel as
+        bytes."""
+        x = x.contiguous()
+        send = x.view(torch.uint8) if x.dtype == torch.bool else x
+        out = send.new_empty((self.size * send.numel(),))
+        _comm.all_gather_into_tensor(out, send.reshape(-1), group=self.world)
+        out = out.view((self.size,) + tuple(send.shape))
+        shape = list(send.shape)
+        if taxis is not None:
+            shape[taxis] = self.ntemps
+        if waxis is not None:
+            shape[waxis] = self.nwalkers
+        full = send.new_empty(shape)
+        for block, (ti, wi) in zip(out, self._rank_order()):
+            if (taxis is None and ti) or (waxis is None and wi):
+                continue
+            idx = [slice(None)] * len(shape)
+            if taxis is not None:
+                idx[taxis] = slice(ti * self.nt, (ti + 1) * self.nt)
+            if waxis is not None:
+                idx[waxis] = slice(wi * self.nw, (wi + 1) * self.nw)
+            full[tuple(idx)] = block
+        return full.view(torch.bool) if x.dtype == torch.bool else full
+
+    def take_axes(self, x, taxis=None, waxis=None):
+        """This rank's block of a global ``x`` along ``taxis`` and
+        ``waxis`` (either None: whole there); NumPy arrays or tensors."""
+        idx = [slice(None)] * x.ndim
+        if taxis is not None:
+            idx[taxis] = slice(self.t0, self.t0 + self.nt)
+        if waxis is not None:
+            idx[waxis] = slice(self.w0, self.w0 + self.nw)
+        return x[tuple(idx)]
+
     def gather_numpy(self, a, axis=0):
         """:meth:`gather` of a host array, through the mesh's device."""
+        return self.gather_axes_numpy(a, axis, axis + 1)
+
+    def gather_axes_numpy(self, a, taxis=None, waxis=None):
+        """:meth:`gather_axes` of a host array, through the mesh's
+        device."""
         t = torch.from_numpy(np.ascontiguousarray(a))
         comm = self.device if _needs_device(self.world) else torch.device("cpu")
-        return self.gather(t.to(comm), axis).cpu().numpy()
+        return self.gather_axes(t.to(comm), taxis, waxis).cpu().numpy()
+
+    def placement(self):
+        """What identifies where this rank's shard lies: the mesh's shape,
+        the rank's coordinates and the global dims."""
+        return (self.tp, self.wp, self.ti, self.wi, self.ntemps,
+                self.nwalkers)
+
+
+def same_placement(a, b):
+    """Whether two :class:`MeshLayout` (or None, the whole ensemble in
+    every process) place a rank's rows alike."""
+    if a is None or b is None:
+        return a is b
+    return a.placement() == b.placement()
+
+
+def convert_rows(x, taxis, waxis, src, dst):
+    """``x`` (a tensor or a NumPy array), whose axis ``taxis`` runs over
+    temperatures and ``waxis`` over walkers (either None: ``x`` has no such
+    axis), laid out by placement ``src`` (a :class:`MeshLayout`, or None
+    for the whole ensemble in every process), as ``dst`` lays it out:
+    gathered over ``src``'s mesh (a collective: every rank of it calls
+    this together) and cut to ``dst``'s rows."""
+    if same_placement(src, dst):
+        return x
+    numpy = isinstance(x, np.ndarray)
+    if src is not None:
+        gt = taxis if src.tp > 1 else None
+        gw = waxis if src.wp > 1 else None
+        if gt is not None or gw is not None:
+            x = (src.gather_axes_numpy(x, gt, gw) if numpy
+                 else src.gather_axes(x, gt, gw))
+    if dst is not None:
+        x = dst.take_axes(x, taxis if dst.tp > 1 else None,
+                          waxis if dst.wp > 1 else None)
+        x = np.ascontiguousarray(x) if numpy else x.contiguous()
+    return x
 
 
 def _pack(rows):

@@ -142,7 +142,13 @@ class PlotContainer:
             return [str(lb) for lb in labels]
         return [f"param {d}" for d in range(ndim)]
 
+    #: False: draw, and write nothing (a rank of a device mesh other than
+    #: the one that writes the files)
+    save_files = True
+
     def _path(self, tag):
+        if not self.save_files:
+            return os.devnull
         os.makedirs(self.plot_dir, exist_ok=True)
         return os.path.join(self.plot_dir, f"{self.fp}_{tag}.png")
 

@@ -40,7 +40,8 @@ from eryn_tpu_torch.parallel._spawn import launch
 NDIM = 8
 NWALKERS = 64
 CASES = {"cascade_8x1": (8, 8, {}), "deo_8x1": (8, 8, {"swap_scheme": "deo"}),
-         "standard_2x4": (4, 2, {})}
+         "standard_2x4": (4, 2, {}),
+         "general_cascade_8x1": (8, 8, {"permute": False})}
 
 
 def _sampler(ntemps, **tk_extra):
@@ -167,8 +168,45 @@ def _zoo_audits(world):
     return out
 
 
+class HostWalk(tm.MHMove):
+    """A legacy host move: Eryn's NumPy ``get_proposal``."""
+
+    def get_proposal(self, branches_coords, random, branches_inds=None,
+                     **kwargs):
+        q = {n: np.asarray(c) + 0.2 * random.randn(*np.shape(c))
+             for n, c in branches_coords.items()}
+        return q, np.zeros(next(iter(q.values())).shape[:2])
+
+
+def _host_move_audit(world):
+    """One audited step of a legacy host move on the default ``(2, 4)``
+    mesh (4 temperatures, 64 walkers, 8-D), its swap phase the kernel
+    cascade's."""
+    import warnings
+
+    with warnings.catch_warnings():
+        warnings.simplefilter("ignore")  # the host move's warning
+        s = et.EnsembleSampler(
+            NWALKERS, NDIM, lambda x: -0.5 * torch.sum(x ** 2),
+            et.ProbDistContainer({i: et.uniform_dist(-5, 5)
+                                  for i in range(NDIM)}),
+            moves=HostWalk(), tempering_kwargs=dict(ntemps=ZOO_TEMPS,
+                                                    use_kernels=True),
+            seed=7, device="cpu")
+    coords = np.random.default_rng(3).uniform(
+        -5, 5, (ZOO_TEMPS, NWALKERS, 1, NDIM)).astype(np.float32)
+    state = shard_state(et.State({"model_0": torch.from_numpy(coords)}),
+                        make_mesh(world))
+    before = s._np_random.get_state()[1].copy()
+    audit = audit_sampler_comm(s, state)
+    audit["numpy_restored"] = bool(np.array_equal(
+        before, s._np_random.get_state()[1]))
+    return audit
+
+
 def _rank_main(rank, world):
-    out = {"rj_deo_8x1": _rj_deo_audit(world), "zoo": _zoo_audits(world)}
+    out = {"rj_deo_8x1": _rj_deo_audit(world), "zoo": _zoo_audits(world),
+           "host_move_2x4": _host_move_audit(world)}
     for name, (ntemps, temp_parallel, extra) in CASES.items():
         mesh = make_mesh(world, temp_parallel=temp_parallel)
         s = _sampler(ntemps, **extra)
@@ -188,7 +226,7 @@ def _rank_main(rank, world):
 def audits():
     ranks = launch(_rank_main, 8, timeout=240)
     return {name: [r[name] for r in ranks]
-            for name in list(CASES) + ["rj_deo_8x1", "zoo"]}
+            for name in list(CASES) + ["rj_deo_8x1", "zoo", "host_move_2x4"]}
 
 
 def test_cascade_swap_traffic_is_boundary_local(audits):
@@ -200,6 +238,31 @@ def test_cascade_swap_traffic_is_boundary_local(audits):
         assert audit["big_gathers"] == [], audit
         assert set(audit["per_op"]) == {"all-gather", "all-to-all"}, audit
         assert audit["total_bytes"] <= 2.5 * audit["payload_bytes"], audit
+
+
+def test_general_cascade_traffic_is_boundary_local(audits):
+    """The general cascade (``permute=False``) on the same mesh, sharded as
+    the kernel cascade is: the gathered log-likelihood, the decisions made
+    alike on every rank, and the rows whose origin lies on another rank in
+    one all-to-all, within 2.5 payloads."""
+    for audit in audits["general_cascade_8x1"]:
+        assert audit["big_gathers"] == [], audit
+        assert set(audit["per_op"]) == {"all-gather", "all-to-all"}, audit
+        assert audit["per_op"]["all-gather"]["bytes"] == 8 * NWALKERS * 4
+        assert audit["total_bytes"] <= 2.5 * audit["payload_bytes"], audit
+
+
+def test_host_move_step_gathers_the_state_once(audits):
+    """A legacy host move runs on the whole ensemble in every rank: its
+    step receives each per-walker leaf once (coordinates, leaf masks,
+    log-likelihood, log-prior: four all-gathers, one payload and the masks'
+    bytes) and nothing more (its swap phase runs on the gathered state),
+    and the audit restores the NumPy generator the move drew from."""
+    for audit in audits["host_move_2x4"]:
+        masks = ZOO_TEMPS * NWALKERS
+        assert audit["per_op"] == {"all-gather": {
+            "count": 4, "bytes": audit["payload_bytes"] + masks}}, audit
+        assert audit["numpy_restored"]
 
 
 def test_deo_swap_traffic_is_one_parity_phase(audits):
