@@ -200,7 +200,21 @@ Phases, each printing its own lines:
      and ``mesh[resume-hooks,4rank,gloo]`` (the update, stopping and plot
      hooks, stopped at 25 stored steps and continued by a fresh sampler
      from its ``Backend()``), each chain against its one-rank eager chain
-     and each rank's launches against that chain's;
+     and each rank's launches against that chain's; and users' own move
+     subclasses, none declaring itself sharded (``mesh_custom_legs``, 10
+     + 40 steps each on a (2, 2) mesh): ``mesh[custom-mh,4rank,gloo]`` (the
+     custom-moves example's ``KernelJumpMove``: its proposal on the gathered
+     coordinates, its likelihood on the rank's rows),
+     ``mesh[custom-stretch,4rank,gloo]`` (a bare ``StretchMove`` subclass,
+     whole in every rank: the fused kernels 1-2 and kernel 3),
+     ``mesh[custom-combine,4rank,gloo]``
+     (``CombineMove([KernelJumpMove(), StretchMove()])``, and
+     ``DelayedRejection`` around a bare ``GaussianMove`` subclass at 0.2)
+     and ``mesh[custom-rj,4rank,gloo]`` (config C with a bare
+     ``DistributionGenerateRJ`` subclass beside ``RedBlueGroupStretchMove``:
+     kernel 5 in every rank), each chain equal to its one-rank eager chain
+     digit for digit (a difference ends the script) and each rank's
+     launches of kernels 1, 2, 3 and 5 equal to that chain's;
    * a flat-likelihood RJ run (64 walkers, 3 leaves): a uniform leaf-count
      posterior.  It checks the RJ moves, is not part of the main path, and
      its launches stay out of the report.
@@ -610,6 +624,17 @@ def check_kernels(torch, dtype_name):
             assert torch.equal(a.isnan(), b.isnan())
     assert errs["group_stretch_propose[sharded mt-rj]"] == 0.0, (
         "group_stretch_propose disagrees at an MT-RJ mesh rank's shape")
+    # and of a (2, 2) mesh rank of the custom RJ leg (config C), both blocks
+    for case in GROUP_SHARDED_CONFIG_C:
+        args, kw = _group_args(torch, rand, randn, dtype, **case)
+        q_k, f_k = select_kernels.group_stretch_propose(*args, **kw)
+        q_r, f_r = select_kernels.group_stretch_propose_ref(*args, **kw)
+        record("group_stretch_propose[sharded config-c]",
+               (f_k, *q_k.values()), (f_r, *q_r.values()))
+        for a, b in zip((f_k, *q_k.values()), (f_r, *q_r.values())):
+            assert torch.equal(a.isnan(), b.isnan())
+    assert errs["group_stretch_propose[sharded config-c]"] == 0.0, (
+        "group_stretch_propose disagrees at a config C mesh rank's shape")
     torch.cuda.synchronize()
     return errs
 
@@ -623,6 +648,12 @@ GROUP_SHARDED = dict(nt=L_NT // 2, nw=L_NW, shapes={"m": (L_NLMAX, 3)},
 # 4 leaves of 5 dimensions, each block of the split
 GROUP_SHARDED_MTRJ = tuple(
     dict(nt=NT // 2, nw=NW, shapes={"model_0": (Z_NLMAX, NDIM)}, off=off,
+         ns=NW // 2) for off in (0, NW // 2))
+# ... and on a (2, 2) mesh rank of config C (mesh[custom-rj]): half the
+# temperatures of the 100-walker view, 4 pulse leaves of 3 parameters, each
+# block of the split
+GROUP_SHARDED_CONFIG_C = tuple(
+    dict(nt=NT // 2, nw=NW, shapes={"model_0": (P_NLMAX, 3)}, off=off,
          ns=NW // 2) for off in (0, NW // 2))
 
 # group_stretch_propose's checks: the RJ shape (both blocks of the split),
@@ -841,6 +872,14 @@ def time_kernels(torch):
         lambda: select_kernels.group_stretch_propose_ref(*mtrj_args,
                                                          **mtrj_kw),
         *_group_bytes_ops(torch, mtrj_args),
+    )
+    # a (2, 2) mesh rank's launch in the custom RJ leg (config C), block 0
+    cc_args, cc_kw = _group_args(torch, rand, randn, torch.float32,
+                                 **GROUP_SHARDED_CONFIG_C[0], overflow=False)
+    calls["group_stretch_propose[sharded config-c]"] = (
+        lambda: select_kernels.group_stretch_propose(*cc_args, **cc_kw),
+        lambda: select_kernels.group_stretch_propose_ref(*cc_args, **cc_kw),
+        *_group_bytes_ops(torch, cc_args),
     )
     empty = _build.function("eryn_empty_launch", "p")
 
@@ -5233,6 +5272,211 @@ def mesh_surface_legs(torch, card):
     return launches, rates, []
 
 
+# mesh[custom-mh|custom-stretch|custom-combine|custom-rj,4rank,gloo]: users'
+# own move subclasses, none declaring itself sharded, on a (2, 2) mesh of
+# four ranks, 10 steps of burn-in and 40 stored each into DeviceBackend (the
+# north-star at 10 x 100, 5-D; config C for the RJ leg)
+MC_WARM, MC_STEPS, MC_SEED = 10, 40, 43
+MESH_CUSTOM_LEGS = ("custom-mh", "custom-stretch", "custom-combine",
+                    "custom-rj")
+
+
+def _custom_classes():
+    """The users' classes of the custom legs: the custom-moves example's
+    ``KernelJumpMove`` (``eryn_tpu_torch/examples/custom_moves.py``), and
+    bare subclasses of ``StretchMove``, ``GaussianMove`` and
+    ``DistributionGenerateRJ``."""
+    from eryn_tpu_torch import moves as tm
+    from eryn_tpu_torch.examples.custom_moves import KernelJumpMove
+
+    class MyStretch(tm.StretchMove):
+        pass
+
+    class MyGauss(tm.GaussianMove):
+        pass
+
+    class MyBirthDeath(tm.DistributionGenerateRJ):
+        pass
+
+    return KernelJumpMove, MyStretch, MyGauss, MyBirthDeath
+
+
+def _mesh_custom_sampler(torch, np, leg, cuda_graph=True):
+    """A custom leg's sampler (into DeviceBackend) and its global start, not
+    evaluated."""
+    from eryn_tpu_torch import DeviceBackend, EnsembleSampler, State
+    from eryn_tpu_torch import moves as tm
+
+    jump, stretch, gauss, birth_death = _custom_classes()
+    if leg == "custom-rj":
+        ll, pr, fill = _pulse_problem(torch, np, npts=P_NPTS)
+        s = EnsembleSampler(
+            NW, 3, ll, pr, nleaves_max=P_NLMAX, nleaves_min=0,
+            moves=tm.RedBlueGroupStretchMove(),
+            rj_moves=[birth_death(pr, nleaves_max={"model_0": P_NLMAX},
+                                  nleaves_min={"model_0": 0})],
+            tempering_kwargs=dict(ntemps=NT), fill_zero_leaves_val=fill,
+            seed=3, device="cuda", cuda_graph=cuda_graph,
+            backend=DeviceBackend())
+        coords = pr.rvs(size=(NT, NW, P_NLMAX), generator=torch.Generator(
+            device="cuda").manual_seed(3), dtype=torch.float32)
+        inds = np.random.default_rng(4).random((NT, NW, P_NLMAX)) < 0.3
+        return s, State({"model_0": coords}, inds={
+            "model_0": torch.as_tensor(inds, device="cuda")})
+    diag = {"model_0": np.diag(np.full(NDIM, 0.5 ** 2))}
+    moves = {
+        "custom-mh": jump,
+        "custom-stretch": stretch,
+        "custom-combine": lambda: [
+            (tm.CombineMove([jump(), tm.StretchMove()]), 0.8),
+            (tm.DelayedRejection(gauss(diag), max_iter=2), 0.2)],
+    }[leg]()
+    s, priors = _gaussian_sampler(torch, NT, NW, MC_SEED,
+                                  backend=DeviceBackend(),
+                                  cuda_graph=cuda_graph, moves=moves)
+    coords = priors.rvs(size=(NT, NW), generator=torch.Generator(
+        device="cuda").manual_seed(MC_SEED))
+    return s, State({"model_0": coords[:, :, None, :]})
+
+
+def _mesh_custom_rank(rank, world):
+    """One rank of the custom legs, in turn on one ``(2, 2)`` mesh: each
+    chain's state sharded, its run timed, its launches counted (the counters
+    set to 0 just before it), the getters' global arrays, the moves' routes
+    and the wall-clock ends of the legs."""
+    import numpy as np
+    import torch
+
+    from eryn_tpu_torch.ensemble import _walk_moves
+    from eryn_tpu_torch.parallel import _comm, make_mesh, shard_state
+
+    out = {}
+    with _plain_versions_forbidden():
+        mesh = make_mesh(world, temp_parallel=2)
+        for leg in MESH_CUSTOM_LEGS:
+            s, state = _mesh_custom_sampler(torch, np, leg)
+            state = shard_state(state, mesh)
+            read = _counting(_kernels())
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            s.run_mcmc(state, MC_STEPS, burn=MC_WARM)
+            torch.cuda.synchronize()
+            out[leg] = {"seconds": time.perf_counter() - t0,
+                        "launches": read(), "record": _mesh_zoo_record(s),
+                        "routes": [
+                            f"{type(x).__name__}: {x.mesh_route()}"
+                            for m in _walk_moves(s._all_move_list)
+                            for x in (m, getattr(m, "proposal", None))
+                            if x is not None],
+                        "shard": tuple(s._previous_state.log_like.shape),
+                        "graph_replays": s.graph_replays, "end": time.time()}
+    out["staged"] = dict(_comm.STAGED)
+    return out
+
+
+def _kernel_work(n):
+    """Launches of kernels 1, 2, 3 and 5 in ``n`` (a launch counter's
+    reading): the fused stretch launch counts for both 1 and 2, the rolled
+    cascade for 3 and the selection alone for 5."""
+    return {"1": n["stretch_propose"] + n["stretch_accept_propose"],
+            "2": n["stretch_accept"] + n["stretch_accept_propose"],
+            "3": n["pt_swap_cascade_multi"] + n["_cascade_multi_rolled"],
+            "5": n["group_stretch_propose"] + n["onehot_select"]}
+
+
+def mesh_custom_legs(torch, card):
+    """Users' own move subclasses on the device mesh, none declaring itself
+    sharded, on a ``(2, 2)`` mesh of four ranks sharing ``cuda:0`` over
+    gloo, 10 + 40 steps each into DeviceBackend:
+    ``mesh[custom-mh,4rank,gloo]`` (the custom-moves example's
+    ``KernelJumpMove``: its proposal on the gathered coordinates, the
+    likelihood on the rank's rows), ``mesh[custom-stretch,4rank,gloo]`` (a
+    bare ``StretchMove`` subclass, whole in every rank),
+    ``mesh[custom-combine,4rank,gloo]``
+    (``CombineMove([KernelJumpMove(), StretchMove()])`` at 0.8 and
+    ``DelayedRejection`` around a bare ``GaussianMove`` subclass at 0.2) and
+    ``mesh[custom-rj,4rank,gloo]`` (config C, a bare
+    ``DistributionGenerateRJ`` subclass beside ``RedBlueGroupStretchMove``).
+    Each chain must equal its one-rank eager chain digit for digit: a
+    difference prints its first differing stored step and field and fails
+    the script.  Each rank launches kernels 1, 2, 3 and 5 as often as that
+    chain (the fused stretch launch counted as both 1 and 2: a rank's
+    sharded stretch launches 1 and 2 unfused, twice a step); no plain
+    version runs.  Returns the launches of the ranks and the references,
+    the ranks' kernel 5 launches also under ``group_stretch_propose[sharded
+    config-c]`` (the shape the kernel phase holds against the plain
+    version), and the legs' rates."""
+    import numpy as np
+
+    from eryn_tpu_torch.parallel._spawn import launch
+
+    refs, ref_launches, launches = {}, {}, {}
+    for leg in MESH_CUSTOM_LEGS:
+        read = _counting(_kernels())
+        s, state = _mesh_custom_sampler(torch, np, leg, cuda_graph=False)
+        s.run_mcmc(state, MC_STEPS, burn=MC_WARM)
+        refs[leg] = _mesh_zoo_record(s)
+        ref_launches[leg] = read()
+        for k, v in ref_launches[leg].items():
+            launches[k] = launches.get(k, 0) + v
+    t0 = time.time()
+    ranks = launch(_mesh_custom_rank, 4, backend="gloo",
+                   timeout=MESH_TIMEOUT)
+    wall = time.time() - t0
+    steps = MC_WARM + MC_STEPS
+    rates, last, sharded, drifts = {}, t0, 0, []
+    for leg in MESH_CUSTOM_LEGS:
+        name = f"mesh[{leg},4rank,gloo]"
+        ref = refs[leg]
+        drift = None
+        for i, r in enumerate(ranks):
+            got = r[leg]
+            assert got["graph_replays"] == 0, got["graph_replays"]
+            assert got["shard"] == (NT // 2, NW // 2), got["shard"]
+            first = _first_difference(np, got["record"], ref, steps=MC_STEPS)
+            if first is not None:
+                print(f"{name}: rank {i} differs from the one-rank eager "
+                      f"chain from stored step {first[0]} in {first[2]} "
+                      f"(largest difference {first[1]:.6g}) ({card})")
+            drift = drift or first
+            work, ref_work = (_kernel_work(got["launches"]),
+                              _kernel_work(ref_launches[leg]))
+            assert work == ref_work, (name, i, work, ref_work)
+            if leg == "custom-rj":
+                sharded += got["launches"]["group_stretch_propose"]
+        if drift is not None:
+            drifts.append(name)
+            rates[f"{name}_first_difference"] = {
+                "step": drift[0], "field": drift[2], "max_abs": drift[1]}
+        rates[f"{name}_digit_for_digit"] = drift is None
+        got = _sum_launches([r[leg] for r in ranks])
+        for k, v in got.items():
+            launches[k] = launches.get(k, 0) + v
+        sps = steps / max(r[leg]["seconds"] for r in ranks)
+        end = max(r[leg]["end"] for r in ranks)
+        rates[f"{name}_steps_per_s"] = sps
+        rates[f"{name}_wall_s"] = end - last
+        start = "the ranks' start and " if last == t0 else ""
+        verdict = ("equals the one-rank eager chain digit for digit"
+                   if drift is None else "DIFFERS from the one-rank eager "
+                   "chain")
+        print(f"{name}: {verdict}; routes {ranks[0][leg]['routes']}; "
+              f"{sps:.1f} steps/s over {steps} steps (the slowest rank; "
+              f"eager), wall {end - last:.1f} s with {start}the set-up; "
+              f"kernels 1, 2, 3, 5 a rank "
+              f"{_kernel_work(ranks[0][leg]['launches'])} as the one-rank "
+              f"chain; launches by the ranks {got}, by the one-rank chain "
+              f"{ref_launches[leg]} ({card})")
+        last = end
+    launches["group_stretch_propose[sharded config-c]"] = sharded
+    rates["mesh_custom_legs_wall_s"] = wall
+    print(f"mesh[custom-mh|custom-stretch|custom-combine|custom-rj,4rank,"
+          f"gloo]: wall {wall:.1f} s with the ranks' start; staged through "
+          f"host memory: {ranks[0]['staged'] or 'none'} ({card})")
+    assert not drifts, f"chains differ from their one-rank chains: {drifts}"
+    return launches, rates, []
+
+
 def main(argv=None):
     parser = argparse.ArgumentParser(description=__doc__.split("\n")[0])
     parser.add_argument("--out", help="also write the report as JSON here")
@@ -5300,7 +5544,8 @@ def main(argv=None):
     if args.mesh_legs or args.para_digest:
         with _plain_versions_forbidden():
             legs = ([mesh_legs, mesh_rj_legs, mesh_zoo_legs,
-                     mesh_surface_legs] if args.mesh_legs else []) + (
+                     mesh_surface_legs, mesh_custom_legs]
+                    if args.mesh_legs else []) + (
                 [para_north_star_leg, para_rj_pulse128_leg]
                 if args.para_digest else [])
             for leg in legs:
@@ -5380,7 +5625,8 @@ def main(argv=None):
     with _plain_versions_forbidden():
         for leg in (host_like_leg, host_like_vec_leg, host_like_pool_leg,
                     hybrid_host_leg, examples_leg, mesh_legs,
-                    mesh_rj_legs, mesh_zoo_legs, mesh_surface_legs):
+                    mesh_rj_legs, mesh_zoo_legs, mesh_surface_legs,
+                    mesh_custom_legs):
             t0 = time.perf_counter()
             legs.append(leg(torch, smi))
             print(f"phase 4: {leg.__name__} {time.perf_counter() - t0:.1f} s")
@@ -5478,6 +5724,11 @@ def main(argv=None):
         # the zoo mesh legs' ranks' launches (the MT-RJ chain), timed at a
         # (2, 2) rank's MT-RJ shape
         "group_stretch_propose[sharded mt-rj]": (
+            "eryn_tpu_torch/csrc/select_kernels.cu",
+            "eryn_tpu/ops/select_kernels.py:145"),
+        # the custom RJ mesh leg's ranks' launches, timed at a (2, 2) rank's
+        # config C shape
+        "group_stretch_propose[sharded config-c]": (
             "eryn_tpu_torch/csrc/select_kernels.cu",
             "eryn_tpu/ops/select_kernels.py:145"),
         "onehot_select": ("eryn_tpu_torch/csrc/select_kernels.cu",

@@ -87,36 +87,10 @@ def _several_ranks():
             and dist.get_world_size() > 1)
 
 
-def _placed_leaves(leaves, axes, src, dst):
-    """A kernel state's leaves (tensors, NumPy arrays, or None where one
-    could not be stored) of placement ``src`` laid out by ``dst``, along
-    each leaf's ``(rung, walker)`` axes ``axes``
-    (:meth:`~eryn_tpu_torch.moves.Move.kernel_state_axes` of the kernel
-    state made on ``dst``)."""
-    from .parallel.mesh import convert_rows, same_placement
-
-    if same_placement(src, dst) or len(axes) != len(leaves):
-        return leaves  # restore_kernel_state names a changed structure
-    return [x if x is None or ax == (None, None)
-            else convert_rows(x if isinstance(x, torch.Tensor)
-                              else np.asarray(x), *ax, src, dst)
-            for x, ax in zip(leaves, axes)]
-
-
 def _axes_of(move, kernel_state):
     """``move``'s :meth:`~eryn_tpu_torch.moves.Move.kernel_state_axes`;
     none for a host move, whose kernel state is empty."""
     return [] if move.host_move else move.kernel_state_axes(kernel_state)
-
-
-def _map_rows(state, fn, dims):
-    """``state`` with ``fn`` applied to every tensor whose leading dims are
-    ``dims`` (the per-walker fields; the ladder is left as it is)."""
-    def rows(x):
-        return (fn(x).contiguous()
-                if x.ndim >= 2 and tuple(x.shape[:2]) == dims else x)
-
-    return state.map_tensors(rows)
 
 
 def _crossed(prev, now, interval):
@@ -1200,8 +1174,6 @@ class EnsembleSampler:
                 f"The state is sharded from a {layout.ntemps} x "
                 f"{layout.nwalkers} ensemble; the sampler's is "
                 f"{self.ntemps} x {self.nwalkers}.")
-        if layout is not None:
-            self._check_mesh()
         old = self._mesh_layout
         self._mesh_layout = layout
         for move in self._all_move_list:
@@ -1232,22 +1204,6 @@ class EnsembleSampler:
     #: the placement the kernel states were made on, where it differs from
     #: the state's (None: they are the state's)
     _kernel_states_from = False
-
-    def _check_mesh(self):
-        """Raise ``NotImplementedError`` for a move whose ``mesh_ready``
-        names it: a subclass of a move that runs sharded that does not set
-        ``_mesh_sharded`` itself (its draws may not go through
-        ``rank_draw``), or a ``CombineMove`` or ``DelayedRejection`` around
-        one.  Everything else of the sampler runs sharded."""
-        for move in self._all_move_list:
-            why = move.mesh_ready()
-            if why is not None:
-                raise NotImplementedError(
-                    f"{why} does not run under a device mesh in "
-                    "eryn_tpu_torch (parallel.mesh): a subclass of a move "
-                    "that runs sharded declares itself sharded by setting "
-                    "_mesh_sharded = True in its class, once every random "
-                    "draw of it goes through Move.rank_draw.")
 
     def _check_backend(self, backend):
         """A backend that holds a chain must match the moves (when they are
@@ -1671,7 +1627,7 @@ class EnsembleSampler:
                 state, acc, sw, time = self._host_step(move, state, time)
             else:
                 state, acc, sw, time, self._kernel_states[j] = (
-                    move.propose_kernel(
+                    move.step_kernel(
                         self._gen, state, time, ctx, self._kernel_states[j]
                     )
                 )
@@ -1704,22 +1660,15 @@ class EnsembleSampler:
         lay = self._mesh_layout
         if lay is not None:
             sharding = state.sharding
-            state = _map_rows(state, lay.gather, (lay.nt, lay.nw))
+            state = lay.gather_state(state)
         if tc is not None:
             tc.time, tc.betas, tc.swaps_accepted = time, state.betas, None
-            tc.mesh_layout = None
-        move.wire_mesh(None)
-        try:
+        with move.unwired(tc):
             state, accepted = host_propose(move, self.get_model(), state)
-        finally:
-            move.wire_mesh(lay)
-            if tc is not None:
-                tc.mesh_layout = lay
         acc = torch.as_tensor(accepted).to(device=self.device,
                                            dtype=self.dtype)
         if lay is not None:
-            state = _map_rows(state, lay.local,
-                              (self.ntemps, self.nwalkers))
+            state = lay.local_state(state)
             state.sharding = sharding
             acc = lay.local(acc).contiguous()
         swaps = None if tc is None else tc.swaps_accepted
@@ -2029,11 +1978,13 @@ class EnsembleSampler:
             self._kernel_states = self._init_kernel_states(state)
         elif self._kernel_states_from is not False:
             # the state moved to another placement since they were made
+            from .parallel.mesh import place_leaves
+
             src, self._kernel_states_from = self._kernel_states_from, False
             placed = []
             for m, tree in zip(self._all_move_list, self._kernel_states):
                 leaves, spec = tree_flatten(tree)
-                placed.append(tree_unflatten(spec, _placed_leaves(
+                placed.append(tree_unflatten(spec, place_leaves(
                     leaves, _axes_of(m, tree), src,
                     self._mesh_layout)))
             self._kernel_states = placed
@@ -2045,13 +1996,15 @@ class EnsembleSampler:
         Under a device mesh they are gathered along the axes each move
         declares (:meth:`~eryn_tpu_torch.moves.Move.kernel_state_axes`;
         every rank calls this together)."""
-        return [_placed_leaves(leaves, _axes_of(m, ks),
-                               self._mesh_layout, None)
+        from .parallel.mesh import place_leaves
+
+        return [place_leaves(leaves, _axes_of(m, ks), self._mesh_layout,
+                             None)
                 for m, ks, leaves in zip(self._all_move_list,
                                          self._kernel_states, per_move)]
 
     def _fresh_kernel_states(self, state):
-        return [() if m.host_move else m.init_kernel_state(state)
+        return [() if m.host_move else m.mesh_init_kernel_state(state)
                 for m in self._all_move_list]
 
     def _init_kernel_states(self, state):
@@ -2064,13 +2017,15 @@ class EnsembleSampler:
         stored = self.backend.get_kernel_states()
         if stored is None or self.backend.iteration == 0:
             return fresh
+        from .parallel.mesh import place_leaves
+
         keys, stored_leaves = stored
         try:
             if keys is not None and keys != list(self.all_moves):
                 raise ValueError("move keys changed")
             if len(stored_leaves) != len(fresh):
                 raise ValueError("move count changed")
-            return [restore_kernel_state(f, _placed_leaves(
+            return [restore_kernel_state(f, place_leaves(
                         leaves, _axes_of(m, f), None,
                         self._mesh_layout))
                     for m, f, leaves in zip(self._all_move_list, fresh,

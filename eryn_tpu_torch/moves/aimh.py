@@ -78,6 +78,7 @@ class AIMHMove(Move):
         self.gamma = not float(df).is_integer() or df > 512
         self.device_counters = ("gamma_misses",) if self.gamma else ()
         self.gamma_misses = None
+        self._misses_sharded = False
         if self.gibbs_iterations != [None]:
             raise ValueError(
                 "gibbs_sampling_setup is not supported by AIMHMove (the "
@@ -223,17 +224,22 @@ class AIMHMove(Move):
         found = ok.any(dim=0)
         if self.gamma_misses is not None:
             self.gamma_misses.add_((~found).sum())
+            # under a mesh: the rank's walkers' misses, else the ensemble's
+            self._misses_sharded = self.mesh_layout is not None
         return torch.where(found, 2.0 * value, torch.nan)
 
     def check_segment(self):
         """Raise if a gamma draw of the segments run so far exhausted its
         rounds (reads the device counter: the segment's end waits).  Under a
-        mesh the counter holds the rank's walkers' misses, and every rank
-        reads the mesh's sum, so that all of them raise or none."""
+        mesh the counter of a move that ran sharded holds the rank's
+        walkers' misses, and every rank reads the mesh's sum, so that all
+        of them raise or none; one that ran on the gathered ensemble in
+        every rank (a subclass, :meth:`~eryn_tpu_torch.moves.move.Move.
+        mesh_route`) holds the ensemble's already."""
         if self.gamma_misses is None:
             return
         misses = self.gamma_misses
-        if self.mesh_layout is not None:
+        if self.mesh_layout is not None and self._misses_sharded:
             misses = self.mesh_layout.sum(misses.clone())
         if int(misses):
             raise RuntimeError(

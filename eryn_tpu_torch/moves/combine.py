@@ -4,8 +4,9 @@ Port of :mod:`eryn_tpu.moves.combine`: the children run one after another
 in the same step, each with its own tempering epilogue (so a step has one
 swap phase per child, and the adaptation clock ticks on each), and their
 accept flags are summed.  The combination is one entry of the sampler's
-schedule, and on a CUDA device one graph.  It runs on a state sharded over
-a device mesh where each of its children does.
+schedule, and on a CUDA device one graph.  On a state sharded over a
+device mesh each child takes its own route
+(:meth:`~eryn_tpu_torch.moves.move.Move.mesh_route`).
 """
 
 from __future__ import annotations
@@ -46,15 +47,6 @@ class CombineMove(Move):
         counts = self.kernel_state[1].cpu().numpy().astype(np.float64)
         return [counts[i] / self.num_proposals for i in range(counts.shape[0])]
 
-    def mesh_ready(self):
-        """None where the combination and each child run sharded, else the
-        first refusal."""
-        for why in [super().mesh_ready()] + [m.mesh_ready()
-                                             for m in self.moves_list]:
-            if why is not None:
-                return why
-        return None
-
     def wire_mesh(self, layout):
         super().wire_mesh(layout)
         for m in self.moves_list:
@@ -78,7 +70,7 @@ class CombineMove(Move):
         per_child = state.log_like.new_zeros(
             (len(self.moves_list), ntemps, nwalkers))
         return (
-            tuple(m.init_kernel_state(state) for m in self.moves_list),
+            tuple(m.mesh_init_kernel_state(state) for m in self.moves_list),
             per_child,
         )
 
@@ -91,7 +83,7 @@ class CombineMove(Move):
         child_states, per_child = kernel_state
         accs, new_states = [], []
         for m, ks in zip(self.moves_list, child_states):
-            state, acc, swaps, time, ks = m.propose_kernel(
+            state, acc, swaps, time, ks = m.step_kernel(
                 generator, state, time, ctx, ks)
             accs.append(acc)
             new_states.append(ks)

@@ -15,9 +15,11 @@ arrays (:meth:`DelayedRejection.dr_scheme`, :meth:`~DelayedRejection.
 get_new_state`) and :class:`DelayedRejectionContainer`.
 
 Every stage is per walker: on a state sharded over a device mesh the device
-path runs on this rank's walkers, its draws and the wrapped proposal's at
-their global shape, and exchanges nothing (where the wrapped proposal runs
-sharded itself).
+path runs on this rank's walkers, its draws at their global shape.  A
+wrapped proposal that declares itself sharded draws so too, and the step
+exchanges nothing; any other proposal runs on the gathered coordinates in
+every rank, as one process runs it (gathered once a step: each stage
+proposes from the whole previous candidate), and the rank keeps its rows.
 """
 
 from __future__ import annotations
@@ -92,11 +94,6 @@ class DelayedRejection(Move):
             )
         self.proposal = proposal
         self.max_iter = int(max_iter)
-
-    def mesh_ready(self):
-        """None where this move and the wrapped proposal run sharded, else
-        the first refusal."""
-        return super().mesh_ready() or self.proposal.mesh_ready()
 
     def wire_mesh(self, layout):
         super().wire_mesh(layout)
@@ -176,7 +173,7 @@ class DelayedRejection(Move):
 
     def init_kernel_state(self, state):
         self.propagate_wiring()
-        return self.proposal.init_kernel_state(state)
+        return self.proposal.mesh_init_kernel_state(state)
 
     def kernel_state_axes(self, kernel_state):
         return self.proposal.kernel_state_axes(kernel_state)
@@ -191,16 +188,32 @@ class DelayedRejection(Move):
         blobs = state.blobs
         supps = state_branch_supps(state)
         logP_x = tempered_log_likelihood(logl, betas) + logp
+        lay = self.mesh_layout
+        if lay is not None and self.proposal.mesh_route() != "sharded":
+            # the proposal on the whole ensemble in every rank
+            whole_q = {n: lay.gather(coords[n]) for n in names}
+            whole_inds = {n: lay.gather(inds[n]) for n in names}
+            kernel_state = self.proposal.place_kernel_state(kernel_state,
+                                                            lay, None)
+        else:
+            lay = None
 
         # the candidate chain x -> y1 -> ... -> yK, each evaluated once
         chain_logP = [logP_x]
         chain_vals = []  # (q_full, log-likelihood, log-prior, blobs) each
         prev_q = coords
         for _stage in range(self.max_iter + 1):
-            q, _factors, kernel_state = self.proposal.get_proposal_kernel(
-                generator, {n: prev_q[n] for n in names},
-                {n: inds[n] for n in names}, kernel_state,
-            )
+            if lay is None:
+                q, _factors, kernel_state = self.proposal.get_proposal_kernel(
+                    generator, {n: prev_q[n] for n in names},
+                    {n: inds[n] for n in names}, kernel_state,
+                )
+            else:
+                with self.proposal.unwired():
+                    whole_q, _factors, kernel_state = (
+                        self.proposal.get_proposal_kernel(
+                            generator, whole_q, whole_inds, kernel_state))
+                q = {n: lay.local(x).contiguous() for n, x in whole_q.items()}
             q_full = {**prev_q, **q}
             lp_c = ctx.compute_log_prior(q_full, inds)
             ll_c, bl_c = ctx.compute_log_like(q_full, inds, lp_c, supps)
@@ -251,4 +264,7 @@ class DelayedRejection(Move):
             coords=coords, inds=inds, log_like=logl, log_prior=logp,
             blobs=blobs,
         )
+        if lay is not None:
+            kernel_state = self.proposal.place_kernel_state(kernel_state,
+                                                            None, lay)
         return new_state, accepted, kernel_state

@@ -4,10 +4,14 @@ Port of :mod:`eryn_tpu.moves.mh`: the proposal, prior, likelihood and
 accept/merge act on the full ``(ntemps, nwalkers)`` block at once, one
 Gibbs split after another.
 
-Every walker's proposal and decision are its own: on a state sharded over a
-device mesh the move runs on this rank's walkers as they are, each draw at
-its global shape (:meth:`~eryn_tpu_torch.moves.move.Move.rank_draw` with
-``per_walker``), and exchanges nothing.
+Every walker's decision is its own: on a state sharded over a device mesh
+a move that declares itself sharded runs on this rank's walkers as they
+are, each draw at its global shape
+(:meth:`~eryn_tpu_torch.moves.move.Move.rank_draw` with ``per_walker``),
+and exchanges nothing.  A subclass that writes only the proposal (Eryn's
+extension point) runs the proposal on the gathered coordinates in every
+rank, keeps its rows, and evaluates the prior and the likelihood on them
+alone (:meth:`~eryn_tpu_torch.moves.move.Move.mesh_route`).
 """
 
 from __future__ import annotations
@@ -39,9 +43,19 @@ class MHMove(Move):
     more afterwards (exact only for symmetric proposals).  A subclass that
     writes Eryn's host hook ``get_proposal(branches_coords, random,
     branches_inds=None, **kwargs) -> (q, factors)`` on NumPy arrays is a
-    host move (:mod:`~eryn_tpu_torch.moves.legacy`).  A subclass runs on a
-    sharded state where it sets ``_mesh_sharded = True`` itself and draws
-    through ``rank_draw(..., per_walker=True)``.
+    host move (:mod:`~eryn_tpu_torch.moves.legacy`).
+
+    On a state sharded over a device mesh a subclass that writes only
+    ``get_proposal_kernel`` (and perhaps ``init_kernel_state``) takes the
+    ``"gathered proposal"`` route: in every rank ``get_proposal_kernel``
+    runs on the gathered coordinates and masks of each Gibbs split with the
+    shared generator, as one process runs it, and the rank keeps its rows
+    of ``q`` and ``factors``; the prior, the likelihood and the accept draw
+    are the rank's rows only.  A subclass that also sets ``_mesh_sharded =
+    True`` and draws through ``rank_draw(..., per_walker=True)`` runs its
+    proposal on the shard and exchanges nothing; one that overrides
+    ``_propose_impl`` or ``propose_kernel`` runs whole in every rank
+    (``"gathered"``).
     """
 
     _mesh_sharded = True
@@ -65,7 +79,21 @@ class MHMove(Move):
                             kernel_state, param_masks=None):
         raise NotImplementedError
 
+    def mesh_route(self):
+        route = super().mesh_route()
+        if (route == "gathered"
+                and type(self)._propose_impl is MHMove._propose_impl
+                and type(self).propose_kernel is Move.propose_kernel):
+            return "gathered proposal"
+        return route
+
     def _propose_impl(self, generator, state, ctx, kernel_state=()):
+        lay = self.mesh_layout
+        if lay is not None and self.mesh_route() == "gathered proposal":
+            whole_inds = {}
+            kernel_state = self.place_kernel_state(kernel_state, lay, None)
+        else:
+            lay = None
         coords = dict(state.branches_coords)
         inds = dict(state.branches_inds)
         logl = state.log_like
@@ -78,11 +106,24 @@ class MHMove(Move):
                                device=logl.device)
 
         for names, param_masks in self.gibbs_iterations_for(state):
-            q, factors, kernel_state = self.get_proposal_kernel(
-                generator, {n: coords[n] for n in names},
-                {n: inds[n] for n in names}, kernel_state,
-                param_masks=param_masks,
-            )
+            if lay is None:
+                q, factors, kernel_state = self.get_proposal_kernel(
+                    generator, {n: coords[n] for n in names},
+                    {n: inds[n] for n in names}, kernel_state,
+                    param_masks=param_masks,
+                )
+            else:
+                # the whole ensemble's proposal, as one process draws it
+                for n in names:
+                    if n not in whole_inds:
+                        whole_inds[n] = lay.gather(inds[n])
+                whole = {n: lay.gather(coords[n]) for n in names}
+                with self.unwired():
+                    q, factors, kernel_state = self.get_proposal_kernel(
+                        generator, whole, {n: whole_inds[n] for n in names},
+                        kernel_state, param_masks=param_masks)
+                q = {n: lay.local(x).contiguous() for n, x in q.items()}
+                factors = lay.local(factors).contiguous()
             for n in names:
                 mask = param_masks.get(n)
                 if mask is not None:
@@ -111,4 +152,6 @@ class MHMove(Move):
             coords=coords, inds=inds, log_like=logl, log_prior=logp,
             blobs=blobs,
         )
+        if lay is not None:
+            kernel_state = self.place_kernel_state(kernel_state, None, lay)
         return new_state, accepted, kernel_state

@@ -22,7 +22,7 @@ import numpy as np
 import torch
 
 from ..utils.periodic import PeriodicContainer
-from ..utils.pytree import tree_flatten
+from ..utils.pytree import tree_flatten, tree_unflatten
 from .tempering import _host
 
 __all__ = [
@@ -162,17 +162,32 @@ class Move:
     #: it), else None: the state's tensors are then this rank's shard
     mesh_layout = None
 
-    def mesh_ready(self):
-        """None if this move runs on a state sharded over a device mesh,
-        else what does not (the sampler raises at set-up).  A class runs
-        sharded where it sets ``_mesh_sharded = True`` itself (every draw of
-        its a :meth:`rank_draw`): a subclass, whose draws the package cannot
-        vouch for, does not inherit it.  A host move runs sharded too: the
-        sampler runs its protocol on the gathered state in every rank, from
-        the same NumPy generator, and each rank keeps its rows."""
-        if self.host_move or type(self).__dict__.get("_mesh_sharded"):
-            return None
-        return type(self).__name__
+    def mesh_route(self):
+        """How this move runs on a state sharded over a device mesh:
+
+        * ``"sharded"``: a class that sets ``_mesh_sharded = True`` itself
+          (every draw of it a :meth:`rank_draw`) runs on the rank's shard;
+        * ``"host"``: a host move runs its protocol on the gathered state
+          in every rank, from the same NumPy generator (the sampler's
+          ``_host_step``);
+        * ``"gathered"``: any other class (a subclass, whose draws the
+          package cannot vouch for, does not inherit the declaration) runs
+          :meth:`propose_kernel` on the gathered ensemble in every rank, as
+          one process does (:meth:`step_kernel`); each rank keeps its rows,
+          and every rank evaluates the whole ensemble's likelihood;
+        * ``"gathered proposal"`` (:class:`~eryn_tpu_torch.moves.mh.MHMove`
+          subclasses that write only the proposal): only the proposal runs
+          on the gathered coordinates; the likelihood stays sharded.
+
+        Every route gives the one-process chain digit for digit: every
+        sharded draw is made at its global shape from the one generator,
+        so at each move's start every rank's generator is where one
+        process's is."""
+        if self.host_move:
+            return "host"
+        if type(self).__dict__.get("_mesh_sharded"):
+            return "sharded"
+        return "gathered"
 
     def __init__(
         self,
@@ -328,6 +343,50 @@ class Move:
         (None off a mesh) to this move; a composite hands it on to the moves
         it runs."""
         self.mesh_layout = layout
+
+    @contextlib.contextmanager
+    def unwired(self, *controls):
+        """Within it this move (a composite's members too) and the
+        temperature ``controls`` given run as one process does, on whole
+        tensors: their mesh layouts are None, and restored after."""
+        lay = self.mesh_layout
+        controls = [c for c in dict.fromkeys(controls) if c is not None]
+        saved = [c.mesh_layout for c in controls]
+        self.wire_mesh(None)
+        for c in controls:
+            c.mesh_layout = None
+        try:
+            yield
+        finally:
+            self.wire_mesh(lay)
+            for c, layout in zip(controls, saved):
+                c.mesh_layout = layout
+
+    def place_kernel_state(self, kernel_state, src, dst):
+        """``kernel_state`` laid out on placement ``src`` (a
+        :class:`~eryn_tpu_torch.parallel.mesh.MeshLayout`, or None for the
+        whole ensemble) as ``dst`` lays it out, along the axes of
+        :meth:`kernel_state_axes` (a collective where ``src`` is a mesh:
+        every rank calls it together)."""
+        from ..parallel.mesh import place_leaves
+
+        leaves, spec = tree_flatten(kernel_state)
+        return tree_unflatten(spec, place_leaves(
+            leaves, self.kernel_state_axes(kernel_state), src, dst))
+
+    def mesh_init_kernel_state(self, state):
+        """:meth:`init_kernel_state` as this move's :meth:`mesh_route` needs
+        it: on the rank's shard for a sharded move; for a gathered route
+        made on the gathered state as one process makes it, then cut to the
+        rank's rows along :meth:`kernel_state_axes` (a user's
+        ``init_kernel_state`` need not know of the mesh)."""
+        lay = self.mesh_layout
+        if lay is None or self.mesh_route() in ("sharded", "host"):
+            return self.init_kernel_state(state)
+        whole = lay.gather_state(state)
+        with self.unwired():
+            kernel_state = self.init_kernel_state(whole)
+        return self.place_kernel_state(kernel_state, None, lay)
 
     @contextlib.contextmanager
     def block_walkers(self, ns, at):
@@ -524,6 +583,31 @@ class Move:
             swaps_accepted = logl.new_zeros((max(ntemps - 1, 0),))
         return state, accepted.to(logl.dtype), swaps_accepted, time, kernel_state
 
+    def step_kernel(self, generator, state, time, ctx, kernel_state=()):
+        """:meth:`propose_kernel` as the sampler and the composite moves run
+        it.  On a state sharded over a device mesh a move whose
+        :meth:`mesh_route` is ``"gathered"`` runs it on the whole ensemble
+        in every rank: the state's per-walker rows and the kernel state
+        (along :meth:`kernel_state_axes`) gathered, the move and the
+        tempering control unwired for the call, so that every rank makes
+        one process's draws and decisions, then the state, the accept flags
+        and the kernel state cut back to the rank's rows.  Any other move
+        runs :meth:`propose_kernel` as it is."""
+        lay = self.mesh_layout
+        if lay is None or self.mesh_route() != "gathered":
+            return self.propose_kernel(generator, state, time, ctx,
+                                       kernel_state)
+        sharding = state.sharding
+        whole = lay.gather_state(state)
+        kernel_state = self.place_kernel_state(kernel_state, lay, None)
+        with self.unwired(ctx.tempering, self.temperature_control):
+            whole, accepted, swaps, time, kernel_state = self.propose_kernel(
+                generator, whole, time, ctx, kernel_state)
+        state = lay.local_state(whole)
+        state.sharding = sharding
+        return (state, lay.local(accepted).contiguous(), swaps, time,
+                self.place_kernel_state(kernel_state, None, lay))
+
     # ------------------------------------------------------------------
     # Eryn's host protocol
     # ------------------------------------------------------------------
@@ -546,8 +630,8 @@ class Move:
         time = torch.as_tensor(0 if tc is None else tc.time,
                                device=device).to(torch.int64)
         if self.kernel_state is None:
-            self.kernel_state = self.init_kernel_state(state)
-        state, accepted, swaps, time, self.kernel_state = self.propose_kernel(
+            self.kernel_state = self.mesh_init_kernel_state(state)
+        state, accepted, swaps, time, self.kernel_state = self.step_kernel(
             model.generator, state, time, model.get_eval_context(),
             self.kernel_state)
         if tc is not None:

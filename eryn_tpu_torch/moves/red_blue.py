@@ -8,7 +8,7 @@ each later block sees the earlier blocks' updated positions.
 On a state sharded over a device mesh (:mod:`~eryn_tpu_torch.parallel.
 mesh`) the stock red/blue moves (the stretch's general path, the group
 stretch, DE, DE-snooker, walk and KDE:
-:meth:`~eryn_tpu_torch.moves.move.Move.mesh_ready`) take the sharded form
+:meth:`~eryn_tpu_torch.moves.move.Move.mesh_route`) take the sharded form
 (:meth:`RedBlueMove._propose_impl_sharded`): the same draws at their global
 shape, each block's complement gathered within the temperature shard, and
 the likelihood on this rank's walkers, with their branch supplementals,

@@ -34,7 +34,9 @@ __all__ = [
     "constrain_state",
     "make_group_mesh",
     "make_mesh",
+    "map_rows",
     "mesh_of_state",
+    "place_leaves",
     "shard_state",
     "sharding_for_state",
 ]
@@ -455,6 +457,19 @@ class MeshLayout:
         comm = self.device if _needs_device(self.world) else torch.device("cpu")
         return self.gather_axes(t.to(comm), taxis, waxis).cpu().numpy()
 
+    def gather_state(self, state):
+        """The whole ensemble's state of which ``state`` is this rank's
+        shard: every per-walker tensor (coordinates, leaf masks,
+        log-likelihood, log-prior, blobs, the numeric supplemental entries)
+        gathered over the mesh; the ladder and the host objects are whole
+        on every rank already."""
+        return map_rows(state, self.gather, (self.nt, self.nw))
+
+    def local_state(self, state):
+        """This rank's shard of a whole-ensemble state (the inverse of
+        :meth:`gather_state`)."""
+        return map_rows(state, self.local, (self.ntemps, self.nwalkers))
+
     def placement(self):
         """What identifies where this rank's shard lies: the mesh's shape,
         the rank's coordinates and the global dims."""
@@ -491,6 +506,30 @@ def convert_rows(x, taxis, waxis, src, dst):
                           waxis if dst.wp > 1 else None)
         x = np.ascontiguousarray(x) if numpy else x.contiguous()
     return x
+
+
+def map_rows(state, fn, dims):
+    """``state`` with ``fn`` applied to every tensor whose leading dims are
+    ``dims`` (the per-walker fields; the ladder is left as it is)."""
+    def rows(x):
+        return (fn(x).contiguous()
+                if x.ndim >= 2 and tuple(x.shape[:2]) == dims else x)
+
+    return state.map_tensors(rows)
+
+
+def place_leaves(leaves, axes, src, dst):
+    """A kernel state's leaves (tensors, NumPy arrays, or None where one
+    could not be stored) of placement ``src`` laid out by ``dst``, along
+    each leaf's ``(rung, walker)`` axes ``axes``
+    (:meth:`~eryn_tpu_torch.moves.Move.kernel_state_axes` of the kernel
+    state made on ``dst``)."""
+    if same_placement(src, dst) or len(axes) != len(leaves):
+        return leaves  # restore_kernel_state names a changed structure
+    return [x if x is None or ax == (None, None)
+            else convert_rows(x if isinstance(x, torch.Tensor)
+                              else np.asarray(x), *ax, src, dst)
+            for x, ax in zip(leaves, axes)]
 
 
 def _pack(rows):

@@ -26,6 +26,13 @@ loops' one all-reduce a block), MALA's dual averaging the cold rung's
 acceptance, ChEES the cold rung's rows of its criterion.  Past their
 tuning AIMH, MALA and ChEES read no statistic: a step of each receives
 exactly the swap phase's bytes.
+
+Users' subclasses that do not declare themselves sharded are audited on
+the same mesh: a bare ``StretchMove`` subclass runs whole in every rank and
+its step receives the state's per-walker leaves once (its swap phase runs
+on the gathered state), and the custom-moves example's ``KernelJumpMove``
+gathers the coordinates and the leaf masks once a Gibbs split, beside the
+swap phase's bytes, and nothing per walker beyond that.
 """
 
 import numpy as np
@@ -34,6 +41,7 @@ import torch
 
 import eryn_tpu_torch as et
 from eryn_tpu_torch import moves as tm
+from eryn_tpu_torch.examples.custom_moves import KernelJumpMove
 from eryn_tpu_torch.parallel import audit_sampler_comm, make_mesh, shard_state
 from eryn_tpu_torch.parallel._spawn import launch
 
@@ -111,6 +119,10 @@ class WalkMH(tm.MHMove):
         return q, c.new_zeros(c.shape[:2]), kernel_state
 
 
+class BareStretch(tm.StretchMove):
+    """A bare subclass of a sharded move: it runs whole in every rank."""
+
+
 def _zoo_moves():
     """The audited moves of the zoo: the per-walker ones, then the ones
     that read an ensemble statistic."""
@@ -133,6 +145,9 @@ def _zoo_moves():
         "aimh[tuned]": tm.AIMHMove(tune_steps=5),
         "mala[tuned]": tm.MALAMove(tune_steps=5),
         "chees[tuned]": tm.ChEESHMCMove(max_leapfrog=8, tune_steps=5),
+        # users' subclasses: the two routes of an undeclared class
+        "gathered": BareStretch(),
+        "gathered proposal": KernelJumpMove(),
     }
 
 
@@ -263,6 +278,31 @@ def test_host_move_step_gathers_the_state_once(audits):
         assert audit["per_op"] == {"all-gather": {
             "count": 4, "bytes": audit["payload_bytes"] + masks}}, audit
         assert audit["numpy_restored"]
+
+
+def test_gathered_move_step_gathers_the_state_once(audits):
+    """A bare ``StretchMove`` subclass runs whole in every rank: its step
+    receives each per-walker leaf once (coordinates, leaf masks,
+    log-likelihood, log-prior: four all-gathers, one payload and the masks'
+    bytes) and nothing more, its DEO phase running on the gathered state,
+    as a host move's step does."""
+    for zoo in audits["zoo"]:
+        got = zoo["gathered"]
+        masks = ZOO_TEMPS * NWALKERS
+        assert got["per_op"] == {"all-gather": {
+            "count": 4, "bytes": got["payload_bytes"] + masks}}, got
+
+
+def test_gathered_proposal_gathers_the_coordinates_once(audits):
+    """The custom-moves example's ``KernelJumpMove`` (its proposal
+    gathered, its likelihood and decisions on the rank's rows): beside the
+    swap phase's calls, one all-gather of the coordinates and one of the
+    leaf masks (one Gibbs split), and nothing per walker beyond that."""
+    for zoo in audits["zoo"]:
+        got, stay = zoo["gathered proposal"], zoo["stay"]
+        masks = ZOO_TEMPS * NWALKERS
+        assert got["per_op"] == {**stay["per_op"], "all-gather": {
+            "count": 2, "bytes": got["full_coords_bytes"] + masks}}, got
 
 
 def test_deo_swap_traffic_is_one_parity_phase(audits):

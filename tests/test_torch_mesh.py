@@ -115,16 +115,17 @@ def _para_record(p):
 
 def _refusals(mesh):
     """The named error of each configuration at set-up, None where it
-    runs: a subclass of a sharded move that does not declare itself sharded
-    is refused; the host move, the periodic stretch, the general cascade,
-    blobs, a host likelihood, ``HDFBackend`` (one file, rank 0's path on
-    every rank) and the hooks run sharded."""
+    runs: a subclass of a sharded move that does not declare itself
+    sharded (its proposal runs on the gathered coordinates), the host move,
+    the periodic stretch, the general cascade, blobs, a host likelihood,
+    ``HDFBackend`` (one file, rank 0's path on every rank) and the hooks
+    run sharded."""
 
     from eryn_tpu_torch.moves import MHMove
 
     class KernelWalk(MHMove):
         """A subclass of a sharded move that does not declare itself
-        sharded (``_mesh_sharded``)."""
+        sharded (``_mesh_sharded``): ``"gathered proposal"``."""
 
         def get_proposal_kernel(self, generator, branch_coords, branch_inds,
                                 kernel_state, param_masks=None):
@@ -475,24 +476,27 @@ def test_group_mesh_equals_one_rank(ranks, world):
 
 
 def test_unsupported_configurations_raise_under_a_mesh(ranks):
-    """What has no sharded form raises a ``NotImplementedError`` that names
-    it at set-up: a subclass of a sharded move (``MHMove``) that does not
-    declare itself sharded (its draws may not go through ``rank_draw``).
-    A host move (Eryn's NumPy ``get_proposal``), a periodic stretch, the
-    general cascade, blobs, a host likelihood, ``HDFBackend`` and the
-    ``run_mcmc`` hooks run sharded (``tests/test_torch_mesh_surface.py``
-    holds each to its one-rank chain).  Reversible jump, the
-    red/blue family (``tests/test_torch_mesh_rj.py``: the port matches
-    ``eryn_tpu``'s ``test_sharded_rbgroupstretch_rj``,
-    ``test_sharded_rj_group_run``, ``test_sharded_new_move_family`` and
+    """Nothing that ``eryn_tpu`` runs on its mesh is refused any more: a
+    subclass of a sharded move (``MHMove``) that does not declare itself
+    sharded runs, its proposal on the gathered coordinates
+    (``tests/test_torch_mesh_custom.py`` holds such subclasses of every
+    family to their one-rank chains).  A host move (Eryn's NumPy
+    ``get_proposal``), a periodic stretch, the general cascade, blobs, a
+    host likelihood, ``HDFBackend`` and the ``run_mcmc`` hooks run sharded
+    (``tests/test_torch_mesh_surface.py`` holds each to its one-rank
+    chain).  Reversible jump, the red/blue family
+    (``tests/test_torch_mesh_rj.py``: the port matches ``eryn_tpu``'s
+    ``test_sharded_rbgroupstretch_rj``, ``test_sharded_rj_group_run``,
+    ``test_sharded_new_move_family`` and
     ``test_rj_deo_mesh_traffic_bounded``) and the rest of the zoo
     (``tests/test_torch_mesh_zoo.py``: ``eryn_tpu``'s
-    ``test_sharded_slice_move`` among them) run sharded."""
+    ``test_sharded_slice_move`` among them) run sharded.  What stays
+    unsupported, an ensemble that does not split evenly over the mesh,
+    raises a ``ValueError`` on every rank
+    (``tests/test_torch_mesh_surface.py``)."""
     for rank in ranks[2]:
         got = rank["refusals"]
-        assert got["MHMove subclass"] is not None
-        assert ("KernelWalk" in got["MHMove subclass"]
-                and "device mesh" in got["MHMove subclass"]), got
-        for case in ("host move", "StretchMove(periodic)", "general cascade",
-                     "blobs", "host likelihood", "HDFBackend", "hooks"):
+        for case in ("MHMove subclass", "host move", "StretchMove(periodic)",
+                     "general cascade", "blobs", "host likelihood",
+                     "HDFBackend", "hooks"):
             assert got[case] is None, (case, got[case])
