@@ -177,7 +177,9 @@ Phases, each printing its own lines:
      ``runtime_plots`` runs only where matplotlib is installed (a line says
      so when it is not);
    * after the examples, the device mesh (``parallel.mesh``; ranks spawned
-     over ``torch.distributed``, every sharded step eager):
+     over ``torch.distributed``; every sharded step planned on the device,
+     eager over gloo; each mesh leg prints its window of stored steps
+     apart from the set-up and the burn-in):
      ``mesh[north-star,1rank,nccl]``, ``mesh[north-star,4rank,gloo]`` (a
      (2, 2) mesh of four ranks sharing the card, and DEO),
      ``para_mesh[north-star x64,4rank]``, and on a (2, 2) mesh of four
@@ -214,7 +216,17 @@ Phases, each printing its own lines:
      ``DistributionGenerateRJ`` subclass beside ``RedBlueGroupStretchMove``:
      kernel 5 in every rank), each chain equal to its one-rank eager chain
      digit for digit (a difference ends the script) and each rank's
-     launches of kernels 1, 2, 3 and 5 equal to that chain's;
+     launches of kernels 1, 2, 3 and 5 equal to that chain's; and the
+     sharded route captured with its NCCL collectives on one NCCL rank, a
+     ``(1, 1)`` mesh (``mesh_graph_legs``: NCCL takes one rank per card):
+     ``mesh_graph[north-star,1x1,nccl]`` (50 + 400 steps) and
+     ``mesh_graph[lisa-rj,1x1,nccl]`` (20 + 100), each captured, then
+     eager, from one seed: the chains equal digit for digit, graphs
+     replayed, the stored segments under ``set_sync_debug_mode("error")``,
+     each replay's collectives counted, kernels 1, 2, 3 (or 3 and 5) in the
+     profile of the replays beside the one-process graphed step's, and the
+     window's steps/s captured and eager with the burn-in (NCCL's warm-up,
+     the captures) apart;
    * a flat-likelihood RJ run (64 walkers, 3 leaves): a uniform leaf-count
      posterior.  It checks the RJ moves, is not part of the main path, and
      its launches stay out of the report.
@@ -4337,10 +4349,12 @@ def _mesh_rank(rank, world, temp_parallel):
                 state.log_like is not None) else tuple(
                 state.branches["model_0"].coords.shape[:2])
         torch.cuda.synchronize()
+        s.timing.reset()  # the audit's step is a segment of its own
         t0 = time.perf_counter()
         s.run_mcmc(state, MESH_STEPS, burn=MESH_WARM)
         torch.cuda.synchronize()
         out["seconds"] = time.perf_counter() - t0
+        out["window"] = _window(s, MESH_WARM)
         out["graph_replays"] = s.graph_replays
         out["record"] = _mesh_record(s)
         if world > 1:  # DEO: the edge rungs' point-to-point exchanges
@@ -4396,6 +4410,28 @@ def _sum_launches(ranks):
     return total
 
 
+def _window(s, burn):
+    """``[steps, seconds]`` of the stored segments of ``s``'s runs since its
+    timer was last reset (``EnsembleSampler.timing``, CUDA events): the
+    steps after the first ``burn``, whose segments hold the first eager
+    run of each move (and under NCCL the warm-up and the captures)."""
+    steps, secs, seen = 0, 0.0, 0
+    for n, t in s.timing.durations:
+        if seen >= burn:
+            steps, secs = steps + n, secs + t
+        seen += n
+    return [steps, secs]
+
+
+def _window_rate(ranks, key=None):
+    """The slowest rank's steps/s over its stepping window, and the most
+    seconds a rank spent before it (set-up, burn-in) beside its run."""
+    got = [r if key is None else r[key] for r in ranks]
+    sps = min(g["window"][0] / g["window"][1] for g in got)
+    setup = max(g["seconds"] - g["window"][1] for g in got)
+    return sps, setup
+
+
 def mesh_legs(torch, card):
     """The device mesh on one card: ``mesh[north-star,1rank,nccl]`` (the
     comm layer and the sampler over NCCL at world size 1, where a state on
@@ -4445,31 +4481,34 @@ def mesh_legs(torch, card):
                 _same_record(np, f"{leg}, DEO", r["deo_record"], ref_deo)
         got = _sum_launches(ranks)
         # every rank launched kernels 1-3 on the card in every step: the
-        # fused trio on one rank, kernels 1 and 2 twice unfused when sharded
+        # fused trio, sharded as on one rank
         for r in ranks:
             n = r["launches"]
             assert n["pt_swap_cascade_multi"] == steps + (world > 1), n
-            if world == 1:
-                _assert_stretch_launches(n, steps)
-            else:  # the audited step runs once more; DEO's steps after
-                assert n["stretch_propose"] == n["stretch_accept"] == 2 * (
-                    steps + 1 + MESH_DEO_STEPS), n
-                assert n["stretch_accept_propose"] == 0, n
+            # the audited step runs once more; DEO's steps after
+            _assert_stretch_launches(n, steps if world == 1 else
+                                     steps + 1 + MESH_DEO_STEPS)
         for k, v in got.items():
             launches[k] = launches.get(k, 0) + v
         sps = steps / max(r["seconds"] for r in ranks)
+        wsps, setup = _window_rate(ranks)
         rates[f"{leg}_steps_per_s"] = sps
+        rates[f"{leg}_window_steps_per_s"] = wsps
+        rates[f"{leg}_setup_s"] = setup
         rates[f"{leg}_wall_s"] = wall
         staged = ranks[0]["staged"]
-        how = ("eager: the sharded step runs outside CUDA graphs, whose "
-               "capture gloo's collectives cannot join" if world > 1 else
+        how = ("eager: gloo's collectives cannot be captured in a CUDA "
+               "graph, so the device-planned sharded step runs eagerly"
+               if world > 1 else
                f"graphed ({ranks[0]['graph_replays']} replays): a state on a "
                "one-rank mesh runs the one-rank step")
         deo = (f", and {MESH_DEO_STEPS} steps under DEO and the Syed ladder "
                "likewise" if world > 1 else "")
         print(f"{leg}: equals the one-rank eager chain digit for digit "
               f"(chain, log_like, log_prior, betas, acceptance, swaps{deo}); "
-              f"{sps:.1f} steps/s over {steps} steps, wall {wall:.1f} s with "
+              f"{sps:.1f} steps/s over {steps} steps (window "
+              f"{wsps:.1f} steps/s over the {MESH_STEPS} stored, set-up and "
+              f"burn-in {setup:.2f} s), wall {wall:.1f} s with "
               f"the ranks' start; {how}; staged through host memory: "
               f"{staged or 'none'}; launches {got} ({card})")
         if world == 1:
@@ -4586,6 +4625,7 @@ def _mesh_rj_rank(rank, world):
             seconds = time.perf_counter() - t0
             launches = read()
             out[leg] = {"seconds": seconds, "launches": launches,
+                        "window": _window(s, MR_WARM),
                         "record": _mesh_rj_record(s),
                         "shard": tuple(s._previous_state.log_like.shape),
                         "graph_replays": s.graph_replays}
@@ -4686,7 +4726,10 @@ def mesh_rj_legs(torch, card):
         for k, v in got.items():
             launches[k] = launches.get(k, 0) + v
         sps = steps / max(r[leg]["seconds"] for r in ranks)
+        wsps, setup = _window_rate(ranks, leg)
         rates[f"{name}_steps_per_s"] = sps
+        rates[f"{name}_window_steps_per_s"] = wsps
+        rates[f"{name}_setup_s"] = setup
         rates[f"{name}_digit_for_digit"] = drift is None
         if drift is not None:
             rates[f"{name}_first_difference"] = {"step": drift[0],
@@ -4702,7 +4745,9 @@ def mesh_rj_legs(torch, card):
                        f"step {drift[0]} (largest difference {drift[1]:.6g}) "
                        f"and meets the LISA RJ gates")
         print(f"{name}: {verdict}; {sps:.1f} steps/s over {steps} steps "
-              f"(the slowest rank; eager); launches {got} ({card})")
+              f"(the slowest rank; eager; window {wsps:.1f} steps/s over "
+              f"the {MR_STEPS} stored, set-up and burn-in {setup:.2f} s); "
+              f"launches {got} ({card})")
     launches["group_stretch_propose[sharded]"] = sharded
     rates["mesh_rj_legs_wall_s"] = wall
     print(f"mesh[lisa-rj...|redblue-zoo,4rank,gloo]: wall {wall:.1f} s with "
@@ -4828,7 +4873,8 @@ def _mesh_zoo_rank(rank, world):
     with _plain_versions_forbidden():
         mesh = make_mesh(world, temp_parallel=2)
         for leg in MESH_ZOO_LEGS:
-            got = out[leg] = {"chains": {}, "seconds": 0.0, "launches": {}}
+            got = out[leg] = {"chains": {}, "seconds": 0.0, "launches": {},
+                              "window": [0, 0.0]}
             for name, s, state in _mesh_zoo_samplers(torch, np, leg):
                 state = shard_state(state, mesh)
                 read = _counting(_kernels())
@@ -4837,6 +4883,8 @@ def _mesh_zoo_rank(rank, world):
                 s.run_mcmc(state, MZ_STEPS, burn=MZ_WARM)
                 torch.cuda.synchronize()
                 got["seconds"] += time.perf_counter() - t0
+                got["window"] = [a + b for a, b in zip(
+                    got["window"], _window(s, MZ_WARM))]
                 for k, v in read().items():
                     got["launches"][k] = got["launches"].get(k, 0) + v
                 got["chains"][name] = {
@@ -4952,12 +5000,17 @@ def mesh_zoo_legs(torch, card):
             launches[k] = launches.get(k, 0) + v
         nchains = len(ranks[0][leg]["chains"])
         sps = nchains * steps / max(r[leg]["seconds"] for r in ranks)
+        wsps, setup = _window_rate(ranks, leg)
         end = max(r[leg]["end"] for r in ranks)
         rates[f"{name}_steps_per_s"] = sps
+        rates[f"{name}_window_steps_per_s"] = wsps
+        rates[f"{name}_setup_s"] = setup
         rates[f"{name}_wall_s"] = end - last
         start = "the ranks' start and " if last == t0 else ""
         print(f"{name}: {'; '.join(verdicts)}; {sps:.1f} steps/s over "
-              f"{nchains} x {steps} steps (the slowest rank; eager), wall "
+              f"{nchains} x {steps} steps (the slowest rank; eager; window "
+              f"{wsps:.1f} steps/s over the stored steps, set-up and "
+              f"burn-in {setup:.2f} s), wall "
               f"{end - last:.1f} s with {start}the set-up; kernel 3 "
               f"launches by the ranks {got['pt_swap_cascade_multi']}; "
               f"launches {got} ({card})")
@@ -5116,6 +5169,7 @@ def _mesh_surface_run(torch, np, leg, mesh=None, cuda_graph=True):
     with warnings.catch_warnings():
         warnings.simplefilter("ignore")
         s.run_mcmc(place(state), MS_STEPS, burn=MS_WARM)
+    window = _window(s, MS_WARM)
     extra = {}
     if leg == "resume-hooks":
         stopped = s.backend.iteration
@@ -5123,6 +5177,7 @@ def _mesh_surface_run(torch, np, leg, mesh=None, cuda_graph=True):
         s, _ = _mesh_surface_sampler(torch, leg, cuda_graph,
                                      backend=s.backend)
         s.run_mcmc(place(s.get_last_sample()), MS_STEPS - stopped)
+        window = [a + b for a, b in zip(window, _window(s, 0))]
         extra = {"stopped": np.asarray([stopped]),
                  "stop_checks": np.asarray(first.stopping_fn.calls),
                  "plots": np.asarray(first.plot_generator.iterations
@@ -5135,7 +5190,8 @@ def _mesh_surface_run(torch, np, leg, mesh=None, cuda_graph=True):
         record["blobs"] = blobs
     supp = s._previous_state.supplemental
     host = {} if supp is None else supp.host_holder
-    return s, record, {k: [str(x) for x in v.ravel()] for k, v in host.items()}
+    return s, record, {k: [str(x) for x in v.ravel()]
+                       for k, v in host.items()}, window
 
 
 def _mesh_surface_rank(rank, world):
@@ -5155,9 +5211,10 @@ def _mesh_surface_rank(rank, world):
             read = _counting(_kernels())
             torch.cuda.synchronize()
             t0 = time.perf_counter()
-            s, record, host = _mesh_surface_run(torch, np, leg, mesh)
+            s, record, host, window = _mesh_surface_run(torch, np, leg, mesh)
             torch.cuda.synchronize()
             out[leg] = {"seconds": time.perf_counter() - t0,
+                        "window": window,
                         "launches": read(), "record": record, "host": host,
                         "shard": tuple(s._previous_state.log_like.shape),
                         "graph_replays": s.graph_replays,
@@ -5182,9 +5239,8 @@ def mesh_surface_legs(torch, card):
     machine has no h5py).  Each chain equals its one-rank eager chain digit
     for digit or prints its first differing stored step and field; each
     rank launches the cascade (kernel 3), the group stretch and the
-    selection (kernel 5) as often as the one-rank chain, and kernels 1 and
-    2 unfused, twice as often as that chain's fused trio; no plain version
-    runs.  Returns the launches of the ranks and the references, and the
+    selection (kernel 5) and the fused stretch trio (kernels 1 and 2) as
+    often as the one-rank chain; no plain version runs.  Returns the launches of the ranks and the references, and the
     legs' rates."""
     import numpy as np
 
@@ -5193,7 +5249,8 @@ def mesh_surface_legs(torch, card):
     refs, ref_launches, launches = {}, {}, {}
     for leg in MESH_SURFACE_LEGS:
         read = _counting(_kernels())
-        _, record, host = _mesh_surface_run(torch, np, leg, cuda_graph=False)
+        _, record, host, _ = _mesh_surface_run(torch, np, leg,
+                                               cuda_graph=False)
         refs[leg] = (record, host)
         ref_launches[leg] = read()
         for k, v in ref_launches[leg].items():
@@ -5225,12 +5282,10 @@ def mesh_surface_legs(torch, card):
             for k in ("pt_swap_cascade_multi", "_cascade_multi_rolled",
                       "group_stretch_propose", "onehot_select"):
                 assert n[k] == m[k], (name, k, n, m)
-            # the fused trio on one rank, kernels 1 and 2 unfused sharded
-            assert m["stretch_propose"] == m["stretch_accept_propose"] \
-                == m["stretch_accept"], (name, m)
-            assert n["stretch_propose"] == n["stretch_accept"] \
-                == 2 * m["stretch_propose"], (name, n, m)
-            assert n["stretch_accept_propose"] == 0, (name, n)
+            # the fused trio, sharded as on one rank
+            for k in ("stretch_propose", "stretch_accept_propose",
+                      "stretch_accept"):
+                assert n[k] == m[k], (name, k, n, m)
         if drift is None:
             verdict = "equals the one-rank eager chain digit for digit"
         else:
@@ -5245,8 +5300,11 @@ def mesh_surface_legs(torch, card):
             launches[k] = launches.get(k, 0) + v
         steps = MS_WARM + MS_STEPS
         sps = steps / max(r[leg]["seconds"] for r in ranks)
+        wsps, setup = _window_rate(ranks, leg)
         end = max(r[leg]["end"] for r in ranks)
         rates[f"{name}_steps_per_s"] = sps
+        rates[f"{name}_window_steps_per_s"] = wsps
+        rates[f"{name}_setup_s"] = setup
         rates[f"{name}_wall_s"] = end - last
         start = "the ranks' start and " if last == t0 else ""
         note = ""
@@ -5261,7 +5319,9 @@ def mesh_surface_legs(torch, card):
                     f"; stopped at {int(rec['stopped'][0])} stored steps, "
                     "continued from its Backend()")
         print(f"{name}: {verdict}; {sps:.1f} steps/s over {steps} steps "
-              f"(the slowest rank; eager), wall {end - last:.1f} s with "
+              f"(the slowest rank; eager; window {wsps:.1f} steps/s over "
+              f"the stored steps, set-up and burn-in {setup:.2f} s), wall "
+              f"{end - last:.1f} s with "
               f"{start}the set-up; launches by the ranks {got}, by the "
               f"one-rank chain {ref_launches[leg]}{note} ({card})")
         last = end
@@ -5362,6 +5422,7 @@ def _mesh_custom_rank(rank, world):
             s.run_mcmc(state, MC_STEPS, burn=MC_WARM)
             torch.cuda.synchronize()
             out[leg] = {"seconds": time.perf_counter() - t0,
+                        "window": _window(s, MC_WARM),
                         "launches": read(), "record": _mesh_zoo_record(s),
                         "routes": [
                             f"{type(x).__name__}: {x.mesh_route()}"
@@ -5400,8 +5461,7 @@ def mesh_custom_legs(torch, card):
     Each chain must equal its one-rank eager chain digit for digit: a
     difference prints its first differing stored step and field and fails
     the script.  Each rank launches kernels 1, 2, 3 and 5 as often as that
-    chain (the fused stretch launch counted as both 1 and 2: a rank's
-    sharded stretch launches 1 and 2 unfused, twice a step); no plain
+    chain (the fused stretch launch counted as both 1 and 2); no plain
     version runs.  Returns the launches of the ranks and the references,
     the ranks' kernel 5 launches also under ``group_stretch_propose[sharded
     config-c]`` (the shape the kernel phase holds against the plain
@@ -5453,8 +5513,11 @@ def mesh_custom_legs(torch, card):
         for k, v in got.items():
             launches[k] = launches.get(k, 0) + v
         sps = steps / max(r[leg]["seconds"] for r in ranks)
+        wsps, setup = _window_rate(ranks, leg)
         end = max(r[leg]["end"] for r in ranks)
         rates[f"{name}_steps_per_s"] = sps
+        rates[f"{name}_window_steps_per_s"] = wsps
+        rates[f"{name}_setup_s"] = setup
         rates[f"{name}_wall_s"] = end - last
         start = "the ranks' start and " if last == t0 else ""
         verdict = ("equals the one-rank eager chain digit for digit"
@@ -5462,7 +5525,9 @@ def mesh_custom_legs(torch, card):
                    "chain")
         print(f"{name}: {verdict}; routes {ranks[0][leg]['routes']}; "
               f"{sps:.1f} steps/s over {steps} steps (the slowest rank; "
-              f"eager), wall {end - last:.1f} s with {start}the set-up; "
+              f"eager; window {wsps:.1f} steps/s over the {MC_STEPS} "
+              f"stored, set-up and burn-in {setup:.2f} s), wall "
+              f"{end - last:.1f} s with {start}the set-up; "
               f"kernels 1, 2, 3, 5 a rank "
               f"{_kernel_work(ranks[0][leg]['launches'])} as the one-rank "
               f"chain; launches by the ranks {got}, by the one-rank chain "
@@ -5474,6 +5539,202 @@ def mesh_custom_legs(torch, card):
           f"gloo]: wall {wall:.1f} s with the ranks' start; staged through "
           f"host memory: {ranks[0]['staged'] or 'none'} ({card})")
     assert not drifts, f"chains differ from their one-rank chains: {drifts}"
+    return launches, rates, []
+
+
+# mesh_graph[...]: the sharded route captured with its NCCL collectives, on a
+# one-rank NCCL group (NCCL takes one rank per card): the north-star (50 +
+# 400 steps) and the LISA-style RJ configuration (20 + 100), each run
+# captured, then eager, from the same seed, into DeviceBackend; the window
+# is the stored steps, timed apart from the set-up and the burn-in (the
+# first eager run of each move, which makes NCCL's communicator, and the
+# captures)
+MG_LEGS = {"north-star": (50, 400), "lisa-rj": (20, 100)}
+MG_PROFILE_STEPS = 20
+
+
+def _mesh_graph_sampler(torch, np, leg, cuda_graph):
+    if leg == "north-star":
+        return _mesh_north_star(torch, cuda_graph=cuda_graph)
+    return _mesh_rj_sampler(torch, np, leg, cuda_graph=cuda_graph)
+
+
+def _mesh_graph_profile(torch, sampler):
+    """``torch.profiler`` over ``MG_PROFILE_STEPS`` replayed steps without
+    storing, per step: the graph launches, the device's ops, our kernels
+    by name, NCCL's kernels, the copy kernels of graph memcpy nodes
+    (``memcpy32_post``: NCCL's one-rank gathers among them) and the
+    runtime's memcpys by direction."""
+    import re
+
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    state = sampler._previous_state
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        sampler._run_bulk(state, 1, MG_PROFILE_STEPS, store=False)
+        torch.cuda.synchronize()
+    device = [e.name for e in prof.events()
+              if e.device_type == DeviceType.CUDA]
+    n = MG_PROFILE_STEPS
+    out = {"graph_launches": sum(e.name == "cudaGraphLaunch"
+                                 for e in prof.events()) / n,
+           "device_ops": len(device) / n}
+    for key, pat in (("stretch_propose", r"(?<!group_)stretch_propose_kernel"),
+                     ("stretch_accept_propose",
+                      r"stretch_accept_propose_kernel"),
+                     ("stretch_accept", r"stretch_accept_kernel"),
+                     ("pt_swap_cascade", r"pt_swap_cascade_kernel"),
+                     ("group_stretch_propose", r"group_stretch_propose_kernel"),
+                     ("nccl", r"(?i)nccl"),
+                     ("memcpy32_post", r"memcpy32_post")):
+        out[key] = sum(bool(re.search(pat, name)) for name in device) / n
+    for name in device:
+        if name.startswith("Memcpy"):
+            kind = "memcpy " + name.split()[1]
+            out[kind] = out.get(kind, 0) + 1 / n
+    return out
+
+
+def _mesh_graph_rank(rank, world):
+    """The one NCCL rank of the ``mesh_graph[...]`` legs: per leg the
+    sharded route on a ``(1, 1)`` mesh (``_one_rank_layout``), captured,
+    then eager; the set-up, the burn-in and the window timed apart, the
+    stored segments under ``set_sync_debug_mode("error")``, the kernels'
+    launches and the collectives (``_comm.CALLS``) counted over the run,
+    and a profile of the replays."""
+    import numpy as np
+    import torch
+    import torch.distributed as dist
+
+    from eryn_tpu_torch.parallel import _comm, make_mesh, shard_state
+
+    out = {"backend": dist.get_backend()}
+    with _plain_versions_forbidden():
+        mesh = make_mesh(1)
+        for leg, (warm, steps) in MG_LEGS.items():
+            for form in ("captured", "eager"):
+                torch.cuda.synchronize()
+                t0 = time.perf_counter()
+                s, state = _mesh_graph_sampler(torch, np, leg,
+                                               form == "captured")
+                state = shard_state(state, mesh)
+                s._one_rank_layout = state.sharding.layout
+                read = _counting(_kernels())
+                calls = dict(_comm.CALLS)
+                torch.cuda.synchronize()
+                t1 = time.perf_counter()
+                s.run_mcmc(state, 1, burn=warm)
+                torch.cuda.synchronize()
+                t2 = time.perf_counter()
+                with _segments_never_wait():
+                    s.run_mcmc(None, steps - 1)
+                torch.cuda.synchronize()
+                t3 = time.perf_counter()
+                got = out[leg, form] = {
+                    "setup_s": t1 - t0, "burn_s": t2 - t1,
+                    "window_s": t3 - t2, "window_steps": steps - 1,
+                    "launches": read(),
+                    "calls": {k: v - calls.get(k, 0)
+                              for k, v in _comm.CALLS.items()
+                              if v != calls.get(k, 0)},
+                    "sharded": s._mesh_layout is not None,
+                    "graph_replays": s.graph_replays,
+                    "graph_captures": s.graph_captures,
+                    "record": _mesh_rj_record(s)}
+                if form == "captured":
+                    got["profile"] = _mesh_graph_profile(torch, s)
+            # the same configuration in one process, graphed: what the
+            # sharded route adds to a step
+            s, state = _mesh_graph_sampler(torch, np, leg, True)
+            s.run_mcmc(state, 1, burn=10)
+            out[leg, "one process"] = {"profile": _mesh_graph_profile(torch,
+                                                                      s)}
+    return out
+
+
+def mesh_graph_legs(torch, card):
+    """``mesh_graph[north-star,1x1,nccl]`` and
+    ``mesh_graph[lisa-rj,1x1,nccl]``: the sharded route, planned on the
+    device, captured in CUDA graphs with its NCCL collectives on one rank
+    (NCCL takes one rank per card, so one card shows it at world size 1),
+    against the same route eager from the same seed.  Each captured chain
+    must equal its eager chain digit for digit; graphs must replay; the
+    stored segments run under ``set_sync_debug_mode("error")``; each
+    replay carries its collectives (counted at capture); the profile of
+    the replays must show kernels 1, 2, 3 (north-star) or 3 and 5 (LISA).
+    Prints the window's steps/s captured and eager, with the set-up and
+    the burn-in (NCCL's warm-up and the captures) apart.  Returns the
+    launches of both forms and the legs' rates."""
+    import numpy as np
+
+    from eryn_tpu_torch.parallel._spawn import launch
+
+    t0 = time.perf_counter()
+    rank = launch(_mesh_graph_rank, 1, backend="nccl",
+                  timeout=MESH_TIMEOUT)[0]
+    wall = time.perf_counter() - t0
+    assert rank["backend"] == "nccl", rank["backend"]
+    launches, rates = {}, {}
+    for leg, (warm, steps) in MG_LEGS.items():
+        name = f"mesh_graph[{leg},1x1,nccl]"
+        cap, eag = rank[leg, "captured"], rank[leg, "eager"]
+        assert cap["sharded"] and eag["sharded"], name
+        _same_record(np, f"{name}, captured against eager", cap["record"],
+                     eag["record"])
+        assert cap["graph_replays"] > 0, (name, cap["graph_replays"])
+        assert eag["graph_replays"] == 0, (name, eag["graph_replays"])
+        assert cap["launches"] == eag["launches"], (name, cap["launches"],
+                                                     eag["launches"])
+        assert cap["calls"] == eag["calls"] and cap["calls"], (
+            name, cap["calls"], eag["calls"])
+        prof, one = cap["profile"], rank[leg, "one process"]["profile"]
+        # every step's replay carries its collectives: the gathered
+        # log-likelihood of each swap phase
+        phases = 1 if leg == "north-star" else 2
+        assert cap["calls"]["all_gather_into_tensor"] == phases * (
+            warm + steps), (name, cap["calls"])
+        if leg == "north-star":
+            _assert_stretch_launches(cap["launches"], warm + steps)
+            assert cap["launches"]["pt_swap_cascade_multi"] == warm + steps
+            assert min(prof["stretch_propose"], prof["stretch_accept"],
+                       prof["stretch_accept_propose"]) == 1, prof
+        else:
+            n = cap["launches"]
+            assert n["group_stretch_propose"] == 2 * (warm + steps), n
+            assert n["pt_swap_cascade_multi"] == 2 * (warm + steps), n
+            assert prof["group_stretch_propose"] == 2, prof
+        assert prof["pt_swap_cascade"] >= 1, prof
+        for k, v in cap["launches"].items():
+            launches[k] = launches.get(k, 0) + v + eag["launches"][k]
+        sps = {f: r["window_steps"] / r["window_s"] for f, r in
+               (("captured", cap), ("eager", eag))}
+        rates[f"{name}_steps_per_s"] = sps["captured"]
+        rates[f"{name}_eager_steps_per_s"] = sps["eager"]
+        rates[f"{name}_setup_s"] = cap["setup_s"]
+        rates[f"{name}_burn_s"] = cap["burn_s"]
+        rates[f"{name}_collectives_per_step"] = {
+            k: v / (warm + steps) for k, v in cap["calls"].items()}
+        print(f"{name}: captured equals eager digit for digit (chain, "
+              f"masks, log_like, log_prior, betas, acceptance, swaps); "
+              f"{cap['graph_captures']} graphs captured, "
+              f"{cap['graph_replays']} replays, stored segments under "
+              f"set_sync_debug_mode('error'); window {sps['captured']:.1f} "
+              f"steps/s captured, {sps['eager']:.1f} eager, over "
+              f"{cap['window_steps']} stored steps; set-up "
+              f"{cap['setup_s']:.2f} s, burn-in of {warm} with NCCL's "
+              f"warm-up and the captures {cap['burn_s']:.2f} s (eager "
+              f"{eag['burn_s']:.2f} s); collectives {cap['calls']}; "
+              f"launches {cap['launches']} ({card})")
+        rates[f"{name}_device_ops_per_step"] = prof["device_ops"]
+        print(f"{name}: profile of {MG_PROFILE_STEPS} replayed steps, per "
+              f"step: {prof}; the same configuration in one process, "
+              f"graphed: {one} ({card})")
+    rates["mesh_graph_legs_wall_s"] = wall
+    print(f"mesh_graph[...]: wall {wall:.1f} s with the rank's start "
+          f"({card})")
     return launches, rates, []
 
 
@@ -5544,7 +5805,7 @@ def main(argv=None):
     if args.mesh_legs or args.para_digest:
         with _plain_versions_forbidden():
             legs = ([mesh_legs, mesh_rj_legs, mesh_zoo_legs,
-                     mesh_surface_legs, mesh_custom_legs]
+                     mesh_surface_legs, mesh_custom_legs, mesh_graph_legs]
                     if args.mesh_legs else []) + (
                 [para_north_star_leg, para_rj_pulse128_leg]
                 if args.para_digest else [])
@@ -5626,7 +5887,7 @@ def main(argv=None):
         for leg in (host_like_leg, host_like_vec_leg, host_like_pool_leg,
                     hybrid_host_leg, examples_leg, mesh_legs,
                     mesh_rj_legs, mesh_zoo_legs, mesh_surface_legs,
-                    mesh_custom_legs):
+                    mesh_custom_legs, mesh_graph_legs):
             t0 = time.perf_counter()
             legs.append(leg(torch, smi))
             print(f"phase 4: {leg.__name__} {time.perf_counter() - t0:.1f} s")

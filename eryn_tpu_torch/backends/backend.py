@@ -52,17 +52,19 @@ class Backend:
         self.dtype = np.dtype(dtype) if dtype is not None else np.dtype(np.float64)
 
     def reset(self, nwalkers, ndims, nleaves_max=1, ntemps=1, branch_names=None,
-              rj=False, moves=None, info=None, key_order=None):
+              nbranches=1, rj=False, moves=None, info=None, key_order=None):
         """Allocate empty chain storage.  ``key_order`` is the priors'
         parameter order per branch, which a resume must match."""
         if branch_names is None:
-            branch_names = ["model_0"]
+            branch_names = [f"model_{i}" for i in range(nbranches)]
         if isinstance(branch_names, str):
             branch_names = [branch_names]
 
         def per_branch(val):
             if isinstance(val, (int, np.integer)):
                 return {bn: int(val) for bn in branch_names}
+            if isinstance(val, (list, tuple, np.ndarray)):
+                return {bn: int(v) for bn, v in zip(branch_names, val)}
             return {k: int(v) for k, v in val.items()}
 
         self.nwalkers = int(nwalkers)
@@ -105,6 +107,21 @@ class Backend:
         self._sampler_clock = None
         self._shard = None
         self.initialized = True
+
+    @property
+    def reset_args(self):
+        """The positional arguments of :meth:`reset` that lay out this
+        backend again: ``(nwalkers, ndims)``."""
+        return (self.nwalkers, self.ndims)
+
+    @property
+    def reset_kwargs(self):
+        """The keyword arguments of :meth:`reset` that lay out this backend
+        again."""
+        return dict(nleaves_max=self.nleaves_max, ntemps=self.ntemps,
+                    branch_names=self.branch_names, rj=self.rj,
+                    moves=self.move_keys, key_order=self.key_order,
+                    info=self.info)
 
     def reset_sharded(self, layout, nwalkers, ndims, ntemps=1, **kwargs):
         """:meth:`reset` for this rank's shard of the ``ntemps x nwalkers``

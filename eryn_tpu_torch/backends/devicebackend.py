@@ -235,37 +235,48 @@ class DeviceBackend(Backend):
         raise ValueError(f"Unknown value name: {name}")
 
     def get_autocorr_time(self, discard=0, thin=1, all_temps=False,
-                          multiply_thin=True, window=50, average=True, tol=0,
-                          quiet=True):
+                          multiply_thin=True, **kwargs):
         """Per-parameter IACT computed on the device: the chain never
         crosses to the host, only the taus do.  Takes the host path once
-        part of the chain has been offloaded."""
+        part of the chain has been offloaded.  ``kwargs`` are
+        :func:`~eryn_tpu_torch.utils.utility.get_integrated_act`'s
+        (``axis``, ``window``, ``fast``, ``average``, ``tol``, ``quiet``);
+        ``fast`` estimates on the largest power-of-two number of the kept
+        steps, as the host path does."""
         from ..utils.utility import _check_tol, get_integrated_act_torch
 
         if self._host is not None:
             return super().get_autocorr_time(
                 discard=discard, thin=thin, all_temps=all_temps,
-                multiply_thin=multiply_thin, window=window, average=average,
-                tol=tol, quiet=quiet,
-            )
+                multiply_thin=multiply_thin, **kwargs)
+        opts = dict(axis=0, window=50, fast=False, average=True, tol=0,
+                    quiet=True)
+        unknown = set(kwargs) - set(opts)
+        if unknown:
+            raise TypeError("get_autocorr_time() got unexpected keyword "
+                            f"arguments {sorted(unknown)}")
+        opts.update(kwargs)
+        if opts["axis"] != 0:
+            raise NotImplementedError("get_integrated_act requires axis=0.")
         self._check_stored()
         sl = slice(discard + thin - 1, self.iteration, thin)
+        nsteps = len(range(discard + thin - 1, self.iteration, thin))
+        kept = (int(2 ** np.floor(np.log2(nsteps))) if opts["fast"]
+                else nsteps)
         factor = thin if multiply_thin else 1
         out = {}
         for name in self.branch_names:
             parts = self._seg_arrays("chain", name)
             chain = parts[0] if len(parts) == 1 else torch.cat(parts, dim=0)
-            chain = chain[sl]
+            chain = chain[sl][:kept]
             if not all_temps:
                 chain = chain[:, 0:1]
             tau = get_integrated_act_torch(
-                chain.double(), window=window, average=average
-            )
+                chain.double(), window=opts["window"],
+                average=opts["average"])
             out[name] = tau.cpu().numpy() * factor
-        nsteps = len(range(discard + thin - 1, self.iteration, thin))
-        _check_tol(
-            [np.nanmax(t) / factor for t in out.values()], nsteps, tol, quiet
-        )
+        _check_tol([np.nanmax(t) / factor for t in out.values()], nsteps,
+                   opts["tol"], opts["quiet"])
         return out
 
     def _device_field(self, field, branch, discard, thin):

@@ -40,7 +40,7 @@ import numpy as np
 
 from .backend import Backend
 
-__all__ = ["HDFBackend", "TempHDFBackend"]
+__all__ = ["HDFBackend", "TempHDFBackend", "does_hdf5_support_longdouble"]
 
 _OPEN_RETRIES = 100
 _OPEN_RETRY_SLEEP = 0.1
@@ -53,6 +53,27 @@ def _h5py():
     except ImportError:
         raise ImportError("You must install 'h5py' to use the HDFBackend") from None
     return h5py
+
+
+def does_hdf5_support_longdouble():
+    """Whether h5py writes and reads back ``numpy.longdouble`` (False
+    without h5py), probed with a temporary file."""
+    try:
+        h5py = _h5py()
+    except ImportError:
+        return False
+    import tempfile
+
+    with tempfile.NamedTemporaryFile(suffix=".h5", delete=False) as tmp:
+        path = tmp.name
+    try:
+        with h5py.File(path, "w") as hf:
+            g = hf.create_group("group")
+            g.create_dataset("data", data=np.ones(1, dtype=np.longdouble))
+        with h5py.File(path, "r") as hf:
+            return hf["group"]["data"].dtype == np.longdouble
+    finally:
+        os.remove(path)
 
 
 def _retry(fn):
@@ -112,18 +133,20 @@ class HDFBackend(Backend):
 
     # ------------------------------------------------------------------
     def reset(self, nwalkers, ndims, nleaves_max=1, ntemps=1, branch_names=None,
-              rj=False, moves=None, info=None, key_order=None):
+              nbranches=1, rj=False, moves=None, info=None, key_order=None):
         """Create the file's layout, replacing the group ``name``; this
         process writes it from here."""
         self._rows = self._ranks = None
         if branch_names is None:
-            branch_names = ["model_0"]
+            branch_names = [f"model_{i}" for i in range(nbranches)]
         if isinstance(branch_names, str):
             branch_names = [branch_names]
 
         def per_branch(val):
             if isinstance(val, (int, np.integer)):
                 return {bn: int(val) for bn in branch_names}
+            if isinstance(val, (list, tuple, np.ndarray)):
+                return {bn: int(v) for bn, v in zip(branch_names, val)}
             return {k: int(v) for k, v in val.items()}
 
         self.nwalkers = int(nwalkers)

@@ -974,6 +974,11 @@ class EnsembleSampler:
         # the rank's MeshLayout while the state is sharded over a device
         # mesh (parallel.mesh), else None
         self._mesh_layout = None
+        # a MeshLayout of a one-rank mesh on which to run the sharded step,
+        # collectives and all (shard_state runs the one-rank step there, as
+        # eryn_tpu does): how chip_smoke.py captures the sharded route over
+        # NCCL on one card
+        self._one_rank_layout = None
         self._kernel_states = None
         self._m_acc = None
         self._m_nprop = np.zeros(len(self._all_move_list))
@@ -1165,6 +1170,8 @@ class EnsembleSampler:
 
         mesh = mesh_of_state(state)
         layout = None if mesh is None else state.sharding.layout
+        if layout is None:
+            layout = self._one_rank_layout
         backend = self.backend
         if layout is self._mesh_layout and backend.initialized:
             return
@@ -1275,8 +1282,10 @@ class EnsembleSampler:
                 (), clock, dtype=torch.int64, device=self.device
             )
 
-    def reset(self):
-        """Clear the stored chain."""
+    def reset(self, **info):
+        """Clear the stored chain.  ``info`` (Eryn's keyword arguments) is
+        accepted as ``eryn_tpu`` accepts it, and not used: the backend is
+        laid out again with the sampler's own ``info``."""
         self._reset_backend(self.backend)
 
     @property
@@ -1706,9 +1715,14 @@ class EnsembleSampler:
     @property
     def _graphed(self):
         """Whether segments replay the moves' CUDA graphs: not where every
-        step visits the host."""
+        step visits the host, nor under a mesh whose collectives a graph
+        cannot capture (gloo's).  Under an NCCL mesh the moves whose sharded
+        step is planned on the device (:meth:`~eryn_tpu_torch.moves.Move.
+        mesh_device_planned`) are captured with their collectives, the
+        others run eagerly in their slots."""
+        lay = self._mesh_layout
         return (self.cuda_graph and self.device.type == "cuda"
-                and not self._visits_host and self._mesh_layout is None)
+                and not self._visits_host and (lay is None or lay.nccl))
 
     def _start_clock(self, tc):
         """The adaptation clock at the start of a segment, a 0-d int64
@@ -2238,10 +2252,13 @@ class EnsembleSampler:
                     for n, v in inds.items()}
         return out, inds
 
-    def compute_log_prior(self, coords, inds=None):
+    def compute_log_prior(self, coords, inds=None, supps=None,
+                          branch_supps=None):
         """Log prior of ``coords`` (``(nwalkers, ndim)``, ``(ntemps,
         nwalkers, ndim)`` or the 4-D layout, or a dict of them per branch)
-        over the active leaves, a tensor on the sampler's device."""
+        over the active leaves, a tensor on the sampler's device.
+        ``supps`` and ``branch_supps`` are accepted as ``eryn_tpu`` accepts
+        them, and not used: a prior reads no supplemental."""
         return self._prior_eval(*self._coerce_eval_inputs(coords, inds))
 
     def compute_log_like(self, coords, inds=None, logp=None, supps=None,

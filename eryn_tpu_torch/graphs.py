@@ -16,6 +16,16 @@ A host move (Eryn's host protocol, :mod:`~eryn_tpu_torch.moves.legacy`) is
 never captured: its slot copies the buffers out, runs the move eagerly and
 copies the result back, between the replays of the native moves.
 
+Under a device mesh whose process group is NCCL
+(:mod:`~eryn_tpu_torch.parallel.mesh`) the buffers hold the rank's shard,
+and each rank captures the sharded step of every move that declares it
+planned on the device (:meth:`~eryn_tpu_torch.moves.Move.
+mesh_device_planned`), its collectives on the capturing stream; its first,
+eager run makes NCCL's communicators.  Any other move runs eagerly in its
+slots, on the buffers.  The collectives a graph captured are counted at
+each replay (:data:`~eryn_tpu_torch.parallel._comm.CALLS`), as the
+kernels' launches are.
+
 A move is captured the second time it is due: its first run is the same
 body, eager, which builds the kernels, lets ``torch.func.vmap`` trace the
 likelihood and warms the allocator.  Every graph shares one memory pool
@@ -96,6 +106,8 @@ class StepGraphs:
     def __init__(self, sampler):
         self.sampler = sampler
         self.graphs = {}  # (move index, first of its kind): (graph, counts)
+        self.calls = {}  # the same keys: the collectives a graph captured
+        self.eager = {}  # move index: whether its slots run eagerly
         self.warm = set()  # keys whose body has run eagerly once
         self.pool = self.stream = None
         self.state = self.clock = self.layout = None
@@ -146,6 +158,9 @@ class StepGraphs:
             if smp._host_moves[j]:
                 self._host_entry(key)
                 continue
+            if self._runs_eagerly(j):
+                self._body(key, ctx)
+                continue
             entry = self.graphs.get(key)
             if entry is None:
                 if key not in self.warm:
@@ -157,7 +172,23 @@ class StepGraphs:
             graph.replay()
             for kernel, n in counts:
                 kernel.launches += n
+            calls = self.calls.get(key)
+            if calls:
+                from .parallel import _comm
+
+                for name, n in calls:
+                    _comm.CALLS[name] += n
             smp.graph_replays += 1
+
+    def _runs_eagerly(self, j):
+        """Whether native move ``j`` runs eagerly in its slots: under a
+        mesh, a move whose sharded step is not declared planned on the
+        device."""
+        if j not in self.eager:
+            smp = self.sampler
+            self.eager[j] = (smp._mesh_layout is not None and not smp.
+                             _all_move_list[j].mesh_device_planned(self.state))
+        return self.eager[j]
 
     def _host_entry(self, key):
         """A host move's slot: the buffers' state out, the move run eagerly
@@ -191,7 +222,7 @@ class StepGraphs:
         smp = self.sampler
         move = smp._all_move_list[j]
         kernel_state = smp._kernel_states[j]
-        state, acc, swaps, time, new_kernel_state = move.propose_kernel(
+        state, acc, swaps, time, new_kernel_state = move.step_kernel(
             smp._gen, self.state, self.clock, ctx, kernel_state
         )
         for dst, src in zip(_tensor_leaves(kernel_state),
@@ -205,7 +236,11 @@ class StepGraphs:
     def _capture(self, key, ctx):
         """Capture the body of ``key`` into a graph on a side stream, with
         the generator registered and its state kept; returns ``(graph,
-        ((kernel, launches per replay), ...))``."""
+        ((kernel, launches per replay), ...))``, and keeps the collectives
+        it captured, ``((name, calls per replay), ...)``, in
+        ``self.calls[key]``."""
+        from .parallel import _comm
+
         smp = self.sampler
         if self.pool is None:
             self.pool = torch.cuda.graph_pool_handle()
@@ -214,6 +249,7 @@ class StepGraphs:
         graph.register_generator_state(smp._gen)
         kernels = counted_kernels()
         before = [k.launches for k in kernels]
+        calls_before = dict(_comm.CALLS)
         rng = smp._gen.get_state()
         self.stream.wait_stream(torch.cuda.current_stream(smp.device))
         error = None
@@ -244,6 +280,11 @@ class StepGraphs:
                        if k.launches != b)
         for k, b in zip(kernels, before):
             k.launches = b
+        self.calls[key] = tuple((name, n - calls_before.get(name, 0))
+                                for name, n in _comm.CALLS.items()
+                                if n != calls_before.get(name, 0))
+        _comm.CALLS.clear()
+        _comm.CALLS.update(calls_before)
         if error is not None:
             # PyTorch leaves the failed capture's state in each generator
             # it registered, the device's default one too, and every later

@@ -97,6 +97,11 @@ class GroupMove(Move):
         """Host hook: repair the friends of leaves born through reversible
         jump (optional)."""
 
+    def choose_c_vals(self, name, s, s_inds=None, branch_supps=None):
+        """Eryn's complement of the points ``s``: :meth:`find_friends`'s."""
+        return self.find_friends(name, s, s_inds=s_inds,
+                                 branch_supps=branch_supps)
+
     @stock_host_api
     def get_proposal(self, s_all, random, gibbs_ndim=None, s_inds_all=None,
                      **kwargs):
@@ -128,8 +133,8 @@ class GroupMove(Move):
         """``coords`` and ``inds`` over every walker of the state's
         temperatures: on a state sharded over a device mesh each walker
         shard's rows gathered within the temperature shard (one exchange,
-        :meth:`~eryn_tpu_torch.parallel.mesh.MeshLayout.fill_rows`), else
-        the trees as they are."""
+        :meth:`~eryn_tpu_torch.parallel.mesh.MeshLayout.gather_walkers`),
+        else the trees as they are."""
         lay = self.mesh_layout
         if lay is None:
             return coords, inds
@@ -179,8 +184,9 @@ class GroupMove(Move):
             snap_coords = _blend(refresh, coords, kernel_state["snap_coords"])
             snap_inds = _blend(refresh, inds, kernel_state["snap_inds"])
         elif int(it) % self.n_iter_update == 0:
-            # sharded, hence eager: the host decides, and only a refresh
-            # gathers the temperatures' walkers
+            # under a mesh the step is eager (not declared planned on the
+            # device): the host decides, and only a refresh gathers the
+            # temperatures' walkers
             snap_coords, snap_inds = self._walker_views(coords, inds)
             friends = self.setup_friends_kernel(snap_coords, snap_inds)
         else:

@@ -38,6 +38,7 @@ __all__ = [
     "gibbs_iterator",
     "groupstretch_get_proposal",
     "host_propose",
+    "is_legacy_move",
     "setup_proposals",
     "stretch_get_proposal",
 ]
@@ -134,6 +135,12 @@ class _HostBranch:
     def nleaves(self):
         return self.inds.sum(axis=-1)
 
+
+
+def is_legacy_move(move):
+    """Whether ``move`` runs Eryn's host protocol (:attr:`~eryn_tpu_torch.
+    moves.Move.host_move`)."""
+    return bool(getattr(move, "host_move", False))
 
 def _host_snapshot(state):
     """A mutable host copy of ``state``; ``like`` keeps the state for the

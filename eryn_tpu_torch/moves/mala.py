@@ -448,8 +448,7 @@ class MALAMove(Move):
         halves = []
         for blk in view.blocks(perm, (n0, NW - n0), (0, n0)):
             halves.append(blk.idx)
-            at = (blk.at if blk.at is not None
-                  else torch.zeros(0, dtype=torch.int64, device=device))
+            at, idx = blk.pos, blk.own_idx
 
             def comp(x, off=blk.off, ns=blk.ns):
                 return torch.cat([x[:, :off], x[:, off + ns:]], dim=1)
@@ -461,12 +460,6 @@ class MALAMove(Move):
                                          comp, scale, logl0, kernel_state)
             x = {n: mine(blk.coords_p[n]) for n in names}
             with self.block_walkers(blk.ns, at):
-                if blk.at is None:
-                    # none of the half is here: its draws only
-                    self.draw_block(generator, x)
-                    self.draw_accept(generator, logl0[:, :0], per_walker=True)
-                    continue
-                idx = blk.own_idx
                 prev = (view.log_like[:, idx], view.log_prior[:, idx])
                 # supplementals do not run sharded
                 q, ll1, lp1, _, acc, alpha_half = self._precond_half(

@@ -189,6 +189,18 @@ class Move:
             return "sharded"
         return "gathered"
 
+    def mesh_device_planned(self, state):
+        """Whether this move's sharded step on ``state`` (the rank's shard)
+        is planned on the device, with its swap phase: it reads nothing on
+        the host, its exchanges' sizes are the mesh's and the ensemble's
+        only, and every index stays on the device.  Under a mesh whose
+        process group is NCCL the sampler captures such a step in a CUDA
+        graph, collectives included; a move that is not (the default: a
+        tuning move's host clock, the gathered routes, a host move) runs
+        eagerly between the replays.  A class declares it; the sampler
+        never finds it out by trying a capture."""
+        return False
+
     def __init__(
         self,
         temperature_control=None,
@@ -219,6 +231,11 @@ class Move:
         if self.accepted is None or self.num_proposals == 0:
             return None
         return np.asarray(self.accepted) / self.num_proposals
+
+    @property
+    def accepted_hist(self):
+        """Eryn's name of :attr:`accepted`, the cumulative accept counts."""
+        return self.accepted
 
     def run_branches(self, state):
         """Branch names this move proposes on (all by default)."""
@@ -406,12 +423,14 @@ class Move:
 
     def mesh_tuning(self, kernel_state):
         """Whether a proposal at ``kernel_state``'s clock ``t`` still tunes
-        (``t < tune_steps``).  Under a mesh the sharded step plans on the
-        host already, so the answer is a host bool, and past its tuning a
-        move skips the exchanges of the statistics whose updates the device
-        clock would discard.  The clock's value follows the tensor
-        :meth:`advance_clock` made; a clock from elsewhere (the first
-        proposal, a restored kernel state) is read once.  Without a mesh
+        (``t < tune_steps``).  Under a mesh the answer is a host bool, and
+        past its tuning a move skips the exchanges of the statistics whose
+        updates the device clock would discard: such a step reads the host,
+        so a tuning move does not declare itself planned on the device
+        (:meth:`mesh_device_planned`) and runs eagerly between replays.
+        The clock's value follows the tensor :meth:`advance_clock` made; a
+        clock from elsewhere (the first proposal, a restored kernel state)
+        is read once.  Without a mesh
         True: the step's ``torch.where`` on the device clock decides."""
         if self.mesh_layout is None:
             return True
@@ -706,6 +725,14 @@ class Move:
         from .legacy import fix_logp_gibbs
 
         fix_logp_gibbs(branch_names_run, inds_run, logp, inds)
+
+    def compute_log_posterior_tempered(self, logl, logp, betas=None):
+        """The tempered log posterior ``betas * logl + logp`` through the
+        move's temperature control, else the untempered sum."""
+        if self.temperature_control is not None:
+            return self.temperature_control.compute_log_posterior_tempered(
+                logl, logp, betas=betas)
+        return torch.as_tensor(logl) + torch.as_tensor(logp)
 
     def compute_log_posterior_basic(self, logl, logp):
         """The untempered ``logl + logp``."""

@@ -17,9 +17,8 @@ their blobs merged where they lie.
 
 from __future__ import annotations
 
-from typing import NamedTuple, Optional
+from typing import NamedTuple
 
-import numpy as np
 import torch
 
 from .move import (
@@ -226,15 +225,14 @@ class RedBlueMove(Move):
         process's proposal on the whole ensemble.
 
         The proposal runs on the walker-order views of :class:`WalkerBlocks`
-        (the rank's temperatures, every walker's rows that a block's
-        complement needs filled in before the block).
-        :meth:`get_proposal_block` proposes the whole block on the permuted
-        view as one process does (its draws at every temperature, each
-        kept for the rank's), the prior and the likelihood run on the
-        rank's walkers of the block only (zeros for the other ranks'), and
-        the decision takes the block's draw.  The other ranks' rows of the
-        view are discarded.  Returns ``(state, accepted)`` for the
-        shard."""
+        (the rank's temperatures, every walker's rows filled in before the
+        block).  :meth:`get_proposal_block` proposes the whole block on the
+        permuted view as one process does (its draws at every temperature,
+        each kept for the rank's), the prior and the likelihood run on the
+        rank's walkers of the block (``min(nw, ns)`` rows, padding
+        included: :attr:`_Block.pos`), and the decision takes the block's
+        draw.  The other ranks' rows of the view are discarded.  Returns
+        ``(state, accepted)`` for the shard."""
         self._check_walkers(state, self.run_branches(state))
         self.setup(state.branches)
         all_names = list(state.branches)
@@ -261,28 +259,23 @@ class RedBlueMove(Move):
                     if mask is not None:
                         q[n] = torch.where(mask, q[n], s_coords[n])
 
-                idx = blk.idx
+                idx, at = blk.idx, blk.pos
                 prev_logl, prev_logp = logl[:, idx], logp[:, idx]
                 logl_new = torch.zeros_like(prev_logl)
                 logp_new = torch.zeros_like(prev_logp)
-                blobs_new = None
-                if blk.at is not None:
-                    at = blk.at
-                    q_eval = {
-                        n: (q[n] if n in q else coords_p[n][:, block])[:, at]
-                        for n in all_names
-                    }
-                    inds_eval = {n: inds_p[n][:, block][:, at]
-                                 for n in all_names}
-                    lp = ctx.compute_log_prior(q_eval, inds_eval)
-                    # the rank's walkers of the block with their branch
-                    # supplementals, which the move leaves as they are
-                    own = blk.own_idx - self.mesh_layout.w0
-                    ll, blobs_new = ctx.compute_log_like(
-                        q_eval, inds_eval, lp,
-                        state_branch_supps(state, perm=own))
-                    logl_new[:, at] = ll
-                    logp_new[:, at] = lp
+                q_eval = {
+                    n: (q[n] if n in q else coords_p[n][:, block])[:, at]
+                    for n in all_names
+                }
+                inds_eval = {n: inds_p[n][:, block][:, at] for n in all_names}
+                lp = ctx.compute_log_prior(q_eval, inds_eval)
+                # the rank's walkers of the block (and padding) with their
+                # branch supplementals, which the move leaves as they are
+                ll, blobs_new = ctx.compute_log_like(
+                    q_eval, inds_eval, lp,
+                    state_branch_supps(state, perm=blk.local))
+                logl_new[:, at] = ll
+                logp_new[:, at] = lp
 
                 logP_new = tempered_log_likelihood(logl_new, betas) + logp_new
                 logP_old = (tempered_log_likelihood(prev_logl, betas)
@@ -298,7 +291,7 @@ class RedBlueMove(Move):
                     # only the rank's walkers carry blobs
                     own_idx = blk.own_idx
                     view.blobs[:, own_idx] = merge_blobs(
-                        acc[:, blk.at], blobs_new, view.blobs[:, own_idx])
+                        acc[:, at], blobs_new, view.blobs[:, own_idx])
                 view.accepted[:, idx] = acc | view.accepted[:, idx]
         return view.result(state)
 
@@ -306,45 +299,56 @@ class RedBlueMove(Move):
 class _Block(NamedTuple):
     """One red/blue block of :meth:`WalkerBlocks.blocks`: its offset ``off``
     and size ``ns`` on the permuted walker axis, its walkers ``idx`` (global
-    indices, in block order), ``at`` the positions in the block of this
-    rank's walkers (None where the rank holds none of them), and the
-    permuted views ``coords_p``/``inds_p`` of every branch, the complement's
-    rows filled in."""
+    indices, in block order), ``pos`` the positions in the block of the rows
+    this rank evaluates and ``valid`` whether each is this rank's walker
+    (:meth:`~eryn_tpu_torch.parallel.mesh.MeshLayout.own_positions`: a
+    static count, the others padding), ``local`` their indices in the
+    rank's shard (0 for padding), and the permuted views ``coords_p``/
+    ``inds_p`` of every branch, every walker's rows filled in."""
 
     off: int
     ns: int
     idx: torch.Tensor
-    at: Optional[torch.Tensor]
+    pos: torch.Tensor
+    valid: torch.Tensor
+    local: torch.Tensor
     coords_p: dict
     inds_p: dict
 
     @property
     def own_idx(self):
-        """The global walker indices of this rank's walkers of the block,
-        on the device, in block order."""
-        return self.idx[self.at]
+        """The global walker indices of the rows at ``pos``, on the device,
+        in block order: this rank's walkers of the block, then padding
+        (other ranks' walkers, whose rows in the views the next exchange
+        overwrites and :meth:`WalkerBlocks.result` drops)."""
+        return self.idx[self.pos]
 
 
 class WalkerBlocks:
     """The sharded form of the red/blue blocks: walker-order views ``(nt,
     nwalkers, ...)`` of this rank's temperatures of a state sharded over a
-    ``(temp, walker)`` mesh (``layout``), and before each block the rows the
-    block's complement needs from the other walker shards.
+    ``(temp, walker)`` mesh (``layout``), every walker's coordinates and
+    leaf masks exchanged within the temperature shard before the first
+    block (:meth:`~eryn_tpu_torch.parallel.mesh.MeshLayout.gather_walkers`)
+    and the coordinates again before each later block, so that it reads
+    what the blocks before it wrote.  The exchanges' sizes are the mesh's:
+    the permutation stays on the device.
 
     ``coords``, ``inds``, ``log_like``, ``log_prior`` and ``accepted`` hold
-    the rank's own walkers in place; a move writes the block's walkers into
-    them by global index.  :meth:`blocks` fills, before the first block of
-    a split, every other block's rows and, before a later block, the rows
-    that the block before it merged
-    (:meth:`~eryn_tpu_torch.parallel.mesh.MeshLayout.fill_rows`, every
-    branch's coordinates and masks in one exchange).  :meth:`result` is the
-    rank's shard of the proposal's state."""
+    the rank's own walkers in place; a move writes the block's rows into
+    them by global index (:attr:`_Block.own_idx`).  The log-likelihood,
+    log-prior, accept flags and blobs hold the rank's walkers only.
+    :meth:`result` is the rank's shard of the proposal's state."""
 
     def __init__(self, layout, state):
         self.layout = layout
         view = layout.walker_view
-        self.coords = {n: view(c) for n, c in state.branches_coords.items()}
-        self.inds = {n: view(m) for n, m in state.branches_inds.items()}
+        names = list(state.branches)
+        full = layout.gather_walkers(
+            [state.branches_coords[n] for n in names]
+            + [state.branches_inds[n] for n in names])
+        self.coords = dict(zip(names, full[:len(names)]))
+        self.inds = dict(zip(names, full[len(names):]))
         self.log_like = view(state.log_like)
         self.log_prior = view(state.log_prior)
         # blobs: the rank's walkers only, never exchanged
@@ -352,28 +356,25 @@ class WalkerBlocks:
         self.accepted = torch.zeros((layout.nt, layout.nwalkers),
                                     dtype=torch.bool,
                                     device=state.log_like.device)
-        # the exchanged leaves, written in place by the move
-        names = list(self.coords)
-        self._leaves = ([self.coords[n] for n in names]
-                        + [self.inds[n] for n in names])
+        self._stale = False
 
     def blocks(self, perm, sizes, offsets):
         """Yield a :class:`_Block` per block of the permutation ``perm``
-        (blocks of ``sizes`` at ``offsets``), after its exchange.  The
-        exchange plans are the permutation's: one host read."""
+        (blocks of ``sizes`` at ``offsets``), each after the exchange that
+        brings in the rows the blocks before it wrote."""
         lay = self.layout
-        order = perm.cpu().numpy()
-        device = perm.device
-        parts = [order[off:off + ns] for off, ns in zip(offsets, sizes)]
-        for k, (off, ns) in enumerate(zip(offsets, sizes)):
-            fill = np.concatenate(parts[1:]) if k == 0 else parts[k - 1]
-            lay.fill_rows(self._leaves, [lay.own(x) for x in self._leaves],
-                          fill)
-            w = parts[k]
-            mine = np.flatnonzero((w >= lay.w0) & (w < lay.w0 + lay.nw))
+        for off, ns in zip(offsets, sizes):
+            if self._stale:
+                own = [lay.own(c) for c in self.coords.values()]
+                for c, got in zip(self.coords.values(),
+                                  lay.gather_walkers(own)):
+                    c.copy_(got)
+            self._stale = True
+            idx = perm[off:off + ns]
+            pos, valid = lay.own_positions(idx)
             yield _Block(
-                off, ns, torch.as_tensor(w, device=device),
-                torch.as_tensor(mine, device=device) if mine.size else None,
+                off, ns, idx, pos, valid,
+                torch.where(valid, idx[pos] - lay.w0, 0),
                 {n: c[:, perm] for n, c in self.coords.items()},
                 {n: m[:, perm] for n, m in self.inds.items()})
 

@@ -18,7 +18,8 @@ device value on the host.  Each iteration's numbers are drawn up front,
 loop needed.
 
 On a state sharded over a device mesh each block runs on this rank's
-walkers of it, the complement filled in by the red/blue family's
+walkers of it (``min(nw, ns)`` rows, the padding sitting the block out),
+the complement filled in by the red/blue family's
 :class:`~eryn_tpu_torch.moves.red_blue.WalkerBlocks`; the loops' exit is
 not global, so the loops need no collective, and one all-reduce a block
 gathers what the counters and ``mu`` read.
@@ -125,12 +126,15 @@ class SliceMove(Move):
         return sizes, [sum(sizes[:i]) for i in range(self.nsplits)]
 
     def _slice_block(self, ctx, names, param_masks, mu, draws, comp_coords,
-                     s_coords, fixed, inds_eval, supps, prev, betas):
+                     s_coords, fixed, inds_eval, supps, prev, betas,
+                     rows=None):
         """Slice-sample one block's walkers ``s_coords`` (``(nt, m, ...)``
         per moving branch) along directions from the complement
         ``comp_coords`` (every branch, ``(nt, nc, ...)``), ``draws`` being
         :meth:`draw_slice`'s for these walkers and ``prev`` their
-        ``(log_like, log_prior, blobs)``.
+        ``(log_like, log_prior, blobs)``; ``rows`` (``(m,)`` bool), where
+        given, marks the walkers that sample: the others (a mesh rank's
+        padding) sit the block out and count nothing.
 
         Returns ``(coords, log_like, log_prior, blobs, accepted, flags, ne,
         ncnt)``: the walkers' new values, whether each moved, each loop
@@ -162,6 +166,8 @@ class SliceMove(Move):
         act = torch.zeros((ntemps, m), dtype=torch.bool, device=device)
         for n in names:
             act = act | (eta[n] != 0).any(dim=3).any(dim=2)
+        if rows is not None:
+            act = act & rows
 
         def eval_at(lam):
             """Tempered log posterior, log-likelihood, log prior and blobs
@@ -358,37 +364,32 @@ class SliceMove(Move):
                     else torch.arange(NW, device=device))
             for blk in view.blocks(perm, sizes, offsets):
                 block = slice(blk.off, blk.off + blk.ns)
-                at = (blk.at if blk.at is not None
-                      else torch.zeros(0, dtype=torch.int64, device=device))
+                at, idx = blk.pos, blk.own_idx
                 with self.block_walkers(blk.ns, at):
                     draws = self.draw_slice(generator, lay.nt, blk.ns,
                                             NW - blk.ns, logl)
-                totals = logl.new_zeros((E + self.max_shrink + 2,))
-                if blk.at is not None:
-                    idx = blk.own_idx
 
-                    def comp(x, off=blk.off, ns=blk.ns):
-                        return torch.cat([x[:, :off], x[:, off + ns:]], dim=1)
+                def comp(x, off=blk.off, ns=blk.ns):
+                    return torch.cat([x[:, :off], x[:, off + ns:]], dim=1)
 
-                    def mine(x, block=block):
-                        return x[:, block][:, at]
+                def mine(x, block=block):
+                    return x[:, block][:, at]
 
-                    q, ll, lp, _, acc, flags, ne, ncnt = self._slice_block(
-                        ctx, names, param_masks, mu, draws,
-                        {n: comp(blk.coords_p[n]) for n in names},
-                        {n: mine(blk.coords_p[n]) for n in names},
-                        {n: mine(blk.coords_p[n]) for n in all_names
-                         if n not in names},
-                        {n: mine(blk.inds_p[n]) for n in all_names},
-                        None, (view.log_like[:, idx], view.log_prior[:, idx],
-                               None), betas)
-                    for n in names:
-                        view.coords[n][:, idx] = q[n]
-                    view.log_like[:, idx] = ll
-                    view.log_prior[:, idx] = lp
-                    view.accepted[:, idx] = acc | view.accepted[:, idx]
-                    totals = torch.cat([flags.to(dtype), ne[None],
-                                        ncnt[None]])
+                q, ll, lp, _, acc, flags, ne, ncnt = self._slice_block(
+                    ctx, names, param_masks, mu, draws,
+                    {n: comp(blk.coords_p[n]) for n in names},
+                    {n: mine(blk.coords_p[n]) for n in names},
+                    {n: mine(blk.coords_p[n]) for n in all_names
+                     if n not in names},
+                    {n: mine(blk.inds_p[n]) for n in all_names},
+                    None, (view.log_like[:, idx], view.log_prior[:, idx],
+                           None), betas, rows=blk.valid)
+                for n in names:
+                    view.coords[n][:, idx] = q[n]
+                view.log_like[:, idx] = ll
+                view.log_prior[:, idx] = lp
+                view.accepted[:, idx] = acc | view.accepted[:, idx]
+                totals = torch.cat([flags.to(dtype), ne[None], ncnt[None]])
                 lay.sum(totals)
                 flags = totals[:-2] > 0
                 needed += torch.stack([flags[:E].sum(), flags[E:].sum(),

@@ -14,8 +14,9 @@ On a state sharded over a device mesh (:mod:`~eryn_tpu_torch.parallel.
 mesh`) the move takes the path one process would take, in its sharded
 form: the fused path's
 (:meth:`StretchMove._propose_impl_fused_sharded`: the same draws at their
-global shape, each half's complement gathered within the temperature
-shard, and kernels 1 and 2 on this rank's walkers), or the general path
+global shape, the rank's temperatures' walkers exchanged within the
+temperature shard, and the three launches of one process on them), or the
+general path
 through :class:`~eryn_tpu_torch.moves.red_blue.RedBlueMove`'s sharded form
 (its draws through :meth:`~eryn_tpu_torch.moves.move.Move.rank_draw`),
 which its subclasses that run sharded take too.
@@ -119,6 +120,12 @@ class StretchMove(RedBlueMove):
             and self.run_branches(state) == list(state.branches)
         )
 
+    def mesh_device_planned(self, state):
+        """The fused path's sharded step is planned on the device (its
+        permutation and half sizes never leave it); the general path's is
+        not declared."""
+        return self.mesh_route() == "sharded" and self._can_fuse(state)
+
     def _propose_impl(self, generator, state, ctx, kernel_state=()):
         if self._can_fuse(state):
             if self.mesh_layout is not None:
@@ -153,43 +160,19 @@ class StretchMove(RedBlueMove):
     def _propose_impl_fused(self, state, ctx, perm, u_all):
         """One fused stretch step from the given draws (see
         :meth:`draw_fused`).  Branch blocks are concatenated along the last
-        axis, so one launch covers all branches.  The kernels read the
-        walker-order state through ``perm`` and merge each half in place
-        into walker-order outputs, allocated once here: three launches
-        around the two likelihood calls, ``stretch_propose`` (half 0),
-        ``stretch_accept_propose`` (accept half 0, propose half 1) and
-        ``stretch_accept`` (half 1).
+        axis, so one launch covers all branches (:meth:`_fused_kernels`).
 
         Returns ``(state, accepted)`` with ``accepted`` in the state dtype.
         """
         names = list(state.branches)
         logl = state.log_like.contiguous()
-        logp = state.log_prior.contiguous()
         ntemps, nwalkers = logl.shape
-        dtype = logl.dtype
         self._check_walkers(state, names)
-
-        shapes = [
-            (n, state.branches[n].nleaves_max, state.branches[n].ndim)
-            for n in names
-        ]
-        parts = [state.branches[n].coords.reshape(ntemps, nwalkers, -1)
-                 for n in names]
-        X = (parts[0] if len(parts) == 1 else torch.cat(parts, dim=-1)
-             ).contiguous()
+        q_to_branches = self._unpacker(state, names, ntemps)
         inds = state.branches_inds
-        ndim_act = active_ndim(state, names).to(dtype)
         betas = state.betas
         if betas is None:
-            betas = torch.ones(ntemps, dtype=dtype, device=logl.device)
-
-        def q_to_branches(q, ns):
-            out, off = {}, 0
-            for n, nl, nd in shapes:
-                out[n] = q[..., off:off + nl * nd].reshape(ntemps, ns, nl, nd)
-                off += nl * nd
-            return out
-
+            betas = torch.ones(ntemps, dtype=logl.dtype, device=logl.device)
         n0 = nwalkers - nwalkers // 2
         halves = (perm[:n0], perm[n0:])
 
@@ -201,6 +184,52 @@ class StretchMove(RedBlueMove):
             logl_new, _ = ctx.compute_log_like(q_branches, inds_blk, logp_new)
             return logl_new.contiguous(), logp_new.contiguous()
 
+        X_out, logl_out, logp_out, accepted = self._fused_kernels(
+            self._packed(state, names, ntemps, nwalkers), logl,
+            state.log_prior.contiguous(),
+            active_ndim(state, names).to(logl.dtype), betas, perm, u_all,
+            evaluate)
+        new_state = state.replace(
+            coords=q_to_branches(X_out, nwalkers), inds=inds,
+            log_like=logl_out, log_prior=logp_out,
+        )
+        return new_state, accepted
+
+    @staticmethod
+    def _packed(state, names, nt, nw):
+        """The branches' coordinates concatenated along the last axis,
+        ``(nt, nw, D)``."""
+        parts = [state.branches[n].coords.reshape(nt, nw, -1) for n in names]
+        return (parts[0] if len(parts) == 1 else torch.cat(parts, dim=-1)
+                ).contiguous()
+
+    @staticmethod
+    def _unpacker(state, names, nt):
+        """The inverse of :meth:`_packed`: ``(q, ns)`` -> per-branch
+        ``(nt, ns, nleaves_max, ndim)``."""
+        shapes = [(n, state.branches[n].nleaves_max, state.branches[n].ndim)
+                  for n in names]
+
+        def q_to_branches(q, ns):
+            out, off = {}, 0
+            for n, nl, nd in shapes:
+                out[n] = q[..., off:off + nl * nd].reshape(nt, ns, nl, nd)
+                off += nl * nd
+            return out
+
+        return q_to_branches
+
+    def _fused_kernels(self, X, logl, logp, ndim_act, betas, perm, u_all,
+                       evaluate):
+        """The fused step's three launches around the two halves'
+        likelihood calls, on walker-order ``X`` ``(nt, nw, D)``, ``logl``,
+        ``logp`` and ``ndim_act`` ``(nt, nw)``: ``stretch_propose`` (half
+        0), ``stretch_accept_propose`` (accept half 0, propose half 1) and
+        ``stretch_accept`` (half 1).  The kernels read the state through
+        ``perm`` and merge each half in place into walker-order outputs,
+        allocated once here; ``evaluate(q, half)`` gives the half's new
+        ``(log-likelihood, log-prior)`` in half order.  Returns ``(X,
+        logl, logp, accepted)``."""
         outs = (torch.empty_like(X), torch.empty_like(logl),
                 torch.empty_like(logl), torch.empty_like(logl))
         kw = dict(a=self.a, log_proposal=self.use_log_proposal)
@@ -211,12 +240,7 @@ class StretchMove(RedBlueMove):
         )
         stretch_accept(q, X, *evaluate(q, 1), logl, logp, factors, betas,
                        perm, u_all, 1, *outs)
-        X_out, logl_out, logp_out, accepted = outs
-        new_state = state.replace(
-            coords=q_to_branches(X_out, nwalkers), inds=inds,
-            log_like=logl_out, log_prior=logp_out,
-        )
-        return new_state, accepted
+        return outs
 
     def _propose_impl_fused_sharded(self, generator, state, ctx):
         """One fused stretch step on this rank's shard of a state sharded
@@ -224,88 +248,79 @@ class StretchMove(RedBlueMove):
 
         Every rank draws the step's permutation and uniforms at their
         global shape (:meth:`draw_fused`) from the same generator and keeps
-        its temperatures' rows.  The kernels then run on walker-order views
-        ``(nt, nwalkers, D)`` of the rank's temperatures: the rank's own
-        walkers in place, and before each half the half's complement (the
-        other half's walkers, the first half's merged) gathered from the
-        walker shard that holds each (:meth:`~eryn_tpu_torch.parallel.mesh.
-        MeshLayout.fill_rows`).  Kernel 1 proposes the whole half, the
-        likelihood and prior run on the rank's walkers of it only, and
-        kernel 2 accepts the half (with zeros for the other ranks'
-        walkers, whose rows are discarded).  Kernels 1 and 2 run unfused:
-        the complement of the second half is gathered between them.
-        Returns ``(state, accepted)`` for the rank's shard."""
+        its temperatures' rows.  The three launches of one process
+        (:meth:`_fused_kernels`) then run on every walker of the rank's
+        temperatures, which one exchange within the temperature shard
+        brings in (:meth:`~eryn_tpu_torch.parallel.mesh.MeshLayout.
+        gather_walkers`: coordinates, log-likelihood, log-prior and leaf
+        masks).  The likelihood and prior of a half run on the rank's
+        walkers of it, ``min(nw, half)`` rows (:meth:`~eryn_tpu_torch.
+        parallel.mesh.MeshLayout.own_positions`: a count of the mesh); the
+        first half's results are exchanged (:meth:`~eryn_tpu_torch.
+        parallel.mesh.MeshLayout.share_rows`), so every rank merges the
+        whole first half as one process does and proposes the second from
+        it; of the second only the rank's walkers are kept.  The
+        permutation never leaves the device.  Returns ``(state,
+        accepted)`` for the rank's shard."""
         lay = self.mesh_layout
         names = list(state.branches)
         self._check_walkers(state, names)
-        logl = state.log_like.contiguous()
-        logp = state.log_prior.contiguous()
-        nt, nw, w0 = lay.nt, lay.nw, lay.w0
-        NW = lay.nwalkers
+        nt, nw, NW = lay.nt, lay.nw, lay.nwalkers
+        logl = state.log_like
         dtype, device = logl.dtype, logl.device
         perm, u_all = self.draw_fused(generator, lay.ntemps, NW, dtype, device)
         u_all = u_all[:, :, lay.t0:lay.t0 + nt].contiguous()
         betas = state.betas[lay.t0:lay.t0 + nt].contiguous()
-
-        shapes = [(n, state.branches[n].nleaves_max, state.branches[n].ndim)
-                  for n in names]
-        parts = [state.branches[n].coords.reshape(nt, nw, -1) for n in names]
-        X_loc = parts[0] if len(parts) == 1 else torch.cat(parts, dim=-1)
-        inds = state.branches_inds
-
-        view, own = lay.walker_view, lay.own
-        X = view(X_loc)
-        ndim_act = view(active_ndim(state, names).to(dtype))
-        L, P = view(logl), view(logp)
-
-        def q_to_branches(q, ns):
-            out, off = {}, 0
-            for n, nl, nd in shapes:
-                out[n] = q[..., off:off + nl * nd].reshape(nt, ns, nl, nd)
-                off += nl * nd
-            return out
-
-        # the exchange plans are the permutation's: one host read a step
-        order = perm.cpu().numpy()
+        q_to_branches = self._unpacker(state, names, nt)
+        X, L, P, *masks = lay.gather_walkers(
+            [self._packed(state, names, nt, nw), logl, state.log_prior]
+            + [state.branches_inds[n] for n in names])
+        inds = dict(zip(names, masks))
+        ndim_act = sum(inds[n].sum(dim=-1) * state.branches[n].ndim
+                       for n in names).to(dtype)
         n0 = NW - NW // 2
-        walkers = (order[:n0], order[n0:])
+        halves = (perm[:n0], perm[n0:])
 
         def evaluate(q, half):
-            """The half's new log-likelihood and log-prior, ``(nt, ns)``:
-            evaluated on this rank's walkers, zeros elsewhere."""
-            w = walkers[half]
-            mine = np.flatnonzero((w >= w0) & (w < w0 + nw))
-            ll = q.new_zeros(q.shape[:2])
-            lp = q.new_zeros(q.shape[:2])
-            if mine.size:
-                pos = torch.as_tensor(mine, device=device)
-                at = torch.as_tensor(w[mine] - w0, device=device)
-                q_branches = q_to_branches(q[:, pos], mine.size)
-                inds_blk = {n: inds[n][:, at] for n in names}
-                lp_new = ctx.compute_log_prior(q_branches, inds_blk)
-                ll_new, _ = ctx.compute_log_like(q_branches, inds_blk, lp_new)
-                ll[:, pos] = ll_new
-                lp[:, pos] = lp_new
-            return ll, lp
+            """The half's new log-likelihood and log-prior ``(nt, ns)``:
+            every walker's after the first half, the rank's walkers' (zeros
+            elsewhere) after the second."""
+            walkers = halves[half]
+            pos, valid = lay.own_positions(walkers)
+            at = walkers[pos]
+            q_branches = q_to_branches(q[:, pos], pos.shape[0])
+            inds_blk = {n: inds[n][:, at] for n in names}
+            lp = ctx.compute_log_prior(q_branches, inds_blk)
+            ll, _ = ctx.compute_log_like(q_branches, inds_blk, lp)
+            if lay.wp == 1:
+                return ll.contiguous(), lp.contiguous()
+            if half == 0:
+                ll, lp = lay.share_rows([ll, lp], walkers, pos, valid)
+                return ll.contiguous(), lp.contiguous()
+            out = []
+            for v in (ll, lp):
+                full = v.new_zeros(q.shape[:2])
+                full[:, pos] = torch.where(valid, v, 0.0)
+                out.append(full)
+            return out
 
-        kw = dict(a=self.a, log_proposal=self.use_log_proposal)
-        outs = (torch.empty_like(X), torch.empty_like(L),
-                torch.empty_like(L), torch.empty_like(L))
-        lay.fill_rows(X, X_loc, walkers[1])
-        q, factors = stretch_propose(X, X, ndim_act, perm, u_all, 0, **kw)
-        stretch_accept(q, X, *evaluate(q, 0), L, P, factors, betas, perm,
-                       u_all, 0, *outs)
-        X_out, logl_out, logp_out, accepted = outs
-        lay.fill_rows(X_out, X_out[:, w0:w0 + nw], walkers[0])
-        q, factors = stretch_propose(X, X_out, ndim_act, perm, u_all, 1, **kw)
-        stretch_accept(q, X, *evaluate(q, 1), L, P, factors, betas, perm,
-                       u_all, 1, *outs)
-
+        X_out, logl_out, logp_out, accepted = self._fused_kernels(
+            X, L, P, ndim_act, betas, perm, u_all, evaluate)
+        own = lay.own
         new_state = state.replace(
-            coords=q_to_branches(own(X_out), nw), inds=inds,
-            log_like=own(logl_out), log_prior=own(logp_out),
+            coords=q_to_branches(own(X_out), nw),
+            inds=state.branches_inds, log_like=own(logl_out),
+            log_prior=own(logp_out),
         )
         return new_state, own(accepted)
+
+    def adjust_factors(self, factors, ndims_old, ndims_new):
+        """Eryn's Gibbs dimension correction: ``log z`` factors rescaled
+        from ``ndims_old - 1`` to ``ndims_new - 1`` dimensions.  For code
+        written against Eryn: the package's proposals already count the
+        active dimensions of the masks, so it is never applied to them."""
+        logzz = factors / (ndims_old - 1.0)
+        return logzz * (ndims_new - 1.0)
 
     # ------------------------------------------------------------------
     # general path

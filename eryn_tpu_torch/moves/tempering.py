@@ -376,8 +376,10 @@ class TemperatureControl:
         of :func:`~eryn_tpu_torch.ops.pt_swap.pt_swap_cascade_tree` on it
         with one int32 leaf, the slots' origins (every rank makes the same
         decisions), then each slot of this rank's shard takes its origin's
-        row: rows held here are copied, the others moved once
-        (:meth:`~eryn_tpu_torch.parallel.mesh.MeshLayout.move_rows`).
+        row through static exchanges planned on the device
+        (:meth:`~eryn_tpu_torch.parallel.mesh.MeshLayout.move_rows`: the
+        rank's temperatures over the walker axis, then one rung's rows
+        across each boundary between temperature shards).
         Returns what :meth:`_swap_cascade_kernel` returns, for the shard."""
         lay = self.mesh_layout
         ntemps, nwalkers = lay.ntemps, lay.nwalkers
@@ -399,8 +401,8 @@ class TemperatureControl:
         """The general cascade on a sharded state: its decisions
         (:meth:`_cascade_general_decisions`) on the log-likelihood gathered
         over the mesh, which every rank makes alike, then each slot of this
-        rank's shard takes its origin's row, each row moved once
-        (:meth:`~eryn_tpu_torch.parallel.mesh.MeshLayout.move_rows`).
+        rank's shard takes its origin's row through the static exchanges of
+        :meth:`~eryn_tpu_torch.parallel.mesh.MeshLayout.move_rows`.
         Returns what :meth:`swap_kernel` returns, for the shard."""
         lay = self.mesh_layout
         logl_new, flat, accepted = self._cascade_general_decisions(

@@ -9,11 +9,17 @@ writer).  Every call goes
 through ``torch.distributed``'s module attributes, so
 :mod:`~eryn_tpu_torch.parallel.comm_audit` sees it.
 
-Under NCCL the tensors stay on the card.  Under gloo, which several ranks
-sharing one card need (NCCL takes one rank per card), an operation that
-gloo refuses on a CUDA tensor is run on host copies instead, and
-:data:`STAGED` records it with gloo's reason; gloo's point-to-point
-operations always take host memory.  Nothing here imports ``jax``.
+Under NCCL the tensors stay on the card, every split size is a list the
+caller gives (the mesh's, never the data's), and each operation may be
+captured in a CUDA graph on the capturing stream (its communicator made by
+an eager call first: a step's first run is eager).  Under gloo, which
+several ranks sharing one card need (NCCL takes one rank per card), an
+operation that gloo refuses on a CUDA tensor is run on host copies
+instead, and :data:`STAGED` records it with gloo's reason; gloo's
+point-to-point operations always take host memory.  Such a copy cannot be
+captured: reached while a graph is being captured it raises.
+:data:`CALLS` counts the operations by name, as the kernel wrappers count
+their launches.  Nothing here imports ``jax``.
 """
 
 from __future__ import annotations
@@ -23,6 +29,7 @@ import torch.distributed as dist
 from torch.distributed import distributed_c10d as c10d
 
 __all__ = [
+    "CALLS",
     "STAGED",
     "all_gather_into_tensor",
     "all_reduce",
@@ -33,28 +40,34 @@ __all__ = [
 
 #: operations run on host copies under gloo, by name, with the reason
 STAGED = {}
-
-
-def _staged(name, group, tensors):
-    """Whether ``name`` runs on host copies for these tensors on
-    ``group``."""
-    return (any(t.is_cuda for t in tensors)
-            and dist.get_backend(group) == "gloo" and name in STAGED)
+#: operations issued, by name (a CUDA graph's replays add the ones it
+#: captured: :class:`~eryn_tpu_torch.graphs.StepGraphs`)
+CALLS = {}
 
 
 def _run(name, group, fn, ins, outs):
     """``fn(ins, outs)``; under gloo, on host copies of CUDA tensors when
     gloo refuses them (the refusal is recorded and later calls go straight
-    to the copies).  ``outs`` are written in place."""
+    to the copies).  ``outs`` are written in place.  Raises while a CUDA
+    graph is being captured on a gloo group: gloo's operations on CUDA
+    tensors wait for the device or run on host copies, neither of which a
+    graph can hold."""
+    CALLS[name] = CALLS.get(name, 0) + 1
     tensors = list(ins) + list(outs)
-    if (not _staged(name, group, tensors) and any(t.is_cuda for t in tensors)
-            and dist.get_backend(group) == "gloo"):
+    gloo_cuda = (any(t.is_cuda for t in tensors)
+                 and dist.get_backend(group) == "gloo")
+    if gloo_cuda and torch.cuda.is_current_stream_capturing():
+        raise RuntimeError(
+            f"{name} over gloo cannot be captured in a CUDA graph (it runs "
+            "on host copies or waits for the device): a captured sharded "
+            "step needs an NCCL process group.")
+    if gloo_cuda and name not in STAGED:
         try:
             fn(ins, outs)
             return
         except RuntimeError as err:  # gloo's refusal of a device tensor
             STAGED[name] = str(err).strip().splitlines()[0]
-    if not _staged(name, group, tensors):
+    if not (gloo_cuda and name in STAGED):
         fn(ins, outs)
         return
     host_in = [t.cpu() for t in ins]

@@ -146,8 +146,10 @@ def audit_sampler_comm(sampler, state):
             (:func:`~eryn_tpu_torch.parallel.mesh.shard_state`) on a mesh
             of more than one rank.  Every rank calls this together.
 
-    The step runs eagerly, as every sharded step does, and is the whole
-    schedule of one step: under reversible jump both proposal phases, the
+    The step runs eagerly, even where the sampler captures its steps in CUDA
+    graphs under an NCCL mesh: a replay makes no Python call to record,
+    and the eager step runs the same device-planned exchanges, which move
+    the same bytes.  It is the whole schedule of one step: under reversible jump both proposal phases, the
     in-model move and the birth/death move, each with its swap phase,
     whose payload carries the leaf masks.  The sampler's generators (the
     host moves' NumPy one too), clock, ladder, moves' kernel states and
@@ -176,10 +178,13 @@ def audit_sampler_comm(sampler, state):
              sampler._m_nprop.copy(),
              None if sampler._kernel_states is None
              else list(sampler._kernel_states))
+    graphed = sampler.cuda_graph
+    sampler.cuda_graph = False
     try:
         with recording() as calls:
             sampler._run_bulk(state, 1, 1, store=False)
     finally:
+        sampler.cuda_graph = graphed
         sampler._gen.set_state(saved[0])
         sampler._host_gen.set_state(saved[1])
         sampler._np_random.set_state(numpy_state)
@@ -212,3 +217,73 @@ def audit_sampler_comm(sampler, state):
         "payload_bytes": payload,
         "big_gathers": big,
     }
+
+
+# ----------------------------------------------------------------------
+# report: ``python -m eryn_tpu_torch.parallel.comm_audit`` prints, as JSON,
+# the bytes one rank receives in one sharded step of the configurations of
+# tests/test_torch_comm_audit.py (8-D, 64 walkers), on 8 gloo ranks on the
+# CPU: the swap phase alone under DEO and the north-star's step (the fused
+# stretch and the kernel cascade) on the (2, 4) mesh, the slice move's step
+# there, and the kernel cascade on the (8, 1) mesh
+# ----------------------------------------------------------------------
+_REPORT = {"deo swap phase (2, 4)": (4, 2, "stay", {"swap_scheme": "deo"}),
+           "stretch + kernel cascade (2, 4)": (4, 2, "stretch", {}),
+           "slice + DEO (2, 4)": (4, 2, "slice", {"swap_scheme": "deo"}),
+           "stretch + kernel cascade (8, 1)": (8, 8, "stretch", {})}
+
+
+def _report_rank(rank, world):
+    import numpy as np
+
+    import eryn_tpu_torch as et
+    from eryn_tpu_torch import moves as tm
+    from eryn_tpu_torch.parallel import make_mesh, shard_state
+
+    class Stay(tm.Move):
+        _mesh_sharded = True
+
+        def _propose_impl(self, generator, state, ctx, kernel_state=()):
+            return (state, torch.zeros(state.log_like.shape,
+                                       dtype=torch.bool), kernel_state)
+
+    out = {}
+    for name, (ntemps, tp, kind, extra) in _REPORT.items():
+        move = {"stay": Stay, "slice": tm.SliceMove,
+                "stretch": lambda: et.StretchMove(use_kernels=True)}[kind]()
+        s = et.EnsembleSampler(
+            64, 8, lambda x: -0.5 * torch.sum(x ** 2),
+            et.ProbDistContainer({i: et.uniform_dist(-5, 5)
+                                  for i in range(8)}),
+            moves=move, tempering_kwargs=dict(ntemps=ntemps, use_kernels=True,
+                                              **extra),
+            seed=7, device="cpu")
+        coords = np.random.default_rng(3).uniform(
+            -5, 5, (ntemps, 64, 1, 8)).astype(np.float32)
+        state = shard_state(et.State({"model_0": torch.from_numpy(coords)}),
+                            make_mesh(world, temp_parallel=tp))
+        s._ensure_kernel_states(s._setup_state(state))
+        audit = audit_sampler_comm(s, state)
+        out[name] = {"total_bytes": audit["total_bytes"],
+                     "per_op": audit["per_op"],
+                     "payload_bytes": audit["payload_bytes"]}
+    return out
+
+
+def _report():
+    import json
+
+    from ._spawn import launch
+
+    ranks = launch(_report_rank, 8, timeout=300)
+    for name in _REPORT:
+        got = [r[name] for r in ranks]
+        print(json.dumps({"config": name,
+                          "total_bytes_by_rank": [g["total_bytes"]
+                                                  for g in got],
+                          "per_op_rank0": got[0]["per_op"],
+                          "payload_bytes": got[0]["payload_bytes"]}))
+
+
+if __name__ == "__main__":
+    _report()

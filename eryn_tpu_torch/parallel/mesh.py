@@ -130,6 +130,10 @@ class MeshLayout:
     the shard's, ``t0``/``w0`` its offsets; ``tp``/``wp`` the mesh's sizes
     and ``ti``/``wi`` this rank's coordinates on it; ``device`` the rank's
     device.  ``ranks[ti][wi]`` is the global rank at a mesh coordinate.
+
+    Every exchange of the sharded step is planned on the device: its split
+    sizes are the mesh's and the ensemble's, whatever the state, and the
+    indices it reads (a permutation, a cascade's origins) stay there.
     """
 
     def __init__(self, mesh, ntemps, nwalkers):
@@ -158,19 +162,21 @@ class MeshLayout:
         self.size = self.tp * self.wp
         self.device = _rank_device(mesh.device_type)
         self.world = _mesh_group(mesh)
+        #: whether the mesh's collectives are NCCL's, which a CUDA graph can
+        #: capture (gloo's cannot)
+        self.nccl = _needs_device(self.world)
         self.temp_group = mesh.get_group(TEMP_AXIS)
         self.walker_group = mesh.get_group(WALKER_AXIS)
+        # the walker shards of this temperature shard, in the walker
+        # group's rank order
+        row = self.ranks[self.ti]
+        self._walker_order = [row.index(r) for r in
+                              self._group_order(self.walker_group, row)]
 
     def local(self, x):
         """This rank's shard of a global ``(ntemps, nwalkers, ...)``
         tensor."""
         return x[self.t0:self.t0 + self.nt, self.w0:self.w0 + self.nw]
-
-    def owner(self, t, w):
-        """Global rank holding the global slot ``(t, w)`` (NumPy arrays or
-        ints)."""
-        ranks = np.asarray(self.ranks)
-        return ranks[np.asarray(t) // self.nt, np.asarray(w) // self.nw]
 
     # ------------------------------------------------------------------
     # whole-mesh gathers of sharded values (getters, the audit, the step)
@@ -197,7 +203,8 @@ class MeshLayout:
     def walker_view(self, x):
         """A walker-order view ``(nt, nwalkers, ...)`` of this rank's
         temperatures from its shard ``x`` ``(nt, nw, ...)``: its own walkers
-        in place, zeros elsewhere until :meth:`fill_rows` fills them."""
+        in place, zeros elsewhere (the rows only this rank writes: its
+        log-likelihood, log-prior and blobs in a red/blue move)."""
         out = x.new_zeros((self.nt, self.nwalkers) + tuple(x.shape[2:]))
         out[:, self.w0:self.w0 + self.nw] = x
         return out
@@ -207,67 +214,77 @@ class MeshLayout:
         return x[:, self.w0:self.w0 + self.nw].contiguous()
 
     def gather_walkers(self, tensors):
-        """Walker-order views of ``tensors`` (this rank's shards) with every
-        walker filled: each walker shard's rows gathered within the
-        temperature shard in one exchange."""
-        views = [self.walker_view(x) for x in tensors]
-        self.fill_rows(views, list(tensors), np.arange(self.nwalkers))
-        return views
+        """Walker-order views ``(nt, nwalkers, ...)`` of ``tensors`` (this
+        rank's ``(nt, nw, ...)`` shards) with every walker of the rank's
+        temperatures filled: each rank of the temperature shard sends its
+        rows to every other one in one ``all_to_all_single`` over the walker
+        axis, all tensors packed as bytes (bool leaf masks among them).  The
+        split sizes are the mesh's, ``nt`` rows of each of ``nw`` walkers
+        from each other rank, whatever the state.  New tensors, which the
+        caller may write."""
+        tensors = list(tensors)
+        if self.wp == 1:
+            return [x.clone(memory_format=torch.contiguous_format)
+                    for x in tensors]
+        nw = self.nw
+        flat = [x.transpose(0, 1).reshape(nw, -1) for x in tensors]
+        rows = _pack(flat)
+        splits = [0 if p == self.wi else nw for p in self._walker_order]
+        out = rows.new_empty(((self.wp - 1) * nw, rows.shape[1]))
+        _comm.all_to_all_single(out, rows.repeat(self.wp - 1, 1), splits,
+                                splits, group=self.walker_group)
+        full = rows.new_empty((self.nwalkers, rows.shape[1]))
+        k = 0
+        for p in self._walker_order:
+            if p == self.wi:
+                full[p * nw:(p + 1) * nw] = rows
+            else:
+                full[p * nw:(p + 1) * nw] = out[k * nw:(k + 1) * nw]
+                k += 1
+        return [y.reshape((self.nwalkers, self.nt) + tuple(x.shape[2:]))
+                .transpose(0, 1).contiguous()
+                for y, x in zip(_unpack(full, flat), tensors)]
+
+    def own_positions(self, walkers):
+        """``(pos, valid)`` for a red/blue block whose walkers are
+        ``walkers`` (global indices, ``(ns,)``, on the device, in block
+        order): the positions in the block of this rank's walkers, in block
+        order, then of other ranks' walkers, cut to ``min(nw, ns)`` (the
+        most of the block a rank can hold: a count of the mesh, not of the
+        permutation), and whether each is this rank's.  The rows at ``pos``
+        are the ones the rank evaluates; the others are padding, whose
+        results the caller discards."""
+        ns = walkers.shape[0]
+        if self.wp == 1:
+            return (torch.arange(ns, device=walkers.device),
+                    torch.ones(ns, dtype=torch.bool, device=walkers.device))
+        mine = (walkers >= self.w0) & (walkers < self.w0 + self.nw)
+        pos = torch.argsort((~mine).to(torch.uint8), stable=True)[
+            :min(self.nw, ns)]
+        return pos, mine[pos]
+
+    def share_rows(self, values, walkers, pos, valid):
+        """Every walker's row of a block, in block order ``(nt, ns, ...)``,
+        from each rank's rows ``values`` (each ``(nt, len(pos), ...)``) at
+        the positions ``pos`` of :meth:`own_positions`, the ``valid`` ones
+        the rank's: each rank puts its walkers' rows in place and the
+        temperature shard exchanges them (:meth:`gather_walkers`)."""
+        values = list(values)
+        if self.wp == 1:
+            return values
+        # padding rows land in a last column, which is dropped
+        slot = torch.where(valid, walkers[pos] - self.w0, self.nw)
+        own = []
+        for v in values:
+            buf = v.new_zeros((self.nt, self.nw + 1) + tuple(v.shape[2:]))
+            buf[:, slot] = v
+            own.append(buf[:, :self.nw])
+        return [x[:, walkers] for x in self.gather_walkers(own)]
 
     def _group_order(self, group, members):
         """``members`` (global ranks) in ``group``'s rank order."""
         ranks = dist.get_process_group_ranks(group)
         return sorted(members, key=ranks.index)
-
-    def fill_rows(self, buf, local, walkers):
-        """Write into ``buf``, a walker-order view ``(nt, nwalkers, ...)`` of
-        this rank's temperatures, the rows of every walker of ``walkers``
-        (global indices, on the host; every rank of the temperature shard
-        passes the same) that another rank of this temperature shard holds,
-        and send that rank the rows it needs from ``local``, this rank's
-        ``(nt, nw, ...)``: one ``all_to_all_single`` over the walker axis,
-        carrying ``nt`` rows of each walker not held here.
-
-        ``buf`` and ``local`` are a tensor each, or lists of tensors of one
-        length (several leaves of any dtypes, the bool leaf masks among
-        them), whose rows then travel packed as bytes in the one
-        exchange."""
-        if self.wp == 1:
-            return
-        bufs = [buf] if isinstance(buf, torch.Tensor) else list(buf)
-        locs = [local] if isinstance(local, torch.Tensor) else list(local)
-        w = np.sort(np.asarray(walkers))
-        shard = w // self.nw
-        dev = bufs[0].device
-        mine = torch.as_tensor(w[shard == self.wi] - self.w0, device=dev)
-        count = int(mine.numel())
-        # a walker's rows of every leaf: (count, nt * ...) each, as bytes
-        flat = [x[:, mine].transpose(0, 1).reshape(count, x[:, :1].numel())
-                for x in locs]
-        rows = _pack(flat)
-        sends, in_splits, out_splits, dest = [], [], [], []
-        row_ranks = self.ranks[self.ti]
-        for r in self._group_order(self.walker_group, row_ranks):
-            p = row_ranks.index(r)
-            if p == self.wi:
-                in_splits.append(0)
-                out_splits.append(0)
-                continue
-            sends.append(rows)
-            in_splits.append(count)
-            theirs = w[shard == p]
-            out_splits.append(theirs.size)
-            dest.append(theirs)
-        inp = torch.cat(sends).contiguous()
-        out = inp.new_empty((sum(out_splits), rows.shape[1]))
-        _comm.all_to_all_single(out, inp, out_splits, in_splits,
-                                group=self.walker_group)
-        idx = torch.as_tensor(np.concatenate(dest), device=dev)
-        # one row of each leaf gives _unpack its dtype and row width
-        like = [x[:, :1].transpose(0, 1).reshape(1, -1) for x in locs]
-        for b, got in zip(bufs, _unpack(out, like)):
-            b[:, idx] = got.reshape((idx.numel(), b.shape[0])
-                                    + tuple(b.shape[2:])).transpose(0, 1)
 
     def gather_rung(self, tensors, t=0):
         """Rung ``t`` of every walker, ``(nwalkers, ...)``, of each
@@ -309,47 +326,58 @@ class MeshLayout:
                 for y, x in zip(_unpack(full, like), locs)]
 
     def move_rows(self, leaves, origin):
-        """Every leaf ``(nt, nw, ...)`` of this rank's shard, each slot
-        ``(t, w)`` taking the row of the global slot ``origin[t0 + t, w0 +
-        w]`` (a flat ``t * nwalkers + w``; ``origin`` is the whole
-        ``(ntemps, nwalkers)`` map, equal on every rank).  Rows held here
-        are copied; the others arrive in one ``all_to_all_single`` over the
-        mesh, all leaves packed as bytes, each row once."""
-        NW = self.nwalkers
-        o = origin.cpu().numpy().astype(np.int64)
-        owner = self.owner(o // NW, o % NW)
-        # the row's flat index in its owner's shard
-        src = (o // NW % self.nt) * self.nw + (o % NW % self.nw)
-        n = self.nt * self.nw
-        dev = leaves[0].device
-        flat = [x.reshape(n, -1) for x in leaves]
-        packed = _pack(flat)
-        new = packed.new_empty(packed.shape)
-        mine_owner = self.local(owner).reshape(-1)
-        mine_src = self.local(src).reshape(-1)
-        here = np.flatnonzero(mine_owner == self.rank)
-        new[torch.as_tensor(here, device=dev)] = packed[
-            torch.as_tensor(mine_src[here], device=dev)]
-        send, in_splits, out_splits, recv_at = [], [], [], []
-        for r in dist.get_process_group_ranks(self.world):
-            if r == self.rank:
-                in_splits.append(0)
-                out_splits.append(0)
-                continue
-            ti, wi = np.argwhere(np.asarray(self.ranks) == r)[0]
-            blk = (slice(ti * self.nt, (ti + 1) * self.nt),
-                   slice(wi * self.nw, (wi + 1) * self.nw))
-            wanted = (owner[blk] == self.rank).reshape(-1)
-            send.append(src[blk].reshape(-1)[wanted])
-            in_splits.append(int(wanted.sum()))
-            at = np.flatnonzero(mine_owner == r)
-            recv_at.append(at)
-            out_splits.append(at.size)
-        inp = packed[torch.as_tensor(np.concatenate(send), device=dev)]
-        out = packed.new_empty((sum(out_splits), packed.shape[1]))
-        _comm.all_to_all_single(out, inp, out_splits, in_splits,
-                                group=self.world)
-        new[torch.as_tensor(np.concatenate(recv_at), device=dev)] = out
+        """Every leaf ``(nt, nw, ...)`` of this rank's shard after a swap
+        cascade, each slot ``(t, w)`` taking the row of the global slot
+        ``origin[t0 + t, w0 + w]`` (a flat ``t * nwalkers + w``; ``origin``
+        is the whole ``(ntemps, nwalkers)`` map on the device, equal on
+        every rank).  In a cascade a row moves at most one rung up, and at
+        most ``nwalkers`` rows cross a rung boundary downwards (one a
+        pairing), so the exchanges are static, as ``eryn_tpu``'s
+        boundary-local cascade's: the rank's temperatures' rows over the
+        walker axis (:meth:`gather_walkers`), then, from the top shard of
+        the ladder down, one batch of point-to-point exchanges at each
+        boundary between temperature shards, in which the upper shard sends
+        the ``nwalkers`` rows that may cross downwards (the origins that
+        cross, sorted, which both sides compute from ``origin``) and the
+        lower shard its top rung.  All leaves travel packed as bytes."""
+        NW, nt = self.nwalkers, self.nt
+        n = nt * NW
+        o = origin.reshape(self.ntemps, NW).to(torch.int64)
+        full = self.gather_walkers(leaves)
+        rows = _pack([x.reshape(n, -1) for x in full])
+        # the table the slots read: this shard's rows, the top rung of the
+        # shard below, the rows that crossed down from the shard above
+        table = torch.cat([rows, rows.new_zeros((2 * NW, rows.shape[1]))])
+        lo, hi = self.t0 * NW, (self.t0 + nt) * NW
+        above = below = crossed = None
+        if self.ti + 1 < self.tp:
+            above = self.ranks[self.ti + 1][self.wi]
+            crossed = _crossing(o, self.t0 + nt)
+        if self.ti > 0:
+            below = self.ranks[self.ti - 1][self.wi]
+
+        def source(v):
+            """Rows of ``table`` holding the origins ``v``."""
+            idx = (v - lo).clamp(0, n - 1)
+            if below is not None:
+                idx = torch.where(v // NW == self.t0 - 1, n + v % NW, idx)
+            if crossed is not None:
+                at = torch.searchsorted(crossed, v).clamp(max=NW - 1)
+                idx = torch.where(v >= hi, n + NW + at, idx)
+            return idx
+
+        if above is not None:
+            _comm.batch_isend_irecv([(rows[n - NW:], above)],
+                                    [(table[n + NW:], above)],
+                                    group=self.world)
+        if below is not None:
+            down = table[source(_crossing(o, self.t0))]
+            _comm.batch_isend_irecv([(down, below)],
+                                    [(table[n:n + NW], below)],
+                                    group=self.world)
+        mine = self.local(o).reshape(-1)
+        new = table[source(mine)]
+        flat = [x.reshape(nt * self.nw, -1) for x in leaves]
         return [y.reshape(x.shape) for y, x in zip(_unpack(new, flat), leaves)]
 
     def temp_halo(self, tensors):
@@ -532,10 +560,25 @@ def place_leaves(leaves, axes, src, dst):
             for x, ax in zip(leaves, axes)]
 
 
+def _crossing(origin, b):
+    """The origins of the rows that cross the rung boundary ``b`` downwards
+    in a swap cascade whose slots took the rows ``origin`` (the whole
+    ``(ntemps, nwalkers)`` flat map): those of a slot below ``b`` from a
+    rung at ``b`` or above, sorted, padded to ``nwalkers`` with
+    ``ntemps * nwalkers``."""
+    ntemps, nw = origin.shape
+    keys = origin[:b].reshape(-1)
+    keys = torch.where(keys >= b * nw, keys, ntemps * nw)
+    return torch.sort(keys).values[:nw].contiguous()
+
+
 def _pack(rows):
     """``(n, k_i)`` tensors of any dtypes as one ``(n, sum bytes)`` uint8
     tensor, row by row."""
-    return torch.cat([r.contiguous().view(torch.uint8) for r in rows], dim=1)
+    # through a flat view: a contiguous tensor with a dim of size 1 may
+    # keep any stride there, which a view as bytes refuses
+    return torch.cat([r.contiguous().reshape(-1).view(torch.uint8)
+                      .reshape(r.shape[0], -1) for r in rows], dim=1)
 
 
 def _unpack(packed, like):

@@ -104,7 +104,9 @@ class Distribution:
 class UniformDistribution(Distribution):
     """Uniform distribution on ``[min_val, max_val]``."""
 
-    def __init__(self, min_val, max_val):
+    def __init__(self, min_val, max_val, use_cupy=False, return_gpu=False):
+        # use_cupy and return_gpu are Eryn's; accepted and not used (a
+        # tensor lies where it is made)
         if min_val > max_val:
             min_val, max_val = max_val, min_val
         elif min_val == max_val:
@@ -138,7 +140,8 @@ class UniformDistribution(Distribution):
 class MappedUniformDistribution(Distribution):
     """Uniform distribution whose log density is 0 inside ``[min, max]``."""
 
-    def __init__(self, min, max):
+    def __init__(self, min, max, use_cupy=False, return_gpu=False):
+        # use_cupy and return_gpu are Eryn's; accepted and not used
         if min > max:
             raise ValueError("min must be less than max.")
         self.min, self.max = float(min), float(max)
@@ -253,8 +256,9 @@ class MultivariateNormalDistribution(Distribution):
         return mean + z @ chol.T
 
 
-def uniform_dist(min, max):
-    """Build a :class:`UniformDistribution`."""
+def uniform_dist(min, max, use_cupy=False, return_gpu=False):
+    """Build a :class:`UniformDistribution` (``use_cupy`` and
+    ``return_gpu``, Eryn's, are accepted and not used)."""
     return UniformDistribution(min, max)
 
 
@@ -284,7 +288,8 @@ class ProbDistContainer:
     the module).
     """
 
-    def __init__(self, priors_in: dict):
+    def __init__(self, priors_in: dict, use_cupy=False, return_gpu=False):
+        # use_cupy and return_gpu are Eryn's; accepted and not used
         self.priors_in = dict(priors_in)
         self.priors = []
         has_strings = has_ints = False
@@ -453,10 +458,15 @@ class ProbDistContainer:
             out[:, inds[0]] = np.asarray(dist.ppf(strata))
         return out.reshape(size + (self.ndim,))
 
-    def rvs(self, size=1, keys=None, *, generator, dtype=torch.float64):
+    def rvs(self, size=1, keys=None, *, generator=None, dtype=torch.float64):
         """Draw ``size + (ndim,)`` samples from ``generator`` (on its
         device); with ``keys``, only those priors' columns (the rest are
-        zero)."""
+        zero).  Without a generator (Eryn's call) the draw is on the CPU,
+        from a generator seeded from NumPy's global one, as
+        :meth:`rvs_stratified` seeds itself."""
+        if generator is None:
+            generator = torch.Generator().manual_seed(
+                int(np.random.randint(0, 2**31 - 1)))
         size = _shape(size)
         out = torch.zeros(
             size + (self.ndim,), dtype=dtype, device=generator.device

@@ -106,9 +106,10 @@ class PeriodicContainer:
     def _vector_like(self, name, x):
         return self.period_vector(name, x.shape[-1], x.dtype, x.device)
 
-    def distance(self, p1: dict, p2: dict) -> dict:
+    def distance(self, p1: dict, p2: dict, xp=None) -> dict:
         """Minimal signed distance ``p2 - p1`` per branch, periodic
-        dimensions wrapped into ``[-P/2, P/2)``."""
+        dimensions wrapped into ``[-P/2, P/2)``.  ``xp`` (Eryn's array
+        module) is accepted and not used."""
         out = {}
         for name in p1:
             d = p2[name] - p1[name]
@@ -116,8 +117,9 @@ class PeriodicContainer:
             out[name] = d if vec is None else wrap_distance(d, vec)
         return out
 
-    def wrap(self, p: dict) -> dict:
-        """Coordinates wrapped into ``[0, P)`` per periodic dimension."""
+    def wrap(self, p: dict, xp=None) -> dict:
+        """Coordinates wrapped into ``[0, P)`` per periodic dimension.
+        ``xp`` (Eryn's array module) is accepted and not used."""
         out = {}
         for name, x in p.items():
             vec = self._vector_like(name, x)

@@ -66,10 +66,14 @@ def groups_from_inds_torch(inds_flat):
         n, nleaves_max)
 
 
-def get_acf(x, axis=0):
-    """FFT autocorrelation function along ``axis`` (real-input transform)."""
+def get_acf(x, axis=0, fast=False):
+    """FFT autocorrelation function along ``axis`` (real-input transform);
+    ``fast`` first cuts the series to its largest power-of-two length."""
     x = np.atleast_1d(np.asarray(x, dtype=np.float64))
     n = x.shape[axis]
+    if fast:
+        n = int(2 ** np.floor(np.log2(n)))
+        x = np.take(x, np.arange(n), axis=axis)
     f = np.fft.rfft(x - np.mean(x, axis=axis, keepdims=True), n=2 * n, axis=axis)
     acf = np.fft.irfft(f * np.conjugate(f), n=2 * n, axis=axis)
     acf = np.take(acf, np.arange(n), axis=axis)
@@ -104,7 +108,8 @@ def _check_tol(tau, nsteps, tol, quiet):
         warnings.warn(msg, stacklevel=3)
 
 
-def get_integrated_act(x, window=50, average=True, tol=0, quiet=True):
+def get_integrated_act(x, axis=0, window=50, fast=False, average=True,
+                       tol=0, quiet=True):
     """Integrated autocorrelation time per parameter (fixed-window
     estimator, as Eryn's).
 
@@ -112,7 +117,10 @@ def get_integrated_act(x, window=50, average=True, tol=0, quiet=True):
         x: a dict of per-branch chains shaped
            ``(nsteps, ntemps, nwalkers, nleaves_max, ndim)``, or an array
            with the step axis first.
+        axis: the step axis; only 0 is supported (as in ``eryn_tpu``).
         window: summation window of the ACF.
+        fast: estimate on the largest power-of-two number of steps
+           (:func:`get_acf`).
         average: average the per-walker estimates over axis 1.
         tol: if > 0, require ``nsteps > tol * tau``; raises when ``quiet`` is
            False, warns otherwise.
@@ -122,6 +130,8 @@ def get_integrated_act(x, window=50, average=True, tol=0, quiet=True):
         (``average=True``) or ``(ntemps, nwalkers, nleaves_max, ndim)``;
         array input: the step axis summed out, axis 1 averaged.
     """
+    if axis != 0:
+        raise NotImplementedError("get_integrated_act requires axis=0.")
     is_dict = isinstance(x, dict)
     if is_dict:
         shapes, parts, breaks, total = {}, [], [], 0
@@ -139,7 +149,7 @@ def get_integrated_act(x, window=50, average=True, tol=0, quiet=True):
     nsteps = x_in.shape[0]
     x_in = _fill_nonfinite_columns(x_in.reshape(nsteps, -1)).reshape(x_in.shape)
     with np.errstate(invalid="ignore", divide="ignore"):
-        f = get_acf(x_in, axis=0)
+        f = get_acf(x_in, axis=0, fast=fast)
     tau = 1.0 + 2.0 * np.sum(f[1:window], axis=0)
     if average and tau.ndim >= 2:
         with np.errstate(invalid="ignore"), warnings.catch_warnings():

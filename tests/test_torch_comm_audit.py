@@ -21,8 +21,10 @@ proposes nothing is the swap phase alone, and a step of a per-walker move
 (MH, Gaussian, distribution-draw, multiple-try, delayed rejection, HMC with
 a given step size and no tuning) receives exactly its bytes.  A move that
 reads an ensemble statistic receives at most the rows it reads more: AIMH
-and the slice move the walkers of the rank's temperatures (and slice its
-loops' one all-reduce a block), MALA's dual averaging the cold rung's
+the walkers of the rank's temperatures, the slice move the other walker
+shards' rows of them before each block, exchanges whose sizes are the
+mesh's (and its loops' one all-reduce a block), MALA's dual averaging the
+cold rung's
 acceptance, ChEES the cold rung's rows of its criterion.  Past their
 tuning AIMH, MALA and ChEES read no statistic: a step of each receives
 exactly the swap phase's bytes.
@@ -244,26 +246,39 @@ def audits():
             for name in list(CASES) + ["rj_deo_8x1", "zoo", "host_move_2x4"]}
 
 
+def _rung_bytes(audit, ntemps=8):
+    """One rung's share of the swap phase's payload."""
+    return audit["payload_bytes"] / ntemps
+
+
 def test_cascade_swap_traffic_is_boundary_local(audits):
     """Fully temperature-sharded mesh: the stretch moves never leave a rank,
     so the step's traffic is the cascade's: the gathered log-likelihood
-    (an all-gather of ``(8, 64)``) and the rows whose origin lies on
-    another rank (one all-to-all), within 2.5 payloads."""
+    (an all-gather of ``(8, 64)``) and, at each boundary between
+    temperature shards, one rung's rows each way (point-to-point exchanges
+    with the neighbouring shards, sizes the mesh's: ``eryn_tpu``'s
+    collective-permutes), within 2.5 payloads."""
     for audit in audits["cascade_8x1"]:
         assert audit["big_gathers"] == [], audit
-        assert set(audit["per_op"]) == {"all-gather", "all-to-all"}, audit
+        assert set(audit["per_op"]) == {"all-gather",
+                                        "collective-permute"}, audit
+        assert (audit["per_op"]["collective-permute"]["bytes"]
+                <= 2 * _rung_bytes(audit)), audit
         assert audit["total_bytes"] <= 2.5 * audit["payload_bytes"], audit
 
 
 def test_general_cascade_traffic_is_boundary_local(audits):
     """The general cascade (``permute=False``) on the same mesh, sharded as
     the kernel cascade is: the gathered log-likelihood, the decisions made
-    alike on every rank, and the rows whose origin lies on another rank in
-    one all-to-all, within 2.5 payloads."""
+    alike on every rank, and one rung's rows each way at each boundary
+    between temperature shards, within 2.5 payloads."""
     for audit in audits["general_cascade_8x1"]:
         assert audit["big_gathers"] == [], audit
-        assert set(audit["per_op"]) == {"all-gather", "all-to-all"}, audit
+        assert set(audit["per_op"]) == {"all-gather",
+                                        "collective-permute"}, audit
         assert audit["per_op"]["all-gather"]["bytes"] == 8 * NWALKERS * 4
+        assert (audit["per_op"]["collective-permute"]["bytes"]
+                <= 2 * _rung_bytes(audit)), audit
         assert audit["total_bytes"] <= 2.5 * audit["payload_bytes"], audit
 
 
@@ -365,12 +380,17 @@ def _statistic_bound(move):
     f4 = 4
     nt = ZOO_TEMPS // 2
     rows = nt * NWALKERS * NDIM * f4  # the rank's temperatures' walkers
+    # the other walker shards' walkers of the rank's temperatures
+    others = nt * (NWALKERS - NWALKERS // 4)
     cold = NWALKERS  # the cold rung's walkers
     return {
         "aimh": rows,
-        # the blocks' complement fill (coordinates and the leaf mask byte)
-        # and one all-reduce a block of the loops' flags and counts
-        "slice": nt * NWALKERS * (NDIM * f4 + 1) + 2 * (5 + 16 + 2) * f4,
+        # every other walker's coordinates and leaf mask byte before the
+        # first block, the coordinates again before the second (the
+        # exchanges' sizes are the mesh's, not the permutation's), and one
+        # all-reduce a block of the loops' flags and counts
+        "slice": (others * (NDIM * f4 + 1) + others * NDIM * f4
+                  + 2 * (5 + 16 + 2) * f4),
         "mala": cold * f4,
         # the criterion's alpha, masks, start, end point and momenta, and
         # the dual averaging's acceptance
