@@ -219,14 +219,29 @@ Phases, each printing its own lines:
      launches of kernels 1, 2, 3 and 5 equal to that chain's; and the
      sharded route captured with its NCCL collectives on one NCCL rank, a
      ``(1, 1)`` mesh (``mesh_graph_legs``: NCCL takes one rank per card):
-     ``mesh_graph[north-star,1x1,nccl]`` (50 + 400 steps) and
-     ``mesh_graph[lisa-rj,1x1,nccl]`` (20 + 100), each captured, then
-     eager, from one seed: the chains equal digit for digit, graphs
-     replayed, the stored segments under ``set_sync_debug_mode("error")``,
-     each replay's collectives counted, kernels 1, 2, 3 (or 3 and 5) in the
-     profile of the replays beside the one-process graphed step's, and the
-     window's steps/s captured and eager with the burn-in (NCCL's warm-up,
-     the captures) apart;
+     ``mesh_graph[north-star,1x1,nccl]`` (50 + 400 steps),
+     ``mesh_graph[lisa-rj,1x1,nccl]`` (20 + 100), and every other native
+     move captured: ``mesh_graph[zoo,1x1,nccl]`` (slice, MALA, HMC,
+     ChEES-HMC and AIMH at equal weights under the cascade, 30 + 120, the
+     stored window crossing ``tune_steps``), ``mesh_graph[best-stack,1x1,
+     nccl]`` (``ChEESHMCMove()``, DEO and the Syed ladder, 20 + 80, the
+     window crossing ``tune_steps``), ``mesh_graph[general,1x1,nccl]``
+     (the general-path stretch with a periodic dimension in four splits,
+     DE, DE-snooker, walk, KDE, ``GaussianMove``, ``GroupStretchMove``
+     refreshing in the window, a bare ``StretchMove`` subclass and the
+     custom-moves example's ``KernelJumpMove`` on the two gathered routes,
+     ``DelayedRejection`` around a bare ``GaussianMove`` subclass and a
+     ``CombineMove``, 80 + 160), ``mesh_graph[mt-rj,1x1,nccl]`` and
+     ``mesh_graph[modelswap,1x1,nccl]`` (20 + 60 and 20 + 80), each
+     captured, then eager, from one seed: the chains equal digit for digit,
+     graphs replayed (two for each move with a host phase, tuning and
+     tuned or a refresh due and not, one for any other), the stored
+     segments under ``set_sync_debug_mode("error")``, each replay's
+     collectives counted, the kernels' launches inside the replays (kernel
+     3 in the zoo's, kernels 1, 2, 3 or 3 and 5 in the profile of the
+     replays beside the one-process graphed step's), and the window's
+     steps/s captured and eager with the burn-in (NCCL's warm-up, the
+     captures) apart;
    * a flat-likelihood RJ run (64 walkers, 3 leaves): a uniform leaf-count
      posterior.  It checks the RJ moves, is not part of the main path, and
      its launches stay out of the report.
@@ -238,8 +253,9 @@ Phases, each printing its own lines:
    and each chain must meet its target.  Then graph vs eager: the first
    four legs, the blob leg (blobs, ``rid``, ``sigma`` and a host object
    compared too), the DEO leg, the zoo's ``CombineMove`` and MT-RJ legs, and
-   its MALA, jittered HMC (3 to 7 steps), ChEES, slice and AIMH legs and
-   ``para[north-star x64]`` at a quarter of their depth from one seed, with
+   its MALA and AIMH legs and ``para[north-star x64]`` at a quarter of
+   their depth, its jittered HMC (3 to 7 steps), ChEES and slice legs at a
+   tenth (``tune_steps`` 150) from one seed, with
    ``cuda_graph=False`` and graphed; their chains, ladders, clocks, accept and swap counts and
    kernel states must be equal digit for digit, and their host time per step, replays per
    step and steps/s are printed side by side;
@@ -250,7 +266,8 @@ Phases, each printing its own lines:
    the zoo's slice leg, about 3,000 device ops a step each), the host
    likelihood legs (10 steps per walker, 50 vectorized), the hybrid leg
    and ``para[north-star x64]``, and of the
-   graph-vs-eager legs eager (10 steps of jittered HMC, ChEES and slice)
+   graph-vs-eager legs eager (20 steps, 5 of jittered HMC, ChEES and
+   slice: an eager step's trace holds several host events a device op)
    (device kernels, memcpys and memsets per step, what the host launched
    per step, device-busy share, the top five device ops), and the device
    time of one tempering phase, cascade beside DEO (``phase[...]``).
@@ -293,6 +310,9 @@ DEO = dict(swap_scheme="deo", adaptation_scheme="syed")
 # 4 leaves, seed 11
 Z_SEED, Z_RJ_SEED, Z_NLMAX = 10, 11, 4
 Z_WARM, Z_STEPS, Z_STORED = 200, 1000, 1000
+# graph-vs-eager's capped-loop legs: tune_steps, inside their 20 + 100 +
+# 100 steps' stored hundred
+GVE_TUNE = 150
 # the best stack (VERDICT.md:290-296): ChEES-HMC under DEO and the Syed
 # schedule on the north-star target, 600 steps of burn-in, then stored
 BS_SEED, BS_BURN = 12, 600
@@ -1212,7 +1232,11 @@ HEAVY_LEGS = ("best_stack", "zoo[SliceMove]", "zoo[ChEESHMCMove]",
               "zoo[HMCMove(jittered (3, 7))]", "host_like[north-star]")
 
 
-def _profile_steps(leg):
+def _profile_steps(leg, eager=False):
+    """Steps profiled of a leg: the profiler's own processing of an eager
+    step, several host events a device op, costs far more than the step."""
+    if eager:
+        return 5 if leg in HEAVY_LEGS else 20
     return 10 if leg in HEAVY_LEGS else 50
 
 
@@ -1708,9 +1732,10 @@ def _run_state(np, s):
 def graph_vs_eager(torch, card):
     """North-star, its blob form, its DEO form, config E, LISA RJ, LISA RJ
     null, the zoo's
-    ``CombineMove``, MT-RJ, MALA, jittered HMC, ChEES, slice and AIMH legs
-    at a quarter of their depth from one seed, with ``cuda_graph=False``
-    and graphed, in turn:
+    ``CombineMove``, MT-RJ, MALA and AIMH legs at a quarter of their
+    depth, the jittered HMC, ChEES and slice legs at a tenth (their tuning
+    ending inside the stored steps, as the default's does at a quarter),
+    from one seed, with ``cuda_graph=False`` and graphed, in turn:
     20 warm steps (the graphed form captures there), a timed segment of
     ``n`` steps without storing (host time until the loop returns, and wall
     time until the device is done), then ``n`` stored steps into the default
@@ -1758,8 +1783,14 @@ def graph_vs_eager(torch, card):
         # the captured gradient, the masked loops and the replaced cond
         (f"zoo[{name}]", lambda graphed, name=name: _zoo_sampler(
             torch, name, cuda_graph=graphed), Z_STORED // 4, 1, 1)
-        for name in ("MALAMove", "HMCMove(jittered (3, 7))", "ChEESHMCMove",
-                     "SliceMove", "AIMHMove"))
+        for name in ("MALAMove", "AIMHMove")) + tuple(
+        # the capped loops, at a tenth of their depth (eagerly about 35 us
+        # of host a device op, 3,000 ops a step), their tuning ending
+        # inside the stored steps as at the quarter depth's default
+        (f"zoo[{name}]", lambda graphed, name=name: _zoo_sampler(
+            torch, name, cuda_graph=graphed, tune_steps=GVE_TUNE),
+         Z_STORED // 10, 1, 1)
+        for name in ("HMCMove(jittered (3, 7))", "ChEESHMCMove", "SliceMove"))
     out, eager_samplers = {}, {}
     for leg, build, n, per_step, ticks in legs:
         runs = {}
@@ -2073,20 +2104,22 @@ def _zoo_moves():
     }
 
 
-def _zoo_move(name):
-    """A zoo move by name, or the graph-vs-eager leg's jittered HMC."""
+def _zoo_move(name, **kw):
+    """A zoo move by name, or the graph-vs-eager leg's jittered HMC;
+    ``kw`` goes to the move's class."""
     from eryn_tpu_torch import moves as tm
 
     if name == "HMCMove(jittered (3, 7))":
-        return tm.HMCMove(num_leapfrog=(3, 7))
-    return _zoo_moves()[name][0]()
+        return tm.HMCMove(num_leapfrog=(3, 7), **kw)
+    return _zoo_moves()[name][0](**kw)
 
 
-def _zoo_sampler(torch, name, seed=Z_SEED, cuda_graph=True):
+def _zoo_sampler(torch, name, seed=Z_SEED, cuda_graph=True, **kw):
     """A zoo leg's sampler and its set-up state (the kernel states made
     too, outside any segment: a move copies its constants to the card
-    there)."""
-    s, priors = _gaussian_sampler(torch, NT, NW, seed, moves=_zoo_move(name),
+    there); ``kw`` goes to the move's class."""
+    s, priors = _gaussian_sampler(torch, NT, NW, seed,
+                                  moves=_zoo_move(name, **kw),
                                   cuda_graph=cuda_graph)
     coords = priors.rvs(size=(NT, NW), generator=torch.Generator(
         device="cuda").manual_seed(seed))
@@ -5544,57 +5577,235 @@ def mesh_custom_legs(torch, card):
 
 # mesh_graph[...]: the sharded route captured with its NCCL collectives, on a
 # one-rank NCCL group (NCCL takes one rank per card): the north-star (50 +
-# 400 steps) and the LISA-style RJ configuration (20 + 100), each run
-# captured, then eager, from the same seed, into DeviceBackend; the window
-# is the stored steps, timed apart from the set-up and the burn-in (the
-# first eager run of each move, which makes NCCL's communicator, and the
-# captures)
-MG_LEGS = {"north-star": (50, 400), "lisa-rj": (20, 100)}
+# 400 steps), the LISA-style RJ configuration (20 + 100), the tuning zoo
+# (benchmarks/move_zoo_timing.py:27-166's slice, MALA, HMC, ChEES and AIMH
+# at equal weights, 30 + 120), the best stack (VERDICT.md:290-296, 20 +
+# 80), the general-path moves (80 + 160), multiple-try RJ (20 + 60) and
+# the model swap (20 + 80), each run captured, then eager, from the same
+# seed, into DeviceBackend; the window is the stored steps, timed apart from
+# the set-up and the burn-in (the first eager run of each move, which makes
+# NCCL's communicator, and the captures)
+MG_LEGS = {"north-star": (50, 400), "lisa-rj": (20, 100), "zoo": (30, 120),
+           "best-stack": (20, 80), "general": (80, 160), "mt-rj": (20, 60),
+           "modelswap": (20, 80)}
+# replayed steps traced, the figures from the first half of them whose
+# traces hold every counted launch
 MG_PROFILE_STEPS = 20
+# the legs of about 1,000-3,000 device ops a step trace fewer steps
+MG_PROFILE_HEAVY = ("zoo", "best-stack")
+# seconds between a profiler session's start and its step, and between the
+# step's end and the session's stop
+MG_TRACE_PAUSE = 0.01
+# after the window, replays alone (every phase's graph captured): the
+# captured route's steady rate
+MG_TAIL = 100
+# the one rank's time limit: seven legs, each captured, eager and profiled
+MG_TIMEOUT = 600
+# the tuning moves' tune_steps, each move's stored window crossing it; the
+# group stretch's refresh period
+MG_TUNE = {"zoo": 14, "best-stack": 50}
+MG_REFRESH = 5
 
 
 def _mesh_graph_sampler(torch, np, leg, cuda_graph):
+    """A ``mesh_graph[...]`` leg's sampler (into DeviceBackend) and its
+    global start, not evaluated."""
+    from eryn_tpu_torch import (
+        DeviceBackend,
+        EnsembleSampler,
+        ProbDistContainer,
+        State,
+        uniform_dist,
+    )
+    from eryn_tpu_torch import moves as tm
+
     if leg == "north-star":
         return _mesh_north_star(torch, cuda_graph=cuda_graph)
-    return _mesh_rj_sampler(torch, np, leg, cuda_graph=cuda_graph)
+    if leg == "lisa-rj":
+        return _mesh_rj_sampler(torch, np, leg, cuda_graph=cuda_graph)
+    if leg == "mt-rj":
+        return _mt_rj_sampler(torch, cuda_graph=cuda_graph, setup=False,
+                              backend=DeviceBackend())
+    if leg == "modelswap":
+        return _modelswap_sampler(torch, np, MZ_SWAP_NT,
+                                  cuda_graph=cuda_graph,
+                                  backend=DeviceBackend())
+    gen = torch.Generator(device="cuda").manual_seed(MESH_SEED)
+    if leg == "general":
+        jump, stretch, gauss, _ = _custom_classes()
+        priors = ProbDistContainer(
+            {i: uniform_dist(0.0, MS_PERIOD) if i == 0
+             else uniform_dist(-5.0, 5.0) for i in range(NDIM)})
+        diag = {"model_0": np.diag(np.full(NDIM, 0.5 ** 2))}
+        moves = [tm.StretchMove(periodic={"model_0": {0: MS_PERIOD}},
+                                nsplits=4),
+                 tm.DEMove(), tm.DESnookerMove(), tm.WalkMove(),
+                 tm.KDEMove(), tm.GaussianMove(diag),
+                 tm.GroupStretchMove(n_iter_update=MG_REFRESH), stretch(),
+                 jump(), tm.DelayedRejection(gauss(diag), max_iter=2),
+                 tm.CombineMove([tm.GaussianMove(diag),
+                                 tm.DistributionGenerate({"model_0": priors})])]
+
+        def log_like(x):
+            return -0.5 * torch.sum(x * x)
+
+        s = EnsembleSampler(
+            NW, NDIM, log_like, priors, tempering_kwargs=dict(ntemps=NT),
+            moves=[(m, 1 / len(moves)) for m in moves], seed=MESH_SEED,
+            device="cuda", backend=DeviceBackend(), cuda_graph=cuda_graph)
+        coords = priors.rvs(size=(NT, NW), generator=gen)
+        return s, State({"model_0": coords[:, :, None, :]})
+    tune = MG_TUNE[leg]
+    if leg == "zoo":
+        moves = [tm.SliceMove(tune_steps=tune), tm.MALAMove(tune_steps=tune),
+                 tm.HMCMove(num_leapfrog=(2, 4), tune_steps=tune),
+                 tm.ChEESHMCMove(max_leapfrog=8, tune_steps=tune),
+                 tm.AIMHMove(tune_steps=tune)]
+        kw = dict(moves=[(m, 1 / len(moves)) for m in moves])
+    else:  # best-stack
+        kw = dict(moves=tm.ChEESHMCMove(tune_steps=tune), tempering=DEO)
+    s, priors = _gaussian_sampler(torch, NT, NW, MESH_SEED,
+                                  backend=DeviceBackend(),
+                                  cuda_graph=cuda_graph, **kw)
+    coords = priors.rvs(size=(NT, NW), generator=gen)
+    return s, State({"model_0": coords[:, :, None, :]})
 
 
-def _mesh_graph_profile(torch, sampler):
-    """``torch.profiler`` over ``MG_PROFILE_STEPS`` replayed steps without
-    storing, per step: the graph launches, the device's ops, our kernels
-    by name, NCCL's kernels, the copy kernels of graph memcpy nodes
-    (``memcpy32_post``: NCCL's one-rank gathers among them) and the
-    runtime's memcpys by direction."""
+def _mesh_graph_clocks(s):
+    """``[(move name, clock value, move)]`` of every clock with a host phase
+    in the sampler's moves (``Move.mesh_clocks``)."""
+    return [(type(m).__name__, int(t), m)
+            for j, move in enumerate(s._all_move_list)
+            for m, t in move.mesh_clocks(s._kernel_states[j])]
+
+
+def _mesh_graph_graphs(s):
+    """Per move of a captured run: ``(name, graphs captured, whether it has
+    a host phase)``; and the counted kernels' launches inside the replays
+    (each graph's captured launches times its replays)."""
+    graphs = s._graphs
+    per, inside = {}, {}
+    for key, (_, counts) in graphs.graphs.items():
+        per[key[0]] = per.get(key[0], 0) + 1
+        for kernel, n in counts:
+            inside[kernel.__name__] = (inside.get(kernel.__name__, 0)
+                                       + n * graphs.replayed.get(key, 0))
+    moves = s._all_move_list
+    return ([(type(moves[j]).__name__, per.get(j, 0),
+              bool(moves[j].mesh_clocks(s._kernel_states[j])))
+             for j in range(len(moves))], inside)
+
+
+def _mesh_graph_profile(torch, sampler, schedule, n=MG_PROFILE_STEPS):
+    """``torch.profiler`` over replayed steps without storing, their moves
+    drawn from the host generator's state ``schedule`` (the same steps for
+    two samplers of one configuration), per step: the graph launches, the
+    device's ops and busy time, our kernels by name, NCCL's kernels, the
+    copy kernels of graph memcpy nodes (``memcpy32_post``: NCCL's one-rank
+    gathers among them) and the runtime's memcpys by direction.
+
+    ``n`` steps run as one segment, each traced by a profiler session of
+    its own (the first also holds the segment's load of the buffers, the
+    last its export), ``MG_TRACE_PAUSE`` after its start and before its
+    stop.  The profiler can lose device records: one session over ten zoo
+    steps (about 15,700 records) once came back with about a thousand of
+    them missing, a swap kernel among them, and one-step sessions in the
+    general leg lost records in 1 and 4 of 20 steps.  So each step's trace
+    is held against the launch counters of the same step; a step whose
+    trace shows fewer launches of one of our kernels than the counters
+    recorded is counted in ``lost_steps`` (``lost``: the step, the kernel,
+    seen and counted), and the figures are those of the first ``n // 2``
+    steps whose traces hold every counted launch; fewer fail the script."""
     import re
 
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
 
-    state = sampler._previous_state
-    torch.cuda.synchronize()
-    with profile(activities=[ProfilerActivity.CPU,
-                             ProfilerActivity.CUDA]) as prof:
-        sampler._run_bulk(state, 1, MG_PROFILE_STEPS, store=False)
+    from eryn_tpu_torch.ops import pt_swap, select_kernels
+    from eryn_tpu_torch.ops import stretch_kernels as sk
+
+    # our kernels: (key, the device function's name, the wrappers counting
+    # its launches)
+    ours = (("stretch_propose", r"(?<!group_)stretch_propose_kernel",
+             (sk.stretch_propose,)),
+            ("stretch_accept_propose", r"stretch_accept_propose_kernel",
+             (sk.stretch_accept_propose,)),
+            ("stretch_accept", r"stretch_accept_kernel", (sk.stretch_accept,)),
+            ("pt_swap_cascade", r"pt_swap_cascade_kernel",
+             (pt_swap.pt_swap_cascade_multi, pt_swap._cascade_multi_rolled)),
+            ("group_stretch_propose", r"group_stretch_propose_kernel",
+             (select_kernels.group_stretch_propose,)),
+            ("onehot_select", r"onehot_select_kernel",
+             (select_kernels.onehot_select,)))
+
+    def counts():
+        return [sum(k.launches for k in wrappers) for _, _, wrappers in ours]
+
+    graphs = sampler._graphs
+    replay = graphs.step
+    sessions, launched = [], []
+
+    def trace():
+        sessions.append(profile(activities=[ProfilerActivity.CPU,
+                                            ProfilerActivity.CUDA]))
+        sessions[-1].start()
+        time.sleep(MG_TRACE_PAUSE)
+
+    def close():
         torch.cuda.synchronize()
-    device = [e.name for e in prof.events()
-              if e.device_type == DeviceType.CUDA]
-    n = MG_PROFILE_STEPS
-    out = {"graph_launches": sum(e.name == "cudaGraphLaunch"
-                                 for e in prof.events()) / n,
-           "device_ops": len(device) / n}
-    for key, pat in (("stretch_propose", r"(?<!group_)stretch_propose_kernel"),
-                     ("stretch_accept_propose",
-                      r"stretch_accept_propose_kernel"),
-                     ("stretch_accept", r"stretch_accept_kernel"),
-                     ("pt_swap_cascade", r"pt_swap_cascade_kernel"),
-                     ("group_stretch_propose", r"group_stretch_propose_kernel"),
-                     ("nccl", r"(?i)nccl"),
-                     ("memcpy32_post", r"memcpy32_post")):
-        out[key] = sum(bool(re.search(pat, name)) for name in device) / n
+        time.sleep(MG_TRACE_PAUSE)
+        sessions[-1].stop()
+
+    def step(row, ctx):
+        before = counts()
+        replay(row, ctx)
+        launched.append([b - a for a, b in zip(before, counts())])
+        if len(sessions) < n:
+            close()
+            trace()
+
+    sampler._host_gen.set_state(schedule)
+    torch.cuda.synchronize()
+    graphs.step = step
+    trace()
+    try:
+        sampler._run_bulk(sampler._previous_state, 1, n, store=False)
+    finally:
+        del graphs.step
+        close()
+    assert len(sessions) == len(launched) == n, (len(sessions), n)
+    device, launches, busy, lost, kept = [], 0, 0.0, [], 0
+    for i, (prof, want) in enumerate(zip(sessions, launched)):
+        events = sorted((e for e in prof.events()
+                         if e.device_type == DeviceType.CUDA),
+                        key=lambda e: e.time_range.start)
+        names = [e.name for e in events]
+        short = [(i, key, seen, w) for (key, pat, _), w in zip(ours, want)
+                 for seen in [sum(bool(re.search(pat, x)) for x in names)]
+                 if seen < w]
+        lost += short
+        if short or kept == n // 2:
+            continue
+        kept += 1
+        launches += sum(e.name == "cudaGraphLaunch" for e in prof.events())
+        device += names
+        end = -math.inf
+        for e in events:
+            busy += max(e.time_range.end - max(e.time_range.start, end), 0.0)
+            end = max(end, e.time_range.end)
+    assert kept == n // 2, (
+        f"the profiler lost records in {len({x[0] for x in lost})} of {n} "
+        f"traced steps: (step, kernel, seen, counted) {lost}")
+    out = {"steps": kept, "lost_steps": len({x[0] for x in lost}),
+           "lost": lost, "graph_launches": launches / kept,
+           "device_ops": len(device) / kept, "device_ms": busy / kept / 1e3}
+    for key, pat in [(key, pat) for key, pat, _ in ours[:5]] + [
+            ("nccl", r"(?i)nccl"), ("memcpy32_post", r"memcpy32_post")]:
+        out[key] = sum(bool(re.search(pat, name)) for name in device) / kept
     for name in device:
         if name.startswith("Memcpy"):
             kind = "memcpy " + name.split()[1]
-            out[kind] = out.get(kind, 0) + 1 / n
+            out[kind] = out.get(kind, 0) + 1 / kept
     return out
 
 
@@ -5615,6 +5826,7 @@ def _mesh_graph_rank(rank, world):
     with _plain_versions_forbidden():
         mesh = make_mesh(1)
         for leg, (warm, steps) in MG_LEGS.items():
+            n_prof = MG_PROFILE_STEPS // (1 + (leg in MG_PROFILE_HEAVY))
             for form in ("captured", "eager"):
                 torch.cuda.synchronize()
                 t0 = time.perf_counter()
@@ -5629,6 +5841,7 @@ def _mesh_graph_rank(rank, world):
                 s.run_mcmc(state, 1, burn=warm)
                 torch.cuda.synchronize()
                 t2 = time.perf_counter()
+                clocks = _mesh_graph_clocks(s)
                 with _segments_never_wait():
                     s.run_mcmc(None, steps - 1)
                 torch.cuda.synchronize()
@@ -5643,30 +5856,52 @@ def _mesh_graph_rank(rank, world):
                     "sharded": s._mesh_layout is not None,
                     "graph_replays": s.graph_replays,
                     "graph_captures": s.graph_captures,
-                    "record": _mesh_rj_record(s)}
+                    # each host phase's clock over the stored window, and
+                    # whether its phase changed there
+                    "clocks": [(name, a, b, any(
+                        m.phase_of(v) != m.phase_of(a)
+                        for v in range(a, b + 1)))
+                        for (name, a, m), (_, b, _) in zip(
+                            clocks, _mesh_graph_clocks(s))],
+                    "record": (_mesh_rj_record(s)
+                               if leg in ("north-star", "lisa-rj")
+                               else _mesh_zoo_record(s))}
                 if form == "captured":
-                    got["profile"] = _mesh_graph_profile(torch, s)
-            # the same configuration in one process, graphed: what the
-            # sharded route adds to a step
+                    got["graphs"], got["inside"] = _mesh_graph_graphs(s)
+                    with _segments_never_wait():
+                        t0 = time.perf_counter()
+                        s._run_bulk(s._previous_state, 1, MG_TAIL,
+                                    store=False)
+                        torch.cuda.synchronize()
+                    got["steady_s"] = time.perf_counter() - t0
+                    schedule = s._host_gen.get_state()
+                    got["profile"] = _mesh_graph_profile(torch, s, schedule,
+                                                         n_prof)
+            # the same configuration in one process, graphed, on the same
+            # profiled steps: what the sharded route adds to a step
             s, state = _mesh_graph_sampler(torch, np, leg, True)
-            s.run_mcmc(state, 1, burn=10)
-            out[leg, "one process"] = {"profile": _mesh_graph_profile(torch,
-                                                                      s)}
+            s.run_mcmc(state, 1, burn=warm)
+            out[leg, "one process"] = {"profile": _mesh_graph_profile(
+                torch, s, schedule, n_prof)}
     return out
 
 
 def mesh_graph_legs(torch, card):
-    """``mesh_graph[north-star,1x1,nccl]`` and
-    ``mesh_graph[lisa-rj,1x1,nccl]``: the sharded route, planned on the
-    device, captured in CUDA graphs with its NCCL collectives on one rank
-    (NCCL takes one rank per card, so one card shows it at world size 1),
-    against the same route eager from the same seed.  Each captured chain
-    must equal its eager chain digit for digit; graphs must replay; the
-    stored segments run under ``set_sync_debug_mode("error")``; each
-    replay carries its collectives (counted at capture); the profile of
-    the replays must show kernels 1, 2, 3 (north-star) or 3 and 5 (LISA).
-    Prints the window's steps/s captured and eager, with the set-up and
-    the burn-in (NCCL's warm-up and the captures) apart.  Returns the
+    """``mesh_graph[<leg>,1x1,nccl]`` for each leg of ``MG_LEGS``: the
+    sharded route, planned on the device, captured in CUDA graphs with its
+    NCCL collectives on one rank (NCCL takes one rank per card, so one card
+    shows it at world size 1), against the same route eager from the same
+    seed.  Each captured chain must equal its eager chain digit for digit;
+    graphs must replay, two for each move with a host phase (whose phase
+    must change in the stored window: past ``tune_steps``, a group
+    refresh) and one for any other; the stored segments run under
+    ``set_sync_debug_mode("error")``; each replay carries its collectives
+    (counted at capture); the profile of the replays must show kernels 1,
+    2, 3 (north-star) or 3 and 5 (LISA), and the zoo's replays launch
+    kernel 3.  Prints the window's steps/s captured and eager, with the
+    set-up and the burn-in (NCCL's warm-up and the captures) apart, the
+    graphs per move, the collectives, device ops and device time a replayed
+    step, and the kernels' launches inside the replays.  Returns the
     launches of both forms and the legs' rates."""
     import numpy as np
 
@@ -5674,7 +5909,7 @@ def mesh_graph_legs(torch, card):
 
     t0 = time.perf_counter()
     rank = launch(_mesh_graph_rank, 1, backend="nccl",
-                  timeout=MESH_TIMEOUT)[0]
+                  timeout=MG_TIMEOUT)[0]
     wall = time.perf_counter() - t0
     assert rank["backend"] == "nccl", rank["backend"]
     launches, rates = {}, {}
@@ -5691,28 +5926,42 @@ def mesh_graph_legs(torch, card):
         assert cap["calls"] == eag["calls"] and cap["calls"], (
             name, cap["calls"], eag["calls"])
         prof, one = cap["profile"], rank[leg, "one process"]["profile"]
-        # every step's replay carries its collectives: the gathered
-        # log-likelihood of each swap phase
-        phases = 1 if leg == "north-star" else 2
-        assert cap["calls"]["all_gather_into_tensor"] == phases * (
-            warm + steps), (name, cap["calls"])
+        assert cap["clocks"] == eag["clocks"], (name, cap["clocks"])
+        assert all(c[3] for c in cap["clocks"]), (
+            f"{name}: a host phase did not change in the window", cap["clocks"])
+        for move, n, phased in cap["graphs"]:
+            assert n == 1 + phased, (name, cap["graphs"])
         if leg == "north-star":
+            # every step's replay carries its collectives: the gathered
+            # log-likelihood of the swap phase
+            assert cap["calls"]["all_gather_into_tensor"] == warm + steps, (
+                name, cap["calls"])
             _assert_stretch_launches(cap["launches"], warm + steps)
             assert cap["launches"]["pt_swap_cascade_multi"] == warm + steps
             assert min(prof["stretch_propose"], prof["stretch_accept"],
                        prof["stretch_accept_propose"]) == 1, prof
-        else:
+        elif leg == "lisa-rj":
+            assert cap["calls"]["all_gather_into_tensor"] == 2 * (
+                warm + steps), (name, cap["calls"])
             n = cap["launches"]
             assert n["group_stretch_propose"] == 2 * (warm + steps), n
             assert n["pt_swap_cascade_multi"] == 2 * (warm + steps), n
             assert prof["group_stretch_propose"] == 2, prof
-        assert prof["pt_swap_cascade"] >= 1, prof
+        elif leg == "zoo":
+            assert cap["inside"].get("pt_swap_cascade_multi", 0) > 0, (
+                name, cap["inside"])
+        elif leg == "mt-rj":
+            assert cap["inside"].get("group_stretch_propose", 0) > 0, (
+                name, cap["inside"])
+        if leg != "best-stack":  # DEO swaps with tensor ops
+            assert prof["pt_swap_cascade"] >= 1, prof
         for k, v in cap["launches"].items():
             launches[k] = launches.get(k, 0) + v + eag["launches"][k]
         sps = {f: r["window_steps"] / r["window_s"] for f, r in
                (("captured", cap), ("eager", eag))}
         rates[f"{name}_steps_per_s"] = sps["captured"]
         rates[f"{name}_eager_steps_per_s"] = sps["eager"]
+        rates[f"{name}_steady_steps_per_s"] = MG_TAIL / cap["steady_s"]
         rates[f"{name}_setup_s"] = cap["setup_s"]
         rates[f"{name}_burn_s"] = cap["burn_s"]
         rates[f"{name}_collectives_per_step"] = {
@@ -5729,7 +5978,18 @@ def mesh_graph_legs(torch, card):
               f"{eag['burn_s']:.2f} s); collectives {cap['calls']}; "
               f"launches {cap['launches']} ({card})")
         rates[f"{name}_device_ops_per_step"] = prof["device_ops"]
-        print(f"{name}: profile of {MG_PROFILE_STEPS} replayed steps, per "
+        rates[f"{name}_device_ms_per_step"] = prof["device_ms"]
+        rates[f"{name}_launches_in_replays"] = cap["inside"]
+        print(f"{name}: steady {MG_TAIL} replayed steps after the window "
+              f"(every phase's graph captured) "
+              f"{rates[f'{name}_steady_steps_per_s']:.1f} steps/s, "
+              f"{rates[f'{name}_steady_steps_per_s'] / sps['eager']:.1f} "
+              f"times the eager window ({card})")
+        print(f"{name}: graphs per move (name, graphs, host phase) "
+              f"{cap['graphs']}; host-phase clocks over the window (name, "
+              f"start, end, phase changed) {cap['clocks']}; kernel launches "
+              f"inside the replays {cap['inside']} ({card})")
+        print(f"{name}: profile of {prof['steps']} replayed steps, per "
               f"step: {prof}; the same configuration in one process, "
               f"graphed: {one} ({card})")
     rates["mesh_graph_legs_wall_s"] = wall
@@ -5934,7 +6194,9 @@ def main(argv=None):
     # phase 5: the profiler, after every timed run (a profiled process may
     # keep tracing costs on its launches): device-only kernel times, then
     # 50 steady steps of each main-path leg
+    t0 = time.perf_counter()
     device = device_times(torch, launchers)
+    print(f"phase 5: device_times {time.perf_counter() - t0:.1f} s")
     floor["device_ms"] = device.pop("empty_launch")
     print(f"time: empty launch {floor['device_ms']:.4f} ms on the device "
           f"({smi})")
@@ -5942,6 +6204,7 @@ def main(argv=None):
         t["device_ms"] = device[k]
         print(f"time: {k} {t['device_ms']:.4f} ms on the device, "
               f"{t['ms']:.4f} ms per call ({smi})")
+    t0 = time.perf_counter()
     profiles = {}
     by_name = {}
     for _, _, kept in legs:
@@ -5958,9 +6221,12 @@ def main(argv=None):
     phases = tempering_phase_device_ms(
         torch, {"cascade": by_name["north-star"][0],
                 "deo": by_name["deo"][0]}, smi)
+    print(f"phase 5: graphed profiles {time.perf_counter() - t0:.1f} s")
+    t0 = time.perf_counter()
     for leg, (sampler, state) in eager.items():
         profiles.update(profile_steps(torch, f"{leg}, eager", sampler, state,
-                                      smi, steps=_profile_steps(leg)))
+                                      smi, steps=_profile_steps(leg, True)))
+    print(f"phase 5: eager profiles {time.perf_counter() - t0:.1f} s")
 
     sources = {
         "stretch_propose": ("eryn_tpu_torch/csrc/stretch_kernels.cu",

@@ -37,7 +37,7 @@ import torch
 
 from .backends import Backend, DeviceBackend, HDFBackend
 from .backends.backend import host_leaves
-from .graphs import StepGraphs
+from .graphs import HostPhases, StepGraphs, fixed_phases
 from .interop import restore_kernel_state
 from .model import Model
 from .moves import DistributionGenerateRJ, StretchMove
@@ -980,6 +980,8 @@ class EnsembleSampler:
         # NCCL on one card
         self._one_rank_layout = None
         self._kernel_states = None
+        # under a mesh, the host's shadow of the moves' phase clocks
+        self._phases = HostPhases()
         self._m_acc = None
         self._m_nprop = np.zeros(len(self._all_move_list))
         self._static_inds = self._static_inds_host = None
@@ -1635,11 +1637,14 @@ class EnsembleSampler:
             if self._host_moves[j]:
                 state, acc, sw, time = self._host_step(move, state, time)
             else:
-                state, acc, sw, time, self._kernel_states[j] = (
-                    move.step_kernel(
-                        self._gen, state, time, ctx, self._kernel_states[j]
+                clocks = self._phase_clocks(j)
+                with fixed_phases(clocks, self._phases.phase(j, clocks)):
+                    state, acc, sw, time, self._kernel_states[j] = (
+                        move.step_kernel(self._gen, state, time, ctx,
+                                         self._kernel_states[j])
                     )
-                )
+                if clocks:
+                    self._phases.advance(j, self._phase_clocks(j))
             self._m_acc[j] += acc
             self._m_nprop[j] += 1
             if j < len(self.moves):
@@ -1651,6 +1656,13 @@ class EnsembleSampler:
             accepted = state.log_like.new_zeros(state.log_like.shape)
             swaps = state.log_like.new_zeros((max(self.ntemps - 1, 0),))
         return state, time, accepted, rj_accepted, swaps
+
+    def _phase_clocks(self, j):
+        """Move ``j``'s clocks with a host phase under a mesh (:meth:`~
+        eryn_tpu_torch.moves.Move.mesh_clocks`), none off it."""
+        if self._mesh_layout is None:
+            return []
+        return self._all_move_list[j].mesh_clocks(self._kernel_states[j])
 
     def _host_step(self, move, state, time):
         """One proposal of a host move (:func:`~eryn_tpu_torch.moves.
@@ -1718,8 +1730,9 @@ class EnsembleSampler:
         step visits the host, nor under a mesh whose collectives a graph
         cannot capture (gloo's).  Under an NCCL mesh the moves whose sharded
         step is planned on the device (:meth:`~eryn_tpu_torch.moves.Move.
-        mesh_device_planned`) are captured with their collectives, the
-        others run eagerly in their slots."""
+        mesh_device_planned`: every native move and users' subclasses) are
+        captured with their collectives, a graph per host phase; a host move
+        runs eagerly in its slots."""
         lay = self._mesh_layout
         return (self.cuda_graph and self.device.type == "cuda"
                 and not self._visits_host and (lay is None or lay.nccl))

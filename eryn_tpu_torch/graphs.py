@@ -20,11 +20,17 @@ Under a device mesh whose process group is NCCL
 (:mod:`~eryn_tpu_torch.parallel.mesh`) the buffers hold the rank's shard,
 and each rank captures the sharded step of every move that declares it
 planned on the device (:meth:`~eryn_tpu_torch.moves.Move.
-mesh_device_planned`), its collectives on the capturing stream; its first,
-eager run makes NCCL's communicators.  Any other move runs eagerly in its
-slots, on the buffers.  The collectives a graph captured are counted at
-each replay (:data:`~eryn_tpu_torch.parallel._comm.CALLS`), as the
-kernels' launches are.
+mesh_device_planned`: every native move, and users' subclasses), its
+collectives on the capturing stream; its first, eager run makes NCCL's
+communicators.  Any other move runs eagerly in its slots, on the buffers.
+The collectives a graph captured are counted at each replay
+(:data:`~eryn_tpu_torch.parallel._comm.CALLS`), as the kernels' launches
+are.  A move whose sharded step has a host phase (a tuning move: tuning or
+tuned; a group move: a refresh due or not; :meth:`~eryn_tpu_torch.moves.
+Move.mesh_clocks`) has a graph per phase: the phase decides only which
+exchanges run, every result is decided on the device clock.  The host
+keeps a shadow of each such clock (:class:`HostPhases`, which the eager
+mesh loop uses too).
 
 A move is captured the second time it is due: its first run is the same
 body, eager, which builds the kernels, lets ``torch.func.vmap`` trace the
@@ -37,6 +43,7 @@ neither the chain nor the generator.  A capture that fails raises.
 
 from __future__ import annotations
 
+import contextlib
 import gc
 
 import torch
@@ -55,6 +62,53 @@ def counted_kernels():
             pt_swap.pt_swap_cascade_multi, pt_swap._cascade_multi_rolled,
             select_kernels.group_stretch_propose,
             select_kernels.onehot_select)
+
+
+@contextlib.contextmanager
+def fixed_phases(clocks, phase):
+    """Within it each move of ``clocks`` (``[(move, clock)]``, :meth:`~
+    eryn_tpu_torch.moves.Move.mesh_clocks`) runs its sharded step in its
+    entry of ``phase``, reading no clock on the host."""
+    for (m, _), p in zip(clocks, phase):
+        m._step_phase = p
+    try:
+        yield
+    finally:
+        for m, _ in clocks:
+            m._step_phase = None
+
+
+class HostPhases:
+    """The host's shadow of the clocks of a sampler's moves whose sharded
+    step has a host phase (:meth:`~eryn_tpu_torch.moves.Move.mesh_clocks`),
+    for its eager loop and its graphs alike.  A move's clocks are read from
+    the device at its first step, and again when its kernel state holds
+    other clock tensors than its last step left (a restored or replaced
+    kernel state); each step adds one to them."""
+
+    def __init__(self):
+        # move index: (the clocks its last step left, their values)
+        self.shadows = {}
+
+    def phase(self, j, clocks):
+        """The phase of move ``j``'s next step, whose clocks are
+        ``clocks``: one entry per clock, ``()`` for none."""
+        if not clocks:
+            return ()
+        tensors = [t for _, t in clocks]
+        shadow = self.shadows.get(j)
+        if shadow is None or len(shadow[0]) != len(tensors) or any(
+                a is not b for a, b in zip(shadow[0], tensors)):
+            shadow = self.shadows[j] = (tensors, [int(t) for t in tensors])
+        return tuple(m.phase_of(v) for (m, _), v in zip(clocks, shadow[1]))
+
+    def advance(self, j, clocks):
+        """After a step of move ``j``: its shadow one step on, ``clocks``
+        the clocks its kernel state now holds."""
+        shadow = self.shadows.get(j)
+        if shadow is not None:
+            self.shadows[j] = ([t for _, t in clocks],
+                               [v + 1 for v in shadow[1]])
 
 
 def _assign(dst, src):
@@ -105,8 +159,10 @@ class StepGraphs:
 
     def __init__(self, sampler):
         self.sampler = sampler
-        self.graphs = {}  # (move index, first of its kind): (graph, counts)
+        # (move index, first of its kind[, phase...]): (graph, counts)
+        self.graphs = {}
         self.calls = {}  # the same keys: the collectives a graph captured
+        self.replayed = {}  # the same keys: replays so far
         self.eager = {}  # move index: whether its slots run eagerly
         self.warm = set()  # keys whose body has run eagerly once
         self.pool = self.stream = None
@@ -158,18 +214,21 @@ class StepGraphs:
             if smp._host_moves[j]:
                 self._host_entry(key)
                 continue
-            if self._runs_eagerly(j):
+            # the clocks are written in place: the same after the step
+            clocks = smp._phase_clocks(j)
+            key += smp._phases.phase(j, clocks)
+            if self._runs_eagerly(j) or key not in self.warm:
                 self._body(key, ctx)
+                smp._phases.advance(j, clocks)
+                self.warm.add(key)
                 continue
             entry = self.graphs.get(key)
             if entry is None:
-                if key not in self.warm:
-                    self._body(key, ctx)
-                    self.warm.add(key)
-                    continue
                 entry = self.graphs[key] = self._capture(key, ctx)
             graph, counts = entry
             graph.replay()
+            smp._phases.advance(j, clocks)
+            self.replayed[key] = self.replayed.get(key, 0) + 1
             for kernel, n in counts:
                 kernel.launches += n
             calls = self.calls.get(key)
@@ -182,8 +241,8 @@ class StepGraphs:
 
     def _runs_eagerly(self, j):
         """Whether native move ``j`` runs eagerly in its slots: under a
-        mesh, a move whose sharded step is not declared planned on the
-        device."""
+        mesh, a move whose sharded step is not planned on the device (a
+        composite with a host member)."""
         if j not in self.eager:
             smp = self.sampler
             self.eager[j] = (smp._mesh_layout is not None and not smp.
@@ -216,15 +275,17 @@ class StepGraphs:
             self.swaps.copy_(swaps)
 
     def _body(self, key, ctx):
-        """What a graph records: the move on the buffers, then the results
-        copied back into them."""
-        j, first = key
+        """What a graph records: the move on the buffers, in the phase of
+        ``key`` (:class:`HostPhases`), then the results copied back into
+        them."""
+        j, first = key[:2]
         smp = self.sampler
         move = smp._all_move_list[j]
         kernel_state = smp._kernel_states[j]
-        state, acc, swaps, time, new_kernel_state = move.step_kernel(
-            smp._gen, self.state, self.clock, ctx, kernel_state
-        )
+        with fixed_phases(smp._phase_clocks(j), key[2:]):
+            state, acc, swaps, time, new_kernel_state = move.step_kernel(
+                smp._gen, self.state, self.clock, ctx, kernel_state
+            )
         for dst, src in zip(_tensor_leaves(kernel_state),
                             _tensor_leaves(new_kernel_state)):
             _assign(dst, src)

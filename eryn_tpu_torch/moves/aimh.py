@@ -21,8 +21,9 @@ temperatures, gathered within its temperature shard
 (:meth:`~eryn_tpu_torch.parallel.mesh.MeshLayout.gather_walkers`), with the
 same calls on the same shapes as one process: the kernel state holds the
 rank's rungs.  Past its tuning the update is not made and nothing is
-gathered (the clock is known on the host there,
-:meth:`~eryn_tpu_torch.moves.move.Move.mesh_tuning`).
+gathered: a host phase, tuning or tuned, says which
+(:meth:`~eryn_tpu_torch.moves.move.Move.mesh_tuning`), and a graphed mesh
+captures a graph for each.
 """
 
 from __future__ import annotations
@@ -247,6 +248,11 @@ class AIMHMove(Move):
                 f"draws rejected in all {GAMMA_ROUNDS} rounds of the gamma "
                 "sampler; their proposals were refused.")
 
+    def phase_of(self, clock):
+        """Under a mesh: whether a step at the clock's value still tunes
+        (:meth:`~eryn_tpu_torch.moves.move.Move.mesh_tuning`)."""
+        return clock < self.tune_steps if self.tune_steps > 0 else None
+
     def _propose_impl(self, generator, state, ctx, kernel_state=()):
         names = self.run_branches(state)
         self._refuse(state, names)
@@ -294,7 +300,7 @@ class AIMHMove(Move):
 
         if self.tune_steps > 0 and not self.mesh_tuning(ks):
             # under a mesh past the tuning: the clock, and no exchange
-            ks = {**ks, "t": self.advance_clock(ks)}
+            ks = {**ks, "t": ks["t"] + 1}
         elif self.tune_steps > 0:
             # the discounted weighted merge of the post-accept ensemble into
             # the running centred moments, kept while tuning
@@ -314,7 +320,7 @@ class AIMHMove(Move):
             ks = {"w": torch.where(tuning, w_new, w),
                   "mean": torch.where(tuning, m_new, m),
                   "cov": torch.where(tuning, C_new, C),
-                  "t": self.advance_clock(ks)}
+                  "t": ks["t"] + 1}
 
         new_state = state.replace(coords=new_coords, inds=inds, log_like=logl,
                                   log_prior=logp,

@@ -52,6 +52,17 @@ class CombineMove(Move):
         for m in self.moves_list:
             m.wire_mesh(layout)
 
+    def mesh_device_planned(self, state):
+        """Planned on the device exactly when every child is (a host child
+        keeps the combination eager)."""
+        return all(m.mesh_device_planned(state) for m in self.moves_list)
+
+    def mesh_clocks(self, kernel_state):
+        """The children's host phases, each on its kernel state."""
+        child_states, _ = kernel_state
+        return [c for m, ks in zip(self.moves_list, child_states)
+                for c in m.mesh_clocks(ks)]
+
     def propagate_wiring(self):
         """Hand the combination's tempering control and periodic container
         to the children that have none."""

@@ -99,6 +99,10 @@ class DelayedRejection(Move):
         super().wire_mesh(layout)
         self.proposal.wire_mesh(layout)
 
+    def mesh_device_planned(self, state):
+        """Planned on the device exactly when the proposal is."""
+        return self.proposal.mesh_device_planned(state)
+
     def propagate_wiring(self):
         if self.proposal.periodic is None:
             self.proposal.periodic = self.periodic

@@ -37,12 +37,6 @@ class DistributionGenerateRJ(ReversibleJumpMove):
         self.generate_dist = generate_dist
         super().__init__(*args, **kwargs)
 
-    def mesh_device_planned(self, state):
-        """Births and deaths are per walker, every draw at its global shape:
-        the sharded step exchanges nothing of its own and is planned on the
-        device."""
-        return self.mesh_route() == "sharded"
-
     def run_branches(self, state):
         names = super().run_branches(state)
         return [n for n in names if n in self.generate_dist]

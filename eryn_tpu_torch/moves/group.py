@@ -10,9 +10,9 @@ jump.
 
 On a state sharded over a device mesh the table is built from every walker
 of the rank's temperatures, gathered over the walker axis at each refresh
-(the sharded step is eager, so the refresh is decided on the host and other
-steps exchange nothing), and the proposal runs on the rank's walkers with
-every draw at its global shape.
+(a host phase, "refresh due" or not, decides which steps gather, and the
+device counter, blended as above, what a refresh keeps), and the proposal
+runs on the rank's walkers with every draw at its global shape.
 """
 
 from __future__ import annotations
@@ -144,6 +144,14 @@ class GroupMove(Move):
         k = len(names)
         return dict(zip(names, views[:k])), dict(zip(names, views[k:]))
 
+    #: the proposal counter, whose host phase is whether a refresh is due
+    clock_key = "iter"
+
+    def phase_of(self, clock):
+        """Under a mesh: whether the stationary group is refreshed at a
+        step at the counter's value (a due refresh gathers)."""
+        return clock % self.n_iter_update == 0
+
     def init_kernel_state(self, state):
         self.prepare_constants(state)
         coords, inds = self._walker_views(state.branches_coords,
@@ -176,19 +184,17 @@ class GroupMove(Move):
 
         it = kernel_state["iter"]
         # the stationary group and its snapshot are refreshed from the
-        # pre-proposal state at window boundaries
-        if self.mesh_layout is None:
+        # pre-proposal state at window boundaries, decided on the device
+        # clock; under a mesh only a step whose host phase says a refresh
+        # is due gathers the temperatures' walkers for it
+        if self.mesh_layout is None or self.mesh_phase(kernel_state):
             refresh = (it % self.n_iter_update) == 0
-            friends = _blend(refresh, self.setup_friends_kernel(coords, inds),
+            views = self._walker_views(coords, inds)
+            friends = _blend(refresh, self.setup_friends_kernel(*views),
                              kernel_state["friends"])
-            snap_coords = _blend(refresh, coords, kernel_state["snap_coords"])
-            snap_inds = _blend(refresh, inds, kernel_state["snap_inds"])
-        elif int(it) % self.n_iter_update == 0:
-            # under a mesh the step is eager (not declared planned on the
-            # device): the host decides, and only a refresh gathers the
-            # temperatures' walkers
-            snap_coords, snap_inds = self._walker_views(coords, inds)
-            friends = self.setup_friends_kernel(snap_coords, snap_inds)
+            snap_coords = _blend(refresh, views[0],
+                                 kernel_state["snap_coords"])
+            snap_inds = _blend(refresh, views[1], kernel_state["snap_inds"])
         else:
             friends = kernel_state["friends"]
             snap_coords = kernel_state["snap_coords"]

@@ -20,7 +20,9 @@ draws at their global shape, :meth:`~eryn_tpu_torch.moves.move.Move.
 rank_draw`), and what reads the ensemble reads the rows one process reads:
 the cold rung's rows of every walker for the eps=None base and the dual
 averaging (:meth:`~eryn_tpu_torch.parallel.mesh.MeshLayout.gather_rung`;
-past the tuning nothing is gathered), and in the preconditioned form the
+past the tuning, a host phase, nothing is gathered:
+:meth:`~eryn_tpu_torch.moves.move.Move.mesh_tuning`), and in the
+preconditioned form the
 red/blue blocks of :class:`~eryn_tpu_torch.moves.red_blue.WalkerBlocks`.
 A proposal's draws are made before it (:meth:`MALAMove.draw_block`), so a
 rank that holds none of a block's walkers draws what the others draw.
@@ -194,7 +196,7 @@ class MALAMove(Move):
         ``cold_acc`` (0-d); the identity once ``t >= tune_steps``."""
         ks = kernel_state
         tuning = ks["t"] < self.tune_steps
-        t = self.advance_clock(ks)
+        t = ks["t"] + 1
         tf = t.to(cold_acc.dtype)
         err = self.target_acceptance - cold_acc
         h_avg = torch.where(
@@ -212,12 +214,17 @@ class MALAMove(Move):
         return {**ks, "log_scale": log_scale, "log_scale_avg": log_scale_avg,
                 "h_avg": h_avg, "t": t}
 
+    def phase_of(self, clock):
+        """Under a mesh: whether a step at the clock's value still tunes
+        (:meth:`~eryn_tpu_torch.moves.move.Move.mesh_tuning`)."""
+        return clock < self.tune_steps if self.tune_steps > 0 else None
+
     def _tune_scale(self, kernel_state, cold_acc):
         """:meth:`_adapt_scale` from ``cold_acc()``, the cold chain's mean
         acceptance; under a mesh past the tuning only the clock advances,
         and ``cold_acc``'s exchange is not made."""
         if not self.mesh_tuning(kernel_state):
-            return {**kernel_state, "t": self.advance_clock(kernel_state)}
+            return {**kernel_state, "t": kernel_state["t"] + 1}
         return self._adapt_scale(kernel_state, cold_acc())
 
     def _current_scale(self, kernel_state, like):

@@ -192,14 +192,16 @@ class Move:
     def mesh_device_planned(self, state):
         """Whether this move's sharded step on ``state`` (the rank's shard)
         is planned on the device, with its swap phase: it reads nothing on
-        the host, its exchanges' sizes are the mesh's and the ensemble's
-        only, and every index stays on the device.  Under a mesh whose
-        process group is NCCL the sampler captures such a step in a CUDA
-        graph, collectives included; a move that is not (the default: a
-        tuning move's host clock, the gathered routes, a host move) runs
-        eagerly between the replays.  A class declares it; the sampler
-        never finds it out by trying a capture."""
-        return False
+        the host (a host phase of its own aside, :meth:`mesh_clocks`), its
+        exchanges' sizes are the mesh's and the ensemble's only, and every
+        index stays on the device.  Under a mesh whose process group is
+        NCCL the sampler captures such a step in a CUDA graph, collectives
+        included; any other runs eagerly between the replays.  Every move
+        but a host move is: a step of it that reads the host fails to
+        capture, as it does in one process (a composite is planned exactly
+        when its members are).  The sampler never finds it out by trying a
+        capture."""
+        return self.mesh_route() != "host"
 
     def __init__(
         self,
@@ -417,38 +419,55 @@ class Move:
         finally:
             self._walker_cols = None
 
-    #: under a mesh, ``(t, t's version, t's value)`` of the last tuning
-    #: clock :meth:`mesh_tuning` read or :meth:`advance_clock` made
-    _host_clock = None
+    #: the kernel state's entry that counts this move's proposals, the
+    #: clock of its host phase (:meth:`mesh_clocks`)
+    clock_key = "t"
+    #: the phase the sampler fixed for the step it runs or captures (see
+    #: :meth:`mesh_clocks`), else None
+    _step_phase = None
+
+    def mesh_clocks(self, kernel_state):
+        """The moves whose sharded step depends on a host phase, each with
+        its clock: ``[(move, clock tensor)]``.  Such a step skips the
+        exchanges whose results its phase (:meth:`phase_of` the clock's
+        value) would discard; every result is still decided on the device
+        clock by ``torch.where``, as one process decides it.  Under a mesh
+        a tuning move (``tune_steps`` above 0) lists itself and
+        :class:`~eryn_tpu_torch.moves.group.GroupMove` its refresh, a
+        composite its members' (each with its kernel state); off a mesh,
+        on a gathered route (one process's step) and for every other move
+        the list is empty.  Each such clock counts its move's steps, one a
+        step.  The sampler keeps a host shadow of each clock and fixes the
+        phase of every step it runs (:class:`~eryn_tpu_torch.graphs.
+        HostPhases`); its graphs capture a graph per phase."""
+        if (self.mesh_layout is None or self.mesh_route() != "sharded"
+                or self.phase_of(0) is None):
+            return []
+        return [(self, kernel_state[self.clock_key])]
+
+    def phase_of(self, clock):
+        """The host phase of a sharded step at the clock's value ``clock``
+        (an int), None for a move without one."""
+        return None
+
+    def mesh_phase(self, kernel_state):
+        """:meth:`phase_of` the clock of ``kernel_state``: the phase the
+        sampler fixed for this step; outside a sampler's step the clock is
+        read on the host."""
+        if self._step_phase is not None:
+            return self._step_phase
+        return self.phase_of(int(kernel_state[self.clock_key]))
 
     def mesh_tuning(self, kernel_state):
         """Whether a proposal at ``kernel_state``'s clock ``t`` still tunes
-        (``t < tune_steps``).  Under a mesh the answer is a host bool, and
-        past its tuning a move skips the exchanges of the statistics whose
-        updates the device clock would discard: such a step reads the host,
-        so a tuning move does not declare itself planned on the device
-        (:meth:`mesh_device_planned`) and runs eagerly between replays.
-        The clock's value follows the tensor :meth:`advance_clock` made; a
-        clock from elsewhere (the first proposal, a restored kernel state)
-        is read once.  Without a mesh
-        True: the step's ``torch.where`` on the device clock decides."""
+        (``t < tune_steps``).  Under a mesh the answer is the host phase
+        (:meth:`mesh_phase`), and past its tuning a move skips the
+        exchanges of the statistics whose updates the device clock would
+        discard.  Without a mesh True: the step's ``torch.where`` on the
+        device clock decides."""
         if self.mesh_layout is None:
             return True
-        t = kernel_state["t"]
-        seen = self._host_clock
-        if seen is None or seen[0] is not t or seen[1] != t._version:
-            seen = self._host_clock = (t, t._version, int(t))
-        return seen[2] < self.tune_steps
-
-    def advance_clock(self, kernel_state):
-        """``kernel_state["t"] + 1``, its value noted for
-        :meth:`mesh_tuning`."""
-        t = kernel_state["t"]
-        nxt = t + 1
-        seen = self._host_clock
-        if seen is not None and seen[0] is t and seen[1] == t._version:
-            self._host_clock = (nxt, nxt._version, seen[2] + 1)
-        return nxt
+        return self.mesh_phase(kernel_state)
 
     def rank_draw(self, draw, shape, per_walker=False):
         """``draw(shape)``: a random array whose leading axis is the

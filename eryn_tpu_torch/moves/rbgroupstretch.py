@@ -38,12 +38,6 @@ class RedBlueGroupStretchMove(StretchMove):
     _needs_c_inds = True
     _mesh_sharded = True
 
-    def mesh_device_planned(self, state):
-        """The sharded step (:class:`~eryn_tpu_torch.moves.red_blue.
-        WalkerBlocks` and kernel 5 on the rank's temperatures) is planned on
-        the device."""
-        return self.mesh_route() == "sharded"
-
     def draw_group(self, generator, ntemps, ns, leaves, dtype, device):
         """Randomness of one half: ``u`` ``(ntemps, ns)`` for the stretch
         factor, and per branch ``uu`` ``(ntemps, ns, nleaves)`` for the

@@ -120,12 +120,6 @@ class StretchMove(RedBlueMove):
             and self.run_branches(state) == list(state.branches)
         )
 
-    def mesh_device_planned(self, state):
-        """The fused path's sharded step is planned on the device (its
-        permutation and half sizes never leave it); the general path's is
-        not declared."""
-        return self.mesh_route() == "sharded" and self._can_fuse(state)
-
     def _propose_impl(self, generator, state, ctx, kernel_state=()):
         if self._can_fuse(state):
             if self.mesh_layout is not None:

@@ -1391,3 +1391,66 @@ def test_para_graphed_equals_eager(cuda, kind):
     assert runs[True]["launches"] == expect
     chain = runs[True]["chain"]
     assert not np.array_equal(chain[:, 0], chain[:, 1])
+
+
+def _mesh_zoo_rank(rank, world):
+    """One NCCL rank on a ``(1, 1)`` mesh, the sharded route
+    (``_one_rank_layout``): the tuning moves and the group stretch at equal
+    weights, captured, then eager, from one seed; each run's getters, its
+    replays and its graphs per move."""
+    from eryn_tpu_torch import (
+        DeviceBackend,
+        EnsembleSampler,
+        ProbDistContainer,
+        State,
+        uniform_dist,
+    )
+    from eryn_tpu_torch import moves as tm
+    from eryn_tpu_torch.parallel import make_mesh, shard_state
+
+    mesh = make_mesh(1)
+    pr = ProbDistContainer({i: uniform_dist(-5.0, 5.0) for i in range(3)})
+    out = {}
+    for graphed in (True, False):
+        moves = [tm.SliceMove(tune_steps=4), tm.MALAMove(tune_steps=4),
+                 tm.HMCMove(num_leapfrog=(2, 3), tune_steps=4),
+                 tm.ChEESHMCMove(max_leapfrog=4, init_num_leapfrog=2,
+                                 tune_steps=4),
+                 tm.AIMHMove(tune_steps=4), tm.GroupStretchMove(n_iter_update=3)]
+        s = EnsembleSampler(
+            32, 3, lambda x: -0.5 * torch.sum(x * x), pr,
+            moves=[(m, 1 / len(moves)) for m in moves],
+            tempering_kwargs=dict(ntemps=4), seed=5, device="cuda",
+            cuda_graph=graphed, backend=DeviceBackend())
+        coords = pr.rvs(size=(4, 32), generator=torch.Generator(
+            device="cuda").manual_seed(5))
+        state = shard_state(State({"model_0": coords[:, :, None, :]}), mesh)
+        s._one_rank_layout = state.sharding.layout
+        s.run_mcmc(state, 40, burn=20)
+        per = {}
+        for key in (s._graphs.graphs if graphed else ()):
+            per[key[0]] = per.get(key[0], 0) + 1
+        out[graphed] = dict(
+            chain=s.get_chain()["model_0"], log_like=s.get_log_like(),
+            betas=s.get_betas(), acc=s.acceptance_fraction,
+            swaps=s.swap_acceptance_fraction, replays=s.graph_replays,
+            graphs=[per.get(j, 0) for j in range(len(moves))],
+            sharded=s._mesh_layout is not None)
+    return out
+
+
+def test_mesh_nccl_zoo_captured_equals_eager(cuda):
+    """Under a one-rank NCCL mesh every native move's sharded step is
+    captured, a tuning move's in two graphs (tuning and tuned), the group
+    stretch's in two (a refresh due and not), the slice move's in one; the
+    captured chain, which crosses both, equals the eager one digit for
+    digit."""
+    from eryn_tpu_torch.parallel._spawn import launch
+
+    got = launch(_mesh_zoo_rank, 1, backend="nccl", timeout=300)[0]
+    cap, eag = got[True], got[False]
+    assert cap["sharded"] and eag["sharded"]
+    for key in ("chain", "log_like", "betas", "acc", "swaps"):
+        np.testing.assert_array_equal(cap[key], eag[key], err_msg=key)
+    assert cap["replays"] > 0 and eag["replays"] == 0
+    assert cap["graphs"] == [1, 2, 2, 2, 2, 2]
